@@ -1,0 +1,28 @@
+"""mpi4py_fft_torch — the PyTorch + CUDA port of mpi4py_fft_tpu.
+
+Complex data is planar, as in the JAX package: a complex field of shape S
+is a real ``(2,) + S`` tensor (index 0 = real part, 1 = imaginary part).
+The transform work runs in hand-written CUDA kernels (``ops/csrc``) built
+with ``nvcc`` at first use; on CPU tensors every kernel wrapper runs its
+plain PyTorch version instead.
+
+This slice covers the single-device :class:`PlanarPFFT` (c2c and r2c, with
+3/2-rule padding) for axis lengths 2^a and 3*2^a up to 1024.
+"""
+import torch
+
+from .parallel.planar import PlanarPFFT
+
+__version__ = '0.1.0'
+
+__all__ = ['PlanarPFFT', 'entry', '__version__']
+
+
+def entry(device=None):
+    """Return ``(fn, example_args)``: the forward step of the flagship
+    pipeline, a 64^3 r2c f32 ``PlanarPFFT`` with normalized planar
+    spectral output (counterpart of ``__graft_entry__.entry``)."""
+    N = (64, 64, 64)
+    pfft = PlanarPFFT(None, N, dtype='f', device=device)
+    x = torch.zeros(N, dtype=torch.float32, device=pfft.device)
+    return pfft.forward, (x,)

@@ -1,0 +1,633 @@
+"""Stockham mixed-radix FFT along one axis of planar data.
+
+Port of ``mpi4py_fft_tpu/ops/pallas_butterfly.py``: the stage-plan and
+twiddle tables, a plain PyTorch version of each kernel, and the wrappers
+of the three CUDA kernels on the single-device path:
+
+* ``fft_axis_p``   (csrc/fft_axis.cu)  planar c2c along one axis;
+* ``rfft_axis_p``  (csrc/rfft_axis.cu) real -> Hermitian half spectrum;
+* ``irfft_axis_p`` (csrc/rfft_axis.cu) half spectrum -> real.
+
+Stockham autosort recurrence (DIF, self-sorting, no bit reversal): the
+state of one line has shape (L, M) with L*M = N.  A radix-r stage splits
+it into r slabs of Lq = L/r rows, takes the r-point DFT across the slabs,
+multiplies output k by w_L^(k*l) and concatenates the outputs along M,
+giving an (Lq, r*M) state.  After the last stage the M index is the output
+frequency in natural order.
+
+Every function works on the ``(2, pre, N, post)`` view of its tensor:
+``pre``/``post`` are the products of the dims before and after the axis.
+On a CPU tensor a wrapper runs the plain version, which follows the same
+stage plan and twiddle offsets as the kernel and so repeats its
+arithmetic.  On a CUDA tensor it launches the kernel or raises.
+"""
+import ctypes
+import functools
+import math
+
+import numpy as np
+import torch
+
+from . import _build
+
+__all__ = ['fft_axis_p', 'rfft_axis_p', 'irfft_axis_p', 'supported_axis',
+           'supported_r2c', 'supported_c2r', 'fft_axis_plain',
+           'rfft_axis_plain', 'irfft_axis_plain', 'LAUNCHES',
+           'reset_launches']
+
+_MAX_N_AXIS = 1024
+
+# kernel launches since the last reset, one count per wrapper; a wrapper
+# adds one where it launches its kernel and nowhere else
+LAUNCHES = {'fft_axis_p': 0, 'rfft_axis_p': 0, 'irfft_axis_p': 0}
+
+
+def reset_launches():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# tables (built in numpy float64, then cast, as the JAX package does)
+# ---------------------------------------------------------------------------
+
+def _is_pow2(n):
+    return n >= 2 and (n & (n - 1)) == 0
+
+
+def _supported_len(n):
+    """Kernel-supported transform lengths: 2^a, or 3*2^a (one radix-3
+    stage), which covers the 3/2-rule dealiasing extents."""
+    if _is_pow2(n):
+        return True
+    return n % 3 == 0 and _is_pow2(n // 3)
+
+
+@functools.lru_cache(maxsize=None)
+def _stage_plan(N):
+    """Radices per Stockham stage: radix-16 stages with one small
+    remainder stage last for N >= 512, radix 4 (with one leading radix 2
+    for odd powers) below; lengths 3*2^a append one radix-3 stage, always
+    last.
+
+    This choice came from an A/B on a TPU v5e, where each stage is one
+    sweep over VMEM.  On Hopper each stage is one sweep over shared
+    memory, and the best plan has not been measured yet: it is an open
+    choice."""
+    M, tail = (N // 3, (3,)) if N % 3 == 0 else (N, ())
+    if N >= 512:
+        plan = []
+        L = M
+        while L >= 16:
+            plan.append(16)
+            L //= 16
+        if L > 1:
+            plan.append(L)
+        return tuple(plan) + tail
+    plan = []
+    L = M
+    if (L.bit_length() - 1) % 2:
+        plan.append(2)
+        L //= 2
+    while L > 1:
+        plan.append(4)
+        L //= 4
+    return tuple(plan) + tail
+
+
+@functools.lru_cache(maxsize=None)
+def _tw_len(N):
+    """Row count of _tw_pack(N, ...)."""
+    t, L = 0, N
+    for r in _stage_plan(N):
+        t += (r - 1) * (L // r)
+        L //= r
+    return t
+
+
+@functools.lru_cache(maxsize=None)
+def _tw_pack_packed(N, sign, dtype_str):
+    """Twiddles for the packed r2c/c2r kernels: the N/2-point stage pack
+    with (cos, sin)(2*pi*k/N), k = 0..N/2, appended as unpack rows."""
+    N2 = N // 2
+    base = _tw_pack(N2, sign, dtype_str)         # (2, T2)
+    k = np.arange(N2 + 1)
+    ang = 2.0 * np.pi * k / N
+    extra = np.stack([np.cos(ang), np.sin(ang)]).astype(dtype_str)
+    return np.concatenate([base, extra], axis=1)
+
+
+@functools.lru_cache(maxsize=None)
+def _tw_pack(N, sign, dtype_str):
+    """All stage twiddles as a (2, T) array: per stage of radix r at
+    length L, rows hold w_L^(j*l) for j = 1..r-1 concatenated (l < L/r),
+    in descending L."""
+    rows_r, rows_i = [], []
+    L = N
+    for r in _stage_plan(N):
+        Lq = L // r
+        for j in range(1, r):
+            ang = sign * 2.0 * np.pi * j * np.arange(Lq) / L
+            rows_r.append(np.cos(ang))
+            rows_i.append(np.sin(ang))
+        L //= r
+    cr = np.concatenate(rows_r)
+    ci = np.concatenate(rows_i)
+    return np.stack([cr, ci]).astype(dtype_str)
+
+
+@functools.lru_cache(maxsize=None)
+def _tw_tensor(N, sign, packed, dtype, device):
+    """The twiddle table of one (N, sign, kind) as a contiguous tensor,
+    uploaded once per dtype and device."""
+    name = str(dtype).replace('torch.', '')
+    tab = _tw_pack_packed(N, sign, name) if packed else \
+        _tw_pack(N, sign, name)
+    return torch.tensor(tab, dtype=dtype, device=device)
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions: the state of a chunk of lines is (pre, L, M, post)
+# ---------------------------------------------------------------------------
+
+def _dft_slabs(qs, sign):
+    """R-point DFT across a list of (re, im) slab pairs as a recursive
+    radix-2 network whose twiddles are float constants."""
+    R = len(qs)
+    if R == 1:
+        return qs
+    ev = _dft_slabs(qs[0::2], sign)
+    od = _dft_slabs(qs[1::2], sign)
+    H = R // 2
+    out = [None] * R
+    for k in range(H):
+        er, ei = ev[k]
+        orr, oi = od[k]
+        if k == 0:                      # w = 1
+            tr, ti = orr, oi
+        elif 4 * k == R:                # w = exp(sign*i*pi/2)
+            tr, ti = -sign * oi, sign * orr
+        else:
+            ang = sign * 2.0 * math.pi * k / R
+            wr, wi = math.cos(ang), math.sin(ang)
+            tr = orr * wr - oi * wi
+            ti = orr * wi + oi * wr
+        out[k] = (er + tr, ei + ti)
+        out[k + H] = (er - tr, ei - ti)
+    return out
+
+
+def _stage_apply(qr, qi, r, L, off, tw, sign):
+    """One Stockham stage from r slabs (each (pre, Lq, M, post)) to the
+    concatenated (pre, Lq, r*M, post) state."""
+    Lq = L // r
+
+    def w(k):
+        s = off + (k - 1) * Lq
+        return (tw[0, s:s + Lq].view(1, Lq, 1, 1),
+                tw[1, s:s + Lq].view(1, Lq, 1, 1))
+
+    if r == 2:
+        ar, br = qr
+        ai, bi = qi
+        ys = [(ar + br, ai + bi), (ar - br, ai - bi)]
+    elif r == 3:
+        q0r, q1r, q2r = qr
+        q0i, q1i, q2i = qi
+        # w3 = exp(sign*2i*pi/3) = c + i*s; w3^2 = conj(w3)
+        c = -0.5
+        s = sign * 0.8660254037844386          # sqrt(3)/2
+        ar, ai = q1r + q2r, q1i + q2i
+        br, bi = q1r - q2r, q1i - q2i
+        ys = [(q0r + ar, q0i + ai),
+              (q0r + c * ar - s * bi, q0i + c * ai + s * br),
+              (q0r + c * ar + s * bi, q0i + c * ai - s * br)]
+    elif r == 4:
+        q0r, q1r, q2r, q3r = qr
+        q0i, q1i, q2i, q3i = qi
+        t0r, t0i = q0r + q2r, q0i + q2i
+        t1r, t1i = q1r + q3r, q1i + q3i
+        t2r, t2i = q0r - q2r, q0i - q2i
+        t3r, t3i = q1r - q3r, q1i - q3i
+        # w4 = exp(sign*i*pi/2): w4*z = (-sign*zi, sign*zr)
+        u3r, u3i = -sign * t3i, sign * t3r
+        ys = [(t0r + t1r, t0i + t1i), (t2r + u3r, t2i + u3i),
+              (t0r - t1r, t0i - t1i), (t2r - u3r, t2i - u3i)]
+    else:
+        ys = _dft_slabs(list(zip(qr, qi)), sign)
+    outs_r, outs_i = [ys[0][0]], [ys[0][1]]
+    for k in range(1, r):
+        yr, yi = ys[k]
+        if Lq > 1:                  # the last stage of a length has w = 1
+            wr, wi = w(k)
+            yr, yi = yr * wr - yi * wi, yr * wi + yi * wr
+        outs_r.append(yr)
+        outs_i.append(yi)
+    return torch.cat(outs_r, dim=2), torch.cat(outs_i, dim=2)
+
+
+def _butterfly(xr, xi, tw, N, sign, scale=None):
+    """Stockham FFT along dim 1 of (pre, N, post) pairs; ``tw`` holds the
+    N-point stage twiddles in its first _tw_len(N) columns."""
+    xr = xr.unsqueeze(2)
+    xi = xi.unsqueeze(2)
+    L = N
+    off = 0
+    for r in _stage_plan(N):
+        Lq = L // r
+        qr = [xr[:, j * Lq:(j + 1) * Lq] for j in range(r)]
+        qi = [xi[:, j * Lq:(j + 1) * Lq] for j in range(r)]
+        xr, xi = _stage_apply(qr, qi, r, L, off, tw, sign)
+        off += (r - 1) * Lq
+        L = Lq
+    return _finish(xr, xi, scale)
+
+
+def _finish(xr, xi, scale):
+    if scale is not None:
+        xr = xr * scale
+        xi = xi * scale
+    return xr[:, 0], xi[:, 0]
+
+
+def _herm_trunc_rows(r, i, trunc):
+    """Hermitian spectral truncation to ``trunc`` rows: keep the first
+    rows; for even ``trunc`` double the folded Nyquist real part and zero
+    its imaginary part."""
+    if trunc % 2 == 0:
+        return (torch.cat([r[:, :trunc - 1], 2.0 * r[:, trunc - 1:trunc]],
+                          dim=1),
+                torch.cat([i[:, :trunc - 1], torch.zeros_like(i[:, :1])],
+                          dim=1))
+    return r[:, :trunc], i[:, :trunc]
+
+
+def _herm_pad_rows(hr, hi, nh):
+    """Hermitian zero-padding from Nt = hr.shape[1] rows to ``nh`` rows:
+    halve the even-Nt Nyquist real part, zero its imaginary part,
+    zero-fill the tail."""
+    Nt = hr.shape[1]
+    if Nt >= nh:
+        return hr[:, :nh], hi[:, :nh]
+    z = hr.new_zeros((hr.shape[0], nh - Nt, hr.shape[2]))
+    if Nt % 2 == 0:
+        return (torch.cat([hr[:, :Nt - 1], 0.5 * hr[:, Nt - 1:Nt], z], dim=1),
+                torch.cat([hi[:, :Nt - 1], torch.zeros_like(hi[:, :1]), z],
+                          dim=1))
+    return torch.cat([hr, z], dim=1), torch.cat([hi, z], dim=1)
+
+
+def _pad_tail(r, i, hext):
+    if hext > r.shape[1]:
+        z = r.new_zeros((r.shape[0], hext - r.shape[1], r.shape[2]))
+        r = torch.cat([r, z], dim=1)
+        i = torch.cat([i, z], dim=1)
+    return r, i
+
+
+def _r2c_rows_full(x, tw, N, nh, hext, scale, trunc=None):
+    """Real rows (pre, N, post) -> half-spectrum rows (pre, hext, post)
+    by a full N-point c2c with zero imaginary part (N = 2)."""
+    r, i = _butterfly(x, torch.zeros_like(x), tw, N, -1, scale)
+    r, i = r[:, :nh], i[:, :nh]
+    if trunc is not None and trunc < nh:
+        r, i = _herm_trunc_rows(r, i, trunc)
+    return _pad_tail(r, i, hext)
+
+
+def _r2c_rows(x, tw, N, nh, hext, scale, trunc=None):
+    """Real rows (pre, N, post) -> half-spectrum rows (pre, hext, post) by
+    the packed N/2-point method: z[m] = x[2m] + i x[2m+1] is one N/2-point
+    c2c, unpacked with
+        E[k] = (Z[k] + conj(Z[-k]))/2,  O[k] = -i/2 (Z[k] - conj(Z[-k])),
+        X[k] = E[k] + w_N^k O[k],  k = 0..N/2.
+    ``tw``: [:, :T2] N/2-point stage twiddles, [:, T2:] (cos, sin)(2 pi k/N)
+    unpack rows (see _tw_pack_packed)."""
+    N2 = N // 2
+    if N2 < 2:
+        return _r2c_rows_full(x, tw, N, nh, hext, scale, trunc)
+    pair = x.reshape(x.shape[0], N2, 2, x.shape[2])
+    Zr, Zi = _butterfly(pair[:, :, 0], pair[:, :, 1], tw, N2, -1, None)
+    # Z at k = 0..N2 (Z[N2] = Z[0]) and its index reversal Z[(N2-k)%N2]
+    Zr_e = torch.cat([Zr, Zr[:, :1]], dim=1)
+    Zi_e = torch.cat([Zi, Zi[:, :1]], dim=1)
+    Zr_r = torch.cat([Zr[:, :1], Zr[:, 1:].flip(1), Zr[:, :1]], dim=1)
+    Zi_r = torch.cat([Zi[:, :1], Zi[:, 1:].flip(1), Zi[:, :1]], dim=1)
+    Er = 0.5 * (Zr_e + Zr_r)
+    Ei = 0.5 * (Zi_e - Zi_r)
+    Or = 0.5 * (Zi_e + Zi_r)
+    Oi = 0.5 * (Zr_r - Zr_e)
+    T2 = _tw_len(N2)
+    cw = tw[0, T2:T2 + nh].view(1, nh, 1)     # cos(2 pi k / N)
+    sw = tw[1, T2:T2 + nh].view(1, nh, 1)     # sin(2 pi k / N)
+    # X = E + w^k O, w^k = cw - i sw
+    r = Er + cw * Or + sw * Oi
+    i = Ei + cw * Oi - sw * Or
+    if scale is not None:
+        r = r * scale
+        i = i * scale
+    if trunc is not None and trunc < nh:
+        r, i = _herm_trunc_rows(r, i, trunc)
+    return _pad_tail(r, i, hext)
+
+
+def _c2r_rows(hr, hi, tw, N, scale):
+    """Half-spectrum rows (pre, >= N//2+1, post) -> real rows by a full
+    N-point inverse (N = 2)."""
+    r, _ = _butterfly(hr[:, :N], hi[:, :N], tw, N, +1, scale)
+    return r
+
+
+def _c2r_rows_packed(hr, hi, tw, N, scale):
+    """Half-spectrum rows (pre, >= N/2+1, post) -> real rows (pre, N, post)
+    by the packed N/2-point inverse: repack the Hermitian spectrum into
+        Z[k] = E[k] + i O[k],  E = (X[k]+conj(X[-k]))/2,
+        O = conj(w_N^k) (X[k]-conj(X[-k]))/2,   k = 0..N/2-1,
+    one N/2-point inverse butterfly, and interleave Re/Im as even/odd
+    output rows (x2: unnormalized FFTW c2r returns N*x, the packed inverse
+    N/2)."""
+    N2 = N // 2
+    nh = N2 + 1
+    Xr, Xi = hr[:, :nh], hi[:, :nh]
+    Xr_rev = Xr[:, 1:nh].flip(1)               # X[N2-k], k = 0..N2-1
+    Xi_rev = Xi[:, 1:nh].flip(1)
+    Xr_h, Xi_h = Xr[:, :N2], Xi[:, :N2]
+    Er = 0.5 * (Xr_h + Xr_rev)
+    Ei = 0.5 * (Xi_h + Xi_rev * -1.0)
+    Dr = Xr_h - Xr_rev
+    Di = Xi_h + Xi_rev
+    T2 = _tw_len(N2)
+    cw = tw[0, T2:T2 + N2].view(1, N2, 1)
+    sw = tw[1, T2:T2 + N2].view(1, N2, 1)
+    ORe = 0.5 * (cw * Dr - sw * Di)
+    OIm = 0.5 * (cw * Di + sw * Dr)
+    Zr = Er - OIm
+    Zi = Ei + ORe
+    sc = 2.0 if scale is None else 2.0 * scale
+    zr, zi = _butterfly(Zr, Zi, tw, N2, +1, sc)
+    # out[2m] = zr[m], out[2m+1] = zi[m]
+    out = torch.stack([zr, zi], dim=2)
+    return out.reshape(zr.shape[0], N, zr.shape[2])
+
+
+# elements of one plane that the plain versions transform at a time: the
+# stage temporaries of a chunk stay small next to a full volume
+_PLAIN_CHUNK = 1 << 24
+
+
+def _chunks(pre, n, post):
+    """(pre, post) slices that cut a (pre, n, post) view into chunks of
+    about _PLAIN_CHUNK elements; lines are independent."""
+    line = max(1, n * post)
+    sp = max(1, _PLAIN_CHUNK // line)
+    sq = max(1, post if line <= _PLAIN_CHUNK else _PLAIN_CHUNK // n)
+    for a in range(0, pre, sp):
+        for b in range(0, post, sq):
+            yield slice(a, a + sp), slice(b, b + sq)
+
+
+def _pre_post(shape, axis):
+    pre = math.prod(shape[:axis])
+    post = math.prod(shape[axis + 1:])
+    return pre, post
+
+
+def _r2c_out_rows(N, hext, trunc):
+    nh = N // 2 + 1
+    eff = nh if trunc is None else int(trunc)
+    hext = eff if hext is None else int(hext)
+    if hext < eff:
+        raise ValueError(f"hext={hext} is below the spectrum's {eff} rows")
+    return nh, hext
+
+
+def fft_axis_plain(p, axis, forward=True, scale=None):
+    """Plain PyTorch version of ``fft_axis_p``."""
+    shape = tuple(p.shape[1:])
+    axis = axis % len(shape)
+    N = shape[axis]
+    pre, post = _pre_post(shape, axis)
+    sign = -1 if forward else +1
+    tw = _tw_tensor(N, sign, False, p.dtype, p.device)
+    x = p.reshape(2, pre, N, post)
+    out = torch.empty_like(x)
+    for a, b in _chunks(pre, N, post):
+        r, i = _butterfly(x[0, a, :, b], x[1, a, :, b], tw, N, sign, scale)
+        out[0, a, :, b] = r
+        out[1, a, :, b] = i
+    return out.reshape(p.shape)
+
+
+def rfft_axis_plain(x, axis, hext=None, scale=None, trunc=None):
+    """Plain PyTorch version of ``rfft_axis_p``."""
+    shape = tuple(x.shape)
+    axis = axis % len(shape)
+    N = shape[axis]
+    nh, hext = _r2c_out_rows(N, hext, trunc)
+    pre, post = _pre_post(shape, axis)
+    packed = N // 2 >= 2
+    tw = _tw_tensor(N, -1, packed, x.dtype, x.device)
+    xv = x.reshape(pre, N, post)
+    out = x.new_empty((2, pre, hext, post))
+    rows = _r2c_rows if packed else _r2c_rows_full
+    for a, b in _chunks(pre, N, post):
+        r, i = rows(xv[a, :, b], tw, N, nh, hext, scale, trunc)
+        out[0, a, :, b] = r
+        out[1, a, :, b] = i
+    return out.reshape((2,) + shape[:axis] + (hext,) + shape[axis + 1:])
+
+
+def irfft_axis_plain(p, axis, n, scale=None):
+    """Plain PyTorch version of ``irfft_axis_p``."""
+    shape = tuple(p.shape[1:])
+    axis = axis % len(shape)
+    N = int(n)
+    nh = N // 2 + 1
+    Hin = shape[axis]
+    pre, post = _pre_post(shape, axis)
+    packed = N // 2 >= 2
+    tw = _tw_tensor(N, +1, packed, p.dtype, p.device)
+    h = p.reshape(2, pre, Hin, post)
+    out = p.new_empty((pre, N, post))
+    for a, b in _chunks(pre, max(Hin, N), post):
+        hr, hi = _herm_pad_rows(h[0, a, :, b], h[1, a, :, b], nh)
+        if packed:
+            out[a, :, b] = _c2r_rows_packed(hr, hi, tw, N, scale)
+        else:
+            out[a, :, b] = _c2r_rows(hr, hi, tw, N, scale)
+    return out.reshape(shape[:axis] + (N,) + shape[axis + 1:])
+
+
+# ---------------------------------------------------------------------------
+# gates and wrappers
+# ---------------------------------------------------------------------------
+
+def _length_ok(N):
+    return _supported_len(N) and N <= _MAX_N_AXIS
+
+
+def _require_len(N, what):
+    if not _length_ok(N):
+        raise NotImplementedError(
+            f"{what}: axis length {N} is not 2^a or 3*2^a up to "
+            f"{_MAX_N_AXIS}; other lengths arrive with the pair kernel, "
+            f"mixed-radix and Bluestein fallback (ROADMAP Queue 1 item 2)")
+
+
+def supported_axis(shape, axis):
+    """True if ``fft_axis_p`` takes this axis (complex shape, no planar
+    dim).  A length gate only: any ``pre``/``post`` is taken."""
+    return _length_ok(shape[axis % len(shape)])
+
+
+def supported_r2c(shape, axis):
+    """Gate for ``rfft_axis_p``: shape is the real input shape."""
+    return supported_axis(shape, axis)
+
+
+def supported_c2r(shape, axis, n):
+    """Gate for ``irfft_axis_p``: ``n`` is the real output length; any
+    spectrum extent >= 1 is taken (short ones are Hermitian zero-padded
+    in the read, rows past n//2+1 are ignored)."""
+    return _length_ok(int(n)) and shape[axis % len(shape)] >= 1
+
+
+def _plain_ok(t, what):
+    """True for a CPU tensor (the plain version runs); None for a CUDA
+    tensor the kernel takes; raises for anything else."""
+    if t.device.type == 'cpu':
+        if not t.is_floating_point():
+            raise TypeError(f"{what}: needs a real floating tensor, "
+                            f"got {t.dtype}")
+        return True
+    if t.device.type != 'cuda':
+        raise ValueError(f"{what}: tensor on {t.device}; the kernels take "
+                         f"CUDA tensors and the plain versions CPU tensors")
+    if t.dtype == torch.float64:
+        raise NotImplementedError(
+            f"{what}: float64 on CUDA arrives with the fp64 kernels "
+            f"(ROADMAP Queue 1 item 5)")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{what}: the kernel takes float32, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: the kernel takes a contiguous tensor")
+    return False
+
+
+def _check_planar(p, what):
+    if p.dim() < 2 or p.shape[0] != 2:
+        raise ValueError(f"{what}: planar input must have shape (2,) + S, "
+                         f"got {tuple(p.shape)}")
+
+
+def _ptr(t):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _launch(what, fn, t, *args):
+    """Run one kernel's C entry on ``t``'s device and current stream;
+    raise if CUDA refused the launch."""
+    with torch.cuda.device(t.device):
+        stream = torch.cuda.current_stream(t.device).cuda_stream
+        rc = fn(*args, ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"{what}: kernel launch failed with CUDA error "
+                           f"{rc} ({_build.error_string(rc)})")
+    LAUNCHES[what] += 1
+
+
+def _plan_args(W):
+    plan = _stage_plan(W)
+    return (ctypes.c_int * len(plan))(*plan), len(plan)
+
+
+def fft_axis_p(p, axis, forward=True, scale=None):
+    """Planar c2c FFT along ``axis`` (complex coords) of (2, ...) data.
+
+    Unnormalized unless ``scale`` is given (applied in the last stage).
+    forward=False is the unscaled inverse."""
+    what = 'fft_axis_p'
+    _check_planar(p, what)
+    shape = tuple(p.shape[1:])
+    axis = axis % len(shape)
+    N = shape[axis]
+    _require_len(N, what)
+    if _plain_ok(p, what):
+        return fft_axis_plain(p, axis, forward, scale)
+    pre, post = _pre_post(shape, axis)
+    sign = -1 if forward else +1
+    out = torch.empty_like(p)
+    if out.numel() == 0:
+        return out
+    tw = _tw_tensor(N, sign, False, p.dtype, p.device)
+    plan, nst = _plan_args(N)
+    _launch(what, _build.load().fft_axis_f32, p,
+            _ptr(p), _ptr(out), _ptr(tw), tw.shape[1], pre, N, post, sign,
+            plan, nst, 1.0 if scale is None else float(scale))
+    return out
+
+
+def rfft_axis_p(x, axis, hext=None, scale=None, trunc=None):
+    """Real tensor -> planar Hermitian half spectrum along ``axis``.
+
+    Output extent is ``hext`` (default N//2+1, or ``trunc`` when given)
+    with exact zero rows beyond the spectrum.  ``trunc`` (< N//2+1)
+    applies the 3/2-rule Hermitian truncation in the kernel's write
+    (Nyquist fold for even ``trunc``).  Packed N/2-point method."""
+    what = 'rfft_axis_p'
+    shape = tuple(x.shape)
+    if not shape:
+        raise ValueError(f"{what}: needs at least one dim")
+    axis = axis % len(shape)
+    N = shape[axis]
+    _require_len(N, what)
+    nh, hext = _r2c_out_rows(N, hext, trunc)
+    if _plain_ok(x, what):
+        return rfft_axis_plain(x, axis, hext, scale, trunc)
+    pre, post = _pre_post(shape, axis)
+    packed = N // 2 >= 2
+    out = x.new_empty((2,) + shape[:axis] + (hext,) + shape[axis + 1:])
+    if out.numel() == 0:
+        return out
+    tw = _tw_tensor(N, -1, packed, x.dtype, x.device)
+    plan, nst = _plan_args(N // 2 if packed else N)
+    nrows = nh if trunc is None else min(nh, int(trunc))
+    fold = trunc is not None and int(trunc) < nh and int(trunc) % 2 == 0
+    _launch(what, _build.load().rfft_axis_f32, x,
+            _ptr(x), _ptr(out), _ptr(tw), tw.shape[1], pre, N, post, hext,
+            nrows, int(fold), int(packed), plan, nst,
+            1.0 if scale is None else float(scale))
+    return out
+
+
+def irfft_axis_p(p, axis, n, scale=None):
+    """Planar Hermitian half spectrum -> real tensor of length ``n`` along
+    ``axis``.  Input rows beyond n//2+1 are ignored; fewer rows are
+    Hermitian zero-padded in the read.  Unscaled inverse (FFTW's c2r:
+    N*x) unless ``scale`` is given.  Packed N/2-point method."""
+    what = 'irfft_axis_p'
+    _check_planar(p, what)
+    shape = tuple(p.shape[1:])
+    axis = axis % len(shape)
+    N = int(n)
+    _require_len(N, what)
+    Hin = shape[axis]
+    if Hin < 1:
+        raise ValueError(f"{what}: empty spectrum axis")
+    if _plain_ok(p, what):
+        return irfft_axis_plain(p, axis, N, scale)
+    pre, post = _pre_post(shape, axis)
+    packed = N // 2 >= 2
+    out = p.new_empty(shape[:axis] + (N,) + shape[axis + 1:])
+    if out.numel() == 0:
+        return out
+    tw = _tw_tensor(N, +1, packed, p.dtype, p.device)
+    plan, nst = _plan_args(N // 2 if packed else N)
+    # the packed inverse returns N/2 * x: its scale carries the x2
+    sc = 1.0 if scale is None else float(scale)
+    if packed:
+        sc = 2.0 * sc
+    _launch(what, _build.load().irfft_axis_f32, p,
+            _ptr(p), _ptr(out), _ptr(tw), tw.shape[1], pre, Hin, N, post,
+            int(packed), plan, nst, sc)
+    return out

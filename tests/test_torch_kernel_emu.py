@@ -1,0 +1,149 @@
+"""The port's CUDA kernel sources (mpi4py_fft_torch/ops/csrc) run on the
+CPU in a thread emulation, held against the plain PyTorch versions.
+
+There is no CUDA compiler here, so the .cu files are compiled by g++
+against tests/cuda_emu/cuda_runtime.h: every block runs as real threads
+that meet at each __syncthreads() on a barrier (a missing barrier or a
+race on the shared-memory tile gives a wrong result), and the launch
+syntax is rewritten into a call.  The port's own wrappers drive them, so
+the offsets, tile mapping, stage schedule, packing and the C entries'
+argument checks are all exercised.  Tolerance: relative L2 5e-6 (the JAX
+kernel tolerance, tests/test_butterfly.py:44).  On the card,
+chip_smoke.py holds the same kernels built by nvcc.
+"""
+import ctypes
+import pathlib
+import re
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from mpi4py_fft_torch.ops import _build
+from mpi4py_fft_torch.ops import butterfly as bf
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+CSRC = ROOT / 'mpi4py_fft_torch' / 'ops' / 'csrc'
+EMU = pathlib.Path(__file__).resolve().parent / 'cuda_emu'
+TOL = 5e-6
+
+
+def _emu_source(cu):
+    s = cu.read_text()
+    s = re.sub(r'(\w+)<<<(.*?)>>>\(',
+               lambda m: f'emu_launch({m.group(1)}, {m.group(2)}, ', s,
+               flags=re.S)
+    s, n = re.subn(r'extern __shared__ __align__\(16\) unsigned char '
+                   r'smem\[\];', 'unsigned char* smem = emu_smem;', s)
+    assert n >= 1, cu
+    return s
+
+
+@pytest.fixture(scope='module')
+def emu_kernels(tmp_path_factory):
+    gxx = shutil.which('g++')
+    if gxx is None:
+        pytest.skip('needs g++ to compile the kernel emulation')
+    d = tmp_path_factory.mktemp('cuda_emu')
+    procs = {}
+    for lib in _build._ENTRIES:
+        src = d / f'{lib}.cpp'
+        src.write_text(_emu_source(CSRC / f'{lib}.cu'))
+        cmd = [gxx, '-std=c++20', '-O1', '-ffp-contract=off', '-shared',
+               '-fPIC', '-pthread', '-I', str(EMU), '-I', str(CSRC),
+               '-o', str(d / f'{lib}.so'), str(src)]
+        procs[lib] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)
+    for lib, p in procs.items():
+        out, _ = p.communicate(timeout=600)
+        assert p.returncode == 0, out
+    return _build.Kernels({lib: ctypes.CDLL(str(d / f'{lib}.so'))
+                           for lib in _build._ENTRIES})
+
+
+@pytest.fixture
+def kernel_path(emu_kernels, monkeypatch):
+    """The wrappers launch the emulated kernels on CPU tensors."""
+    def launch(what, fn, t, *args):
+        rc = fn(*args, ctypes.c_void_p(0))
+        if rc != 0:
+            raise RuntimeError(f"{what}: emulated launch failed: {rc}")
+        bf.LAUNCHES[what] += 1
+
+    monkeypatch.setattr(_build, '_kernels', emu_kernels)
+    monkeypatch.setattr(bf, '_launch', launch)
+    plain_ok = bf._plain_ok
+    monkeypatch.setattr(bf, '_plain_ok', lambda t, what: False)
+    bf.reset_launches()
+    yield plain_ok
+    bf.reset_launches()
+
+
+def _plain(plain_ok, fn, *args, **kw):
+    """The plain version through the same wrapper."""
+    bf._plain_ok, saved = plain_ok, bf._plain_ok
+    try:
+        return fn(*args, **kw)
+    finally:
+        bf._plain_ok = saved
+
+
+def _rel(a, b):
+    return float(torch.linalg.vector_norm((a - b).double())
+                 / torch.linalg.vector_norm(b.double()))
+
+
+# every axis position, ragged pre/post, tiny and long lengths, radix 3
+SHAPES = [((3, 96, 5), 1), ((4, 8), 0), ((2,), 0), ((7, 768), 1),
+          ((1024, 3), 0), ((6, 5, 6), 2), ((5, 1024, 2), 1), ((9, 4, 33), 1),
+          ((2, 384, 9), 1), ((96, 1, 130), 0), ((3, 512), 1), ((2, 12, 3), 1)]
+
+
+@pytest.mark.parametrize('shape,axis', SHAPES)
+def test_kernels_vs_plain(kernel_path, shape, axis):
+    rng = np.random.default_rng(11)
+    N = shape[axis]
+    nh = N // 2 + 1
+    p = torch.from_numpy(rng.standard_normal((2,) + shape)
+                         .astype(np.float32))
+    for fwd, sc in ((True, None), (False, None), (True, 0.37)):
+        got = bf.fft_axis_p(p, axis, fwd, scale=sc)
+        ref = _plain(kernel_path, bf.fft_axis_p, p, axis, fwd, scale=sc)
+        assert _rel(got, ref) <= TOL
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    for hext, trunc, sc in ((None, None, None), (nh + 3, None, 0.5),
+                            (None, max(1, nh - 2), None),
+                            (nh + 1, max(1, nh - 1), 2.0)):
+        got = bf.rfft_axis_p(x, axis, hext=hext, trunc=trunc, scale=sc)
+        ref = _plain(kernel_path, bf.rfft_axis_p, x, axis, hext=hext,
+                     trunc=trunc, scale=sc)
+        assert got.shape == ref.shape
+        assert _rel(got, ref) <= TOL
+    for hin, sc in ((nh, None), (nh + 2, 0.25), (max(1, nh - 1), None),
+                    (max(1, nh - 2), None)):
+        sh = list(shape)
+        sh[axis] = hin
+        h = torch.from_numpy(rng.standard_normal([2] + sh)
+                             .astype(np.float32))
+        got = bf.irfft_axis_p(h, axis, N, scale=sc)
+        ref = _plain(kernel_path, bf.irfft_axis_p, h, axis, N, scale=sc)
+        assert got.shape == ref.shape
+        assert _rel(got, ref) <= TOL
+    assert bf.LAUNCHES == {'fft_axis_p': 3, 'rfft_axis_p': 4,
+                           'irfft_axis_p': 4}
+
+
+def test_c_entry_rejects_bad_plan(emu_kernels):
+    """A plan whose radices do not multiply to n is refused by the C
+    entry, before any launch."""
+    x = torch.zeros((2, 4, 8))
+    y = torch.empty_like(x)
+    tw = bf._tw_tensor(8, -1, False, torch.float32, x.device)
+    plan = (ctypes.c_int * 2)(2, 2)
+    rc = emu_kernels.fft_axis_f32(
+        ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(y.data_ptr()),
+        ctypes.c_void_p(tw.data_ptr()), tw.shape[1], 4, 8, 1, -1, plan, 2,
+        1.0, ctypes.c_void_p(0))
+    assert rc != 0
