@@ -29,6 +29,7 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-O3',
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 _IA = ctypes.POINTER(ctypes.c_int)
+_LLA = ctypes.POINTER(ctypes.c_longlong)
 
 # library -> {C entry: argtypes}; every entry returns an int (cudaError_t)
 _ENTRIES = {
@@ -46,6 +47,12 @@ _ENTRIES = {
         # scale, stream
         'mff_irfft_axis_f32': [_P, _P, _P, _LL, _LL, _I, _I, _LL, _I, _IA,
                                _I, _F, _P],
+    },
+    'fft_axis2': {
+        # xa, xb, ya, yb, strides, tw, tw_len, pre, n, post, sign, plan,
+        # nstages, scale, stream
+        'mff_fft_axis2_f32': [_P, _P, _P, _P, _LLA, _P, _LL, _LL, _I, _LL,
+                              _I, _IA, _I, _F, _P],
     },
 }
 

@@ -2,11 +2,15 @@
 
 Port of ``mpi4py_fft_tpu/ops/pallas_butterfly.py``: the stage-plan and
 twiddle tables, a plain PyTorch version of each kernel, and the wrappers
-of the three CUDA kernels on the single-device path:
+of the CUDA kernels on the single-device path:
 
-* ``fft_axis_p``   (csrc/fft_axis.cu)  planar c2c along one axis;
-* ``rfft_axis_p``  (csrc/rfft_axis.cu) real -> Hermitian half spectrum;
-* ``irfft_axis_p`` (csrc/rfft_axis.cu) half spectrum -> real.
+* ``fft_axis_p``      (csrc/fft_axis.cu)  planar c2c along one axis;
+* ``rfft_axis_p``     (csrc/rfft_axis.cu) real -> Hermitian half spectrum;
+* ``irfft_axis_p``    (csrc/rfft_axis.cu) half spectrum -> real;
+* ``fft_axis2_p``     (csrc/fft_axis2.cu) planar c2c along an axis split
+  across two tensors (the quartered schedule, ``oop3d.py``);
+* ``fft_axis_pair_p`` (csrc/fft_axis2.cu) the same kernel on the two
+  halves of one tensor: axes of 1536 and 2048.
 
 Stockham autosort recurrence (DIF, self-sorting, no bit reversal): the
 state of one line has shape (L, M) with L*M = N.  A radix-r stage splits
@@ -30,16 +34,19 @@ import torch
 
 from . import _build
 
-__all__ = ['fft_axis_p', 'rfft_axis_p', 'irfft_axis_p', 'supported_axis',
-           'supported_r2c', 'supported_c2r', 'fft_axis_plain',
-           'rfft_axis_plain', 'irfft_axis_plain', 'LAUNCHES',
-           'reset_launches']
+__all__ = ['fft_axis_p', 'rfft_axis_p', 'irfft_axis_p', 'fft_axis2_p',
+           'fft_axis_pair_p', 'supported_axis', 'supported_r2c',
+           'supported_c2r', 'supported_axis_split', 'fft_axis_plain',
+           'rfft_axis_plain', 'irfft_axis_plain', 'fft_axis2_plain',
+           'fft_axis_pair_plain', 'LAUNCHES', 'reset_launches']
 
 _MAX_N_AXIS = 1024
+_MAX_N_PAIR = 2048
 
 # kernel launches since the last reset, one count per wrapper; a wrapper
 # adds one where it launches its kernel and nowhere else
-LAUNCHES = {'fft_axis_p': 0, 'rfft_axis_p': 0, 'irfft_axis_p': 0}
+LAUNCHES = {'fft_axis_p': 0, 'rfft_axis_p': 0, 'irfft_axis_p': 0,
+            'fft_axis2_p': 0, 'fft_axis_pair_p': 0}
 
 
 def reset_launches():
@@ -418,6 +425,23 @@ def fft_axis_plain(p, axis, forward=True, scale=None):
     return out.reshape(p.shape)
 
 
+def fft_axis2_plain(pa, pb, axis, forward=True, scale=None):
+    """Plain PyTorch version of ``fft_axis2_p`` (out of place).  JAX's
+    split-input core ``_butterfly2`` takes its first-stage slabs from the
+    two halves and then runs ``_butterfly``'s stages, which is the same
+    arithmetic as ``_butterfly`` on the rebuilt line."""
+    d = 1 + axis % (pa.dim() - 1)
+    h = pa.shape[d]
+    y = fft_axis_plain(torch.cat([pa, pb], dim=d), d - 1, forward, scale)
+    return y.narrow(d, 0, h).contiguous(), y.narrow(d, h, h).contiguous()
+
+
+def fft_axis_pair_plain(p, axis, forward=True, scale=None):
+    """Plain PyTorch version of ``fft_axis_pair_p``: the same function as
+    ``fft_axis_plain`` (see ``fft_axis2_plain``)."""
+    return fft_axis_plain(p, axis, forward, scale)
+
+
 def rfft_axis_plain(x, axis, hext=None, scale=None, trunc=None):
     """Plain PyTorch version of ``rfft_axis_p``."""
     shape = tuple(x.shape)
@@ -466,12 +490,27 @@ def _length_ok(N):
     return _supported_len(N) and N <= _MAX_N_AXIS
 
 
+def _pair_length_ok(N):
+    return N % 2 == 0 and _supported_len(N) and N <= _MAX_N_PAIR
+
+
+def _unsupported_length(what, N, takes):
+    return NotImplementedError(
+        f"{what}: axis length {N} is not {takes}; other lengths arrive "
+        f"with the mixed-radix and Bluestein fallback engine (ROADMAP "
+        f"Queue 1 item 2)")
+
+
 def _require_len(N, what):
     if not _length_ok(N):
-        raise NotImplementedError(
-            f"{what}: axis length {N} is not 2^a or 3*2^a up to "
-            f"{_MAX_N_AXIS}; other lengths arrive with the pair kernel, "
-            f"mixed-radix and Bluestein fallback (ROADMAP Queue 1 item 2)")
+        raise _unsupported_length(what, N,
+                                 f"2^a or 3*2^a up to {_MAX_N_AXIS}")
+
+
+def _require_pair_len(N, what):
+    if not _pair_length_ok(N):
+        raise _unsupported_length(what, N,
+                                 f"an even 2^a or 3*2^a up to {_MAX_N_PAIR}")
 
 
 def supported_axis(shape, axis):
@@ -492,9 +531,17 @@ def supported_c2r(shape, axis, n):
     return _length_ok(int(n)) and shape[axis % len(shape)] >= 1
 
 
-def _plain_ok(t, what):
-    """True for a CPU tensor (the plain version runs); None for a CUDA
-    tensor the kernel takes; raises for anything else."""
+def supported_axis_split(shape, axis):
+    """Gate for ``fft_axis2_p``: ``shape`` is the complex shape of ONE
+    half (the split axis carries N/2).  A length gate only."""
+    return _pair_length_ok(2 * shape[axis % len(shape)])
+
+
+def _plain_ok(t, what, contiguous=True):
+    """True for a CPU tensor (the plain version runs); False for a CUDA
+    tensor the kernel takes; raises for anything else.  ``contiguous``:
+    the kernel needs a contiguous tensor (else any layout passes here
+    and the caller checks it)."""
     if t.device.type == 'cpu':
         if not t.is_floating_point():
             raise TypeError(f"{what}: needs a real floating tensor, "
@@ -509,7 +556,7 @@ def _plain_ok(t, what):
             f"(ROADMAP Queue 1 item 5)")
     if t.dtype != torch.float32:
         raise TypeError(f"{what}: the kernel takes float32, got {t.dtype}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{what}: the kernel takes a contiguous tensor")
     return False
 
@@ -630,4 +677,103 @@ def irfft_axis_p(p, axis, n, scale=None):
     _launch(what, _build.load().irfft_axis_f32, p,
             _ptr(p), _ptr(out), _ptr(tw), tw.shape[1], pre, Hin, N, post,
             int(packed), plan, nst, sc)
+    return out
+
+
+def _half_strides(t, pre, h, post, what):
+    """(plane, pre) strides of an operand of the pair kernel viewed as
+    (2, pre, h, post); its rows must be ``post`` apart and its columns
+    adjacent."""
+    try:
+        v = t.view(2, pre, h, post)
+    except RuntimeError:
+        v = None
+    if v is None or (h > 1 and v.stride(2) != post) or \
+            (post > 1 and v.stride(3) != 1):
+        raise ValueError(f"{what}: the kernel takes halves whose dims after "
+                         f"the axis are contiguous and whose dims before it "
+                         f"merge into one; got strides {t.stride()}")
+    return [v.stride(0), v.stride(1)]
+
+
+def _launch_pair(what, a, b, oa, ob, axis, forward, scale):
+    """The pair kernel on input halves a, b into output halves oa, ob
+    (any of them views), along complex axis ``axis``."""
+    shape = tuple(a.shape[1:])
+    h = shape[axis]
+    N = 2 * h
+    pre, post = _pre_post(shape, axis)
+    strides = []
+    for t in (a, b, oa, ob):
+        strides += _half_strides(t, pre, h, post, what)
+    sign = -1 if forward else +1
+    tw = _tw_tensor(N, sign, False, a.dtype, a.device)
+    plan, nst = _plan_args(N)
+    _launch(what, _build.load().fft_axis2_f32, a,
+            _ptr(a), _ptr(b), _ptr(oa), _ptr(ob),
+            (ctypes.c_longlong * 8)(*strides), _ptr(tw), tw.shape[1], pre,
+            N, post, sign, plan, nst, 1.0 if scale is None else float(scale))
+
+
+def fft_axis2_p(pa, pb, axis, forward=True, scale=None, alias=False):
+    """Planar c2c FFT along ``axis`` (complex coords) where that axis is
+    split across two (2, ...) tensors: ``pa`` holds rows 0..N/2 and ``pb``
+    rows N/2..N.  Returns the two output halves, in natural order.
+
+    Unnormalized unless ``scale`` is given (applied in the last write).
+    ``alias=True`` writes each output over its input half and returns the
+    inputs.  The halves need not be contiguous: the dims after the axis
+    must be, and the dims before it must merge into one."""
+    what = 'fft_axis2_p'
+    _check_planar(pa, what)
+    _check_planar(pb, what)
+    if pa.shape != pb.shape or pa.dtype != pb.dtype or \
+            pa.device != pb.device:
+        raise ValueError(f"{what}: halves of {tuple(pa.shape)} {pa.dtype} "
+                         f"on {pa.device} and {tuple(pb.shape)} {pb.dtype} "
+                         f"on {pb.device} do not match")
+    shape = tuple(pa.shape[1:])
+    axis = axis % len(shape)
+    _require_pair_len(2 * shape[axis], what)
+    plain = _plain_ok(pa, what, contiguous=False)
+    _plain_ok(pb, what, contiguous=False)
+    if plain:
+        oa, ob = fft_axis2_plain(pa, pb, axis, forward, scale)
+        if alias:
+            pa.copy_(oa)
+            pb.copy_(ob)
+            return pa, pb
+        return oa, ob
+    if alias:
+        oa, ob = pa, pb
+    else:
+        oa = torch.empty(pa.shape, dtype=pa.dtype, device=pa.device)
+        ob = torch.empty_like(oa)
+    if oa.numel() == 0:
+        return oa, ob
+    _launch_pair(what, pa, pb, oa, ob, axis, forward, scale)
+    return oa, ob
+
+
+def fft_axis_pair_p(p, axis, forward=True, scale=None):
+    """Planar c2c FFT along a long ``axis`` (an even 2^a or 3*2^a up to
+    2048) of (2, ...) data as one pass of the pair kernel, which reads and
+    writes the two halves of the axis as views of ``p`` and of the
+    output: no slice copy and no concat.  Unnormalized unless ``scale``
+    is given."""
+    what = 'fft_axis_pair_p'
+    _check_planar(p, what)
+    shape = tuple(p.shape[1:])
+    axis = axis % len(shape)
+    N = shape[axis]
+    _require_pair_len(N, what)
+    if _plain_ok(p, what):
+        return fft_axis_pair_plain(p, axis, forward, scale)
+    out = torch.empty_like(p)
+    if out.numel() == 0:
+        return out
+    d, h = 1 + axis, N // 2
+    _launch_pair(what, p.narrow(d, 0, h), p.narrow(d, h, h),
+                 out.narrow(d, 0, h), out.narrow(d, h, h), axis, forward,
+                 scale)
     return out

@@ -3,11 +3,14 @@
 Port of the single-device path of ``mpi4py_fft_tpu/parallel/planar.py``
 (constructor :92-247, ``_forward_impl``/``_backward_impl`` :621-705,
 ``forward``/``backward`` :723-731, ``forward_fn``/``backward_fn``
-:736-752, ``_check_shape`` :708, ``global_shape`` :787).  A complex field
-of global shape S is a real tensor of shape (2,) + S.  On one device the
-pipeline is one transform per axis (``ops/matfft.py``) and the 3/2-rule
-truncation or padding between them (``libfft.py``); the pencil
-constraints of the JAX package do nothing there and are gone.
+:736-752, ``_check_shape`` :708, ``global_shape`` :787, and the quartered
+schedule ``quartered``/``forward_fn_q``/``backward_fn_q`` :759-785).  A
+complex field of global shape S is a real tensor of shape (2,) + S.  On
+one device the pipeline is one transform per axis (``ops/matfft.py``) and
+the 3/2-rule truncation or padding between them (``libfft.py``); the
+pencil constraints of the JAX package do nothing there and are gone.
+A 3-D c2c f32 plan without padding can also hold its volume as four
+quarters (``ops/oop3d.py``) and transform them out of place pass by pass.
 
 API sketch::
 
@@ -15,6 +18,10 @@ API sketch::
     u = torch.zeros(pfft.global_shape(False), device=pfft.device)
     u_hat = pfft.forward(u)      # planar (2, 1024, 1024, 1024), normalized
     u2 = pfft.backward(u_hat)
+
+    qs = list(oop3d.split_q(u))              # when pfft.quartered
+    qs = pfft.backward_fn_q(list(pfft.forward_fn_q(qs)))
+    u3 = oop3d.assemble_q(qs)
 
 Several devices (``comm``/``grid`` of more than one device, or
 ``executor='shard_map'``) raise NotImplementedError until the distributed
@@ -24,7 +31,7 @@ layer arrives (ROADMAP Queue 1 item 4), and so do float64 plans on CUDA
 import numpy as np
 import torch
 
-from ..ops import matfft
+from ..ops import matfft, oop3d
 from ..libfft import truncate_planar, pad_planar
 
 __all__ = ['PlanarPFFT']
@@ -123,9 +130,45 @@ class PlanarPFFT(object):
 
     @property
     def quartered(self):
-        """The quartered out-of-place schedule arrives with the pair
-        kernel ``fft_axis2_p`` in the next slice; no plan takes it yet."""
-        return False
+        """True when forward_fn_q/backward_fn_q apply to this plan: plain
+        3-D c2c in natural axis order, no dealiasing, float32, and quarter
+        shapes the kernels take (one device is all the port has)."""
+        return (not self.real_transform
+                and len(self._input_shape) == 3
+                and tuple(self.axes) == (0, 1, 2)
+                and not any(self._padded(a) for a in self.axes)
+                and oop3d.supported_q(self._input_shape, self.rdtype))
+
+    def _check_quarters(self, qs):
+        if not self.quartered:
+            raise ValueError("this plan has no quartered schedule (see "
+                             "PlanarPFFT.quartered)")
+        X, Y, Z = self._input_shape
+        want = (2, X // 2, Y, Z // 2)
+        if len(qs) != 4:
+            raise ValueError(f"need 4 quarters, got {len(qs)}")
+        for q in qs:
+            if tuple(q.shape) != want:
+                raise ValueError(f"quarter of shape {tuple(q.shape)}, the "
+                                 f"plan's quarters are {want}")
+            if q.device != self.device or q.dtype != self._tdtype:
+                raise ValueError(f"quarter of {q.dtype} on {q.device}, "
+                                 f"plan of {self._tdtype} on {self.device}")
+
+    def forward_fn_q(self, qs, normalize=True):
+        """Forward transform of a quartered planar volume (see
+        ``ops/oop3d.split_q``); returns the transformed quarters, with the
+        normalization folded into the last pass.  A list given is emptied
+        so that each input quarter is freed once its pass is done."""
+        self._check_quarters(qs)
+        return oop3d.fft3_q(qs, True,
+                            scale=self._norm if normalize else None)
+
+    def backward_fn_q(self, qs, normalize=False):
+        """Backward transform of a quartered planar spectrum."""
+        self._check_quarters(qs)
+        return oop3d.fft3_q(qs, False,
+                            scale=self._norm if normalize else None)
 
     def _padded(self, ax):
         return self._pad[ax] > 1.0 + 1e-8

@@ -20,13 +20,17 @@ import pytest
 import jax.numpy as jnp
 import torch
 
+from mpi4py_fft_tpu.ops import matfft as jmatfft
 from mpi4py_fft_tpu.ops import pallas_butterfly as pb
 from mpi4py_fft_torch.ops import butterfly as tb
+from mpi4py_fft_torch.ops import matfft as tmatfft
 from mpi4py_fft_torch.ops import _build
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 TOL = 5e-6
-LENGTHS = [n for n in range(2, 1025) if pb._supported_len(n)]
+# every length of fft_axis_p, and the long ones of the pair kernel, whose
+# plans are (16, 16, 2, 3) and (16, 16, 8)
+LENGTHS = [n for n in range(2, 1025) if pb._supported_len(n)] + [1536, 2048]
 
 
 def _rel(got, ref):
@@ -56,6 +60,13 @@ def test_tables_bit_for_bit(N):
                 np.testing.assert_array_equal(
                     tb._tw_pack_packed(N, sign, dt),
                     pb._tw_pack_packed(N, sign, dt))
+
+
+@pytest.mark.parametrize('sign', [-1, 1])
+def test_four_step_twiddle_bit_for_bit(sign):
+    for dt in ('float32', 'float64'):
+        np.testing.assert_array_equal(tmatfft._twiddle(4, 1024, sign, dt),
+                                      jmatfft._twiddle(4, 1024, sign, dt))
 
 
 def test_supported_lengths_match():
@@ -207,8 +218,11 @@ def test_launch_counters_untouched_on_cpu():
     tb.fft_axis_p(torch.zeros((2, 4, 8)), 1)
     tb.rfft_axis_p(torch.zeros((4, 8)), 1)
     tb.irfft_axis_p(torch.zeros((2, 4, 5)), 1, 8)
+    tb.fft_axis2_p(torch.zeros((2, 4, 8)), torch.zeros((2, 4, 8)), 0)
+    tb.fft_axis_pair_p(torch.zeros((2, 2048, 2)), 0)
     assert tb.LAUNCHES == {'fft_axis_p': 0, 'rfft_axis_p': 0,
-                           'irfft_axis_p': 0}
+                           'irfft_axis_p': 0, 'fft_axis2_p': 0,
+                           'fft_axis_pair_p': 0}
 
 
 def test_import_isolation():

@@ -75,7 +75,7 @@ def kernel_path(emu_kernels, monkeypatch):
     monkeypatch.setattr(_build, '_kernels', emu_kernels)
     monkeypatch.setattr(bf, '_launch', launch)
     plain_ok = bf._plain_ok
-    monkeypatch.setattr(bf, '_plain_ok', lambda t, what: False)
+    monkeypatch.setattr(bf, '_plain_ok', lambda t, what, **kw: False)
     bf.reset_launches()
     yield plain_ok
     bf.reset_launches()
@@ -132,12 +132,62 @@ def test_kernels_vs_plain(kernel_path, shape, axis):
         assert got.shape == ref.shape
         assert _rel(got, ref) <= TOL
     assert bf.LAUNCHES == {'fft_axis_p': 3, 'rfft_axis_p': 4,
-                           'irfft_axis_p': 4}
+                           'irfft_axis_p': 4, 'fft_axis2_p': 0,
+                           'fft_axis_pair_p': 0}
+
+
+# the pair kernel (full shape, axis): lead, mid and last positions, whole
+# lines (post == 1), N = 2, 6, 1024, 1536 and 2048, ragged pre/post
+PAIR_SHAPES = [((16, 6, 5), 0), ((3, 32, 7), 1), ((5, 4, 24), 2),
+               ((2048, 3), 0), ((2, 1536), 1), ((4, 6), 1), ((2, 9), 0),
+               ((2, 1024, 3), 1)]
+
+
+@pytest.mark.parametrize('shape,axis', PAIR_SHAPES)
+def test_pair_kernel_vs_plain(kernel_path, shape, axis):
+    """fft_axis2_p on two halves sliced out of one volume (views, not
+    contiguous off axis 0), fft_axis_pair_p on the whole of it, and
+    fft_axis2_p with alias=True on contiguous halves."""
+    rng = np.random.default_rng(12)
+    d, h = 1 + axis, shape[axis] // 2
+    x = torch.from_numpy(rng.standard_normal((2,) + shape)
+                         .astype(np.float32))
+    pa, pb = x.narrow(d, 0, h), x.narrow(d, h, h)
+    for fwd, sc in ((True, None), (False, None), (True, 0.37)):
+        oa, ob = bf.fft_axis2_p(pa, pb, axis, fwd, scale=sc)
+        ra, rb = _plain(kernel_path, bf.fft_axis2_p, pa, pb, axis, fwd,
+                        scale=sc)
+        assert oa.shape == pa.shape and ob.shape == pb.shape
+        assert _rel(torch.cat([oa, ob], d), torch.cat([ra, rb], d)) <= TOL
+        y = bf.fft_axis_pair_p(x, axis, fwd, scale=sc)
+        ref = _plain(kernel_path, bf.fft_axis_pair_p, x, axis, fwd, scale=sc)
+        assert _rel(y, ref) <= TOL
+        assert torch.equal(y, torch.cat([oa, ob], d))
+    # aliased, with the two halves in different layouts (a view of a
+    # copy of x, and a contiguous tensor)
+    ca, cb = x.clone().narrow(d, 0, h), pb.contiguous()
+    ga, gb = bf.fft_axis2_p(ca, cb, axis, False, alias=True)
+    assert ga is ca and gb is cb
+    oa, ob = bf.fft_axis2_p(pa, pb, axis, False)
+    assert torch.equal(ga, oa) and torch.equal(gb, ob)
+    assert bf.LAUNCHES == {'fft_axis_p': 0, 'rfft_axis_p': 0,
+                           'irfft_axis_p': 0, 'fft_axis2_p': 5,
+                           'fft_axis_pair_p': 3}
+
+
+def test_pair_kernel_refuses_layout(kernel_path):
+    """Halves whose columns are not adjacent do not reach the kernel."""
+    pa = torch.zeros((2, 6, 16)).transpose(1, 2)       # (2, 16, 6)
+    pb = torch.zeros((2, 16, 6))
+    with pytest.raises(ValueError, match='contiguous'):
+        bf.fft_axis2_p(pa, pb, 0)
+    assert bf.LAUNCHES['fft_axis2_p'] == 0
 
 
 def test_c_entry_rejects_bad_plan(emu_kernels):
-    """A plan whose radices do not multiply to n is refused by the C
-    entry, before any launch."""
+    """A plan whose radices do not multiply to n, and a length the pair
+    kernel does not take (over 2048, odd), are refused by the C entries,
+    before any launch."""
     x = torch.zeros((2, 4, 8))
     y = torch.empty_like(x)
     tw = bf._tw_tensor(8, -1, False, torch.float32, x.device)
@@ -147,3 +197,12 @@ def test_c_entry_rejects_bad_plan(emu_kernels):
         ctypes.c_void_p(tw.data_ptr()), tw.shape[1], 4, 8, 1, -1, plan, 2,
         1.0, ctypes.c_void_p(0))
     assert rc != 0
+    for n, plan in ((4096, (16, 16, 16)), (9, (3, 3)), (8, (2, 2))):
+        radices = (ctypes.c_int * len(plan))(*plan)
+        rc = emu_kernels.fft_axis2_f32(
+            ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(x.data_ptr()),
+            ctypes.c_void_p(y.data_ptr()), ctypes.c_void_p(y.data_ptr()),
+            (ctypes.c_longlong * 8)(1, 1, 1, 1, 1, 1, 1, 1),
+            ctypes.c_void_p(tw.data_ptr()), tw.shape[1], 1, n, 1, -1,
+            radices, len(plan), 1.0, ctypes.c_void_p(0))
+        assert rc != 0, n

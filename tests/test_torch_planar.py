@@ -130,9 +130,11 @@ def test_unsupported_length_raises():
     tp = PlanarPFFT(None, (8, 10, 16), dtype='F', device='cpu')
     with pytest.raises(NotImplementedError, match='Queue 1 item 2'):
         tp.forward(torch.zeros(tp.global_shape(False)))
-    tp = PlanarPFFT(None, (2048, 2, 2), dtype='f', device='cpu')
-    with pytest.raises(NotImplementedError, match='Queue 1 item 2'):
-        tp.forward(torch.zeros(tp.global_shape(False)))
+    # c2c axes go up to 2048, and 4096; real axes up to 1024
+    for shape, dt in (((8192, 2, 2), 'F'), ((2, 2, 2048), 'f')):
+        tp = PlanarPFFT(None, shape, dtype=dt, device='cpu')
+        with pytest.raises(NotImplementedError, match='Queue 1 item 2'):
+            tp.forward(torch.zeros(tp.global_shape(False)))
 
 
 def test_several_devices_raise():
@@ -166,8 +168,15 @@ def test_f64_on_cuda_raises():
 
 
 def test_quartered_and_launches():
+    shape = (16, 128, 256)
+    assert PlanarPFFT(None, shape, dtype='F', device='cpu').quartered
+    assert not PlanarPFFT(None, shape, dtype='f', device='cpu').quartered
+    assert not PlanarPFFT(None, shape, dtype='F', padding=1.5,
+                          device='cpu').quartered
+    assert not PlanarPFFT(None, shape, dtype='D', device='cpu').quartered
+    assert not PlanarPFFT(None, shape, axes=(1, 0, 2), dtype='F',
+                          device='cpu').quartered
     tp = PlanarPFFT(None, (16, 16, 16), dtype='F', device='cpu')
-    assert tp.quartered is False
     tb.reset_launches()
     x = torch.zeros(tp.global_shape(False))
     assert torch.equal(tp.backward(tp.forward(x)), x)
