@@ -10,7 +10,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. build     the kernels from ``mpi4py_fft_torch/ops/csrc`` with nvcc;
 2. holds     every kernel against its plain PyTorch version on the card
              (relative L2 <= 5e-6), the pair kernels at lead, mid and last
-             positions for N up to 2048;
+             positions for N up to 2048, and the fp64 builds of
+             ``fft_axis_p``, ``rfft_axis_p`` and ``irfft_axis_p`` on
+             float64 tensors (<= 2e-13);
 3. entry     the port's ``entry()``: a 64^3 r2c f32 forward;
 4. north     ``PlanarPFFT(None, (1024,)*3, dtype='F')``: normalized
              forward and backward against ``torch.fft.fftn`` (oracle only)
@@ -28,16 +30,36 @@ Phases, in order; any failure raises and the script exits non-zero:
 7. dealias   ``PlanarPFFT(None, (512,)*3, dtype='f', padding=1.5)`` (a
              768^3 grid): the kernel path against the port's plain path on
              the card and the forward against a ``torch.fft.rfftn`` oracle;
-8. times     each kernel at the main path's shapes (CUDA events, median of
+8. north64  ``PlanarPFFT(None, (1024,)*3, dtype='D')``: the normalized
+             forward held against the exact spectrum of a sum of plane
+             waves with random complex amplitudes, the round trip against
+             the input built anew (relative L2 <= 2e-10), 3
+             ``fft_axis_p_f64`` launches per transform, and the forward's
+             working set;
+9. dealias64 ``PlanarPFFT(None, (512,)*3, dtype='d', padding=1.5)``: as
+             phase 7, at 2e-10, against a complex128 ``torch.fft.rfftn``;
+10. dns64    the port's spectral DNS example
+             (``mpi4py_fft_torch/examples/spectral_dns_planar.py``): the
+             reference's 64^3 float64 energy anchor to 7 decimals, then 2
+             RK4 steps at 512^3 float64 after a warm-up step, timed, with
+             72 ``fft_axis_p_f64``, 12 ``rfft_axis_p_f64`` and 24
+             ``irfft_axis_p_f64`` launches a step, the state held at 2e-10
+             against the same solver on complex128 ``torch.fft``
+             (oracle only), and the peak device memory;
+11. times    each kernel at the main path's shapes (CUDA events, median of
              7 after 2 warm-ups) beside its plain version, the one PyTorch
              call that computes the same function, and its bound; and the
              end-to-end 1024^3 c2c transform, unquartered and quartered.
              Every main-path shape of a kernel is also held against its
              plain version at <= 5e-6, and so are the pair kernels at the
-             N = 2048 passes of every axis position.
+             N = 2048 passes of every axis position;
+12. times64  the fp64 builds at the 512^3 DNS's shapes (held at 2e-13 on
+             both signs), timed beside their plain versions, complex128
+             ``torch.fft`` and their bounds; and the 1024^3 ``'D'``
+             transform end to end.
 
-Phases 3 to 7 are the main path: the launch counters are set to 0 just
-before phase 3 and read after phase 7.  Each phase prints one JSON line;
+Phases 3 to 10 are the main path: the launch counters are set to 0 just
+before phase 3 and read after phase 10.  Each phase prints one JSON line;
 then come the ``{"kernels": [...]}`` line, the card's name and power limit
 from nvidia-smi, and last ``{"ok": true, "device": {...}}``.  Without a
 CUDA device the script prints no result and exits with 1.
@@ -53,12 +75,20 @@ import time
 
 import torch
 
+import numpy as np
+
 SEED = 0
-# H100 SXM data sheet at 700 W: HBM3 bandwidth and non-tensor f32 peak
+# H100 SXM data sheet at 700 W: HBM3 bandwidth, non-tensor f32 and f64
+# peaks
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
+PEAK_F64_S = 34e12
 KERNEL_TOL = 5e-6          # one kernel against its plain version
 PIPE_TOL = 5e-5            # a 3-axis composition
+# float64: the JAX suite's tolerance for its f64 kernel F
+# (tests/test_ds.py:58) and the reference's f64 tolerance (:18)
+KERNEL_TOL64 = 2e-13
+PIPE_TOL64 = 2e-10
 NORTH_N = 1024             # the c2c north star, NORTH_N^3
 DEALIAS_N = 512            # the r2c 3/2-rule plan, on a (1.5 DEALIAS_N)^3 grid
 # the long-axis plans: 8.6 GB planar volumes like the north star's
@@ -67,6 +97,10 @@ LONG_SHAPES = ((2048, 1024, 512), (4096, 1024, 256))
 # the lead pass of LONG_SHAPES[0], the one timed)
 PAIR_SHAPES = (((2048, 1024, 512), 0), ((512, 2048, 1024), 1),
                ((512, 1024, 2048), 2))
+NORTH64_N = 1024           # the c2c north star at float64 ('D')
+DEALIAS64_N = 512          # the r2c 'd' 3/2-rule plan
+DNS_N = 512                # the spectral DNS at float64
+DNS_ANCHOR_N = 64          # the reference's energy anchor
 
 
 def _emit(obj):
@@ -150,8 +184,9 @@ def _fftn_ref(x):
     return torch.view_as_real(F).permute(-1, *range(F.dim()))
 
 
-def _bound_ms(nbytes, flops):
-    tb, tf = nbytes / PEAK_BYTES_S, flops / PEAK_F32_S
+def _bound_ms(nbytes, flops, f64=False):
+    tb = nbytes / PEAK_BYTES_S
+    tf = flops / (PEAK_F64_S if f64 else PEAK_F32_S)
     return 1e3 * max(tb, tf), 'bytes' if tb >= tf else 'operations'
 
 
@@ -167,8 +202,9 @@ class Holds:
         r, m = _rel(got, ref)
         self.err[name] = max(self.err[name], m)
         self.rel[name] = max(self.rel[name], r)
+        tol = KERNEL_TOL64 if name.endswith('_f64') else KERNEL_TOL
         _check(bool(torch.isfinite(got).all()), f"{what}: non-finite")
-        _check(r <= KERNEL_TOL, f"{what}: rel L2 {r:.3e} > {KERNEL_TOL}")
+        _check(r <= tol, f"{what}: rel L2 {r:.3e} > {tol}")
 
 
 def phase_build():
@@ -190,48 +226,12 @@ def phase_holds(holds, dev):
     from mpi4py_fft_torch.ops import butterfly as bf
     g = torch.Generator(device=dev).manual_seed(SEED)
 
-    def rnd(*shape):
-        return torch.randn(shape, generator=g, device=dev)
+    def rnd(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device=dev, dtype=dtype)
 
     n = 0
-    for N in (2, 8, 96, 256, 768, 1024):
-        for shape, ax in (((N, 24, 40), 0), ((6, N, 40), 1), ((50, N), 1)):
-            p = rnd(2, *shape)
-            for fwd, sc in ((True, None), (False, None), (True, 1.0 / N)):
-                holds.hold('fft_axis_p', bf.fft_axis_p(p, ax, fwd, scale=sc),
-                           bf.fft_axis_plain(p, ax, fwd, scale=sc),
-                           f"fft_axis_p {shape} axis {ax} fwd={fwd}")
-                n += 1
-    p = rnd(2, 3, 96, 5)
-    for fwd in (True, False):
-        holds.hold('fft_axis_p', bf.fft_axis_p(p, 1, fwd),
-                   bf.fft_axis_plain(p, 1, fwd), "fft_axis_p (3, 96, 5)")
-        n += 1
-    for shape, ax in (((40, 768), 1), ((768, 3, 20), 0), ((5, 64, 33), 1),
-                      ((7, 2), 1), ((3, 96, 5), 1)):
-        x = rnd(*shape)
-        N = shape[ax]
-        nh = N // 2 + 1
-        for hext, trunc, sc in ((None, None, None), (nh + 5, None, 0.5),
-                                (None, max(1, nh - 2), None),
-                                (nh + 1, max(1, nh - 3), 2.0)):
-            holds.hold('rfft_axis_p',
-                       bf.rfft_axis_p(x, ax, hext=hext, trunc=trunc,
-                                      scale=sc),
-                       bf.rfft_axis_plain(x, ax, hext=hext, trunc=trunc,
-                                          scale=sc),
-                       f"rfft_axis_p {shape} axis {ax} hext={hext} "
-                       f"trunc={trunc}")
-            n += 1
-        for hin, sc in ((nh, None), (max(1, nh - 2), None),
-                        (max(1, nh - 1), 0.25), (nh + 3, None)):
-            sh = list(shape)
-            sh[ax] = hin
-            h = rnd(2, *sh)
-            holds.hold('irfft_axis_p', bf.irfft_axis_p(h, ax, N, scale=sc),
-                       bf.irfft_axis_plain(h, ax, N, scale=sc),
-                       f"irfft_axis_p {tuple(sh)} axis {ax} n={N}")
-            n += 1
+    for dtype, sfx in ((torch.float32, ''), (torch.float64, '_f64')):
+        n += _holds_abc(holds, bf, lambda *s: rnd(*s, dtype=dtype), sfx)
     # the pair kernels: halves sliced out of one tensor (views, strided
     # off axis 0), the whole tensor, and contiguous halves aliased
     for N in (4, 6, 96, 1024, 1536, 2048):
@@ -260,7 +260,54 @@ def phase_holds(holds, dev):
                        f"fft_axis2_p {shape} axis {ax} alias")
             n += 1
     _emit({'phase': 'holds', 'cases': n, 'max_rel_l2': holds.rel,
-           'max_abs_err': holds.err, 'tolerance': KERNEL_TOL})
+           'max_abs_err': holds.err,
+           'tolerance': {'f32': KERNEL_TOL, 'f64': KERNEL_TOL64}})
+
+
+def _holds_abc(holds, bf, rnd, sfx):
+    """fft_axis_p, rfft_axis_p and irfft_axis_p of one build (counter
+    suffix ``sfx``) against their plain versions on ``rnd`` data; returns
+    the number of cases."""
+    a, b, c = ('fft_axis_p' + sfx, 'rfft_axis_p' + sfx,
+               'irfft_axis_p' + sfx)
+    n = 0
+    for N in (2, 8, 96, 256, 768, 1024):
+        for shape, ax in (((N, 24, 40), 0), ((6, N, 40), 1), ((50, N), 1)):
+            p = rnd(2, *shape)
+            for fwd, sc in ((True, None), (False, None), (True, 1.0 / N)):
+                holds.hold(a, bf.fft_axis_p(p, ax, fwd, scale=sc),
+                           bf.fft_axis_plain(p, ax, fwd, scale=sc),
+                           f"{a} {shape} axis {ax} fwd={fwd}")
+                n += 1
+    p = rnd(2, 3, 96, 5)
+    for fwd in (True, False):
+        holds.hold(a, bf.fft_axis_p(p, 1, fwd),
+                   bf.fft_axis_plain(p, 1, fwd), f"{a} (3, 96, 5)")
+        n += 1
+    for shape, ax in (((40, 768), 1), ((768, 3, 20), 0), ((5, 64, 33), 1),
+                      ((7, 2), 1), ((3, 96, 5), 1)):
+        x = rnd(*shape)
+        N = shape[ax]
+        nh = N // 2 + 1
+        for hext, trunc, sc in ((None, None, None), (nh + 5, None, 0.5),
+                                (None, max(1, nh - 2), None),
+                                (nh + 1, max(1, nh - 3), 2.0)):
+            holds.hold(b, bf.rfft_axis_p(x, ax, hext=hext, trunc=trunc,
+                                         scale=sc),
+                       bf.rfft_axis_plain(x, ax, hext=hext, trunc=trunc,
+                                          scale=sc),
+                       f"{b} {shape} axis {ax} hext={hext} trunc={trunc}")
+            n += 1
+        for hin, sc in ((nh, None), (max(1, nh - 2), None),
+                        (max(1, nh - 1), 0.25), (nh + 3, None)):
+            sh = list(shape)
+            sh[ax] = hin
+            h = rnd(2, *sh)
+            holds.hold(c, bf.irfft_axis_p(h, ax, N, scale=sc),
+                       bf.irfft_axis_plain(h, ax, N, scale=sc),
+                       f"{c} {tuple(sh)} axis {ax} n={N}")
+            n += 1
+    return n
 
 
 def phase_entry(dev):
@@ -402,16 +449,21 @@ def phase_long(dev, bf):
     _emit({'phase': 'long', 'dtype': 'F', 'plans': out})
 
 
-def phase_dealias(dev, bf):
+def phase_dealias(dev, bf, dtype='f'):
+    """The r2c 3/2-rule plan at float32 ('f', phase dealias) or float64
+    ('d', phase dealias64)."""
     from mpi4py_fft_torch import PlanarPFFT
     from mpi4py_fft_torch.libfft import truncate_planar
-    d = DEALIAS_N
-    pfft = PlanarPFFT(None, (d,) * 3, dtype='f', padding=1.5)
+    f64 = dtype == 'd'
+    d = DEALIAS64_N if f64 else DEALIAS_N
+    sfx, tol = ('_f64', PIPE_TOL64) if f64 else ('', PIPE_TOL)
+    pfft = PlanarPFFT(None, (d,) * 3, dtype=dtype, padding=1.5)
     shape = pfft.global_shape(False)
     m = 3 * d // 2
     _check(tuple(shape) == (m,) * 3, f"padded shape {shape}")
-    g = torch.Generator(device=dev).manual_seed(SEED + 3)
-    x = torch.rand(shape, generator=g, device=dev) - 0.5
+    g = torch.Generator(device=dev).manual_seed(SEED + (13 if f64 else 3))
+    x = torch.rand(shape, generator=g, device=dev,
+                   dtype=torch.float64 if f64 else torch.float32) - 0.5
     c0 = dict(bf.LAUNCHES)
     y = pfft.forward(x)
     torch.cuda.synchronize()
@@ -421,9 +473,9 @@ def phase_dealias(dev, bf):
     c2 = dict(bf.LAUNCHES)
     fwd = _delta(c0, c1)
     bwd = _delta(c1, c2)
-    _check(fwd == {'fft_axis_p': 2, 'rfft_axis_p': 1},
+    _check(fwd == {'fft_axis_p' + sfx: 2, 'rfft_axis_p' + sfx: 1},
            f"forward launches {fwd}")
-    _check(bwd == {'fft_axis_p': 2, 'irfft_axis_p': 1},
+    _check(bwd == {'fft_axis_p' + sfx: 2, 'irfft_axis_p' + sfx: 1},
            f"backward launches {bwd}")
     _check(tuple(y.shape) == (2, d, d, d // 2 + 1), f"spectrum {y.shape}")
     with _plain_path(bf):
@@ -444,13 +496,297 @@ def phase_dealias(dev, bf):
     ref = truncate_planar(ref, 2, d, hermitian=False)
     ref = truncate_planar(ref, 1, d, hermitian=False)
     err_o, _ = _rel(y, ref)
-    _check(max(err_y, err_z, err_o) <= PIPE_TOL,
-           f"dealias: fwd {err_y:.3e}, bwd {err_z:.3e}, oracle {err_o:.3e}")
-    _check(bool(torch.isfinite(z).all()), "dealias: non-finite")
-    _emit({'phase': 'dealias', 'shape': [d] * 3, 'physical': list(shape),
-           'dtype': 'f', 'rel_l2_fwd_vs_plain': err_y,
+    name = 'dealias64' if f64 else 'dealias'
+    _check(max(err_y, err_z, err_o) <= tol,
+           f"{name}: fwd {err_y:.3e}, bwd {err_z:.3e}, oracle {err_o:.3e}")
+    _check(bool(torch.isfinite(z).all()), f"{name}: non-finite")
+    del x, y, z, ref
+    torch.cuda.empty_cache()
+    _emit({'phase': name, 'shape': [d] * 3, 'physical': list(shape),
+           'dtype': dtype, 'rel_l2_fwd_vs_plain': err_y,
            'rel_l2_bwd_vs_plain': err_z, 'rel_l2_fwd_vs_rfftn': err_o,
            'launches_fwd': fwd, 'launches_bwd': bwd})
+
+
+def _waves(n, seed):
+    """Four plane waves ((k0, k1, k2), complex amplitude), distinct
+    wavevectors in [0, n)^3, from a seed."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    while len(out) < 4:
+        k = tuple(int(v) for v in rng.integers(0, n, 3))
+        out[k] = complex(*rng.standard_normal(2))
+    return list(out.items())
+
+
+def _plane_waves(waves, n, dev):
+    """Planar (2, n, n, n) float64 sum of a exp(2 pi i k.x / n) over the
+    waves, built per axis with exact phases ((k x) mod n) and added 64
+    rows of axis 0 at a time."""
+    idx = torch.arange(n, device=dev, dtype=torch.int64)
+    x = torch.zeros((2, n, n, n), dtype=torch.float64, device=dev)
+
+    def e(k):
+        ph = ((k * idx) % n).to(torch.float64) * (2 * math.pi / n)
+        return torch.polar(torch.ones_like(ph), ph)
+
+    for (k0, k1, k2), a in waves:
+        e0 = a * e(k0)
+        e12 = e(k1)[:, None] * e(k2)[None, :]
+        for i in range(0, n, 64):
+            w = e0[i:i + 64, None, None] * e12[None]
+            x[0, i:i + 64] += w.real
+            x[1, i:i + 64] += w.imag
+            del w
+    return x
+
+
+def _waves_err(y, waves):
+    """Relative L2 error and max abs error of a normalized planar
+    spectrum y against the exact one of the waves (their amplitudes at
+    their wavevectors, zero elsewhere), 64 rows of axis 0 at a time."""
+    n = y.shape[1]
+    num = mx = 0.0
+    for i in range(0, n, 64):
+        d = y[:, i:i + 64].clone()
+        for (k0, k1, k2), a in waves:
+            if i <= k0 < i + 64:
+                d[0, k0 - i, k1, k2] -= a.real
+                d[1, k0 - i, k1, k2] -= a.imag
+        num += float((d * d).sum())
+        mx = max(mx, float(d.abs().max()))
+        del d
+    return math.sqrt(num / sum(abs(a) ** 2 for _, a in waves)), mx
+
+
+def phase_north64(dev, bf):
+    """The c2c north star at float64: forward against the exact spectrum
+    of plane waves, round trip against the input built anew (the x, y and
+    oracle volumes of 17.18 GB each do not fit together)."""
+    from mpi4py_fft_torch import PlanarPFFT
+    n = NORTH64_N
+    pfft = PlanarPFFT(None, (n,) * 3, dtype='D')
+    waves = _waves(n, SEED + 20)
+    x = _plane_waves(waves, n, dev)
+    vol_gb = x.numel() * 8 / 1e9
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    c0 = dict(bf.LAUNCHES)
+    t0 = time.perf_counter()
+    y = pfft.forward(x)
+    torch.cuda.synchronize()
+    t_fwd = time.perf_counter() - t0
+    # the forward's peak with its input, as phase_north counts it
+    fwd_peak = torch.cuda.max_memory_allocated() / 1e9 - held + vol_gb
+    c1 = dict(bf.LAUNCHES)
+    _check(_delta(c0, c1) == {'fft_axis_p_f64': 3},
+           f"'D' forward launches {_delta(c0, c1)}")
+    _check(tuple(y.shape) == (2, n, n, n) and y.dtype == torch.float64,
+           f"'D' forward {y.shape} {y.dtype}")
+    err_f, mx_f = _waves_err(y, waves)
+    del x
+    z = pfft.backward(y)
+    torch.cuda.synchronize()
+    c2 = dict(bf.LAUNCHES)
+    _check(_delta(c1, c2) == {'fft_axis_p_f64': 3},
+           f"'D' backward launches {_delta(c1, c2)}")
+    del y
+    x = _plane_waves(waves, n, dev)
+    err_rt, _ = _rel(z, x)
+    _check(bool(torch.isfinite(z).all()), "'D' round trip: non-finite")
+    del x, z
+    torch.cuda.empty_cache()
+    _check(max(err_f, err_rt) <= PIPE_TOL64,
+           f"{n}^3 'D': forward {err_f:.3e}, round trip {err_rt:.3e}")
+    _emit({'phase': 'north64', 'shape': [n] * 3, 'dtype': 'D',
+           'waves': [[list(k), [a.real, a.imag]] for k, a in waves],
+           'rel_l2_fwd_vs_exact': err_f, 'max_abs_fwd_vs_exact': mx_f,
+           'rel_l2_round_trip': err_rt, 'fft_axis_p_f64_per_transform': 3,
+           'first_forward_s': t_fwd, 'fwd_peak_gb': fwd_peak,
+           'volume_gb': vol_gb})
+
+
+class _RfftnPlan:
+    """Stands in for ``PlanarPFFT`` in the DNS example to build its oracle:
+    the same normalized forward and unnormalized backward on complex128
+    ``torch.fft.rfftn``/``irfftn``.  The port never calls it."""
+
+    def __init__(self, comm, shape, dtype='d', device=None):
+        self.shape = tuple(shape)
+        self.rdtype = np.dtype('float64')
+        self.device = torch.device(device)
+
+    def global_shape(self, forward_output=False):
+        if forward_output:
+            return (2,) + self.shape[:-1] + (self.shape[-1] // 2 + 1,)
+        return self.shape
+
+    def forward(self, x):
+        F = torch.fft.rfftn(x, norm='forward')
+        return torch.stack([F.real, F.imag])
+
+    def backward(self, p):
+        return torch.fft.irfftn(torch.complex(p[0], p[1]), s=self.shape,
+                                norm='forward')
+
+
+def phase_dns64(dev, bf):
+    """The port's spectral DNS solver in float64: the 64^3 energy anchor,
+    then 512^3 steps against a complex128 torch.fft oracle."""
+    from mpi4py_fft_torch.examples import spectral_dns_planar as dns
+    a = DNS_ANCHOR_N
+    c0 = dict(bf.LAUNCHES)
+    k = dns.run(N=(a,) * 3, T=0.1, dt=0.01, dtype='d', verbose=False)
+    c1 = dict(bf.LAUNCHES)
+    # 3 forwards to start, 10 steps of 12 forwards and 24 backwards, 3
+    # backwards for the energy
+    want = {'fft_axis_p_f64': 2 * (3 + 360 + 3), 'rfft_axis_p_f64': 123,
+            'irfft_axis_p_f64': 243}
+    _check(_delta(c0, c1) == want, f"anchor launches {_delta(c0, c1)}")
+    _check(round(k - dns.ENERGY_64, 7) == 0,
+           f"{a}^3 energy {k!r}, the reference's {dns.ENERGY_64}")
+    n = DNS_N
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    pfft, U, step, energy = dns.make_solver(N=(n,) * 3, dtype='d')
+    _check(U.device == dev and U.dtype == torch.float64,
+           f"DNS state {U.dtype} on {U.device}")
+    U = step(U)                                 # warm-up
+    torch.cuda.synchronize()
+    c2 = dict(bf.LAUNCHES)
+    ms = []
+    for _ in range(2):
+        ta = torch.cuda.Event(enable_timing=True)
+        tb = torch.cuda.Event(enable_timing=True)
+        ta.record()
+        U = step(U)
+        tb.record()
+        tb.synchronize()
+        ms.append(ta.elapsed_time(tb))
+    c3 = dict(bf.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    per_step = {name: c // 2 for name, c in _delta(c2, c3).items()}
+    _check(per_step == {'fft_axis_p_f64': 72, 'rfft_axis_p_f64': 12,
+                        'irfft_axis_p_f64': 24},
+           f"DNS launches a step {per_step}")
+    _check(bool(torch.isfinite(U).all()), "DNS state: non-finite")
+    e = energy(U)
+    c4 = dict(bf.LAUNCHES)
+    del step, energy, pfft
+    # oracle: the same solver and steps on complex128 torch.fft
+    saved = dns.PlanarPFFT
+    dns.PlanarPFFT = _RfftnPlan
+    try:
+        _, V, ostep, oenergy = dns.make_solver(N=(n,) * 3, dtype='d',
+                                               device=dev)
+    finally:
+        dns.PlanarPFFT = saved
+    for _ in range(3):
+        V = ostep(V)
+    torch.cuda.synchronize()
+    _check(bf.LAUNCHES == c4, "the oracle launched a kernel")
+    err, mx = _rel(U, V)
+    e_ref = oenergy(V)
+    del U, V, ostep, oenergy
+    torch.cuda.empty_cache()
+    _check(err <= PIPE_TOL64, f"{n}^3 DNS vs oracle: {err:.3e}")
+    # the transforms' bytes a step: 72 c2c passes over the spectrum and
+    # 36 r2c/c2r passes between the real volume and the spectrum
+    spec = 2 * n * n * (n // 2 + 1) * 8
+    real = n ** 3 * 8
+    bound, _ = _bound_ms(72 * 2 * spec + 36 * (spec + real), 0, f64=True)
+    _emit({'phase': 'dns64', 'anchor_shape': [a] * 3,
+           'anchor_energy': k, 'anchor_launches': _delta(c0, c1),
+           'shape': [n] * 3, 'dtype': 'd', 'ms_per_step': ms,
+           'transforms_bound_ms_per_step': bound,
+           'launches_per_step': per_step, 'rel_l2_vs_oracle': err,
+           'max_abs_vs_oracle': mx, 'energy_t0.03': e,
+           'oracle_energy_t0.03': e_ref, 'peak_gb': peak})
+
+
+def phase_times64(dev, bf, holds):
+    """The fp64 builds at the 512^3 DNS's shapes, both signs held; and
+    the 1024^3 'D' transform end to end."""
+    n = DNS_N
+    nh = n // 2 + 1
+    g = torch.Generator(device=dev).manual_seed(SEED + 21)
+    out = {}
+    # A: the two c2c passes of one DNS transform, on its spectrum
+    p = torch.rand((2, n, n, nh), generator=g, device=dev,
+                   dtype=torch.float64) - 0.5
+    pc = torch.complex(p[0], p[1])
+    per_axis = []
+    for ax in (1, 0):
+        for fwd in (True, False):
+            holds.hold('fft_axis_p_f64', bf.fft_axis_p(p, ax, fwd),
+                       bf.fft_axis_plain(p, ax, fwd),
+                       f"fft_axis_p_f64 {tuple(p.shape)} axis {ax} "
+                       f"fwd={fwd}")
+        b, by = _pass_bound(p.numel(), n, f64=True)
+        per_axis.append({
+            'axis': ax, 'ms': _median_ms(lambda: bf.fft_axis_p(p, ax)),
+            'plain_ms': _median_ms(lambda: bf.fft_axis_plain(p, ax),
+                                   reps=3, warm=1),
+            'library_ms': _median_ms(lambda: torch.fft.fft(pc, dim=ax)),
+            'bound_ms': b})
+    del p, pc
+    row = {k: sum(a[k] for a in per_axis)
+           for k in ('ms', 'plain_ms', 'library_ms', 'bound_ms')}
+    row.update(shape=f'2 passes, axes 1 and 0 of (2, {n}, {n}, {nh}) f64',
+               bound_by=by, per_axis=per_axis)
+    out['fft_axis_p_f64'] = row
+    # B and C: the last axis of the DNS's real volume
+    r = torch.rand((n, n, n), generator=g, device=dev,
+                   dtype=torch.float64) - 0.5
+    h = bf.rfft_axis_p(r, 2)
+    holds.hold('rfft_axis_p_f64', h, bf.rfft_axis_plain(r, 2),
+               f"rfft_axis_p_f64 {n}^3 last axis")
+    b, by = _bound_ms(r.numel() * 8 + 2 * n * n * nh * 8,
+                      n * n * 2.5 * n * math.log2(n), f64=True)
+    out['rfft_axis_p_f64'] = {
+        'shape': f'({n}, {n}, {n}) f64 -> (2, {n}, {n}, {nh}), last axis',
+        'ms': _median_ms(lambda: bf.rfft_axis_p(r, 2)),
+        'plain_ms': _median_ms(lambda: bf.rfft_axis_plain(r, 2), reps=3,
+                               warm=1),
+        'library_ms': _median_ms(lambda: torch.fft.rfft(r, dim=2)),
+        'bound_ms': b, 'bound_by': by}
+    del r
+    hc = torch.complex(h[0], h[1])
+    for sc in (None, 1.0 / n):
+        holds.hold('irfft_axis_p_f64', bf.irfft_axis_p(h, 2, n, scale=sc),
+                   bf.irfft_axis_plain(h, 2, n, scale=sc),
+                   f"irfft_axis_p_f64 {n}^3 last axis scale={sc}")
+    out['irfft_axis_p_f64'] = {
+        'shape': f'(2, {n}, {n}, {nh}) f64 -> ({n}, {n}, {n}), last axis',
+        'ms': _median_ms(lambda: bf.irfft_axis_p(h, 2, n)),
+        'plain_ms': _median_ms(lambda: bf.irfft_axis_plain(h, 2, n),
+                               reps=3, warm=1),
+        'library_ms': _median_ms(
+            lambda: torch.fft.irfft(hc, n=n, dim=2, norm='forward')),
+        'bound_ms': b, 'bound_by': by}
+    del h, hc
+    torch.cuda.empty_cache()
+    # end to end: the normalized 'D' forward and the backward, timed apart
+    # (x, y and the two volumes in flight fill 3 of the card's 80 GB)
+    from mpi4py_fft_torch import PlanarPFFT
+    m = NORTH64_N
+    pfft = PlanarPFFT(None, (m,) * 3, dtype='D')
+    x = _plane_waves(_waves(m, SEED + 20), m, dev)
+    t_f = _median_ms(lambda: pfft.forward(x), reps=3, warm=1)
+    y = pfft.forward(x)
+    del x
+    t_b = _median_ms(lambda: pfft.backward(y), reps=3, warm=1)
+    del y
+    torch.cuda.empty_cache()
+    e2e = (t_f + t_b) / 2
+    b3, _ = _pass_bound(2 * m ** 3, m, f64=True)
+    _emit({'phase': 'times64', 'e2e_shape': [m] * 3, 'e2e_dtype': 'D',
+           'e2e_ms_per_transform': e2e, 'e2e_fwd_ms': t_f,
+           'e2e_bwd_ms': t_b, 'e2e_bound_ms': 3 * b3,
+           'e2e_gflops_5nlogn': 5.0 * m ** 3 * math.log2(m ** 3)
+           / (e2e * 1e-3) / 1e9, 'kernels': out})
+    return out
 
 
 def phase_times(dev, bf, holds, pfft, x):
@@ -559,12 +895,13 @@ def _times_long(dev):
     return out
 
 
-def _pass_bound(numel, N):
-    """Bound of one pass over a planar f32 tensor of ``numel`` elements
-    along an N-long axis: read and write it once, 5 N log2 N flops a
-    line."""
+def _pass_bound(numel, N, f64=False):
+    """Bound of one pass over a planar f32 (or f64) tensor of ``numel``
+    elements along an N-long axis: read and write it once, 5 N log2 N
+    flops a line."""
     lines = numel // 2 // N
-    return _bound_ms(2 * numel * 4, lines * 5 * N * math.log2(N))
+    return _bound_ms(2 * numel * (8 if f64 else 4),
+                     lines * 5 * N * math.log2(N), f64)
 
 
 def _times_axis2(bf, holds, x):
@@ -645,6 +982,12 @@ KERNELS = {
                     'mpi4py_fft_tpu/ops/pallas_butterfly.py:1358'),
     'fft_axis_pair_p': ('mpi4py_fft_torch/ops/csrc/fft_axis2.cu',
                         'mpi4py_fft_tpu/ops/pallas_butterfly.py:1476'),
+    'fft_axis_p_f64': ('mpi4py_fft_torch/ops/csrc/fft_axis.cu',
+                       'mpi4py_fft_tpu/ops/pallas_ds.py:368'),
+    'rfft_axis_p_f64': ('mpi4py_fft_torch/ops/csrc/rfft_axis.cu',
+                        'mpi4py_fft_tpu/ops/pallas_ds.py:546'),
+    'irfft_axis_p_f64': ('mpi4py_fft_torch/ops/csrc/rfft_axis.cu',
+                         'mpi4py_fft_tpu/ops/pallas_ds.py:593'),
 }
 
 
@@ -666,13 +1009,23 @@ def main():
     phase_entry(dev)
     pfft, x = phase_north(dev, bf)
     phase_quartered(bf, pfft, x)
+    del x
+    torch.cuda.empty_cache()
     phase_long(dev, bf)
     phase_dealias(dev, bf)
+    phase_north64(dev, bf)
+    phase_dealias(dev, bf, dtype='d')
+    phase_dns64(dev, bf)
     launches = dict(bf.LAUNCHES)
+    _check(set(launches) == set(KERNELS), f"counters {sorted(launches)}")
     for name, c in launches.items():
         _check(c > 0, f"{name} was not launched on the main path")
 
+    x = _rand((2,) + (NORTH_N,) * 3, dev, SEED + 2)
     times = phase_times(dev, bf, holds, pfft, x)
+    del x, pfft
+    torch.cuda.empty_cache()
+    times.update(phase_times64(dev, bf, holds))
     kernels = []
     for name, (src, rep) in KERNELS.items():
         t = times[name]

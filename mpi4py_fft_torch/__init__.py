@@ -7,11 +7,13 @@ with ``nvcc`` at first use; on CPU tensors every kernel wrapper runs its
 plain PyTorch version instead.
 
 The port covers so far the single-device :class:`PlanarPFFT`: c2c and r2c,
-with 3/2-rule padding, for axis lengths 2^a and 3*2^a up to 1024 on every
-axis, and on c2c axes also 1536 and 2048 (one pass of the pair kernel) and
-4096 (the four-step around the 1024-point kernel); and the quartered
-out-of-place schedule of 3-D c2c volumes (``ops/oop3d.py``,
-``PlanarPFFT.forward_fn_q``/``backward_fn_q``).
+float32 and float64, with 3/2-rule padding, for axis lengths 2^a and
+3*2^a up to 1024 on every axis, and on float32 c2c axes also 1536 and
+2048 (one pass of the pair kernel) and 4096 (the four-step around the
+1024-point kernel); the quartered out-of-place schedule of 3-D float32
+c2c volumes (``ops/oop3d.py``, ``PlanarPFFT.forward_fn_q``/
+``backward_fn_q``); and the spectral DNS example
+(``examples/spectral_dns_planar.py``).
 """
 import torch
 

@@ -8,9 +8,11 @@ entry of ``.gitignore`` covers.  A library's file name carries a hash of
 the sources, so an edited kernel is rebuilt; the files are built once per
 process, at first use, all at the same time.
 
-Every pointer and the stream are passed as ``ctypes.c_void_p``; each C
-entry returns ``cudaGetLastError()`` after its launch, and the wrappers in
-``butterfly.py`` raise when it is not 0.
+Every pointer and the stream are passed as ``ctypes.c_void_p``, and the
+scale as the entry's own float type (``c_float`` for ``_f32``,
+``c_double`` for ``_f64``: a double passed as a float would be rounded
+silently); each C entry returns ``cudaGetLastError()`` after its launch,
+and the wrappers in ``butterfly.py`` raise when it is not 0.
 """
 import ctypes
 import hashlib
@@ -26,8 +28,8 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-O3',
               '-std=c++17', '-shared', '-Xcompiler', '-fPIC',
               '-Xptxas', '-v']
 
-_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
-    ctypes.c_float
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_F, _D = ctypes.c_float, ctypes.c_double
 _IA = ctypes.POINTER(ctypes.c_int)
 _LLA = ctypes.POINTER(ctypes.c_longlong)
 
@@ -37,16 +39,22 @@ _ENTRIES = {
         # x, y, tw, tw_len, pre, n, post, sign, plan, nstages, scale, stream
         'mff_fft_axis_f32': [_P, _P, _P, _LL, _LL, _I, _LL, _I, _IA, _I,
                              _F, _P],
+        'mff_fft_axis_f64': [_P, _P, _P, _LL, _LL, _I, _LL, _I, _IA, _I,
+                             _D, _P],
     },
     'rfft_axis': {
         # x, y, tw, tw_len, pre, n, post, hext, nrows, fold, packed,
         # plan, nstages, scale, stream
         'mff_rfft_axis_f32': [_P, _P, _P, _LL, _LL, _I, _LL, _I, _I, _I,
                               _I, _IA, _I, _F, _P],
+        'mff_rfft_axis_f64': [_P, _P, _P, _LL, _LL, _I, _LL, _I, _I, _I,
+                              _I, _IA, _I, _D, _P],
         # x, y, tw, tw_len, pre, hin, n, post, packed, plan, nstages,
         # scale, stream
         'mff_irfft_axis_f32': [_P, _P, _P, _LL, _LL, _I, _I, _LL, _I, _IA,
                                _I, _F, _P],
+        'mff_irfft_axis_f64': [_P, _P, _P, _LL, _LL, _I, _I, _LL, _I, _IA,
+                               _I, _D, _P],
     },
     'fft_axis2': {
         # xa, xb, ya, yb, strides, tw, tw_len, pre, n, post, sign, plan,

@@ -12,6 +12,11 @@ of the CUDA kernels on the single-device path:
 * ``fft_axis_pair_p`` (csrc/fft_axis2.cu) the same kernel on the two
   halves of one tensor: axes of 1536 and 2048.
 
+The first three take float32 and float64 tensors: their kernels have an
+fp64 build (the port of the double-single tier ``pallas_ds``), which the
+wrappers launch for float64 and count under ``<name>_f64``.  The pair
+kernel is float32 only for now.
+
 Stockham autosort recurrence (DIF, self-sorting, no bit reversal): the
 state of one line has shape (L, M) with L*M = N.  A radix-r stage splits
 it into r slabs of Lq = L/r rows, takes the r-point DFT across the slabs,
@@ -43,10 +48,12 @@ __all__ = ['fft_axis_p', 'rfft_axis_p', 'irfft_axis_p', 'fft_axis2_p',
 _MAX_N_AXIS = 1024
 _MAX_N_PAIR = 2048
 
-# kernel launches since the last reset, one count per wrapper; a wrapper
-# adds one where it launches its kernel and nowhere else
+# kernel launches since the last reset, one count per wrapper and build
+# (float32 under the wrapper's name, float64 under the name with _f64); a
+# wrapper adds one where it launches its kernel and nowhere else
 LAUNCHES = {'fft_axis_p': 0, 'rfft_axis_p': 0, 'irfft_axis_p': 0,
-            'fft_axis2_p': 0, 'fft_axis_pair_p': 0}
+            'fft_axis2_p': 0, 'fft_axis_pair_p': 0, 'fft_axis_p_f64': 0,
+            'rfft_axis_p_f64': 0, 'irfft_axis_p_f64': 0}
 
 
 def reset_launches():
@@ -537,11 +544,19 @@ def supported_axis_split(shape, axis):
     return _pair_length_ok(2 * shape[axis % len(shape)])
 
 
-def _plain_ok(t, what, contiguous=True):
+def _no_f64_pair(what):
+    return NotImplementedError(
+        f"{what}: float64 on CUDA takes axes up to {_MAX_N_AXIS}; longer "
+        f"ones arrive with the fp64 build of the pair kernel (ROADMAP "
+        f"Queue 2, D64)")
+
+
+def _plain_ok(t, what, contiguous=True, f64=True):
     """True for a CPU tensor (the plain version runs); False for a CUDA
-    tensor the kernel takes; raises for anything else.  ``contiguous``:
-    the kernel needs a contiguous tensor (else any layout passes here
-    and the caller checks it)."""
+    tensor the kernel takes: float32, or float64 when the kernel has an
+    fp64 build (``f64``); raises for anything else.  ``contiguous``: the
+    kernel needs a contiguous tensor (else any layout passes here and the
+    caller checks it)."""
     if t.device.type == 'cpu':
         if not t.is_floating_point():
             raise TypeError(f"{what}: needs a real floating tensor, "
@@ -550,12 +565,11 @@ def _plain_ok(t, what, contiguous=True):
     if t.device.type != 'cuda':
         raise ValueError(f"{what}: tensor on {t.device}; the kernels take "
                          f"CUDA tensors and the plain versions CPU tensors")
-    if t.dtype == torch.float64:
-        raise NotImplementedError(
-            f"{what}: float64 on CUDA arrives with the fp64 kernels "
-            f"(ROADMAP Queue 1 item 5)")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{what}: the kernel takes float32, got {t.dtype}")
+    if t.dtype == torch.float64 and not f64:
+        raise _no_f64_pair(what)
+    if t.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{what}: the kernels take float32 and float64, "
+                        f"got {t.dtype}")
     if contiguous and not t.is_contiguous():
         raise ValueError(f"{what}: the kernel takes a contiguous tensor")
     return False
@@ -583,6 +597,16 @@ def _launch(what, fn, t, *args):
     LAUNCHES[what] += 1
 
 
+def _build_of(what, entry, t):
+    """The launch counter and C entry of the build for t's dtype: the
+    wrapper's name and ``<entry>_f32``, or ``<what>_f64`` and
+    ``<entry>_f64``."""
+    k = _build.load()
+    if t.dtype == torch.float64:
+        return what + '_f64', getattr(k, entry + '_f64')
+    return what, getattr(k, entry + '_f32')
+
+
 def _plan_args(W):
     plan = _stage_plan(W)
     return (ctypes.c_int * len(plan))(*plan), len(plan)
@@ -608,7 +632,7 @@ def fft_axis_p(p, axis, forward=True, scale=None):
         return out
     tw = _tw_tensor(N, sign, False, p.dtype, p.device)
     plan, nst = _plan_args(N)
-    _launch(what, _build.load().fft_axis_f32, p,
+    _launch(*_build_of(what, 'fft_axis', p), p,
             _ptr(p), _ptr(out), _ptr(tw), tw.shape[1], pre, N, post, sign,
             plan, nst, 1.0 if scale is None else float(scale))
     return out
@@ -640,7 +664,7 @@ def rfft_axis_p(x, axis, hext=None, scale=None, trunc=None):
     plan, nst = _plan_args(N // 2 if packed else N)
     nrows = nh if trunc is None else min(nh, int(trunc))
     fold = trunc is not None and int(trunc) < nh and int(trunc) % 2 == 0
-    _launch(what, _build.load().rfft_axis_f32, x,
+    _launch(*_build_of(what, 'rfft_axis', x), x,
             _ptr(x), _ptr(out), _ptr(tw), tw.shape[1], pre, N, post, hext,
             nrows, int(fold), int(packed), plan, nst,
             1.0 if scale is None else float(scale))
@@ -674,7 +698,7 @@ def irfft_axis_p(p, axis, n, scale=None):
     sc = 1.0 if scale is None else float(scale)
     if packed:
         sc = 2.0 * sc
-    _launch(what, _build.load().irfft_axis_f32, p,
+    _launch(*_build_of(what, 'irfft_axis', p), p,
             _ptr(p), _ptr(out), _ptr(tw), tw.shape[1], pre, Hin, N, post,
             int(packed), plan, nst, sc)
     return out
@@ -735,8 +759,8 @@ def fft_axis2_p(pa, pb, axis, forward=True, scale=None, alias=False):
     shape = tuple(pa.shape[1:])
     axis = axis % len(shape)
     _require_pair_len(2 * shape[axis], what)
-    plain = _plain_ok(pa, what, contiguous=False)
-    _plain_ok(pb, what, contiguous=False)
+    plain = _plain_ok(pa, what, contiguous=False, f64=False)
+    _plain_ok(pb, what, contiguous=False, f64=False)
     if plain:
         oa, ob = fft_axis2_plain(pa, pb, axis, forward, scale)
         if alias:
@@ -767,7 +791,7 @@ def fft_axis_pair_p(p, axis, forward=True, scale=None):
     axis = axis % len(shape)
     N = shape[axis]
     _require_pair_len(N, what)
-    if _plain_ok(p, what):
+    if _plain_ok(p, what, f64=False):
         return fft_axis_pair_plain(p, axis, forward, scale)
     out = torch.empty_like(p)
     if out.numel() == 0:

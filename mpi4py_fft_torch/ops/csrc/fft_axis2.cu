@@ -2,7 +2,8 @@
 // along an axis whose N rows arrive as two halves of h = N/2 rows each
 // (rows 0..h-1 from operand a, rows h..N-1 from operand b), written as two
 // output halves in natural order, for N = 2^a or 3*2^a <= 2048, either
-// sign, with an optional scale folded into the last write.
+// sign, with an optional scale folded into the last write.  Float32 only:
+// the fp64 build is still to come (ROADMAP Queue 2, D64).
 //
 // Replaces the TPU kernels of mpi4py_fft_tpu/ops/pallas_butterfly.py
 // reached from fft_axis2_p :1358 through _dispatch2 :1280 (_kern_lead2,
@@ -34,7 +35,7 @@ namespace {
 // Least blocks an SM must hold for N > 1024: an 80 KB tile at N = 2048
 // lets two blocks share an SM's 228 KB and never three, so the bound
 // gives a thread 64 registers instead of kMinBlocks' 40.  Up to N = 1024
-// the tile is A's and so is the bound.
+// the tile is A's and so is the bound (Budget<float>).
 constexpr int kPairMinBlocks = 2;
 
 // One half of the axis: element (plane p, pre index i, row k, column c)
@@ -59,7 +60,7 @@ __device__ __forceinline__ void tile_index(int idx, int n, int lc,
 }
 
 template <int kBlocks>
-__global__ void __launch_bounds__(mff::kMaxThreads, kBlocks)
+__global__ void __launch_bounds__(mff::Budget<float>::kTile / 16, kBlocks)
 fft_axis2_kernel(Half<const float> a, Half<const float> b, Half<float> oa,
                  Half<float> ob, const float* __restrict__ tw,
                  long long tw_len, long long pre, int n, long long post,
@@ -70,7 +71,7 @@ fft_axis2_kernel(Half<const float> a, Half<const float> b, Half<float> oa,
   // pre index (-1 past the last line) and column of each tile line
   long long* lpre = reinterpret_cast<long long*>(smem);
   long long* lcol = lpre + C;
-  mff::Tile t;
+  mff::Tile<float> t;
   t.lc = lc;
   t.cp = C + 1;
   t.re = reinterpret_cast<float*>(lcol + C);
@@ -139,7 +140,7 @@ extern "C" int mff_fft_axis2_f32(const float* xa, const float* xb, float* ya,
   if (n < 2 || n % 2 != 0 || n > 2048 ||
       !mff::make_plan(plan, nstages, n, &p))
     return cudaErrorInvalidValue;
-  const int lc = mff::tile_log2_lines(n);
+  const int lc = mff::tile_log2_lines<float>(n);
   const int C = 1 << lc;
   const long long nlines = pre * post;
   const long long blocks = (nlines + C - 1) / C;
@@ -153,7 +154,7 @@ extern "C" int mff_fft_axis2_f32(const float* xa, const float* xb, float* ya,
   const size_t smem = 2 * sizeof(long long) * C +
                       2 * sizeof(float) * static_cast<size_t>(n) * (C + 1);
   auto kern = n > 1024 ? &fft_axis2_kernel<kPairMinBlocks>
-                       : &fft_axis2_kernel<mff::kMinBlocks>;
+                       : &fft_axis2_kernel<mff::Budget<float>::kMinBlocks>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));

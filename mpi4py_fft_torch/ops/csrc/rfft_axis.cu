@@ -1,5 +1,6 @@
 // rfft_axis_p and irfft_axis_p: real <-> Hermitian half spectrum along one
-// axis by the packed N/2-point method, for N = 2^a or 3*2^a <= 1024.
+// axis by the packed N/2-point method, for N = 2^a or 3*2^a <= 1024; built
+// for float32 and for float64.
 //
 // Replaces the TPU kernels of mpi4py_fft_tpu/ops/pallas_butterfly.py:
 // * r2c, reached from rfft_axis_p :1818 through _dispatch_r2c :1749:
@@ -8,9 +9,15 @@
 // * c2r, reached from irfft_axis_p :1980 through _dispatch_c2r :1850:
 //   _kern_lead_c2r/_kern_mid_c2r/_kern_last_c2r :1679-1724, row helpers
 //   _c2r_rows_packed :1645, _c2r_rows :1635 (N = 2), _herm_pad_rows :1527.
+// The float64 builds replace the double-single r2c/c2r of
+// mpi4py_fft_tpu/ops/pallas_ds.py, rfft_axis_ds :546 and irfft_axis_ds
+// :593 (XLA glue of pack, untangle and interleave around fft_axis_ds
+// :368), with every feature of the f32 kernels kept: hext, trunc with
+// the Nyquist fold, the Hermitian zero-pad in the read, 3*2^a lengths.
 //
-// Bound on an H100: bytes, as for fft_axis.cu: a real line of N floats in,
-// N/2+1 complex rows out (or the reverse), with about 2.5 N log2 N flops.
+// Bound on an H100: bytes, as for fft_axis.cu: a real line of N values
+// in, N/2+1 complex rows out (or the reverse), with about 2.5 N log2 N
+// flops.
 // Design: the same tile of C lines as fft_axis.cu, of the N/2-point packed
 // sequence z[m] = x[2m] + i x[2m+1].  The r2c kernel runs the stages in
 // shared memory and untangles the spectrum while it writes it (with the
@@ -58,20 +65,21 @@ __device__ __forceinline__ void tile_index(int idx, int rows, int lc,
 // Real (pre, n, post) -> planar (2, pre, hext, post).  W = n/2 when
 // packed, else n (n = 2).  Rows >= nrows are zero; fold doubles the real
 // part and zeroes the imaginary part of row nrows-1 (even truncation).
-__global__ void __launch_bounds__(mff::kMaxThreads, mff::kMinBlocks)
-rfft_axis_kernel(const float* __restrict__ x, float* __restrict__ y,
-                 const float* __restrict__ tw, long long tw_len,
+template <class T, int kBlocks>
+__global__ void __launch_bounds__(mff::Budget<T>::kTile / 16, kBlocks)
+rfft_axis_kernel(const T* __restrict__ x, T* __restrict__ y,
+                 const T* __restrict__ tw, long long tw_len,
                  long long pre, int n, long long post, int hext, int nrows,
                  int fold, int packed, int W, int t2, mff::Plan plan,
-                 float scale, int lc) {
+                 T scale, int lc) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int C = 1 << lc;
   long long* bin = reinterpret_cast<long long*>(smem);
   long long* bout = bin + C;
-  mff::Tile t;
+  mff::Tile<T> t;
   t.lc = lc;
   t.cp = C + 1;
-  t.re = reinterpret_cast<float*>(bout + C);
+  t.re = reinterpret_cast<T*>(bout + C);
   t.im = t.re + W * t.cp;
   const long long nlines = pre * post;
   line_bases2(bin, bout, static_cast<long long>(blockIdx.x) << lc, nlines,
@@ -82,19 +90,19 @@ rfft_axis_kernel(const float* __restrict__ x, float* __restrict__ y,
     int c, k;
     tile_index(idx, n, lc, post, &c, &k);
     const long long b = bin[c];
-    const float v = b >= 0 ? x[b + k * post] : 0.f;
+    const T v = b >= 0 ? x[b + k * post] : T(0);
     if (packed) {            // z[m] = x[2m] + i x[2m+1]
       ((k & 1) ? t.im : t.re)[(k >> 1) * t.cp + c] = v;
     } else {
       t.re[k * t.cp + c] = v;
-      t.im[k * t.cp + c] = 0.f;
+      t.im[k * t.cp + c] = 0;
     }
   }
   __syncthreads();
 
-  const float* twr = tw;
-  const float* twi = tw + tw_len;
-  mff::run_plan(t, W, plan, twr, twi, -1.f);
+  const T* twr = tw;
+  const T* twi = tw + tw_len;
+  mff::run_plan(t, W, plan, twr, twi, T(-1));
 
   const long long plane = nlines * hext;
   for (int idx = threadIdx.x; idx < (hext << lc); idx += blockDim.x) {
@@ -102,19 +110,19 @@ rfft_axis_kernel(const float* __restrict__ x, float* __restrict__ y,
     tile_index(idx, hext, lc, post, &c, &j);
     const long long b = bout[c];
     if (b < 0) continue;
-    float r = 0.f, i = 0.f;
+    T r = 0, i = 0;
     if (j < nrows) {
       if (packed) {
         // Z[j] (Z[W] = Z[0]) and Z[(W - j) % W]
         const int je = (j == W ? 0 : j) * t.cp + c;
         const int jr = (j == 0 ? 0 : W - j) * t.cp + c;
-        const float zre = t.re[je], zie = t.im[je];
-        const float zrr = t.re[jr], zir = t.im[jr];
-        const float er = 0.5f * (zre + zrr);
-        const float ei = 0.5f * (zie - zir);
-        const float orr = 0.5f * (zie + zir);
-        const float oi = 0.5f * (zrr - zre);
-        const float cw = __ldg(twr + t2 + j), sw = __ldg(twi + t2 + j);
+        const T zre = t.re[je], zie = t.im[je];
+        const T zrr = t.re[jr], zir = t.im[jr];
+        const T er = T(0.5) * (zre + zrr);
+        const T ei = T(0.5) * (zie - zir);
+        const T orr = T(0.5) * (zie + zir);
+        const T oi = T(0.5) * (zrr - zre);
+        const T cw = __ldg(twr + t2 + j), sw = __ldg(twi + t2 + j);
         // X = E + w^j O, w^j = cw - i sw
         r = (er + cw * orr + sw * oi) * scale;
         i = (ei + cw * oi - sw * orr) * scale;
@@ -123,8 +131,8 @@ rfft_axis_kernel(const float* __restrict__ x, float* __restrict__ y,
         i = t.im[j * t.cp + c] * scale;
       }
       if (fold && j == nrows - 1) {
-        r = 2.f * r;
-        i = 0.f;
+        r = T(2) * r;
+        i = 0;
       }
     }
     const long long a = b + j * post;
@@ -136,19 +144,20 @@ rfft_axis_kernel(const float* __restrict__ x, float* __restrict__ y,
 // Planar (2, pre, hin, post) -> real (pre, n, post).  W = n/2 when packed,
 // else n (n = 2); the tile holds W + 1 spectrum rows.  scale carries the
 // packed inverse's factor 2.
-__global__ void __launch_bounds__(mff::kMaxThreads, mff::kMinBlocks)
-irfft_axis_kernel(const float* __restrict__ x, float* __restrict__ y,
-                  const float* __restrict__ tw, long long tw_len,
+template <class T, int kBlocks>
+__global__ void __launch_bounds__(mff::Budget<T>::kTile / 16, kBlocks)
+irfft_axis_kernel(const T* __restrict__ x, T* __restrict__ y,
+                  const T* __restrict__ tw, long long tw_len,
                   long long pre, int hin, int n, long long post, int packed,
-                  int W, int t2, mff::Plan plan, float scale, int lc) {
+                  int W, int t2, mff::Plan plan, T scale, int lc) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int C = 1 << lc;
   long long* bin = reinterpret_cast<long long*>(smem);
   long long* bout = bin + C;
-  mff::Tile t;
+  mff::Tile<T> t;
   t.lc = lc;
   t.cp = C + 1;
-  t.re = reinterpret_cast<float*>(bout + C);
+  t.re = reinterpret_cast<T*>(bout + C);
   t.im = t.re + (W + 1) * t.cp;
   const long long nlines = pre * post;
   const long long plane = nlines * hin;
@@ -163,14 +172,14 @@ irfft_axis_kernel(const float* __restrict__ x, float* __restrict__ y,
     int c, k;
     tile_index(idx, nh, lc, post, &c, &k);
     const long long b = bin[c];
-    float vr = 0.f, vi = 0.f;
+    T vr = 0, vi = 0;
     if (b >= 0 && k < hin) {
       const long long a = b + k * post;
       vr = x[a];
       vi = x[plane + a];
       if (halve && k == hin - 1) {
-        vr = 0.5f * vr;
-        vi = 0.f;
+        vr = T(0.5) * vr;
+        vi = 0;
       }
     }
     t.re[k * t.cp + c] = vr;
@@ -178,26 +187,26 @@ irfft_axis_kernel(const float* __restrict__ x, float* __restrict__ y,
   }
   __syncthreads();
 
-  const float* twr = tw;
-  const float* twi = tw + tw_len;
+  const T* twr = tw;
+  const T* twi = tw + tw_len;
   if (packed) {
     // Z[k] = E[k] + i O[k] for k < W, in place: read all, sync, write
-    float zr[16], zi[16];
+    T zr[16], zi[16];
 #pragma unroll
     for (int s = 0; s < 16; ++s) {
       const int e = threadIdx.x + s * blockDim.x;
       if (e < (W << lc)) {
         const int c = e & (C - 1), k = e >> lc;
-        const float xrh = t.re[k * t.cp + c], xih = t.im[k * t.cp + c];
-        const float xrr = t.re[(W - k) * t.cp + c];
-        const float xir = t.im[(W - k) * t.cp + c];
-        const float er = 0.5f * (xrh + xrr);
-        const float ei = 0.5f * (xih + xir * -1.0f);
-        const float dr = xrh - xrr;
-        const float di = xih + xir;
-        const float cw = __ldg(twr + t2 + k), sw = __ldg(twi + t2 + k);
-        const float ore = 0.5f * (cw * dr - sw * di);
-        const float oim = 0.5f * (cw * di + sw * dr);
+        const T xrh = t.re[k * t.cp + c], xih = t.im[k * t.cp + c];
+        const T xrr = t.re[(W - k) * t.cp + c];
+        const T xir = t.im[(W - k) * t.cp + c];
+        const T er = T(0.5) * (xrh + xrr);
+        const T ei = T(0.5) * (xih + xir * T(-1));
+        const T dr = xrh - xrr;
+        const T di = xih + xir;
+        const T cw = __ldg(twr + t2 + k), sw = __ldg(twi + t2 + k);
+        const T ore = T(0.5) * (cw * dr - sw * di);
+        const T oim = T(0.5) * (cw * di + sw * dr);
         zr[s] = er - oim;
         zi[s] = ei + ore;
       }
@@ -215,7 +224,7 @@ irfft_axis_kernel(const float* __restrict__ x, float* __restrict__ y,
     __syncthreads();
   }
 
-  mff::run_plan(t, W, plan, twr, twi, 1.f);
+  mff::run_plan(t, W, plan, twr, twi, T(1));
 
   for (int idx = threadIdx.x; idx < (n << lc); idx += blockDim.x) {
     int c, m;
@@ -223,22 +232,82 @@ irfft_axis_kernel(const float* __restrict__ x, float* __restrict__ y,
     const long long b = bout[c];
     if (b < 0) continue;
     // packed: out[2m] = Re z[m], out[2m+1] = Im z[m]; else Re x[m]
-    const float v = packed
-        ? ((m & 1) ? t.im : t.re)[(m >> 1) * t.cp + c]
-        : t.re[m * t.cp + c];
+    const T v = packed ? ((m & 1) ? t.im : t.re)[(m >> 1) * t.cp + c]
+                       : t.re[m * t.cp + c];
     y[b + m * post] = v * scale;
   }
 }
 
+// Tile of a launch.  W <= 512 (N <= 1024), so every tile of either type
+// fits three times an SM and the kernels take Budget<T>::kMinBlocks.
+template <class T>
 bool launch_shape(int W, long long nlines, int* lc, long long* blocks,
                   int* threads) {
-  *lc = mff::tile_log2_lines(W);
+  *lc = mff::tile_log2_lines<T>(W);
   const int C = 1 << *lc;
   *blocks = (nlines + C - 1) / C;
   if (nlines <= 0 || *blocks > 0x7fffffffLL || ((W << *lc) % 16) != 0)
     return false;
   *threads = (W << *lc) / 16;
   return true;
+}
+
+template <class T>
+int launch_rfft_axis(const T* x, T* y, const T* tw, long long tw_len,
+                     long long pre, int n, long long post, int hext,
+                     int nrows, int fold, int packed, const int* plan,
+                     int nstages, T scale, void* stream) {
+  const int W = packed ? n / 2 : n;
+  mff::Plan p;
+  if (!mff::make_plan(plan, nstages, W, &p) || hext < nrows)
+    return cudaErrorInvalidValue;
+  int lc, threads;
+  long long blocks;
+  if (!launch_shape<T>(W, pre * post, &lc, &blocks, &threads))
+    return cudaErrorInvalidValue;
+  // stage twiddles first, then the unpack rows
+  const int t2 = packed ? static_cast<int>(tw_len) - (W + 1) : 0;
+  const int C = 1 << lc;
+  const size_t smem = 2 * sizeof(long long) * C +
+                      2 * sizeof(T) * static_cast<size_t>(W) * (C + 1);
+  auto kern = &rfft_axis_kernel<T, mff::Budget<T>::kMinBlocks>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  kern<<<static_cast<unsigned>(blocks), threads, smem,
+         static_cast<cudaStream_t>(stream)>>>(
+      x, y, tw, tw_len, pre, n, post, hext, nrows, fold, packed, W, t2, p,
+      scale, lc);
+  return cudaGetLastError();
+}
+
+template <class T>
+int launch_irfft_axis(const T* x, T* y, const T* tw, long long tw_len,
+                      long long pre, int hin, int n, long long post,
+                      int packed, const int* plan, int nstages, T scale,
+                      void* stream) {
+  const int W = packed ? n / 2 : n;
+  mff::Plan p;
+  if (!mff::make_plan(plan, nstages, W, &p) || hin < 1)
+    return cudaErrorInvalidValue;
+  int lc, threads;
+  long long blocks;
+  if (!launch_shape<T>(W, pre * post, &lc, &blocks, &threads))
+    return cudaErrorInvalidValue;
+  const int t2 = packed ? static_cast<int>(tw_len) - (W + 1) : 0;
+  const int C = 1 << lc;
+  const size_t smem = 2 * sizeof(long long) * C +
+                      2 * sizeof(T) * static_cast<size_t>(W + 1) * (C + 1);
+  auto kern = &irfft_axis_kernel<T, mff::Budget<T>::kMinBlocks>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  kern<<<static_cast<unsigned>(blocks), threads, smem,
+         static_cast<cudaStream_t>(stream)>>>(
+      x, y, tw, tw_len, pre, hin, n, post, packed, W, t2, p, scale, lc);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -251,28 +320,19 @@ extern "C" int mff_rfft_axis_f32(const float* x, float* y, const float* tw,
                                  long long post, int hext, int nrows,
                                  int fold, int packed, const int* plan,
                                  int nstages, float scale, void* stream) {
-  const int W = packed ? n / 2 : n;
-  mff::Plan p;
-  if (!mff::make_plan(plan, nstages, W, &p) || hext < nrows)
-    return cudaErrorInvalidValue;
-  int lc, threads;
-  long long blocks;
-  if (!launch_shape(W, pre * post, &lc, &blocks, &threads))
-    return cudaErrorInvalidValue;
-  // stage twiddles first, then the unpack rows
-  const int t2 = packed ? static_cast<int>(tw_len) - (W + 1) : 0;
-  const int C = 1 << lc;
-  const size_t smem = 2 * sizeof(long long) * C +
-                      2 * sizeof(float) * static_cast<size_t>(W) * (C + 1);
-  cudaError_t e = cudaFuncSetAttribute(
-      rfft_axis_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (e != cudaSuccess) return e;
-  rfft_axis_kernel<<<static_cast<unsigned>(blocks), threads, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      x, y, tw, tw_len, pre, n, post, hext, nrows, fold, packed, W, t2, p,
-      scale, lc);
-  return cudaGetLastError();
+  return launch_rfft_axis(x, y, tw, tw_len, pre, n, post, hext, nrows, fold,
+                          packed, plan, nstages, scale, stream);
+}
+
+// The same for float64 x, y and tw, with a double scale.
+extern "C" int mff_rfft_axis_f64(const double* x, double* y,
+                                 const double* tw, long long tw_len,
+                                 long long pre, int n, long long post,
+                                 int hext, int nrows, int fold, int packed,
+                                 const int* plan, int nstages, double scale,
+                                 void* stream) {
+  return launch_rfft_axis(x, y, tw, tw_len, pre, n, post, hext, nrows, fold,
+                          packed, plan, nstages, scale, stream);
 }
 
 // x: (2, pre, hin, post) float32; y: (pre, n, post) float32; both
@@ -283,24 +343,17 @@ extern "C" int mff_irfft_axis_f32(const float* x, float* y, const float* tw,
                                   int n, long long post, int packed,
                                   const int* plan, int nstages, float scale,
                                   void* stream) {
-  const int W = packed ? n / 2 : n;
-  mff::Plan p;
-  if (!mff::make_plan(plan, nstages, W, &p) || hin < 1)
-    return cudaErrorInvalidValue;
-  int lc, threads;
-  long long blocks;
-  if (!launch_shape(W, pre * post, &lc, &blocks, &threads))
-    return cudaErrorInvalidValue;
-  const int t2 = packed ? static_cast<int>(tw_len) - (W + 1) : 0;
-  const int C = 1 << lc;
-  const size_t smem = 2 * sizeof(long long) * C +
-                      2 * sizeof(float) * static_cast<size_t>(W + 1) * (C + 1);
-  cudaError_t e = cudaFuncSetAttribute(
-      irfft_axis_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (e != cudaSuccess) return e;
-  irfft_axis_kernel<<<static_cast<unsigned>(blocks), threads, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
-      x, y, tw, tw_len, pre, hin, n, post, packed, W, t2, p, scale, lc);
-  return cudaGetLastError();
+  return launch_irfft_axis(x, y, tw, tw_len, pre, hin, n, post, packed, plan,
+                           nstages, scale, stream);
+}
+
+// The same for float64 x, y and tw, with a double scale.
+extern "C" int mff_irfft_axis_f64(const double* x, double* y,
+                                  const double* tw, long long tw_len,
+                                  long long pre, int hin, int n,
+                                  long long post, int packed,
+                                  const int* plan, int nstages, double scale,
+                                  void* stream) {
+  return launch_irfft_axis(x, y, tw, tw_len, pre, hin, n, post, packed, plan,
+                           nstages, scale, stream);
 }

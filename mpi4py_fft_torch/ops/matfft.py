@@ -18,6 +18,12 @@ and the four-step around ``fft_axis_p`` for 4096; r2c and c2r take
 ``rfft_axis_p``/``irfft_axis_p`` up to 1024 on their real axis.  Other
 lengths raise NotImplementedError until the fallback engine arrives
 (ROADMAP Queue 1 item 2).
+
+float32 and float64 share this dispatch: the kernels' fp64 builds take
+the place of the JAX package's separate double-single engine
+(``pallas_ds``).  On CUDA, float64 axes over 1024 (the pair kernel and
+the four-step) raise NotImplementedError until the pair kernel has its
+fp64 build.
 """
 import functools
 
@@ -162,13 +168,16 @@ def fft1d_p(p, axis, forward=True, scale=None):
     if butterfly.supported_axis(shape, axis):
         return butterfly.fft_axis_p(p, axis, forward, scale=scale)
     half = shape[:axis] + (N // 2,) + shape[axis + 1:]
-    if N > butterfly._MAX_N_AXIS and butterfly.supported_axis_split(half,
-                                                                     axis):
-        return butterfly.fft_axis_pair_p(p, axis, forward, scale=scale)
-    split = _four_step_split(shape, axis)
-    if split is None:
+    pair = N > butterfly._MAX_N_AXIS and \
+        butterfly.supported_axis_split(half, axis)
+    split = None if pair else _four_step_split(shape, axis)
+    if not pair and split is None:
         raise butterfly._unsupported_length(
             'fft1d_p', N, "2^a or 3*2^a up to 2048, or 4096")
+    if p.device.type == 'cuda' and p.dtype == torch.float64:
+        raise butterfly._no_f64_pair('fft1d_p')
+    if pair:
+        return butterfly.fft_axis_pair_p(p, axis, forward, scale=scale)
     y = _butterfly_large(p, axis, -1 if forward else +1, split)
     if scale is not None:
         y.mul_(scale)

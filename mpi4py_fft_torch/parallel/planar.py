@@ -23,10 +23,16 @@ API sketch::
     qs = pfft.backward_fn_q(list(pfft.forward_fn_q(qs)))
     u3 = oop3d.assemble_q(qs)
 
+float32 ('f'/'F') and float64 ('d'/'D') plans run the same pipeline, with
+and without ``padding``: the kernels have an fp64 build, which takes the
+place of the JAX package's double-single branch (``_forward_ds``/
+``_backward_ds`` and its gates).  On CUDA, float64 axes over 1024 wait
+for the fp64 build of the pair kernel, and the quartered schedule is
+float32 only, as in the JAX package.
+
 Several devices (``comm``/``grid`` of more than one device, or
 ``executor='shard_map'``) raise NotImplementedError until the distributed
-layer arrives (ROADMAP Queue 1 item 4), and so do float64 plans on CUDA
-(item 5).
+layer arrives (ROADMAP Queue 1 item 4).
 """
 import numpy as np
 import torch
@@ -37,15 +43,10 @@ from ..libfft import truncate_planar, pad_planar
 __all__ = ['PlanarPFFT']
 
 
-def _resolve_device(device, rdtype):
+def _resolve_device(device):
     """CUDA unless the caller asks for another device; no silent CPU."""
     device = torch.device('cuda' if device is None else device)
     if device.type == 'cuda':
-        if rdtype == np.float64:
-            raise NotImplementedError(
-                "float64 plans on CUDA arrive with the fp64 kernels "
-                "(ROADMAP Queue 1 item 5); use device='cpu' for the plain "
-                "float64 path")
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "PlanarPFFT runs on CUDA by default and no CUDA device is "
@@ -96,7 +97,7 @@ class PlanarPFFT(object):
         self.real_transform = dtype.char in 'fd'
         self.rdtype = np.dtype('float32') if dtype.char in 'fF' \
             else np.dtype('float64')
-        self.device = _resolve_device(device, self.rdtype)
+        self.device = _resolve_device(device)
         self._tdtype = torch.float32 if self.rdtype == np.float32 \
             else torch.float64
 

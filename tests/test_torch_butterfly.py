@@ -220,9 +220,14 @@ def test_launch_counters_untouched_on_cpu():
     tb.irfft_axis_p(torch.zeros((2, 4, 5)), 1, 8)
     tb.fft_axis2_p(torch.zeros((2, 4, 8)), torch.zeros((2, 4, 8)), 0)
     tb.fft_axis_pair_p(torch.zeros((2, 2048, 2)), 0)
+    f64 = torch.float64
+    tb.fft_axis_p(torch.zeros((2, 4, 8), dtype=f64), 1)
+    tb.rfft_axis_p(torch.zeros((4, 8), dtype=f64), 1)
+    tb.irfft_axis_p(torch.zeros((2, 4, 5), dtype=f64), 1, 8)
     assert tb.LAUNCHES == {'fft_axis_p': 0, 'rfft_axis_p': 0,
                            'irfft_axis_p': 0, 'fft_axis2_p': 0,
-                           'fft_axis_pair_p': 0}
+                           'fft_axis_pair_p': 0, 'fft_axis_p_f64': 0,
+                           'rfft_axis_p_f64': 0, 'irfft_axis_p_f64': 0}
 
 
 def test_import_isolation():

@@ -8,8 +8,10 @@ race on the shared-memory tile gives a wrong result), and the launch
 syntax is rewritten into a call.  The port's own wrappers drive them, so
 the offsets, tile mapping, stage schedule, packing and the C entries'
 argument checks are all exercised.  Tolerance: relative L2 5e-6 (the JAX
-kernel tolerance, tests/test_butterfly.py:44).  On the card,
-chip_smoke.py holds the same kernels built by nvcc.
+kernel tolerance, tests/test_butterfly.py:44) for the float32 builds,
+2e-13 for the float64 builds (the JAX suite's tolerance for its f64
+kernel F, tests/test_ds.py:58).  On the card, chip_smoke.py holds the
+same kernels built by nvcc.
 """
 import ctypes
 import pathlib
@@ -28,6 +30,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 CSRC = ROOT / 'mpi4py_fft_torch' / 'ops' / 'csrc'
 EMU = pathlib.Path(__file__).resolve().parent / 'cuda_emu'
 TOL = 5e-6
+TOL64 = 2e-13
 
 
 def _emu_source(cu):
@@ -95,45 +98,71 @@ def _rel(a, b):
                  / torch.linalg.vector_norm(b.double()))
 
 
+def _launched():
+    """The launch counters that are not 0."""
+    return {k: v for k, v in bf.LAUNCHES.items() if v}
+
+
 # every axis position, ragged pre/post, tiny and long lengths, radix 3
 SHAPES = [((3, 96, 5), 1), ((4, 8), 0), ((2,), 0), ((7, 768), 1),
           ((1024, 3), 0), ((6, 5, 6), 2), ((5, 1024, 2), 1), ((9, 4, 33), 1),
           ((2, 384, 9), 1), ((96, 1, 130), 0), ((3, 512), 1), ((2, 12, 3), 1)]
 
 
-@pytest.mark.parametrize('shape,axis', SHAPES)
-def test_kernels_vs_plain(kernel_path, shape, axis):
+def _hold_kernels(plain_ok, shape, axis, dtype, tol):
+    """fft_axis_p (both signs, a scale), rfft_axis_p (hext, trunc with and
+    without the Nyquist fold, scales) and irfft_axis_p (long, short and
+    exact spectra) against their plain versions."""
     rng = np.random.default_rng(11)
     N = shape[axis]
     nh = N // 2 + 1
-    p = torch.from_numpy(rng.standard_normal((2,) + shape)
-                         .astype(np.float32))
+    p = torch.from_numpy(rng.standard_normal((2,) + shape).astype(dtype))
     for fwd, sc in ((True, None), (False, None), (True, 0.37)):
         got = bf.fft_axis_p(p, axis, fwd, scale=sc)
-        ref = _plain(kernel_path, bf.fft_axis_p, p, axis, fwd, scale=sc)
-        assert _rel(got, ref) <= TOL
-    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+        ref = _plain(plain_ok, bf.fft_axis_p, p, axis, fwd, scale=sc)
+        assert got.dtype == p.dtype
+        assert _rel(got, ref) <= tol
+    x = torch.from_numpy(rng.standard_normal(shape).astype(dtype))
     for hext, trunc, sc in ((None, None, None), (nh + 3, None, 0.5),
                             (None, max(1, nh - 2), None),
                             (nh + 1, max(1, nh - 1), 2.0)):
         got = bf.rfft_axis_p(x, axis, hext=hext, trunc=trunc, scale=sc)
-        ref = _plain(kernel_path, bf.rfft_axis_p, x, axis, hext=hext,
+        ref = _plain(plain_ok, bf.rfft_axis_p, x, axis, hext=hext,
                      trunc=trunc, scale=sc)
-        assert got.shape == ref.shape
-        assert _rel(got, ref) <= TOL
+        assert got.shape == ref.shape and got.dtype == x.dtype
+        assert _rel(got, ref) <= tol
     for hin, sc in ((nh, None), (nh + 2, 0.25), (max(1, nh - 1), None),
                     (max(1, nh - 2), None)):
         sh = list(shape)
         sh[axis] = hin
-        h = torch.from_numpy(rng.standard_normal([2] + sh)
-                             .astype(np.float32))
+        h = torch.from_numpy(rng.standard_normal([2] + sh).astype(dtype))
         got = bf.irfft_axis_p(h, axis, N, scale=sc)
-        ref = _plain(kernel_path, bf.irfft_axis_p, h, axis, N, scale=sc)
-        assert got.shape == ref.shape
-        assert _rel(got, ref) <= TOL
-    assert bf.LAUNCHES == {'fft_axis_p': 3, 'rfft_axis_p': 4,
-                           'irfft_axis_p': 4, 'fft_axis2_p': 0,
-                           'fft_axis_pair_p': 0}
+        ref = _plain(plain_ok, bf.irfft_axis_p, h, axis, N, scale=sc)
+        assert got.shape == ref.shape and got.dtype == h.dtype
+        assert _rel(got, ref) <= tol
+
+
+@pytest.mark.parametrize('shape,axis', SHAPES)
+def test_kernels_vs_plain(kernel_path, shape, axis):
+    _hold_kernels(kernel_path, shape, axis, np.float32, TOL)
+    assert _launched() == {'fft_axis_p': 3, 'rfft_axis_p': 4,
+                           'irfft_axis_p': 4}
+
+
+# the fp64 builds: lead, mid and last positions, ragged pre/post, the
+# 1024-point tile of two blocks an SM, 3*2^a lengths (96, 384, 768, 12)
+SHAPES64 = [((3, 96, 5), 1), ((1024, 3), 0), ((6, 5, 6), 2),
+            ((2, 384, 9), 1), ((96, 1, 130), 0), ((7, 768), 1),
+            ((2, 12, 3), 1), ((4, 8), 0)]
+
+
+@pytest.mark.parametrize('shape,axis', SHAPES64)
+def test_kernels_vs_plain_f64(kernel_path, shape, axis):
+    """The float64 entries, launched for float64 tensors and counted
+    under their own names."""
+    _hold_kernels(kernel_path, shape, axis, np.float64, TOL64)
+    assert _launched() == {'fft_axis_p_f64': 3, 'rfft_axis_p_f64': 4,
+                           'irfft_axis_p_f64': 4}
 
 
 # the pair kernel (full shape, axis): lead, mid and last positions, whole
@@ -170,9 +199,7 @@ def test_pair_kernel_vs_plain(kernel_path, shape, axis):
     assert ga is ca and gb is cb
     oa, ob = bf.fft_axis2_p(pa, pb, axis, False)
     assert torch.equal(ga, oa) and torch.equal(gb, ob)
-    assert bf.LAUNCHES == {'fft_axis_p': 0, 'rfft_axis_p': 0,
-                           'irfft_axis_p': 0, 'fft_axis2_p': 5,
-                           'fft_axis_pair_p': 3}
+    assert _launched() == {'fft_axis2_p': 5, 'fft_axis_pair_p': 3}
 
 
 def test_pair_kernel_refuses_layout(kernel_path):
@@ -192,11 +219,11 @@ def test_c_entry_rejects_bad_plan(emu_kernels):
     y = torch.empty_like(x)
     tw = bf._tw_tensor(8, -1, False, torch.float32, x.device)
     plan = (ctypes.c_int * 2)(2, 2)
-    rc = emu_kernels.fft_axis_f32(
-        ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(y.data_ptr()),
-        ctypes.c_void_p(tw.data_ptr()), tw.shape[1], 4, 8, 1, -1, plan, 2,
-        1.0, ctypes.c_void_p(0))
-    assert rc != 0
+    for fn in (emu_kernels.fft_axis_f32, emu_kernels.fft_axis_f64):
+        rc = fn(ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(y.data_ptr()),
+                ctypes.c_void_p(tw.data_ptr()), tw.shape[1], 4, 8, 1, -1,
+                plan, 2, 1.0, ctypes.c_void_p(0))
+        assert rc != 0
     for n, plan in ((4096, (16, 16, 16)), (9, (3, 3)), (8, (2, 2))):
         radices = (ctypes.c_int * len(plan))(*plan)
         rc = emu_kernels.fft_axis2_f32(

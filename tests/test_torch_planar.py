@@ -162,9 +162,18 @@ def test_default_device_is_cuda():
 
 
 def test_f64_on_cuda_raises():
+    """float64 plans run on CUDA like float32 ones, with and without
+    padding: on a machine without CUDA a plan with no device raises
+    RuntimeError (no silent CPU); with CUDA, 'd' and 'D' plans are on the
+    card."""
     for dt in ('d', 'D'):
-        with pytest.raises(NotImplementedError, match='Queue 1 item 5'):
-            PlanarPFFT(None, (8, 8, 8), dtype=dt)
+        for padding in (False, 1.5):
+            if torch.cuda.is_available():
+                tp = PlanarPFFT(None, (8, 8, 8), dtype=dt, padding=padding)
+                assert tp.device.type == 'cuda'
+                continue
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                PlanarPFFT(None, (8, 8, 8), dtype=dt, padding=padding)
 
 
 def test_quartered_and_launches():
