@@ -55,8 +55,10 @@ Phases, in order; any failure raises and the script exits non-zero:
              N = 2048 passes of every axis position;
 12. times64  the fp64 builds at the 512^3 DNS's shapes (held at 2e-13 on
              both signs), timed beside their plain versions, complex128
-             ``torch.fft`` and their bounds; and the 1024^3 ``'D'``
-             transform end to end.
+             ``torch.fft`` and their bounds; ``fft_axis_p_f64`` at the six
+             passes of the 1024^3 ``'D'`` transform on the full volume,
+             held at 2e-13 against its plain version slab by slab; and
+             the 1024^3 ``'D'`` transform end to end.
 
 Phases 3 to 10 are the main path: the launch counters are set to 0 just
 before phase 3 and read after phase 10.  Each phase prints one JSON line;
@@ -666,10 +668,10 @@ def phase_dns64(dev, bf):
         ms.append(ta.elapsed_time(tb))
     c3 = dict(bf.LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 1e9
-    per_step = {name: c // 2 for name, c in _delta(c2, c3).items()}
-    _check(per_step == {'fft_axis_p_f64': 72, 'rfft_axis_p_f64': 12,
-                        'irfft_axis_p_f64': 24},
-           f"DNS launches a step {per_step}")
+    per_step = {'fft_axis_p_f64': 72, 'rfft_axis_p_f64': 12,
+                'irfft_axis_p_f64': 24}
+    _check(_delta(c2, c3) == {k: 2 * c for k, c in per_step.items()},
+           f"DNS launches in 2 steps {_delta(c2, c3)}")
     _check(bool(torch.isfinite(U).all()), "DNS state: non-finite")
     e = energy(U)
     c4 = dict(bf.LAUNCHES)
@@ -706,8 +708,9 @@ def phase_dns64(dev, bf):
 
 
 def phase_times64(dev, bf, holds):
-    """The fp64 builds at the 512^3 DNS's shapes, both signs held; and
-    the 1024^3 'D' transform end to end."""
+    """The fp64 builds at the 512^3 DNS's shapes, both signs held; A64 on
+    the full 1024^3 'D' volume, held; and the 1024^3 'D' transform end to
+    end."""
     n = DNS_N
     nh = n // 2 + 1
     g = torch.Generator(device=dev).manual_seed(SEED + 21)
@@ -767,6 +770,7 @@ def phase_times64(dev, bf, holds):
         'bound_ms': b, 'bound_by': by}
     del h, hc
     torch.cuda.empty_cache()
+    slabs = _holds_volume64(dev, bf, holds)
     # end to end: the normalized 'D' forward and the backward, timed apart
     # (x, y and the two volumes in flight fill 3 of the card's 80 GB)
     from mpi4py_fft_torch import PlanarPFFT
@@ -785,8 +789,37 @@ def phase_times64(dev, bf, holds):
            'e2e_ms_per_transform': e2e, 'e2e_fwd_ms': t_f,
            'e2e_bwd_ms': t_b, 'e2e_bound_ms': 3 * b3,
            'e2e_gflops_5nlogn': 5.0 * m ** 3 * math.log2(m ** 3)
-           / (e2e * 1e-3) / 1e9, 'kernels': out})
+           / (e2e * 1e-3) / 1e9, 'full_volume_slabs_held': slabs,
+           'kernels': out})
     return out
+
+
+def _holds_volume64(dev, bf, holds):
+    """fft_axis_p_f64 on a random (2, 1024, 1024, 1024) volume at the six
+    passes of a normalized 'D' forward and backward (forward axes 2, 1,
+    then 0 with the 1/n^3 scale; backward axes 0, 1, 2), each held against
+    fft_axis_plain slab by slab along an axis it does not transform (64
+    rows, 1.07 GB a slab); returns the number of slabs held."""
+    n = NORTH64_N
+    g = torch.Generator(device=dev).manual_seed(SEED + 22)
+    x = torch.rand((2, n, n, n), generator=g, device=dev,
+                   dtype=torch.float64).sub_(0.5)
+    passes = ((2, True, None), (1, True, None), (0, True, 1.0 / n ** 3),
+              (0, False, None), (1, False, None), (2, False, None))
+    s = min(64, n)
+    for ax, fwd, sc in passes:
+        k = bf.fft_axis_p(x, ax, fwd, scale=sc)
+        d = 2 if ax == 0 else 1         # the slabs' dim in the planar view
+        for i in range(0, n, s):
+            holds.hold('fft_axis_p_f64', k.narrow(d, i, s),
+                       bf.fft_axis_plain(x.narrow(d, i, s), ax, fwd,
+                                         scale=sc),
+                       f"fft_axis_p_f64 {n}^3 axis {ax} fwd={fwd} "
+                       f"slab {i}")
+        del k
+    del x
+    torch.cuda.empty_cache()
+    return len(passes) * n // s
 
 
 def phase_times(dev, bf, holds, pfft, x):

@@ -29,19 +29,22 @@ namespace mff {
 
 // The tile budget of an element type: elements per tile (lines x line
 // length), and the least number of blocks an SM must hold where that many
-// tiles fit its shared memory (kMinBlocks), else kWideMinBlocks.  A thread
-// owns 16 elements, so a block has up to kTile / 16 threads.
+// tiles fit its shared memory (kMinBlocks), else kWideMinBlocks (see
+// pick_bound).  A thread owns 16 elements, so a block has up to kTile / 16
+// threads.
 template <class T>
 struct Budget;
 
 // float: three 512-thread blocks an SM cap a thread at 40 registers; on
 // an H100 the spills cost less than the occupancy buys (PERF.md).  Every
-// f32 tile up to W = 1024 (74 KB) fits three times.
+// f32 tile up to W = 1536 (74 KB at W = 1024) fits three times; the pair
+// kernel's tile at N = 2048 (80 KB) fits only twice, and the bound gives
+// a thread 64 registers.
 template <>
 struct Budget<float> {
   static constexpr int kTile = 8192;
   static constexpr int kMinBlocks = 3;
-  static constexpr int kWideMinBlocks = 3;
+  static constexpr int kWideMinBlocks = 2;
 };
 
 // double: a thread's 16 complex values take 64 registers, and an
@@ -65,6 +68,14 @@ constexpr std::size_t kSmemPerBlock = 1024;
 // fit one SM.
 inline bool fits_blocks(std::size_t smem, int blocks) {
   return blocks * (smem + kSmemPerBlock) <= kSmemPerSm;
+}
+
+// The instance of a kernel to launch with a tile of `smem` bytes: the one
+// bound to Budget<T>::kMinBlocks blocks an SM where that many tiles fit,
+// else the one bound to kWideMinBlocks.
+template <class T, class K>
+inline K pick_bound(std::size_t smem, K narrow, K wide) {
+  return fits_blocks(smem, Budget<T>::kMinBlocks) ? narrow : wide;
 }
 
 constexpr int kMaxStages = 16;

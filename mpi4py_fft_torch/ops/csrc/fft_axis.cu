@@ -118,9 +118,8 @@ int launch_fft_axis(const T* x, T* y, const T* tw, long long tw_len,
   const size_t smem = sizeof(long long) * C +
                       2 * sizeof(T) * static_cast<size_t>(n) * (C + 1);
   using B = mff::Budget<T>;
-  auto kern = mff::fits_blocks(smem, B::kMinBlocks)
-                  ? &fft_axis_kernel<T, B::kMinBlocks>
-                  : &fft_axis_kernel<T, B::kWideMinBlocks>;
+  auto kern = mff::pick_bound<T>(smem, &fft_axis_kernel<T, B::kMinBlocks>,
+                                 &fft_axis_kernel<T, B::kWideMinBlocks>);
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));

@@ -23,20 +23,15 @@
 // both halves once.  Design: A's tile (butterfly.cuh) at W = N.  A block
 // loads C lines, rows below h from a and the rest from b, into one
 // shared-memory tile, runs every stage there and writes rows below h to
-// oa and the rest to ob.  At N = 2048 the tile holds C = 4 lines (80 KB),
-// so a row segment is 16 bytes a plane: half a 32-byte sector, and the
-// lead and mid passes sit further from their bound than A's at N = 1024.
+// oa and the rest to ob.  At N = 2048 the tile holds C = 4 lines (80 KB,
+// two blocks an SM: the wide bound of butterfly.cuh), so a row segment is
+// 16 bytes a plane: half a 32-byte sector, and the lead and mid passes
+// sit further from their bound than A's at N = 1024.
 #include <cstdint>
 
 #include "butterfly.cuh"
 
 namespace {
-
-// Least blocks an SM must hold for N > 1024: an 80 KB tile at N = 2048
-// lets two blocks share an SM's 228 KB and never three, so the bound
-// gives a thread 64 registers instead of kMinBlocks' 40.  Up to N = 1024
-// the tile is A's and so is the bound (Budget<float>).
-constexpr int kPairMinBlocks = 2;
 
 // One half of the axis: element (plane p, pre index i, row k, column c)
 // sits at ptr[p * plane + i * pre + k * post + c].
@@ -153,8 +148,9 @@ extern "C" int mff_fft_axis2_f32(const float* xa, const float* xb, float* ya,
   const int threads = (n << lc) / 16;
   const size_t smem = 2 * sizeof(long long) * C +
                       2 * sizeof(float) * static_cast<size_t>(n) * (C + 1);
-  auto kern = n > 1024 ? &fft_axis2_kernel<kPairMinBlocks>
-                       : &fft_axis2_kernel<mff::Budget<float>::kMinBlocks>;
+  using B = mff::Budget<float>;
+  auto kern = mff::pick_bound<float>(smem, &fft_axis2_kernel<B::kMinBlocks>,
+                                     &fft_axis2_kernel<B::kWideMinBlocks>);
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));

@@ -238,8 +238,7 @@ irfft_axis_kernel(const T* __restrict__ x, T* __restrict__ y,
   }
 }
 
-// Tile of a launch.  W <= 512 (N <= 1024), so every tile of either type
-// fits three times an SM and the kernels take Budget<T>::kMinBlocks.
+// Tile of a launch.
 template <class T>
 bool launch_shape(int W, long long nlines, int* lc, long long* blocks,
                   int* threads) {
@@ -270,7 +269,9 @@ int launch_rfft_axis(const T* x, T* y, const T* tw, long long tw_len,
   const int C = 1 << lc;
   const size_t smem = 2 * sizeof(long long) * C +
                       2 * sizeof(T) * static_cast<size_t>(W) * (C + 1);
-  auto kern = &rfft_axis_kernel<T, mff::Budget<T>::kMinBlocks>;
+  using B = mff::Budget<T>;
+  auto kern = mff::pick_bound<T>(smem, &rfft_axis_kernel<T, B::kMinBlocks>,
+                                 &rfft_axis_kernel<T, B::kWideMinBlocks>);
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -299,7 +300,9 @@ int launch_irfft_axis(const T* x, T* y, const T* tw, long long tw_len,
   const int C = 1 << lc;
   const size_t smem = 2 * sizeof(long long) * C +
                       2 * sizeof(T) * static_cast<size_t>(W + 1) * (C + 1);
-  auto kern = &irfft_axis_kernel<T, mff::Budget<T>::kMinBlocks>;
+  using B = mff::Budget<T>;
+  auto kern = mff::pick_bound<T>(smem, &irfft_axis_kernel<T, B::kMinBlocks>,
+                                 &irfft_axis_kernel<T, B::kWideMinBlocks>);
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
