@@ -13,7 +13,7 @@ both sets of times and the card's clocks, temperature and power after
 each.  Run it once for each tree, alternating (parent, change, change,
 parent), on one card:
 
-    python3 mpi4py_fft_torch/tools/f32_order_ab.py TREE
+    python3 tools/f32_order_ab.py TREE
 
 With ``--sass PARENT CHANGE`` it compares instead the SASS of every f32
 kernel instance in the two trees' built libraries (``cuobjdump -sass``,
@@ -30,7 +30,7 @@ import sys
 import time
 from pathlib import Path
 
-ROOT = Path(__file__).resolve().parents[2]
+ROOT = Path(__file__).resolve().parents[1]
 
 
 def _smi():
