@@ -11,8 +11,11 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. holds     every kernel against its plain PyTorch version on the card
              (relative L2 <= 5e-6), the pair kernels at lead, mid and last
              positions for N up to 2048, and the fp64 builds of
-             ``fft_axis_p``, ``rfft_axis_p`` and ``irfft_axis_p`` on
-             float64 tensors (<= 2e-13);
+             ``fft_axis_p``, ``rfft_axis_p``, ``irfft_axis_p`` and
+             ``fft_axis_tp`` on float64 tensors (<= 2e-13); the fused
+             dealiasing kernel ``fft_axis_tp`` at lead, mid and last
+             positions, truncation and padding, even and odd Nt, with and
+             without a scale;
 3. entry     the port's ``entry()``: a 64^3 r2c f32 forward;
 4. north     ``PlanarPFFT(None, (1024,)*3, dtype='F')``: normalized
              forward and backward against ``torch.fft.fftn`` (oracle only)
@@ -46,22 +49,54 @@ Phases, in order; any failure raises and the script exits non-zero:
              ``irfft_axis_p_f64`` launches a step, the state held at 2e-10
              against the same solver on complex128 ``torch.fft``
              (oracle only), and the peak device memory;
-11. times    each kernel at the main path's shapes (CUDA events, median of
+11. pfft     the reference API's dealiased plan, the JAX package's
+             milestone #3: ``PFFT(None, (512,)*3, padding=[1.5]*3,
+             dtype='f')`` on planar tensors through ``forward.fn_p``/
+             ``backward.fn_p``, exactly 1 ``rfft_axis_p`` + 2
+             ``fft_axis_tp`` launches a forward and 2 ``fft_axis_tp`` + 1
+             ``irfft_axis_p`` a backward, against the port's plain path on
+             the card and a truncated ``torch.fft.rfftn`` oracle (5e-5),
+             timed, with its peak device memory;
+12. pfft_c2c the same plan at ``'F'`` (3 ``fft_axis_tp`` launches each way)
+             against a truncated ``torch.fft.fftn``;
+13. pfft64   the same plan at ``'d'`` (``fft_axis_tp_f64``, 2e-10);
+14. buffer   ``newDistArray`` and the buffer call ``fft.forward(u)``/
+             ``fft.backward(u_hat, u)`` on DistArrays kept on the card, 256^3
+             ``'d'`` (real) and ``'D'`` (complex): the forward against
+             ``torch.fft`` and the round trip at 2e-10;
+15. dns_solver the reference DNS solver on ``PFFT``
+             (``mpi4py_fft_torch/examples/spectral_dns_solver.py``, complex
+             tensors through ``forward.fn``/``backward.fn``): the 64^3
+             energy anchor unpadded, then ``padding=True`` at 512^3 ``'d'``,
+             2 RK4 steps timed after a warm-up step, with 72
+             ``fft_axis_tp_f64``, 12 ``rfft_axis_p_f64`` and 24
+             ``irfft_axis_p_f64`` launches a step, the state held at 2e-10
+             against the same solver on complex128 ``torch.fft``
+             (oracle only), and the peak device memory;
+16. times    each kernel at the main path's shapes (CUDA events, median of
              7 after 2 warm-ups) beside its plain version, the one PyTorch
              call that computes the same function, and its bound; and the
              end-to-end 1024^3 c2c transform, unquartered and quartered.
              Every main-path shape of a kernel is also held against its
              plain version at <= 5e-6, and so are the pair kernels at the
              N = 2048 passes of every axis position;
-12. times64  the fp64 builds at the 512^3 DNS's shapes (held at 2e-13 on
+17. times64  the fp64 builds at the 512^3 DNS's shapes (held at 2e-13 on
              both signs), timed beside their plain versions, complex128
              ``torch.fft`` and their bounds; ``fft_axis_p_f64`` at the six
              passes of the 1024^3 ``'D'`` transform on the full volume,
              held at 2e-13 against its plain version slab by slab; and
-             the 1024^3 ``'D'`` transform end to end.
+             the 1024^3 ``'D'`` transform end to end;
+18. times_tp ``fft_axis_tp`` and ``fft_axis_tp_f64`` at the four passes of
+             the dealiased 512^3 plan (forward axes 1 and 0 with the
+             truncation and the stage's scale, backward axes 0 and 1 with
+             the padding), each held against ``fft_axis_tp_plain`` slab by
+             slab on its full volume, timed beside the plain version, its
+             bound and cuFFT's unfused c2c pass at the same shape (no one
+             PyTorch call computes the fused function: ``library_ms`` is
+             null).
 
-Phases 3 to 10 are the main path: the launch counters are set to 0 just
-before phase 3 and read after phase 10.  Each phase prints one JSON line;
+Phases 3 to 15 are the main path: the launch counters are set to 0 just
+before phase 3 and read after phase 15.  Each phase prints one JSON line;
 then come the ``{"kernels": [...]}`` line, the card's name and power limit
 from nvidia-smi, and last ``{"ok": true, "device": {...}}``.  Without a
 CUDA device the script prints no result and exits with 1.
@@ -103,6 +138,9 @@ NORTH64_N = 1024           # the c2c north star at float64 ('D')
 DEALIAS64_N = 512          # the r2c 'd' 3/2-rule plan
 DNS_N = 512                # the spectral DNS at float64
 DNS_ANCHOR_N = 64          # the reference's energy anchor
+PFFT_N = 512               # the reference API's 3/2-rule plans (768^3 grid)
+BUFFER_N = 256             # the buffer call on DistArrays
+DNS_SOLVER_N = 512         # the reference DNS solver, dealiased, at float64
 
 
 def _emit(obj):
@@ -159,14 +197,16 @@ def _median_ms(fn, reps=7, warm=2):
 def _plain_path(bf):
     """Run the port's pipeline with every kernel wrapper replaced by its
     plain version (the plain path on the card)."""
-    saved = bf.fft_axis_p, bf.rfft_axis_p, bf.irfft_axis_p
+    saved = bf.fft_axis_p, bf.rfft_axis_p, bf.irfft_axis_p, bf.fft_axis_tp
     bf.fft_axis_p = bf.fft_axis_plain
     bf.rfft_axis_p = bf.rfft_axis_plain
     bf.irfft_axis_p = bf.irfft_axis_plain
+    bf.fft_axis_tp = bf.fft_axis_tp_plain
     try:
         yield
     finally:
-        bf.fft_axis_p, bf.rfft_axis_p, bf.irfft_axis_p = saved
+        (bf.fft_axis_p, bf.rfft_axis_p, bf.irfft_axis_p,
+         bf.fft_axis_tp) = saved
 
 
 def _delta(c0, c1):
@@ -234,6 +274,7 @@ def phase_holds(holds, dev):
     n = 0
     for dtype, sfx in ((torch.float32, ''), (torch.float64, '_f64')):
         n += _holds_abc(holds, bf, lambda *s: rnd(*s, dtype=dtype), sfx)
+        n += _holds_tp(holds, bf, lambda *s: rnd(*s, dtype=dtype), sfx)
     # the pair kernels: halves sliced out of one tensor (views, strided
     # off axis 0), the whole tensor, and contiguous halves aliased
     for N in (4, 6, 96, 1024, 1536, 2048):
@@ -309,6 +350,38 @@ def _holds_abc(holds, bf, rnd, sfx):
                        bf.irfft_axis_plain(h, ax, N, scale=sc),
                        f"{c} {tuple(sh)} axis {ax} n={N}")
             n += 1
+    return n
+
+
+def _holds_tp(holds, bf, rnd, sfx):
+    """fft_axis_tp of one build against its plain version: lead, mid and
+    last positions, whole lines, the 768- and 1024-point tiles, even Nt
+    (fold and split) and odd Nt, Nt = 1, both signs, with and without a
+    scale; returns the number of cases."""
+    name = 'fft_axis_tp' + sfx
+    n = 0
+    for shape, ax, nt in (((768, 6, 40), 0, 512), ((6, 768, 40), 1, 512),
+                          ((50, 768), 1, 512), ((96, 24, 40), 0, 63),
+                          ((6, 96, 40), 1, 64), ((40, 96), 1, 63),
+                          ((6, 5, 1024), 2, 683), ((3, 8, 48), 2, 32),
+                          ((12, 5, 7), 0, 1)):
+        N = shape[ax]
+        p = rnd(2, *shape)
+        sh = list(shape)
+        sh[ax] = nt
+        q = rnd(2, *sh)
+        for fwd in (True, False):
+            for sc in (None, 1.0 / N):
+                what = f"{name} {shape} axis {ax} Nt={nt} fwd={fwd} sc={sc}"
+                holds.hold(name, bf.fft_axis_tp(p, ax, fwd, trunc=nt,
+                                                scale=sc),
+                           bf.fft_axis_tp_plain(p, ax, fwd, trunc=nt,
+                                                scale=sc), f"{what} trunc")
+                holds.hold(name, bf.fft_axis_tp(q, ax, fwd, pad=N,
+                                                scale=sc),
+                           bf.fft_axis_tp_plain(q, ax, fwd, pad=N,
+                                                scale=sc), f"{what} pad")
+                n += 2
     return n
 
 
@@ -1004,6 +1077,345 @@ def _times_pair(dev, bf, holds):
     return row
 
 
+def _planar_c(z):
+    """A complex tensor as a real (..., 2) view, for _rel."""
+    return torch.view_as_real(z) if z.is_complex() else z
+
+
+def _truncate_all(ref, d, hermitian):
+    """The forward's 3/2-rule truncations of a normalized planar spectrum
+    of the (1.5 d)^3 grid, axis by axis (they commute with the other
+    axes' transforms)."""
+    from mpi4py_fft_torch.libfft import truncate_planar
+    ref = truncate_planar(ref, 3, d // 2 + 1 if hermitian else d,
+                          hermitian=hermitian)
+    ref = truncate_planar(ref, 2, d, hermitian=False)
+    return truncate_planar(ref, 1, d, hermitian=False)
+
+
+def phase_pfft(dev, bf, dtype):
+    """The reference API's dealiased plan ``PFFT(None, (d,)*3,
+    padding=[1.5]*3)`` on planar tensors (phase pfft at 'f', pfft_c2c at
+    'F', pfft64 at 'd')."""
+    from mpi4py_fft_torch import PFFT
+    f64, real = dtype in 'dD', dtype in 'fd'
+    d = PFFT_N
+    m = 3 * d // 2
+    sfx, tol = ('_f64', PIPE_TOL64) if f64 else ('', PIPE_TOL)
+    tdt = torch.float64 if f64 else torch.float32
+    fft = PFFT(None, (d,) * 3, padding=[1.5] * 3, dtype=dtype)
+    _check(fft.global_shape(False) == (m,) * 3,
+           f"padded shape {fft.global_shape(False)}")
+    g = torch.Generator(device=dev).manual_seed(SEED + 30 + ord(dtype))
+    x = torch.rand((m,) * 3 if real else (2,) + (m,) * 3, generator=g,
+                   device=dev, dtype=tdt) - 0.5
+    tp = 'fft_axis_tp' + sfx
+    want_f = {'rfft_axis_p' + sfx: 1, tp: 2} if real else {tp: 3}
+    want_b = {tp: 2, 'irfft_axis_p' + sfx: 1} if real else {tp: 3}
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    c0 = dict(bf.LAUNCHES)
+    y = fft.forward.fn_p(x)
+    torch.cuda.synchronize()
+    c1 = dict(bf.LAUNCHES)
+    fwd_peak = torch.cuda.max_memory_allocated() / 1e9 - held
+    torch.cuda.reset_peak_memory_stats()
+    held_b = torch.cuda.memory_allocated() / 1e9
+    z = fft.backward.fn_p(y)
+    torch.cuda.synchronize()
+    c2 = dict(bf.LAUNCHES)
+    bwd_peak = torch.cuda.max_memory_allocated() / 1e9 - held_b
+    _check(_delta(c0, c1) == want_f, f"'{dtype}' forward launches "
+                                     f"{_delta(c0, c1)}")
+    _check(_delta(c1, c2) == want_b, f"'{dtype}' backward launches "
+                                     f"{_delta(c1, c2)}")
+    spec = (2, d, d, d // 2 + 1) if real else (2, d, d, d)
+    _check(tuple(y.shape) == spec and y.dtype == tdt,
+           f"spectrum {tuple(y.shape)} {y.dtype}")
+    _check(tuple(z.shape) == tuple(x.shape), f"backward {tuple(z.shape)}")
+    with _plain_path(bf):
+        yp = fft.forward.fn_p(x)
+        zp = fft.backward.fn_p(yp)
+    torch.cuda.synchronize()
+    _check(bf.LAUNCHES == c2, "the plain path launched a kernel")
+    err_y, _ = _rel(y, yp)
+    err_z, _ = _rel(z, zp)
+    del yp, zp
+    if real:
+        F = torch.fft.rfftn(x, norm='forward')
+    else:
+        F = torch.fft.fftn(torch.complex(x[0], x[1]), norm='forward')
+    ref = torch.stack([F.real, F.imag])
+    del F
+    ref = _truncate_all(ref, d, real)
+    err_o, mx_o = _rel(y, ref)
+    del ref
+    _check(bool(torch.isfinite(y).all()) and bool(torch.isfinite(z).all()),
+           f"'{dtype}': non-finite")
+    _check(max(err_y, err_z, err_o) <= tol,
+           f"'{dtype}' {d}^3 padded: fwd vs plain {err_y:.3e}, bwd vs plain "
+           f"{err_z:.3e}, vs oracle {err_o:.3e}")
+    del z
+    t_f = _median_ms(lambda: fft.forward.fn_p(x), reps=5, warm=1)
+    t_b = _median_ms(lambda: fft.backward.fn_p(y), reps=5, warm=1)
+    del x, y
+    torch.cuda.empty_cache()
+    name = {'f': 'pfft', 'F': 'pfft_c2c', 'd': 'pfft64'}[dtype]
+    _emit({'phase': name, 'shape': [d] * 3, 'physical': [m] * 3,
+           'dtype': dtype, 'rel_l2_fwd_vs_plain': err_y,
+           'rel_l2_bwd_vs_plain': err_z, 'rel_l2_fwd_vs_oracle': err_o,
+           'max_abs_fwd_vs_oracle': mx_o, 'launches_fwd': want_f,
+           'launches_bwd': want_b, 'fwd_ms': t_f, 'bwd_ms': t_b,
+           'fwd_peak_above_input_gb': fwd_peak,
+           'bwd_peak_above_input_gb': bwd_peak})
+
+
+def phase_buffer(dev, bf):
+    """``newDistArray`` and the buffer call on DistArrays kept on the card:
+    a real ('d') and a complex ('D') 256^3 plan, the forward against
+    torch.fft and the round trip."""
+    from mpi4py_fft_torch import PFFT, DistArray, newDistArray
+    n = BUFFER_N
+    out = {}
+    for i, dtype in enumerate(('d', 'D')):
+        fft = PFFT(None, (n,) * 3, dtype=dtype)
+        u = newDistArray(fft, False)
+        _check(isinstance(u, DistArray) and u.v.device == dev,
+               f"newDistArray on {u.v.device}")
+        g = torch.Generator(device=dev).manual_seed(SEED + 40 + i)
+        data = torch.rand((n,) * 3, generator=g, device=dev,
+                          dtype=torch.float64) - 0.5
+        if dtype == 'D':
+            data = torch.complex(data, torch.rand(
+                (n,) * 3, generator=g, device=dev, dtype=torch.float64))
+        u[:] = data
+        c0 = dict(bf.LAUNCHES)
+        uh = fft.forward(u)
+        torch.cuda.synchronize()
+        c1 = dict(bf.LAUNCHES)
+        _check(isinstance(uh, DistArray) and uh.v.device == dev
+               and uh.v.is_complex(), f"forward gave {type(uh)}")
+        ub = newDistArray(fft, False)
+        _check(fft.backward(uh, ub) is ub, "backward did not fill ub")
+        torch.cuda.synchronize()
+        c2 = dict(bf.LAUNCHES)
+        want_f = {'rfft_axis_p_f64': 1, 'fft_axis_p_f64': 2} \
+            if dtype == 'd' else {'fft_axis_p_f64': 3}
+        want_b = {'irfft_axis_p_f64': 1, 'fft_axis_p_f64': 2} \
+            if dtype == 'd' else {'fft_axis_p_f64': 3}
+        _check(_delta(c0, c1) == want_f and _delta(c1, c2) == want_b,
+               f"'{dtype}' buffer launches {_delta(c0, c1)} "
+               f"{_delta(c1, c2)}")
+        ref = torch.fft.rfftn(data, norm='forward') if dtype == 'd' \
+            else torch.fft.fftn(data, norm='forward')
+        err_f, _ = _rel(_planar_c(uh.v), _planar_c(ref))
+        del ref
+        err_rt, _ = _rel(_planar_c(ub.v), _planar_c(data))
+        _check(max(err_f, err_rt) <= PIPE_TOL64,
+               f"'{dtype}' buffer: forward {err_f:.3e}, round trip "
+               f"{err_rt:.3e}")
+        out[dtype] = {'rel_l2_fwd_vs_fft': err_f, 'rel_l2_round_trip': err_rt,
+                      'launches_fwd': want_f, 'launches_bwd': want_b}
+        del u, uh, ub, data, fft
+        torch.cuda.empty_cache()
+    _emit({'phase': 'buffer', 'shape': [n] * 3, 'plans': out})
+
+
+class _RfftnPFFT:
+    """Stands in for ``PFFT`` in the reference DNS solver to build its
+    oracle: the same normalized forward and unnormalized backward, with
+    the reference's 3/2-rule truncation and padding (``libfft``'s
+    ``truncate_spectral``/``pad_spectral``), on complex128
+    ``torch.fft.rfftn``/``irfftn``.  The port never calls it."""
+
+    def __init__(self, comm, shape, padding=False, dtype='d', device=None,
+                 **kw):
+        from types import SimpleNamespace
+        self.device = torch.device(device)
+        self.N = tuple(shape)
+        self.P = tuple(int(1.5 * n) for n in shape) if padding else self.N
+        self.forward = SimpleNamespace(fn=self._fwd)
+        self.backward = SimpleNamespace(fn=self._bck)
+
+    def _fwd(self, u):
+        from mpi4py_fft_torch.libfft import truncate_spectral
+        F = torch.fft.rfftn(u, norm='forward')
+        if self.P != self.N:
+            sh = list(F.shape)
+            for ax, n in ((2, self.N[2] // 2 + 1), (1, self.N[1]),
+                          (0, self.N[0])):
+                sh[ax] = n
+                F = truncate_spectral(F, tuple(sh), ax, ax == 2)
+        return F
+
+    def _bck(self, U):
+        from mpi4py_fft_torch.libfft import pad_spectral
+        if self.P != self.N:
+            sh = list(U.shape)
+            for ax, n in ((0, self.P[0]), (1, self.P[1]),
+                          (2, self.P[2] // 2 + 1)):
+                sh[ax] = n
+                U = pad_spectral(U, tuple(sh), ax, ax == 2)
+        return torch.fft.irfftn(U, s=self.P, norm='forward')
+
+
+def phase_dns_solver(dev, bf):
+    """The reference spectral DNS solver on the port's PFFT, float64: the
+    64^3 energy anchor, then 512^3 dealiased steps against a complex128
+    torch.fft oracle."""
+    from mpi4py_fft_torch.examples import spectral_dns_solver as dns
+    a = DNS_ANCHOR_N
+    c0 = dict(bf.LAUNCHES)
+    k = dns.run(N=(a,) * 3, T=0.1, dt=0.01, verbose=False)
+    c1 = dict(bf.LAUNCHES)
+    # 2 forwards to start, 10 steps of 12 forwards and 24 backwards, 3
+    # backwards for the energy
+    want = {'fft_axis_p_f64': 2 * (2 + 360 + 3), 'rfft_axis_p_f64': 122,
+            'irfft_axis_p_f64': 243}
+    _check(_delta(c0, c1) == want, f"anchor launches {_delta(c0, c1)}")
+    _check(round(k - dns.ENERGY_64, 7) == 0,
+           f"{a}^3 energy {k!r}, the reference's {dns.ENERGY_64}")
+    n = DNS_SOLVER_N
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fft, U, step, energy = dns.make_solver(N=(n,) * 3, padding=True)
+    _check(U.device == dev and U.dtype == torch.complex128,
+           f"DNS state {U.dtype} on {U.device}")
+    U = step(U)                                 # warm-up
+    torch.cuda.synchronize()
+    c2 = dict(bf.LAUNCHES)
+    ms = []
+    for _ in range(2):
+        ta = torch.cuda.Event(enable_timing=True)
+        tb = torch.cuda.Event(enable_timing=True)
+        ta.record()
+        U = step(U)
+        tb.record()
+        tb.synchronize()
+        ms.append(ta.elapsed_time(tb))
+    c3 = dict(bf.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    per_step = {'fft_axis_tp_f64': 72, 'rfft_axis_p_f64': 12,
+                'irfft_axis_p_f64': 24}
+    _check(_delta(c2, c3) == {k: 2 * c for k, c in per_step.items()},
+           f"DNS launches in 2 steps {_delta(c2, c3)}")
+    _check(bool(torch.isfinite(torch.view_as_real(U)).all()),
+           "DNS state: non-finite")
+    e = energy(U)
+    c4 = dict(bf.LAUNCHES)
+    # the complex boundary of fn: one planar copy of a spectral component
+    # in (backward) and one out (forward), 36 of them a step
+    from mpi4py_fft_torch.ops import matfft
+    u0 = U[0]
+    copy_in = _median_ms(lambda: matfft.planar(u0))
+    p0 = matfft.planar(u0)
+    copy_out = _median_ms(lambda: matfft.unplanar(p0))
+    del step, energy, fft, u0, p0
+    torch.cuda.empty_cache()
+    # oracle: the same solver and steps on complex128 torch.fft
+    saved = dns.PFFT
+    dns.PFFT = _RfftnPFFT
+    try:
+        _, V, ostep, oenergy = dns.make_solver(N=(n,) * 3, padding=True,
+                                               device=dev)
+    finally:
+        dns.PFFT = saved
+    for _ in range(3):
+        V = ostep(V)
+    torch.cuda.synchronize()
+    _check(bf.LAUNCHES == c4, "the oracle launched a kernel")
+    err, mx = _rel(torch.view_as_real(U), torch.view_as_real(V))
+    e_ref = oenergy(V)
+    del U, V, ostep, oenergy
+    torch.cuda.empty_cache()
+    _check(err <= PIPE_TOL64, f"{n}^3 dealiased DNS vs oracle: {err:.3e}")
+    # the transforms' bytes a step: 36 transforms, each an r2c/c2r pass
+    # between the real 768^3 grid and its (2, 768, 768, 257) spectrum and
+    # two fused c2c passes (768 -> 512 rows on axis 1, then on axis 0)
+    m = 3 * n // 2
+    nh = n // 2 + 1
+    one = (m ** 3 * 8 + 2 * m * m * nh * 8) + \
+        2 * 8 * nh * ((m + n) * m + (m + n) * n)
+    bound, _ = _bound_ms(36 * one, 0, f64=True)
+    _emit({'phase': 'dns_solver', 'anchor_shape': [a] * 3,
+           'anchor_energy': k, 'anchor_launches': _delta(c0, c1),
+           'shape': [n] * 3, 'padding': [1.5] * 3, 'dtype': 'd',
+           'ms_per_step': ms, 'transforms_bound_ms_per_step': bound,
+           'launches_per_step': per_step, 'rel_l2_vs_oracle': err,
+           'max_abs_vs_oracle': mx, 'energy_t0.03': e,
+           'oracle_energy_t0.03': e_ref, 'peak_gb': peak,
+           'planar_copy_in_ms': copy_in, 'planar_copy_out_ms': copy_out,
+           'planar_copies_per_step': {'in': 24, 'out': 12}})
+
+
+def phase_times_tp(dev, bf, holds):
+    """fft_axis_tp (f32 and f64) at the four passes of the dealiased 512^3
+    plan, each held against its plain version slab by slab on the full
+    volume, and timed beside it, its bound and cuFFT's unfused pass."""
+    from mpi4py_fft_torch import PFFT
+    d = PFFT_N
+    m = 3 * d // 2
+    out = {}
+    for dtype, sfx in (('f', ''), ('d', '_f64')):
+        f64 = dtype == 'd'
+        name = 'fft_axis_tp' + sfx
+        tdt = torch.float64 if f64 else torch.float32
+        fft = PFFT(None, (d,) * 3, padding=[1.5] * 3, dtype=dtype)
+        g = torch.Generator(device=dev).manual_seed(SEED + 50)
+        x = torch.rand((m,) * 3, generator=g, device=dev, dtype=tdt) - 0.5
+        y0 = fft.xfftn[0].forward_fn_p(x)          # (2, m, m, d/2 + 1)
+        del x
+        sc1, sc0 = float(fft.xfftn[1].M), float(fft.xfftn[2].M)
+        passes = (('fwd', 1, dict(trunc=d, scale=sc1)),
+                  ('fwd', 0, dict(trunc=d, scale=sc0)),
+                  ('bwd', 0, dict(pad=m)), ('bwd', 1, dict(pad=m)))
+        rows = []
+        inp = y0
+        for direction, ax, kw in passes:
+            fwd = direction == 'fwd'
+            k = bf.fft_axis_tp(inp, ax, fwd, **kw)
+            sd = 2 if ax == 0 else 1             # slabs off the pass axis
+            s = 64
+            for i in range(0, inp.shape[sd], s):
+                w = min(s, inp.shape[sd] - i)
+                holds.hold(name, k.narrow(sd, i, w),
+                           bf.fft_axis_tp_plain(inp.narrow(sd, i, w), ax,
+                                                fwd, **kw),
+                           f"{name} {direction} axis {ax} slab {i}")
+            big = inp if inp.shape[1 + ax] == m else k
+            Nin, Nout = inp.shape[1 + ax], k.shape[1 + ax]
+            lines = inp.numel() // 2 // Nin
+            b, by = _bound_ms((Nin + Nout) * lines * 2 * (8 if f64 else 4),
+                              lines * 5 * m * math.log2(m), f64)
+            bc = torch.complex(big[0], big[1])
+            rows.append({
+                'pass': f"{direction} axis {ax}",
+                'in': list(inp.shape), 'out': list(k.shape),
+                'ms': _median_ms(lambda: bf.fft_axis_tp(inp, ax, fwd, **kw)),
+                'plain_ms': _median_ms(
+                    lambda: bf.fft_axis_tp_plain(inp, ax, fwd, **kw),
+                    reps=3, warm=1),
+                'cufft_unfused_ms': _median_ms(
+                    lambda: torch.fft.fft(bc, dim=ax)),
+                'bound_ms': b})
+            del bc, big
+            inp = k
+            del k
+        del inp, y0, fft
+        torch.cuda.empty_cache()
+        row = {key: sum(r[key] for r in rows)
+               for key in ('ms', 'plain_ms', 'cufft_unfused_ms', 'bound_ms')}
+        row.update(shape=f"4 passes of the {d}^3 'f' plan on its {m}^3 "
+                         f"grid: fwd axes 1, 0 (trunc {m} -> {d}), bwd axes "
+                         f"0, 1 (pad {d} -> {m}), {tdt}".replace(
+                             "'f'", f"'{dtype}'"),
+                   bound_by=by, library_ms=None, per_pass=rows)
+        out[name] = row
+    _emit({'phase': 'times_tp', 'kernels': out})
+    return out
+
+
 KERNELS = {
     'fft_axis_p': ('mpi4py_fft_torch/ops/csrc/fft_axis.cu',
                    'mpi4py_fft_tpu/ops/pallas_butterfly.py:795'),
@@ -1021,6 +1433,10 @@ KERNELS = {
                         'mpi4py_fft_tpu/ops/pallas_ds.py:546'),
     'irfft_axis_p_f64': ('mpi4py_fft_torch/ops/csrc/rfft_axis.cu',
                          'mpi4py_fft_tpu/ops/pallas_ds.py:593'),
+    'fft_axis_tp': ('mpi4py_fft_torch/ops/csrc/fft_axis_tp.cu',
+                    'mpi4py_fft_tpu/ops/pallas_butterfly.py:938'),
+    'fft_axis_tp_f64': ('mpi4py_fft_torch/ops/csrc/fft_axis_tp.cu',
+                        'mpi4py_fft_tpu/ops/pallas_butterfly.py:938'),
 }
 
 
@@ -1049,6 +1465,13 @@ def main():
     phase_north64(dev, bf)
     phase_dealias(dev, bf, dtype='d')
     phase_dns64(dev, bf)
+    marks = {'planar_path_s': time.perf_counter() - t_start}
+    phase_pfft(dev, bf, 'f')
+    phase_pfft(dev, bf, 'F')
+    phase_pfft(dev, bf, 'd')
+    phase_buffer(dev, bf)
+    phase_dns_solver(dev, bf)
+    marks['reference_api_path_s'] = time.perf_counter() - t_start
     launches = dict(bf.LAUNCHES)
     _check(set(launches) == set(KERNELS), f"counters {sorted(launches)}")
     for name, c in launches.items():
@@ -1059,6 +1482,8 @@ def main():
     del x, pfft
     torch.cuda.empty_cache()
     times.update(phase_times64(dev, bf, holds))
+    marks['times_s'] = time.perf_counter() - t_start
+    times.update(phase_times_tp(dev, bf, holds))
     kernels = []
     for name, (src, rep) in KERNELS.items():
         t = times[name]
@@ -1069,8 +1494,13 @@ def main():
             'plain_ms': t['plain_ms'], 'bound_ms': t['bound_ms'],
             'bound_by': t['bound_by'], 'library_ms': t['library_ms'],
             'shape': t['shape']})
+        if 'cufft_unfused_ms' in t:
+            kernels[-1]['cufft_unfused_ms'] = t['cufft_unfused_ms']
     _emit({'kernels': kernels})
-    _emit({'phase': 'done', 'seconds': time.perf_counter() - t_start})
+    # seconds from the start at the end of the planar phases (3-10), the
+    # reference-API phases (11-15), times and times64
+    _emit({'phase': 'done', 'seconds': time.perf_counter() - t_start,
+           'marks': marks})
     print(_smi(), flush=True)
     _emit({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

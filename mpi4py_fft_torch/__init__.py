@@ -6,22 +6,47 @@ The transform work runs in hand-written CUDA kernels (``ops/csrc``) built
 with ``nvcc`` at first use; on CPU tensors every kernel wrapper runs its
 plain PyTorch version instead.
 
-The port covers so far the single-device :class:`PlanarPFFT`: c2c and r2c,
-float32 and float64, with 3/2-rule padding, for axis lengths 2^a and
-3*2^a up to 1024 on every axis, and on float32 c2c axes also 1536 and
-2048 (one pass of the pair kernel) and 4096 (the four-step around the
-1024-point kernel); the quartered out-of-place schedule of 3-D float32
-c2c volumes (``ops/oop3d.py``, ``PlanarPFFT.forward_fn_q``/
-``backward_fn_q``); and the spectral DNS example
-(``examples/spectral_dns_planar.py``).
+The port covers so far, on one device:
+
+* the reference API: :class:`PFFT` with its :class:`Transform`\\ s, the
+  pencil metadata (:class:`Subcomm`, :class:`Pencil`, :class:`Transfer`),
+  :class:`DistArray`/:func:`newDistArray`, the serial ``libfft.FFT`` and
+  the FFTW-style planners (``fftw``, ``fftlib``): c2c and r2c, float32
+  and float64, with 3/2-rule padding, whose padded c2c stages run the
+  fused dealiasing kernel ``fft_axis_tp``;
+* the single-device :class:`PlanarPFFT`: c2c and r2c, float32 and float64,
+  with 3/2-rule padding, for axis lengths 2^a and 3*2^a up to 1024 on
+  every axis, and on float32 c2c axes also 1536 and 2048 (one pass of the
+  pair kernel) and 4096 (the four-step around the 1024-point kernel); the
+  quartered out-of-place schedule of 3-D float32 c2c volumes
+  (``ops/oop3d.py``, ``PlanarPFFT.forward_fn_q``/``backward_fn_q``);
+* the spectral DNS examples (``examples/spectral_dns_solver.py`` on
+  ``PFFT``, ``examples/spectral_dns_planar.py`` on ``PlanarPFFT``).
 """
+import sys as _sys
+
 import torch
 
+from . import ops
+from . import ops as fftw
+from .ops.plan import fftlib
+from .parallel.pencil import Subcomm, Pencil, Transfer
+from .parallel.mpifft import PFFT, Transform
 from .parallel.planar import PlanarPFFT
+from .distarray import DistArray, newDistArray
+
+# reference-compatible module names (mpi4py_fft/fftw/{xfftn,factory,
+# utilities})
+_sys.modules[__name__ + '.fftw'] = ops
+_sys.modules[__name__ + '.fftw.xfftn'] = ops.xfftn
+_sys.modules[__name__ + '.fftw.factory'] = ops.plan
+_sys.modules[__name__ + '.fftw.utilities'] = ops.utilities
 
 __version__ = '0.1.0'
 
-__all__ = ['PlanarPFFT', 'entry', '__version__']
+__all__ = ['PFFT', 'Transform', 'PlanarPFFT', 'DistArray', 'newDistArray',
+           'fftw', 'ops', 'fftlib', 'Subcomm', 'Pencil', 'Transfer',
+           'entry', '__version__']
 
 
 def entry(device=None):

@@ -56,6 +56,14 @@ _ENTRIES = {
         'mff_irfft_axis_f64': [_P, _P, _P, _LL, _LL, _I, _I, _LL, _I, _IA,
                                _I, _D, _P],
     },
+    'fft_axis_tp': {
+        # x, y, tw, tw_len, pre, n, nt, pad, post, sign, plan, nstages,
+        # scale, stream
+        'mff_fft_axis_tp_f32': [_P, _P, _P, _LL, _LL, _I, _I, _I, _LL, _I,
+                                _IA, _I, _F, _P],
+        'mff_fft_axis_tp_f64': [_P, _P, _P, _LL, _LL, _I, _I, _I, _LL, _I,
+                                _IA, _I, _D, _P],
+    },
     'fft_axis2': {
         # xa, xb, ya, yb, strides, tw, tw_len, pre, n, post, sign, plan,
         # nstages, scale, stream
@@ -157,6 +165,14 @@ def load():
             _kernels = Kernels({n: ctypes.CDLL(str(p))
                                 for n, p in paths.items()})
         return _kernels
+
+
+def unload():
+    """Drop the loaded kernels: the next ``load()`` loads the libraries
+    anew from ``BUILD_DIR``, building those that are not there."""
+    global _kernels
+    with _lock:
+        _kernels = None
 
 
 def error_string(rc):

@@ -10,12 +10,15 @@ of the CUDA kernels on the single-device path:
 * ``fft_axis2_p``     (csrc/fft_axis2.cu) planar c2c along an axis split
   across two tensors (the quartered schedule, ``oop3d.py``);
 * ``fft_axis_pair_p`` (csrc/fft_axis2.cu) the same kernel on the two
-  halves of one tensor: axes of 1536 and 2048.
+  halves of one tensor: axes of 1536 and 2048;
+* ``fft_axis_tp``     (csrc/fft_axis_tp.cu) planar c2c along one axis with
+  the 3/2-rule truncation fused into the write or the zero-padding into
+  the read.
 
-The first three take float32 and float64 tensors: their kernels have an
-fp64 build (the port of the double-single tier ``pallas_ds``), which the
-wrappers launch for float64 and count under ``<name>_f64``.  The pair
-kernel is float32 only for now.
+All but the pair kernel take float32 and float64 tensors: their kernels
+have an fp64 build (the port of the double-single tier ``pallas_ds``),
+which the wrappers launch for float64 and count under ``<name>_f64``.
+The pair kernel is float32 only for now.
 
 Stockham autosort recurrence (DIF, self-sorting, no bit reversal): the
 state of one line has shape (L, M) with L*M = N.  A radix-r stage splits
@@ -40,10 +43,11 @@ import torch
 from . import _build
 
 __all__ = ['fft_axis_p', 'rfft_axis_p', 'irfft_axis_p', 'fft_axis2_p',
-           'fft_axis_pair_p', 'supported_axis', 'supported_r2c',
-           'supported_c2r', 'supported_axis_split', 'fft_axis_plain',
-           'rfft_axis_plain', 'irfft_axis_plain', 'fft_axis2_plain',
-           'fft_axis_pair_plain', 'LAUNCHES', 'reset_launches']
+           'fft_axis_pair_p', 'fft_axis_tp', 'supported_axis',
+           'supported_r2c', 'supported_c2r', 'supported_axis_split',
+           'supported_axis_tp', 'fft_axis_plain', 'rfft_axis_plain',
+           'irfft_axis_plain', 'fft_axis2_plain', 'fft_axis_pair_plain',
+           'fft_axis_tp_plain', 'LAUNCHES', 'reset_launches']
 
 _MAX_N_AXIS = 1024
 _MAX_N_PAIR = 2048
@@ -53,7 +57,8 @@ _MAX_N_PAIR = 2048
 # wrapper adds one where it launches its kernel and nowhere else
 LAUNCHES = {'fft_axis_p': 0, 'rfft_axis_p': 0, 'irfft_axis_p': 0,
             'fft_axis2_p': 0, 'fft_axis_pair_p': 0, 'fft_axis_p_f64': 0,
-            'rfft_axis_p_f64': 0, 'irfft_axis_p_f64': 0}
+            'rfft_axis_p_f64': 0, 'irfft_axis_p_f64': 0, 'fft_axis_tp': 0,
+            'fft_axis_tp_f64': 0}
 
 
 def reset_launches():
@@ -449,6 +454,74 @@ def fft_axis_pair_plain(p, axis, forward=True, scale=None):
     return fft_axis_plain(p, axis, forward, scale)
 
 
+def _trunc_rows(r, i, N, Nt):
+    """Spectral truncation of (pre, N, post) rows to Nt rows: keep the
+    lowest |k| modes and fold row N - Nt/2 onto row Nt/2 for even Nt
+    (``_trunc_rows`` of the JAX package, pallas_butterfly.py:455)."""
+    def rows(v):
+        if Nt % 2 == 0:
+            h = Nt // 2
+            return torch.cat([v[:, :h], v[:, h:h + 1] + v[:, N - h:N - h + 1],
+                              v[:, N - h + 1:]], dim=1)
+        m = Nt // 2
+        return torch.cat([v[:, :m + 1], v[:, N - m:]], dim=1)
+    return rows(r), rows(i)
+
+
+def _pad_rows(r, i, N):
+    """Spectral zero-padding of (pre, Nt, post) rows to N rows, row Nt/2
+    split in halves for even Nt (``_pad_rows`` of the JAX package,
+    pallas_butterfly.py:469)."""
+    Nt = r.shape[1]
+
+    def rows(v):
+        if Nt % 2 == 0:
+            h = Nt // 2
+            half = v[:, h:h + 1] * 0.5
+            z = v.new_zeros((v.shape[0], N - Nt - 1, v.shape[2]))
+            return torch.cat([v[:, :h], half, z, half, v[:, h + 1:]], dim=1)
+        m = Nt // 2
+        z = v.new_zeros((v.shape[0], N - Nt, v.shape[2]))
+        return torch.cat([v[:, :m + 1], z, v[:, m + 1:]], dim=1)
+    return rows(r), rows(i)
+
+
+def _tp_rows(p, axis, trunc, pad):
+    """(N, Nt, Nin, Nout) of a fft_axis_tp pass along ``axis`` of the
+    complex shape of planar ``p``."""
+    if (trunc is None) == (pad is None):
+        raise ValueError("fft_axis_tp: give exactly one of trunc and pad")
+    Nin = p.shape[1 + axis]
+    if trunc is not None:
+        return Nin, int(trunc), Nin, int(trunc)
+    return int(pad), Nin, Nin, int(pad)
+
+
+def fft_axis_tp_plain(p, axis, forward=True, trunc=None, pad=None,
+                      scale=None):
+    """Plain PyTorch version of ``fft_axis_tp``: the scaled transform,
+    then the truncation; or the padding, then the scaled transform, as
+    the JAX kernel orders them."""
+    shape = tuple(p.shape[1:])
+    axis = axis % len(shape)
+    N, Nt, Nin, Nout = _tp_rows(p, axis, trunc, pad)
+    pre, post = _pre_post(shape, axis)
+    sign = -1 if forward else +1
+    tw = _tw_tensor(N, sign, False, p.dtype, p.device)
+    x = p.reshape(2, pre, Nin, post)
+    out = p.new_empty((2, pre, Nout, post))
+    for a, b in _chunks(pre, N, post):
+        r, i = x[0, a, :, b], x[1, a, :, b]
+        if pad is not None:
+            r, i = _pad_rows(r, i, N)
+        r, i = _butterfly(r, i, tw, N, sign, scale)
+        if trunc is not None:
+            r, i = _trunc_rows(r, i, N, Nt)
+        out[0, a, :, b] = r
+        out[1, a, :, b] = i
+    return out.reshape((2,) + shape[:axis] + (Nout,) + shape[axis + 1:])
+
+
 def rfft_axis_plain(x, axis, hext=None, scale=None, trunc=None):
     """Plain PyTorch version of ``rfft_axis_p``."""
     shape = tuple(x.shape)
@@ -542,6 +615,25 @@ def supported_axis_split(shape, axis):
     """Gate for ``fft_axis2_p``: ``shape`` is the complex shape of ONE
     half (the split axis carries N/2).  A length gate only."""
     return _pair_length_ok(2 * shape[axis % len(shape)])
+
+
+def supported_axis_tp(shape, axis, dtype, trunc=None, pad=None):
+    """Gate for ``fft_axis_tp``: a c2c pass with the truncation to
+    ``trunc`` rows or the padding to ``pad`` rows fused in, along ``axis``
+    of the complex ``shape``.  The transform length N (the input extent,
+    or ``pad``) must be a kernel length, and the other extent lie in
+    (0, N); float32 or float64.  Any axis position and any pre/post."""
+    if (trunc is None) == (pad is None):
+        raise ValueError("supported_axis_tp: give exactly one of trunc "
+                         "and pad")
+    if isinstance(dtype, torch.dtype):
+        if dtype not in (torch.float32, torch.float64):
+            return False
+    elif np.dtype(dtype) not in (np.float32, np.float64):
+        return False
+    n = shape[axis % len(shape)]
+    N, Nt = (n, int(trunc)) if trunc is not None else (int(pad), n)
+    return _length_ok(N) and 0 < Nt < N
 
 
 def _no_f64_pair(what):
@@ -800,4 +892,37 @@ def fft_axis_pair_p(p, axis, forward=True, scale=None):
     _launch_pair(what, p.narrow(d, 0, h), p.narrow(d, h, h),
                  out.narrow(d, 0, h), out.narrow(d, h, h), axis, forward,
                  scale)
+    return out
+
+
+def fft_axis_tp(p, axis, forward=True, trunc=None, pad=None, scale=None):
+    """Planar c2c FFT along ``axis`` (complex coords) of (2, ...) data with
+    the 3/2-rule dealiasing boundary fused into the pass: ``trunc=Nt``
+    truncates the N-point spectrum to Nt rows in the write (Nyquist fold
+    for even Nt), ``pad=Np`` zero-pads an Nt-row spectrum to the Np-point
+    transform in the read (Nyquist split for even Nt).  Exactly one of
+    them.  Unnormalized unless ``scale`` is given (folded into the write).
+    Out of place: the extents differ."""
+    what = 'fft_axis_tp'
+    _check_planar(p, what)
+    shape = tuple(p.shape[1:])
+    axis = axis % len(shape)
+    N, Nt, Nin, Nout = _tp_rows(p, axis, trunc, pad)
+    _require_len(N, what)
+    if not 0 < Nt < N:
+        raise ValueError(f"{what}: the truncated extent {Nt} must lie in "
+                         f"(0, {N})")
+    if _plain_ok(p, what):
+        return fft_axis_tp_plain(p, axis, forward, trunc, pad, scale)
+    pre, post = _pre_post(shape, axis)
+    sign = -1 if forward else +1
+    out = p.new_empty((2,) + shape[:axis] + (Nout,) + shape[axis + 1:])
+    if out.numel() == 0:
+        return out
+    tw = _tw_tensor(N, sign, False, p.dtype, p.device)
+    plan, nst = _plan_args(N)
+    _launch(*_build_of(what, 'fft_axis_tp', p), p,
+            _ptr(p), _ptr(out), _ptr(tw), tw.shape[1], pre, N, Nt,
+            int(pad is not None), post, sign, plan, nst,
+            1.0 if scale is None else float(scale))
     return out

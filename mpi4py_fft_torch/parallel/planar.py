@@ -39,29 +39,14 @@ import torch
 
 from ..ops import matfft, oop3d
 from ..libfft import truncate_planar, pad_planar
+from ..utils import resolve_device
+from .pencil import _multi_device
 
 __all__ = ['PlanarPFFT']
 
 
-def _resolve_device(device):
-    """CUDA unless the caller asks for another device; no silent CPU."""
-    device = torch.device('cuda' if device is None else device)
-    if device.type == 'cuda':
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "PlanarPFFT runs on CUDA by default and no CUDA device is "
-                "available; pass device='cpu' to run the plain versions")
-        if device.index is None:
-            device = torch.device('cuda', torch.cuda.current_device())
-    elif device.type != 'cpu':
-        raise ValueError(f"unsupported device {device}")
-    return device
-
-
 def _one_device(comm, grid, executor):
-    multi = NotImplementedError(
-        "PlanarPFFT on more than one device arrives with the distributed "
-        "layer (ROADMAP Queue 1 item 4)")
+    multi = _multi_device('PlanarPFFT')
     if executor == 'shard_map':
         raise multi
     if executor not in ('auto', 'gspmd'):
@@ -97,7 +82,7 @@ class PlanarPFFT(object):
         self.real_transform = dtype.char in 'fd'
         self.rdtype = np.dtype('float32') if dtype.char in 'fF' \
             else np.dtype('float64')
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device, 'PlanarPFFT')
         self._tdtype = torch.float32 if self.rdtype == np.float32 \
             else torch.float64
 

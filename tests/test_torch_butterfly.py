@@ -224,10 +224,13 @@ def test_launch_counters_untouched_on_cpu():
     tb.fft_axis_p(torch.zeros((2, 4, 8), dtype=f64), 1)
     tb.rfft_axis_p(torch.zeros((4, 8), dtype=f64), 1)
     tb.irfft_axis_p(torch.zeros((2, 4, 5), dtype=f64), 1, 8)
+    tb.fft_axis_tp(torch.zeros((2, 4, 12)), 1, trunc=8)
+    tb.fft_axis_tp(torch.zeros((2, 4, 8), dtype=f64), 1, pad=12)
     assert tb.LAUNCHES == {'fft_axis_p': 0, 'rfft_axis_p': 0,
                            'irfft_axis_p': 0, 'fft_axis2_p': 0,
                            'fft_axis_pair_p': 0, 'fft_axis_p_f64': 0,
-                           'rfft_axis_p_f64': 0, 'irfft_axis_p_f64': 0}
+                           'rfft_axis_p_f64': 0, 'irfft_axis_p_f64': 0,
+                           'fft_axis_tp': 0, 'fft_axis_tp_f64': 0}
 
 
 def test_import_isolation():

@@ -202,6 +202,48 @@ def test_pair_kernel_vs_plain(kernel_path, shape, axis):
     assert _launched() == {'fft_axis2_p': 5, 'fft_axis_pair_p': 3}
 
 
+# the fused dealiasing kernel E (shape of the N-row side, axis, Nt): lead,
+# mid and last positions, whole lines, even and odd Nt (fold and split,
+# or neither), Nt = 1 and N - 1, radix 3, the 768- and 1024-point tiles
+TP_SHAPES = [((3, 48, 5), 1, 32), ((48, 8), 0, 31), ((6, 5, 24), 2, 16),
+             ((4, 12), 1, 7), ((2, 768, 3), 1, 512), ((96, 1, 130), 0, 64),
+             ((3, 1024), 1, 683), ((8, 3, 16), 0, 1), ((5, 16, 2), 1, 15)]
+
+
+def _hold_tp(plain_ok, shape, axis, nt, dtype, tol):
+    """fft_axis_tp with trunc (forward, with and without a scale) and pad
+    (backward, with and without a scale) against its plain version."""
+    rng = np.random.default_rng(13)
+    N = shape[axis]
+    p = torch.from_numpy(rng.standard_normal((2,) + shape).astype(dtype))
+    sh = list(shape)
+    sh[axis] = nt
+    q = torch.from_numpy(rng.standard_normal([2] + sh).astype(dtype))
+    for kw in (dict(trunc=nt), dict(trunc=nt, scale=1.0 / N)):
+        got = bf.fft_axis_tp(p, axis, True, **kw)
+        ref = _plain(plain_ok, bf.fft_axis_tp, p, axis, True, **kw)
+        assert got.shape == ref.shape and got.dtype == p.dtype
+        assert _rel(got, ref) <= tol, kw
+    for kw in (dict(pad=N), dict(pad=N, scale=0.37)):
+        got = bf.fft_axis_tp(q, axis, False, **kw)
+        ref = _plain(plain_ok, bf.fft_axis_tp, q, axis, False, **kw)
+        assert got.shape == ref.shape and got.dtype == q.dtype
+        assert _rel(got, ref) <= tol, kw
+
+
+@pytest.mark.parametrize('shape,axis,nt', TP_SHAPES)
+def test_tp_kernel_vs_plain(kernel_path, shape, axis, nt):
+    _hold_tp(kernel_path, shape, axis, nt, np.float32, TOL)
+    assert _launched() == {'fft_axis_tp': 4}
+
+
+@pytest.mark.parametrize('shape,axis,nt', TP_SHAPES[:7])
+def test_tp_kernel_vs_plain_f64(kernel_path, shape, axis, nt):
+    """The float64 entry, counted under fft_axis_tp_f64."""
+    _hold_tp(kernel_path, shape, axis, nt, np.float64, TOL64)
+    assert _launched() == {'fft_axis_tp_f64': 4}
+
+
 def test_pair_kernel_refuses_layout(kernel_path):
     """Halves whose columns are not adjacent do not reach the kernel."""
     pa = torch.zeros((2, 6, 16)).transpose(1, 2)       # (2, 16, 6)
@@ -224,6 +266,15 @@ def test_c_entry_rejects_bad_plan(emu_kernels):
                 ctypes.c_void_p(tw.data_ptr()), tw.shape[1], 4, 8, 1, -1,
                 plan, 2, 1.0, ctypes.c_void_p(0))
         assert rc != 0
+    # E: a truncated extent outside (0, n), or a mode other than 0 and 1
+    plan = (ctypes.c_int * 3)(2, 2, 2)
+    for fn in (emu_kernels.fft_axis_tp_f32, emu_kernels.fft_axis_tp_f64):
+        for nt, pad in ((0, 0), (8, 1), (9, 0), (4, 2)):
+            rc = fn(ctypes.c_void_p(x.data_ptr()),
+                    ctypes.c_void_p(y.data_ptr()),
+                    ctypes.c_void_p(tw.data_ptr()), tw.shape[1], 4, 8, nt,
+                    pad, 1, -1, plan, 3, 1.0, ctypes.c_void_p(0))
+            assert rc != 0, (nt, pad)
     for n, plan in ((4096, (16, 16, 16)), (9, (3, 3)), (8, (2, 2))):
         radices = (ctypes.c_int * len(plan))(*plan)
         rc = emu_kernels.fft_axis2_f32(
