@@ -5,7 +5,8 @@ Run from the root of a checkout, on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-Phases, in order; any failure raises and the script exits non-zero:
+Phases, run in the order 1-15, 19-22, 16-18, 23; any failure raises and
+the script exits non-zero:
 
 1. build     the kernels from ``mpi4py_fft_torch/ops/csrc`` with nvcc;
 2. holds     every kernel against its plain PyTorch version on the card
@@ -15,7 +16,9 @@ Phases, in order; any failure raises and the script exits non-zero:
              ``fft_axis_tp`` on float64 tensors (<= 2e-13); the fused
              dealiasing kernel ``fft_axis_tp`` at lead, mid and last
              positions, truncation and padding, even and odd Nt, with and
-             without a scale;
+             without a scale; J (``fft2stage_p``) at every S = 1..8 and
+             both signs; H and I (``fft_plane_p``, ``fft_plane_large_p``)
+             on planes from 4 x 2 to 1024 x 1024;
 3. entry     the port's ``entry()``: a 64^3 r2c f32 forward;
 4. north     ``PlanarPFFT(None, (1024,)*3, dtype='F')``: normalized
              forward and backward against ``torch.fft.fftn`` (oracle only)
@@ -95,8 +98,36 @@ Phases, in order; any failure raises and the script exits non-zero:
              PyTorch call computes the fused function: ``library_ms`` is
              null).
 
-Phases 3 to 15 are the main path: the launch counters are set to 0 just
-before phase 3 and read after phase 15.  Each phase prints one JSON line;
+19. any_c2c  ``PlanarPFFT(None, (640,)*3, dtype='F')``, an extent no
+             Stockham kernel takes: a normalized forward and the backward
+             against ``torch.fft.fftn`` and the round trip (5e-5), exactly
+             one J (``fft2stage_p``, S = 5) launch each way (the other
+             axes run the mixed-radix engine, 640 = 32*20), ms per
+             transform and the forward's working set;
+20. any_r2c  ``PFFT(None, (896,)*3, dtype='f')`` through planar
+             ``forward.fn_p``/``backward.fn_p`` (B and C refuse 896):
+             exactly one J launch (S = 7) each way, against
+             ``torch.fft.rfftn`` and the round trip, ms each way and the
+             peak memory;
+21. bluestein ``PlanarPFFT(None, (509, 512, 512), dtype='F')``: axis 0 is
+             Bluestein, two J launches of M = 1024 a direction, axes 1 and
+             2 take A; against ``torch.fft.fftn`` and the round trip;
+22. plane    the entry points H (``fft_plane_p``, (2, 1024, 256, 256)) and
+             I (``fft_plane_large_p``, (2, 1024, 1024, 1024)), forward and
+             backward with the 1/(N1 N2) scale, against a
+             ``torch.fft.fft2`` oracle and the round trip, and against
+             their plain versions slab by slab;
+23. times_any J at the 640^3 last-axis pass (held slab by slab there, on
+             the stacked 896^3 real axis and on Bluestein's padded
+             (512, 512, 1024) axis, both signs) and H and I at phase 22's
+             shapes, each timed beside its plain version, its bound, the
+             PyTorch call that computes the same function
+             (``torch.fft.fft`` over the last axis; ``torch.fft.fft2``)
+             and, for H and I, two chained A passes at the same shape.
+
+Phases 3 to 15 and 19 to 22 are the main path: the launch counters are
+set to 0 just before phase 3 and read after phase 22 (phases 16 to 18
+run after it, as do times_any).  Each phase prints one JSON line;
 then come the ``{"kernels": [...]}`` line, the card's name and power limit
 from nvidia-smi, and last ``{"ok": true, "device": {...}}``.  Without a
 CUDA device the script prints no result and exits with 1.
@@ -141,6 +172,13 @@ DNS_ANCHOR_N = 64          # the reference's energy anchor
 PFFT_N = 512               # the reference API's 3/2-rule plans (768^3 grid)
 BUFFER_N = 256             # the buffer call on DistArrays
 DNS_SOLVER_N = 512         # the reference DNS solver, dealiased, at float64
+ANY_C2C_SHAPE = (640,) * 3  # a c2c extent of J (S = 5) and the engine
+ANY_R2C_SHAPE = (896,) * 3  # an r2c extent B and C refuse: J (S = 7)
+BLUESTEIN_SHAPE = (509, 512, 512)   # a prime lead axis (Bluestein, M = 1024)
+# the plane kernels: H at its largest axes, I at the north-star volume of
+# the JAX package's A/B (scripts/tpu_plane_large_test.py)
+PLANE_H = (1024, 256, 256)
+PLANE_I = (1024, 1024, 1024)
 
 
 def _emit(obj):
@@ -302,9 +340,42 @@ def phase_holds(holds, dev):
                        torch.cat(bf.fft_axis2_plain(pa, pb, ax), d),
                        f"fft_axis2_p {shape} axis {ax} alias")
             n += 1
+    n += _holds_any(holds, rnd)
     _emit({'phase': 'holds', 'cases': n, 'max_rel_l2': holds.rel,
            'max_abs_err': holds.err,
            'tolerance': {'f32': KERNEL_TOL, 'f64': KERNEL_TOL64}})
+
+
+def _holds_any(holds, rnd):
+    """J at every S (a ragged last block, leading dims that flatten) and
+    both signs; H and I on square, oblong and tiny planes (N = 2 on either
+    axis, the 256 x 256 plane of H, 1024-long axes), both signs and a
+    scale; returns the number of cases."""
+    from mpi4py_fft_torch.ops import butterfly as bf
+    from mpi4py_fft_torch.ops import fft2stage as j2
+    n = 0
+    for S in range(1, 9):
+        for shape in ((13, 128 * S), (3, 7, 128 * S)):
+            p = rnd(2, *shape)
+            for sign in (-1, 1):
+                holds.hold('fft2stage_p', j2.fft2stage_p(p, sign),
+                           j2.fft2stage_plain(p, sign),
+                           f"fft2stage_p {shape} sign {sign}")
+                n += 1
+    for shape in ((3, 32, 64), (5, 256, 256), (4, 8, 2), (2, 2, 1024),
+                  (2, 1024, 4), (2, 1024, 1024), (2, 3, 16, 16)):
+        p = rnd(2, *shape)
+        names = ['fft_plane_large_p']
+        if bf.supported_plane(shape, p.dtype):
+            names.append('fft_plane_p')
+        for name in names:
+            fn = getattr(bf, name)
+            plain = getattr(bf, name[:-2] + '_plain')
+            for fwd, sc in ((True, None), (False, None), (True, 0.37)):
+                holds.hold(name, fn(p, fwd, scale=sc), plain(p, fwd, sc),
+                           f"{name} {shape} fwd={fwd} scale={sc}")
+                n += 1
+    return n
 
 
 def _holds_abc(holds, bf, rnd, sfx):
@@ -1416,6 +1487,263 @@ def phase_times_tp(dev, bf, holds):
     return out
 
 
+def _slab_hold(holds, name, got, plain, dim, what, s=64):
+    """Hold ``got`` against ``plain(i, w)`` (the plain version on rows
+    i..i+w of ``dim``) slab by slab; returns the number of slabs."""
+    n = got.shape[dim]
+    for i in range(0, n, s):
+        w = min(s, n - i)
+        holds.hold(name, got.narrow(dim, i, w), plain(i, w),
+                   f"{what} slab {i}")
+    return (n + s - 1) // s
+
+
+def phase_any_c2c(dev, bf):
+    """A c2c plan of an extent no Stockham kernel takes: 640 = 5*128 runs
+    J on the last axis and the mixed-radix engine (640 = 32*20) on the
+    other two."""
+    from mpi4py_fft_torch import PlanarPFFT
+    shape = ANY_C2C_SHAPE
+    pfft = PlanarPFFT(None, shape, dtype='F')
+    x = _rand((2,) + shape, dev, SEED + 60)
+    vol_gb = x.numel() * 4 / 1e9
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    c0 = dict(bf.LAUNCHES)
+    y = pfft.forward(x, normalize=True)
+    torch.cuda.synchronize()
+    c1 = dict(bf.LAUNCHES)
+    fwd_peak = torch.cuda.max_memory_allocated() / 1e9 - held + vol_gb
+    z = pfft.backward(y)
+    torch.cuda.synchronize()
+    c2 = dict(bf.LAUNCHES)
+    want = {'fft2stage_p': 1}
+    _check(_delta(c0, c1) == want and _delta(c1, c2) == want,
+           f"{shape} 'F' launches {_delta(c0, c1)} {_delta(c1, c2)}")
+    _check(tuple(y.shape) == (2,) + shape, f"{shape} forward {y.shape}")
+    err_f, _ = _rel(y, _fftn_ref(x))
+    err_rt, _ = _rel(z, x)
+    _check(bool(torch.isfinite(z).all()), f"{shape}: non-finite")
+    _check(max(err_f, err_rt) <= PIPE_TOL,
+           f"{shape} 'F': vs fftn {err_f:.3e}, round trip {err_rt:.3e}")
+    del y, z
+    ms = _median_ms(lambda: pfft.backward(pfft.forward(x)), reps=3,
+                    warm=1) / 2
+    del x
+    torch.cuda.empty_cache()
+    _emit({'phase': 'any_c2c', 'shape': list(shape), 'dtype': 'F',
+           'rel_l2_fwd_vs_fftn': err_f, 'rel_l2_round_trip': err_rt,
+           'launches_per_transform': want, 'ms_per_transform': ms,
+           'fwd_peak_gb': fwd_peak, 'volume_gb': vol_gb})
+
+
+def phase_any_r2c(dev, bf):
+    """The reference API's r2c plan at 896 = 7*128, which B and C refuse:
+    the stacked real axis runs J forward, the Hermitian-extended axis J
+    backward; the other axes the engine (896 = 32*28)."""
+    from mpi4py_fft_torch import PFFT
+    shape = ANY_R2C_SHAPE
+    fft = PFFT(None, shape, dtype='f')
+    g = torch.Generator(device=dev).manual_seed(SEED + 61)
+    x = torch.rand(shape, generator=g, device=dev) - 0.5
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    c0 = dict(bf.LAUNCHES)
+    y = fft.forward.fn_p(x)
+    torch.cuda.synchronize()
+    c1 = dict(bf.LAUNCHES)
+    fwd_peak = torch.cuda.max_memory_allocated() / 1e9 - held
+    torch.cuda.reset_peak_memory_stats()
+    held_b = torch.cuda.memory_allocated() / 1e9
+    z = fft.backward.fn_p(y)
+    torch.cuda.synchronize()
+    c2 = dict(bf.LAUNCHES)
+    bwd_peak = torch.cuda.max_memory_allocated() / 1e9 - held_b
+    want = {'fft2stage_p': 1}
+    _check(_delta(c0, c1) == want and _delta(c1, c2) == want,
+           f"{shape} 'f' launches {_delta(c0, c1)} {_delta(c1, c2)}")
+    _check(tuple(y.shape) == (2,) + shape[:2] + (shape[2] // 2 + 1,) and
+           tuple(z.shape) == shape, f"{shape} 'f': {y.shape} {z.shape}")
+    F = torch.fft.rfftn(x, norm='forward')
+    ref = torch.stack([F.real, F.imag])
+    del F
+    err_f, _ = _rel(y, ref)
+    del ref
+    err_rt, _ = _rel(z, x)
+    _check(bool(torch.isfinite(z).all()), f"{shape} 'f': non-finite")
+    _check(max(err_f, err_rt) <= PIPE_TOL,
+           f"{shape} 'f': vs rfftn {err_f:.3e}, round trip {err_rt:.3e}")
+    del z
+    t_f = _median_ms(lambda: fft.forward.fn_p(x), reps=3, warm=1)
+    t_b = _median_ms(lambda: fft.backward.fn_p(y), reps=3, warm=1)
+    del x, y
+    torch.cuda.empty_cache()
+    _emit({'phase': 'any_r2c', 'shape': list(shape), 'dtype': 'f',
+           'rel_l2_fwd_vs_rfftn': err_f, 'rel_l2_round_trip': err_rt,
+           'launches_fwd': want, 'launches_bwd': want, 'fwd_ms': t_f,
+           'bwd_ms': t_b, 'fwd_peak_above_input_gb': fwd_peak,
+           'bwd_peak_above_input_gb': bwd_peak})
+
+
+def phase_bluestein(dev, bf):
+    """A prime lead extent: axis 0 of (509, 512, 512) is Bluestein, two J
+    launches of M = 1024 a direction; axes 1 and 2 take A."""
+    from mpi4py_fft_torch import PlanarPFFT
+    shape = BLUESTEIN_SHAPE
+    pfft = PlanarPFFT(None, shape, dtype='F')
+    x = _rand((2,) + shape, dev, SEED + 62)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    c0 = dict(bf.LAUNCHES)
+    y = pfft.forward(x, normalize=True)
+    torch.cuda.synchronize()
+    c1 = dict(bf.LAUNCHES)
+    fwd_peak = torch.cuda.max_memory_allocated() / 1e9 - held
+    z = pfft.backward(y)
+    torch.cuda.synchronize()
+    c2 = dict(bf.LAUNCHES)
+    want = {'fft2stage_p': 2, 'fft_axis_p': 2}
+    _check(_delta(c0, c1) == want and _delta(c1, c2) == want,
+           f"{shape} launches {_delta(c0, c1)} {_delta(c1, c2)}")
+    err_f, _ = _rel(y, _fftn_ref(x))
+    err_rt, _ = _rel(z, x)
+    _check(bool(torch.isfinite(z).all()), f"{shape}: non-finite")
+    _check(max(err_f, err_rt) <= PIPE_TOL,
+           f"{shape} 'F': vs fftn {err_f:.3e}, round trip {err_rt:.3e}")
+    del y, z
+    ms = _median_ms(lambda: pfft.backward(pfft.forward(x)), reps=3,
+                    warm=1) / 2
+    del x
+    torch.cuda.empty_cache()
+    _emit({'phase': 'bluestein', 'shape': list(shape), 'dtype': 'F',
+           'rel_l2_fwd_vs_fftn': err_f, 'rel_l2_round_trip': err_rt,
+           'launches_per_transform': want, 'ms_per_transform': ms,
+           'fwd_peak_above_input_gb': fwd_peak})
+
+
+def phase_plane(dev, bf, holds):
+    """The plane entry points, which nothing dispatches: H on PLANE_H and I
+    on PLANE_I, forward, then backward with the 1/(N1 N2) scale, against
+    a torch.fft.fft2 oracle and the round trip (5e-5), and against their
+    plain versions slab by slab (5e-6)."""
+    out = {}
+    for i, (name, shape) in enumerate((('fft_plane_p', PLANE_H),
+                                       ('fft_plane_large_p', PLANE_I))):
+        fn = getattr(bf, name)
+        plain = getattr(bf, name[:-2] + '_plain')
+        x = _rand((2,) + shape, dev, SEED + 63 + i)
+        sc = 1.0 / (shape[-1] * shape[-2])
+        c0 = dict(bf.LAUNCHES)
+        y = fn(x, True)
+        torch.cuda.synchronize()
+        c1 = dict(bf.LAUNCHES)
+        z = fn(y, False, scale=sc)
+        torch.cuda.synchronize()
+        c2 = dict(bf.LAUNCHES)
+        _check(_delta(c0, c1) == {name: 1} and _delta(c1, c2) == {name: 1},
+               f"{name} launches {_delta(c0, c1)} {_delta(c1, c2)}")
+        _check(tuple(y.shape) == (2,) + shape, f"{name}: {y.shape}")
+        num = den = 0.0
+        for j in range(0, shape[0], 64):
+            F = torch.fft.fft2(torch.complex(x[0, j:j + 64], x[1, j:j + 64]))
+            d = (y[:, j:j + 64] - torch.stack([F.real, F.imag])).double()
+            num += float((d * d).sum())
+            den += float((F.abs().double() ** 2).sum())
+            del F, d
+        err_o = math.sqrt(num / den)
+        err_rt, _ = _rel(z, x)
+        _check(max(err_o, err_rt) <= PIPE_TOL,
+               f"{name} {shape}: vs fft2 {err_o:.3e}, round trip "
+               f"{err_rt:.3e}")
+        n = _slab_hold(holds, name, y, lambda j, w: plain(
+            x.narrow(1, j, w), True), 1, f"{name} {shape} fwd")
+        n += _slab_hold(holds, name, z, lambda j, w: plain(
+            y.narrow(1, j, w), False, sc), 1, f"{name} {shape} bwd")
+        del x, y, z
+        torch.cuda.empty_cache()
+        out[name] = {'shape': list(shape), 'rel_l2_fwd_vs_fft2': err_o,
+                     'rel_l2_round_trip': err_rt, 'slabs_held': n}
+    _emit({'phase': 'plane', 'launches': {k: 2 for k in out}, 'plans': out})
+
+
+def _j_flops(lines, N):
+    """J's operations on ``lines`` lines of N = S*128 points: the direct
+    S-point DFT (S^2 complex multiply-adds, 8 flops each, a column), the
+    twiddle (6 flops a point) and S Stockham transforms of 128 points
+    (5 * 128 * 7 flops each)."""
+    S = N // 128
+    return lines * (128 * S * S * 8 + 6 * N + S * 5 * 128 * 7)
+
+
+def phase_times_any(dev, bf, holds):
+    """J at the any_c2c plan's last-axis pass, held slab by slab on both
+    signs there, on the stacked any_r2c real axis and on the Bluestein
+    (509, 512, 512) plan's padded M = 1024 axis; H and I at PLANE_H and
+    PLANE_I, beside two chained A passes at the same shape (the JAX
+    package's own A/B)."""
+    from mpi4py_fft_torch.ops import fft2stage as j2
+    out = {}
+    slabs = 0
+    b3 = BLUESTEIN_SHAPE
+    for shape in ((2,) + ANY_R2C_SHAPE, (2, b3[1], b3[2], 1024)):
+        x = _rand(shape, dev, SEED + 71)
+        for sign in (-1, 1):
+            k = j2.fft2stage_p(x, sign)
+            slabs += _slab_hold(holds, 'fft2stage_p', k, lambda i, w: (
+                j2.fft2stage_plain(x.narrow(1, i, w), sign)), 1,
+                f"fft2stage_p {shape} sign {sign}")
+            del k
+        del x
+        torch.cuda.empty_cache()
+    shape = ANY_C2C_SHAPE
+    x = _rand((2,) + shape, dev, SEED + 70)
+    for sign in (-1, 1):
+        k = j2.fft2stage_p(x, sign)
+        slabs += _slab_hold(holds, 'fft2stage_p', k, lambda i, w: (
+            j2.fft2stage_plain(x.narrow(1, i, w), sign)), 1,
+            f"fft2stage_p {shape} sign {sign}")
+        del k
+    xc = torch.complex(x[0], x[1])
+    n = shape[-1]
+    b, by = _bound_ms(2 * x.numel() * 4, _j_flops(x.numel() // 2 // n, n))
+    out['fft2stage_p'] = {
+        'shape': f'(2, {shape[0]}, {shape[1]}, {n}) f32, last axis '
+                 f'(S = {n // 128})',
+        'ms': _median_ms(lambda: j2.fft2stage_p(x, -1)),
+        'plain_ms': _median_ms(lambda: j2.fft2stage_plain(x, -1), reps=3,
+                               warm=1),
+        'library_ms': _median_ms(lambda: torch.fft.fft(xc, dim=-1)),
+        'bound_ms': b, 'bound_by': by, 'slabs_held': slabs}
+    del x, xc
+    torch.cuda.empty_cache()
+    for i, (name, shape) in enumerate((('fft_plane_p', PLANE_H),
+                                       ('fft_plane_large_p', PLANE_I))):
+        fn = getattr(bf, name)
+        plain = getattr(bf, name[:-2] + '_plain')
+        x = _rand((2,) + shape, dev, SEED + 72 + i)
+        N1, N2 = shape[-2], shape[-1]
+        lines = x.numel() // 2
+        b, by = _bound_ms(2 * x.numel() * 4,
+                          5 * lines * math.log2(N1 * N2))
+        row = {'shape': f'(2, {shape[0]}, {N1}, {N2}) f32, last two axes',
+               'ms': _median_ms(lambda: fn(x, True)),
+               'two_a_passes_ms': _median_ms(
+                   lambda: bf.fft_axis_p(bf.fft_axis_p(x, 2), 1)),
+               'plain_ms': _median_ms(lambda: plain(x, True), reps=3,
+                                      warm=1)}
+        xc = torch.complex(x[0], x[1])
+        row['library_ms'] = _median_ms(lambda: torch.fft.fft2(xc))
+        row.update(bound_ms=b, bound_by=by)
+        del x, xc
+        torch.cuda.empty_cache()
+        out[name] = row
+    _emit({'phase': 'times_any', 'kernels': out})
+    return out
+
+
 KERNELS = {
     'fft_axis_p': ('mpi4py_fft_torch/ops/csrc/fft_axis.cu',
                    'mpi4py_fft_tpu/ops/pallas_butterfly.py:795'),
@@ -1437,6 +1765,12 @@ KERNELS = {
                     'mpi4py_fft_tpu/ops/pallas_butterfly.py:938'),
     'fft_axis_tp_f64': ('mpi4py_fft_torch/ops/csrc/fft_axis_tp.cu',
                         'mpi4py_fft_tpu/ops/pallas_butterfly.py:938'),
+    'fft2stage_p': ('mpi4py_fft_torch/ops/csrc/fft2stage.cu',
+                    'mpi4py_fft_tpu/ops/pallas_fft.py:158'),
+    'fft_plane_p': ('mpi4py_fft_torch/ops/csrc/fft_plane.cu',
+                    'mpi4py_fft_tpu/ops/pallas_butterfly.py:1056'),
+    'fft_plane_large_p': ('mpi4py_fft_torch/ops/csrc/fft_plane.cu',
+                          'mpi4py_fft_tpu/ops/pallas_butterfly.py:1167'),
 }
 
 
@@ -1472,6 +1806,11 @@ def main():
     phase_buffer(dev, bf)
     phase_dns_solver(dev, bf)
     marks['reference_api_path_s'] = time.perf_counter() - t_start
+    phase_any_c2c(dev, bf)
+    phase_any_r2c(dev, bf)
+    phase_bluestein(dev, bf)
+    phase_plane(dev, bf, holds)
+    marks['any_extent_path_s'] = time.perf_counter() - t_start
     launches = dict(bf.LAUNCHES)
     _check(set(launches) == set(KERNELS), f"counters {sorted(launches)}")
     for name, c in launches.items():
@@ -1484,6 +1823,7 @@ def main():
     times.update(phase_times64(dev, bf, holds))
     marks['times_s'] = time.perf_counter() - t_start
     times.update(phase_times_tp(dev, bf, holds))
+    times.update(phase_times_any(dev, bf, holds))
     kernels = []
     for name, (src, rep) in KERNELS.items():
         t = times[name]
@@ -1494,8 +1834,9 @@ def main():
             'plain_ms': t['plain_ms'], 'bound_ms': t['bound_ms'],
             'bound_by': t['bound_by'], 'library_ms': t['library_ms'],
             'shape': t['shape']})
-        if 'cufft_unfused_ms' in t:
-            kernels[-1]['cufft_unfused_ms'] = t['cufft_unfused_ms']
+        for extra in ('cufft_unfused_ms', 'two_a_passes_ms'):
+            if extra in t:
+                kernels[-1][extra] = t[extra]
     _emit({'kernels': kernels})
     # seconds from the start at the end of the planar phases (3-10), the
     # reference-API phases (11-15), times and times64

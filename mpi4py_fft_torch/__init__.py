@@ -15,11 +15,17 @@ The port covers so far, on one device:
   and float64, with 3/2-rule padding, whose padded c2c stages run the
   fused dealiasing kernel ``fft_axis_tp``;
 * the single-device :class:`PlanarPFFT`: c2c and r2c, float32 and float64,
-  with 3/2-rule padding, for axis lengths 2^a and 3*2^a up to 1024 on
-  every axis, and on float32 c2c axes also 1536 and 2048 (one pass of the
-  pair kernel) and 4096 (the four-step around the 1024-point kernel); the
-  quartered out-of-place schedule of 3-D float32 c2c volumes
-  (``ops/oop3d.py``, ``PlanarPFFT.forward_fn_q``/``backward_fn_q``);
+  with 3/2-rule padding; the quartered out-of-place schedule of 3-D
+  float32 c2c volumes (``ops/oop3d.py``, ``PlanarPFFT.forward_fn_q``/
+  ``backward_fn_q``);
+* any extent on every axis of these plans: the Stockham kernels take
+  2^a and 3*2^a up to 1024 (float32 c2c axes also 1536 and 2048 in one
+  pass of the pair kernel, 4096 by the four-step), and every other
+  length runs the mixed-radix and Bluestein engine of ``ops/matfft.py``,
+  whose float32 last axes of S*128 points run the two-stage kernel J
+  (``ops/fft2stage.py``);
+* the two-axis plane kernels H and I (``ops.butterfly.fft_plane_p``,
+  ``fft_plane_large_p``), entry points nothing dispatches;
 * the spectral DNS examples (``examples/spectral_dns_solver.py`` on
   ``PFFT``, ``examples/spectral_dns_planar.py`` on ``PlanarPFFT``).
 """

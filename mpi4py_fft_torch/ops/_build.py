@@ -70,6 +70,16 @@ _ENTRIES = {
         'mff_fft_axis2_f32': [_P, _P, _P, _P, _LLA, _P, _LL, _LL, _I, _LL,
                               _I, _IA, _I, _F, _P],
     },
+    'fft2stage': {
+        # x, y, tab, row, B, S, sign, plan, nstages, stream
+        'mff_fft2stage_f32': [_P, _P, _P, _LL, _LL, _I, _I, _IA, _I, _P],
+    },
+    'fft_plane': {
+        # x, y, tw2, tw2_len, tw1, tw1_len, P, n1, n2, sign, plan2, nst2,
+        # plan1, nst1, scale, counters, stream
+        'mff_fft_plane_f32': [_P, _P, _P, _LL, _P, _LL, _LL, _I, _I, _I,
+                              _IA, _I, _IA, _I, _F, _P, _P],
+    },
 }
 
 _lock = threading.Lock()

@@ -13,12 +13,18 @@ of the CUDA kernels on the single-device path:
   halves of one tensor: axes of 1536 and 2048;
 * ``fft_axis_tp``     (csrc/fft_axis_tp.cu) planar c2c along one axis with
   the 3/2-rule truncation fused into the write or the zero-padding into
-  the read.
+  the read;
+* ``fft_plane_p``, ``fft_plane_large_p`` (csrc/fft_plane.cu) planar c2c
+  over the last two axes in one launch (entry points; nothing dispatches
+  them, as in the JAX package).
 
-All but the pair kernel take float32 and float64 tensors: their kernels
-have an fp64 build (the port of the double-single tier ``pallas_ds``),
-which the wrappers launch for float64 and count under ``<name>_f64``.
-The pair kernel is float32 only for now.
+The two-stage last-axis kernel of the engine, J, is in ``fft2stage.py``.
+
+All but the pair and plane kernels take float32 and float64 tensors:
+their kernels have an fp64 build (the port of the double-single tier
+``pallas_ds``), which the wrappers launch for float64 and count under
+``<name>_f64``.  The pair kernel is float32 only for now; the plane
+kernels are float32 only, as in the JAX package.
 
 Stockham autosort recurrence (DIF, self-sorting, no bit reversal): the
 state of one line has shape (L, M) with L*M = N.  A radix-r stage splits
@@ -47,7 +53,9 @@ __all__ = ['fft_axis_p', 'rfft_axis_p', 'irfft_axis_p', 'fft_axis2_p',
            'supported_r2c', 'supported_c2r', 'supported_axis_split',
            'supported_axis_tp', 'fft_axis_plain', 'rfft_axis_plain',
            'irfft_axis_plain', 'fft_axis2_plain', 'fft_axis_pair_plain',
-           'fft_axis_tp_plain', 'LAUNCHES', 'reset_launches']
+           'fft_axis_tp_plain', 'fft_plane_p', 'fft_plane_large_p',
+           'supported_plane', 'supported_plane_large', 'fft_plane_plain',
+           'fft_plane_large_plain', 'LAUNCHES', 'reset_launches']
 
 _MAX_N_AXIS = 1024
 _MAX_N_PAIR = 2048
@@ -58,7 +66,8 @@ _MAX_N_PAIR = 2048
 LAUNCHES = {'fft_axis_p': 0, 'rfft_axis_p': 0, 'irfft_axis_p': 0,
             'fft_axis2_p': 0, 'fft_axis_pair_p': 0, 'fft_axis_p_f64': 0,
             'rfft_axis_p_f64': 0, 'irfft_axis_p_f64': 0, 'fft_axis_tp': 0,
-            'fft_axis_tp_f64': 0}
+            'fft_axis_tp_f64': 0, 'fft2stage_p': 0, 'fft_plane_p': 0,
+            'fft_plane_large_p': 0}
 
 
 def reset_launches():
@@ -575,10 +584,10 @@ def _pair_length_ok(N):
 
 
 def _unsupported_length(what, N, takes):
-    return NotImplementedError(
-        f"{what}: axis length {N} is not {takes}; other lengths arrive "
-        f"with the mixed-radix and Bluestein fallback engine (ROADMAP "
-        f"Queue 1 item 2)")
+    return ValueError(
+        f"{what}: axis length {N} is not {takes}, a length of this "
+        f"kernel; the engine (ops/matfft.py: fft1d_p, rfftn_p, irfftn_p) "
+        f"takes any length")
 
 
 def _require_len(N, what):
@@ -926,3 +935,94 @@ def fft_axis_tp(p, axis, forward=True, trunc=None, pad=None, scale=None):
             int(pad is not None), post, sign, plan, nst,
             1.0 if scale is None else float(scale))
     return out
+
+
+# ---------------------------------------------------------------------------
+# H and I: c2c over the last two axes in one launch
+# ---------------------------------------------------------------------------
+
+_MAX_N_PLANE = 256          # H's axes (the JAX package's _MAX_N)
+
+
+def _plane_ok(shape, dtype, cap):
+    """True for float32 planes whose last two axes are powers of two of
+    at most ``cap`` points each."""
+    if isinstance(dtype, torch.dtype):
+        f32 = dtype == torch.float32
+    else:
+        f32 = np.dtype(dtype) == np.float32
+    return (f32 and len(shape) >= 2 and _is_pow2(shape[-2]) and
+            _is_pow2(shape[-1]) and max(shape[-2], shape[-1]) <= cap)
+
+
+def supported_plane(shape, dtype):
+    """Gate for ``fft_plane_p`` (H): the last two axes of the complex
+    ``shape`` are powers of two of at most 256 points, float32.  The
+    JAX gate's block rules (pre % T, N2 % 128) are TPU layout and are
+    not ported: any leading extent is taken."""
+    return _plane_ok(shape, dtype, _MAX_N_PLANE)
+
+
+def supported_plane_large(shape, dtype):
+    """Gate for ``fft_plane_large_p`` (I): the last two axes are powers
+    of two the Stockham core takes (at most 1024 points each, so
+    N1 * N2 <= 2^20 as the JAX gate asks), float32.  The JAX gate's
+    128-multiples are not ported."""
+    return _plane_ok(shape, dtype, _MAX_N_AXIS)
+
+
+def fft_plane_plain(p, forward=True, scale=None):
+    """Plain PyTorch version of ``fft_plane_p``: the plain A on the last
+    axis, then on the second-to-last with the scale."""
+    n = p.dim() - 1
+    y = fft_axis_plain(p, n - 1, forward)
+    return fft_axis_plain(y, n - 2, forward, scale)
+
+
+def fft_plane_large_plain(p, forward=True, scale=None):
+    """Plain PyTorch version of ``fft_plane_large_p``: the same function
+    as ``fft_plane_plain``."""
+    return fft_plane_plain(p, forward, scale)
+
+
+def _plane(what, p, forward, scale, gate, plain):
+    _check_planar(p, what)
+    shape = tuple(p.shape[1:])
+    if not gate(shape, p.dtype):
+        raise ValueError(f"{what}: the last two axes of {shape} {p.dtype} "
+                         f"are not a plane this kernel takes (see "
+                         f"{gate.__name__})")
+    if _plain_ok(p, what):
+        return plain(p, forward, scale)
+    out = torch.empty_like(p)
+    if out.numel() == 0:
+        return out
+    N1, N2 = shape[-2], shape[-1]
+    P = math.prod(shape[:-2])
+    sign = -1 if forward else +1
+    tw2 = _tw_tensor(N2, sign, False, p.dtype, p.device)
+    tw1 = _tw_tensor(N1, sign, False, p.dtype, p.device)
+    plan2, nst2 = _plan_args(N2)
+    plan1, nst1 = _plan_args(N1)
+    counters = torch.zeros(P + 1, dtype=torch.int32, device=p.device)
+    _launch(what, _build.load().fft_plane_f32, p,
+            _ptr(p), _ptr(out), _ptr(tw2), tw2.shape[1], _ptr(tw1),
+            tw1.shape[1], P, N1, N2, sign, plan2, nst2, plan1, nst1,
+            1.0 if scale is None else float(scale), _ptr(counters))
+    return out
+
+
+def fft_plane_p(p, forward=True, scale=None):
+    """Planar c2c FFT over both of the last two axes of (2, ...) float32
+    data in one launch (H: axes of at most 256 points).  Unnormalized
+    unless ``scale`` is given (folded into the last write)."""
+    return _plane('fft_plane_p', p, forward, scale, supported_plane,
+                  fft_plane_plain)
+
+
+def fft_plane_large_p(p, forward=True, scale=None):
+    """Planar c2c FFT over both of the last two axes of (2, ...) float32
+    data in one launch (I: planes of N1 * N2 <= 2^20 points, each axis at
+    most 1024).  Unnormalized unless ``scale`` is given."""
+    return _plane('fft_plane_large_p', p, forward, scale,
+                  supported_plane_large, fft_plane_large_plain)

@@ -27,7 +27,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from . import _build, butterfly, matfft
+from . import _build, butterfly, fft2stage, matfft
 from .kinds import C2C_FORWARD, C2C_BACKWARD, R2C, C2R, R2R_KINDS
 from ..utils import resolve_device
 
@@ -237,6 +237,8 @@ def forget_wisdom():
     (reference: fftw/factory.py:165-167)."""
     _build.unload()
     butterfly._tw_tensor.cache_clear()
+    matfft._const.cache_clear()
+    fft2stage._table_tensor.cache_clear()
 
 
 def set_timelimit(limit):

@@ -26,9 +26,9 @@ API sketch::
 float32 ('f'/'F') and float64 ('d'/'D') plans run the same pipeline, with
 and without ``padding``: the kernels have an fp64 build, which takes the
 place of the JAX package's double-single branch (``_forward_ds``/
-``_backward_ds`` and its gates).  On CUDA, float64 axes over 1024 wait
-for the fp64 build of the pair kernel, and the quartered schedule is
-float32 only, as in the JAX package.
+``_backward_ds`` and its gates).  Every extent runs (``ops/matfft.py``
+takes the lengths no kernel takes); the quartered schedule is float32
+only, as in the JAX package.
 
 Several devices (``comm``/``grid`` of more than one device, or
 ``executor='shard_map'``) raise NotImplementedError until the distributed

@@ -10,6 +10,7 @@
 
 #include <barrier>
 #include <cstddef>
+#include <cstdlib>
 #include <cstring>
 #include <thread>
 #include <vector>
@@ -33,6 +34,19 @@ template <class T>
 inline T __ldg(const T* p) {
   return *p;
 }
+template <class T>
+inline T __ldcg(const T* p) {
+  return *p;
+}
+
+// device-wide atomics and fences (the blocks of a launch run one after
+// another, the threads of a block at once)
+inline int atomicAdd(int* p, int v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
+}
+inline void __threadfence() { __atomic_thread_fence(__ATOMIC_SEQ_CST); }
+inline void __nanosleep(unsigned) { std::this_thread::yield(); }
+inline void __trap() { std::abort(); }
 
 typedef void* cudaStream_t;
 typedef int cudaError_t;
@@ -40,7 +54,8 @@ enum {
   cudaSuccess = 0,
   cudaErrorInvalidValue = 1,
   cudaErrorInvalidConfiguration = 9,
-  cudaFuncAttributeMaxDynamicSharedMemorySize = 8
+  cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
+  cudaDevAttrMultiProcessorCount = 16
 };
 constexpr std::size_t kEmuMaxShared = 232448;   // an H100 block's limit
 
@@ -57,6 +72,16 @@ template <class F>
 inline cudaError_t cudaFuncSetAttribute(F, int, int bytes) {
   return static_cast<std::size_t>(bytes) > kEmuMaxShared
              ? cudaErrorInvalidValue : cudaSuccess;
+}
+
+// an emulated device of two SMs
+inline cudaError_t cudaGetDevice(int* dev) {
+  *dev = 0;
+  return cudaSuccess;
+}
+inline cudaError_t cudaDeviceGetAttribute(int* value, int, int) {
+  *value = 2;
+  return cudaSuccess;
 }
 
 alignas(16) inline unsigned char emu_smem[kEmuMaxShared];

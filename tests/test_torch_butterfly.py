@@ -183,13 +183,14 @@ def test_length_gates_raise():
     assert tb.supported_axis((3, 96, 5), 1)          # no tile gate
     assert tb.supported_c2r((4, 2, 3), 1, 768)
     assert not tb.supported_c2r((4, 2, 3), 1, 2048)
-    with pytest.raises(NotImplementedError, match='Queue 1 item 2'):
+    # the kernels refuse other lengths, which the engine (matfft) takes
+    with pytest.raises(ValueError, match='engine'):
         tb.fft_axis_p(p, 1)
-    with pytest.raises(NotImplementedError, match='Queue 1 item 2'):
+    with pytest.raises(ValueError, match='engine'):
         tb.fft_axis_p(torch.zeros((2, 2048)), 0)
-    with pytest.raises(NotImplementedError, match='Queue 1 item 2'):
+    with pytest.raises(ValueError, match='engine'):
         tb.rfft_axis_p(torch.zeros((4, 10)), 1)
-    with pytest.raises(NotImplementedError, match='Queue 1 item 2'):
+    with pytest.raises(ValueError, match='engine'):
         tb.irfft_axis_p(torch.zeros((2, 4, 6)), 1, 10)
 
 
@@ -226,11 +227,17 @@ def test_launch_counters_untouched_on_cpu():
     tb.irfft_axis_p(torch.zeros((2, 4, 5), dtype=f64), 1, 8)
     tb.fft_axis_tp(torch.zeros((2, 4, 12)), 1, trunc=8)
     tb.fft_axis_tp(torch.zeros((2, 4, 8), dtype=f64), 1, pad=12)
+    from mpi4py_fft_torch.ops import fft2stage
+    fft2stage.fft2stage_p(torch.zeros((2, 3, 640)), -1)
+    tb.fft_plane_p(torch.zeros((2, 3, 8, 16)))
+    tb.fft_plane_large_p(torch.zeros((2, 3, 8, 16)))
     assert tb.LAUNCHES == {'fft_axis_p': 0, 'rfft_axis_p': 0,
                            'irfft_axis_p': 0, 'fft_axis2_p': 0,
                            'fft_axis_pair_p': 0, 'fft_axis_p_f64': 0,
                            'rfft_axis_p_f64': 0, 'irfft_axis_p_f64': 0,
-                           'fft_axis_tp': 0, 'fft_axis_tp_f64': 0}
+                           'fft_axis_tp': 0, 'fft_axis_tp_f64': 0,
+                           'fft2stage_p': 0, 'fft_plane_p': 0,
+                           'fft_plane_large_p': 0}
 
 
 def test_import_isolation():

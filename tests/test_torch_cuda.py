@@ -38,7 +38,7 @@ def test_tp_wrapper_on_cuda(card):
     with pytest.raises(ValueError, match='contiguous'):
         tb.fft_axis_tp(torch.zeros((2, 48, 4), device=card).transpose(1, 2),
                        1, trunc=32)
-    with pytest.raises(NotImplementedError, match='Queue 1 item 2'):
+    with pytest.raises(ValueError, match='engine'):
         tb.fft_axis_tp(torch.zeros((2, 4, 2048), device=card), 1,
                        trunc=1365)
     for dtype, tol in ((torch.float32, 5e-6), (torch.float64, 2e-13)):
@@ -87,3 +87,62 @@ def test_serial_fft_padded_stage_on_cuda(card):
     assert _rel(torch.view_as_real(z), torch.view_as_real(ref)) <= 2e-13
     want = h.backward(h.forward(u))
     assert np.linalg.norm(back - want) <= 2e-13 * np.linalg.norm(want)
+
+
+@pytest.mark.cuda
+def test_any_extent_kernels_on_cuda(card):
+    """J on the card at every S and both signs, H and I at both signs with
+    a scale: launched, counted, and within 5e-6 of their plain versions;
+    the engine runs a 640-long last axis through one J launch, and a CUDA
+    tensor of a J length that is float64 takes the engine, not J."""
+    from mpi4py_fft_torch.ops import fft2stage, matfft
+    g = torch.Generator(device=card).manual_seed(3)
+    for S in range(1, 9):
+        p = torch.randn((2, 13, 128 * S), generator=g, device=card)
+        for sign in (-1, 1):
+            c0 = tb.LAUNCHES['fft2stage_p']
+            got = fft2stage.fft2stage_p(p, sign)
+            assert tb.LAUNCHES['fft2stage_p'] == c0 + 1
+            assert _rel(got, fft2stage.fft2stage_plain(p, sign)) <= 5e-6
+    with pytest.raises(TypeError, match='float32'):
+        fft2stage.fft2stage_p(torch.zeros((2, 3, 640), device=card,
+                                          dtype=torch.float64), -1)
+    for shape in ((3, 256, 256), (2, 1024, 1024), (4, 8, 2)):
+        p = torch.randn((2,) + shape, generator=g, device=card)
+        names = ['fft_plane_large_p'] + \
+            (['fft_plane_p'] if tb.supported_plane(shape, p.dtype) else [])
+        for name in names:
+            fn = getattr(tb, name)
+            plain = getattr(tb, name[:-2] + '_plain')
+            for fwd, sc in ((True, None), (False, 0.25)):
+                c0 = tb.LAUNCHES[name]
+                got = fn(p, fwd, scale=sc)
+                assert tb.LAUNCHES[name] == c0 + 1
+                assert _rel(got, plain(p, fwd, sc)) <= 5e-6
+    p = torch.randn((2, 6, 640), generator=g, device=card)
+    c0 = dict(tb.LAUNCHES)
+    got = matfft.fft1d_p(p, 1)
+    assert {k: v - c0[k] for k, v in tb.LAUNCHES.items() if v != c0[k]} \
+        == {'fft2stage_p': 1}
+    ref = torch.fft.fft(torch.complex(p[0], p[1]).cpu().to(torch.complex128),
+                        dim=1)
+    assert _rel(got, torch.stack([ref.real, ref.imag])) <= 5e-6
+    c0 = dict(tb.LAUNCHES)
+    got = matfft.fft1d_p(p.double(), 1)
+    assert tb.LAUNCHES == c0
+    assert _rel(got, torch.stack([ref.real, ref.imag])) <= 2e-13
+
+
+@pytest.mark.cuda
+def test_engine_products_full_f32_on_cuda(card, monkeypatch):
+    """With TF32 switched on for the process, the engine's cuBLAS products
+    (a 640-long lead axis: 32 x 20 mixed radix) stay within 5e-6 of a
+    float64 reference; TF32 would miss it by orders of magnitude."""
+    from mpi4py_fft_torch.ops import matfft
+    monkeypatch.setattr(torch.backends.cuda.matmul, 'allow_tf32', True)
+    g = torch.Generator(device=card).manual_seed(4)
+    p = torch.randn((2, 640, 96), generator=g, device=card)
+    got = matfft.fft1d_p(p, 0)
+    ref = torch.fft.fft(torch.complex(p[0], p[1]).to(torch.complex128), dim=0)
+    assert _rel(got, torch.stack([ref.real, ref.imag])) <= 5e-6
+    assert torch.backends.cuda.matmul.allow_tf32 is True

@@ -112,8 +112,9 @@ def test_f64_plans_vs_jax(dtype, shape, padding):
 
 
 def test_f64_long_axes_on_cpu():
-    """The plain versions keep taking float64 axes of 2048 and 4096 (the
-    pair kernel's route and the four-step)."""
+    """float64 axes of 2048 and 4096 take the engine's matrix stages (the
+    pair pass and the four-step are float32 routes, as in the JAX
+    package)."""
     rng = np.random.default_rng(26)
     for N in (2048, 4096):
         shape = (3, N, 2)
@@ -175,20 +176,23 @@ def test_f64_cuda_reaches_kernels(monkeypatch):
         tb._plain_ok(f64, 'fft_axis2_p', f64=False)
 
 
-def test_f64_pair_raises_on_cuda(no_plain):
-    """The pair kernel and the four-step refuse float64 CUDA tensors, and
-    no plain version runs in their place."""
+def test_f64_pair_raises_on_cuda(no_plain, monkeypatch):
+    """The pair kernel refuses float64 CUDA tensors, and no plain version
+    runs in its place; float64 axes over 1024 take the engine instead of
+    the pair pass and the four-step, as in the JAX package."""
     for N in (1536, 2048):
         p = _CudaStub((2, 4, N, 8), torch.float64)
         with pytest.raises(NotImplementedError, match='Queue 2, D64'):
             tb.fft_axis_pair_p(p, 1)
-        with pytest.raises(NotImplementedError, match='Queue 2, D64'):
-            tmatfft.fft1d_p(p, 1)
         h = _CudaStub((2, 4, N // 2, 8), torch.float64)
         with pytest.raises(NotImplementedError, match='Queue 2, D64'):
             tb.fft_axis2_p(h, h, 1)
-    with pytest.raises(NotImplementedError, match='Queue 2, D64'):
-        tmatfft.fft1d_p(_CudaStub((2, 4096, 8), torch.float64), 0)
-    # an unsupported length still says so first
-    with pytest.raises(NotImplementedError, match='Queue 1 item 2'):
-        tmatfft.fft1d_p(_CudaStub((2, 8192, 8), torch.float64), 0)
+    routes = []
+    monkeypatch.setattr(tmatfft, '_fft_axis_einsum',
+                        lambda p, axis, sign: routes.append(('mid', axis)))
+    monkeypatch.setattr(tmatfft, '_fft_last_p',
+                        lambda p, sign: routes.append(('last',)))
+    for shape, axis in (((2, 4, 1536, 8), 1), ((2, 2048, 8), 0),
+                        ((2, 4096, 8), 0), ((2, 8, 8192), 1)):
+        tmatfft.fft1d_p(_CudaStub(shape, torch.float64), axis)
+    assert routes == [('mid', 1), ('mid', 0), ('mid', 0), ('last',)]

@@ -284,3 +284,54 @@ def test_c_entry_rejects_bad_plan(emu_kernels):
             ctypes.c_void_p(tw.data_ptr()), tw.shape[1], 1, n, 1, -1,
             radices, len(plan), 1.0, ctypes.c_void_p(0))
         assert rc != 0, n
+
+
+# J (fft2stage.cu): every S, both signs, a line count that leaves the last
+# block partly empty, one line, and leading dims that flatten
+J_SHAPES = [((13, 128), 1), ((5, 256), 2), ((22, 384), 3), ((3, 6, 512), 4),
+            ((13, 640), 5), ((11, 768), 6), ((10, 896), 7), ((1, 1024), 8),
+            ((2, 3, 1024), 8)]
+
+
+@pytest.mark.parametrize('shape,S', J_SHAPES)
+def test_fft2stage_kernel_vs_plain(kernel_path, shape, S):
+    from mpi4py_fft_torch.ops import fft2stage
+    rng = np.random.default_rng(14)
+    p = torch.from_numpy(rng.standard_normal((2,) + shape)
+                         .astype(np.float32))
+    assert shape[-1] == 128 * S
+    for sign in (-1, +1):
+        got = fft2stage.fft2stage_p(p, sign)
+        ref = _plain(kernel_path, fft2stage.fft2stage_p, p, sign)
+        assert got.shape == p.shape and got.dtype == p.dtype
+        assert _rel(got, ref) <= TOL, sign
+    assert _launched() == {'fft2stage_p': 2}
+
+
+# H and I (fft_plane.cu): square and oblong planes, N = 2 on either
+# axis, planes smaller than one tile, the 256 x 256 plane of H, a
+# 1024-long axis, one plane and several
+PLANE_SHAPES = [(3, 32, 64), (2, 256, 256), (4, 8, 2), (1, 2, 1024),
+                (2, 1024, 4), (2, 3, 16, 16)]
+
+
+@pytest.mark.parametrize('shape', PLANE_SHAPES)
+def test_plane_kernel_vs_plain(kernel_path, shape):
+    """fft_plane_p where H's gate takes the plane, and fft_plane_large_p
+    always: both signs, with and without a scale."""
+    rng = np.random.default_rng(15)
+    p = torch.from_numpy(rng.standard_normal((2,) + shape)
+                         .astype(np.float32))
+    h = bf.supported_plane(shape, np.float32)
+    assert bf.supported_plane_large(shape, np.float32)
+    for fwd, sc in ((True, None), (False, None), (True, 0.37)):
+        fns = [bf.fft_plane_large_p] + ([bf.fft_plane_p] if h else [])
+        for fn in fns:
+            got = fn(p, fwd, scale=sc)
+            ref = _plain(kernel_path, fn, p, fwd, scale=sc)
+            assert got.shape == p.shape and got.dtype == p.dtype
+            assert _rel(got, ref) <= TOL, (fn.__name__, fwd, sc)
+    want = {'fft_plane_large_p': 3}
+    if h:
+        want['fft_plane_p'] = 3
+    assert _launched() == want

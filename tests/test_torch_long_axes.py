@@ -98,11 +98,17 @@ def test_plan_1536_vs_jax(kernels_on):
 
 
 def test_long_lengths_still_raise():
+    """Lengths past the pair kernel and the four-step: the kernels still
+    refuse them, and the engine (matfft) takes them."""
+    rng = np.random.default_rng(31)
     for shape, axis in (((8192, 2), 0), ((3072, 2), 0), ((2, 2050), 1)):
-        with pytest.raises(NotImplementedError, match='Queue 1 item 2'):
-            tmatfft.fft1d_p(torch.zeros((2,) + shape), axis)
-    with pytest.raises(NotImplementedError, match='Queue 1 item 2'):
+        z = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+        p = tmatfft.planar(torch.from_numpy(z)).float()
+        got = tmatfft.fft1d_p(p, axis)
+        ref = np.fft.fft(z, axis=axis)
+        assert _rel(got, np.stack([ref.real, ref.imag])) < 5e-6
+    with pytest.raises(ValueError, match='engine'):
         tb.fft_axis_pair_p(torch.zeros((2, 4096, 2)), 0)
-    with pytest.raises(NotImplementedError, match='Queue 1 item 2'):
+    with pytest.raises(ValueError, match='engine'):
         tb.fft_axis2_p(torch.zeros((2, 2048, 2)), torch.zeros((2, 2048, 2)),
                        0)

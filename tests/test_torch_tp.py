@@ -163,9 +163,9 @@ def test_tp_wrapper_raises_on_cpu():
         tb.fft_axis_tp(p, 1, trunc=48)
     with pytest.raises(ValueError, match=r'\(0, 32\)'):
         tb.fft_axis_tp(p, 1, pad=32)
-    with pytest.raises(NotImplementedError, match='Queue 1 item 2'):
+    with pytest.raises(ValueError, match='engine'):
         tb.fft_axis_tp(torch.zeros((2, 4, 2048)), 1, trunc=1365)
-    with pytest.raises(NotImplementedError, match='Queue 1 item 2'):
+    with pytest.raises(ValueError, match='engine'):
         tb.fft_axis_tp(p, 1, pad=36)
     with pytest.raises(ValueError, match='planar'):
         tb.fft_axis_tp(torch.zeros((3, 4, 48)), 1, trunc=32)
