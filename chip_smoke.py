@@ -5,8 +5,8 @@ Run from the root of a checkout, on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-Phases, run in the order 1-15, 19-22, 16-18, 23; any failure raises and
-the script exits non-zero:
+Phases, run in the order 1-15, 19-22, 16-18, 23, 24; any failure raises
+and the script exits non-zero:
 
 1. build     the kernels from ``mpi4py_fft_torch/ops/csrc`` with nvcc;
 2. holds     every kernel against its plain PyTorch version on the card
@@ -124,10 +124,27 @@ the script exits non-zero:
              PyTorch call that computes the same function
              (``torch.fft.fft`` over the last axis; ``torch.fft.fft2``)
              and, for H and I, two chained A passes at the same shape.
+24. probes   the port of the JAX package's TPU probes (``scripts/tpu_*.py``,
+             ``mpi4py_fft_torch/probes``): first every probe kernel
+             (``ops/probes.py``) against its plain version on the card,
+             ``block_copy`` and ``move`` bit for bit at every blocking and
+             move the scripts name (in place, out of place, two streams),
+             ``bfly`` at 5e-6 in every mode, position and tile (in place
+             bit for bit against out of place on the full 1024^3 volume),
+             ``fma_chain`` at 5e-6 (f64 2e-13) after 256 iterations
+             (every output filled with NaN first, so that a kernel that
+             skips work cannot pass on memory that held the answer); then
+             the launch counters of the probe kernels are set to 0, every
+             probe module runs (one JSON line each: ms, GB/s read + write
+             against the HBM peak, the PyTorch yardstick) and each probe
+             kernel must have been launched there; last, each probe
+             kernel's time beside its plain version, its bound and its
+             PyTorch yardstick for the ``kernels`` line.
 
 Phases 3 to 15 and 19 to 22 are the main path: the launch counters are
 set to 0 just before phase 3 and read after phase 22 (phases 16 to 18
-run after it, as do times_any).  Each phase prints one JSON line;
+run after it, as do times_any).  The probe kernels' path is phase 24's
+modules, with their own counters.  Each phase prints one JSON line;
 then come the ``{"kernels": [...]}`` line, the card's name and power limit
 from nvidia-smi, and last ``{"ok": true, "device": {...}}``.  Without a
 CUDA device the script prints no result and exits with 1.
@@ -179,6 +196,14 @@ BLUESTEIN_SHAPE = (509, 512, 512)   # a prime lead axis (Bluestein, M = 1024)
 # the JAX package's A/B (scripts/tpu_plane_large_test.py)
 PLANE_H = (1024, 256, 256)
 PLANE_I = (1024, 1024, 1024)
+PROBE_N = 1024             # the probes' floors: the north star's 1024^3
+FMA_HOLD_ITERS = 256       # fma_chain against its plain loop
+# the hold's constants: every step moves each value by far more than the
+# tolerance (the script's a = 1.0000001, b = 1e-9 move it by about an ulp)
+FMA_HOLD_A, FMA_HOLD_B = 0.9990234375, 0.25
+# fma_chain's row of the kernels line: enough iterations that the launch
+# is a small share of the time, few enough for the plain loop
+FMA_TIME_ITERS = 1 << 14
 
 
 def _emit(obj):
@@ -1744,9 +1769,307 @@ def phase_times_any(dev, bf, holds):
     return out
 
 
+def _exact(got, ref, what):
+    """A probe kernel that computes a copy: equal to its plain version
+    bit for bit."""
+    torch.cuda.synchronize()
+    _check(tuple(got.shape) == tuple(ref.shape) and torch.equal(got, ref),
+           f"{what}: differs from its plain version")
+
+
+def _nan(t):
+    """An output for a kernel under hold that no correct run leaves as it
+    is (a new tensor may reuse a freed block that already holds the
+    answer)."""
+    return torch.full_like(t, float('nan'))
+
+
+def _copy_cases(n):
+    """(label, tensor view shape, box, grid order, two streams) of the
+    scripts' copies at n (scripts/tpu_*.py; rows 1-5, 9-10, 12-16, 18-19
+    of the port's kernel table)."""
+    h = n // 2
+    v = (2, n, n * n // 128, 128)
+    return (('plane', (2, n, n, n), (2, 1, n, n), None, False),
+            ('8-plane', (2, n, n, n), (2, 8, n, n), None, False),
+            ('2-plane', (2, n, n, n), (2, 2, n, n), None, False),
+            ('halfplane', (2, n, n, n), (2, 1, h, n), None, False),
+            ('lead', (2, n, n, n), (2, n, 8, 128), None, False),
+            ('lead swapped grid', (2, n, n, n), (2, n, 8, 128), (0, 1, 3, 2),
+             False),
+            ('lead 8x256', (2, n, n, n), (2, n, 8, 256), None, False),
+            ('lead 8x512', (2, n, n, n), (2, n, 8, min(512, n)), None,
+             False),
+            ('lead 16x128', (2, n, n, n), (2, n, 16, 128), None, False),
+            ('mid', (2, n, n, n), (2, 8, n, 128), None, False),
+            ('lead view', v, (2, n, 8, 128), None, False),
+            ('lead view sub 16', v, (2, n, 16, 128), None, False),
+            ('lead view sub 32', v, (2, n, 32, 128), None, False),
+            ('contig', (2, n ** 3 // 256, 256), (2, 4096, 256), None, False),
+            ('pair base', (2, h, n, h), (2, h, 8, 128), None, True),
+            ('pair wide', (2, h, n, h), (2, h, 8, min(256, h)), None,
+             True),
+            ('pair tall', (2, h, n, h), (2, h, 16, 128), None, True),
+            ('pair gridT', (2, h, n, h), (2, h, 8, 128), (0, 1, 3, 2), True),
+            ('pair halfrow', (2, h, n, h), (2, h // 2, 8, 128), None, True),
+            ('paircopy', (2, h, n * h // 128, 128), (2, h, 8, 128), None,
+             True))
+
+
+def _holds_probes(holds, dev, tp):
+    """Every probe kernel against its plain version; returns the number
+    of cases."""
+    cases = 0
+    for n in (PROBE_N // 4, PROBE_N):           # the scripts' 256 and 1024
+        x = _rand((2,) + (n,) * 3, dev, SEED + 80)
+        x2 = _rand((2,) + (n,) * 3, dev, SEED + 81)
+        for label, shape, box, order, pair in _copy_cases(n):
+            a = x.view(-1)[:math.prod(shape)].view(shape)
+            ra = tp.block_copy_plain(a)
+            what = f"block_copy {label} n={n}"
+            if pair:
+                b = x2.view(-1)[:math.prod(shape)].view(shape)
+                ya, yb = tp.block_copy(a, box, order, out=_nan(a), x2=b,
+                                       out2=_nan(b))
+                _exact(ya, ra, f"{what} stream 1")
+                _exact(yb, tp.block_copy_plain(b), f"{what} stream 2")
+                del ya, yb
+            else:
+                _exact(tp.block_copy(a, box, order, out=_nan(a)), ra, what)
+                # in place the copy is the identity: this shows only that
+                # the launch writes nothing wrong
+                tp.block_copy(a, box, order, out=a)
+                _exact(a, ra, f"{what} in place")
+            cases += 2
+            del ra
+        del x, x2
+        torch.cuda.empty_cache()
+    # the moves: the script's nine spellings, and B's reads at 768^3
+    from mpi4py_fft_torch.probes import moves
+    x = torch.arange(64 * 8 * 128, dtype=torch.float32,
+                     device=dev).reshape(64, 8, 128)
+    for tag, m in moves.MOVES.items():
+        ref = tp.move_plain(x, *m)
+        _exact(tp.move(x, *m, out=_nan(ref)), ref, f"move {tag}")
+        cases += 1
+    m = 3 * DEALIAS_N // 2
+    x = _rand((m, m, m), dev, SEED + 82)
+    for axis in (0, 2):
+        for kind, shift in (('even', 0), ('odd', 0), ('reverse', 0),
+                            ('roll', 1), ('roll', m - 5)):
+            ref = tp.move_plain(x, axis, kind, shift)
+            _exact(tp.move(x, axis, kind, shift, out=_nan(ref)), ref,
+                   f"move {kind} {shift} axis {axis} of {m}^3")
+            del ref
+            cases += 1
+    del x
+    # bfly: every mode at lead, mid and last positions, reps, fewer lines a
+    # tile than A's
+    g = torch.Generator(device=dev).manual_seed(SEED + 83)
+    for N in (16, 64, 256, 512, 768, 1024):
+        for shape, ax in (((N, 24, 40), 0), ((6, N, 40), 1), ((50, N), 1)):
+            p = torch.randn((2,) + shape, generator=g, device=dev)
+            modes = tp.MODES if N in (16, 64, 256, 1024) else ('copy',
+                                                                'full')
+            for mode in modes:
+                for reps in (1, 3):
+                    got = tp.bfly(p, ax, mode, reps, out=_nan(p))
+                    ref = tp.bfly_plain(p, ax, mode, reps)
+                    what = f"bfly {mode} x{reps} {shape} axis {ax}"
+                    if mode in ('copy', 'moves'):
+                        _exact(got, ref, what)
+                    else:
+                        holds.hold('bfly', got, ref, what)
+                    q = p.clone()
+                    tp.bfly(q, ax, mode, reps, out=q)
+                    _exact(q, got, f"{what} in place")
+                    cases += 2
+            lines = tp.tile_lines(N)
+            holds.hold('bfly', tp.bfly(p, ax, 'full', lines=lines // 4,
+                                       out=_nan(p)),
+                       tp.bfly_plain(p, ax, 'full'),
+                       f"bfly full {shape} axis {ax} {lines // 4} lines")
+            cases += 1
+    # in place against out of place on the full probe volume, lead and mid
+    n = PROBE_N
+    x = _rand((2,) + (n,) * 3, dev, SEED + 84)
+    for ax, mode, reps in ((0, 'full', 1), (0, 'full', 2), (0, 'adds', 1),
+                           (1, 'full', 1)):
+        y = tp.bfly(x, ax, mode, reps, out=_nan(x))
+        tp.bfly(x, ax, mode, reps, out=x)
+        _exact(x, y, f"bfly {mode} x{reps} {n}^3 axis {ax} in place")
+        cases += 1
+        del y
+    del x
+    torch.cuda.empty_cache()
+    # fma_chain after 256 iterations (the plain loop cannot run the timed
+    # 2^18), every accumulator count, at constants each step moves
+    from mpi4py_fft_torch.probes import vpu_peak
+    for dtype, name in ((torch.float32, 'fma_chain'),
+                        (torch.float64, 'fma_chain_f64')):
+        numel = torch.cuda.get_device_properties(dev).multi_processor_count \
+            * vpu_peak.THREADS_PER_SM * 8
+        x = 1.0 + 0.5 * _rand((numel,), dev, SEED + 85).to(dtype)
+        ref = tp.fma_chain_plain(x, FMA_HOLD_ITERS, FMA_HOLD_A, FMA_HOLD_B)
+        for acc in (1, 4, 8, 16):
+            holds.hold(name, tp.fma_chain(x, FMA_HOLD_ITERS, acc, FMA_HOLD_A,
+                                          FMA_HOLD_B, out=_nan(x)),
+                       ref, f"{name} acc={acc}")
+            cases += 1
+        del x, ref
+    return cases
+
+
+def _probe_times(dev, tp):
+    """Each probe kernel at one shape of its probes: ms beside its plain
+    version, its bound and its PyTorch yardstick (None where no one call
+    computes the function)."""
+    from mpi4py_fft_torch.probes import vpu_peak
+    out = {}
+    n = PROBE_N
+    x = _rand((2,) + (n,) * 3, dev, SEED + 86)
+    y = torch.empty_like(x)
+    box = (2, 1, n, n)
+    b, by = _bound_ms(2 * x.numel() * 4, 0)
+    out['block_copy'] = {
+        'shape': f'(2, {n}, {n}, {n}) f32 out of place in (2, 1, {n}, {n}) '
+                 f'boxes (the plane copy floor)',
+        'ms': _median_ms(lambda: tp.block_copy(x, box, out=y)),
+        'plain_ms': _median_ms(lambda: tp.block_copy_plain(x)),
+        'library_ms': _median_ms(lambda: y.copy_(x)),
+        'bound_ms': b, 'bound_by': by}
+    del y
+    modes = {}
+    xv = x.view(2, n, n * n // 128, 128)
+    for mode in tp.MODES:
+        modes[mode] = _median_ms(lambda: tp.bfly(xv, 0, mode, out=xv))
+    xc = torch.complex(x[0], x[1])
+    lib = _median_ms(lambda: torch.fft.fft(xc, dim=0))
+    del xc
+    b, by = _bound_ms(2 * x.numel() * 4, n * n * 5 * n * math.log2(n))
+    out['bfly'] = {
+        'shape': f'(2, {n}, {n}, {n}) f32, lead axis, in place, mode full '
+                 f'(A\'s plan); modes_ms: each mode at the same shape',
+        'ms': modes['full'],
+        'plain_ms': _median_ms(lambda: tp.bfly_plain(x, 0, 'full'), reps=1,
+                               warm=0),
+        'library_ms': lib, 'bound_ms': b, 'bound_by': by,
+        'modes_ms': modes}
+    del x, xv
+    torch.cuda.empty_cache()
+    m = 3 * DEALIAS_N // 2
+    r = _rand((m, m, m), dev, SEED + 87)
+    e = tp.move(r, 2, 'even')
+    b, by = _bound_ms(2 * e.numel() * 4, 0)
+    out['move'] = {
+        'shape': f'({m}, {m}, {m}) f32 -> ({m}, {m}, {m // 2}), the even '
+                 f'points of the last axis (B\'s deinterleaved reads)',
+        'ms': _median_ms(lambda: tp.move(r, 2, 'even', out=e)),
+        'plain_ms': _median_ms(lambda: tp.move_plain(r, 2, 'even')),
+        'library_ms': _median_ms(lambda: e.copy_(r[..., 0::2])),
+        'bound_ms': b, 'bound_by': by}
+    del r, e
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for dtype, name in ((torch.float32, 'fma_chain'),
+                        (torch.float64, 'fma_chain_f64')):
+        numel = sms * vpu_peak.THREADS_PER_SM * 8
+        x = torch.ones(numel, dtype=dtype, device=dev)
+        b, by = _bound_ms(2 * numel * x.element_size(),
+                          2.0 * numel * FMA_TIME_ITERS,
+                          f64=dtype == torch.float64)
+        out[name] = {
+            'shape': f'{numel} {str(dtype)[6:]} elements, '
+                     f'{FMA_TIME_ITERS} iterations, 8 accumulators a '
+                     f'thread (the rate at 2^18: probes vpu_peak)',
+            'ms': _median_ms(lambda: tp.fma_chain(x, FMA_TIME_ITERS, 8,
+                                                  out=x)),
+            'plain_ms': _median_ms(lambda: tp.fma_chain_plain(
+                x, FMA_TIME_ITERS), reps=1, warm=1),
+            'library_ms': None, 'bound_ms': b, 'bound_by': by}
+        del x
+    return out
+
+
+def _fft_yardsticks(res, dev):
+    """Fill in ``library_ms`` of the probe rows that name the transform
+    they compute (``fft``: complex shape and axis) with torch.fft.fft's
+    time on random data of that shape; the port never calls it."""
+    ms = {}
+    for r in res['rows']:
+        if 'fft' in r:
+            key = repr(r['fft'])
+            if key not in ms:
+                shape, dim = r['fft']
+                x = torch.complex(_rand(shape, dev, SEED + 88),
+                                  _rand(shape, dev, SEED + 89))
+                ms[key] = _median_ms(lambda: torch.fft.fft(x, dim=dim))
+                del x
+            r['library_ms'] = ms[key]
+
+
+def phase_probes(dev):
+    """The probe kernels held against their plain versions, then every
+    probe module, the probe kernels' launches counted from 0 across the
+    modules, then the probe kernels' times for the kernels line."""
+    from mpi4py_fft_torch import probes
+    from mpi4py_fft_torch.ops import probes as tp
+    t0 = time.perf_counter()
+    holds = Holds(PROBE_KERNELS)
+    cases = _holds_probes(holds, dev, tp)
+    holds_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    tp.reset_launches()
+    for name in probes.NAMES:
+        res = probes.module(name).run(dev)
+        torch.cuda.empty_cache()
+        _fft_yardsticks(res, dev)
+        _emit({'phase': 'probes', **res})
+        torch.cuda.empty_cache()
+    launches = dict(tp.LAUNCHES)
+    _check(set(launches) == set(PROBE_KERNELS), f"counters {launches}")
+    for name, c in launches.items():
+        _check(c > 0, f"{name} was not launched by the probe modules")
+    secs = time.perf_counter() - t0
+    times = _probe_times(dev, tp)
+    _emit({'phase': 'probes', 'seconds': secs, 'holds_seconds': holds_s,
+           'seconds_with_kernel_times': time.perf_counter() - t0,
+           'holds': cases, 'max_rel_l2': holds.rel,
+           'max_abs_err': holds.err, 'launches': launches})
+    return [{'name': name, 'route': 'cuda', 'source': src, 'replaces': rep,
+             'launches': launches[name], 'max_abs_err': holds.err[name],
+             'max_rel_l2': holds.rel[name], **times[name]}
+            for name, (src, rep) in PROBE_KERNELS.items()]
+
+
+_COPIES = ', '.join(f'scripts/{s}' for s in (
+    'tpu_dma_probe.py:69', 'tpu_blockshape_probe.py:72',
+    'tpu_blockshape_probe.py:113', 'tpu_lead_copy.py:89',
+    'tpu_lead_copy.py:102', 'tpu_r3_profile.py:79', 'tpu_r3_profile.py:93',
+    'tpu_plane_test.py:96', 'tpu_plane_test.py:110',
+    'tpu_pair_blocking_probe.py:66', 'tpu_pair_blocking_probe.py:96',
+    'tpu_oop3d_dissect.py:104', 'tpu_slope_probe.py:74',
+    'tpu_slope_probe.py:88'))
+_BFLY = ', '.join(f'scripts/{s}' for s in (
+    'tpu_lead_copy.py:119', 'tpu_lead_copy.py:137', 'tpu_lead_copy.py:199',
+    'tpu_r3_profile.py:121', 'tpu_bfly_dissect.py:77',
+    'tpu_bfly_dissect.py:152', 'tpu_vpu_probe.py:57'))
+PROBE_KERNELS = {
+    'block_copy': ('mpi4py_fft_torch/ops/csrc/probe_copy.cu', _COPIES),
+    'move': ('mpi4py_fft_torch/ops/csrc/probe_copy.cu',
+             'scripts/tpu_probe_moves.py:31'),
+    'bfly': ('mpi4py_fft_torch/ops/csrc/probe_bfly.cu', _BFLY),
+    'fma_chain': ('mpi4py_fft_torch/ops/csrc/probe_fma.cu',
+                  'scripts/tpu_vpu_peak.py:86'),
+    'fma_chain_f64': ('mpi4py_fft_torch/ops/csrc/probe_fma.cu',
+                      'scripts/tpu_vpu_peak.py:86'),
+}
+# A at N = 256, 512 and 1024 as tpu_longN_probe.py times it (probes
+# long_n) is A and A64 as they are
+_LONG_N = '; scripts/tpu_longN_probe.py:76'
+
 KERNELS = {
     'fft_axis_p': ('mpi4py_fft_torch/ops/csrc/fft_axis.cu',
-                   'mpi4py_fft_tpu/ops/pallas_butterfly.py:795'),
+                   'mpi4py_fft_tpu/ops/pallas_butterfly.py:795' + _LONG_N),
     'rfft_axis_p': ('mpi4py_fft_torch/ops/csrc/rfft_axis.cu',
                     'mpi4py_fft_tpu/ops/pallas_butterfly.py:1818'),
     'irfft_axis_p': ('mpi4py_fft_torch/ops/csrc/rfft_axis.cu',
@@ -1756,7 +2079,7 @@ KERNELS = {
     'fft_axis_pair_p': ('mpi4py_fft_torch/ops/csrc/fft_axis2.cu',
                         'mpi4py_fft_tpu/ops/pallas_butterfly.py:1476'),
     'fft_axis_p_f64': ('mpi4py_fft_torch/ops/csrc/fft_axis.cu',
-                       'mpi4py_fft_tpu/ops/pallas_ds.py:368'),
+                       'mpi4py_fft_tpu/ops/pallas_ds.py:368' + _LONG_N),
     'rfft_axis_p_f64': ('mpi4py_fft_torch/ops/csrc/rfft_axis.cu',
                         'mpi4py_fft_tpu/ops/pallas_ds.py:546'),
     'irfft_axis_p_f64': ('mpi4py_fft_torch/ops/csrc/rfft_axis.cu',
@@ -1824,6 +2147,8 @@ def main():
     marks['times_s'] = time.perf_counter() - t_start
     times.update(phase_times_tp(dev, bf, holds))
     times.update(phase_times_any(dev, bf, holds))
+    marks['times_any_s'] = time.perf_counter() - t_start
+    probe_rows = phase_probes(dev)
     kernels = []
     for name, (src, rep) in KERNELS.items():
         t = times[name]
@@ -1837,9 +2162,10 @@ def main():
         for extra in ('cufft_unfused_ms', 'two_a_passes_ms'):
             if extra in t:
                 kernels[-1][extra] = t[extra]
-    _emit({'kernels': kernels})
+    _emit({'kernels': kernels + probe_rows})
     # seconds from the start at the end of the planar phases (3-10), the
-    # reference-API phases (11-15), times and times64
+    # reference-API phases (11-15), the any-extent phases (19-22), times
+    # and times64, and times_any (the probes take the rest)
     _emit({'phase': 'done', 'seconds': time.perf_counter() - t_start,
            'marks': marks})
     print(_smi(), flush=True)

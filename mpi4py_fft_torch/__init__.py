@@ -26,6 +26,8 @@ The port covers so far, on one device:
   (``ops/fft2stage.py``);
 * the two-axis plane kernels H and I (``ops.butterfly.fft_plane_p``,
   ``fft_plane_large_p``), entry points nothing dispatches;
+* the JAX package's TPU probes (``scripts/tpu_*.py``) as on-card probes
+  (``mpi4py_fft_torch.probes``) on the probe kernels of ``ops/probes.py``;
 * the spectral DNS examples (``examples/spectral_dns_solver.py`` on
   ``PFFT``, ``examples/spectral_dns_planar.py`` on ``PlanarPFFT``).
 """
@@ -39,7 +41,7 @@ from .ops.plan import fftlib
 from .parallel.pencil import Subcomm, Pencil, Transfer
 from .parallel.mpifft import PFFT, Transform
 from .parallel.planar import PlanarPFFT
-from .distarray import DistArray, newDistArray
+from .distarray import DistArray, newDistArray, Function
 
 # reference-compatible module names (mpi4py_fft/fftw/{xfftn,factory,
 # utilities})
@@ -51,8 +53,8 @@ _sys.modules[__name__ + '.fftw.utilities'] = ops.utilities
 __version__ = '0.1.0'
 
 __all__ = ['PFFT', 'Transform', 'PlanarPFFT', 'DistArray', 'newDistArray',
-           'fftw', 'ops', 'fftlib', 'Subcomm', 'Pencil', 'Transfer',
-           'entry', '__version__']
+           'Function', 'fftw', 'ops', 'fftlib', 'Subcomm', 'Pencil',
+           'Transfer', 'entry', '__version__']
 
 
 def entry(device=None):

@@ -8,9 +8,11 @@ pencil owns the whole array.  As in the JAX package, ``.shape`` is the
 global shape and ``get`` returns on every caller.
 
 Tensors of rank > 0 keep their first ``rank`` axes undistributed,
-matching the reference (distarray.py:40-56).  Not ported yet:
-``redistribute`` between pencils of several devices (ROADMAP Queue 1
-item 4) and ``write``/``read`` (item 11).
+matching the reference (distarray.py:40-56).  On one device
+``redistribute`` relabels the pencil's alignment, as the JAX package
+does when both axes are undivided.  Not ported yet: ``redistribute``
+between pencils of several devices (ROADMAP Queue 1 item 4) and
+``write``/``read`` (item 11).
 """
 from numbers import Integral, Number
 
@@ -22,7 +24,7 @@ from .parallel.pencil import Pencil, Subcomm, AxisComm, COMM_SELF, \
 from .parallel.comm import COMM_WORLD
 from .utils import resolve_device, torch_dtype
 
-__all__ = ['DistArray', 'newDistArray']
+__all__ = ['DistArray', 'newDistArray', 'Function']
 
 
 def _no_io(what):
@@ -243,10 +245,36 @@ class DistArray(object):
              zip(self._p0.local_start(d), self._p0.local_shape(d))]
         return tuple([slice(0, s) for s in self.shape[:self.rank]] + v)
 
-    # -- not ported yet ----------------------------------------------------
+    # -- redistribution (reference: distarray.py:280-363) ------------------
+    def get_pencil_and_transfer(self, axis):
+        """The pencil aligned with ``axis`` and the :class:`Transfer` into
+        it (reference: distarray.py:280-296)."""
+        p1 = self._p0.pencil(axis)
+        return p1, self._p0.transfer(p1, self.dtype)
+
     def redistribute(self, axis=None, out=None):
-        """Reference: distarray.py:298-363."""
-        raise _multi_device('DistArray.redistribute')
+        """Realign the array with ``axis``, or copy it into ``out``, which
+        keeps its own alignment (reference: distarray.py:298-363).  On one
+        device every axis is undivided, so a new alignment only relabels
+        the pencil and returns this array, as the JAX package does
+        (mpi4py_fft_tpu/distarray.py:439-447)."""
+        if axis == self.alignment:
+            return self
+        if axis is not None and isinstance(out, DistArray) and \
+                axis != out.alignment:
+            raise ValueError(f"redistribute: axis {axis} is not out's "
+                             f"alignment {out.alignment}")
+        if any(s != 1 for s in self.commsizes):
+            raise _multi_device('DistArray.redistribute')
+        if axis is not None:
+            self._p0 = self._p0.pencil(axis)
+            return self
+        if not isinstance(out, DistArray) or \
+                self.global_shape != out.global_shape:
+            raise ValueError("redistribute: give an axis, or out= a "
+                             "DistArray of the same global shape")
+        out.v.copy_(self._data)
+        return out
 
     def write(self, filename, name='darray', step=0, global_slice=None,
               domain=None, as_scalar=False):
@@ -268,3 +296,15 @@ def newDistArray(pfft, forward_output=True, val=0, rank=0, view=False):
     z = DistArray(global_shape, subcomm=p0.subcomm, val=val, dtype=dtype,
                   alignment=p0.axis, rank=rank, device=pfft.device)
     return z.v if view else z
+
+
+def Function(*args, **kwargs):
+    """Deprecated alias of :func:`newDistArray` (reference:
+    distarray.py:487-493); ``tensor=`` asks for ``rank=1``."""
+    import warnings
+    warnings.warn("Function() is deprecated; use newDistArray().",
+                  FutureWarning)
+    if 'tensor' in kwargs:
+        kwargs['rank'] = 1
+        del kwargs['tensor']
+    return newDistArray(*args, **kwargs)

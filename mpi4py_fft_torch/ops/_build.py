@@ -12,7 +12,8 @@ Every pointer and the stream are passed as ``ctypes.c_void_p``, and the
 scale as the entry's own float type (``c_float`` for ``_f32``,
 ``c_double`` for ``_f64``: a double passed as a float would be rounded
 silently); each C entry returns ``cudaGetLastError()`` after its launch,
-and the wrappers in ``butterfly.py`` raise when it is not 0.
+and the wrappers in ``butterfly.py``, ``fft2stage.py`` and ``probes.py``
+raise when it is not 0.
 """
 import ctypes
 import hashlib
@@ -79,6 +80,24 @@ _ENTRIES = {
         # plan1, nst1, scale, counters, stream
         'mff_fft_plane_f32': [_P, _P, _P, _LL, _P, _LL, _LL, _I, _I, _I,
                               _IA, _I, _IA, _I, _F, _P, _P],
+    },
+    # the probes of ops/probes.py
+    'probe_copy': {
+        # x0, y0, x1, y1, dims, box, order, nd, stream
+        'mff_block_copy_f32': [_P, _P, _P, _P, _LLA, _LLA, _IA, _I, _P],
+        # x, y, P, N, Q, kind, shift, stream
+        'mff_move_f32': [_P, _P, _LL, _LL, _LL, _I, _LL, _P],
+    },
+    'probe_bfly': {
+        # x, y, tw, tw_len, pre, n, post, sign, plan, nstages, mode, reps,
+        # lc, stream
+        'mff_bfly_f32': [_P, _P, _P, _LL, _LL, _I, _LL, _I, _IA, _I, _I, _I,
+                         _I, _P],
+    },
+    'probe_fma': {
+        # x, y, n, iters, acc, a, b, stream
+        'mff_fma_chain_f32': [_P, _P, _LL, _LL, _I, _F, _F, _P],
+        'mff_fma_chain_f64': [_P, _P, _LL, _LL, _I, _D, _D, _P],
     },
 }
 

@@ -713,22 +713,32 @@ def _plan_args(W):
     return (ctypes.c_int * len(plan))(*plan), len(plan)
 
 
-def fft_axis_p(p, axis, forward=True, scale=None):
+def fft_axis_p(p, axis, forward=True, scale=None, out=None):
     """Planar c2c FFT along ``axis`` (complex coords) of (2, ...) data.
 
     Unnormalized unless ``scale`` is given (applied in the last stage).
-    forward=False is the unscaled inverse."""
+    forward=False is the unscaled inverse.  ``out``: a contiguous tensor
+    like ``p`` to write into (a new one by default), ``p`` itself for in
+    place: the kernel loads every line of a tile before it stores them,
+    and no other block touches them."""
     what = 'fft_axis_p'
     _check_planar(p, what)
     shape = tuple(p.shape[1:])
     axis = axis % len(shape)
     N = shape[axis]
     _require_len(N, what)
+    if out is not None and (out.shape != p.shape or out.dtype != p.dtype or
+                            out.device != p.device or
+                            not out.is_contiguous()):
+        raise ValueError(f"{what}: out {tuple(out.shape)} {out.dtype} on "
+                         f"{out.device} is not a contiguous "
+                         f"{tuple(p.shape)} {p.dtype} on {p.device}")
     if _plain_ok(p, what):
-        return fft_axis_plain(p, axis, forward, scale)
+        y = fft_axis_plain(p, axis, forward, scale)
+        return y if out is None else out.copy_(y)
     pre, post = _pre_post(shape, axis)
     sign = -1 if forward else +1
-    out = torch.empty_like(p)
+    out = torch.empty_like(p) if out is None else out
     if out.numel() == 0:
         return out
     tw = _tw_tensor(N, sign, False, p.dtype, p.device)

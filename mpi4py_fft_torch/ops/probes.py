@@ -1,0 +1,351 @@
+"""Probe kernels: the port of the JAX package's TPU microbenchmarks
+(``scripts/tpu_*.py``), each a hand-written CUDA kernel with its plain
+PyTorch version beside it:
+
+* ``block_copy`` (csrc/probe_copy.cu): a copy of a contiguous float32
+  tensor box by box, in the caller's box shape and grid order, in place
+  or out of place, one stream or two;
+* ``move`` (csrc/probe_copy.cu): a gather copy along one axis (even, odd,
+  reverse, roll), the moves of the packed r2c kernel;
+* ``bfly`` (csrc/probe_bfly.cu): A's kernel body on A's tile with the work
+  between its load and its store chosen by a mode (copy, moves, adds,
+  full) and run ``reps`` times;
+* ``fma_chain`` (csrc/probe_fma.cu): ``acc <- acc * a + b`` repeated, the
+  card's FMA rate, float32 and float64.
+
+The modules of ``mpi4py_fft_torch.probes`` time them (and A itself,
+``butterfly.fft_axis_p`` with ``out=``).  On a CPU tensor a wrapper runs
+the plain version; on a CUDA tensor it launches its kernel or raises.
+Each launch adds one to its count in ``LAUNCHES``.
+"""
+import ctypes
+import math
+
+import torch
+
+from . import _build
+from . import butterfly as bf
+
+__all__ = ['block_copy', 'block_copy_plain', 'move', 'move_plain', 'bfly',
+           'bfly_plain', 'tile_lines', 'fma_chain', 'fma_chain_plain',
+           'MOVES', 'MODES', 'FMA_A', 'FMA_B', 'LAUNCHES', 'reset_launches']
+
+# kernel launches since the last reset; a wrapper adds one where it
+# launches its kernel and nowhere else
+LAUNCHES = {'block_copy': 0, 'move': 0, 'bfly': 0, 'fma_chain': 0,
+            'fma_chain_f64': 0}
+
+MOVES = ('even', 'odd', 'reverse', 'roll')
+MODES = ('copy', 'moves', 'adds', 'full')
+# the constants of scripts/tpu_vpu_peak.py:53-54
+FMA_A, FMA_B = 1.0000001, 1e-9
+_FMA_ACC = (1, 4, 8, 16)
+
+
+def reset_launches():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _plain_ok(t, what, dtypes=(torch.float32,)):
+    """True for a CPU tensor (the plain version runs); False for a
+    contiguous CUDA tensor of a type the kernel takes; raises for
+    anything else."""
+    if t.device.type == 'cpu':
+        return True
+    if t.device.type != 'cuda':
+        raise ValueError(f"{what}: tensor on {t.device}; the kernels take "
+                         f"CUDA tensors and the plain versions CPU tensors")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{what}: the kernel takes "
+                        f"{', '.join(str(d) for d in dtypes)}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: the kernel takes a contiguous tensor")
+    return False
+
+
+def _launch(what, fn, t, *args):
+    """Run one probe kernel's C entry on ``t``'s device and current
+    stream; raise if CUDA refused the launch."""
+    with torch.cuda.device(t.device):
+        stream = torch.cuda.current_stream(t.device).cuda_stream
+        rc = fn(*args, ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"{what}: kernel launch failed with CUDA error "
+                           f"{rc} ({_build.error_string(rc)})")
+    LAUNCHES[what] += 1
+
+
+def _target(x, out, shape, what):
+    """``out`` checked against the result's shape, type and device, or a
+    new tensor."""
+    if out is None:
+        return x.new_empty(shape)
+    if tuple(out.shape) != tuple(shape) or out.dtype != x.dtype or \
+            out.device != x.device or not out.is_contiguous():
+        raise ValueError(f"{what}: out {tuple(out.shape)} {out.dtype} on "
+                         f"{out.device} is not a contiguous {tuple(shape)} "
+                         f"{x.dtype} on {x.device}")
+    return out
+
+
+def _same(a, b, what):
+    if a.shape != b.shape or a.dtype != b.dtype or a.device != b.device:
+        raise ValueError(f"{what}: {tuple(a.shape)} {a.dtype} on {a.device} "
+                         f"and {tuple(b.shape)} {b.dtype} on {b.device} do "
+                         f"not match")
+
+
+# ---------------------------------------------------------------------------
+# block_copy
+# ---------------------------------------------------------------------------
+
+def block_copy_plain(x):
+    """Plain PyTorch version of ``block_copy``: the boxes only order the
+    work, so the function is a copy."""
+    return x.clone()
+
+
+def _box_args(x, box, order, what):
+    nd = x.dim()
+    box = tuple(int(b) for b in box)
+    order = tuple(range(nd)) if order is None else tuple(int(o)
+                                                         for o in order)
+    if not 1 <= nd <= 5 or len(box) != nd or \
+            any(b < 1 or s % b for s, b in zip(x.shape, box)):
+        raise ValueError(f"{what}: box {box} does not tile {tuple(x.shape)} "
+                         f"(at most 5 dims)")
+    if sorted(order) != list(range(nd)):
+        raise ValueError(f"{what}: grid order {order} is not a permutation "
+                         f"of the {nd} axes")
+    return box, order
+
+
+def block_copy(x, box, order=None, out=None, x2=None, out2=None):
+    """Copy contiguous float32 ``x`` into ``out`` (a new tensor, or ``x``
+    itself for in place) in boxes of shape ``box``, one CTA a box at a
+    time, the boxes enumerated over the grid axes ``order`` (slowest
+    first; default row-major, the last axis fastest).  With ``x2`` the
+    same boxes of ``x2`` go to ``out2`` in the same launch (2-in/2-out).
+    Returns ``out``, or ``(out, out2)``."""
+    what = 'block_copy'
+    box, order = _box_args(x, box, order, what)
+    pair = x2 is not None
+    if pair:
+        _same(x, x2, what)
+    plain = _plain_ok(x, what)
+    if pair:
+        _plain_ok(x2, what)
+    out = _target(x, out, x.shape, what)
+    out2 = _target(x2, out2, x.shape, what) if pair else None
+    if plain:
+        out.copy_(block_copy_plain(x))
+        if pair:
+            out2.copy_(block_copy_plain(x2))
+    elif x.numel():
+        nd = x.dim()
+        _launch(what, _build.load().block_copy_f32, x, bf._ptr(x),
+                bf._ptr(out), bf._ptr(x2) if pair else None,
+                bf._ptr(out2) if pair else None,
+                (ctypes.c_longlong * nd)(*x.shape),
+                (ctypes.c_longlong * nd)(*box),
+                (ctypes.c_int * nd)(*order), nd)
+    return (out, out2) if pair else out
+
+
+# ---------------------------------------------------------------------------
+# move
+# ---------------------------------------------------------------------------
+
+def _move_shape(x, axis, kind, what):
+    if kind not in MOVES:
+        raise ValueError(f"{what}: kind {kind!r} is not one of {MOVES}")
+    axis = axis % x.dim()
+    N = x.shape[axis]
+    if kind in ('even', 'odd') and N % 2:
+        raise ValueError(f"{what}: {kind} takes an even axis, got {N}")
+    shape = list(x.shape)
+    if kind in ('even', 'odd'):
+        shape[axis] = N // 2
+    return axis, tuple(shape)
+
+
+def move_plain(x, axis, kind, shift=0):
+    """Plain PyTorch version of ``move``: slicing (even ``x[0::2]``, odd
+    ``x[1::2]``), flip or roll along ``axis``, then a clone."""
+    axis = axis % x.dim()
+    idx = [slice(None)] * x.dim()
+    if kind == 'even':
+        idx[axis] = slice(0, None, 2)
+        return x[tuple(idx)].clone()
+    if kind == 'odd':
+        idx[axis] = slice(1, None, 2)
+        return x[tuple(idx)].clone()
+    if kind == 'reverse':
+        return x.flip(axis)
+    return torch.roll(x, int(shift), axis)
+
+
+def move(x, axis, kind, shift=0, out=None):
+    """Gather copy of contiguous float32 ``x`` along ``axis``: ``kind``
+    'even' (``x[0::2]``), 'odd' (``x[1::2]``), 'reverse' or 'roll' by
+    ``shift`` (``torch.roll``'s sense).  Exact."""
+    what = 'move'
+    axis, shape = _move_shape(x, axis, kind, what)
+    N = x.shape[axis]
+    if _plain_ok(x, what):
+        y = move_plain(x, axis, kind, shift)
+        return y if out is None else _target(x, out, shape, what).copy_(y)
+    out = _target(x, out, shape, what)
+    if out.numel():
+        P = math.prod(x.shape[:axis])
+        Q = math.prod(x.shape[axis + 1:])
+        _launch(what, _build.load().move_f32, x, bf._ptr(x), bf._ptr(out),
+                P, N, Q, MOVES.index(kind), int(shift) % N)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# bfly
+# ---------------------------------------------------------------------------
+
+def _radix4_lines(xr, xi, N, dft, sign):
+    """The radix-4 Stockham stage loop on (pre, N, post) lines, restated
+    term for term from scripts/tpu_bfly_dissect.py: body_concat (dft
+    False: slabs concatenated along M, no arithmetic) and body_adds (dft
+    True: the 4-point network, twiddles skipped; sign -1 there)."""
+    xr = xr.unsqueeze(2)                    # (pre, L, M, post)
+    xi = xi.unsqueeze(2)
+    L = N
+    while L > 1:
+        Lq = L // 4
+        qr = [xr[:, j * Lq:(j + 1) * Lq] for j in range(4)]
+        qi = [xi[:, j * Lq:(j + 1) * Lq] for j in range(4)]
+        if dft:
+            t0r, t0i = qr[0] + qr[2], qi[0] + qi[2]
+            t1r, t1i = qr[1] + qr[3], qi[1] + qi[3]
+            t2r, t2i = qr[0] - qr[2], qi[0] - qi[2]
+            t3r, t3i = qr[1] - qr[3], qi[1] - qi[3]
+            u3r, u3i = -sign * t3i, sign * t3r
+            qr = [t0r + t1r, t2r + u3r, t0r - t1r, t2r - u3r]
+            qi = [t0i + t1i, t2i + u3i, t0i - t1i, t2i - u3i]
+        xr = torch.cat(qr, dim=2)
+        xi = torch.cat(qi, dim=2)
+        L = Lq
+    return xr[:, 0], xi[:, 0]
+
+
+def tile_lines(N):
+    """Lines of A's float32 tile at length N: the largest power of two up
+    to 1024 with N lines of 8192 points (butterfly.cuh tile_log2_lines)."""
+    c = 1
+    while c < 1024 and 2 * c * N <= 8192:
+        c *= 2
+    return c
+
+
+def _is_pow4(n):
+    return bf._is_pow2(n) and (n.bit_length() - 1) % 2 == 0
+
+
+def bfly_plain(p, axis, mode='full', reps=1, forward=True):
+    """Plain PyTorch version of ``bfly``: a copy; the radix-4 stage loop
+    without arithmetic or without twiddles (``reps`` times); or
+    ``fft_axis_plain`` ``reps`` times."""
+    if mode == 'copy':
+        return p.clone()
+    if mode == 'full':
+        y = p
+        for _ in range(reps):
+            y = bf.fft_axis_plain(y, axis, forward)
+        return y
+    shape = tuple(p.shape[1:])
+    axis = axis % len(shape)
+    N = shape[axis]
+    pre, post = bf._pre_post(shape, axis)
+    sign = -1 if forward else 1
+    y = p.reshape(2, pre, N, post).clone()
+    for a, b in bf._chunks(pre, N, post):
+        r, i = y[0, a, :, b], y[1, a, :, b]
+        for _ in range(reps):
+            r, i = _radix4_lines(r, i, N, mode == 'adds', sign)
+        y[0, a, :, b] = r
+        y[1, a, :, b] = i
+    return y.reshape(p.shape)
+
+
+def bfly(p, axis, mode='full', reps=1, lines=None, out=None, forward=True):
+    """A's kernel body along ``axis`` (complex coords) of planar float32
+    ``p``: load each tile of lines, run ``mode`` ``reps`` times, store it
+    into ``out`` (a new tensor, or ``p`` for in place).  ``mode``:
+    'copy', 'moves' (the radix-4 data flow alone), 'adds' (radix-4 with
+    twiddles at 1) or 'full' (A's radix plan); moves and adds take
+    N = 4^k.  ``lines``: lines a tile (a power of two up to A's own), or
+    A's own tile."""
+    what = 'bfly'
+    bf._check_planar(p, what)
+    if mode not in MODES or int(reps) < 1:
+        raise ValueError(f"{what}: mode {mode!r} (one of {MODES}), reps "
+                         f"{reps} >= 1")
+    shape = tuple(p.shape[1:])
+    axis = axis % len(shape)
+    N = shape[axis]
+    bf._require_len(N, what)
+    if mode in ('moves', 'adds') and not _is_pow4(N):
+        raise ValueError(f"{what}: mode {mode} takes N = 4^k, got {N}")
+    lc = -1
+    if lines is not None:
+        lc = int(lines).bit_length() - 1
+        if lines < 1 or 1 << lc != lines or (N << lc) % 16 or \
+                lines > tile_lines(N):
+            raise ValueError(f"{what}: {lines} lines of {N} points is no "
+                             f"tile of A's")
+    if _plain_ok(p, what):
+        y = bfly_plain(p, axis, mode, reps, forward)
+        return y if out is None else _target(p, out, p.shape, what).copy_(y)
+    out = _target(p, out, p.shape, what)
+    if out.numel():
+        pre, post = bf._pre_post(shape, axis)
+        sign = -1 if forward else 1
+        tw = bf._tw_tensor(N, sign, False, p.dtype, p.device)
+        plan, nst = bf._plan_args(N)
+        _launch(what, _build.load().bfly_f32, p, bf._ptr(p), bf._ptr(out),
+                bf._ptr(tw), tw.shape[1], pre, N, post, sign, plan, nst,
+                MODES.index(mode), int(reps), lc)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# fma_chain
+# ---------------------------------------------------------------------------
+
+def fma_chain_plain(x, iters, a=FMA_A, b=FMA_B):
+    """Plain PyTorch version of ``fma_chain``: ``iters`` steps of
+    ``acc * a + b`` (a multiply and an add, each rounded)."""
+    acc = x.clone()
+    for _ in range(int(iters)):
+        acc = acc * a + b
+    return acc
+
+
+def fma_chain(x, iters, acc=8, a=FMA_A, b=FMA_B, out=None):
+    """For each element of contiguous float32 or float64 ``x``, ``iters``
+    fused steps ``acc <- acc * a + b`` with ``acc`` independent
+    accumulators a thread (1, 4, 8 or 16), into ``out`` (new, or
+    ``x``)."""
+    what = 'fma_chain'
+    if int(acc) not in _FMA_ACC or int(iters) < 0:
+        raise ValueError(f"{what}: acc {acc} (one of {_FMA_ACC}), iters "
+                         f"{iters} >= 0")
+    if _plain_ok(x, what, (torch.float32, torch.float64)):
+        y = fma_chain_plain(x, iters, a, b)
+        return y if out is None else _target(x, out, x.shape, what).copy_(y)
+    out = _target(x, out, x.shape, what)
+    if x.dtype == torch.float64:
+        name, fn = what + '_f64', _build.load().fma_chain_f64
+    else:
+        name, fn = what, _build.load().fma_chain_f32
+    if x.numel():
+        _launch(name, fn, x, bf._ptr(x), bf._ptr(out), x.numel(),
+                int(iters), int(acc), float(a), float(b))
+    return out

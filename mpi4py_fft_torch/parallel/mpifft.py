@@ -14,8 +14,11 @@ planar, (2,) + shape real tensors; ``fn`` takes complex tensors and
 converts at its boundary (one copy each way).
 
 Not ported yet: more than one device (``comm``/``grid`` of several
-devices, ``executor='shard_map'``: ROADMAP Queue 1 item 4) and r2r
-``transforms=`` (item 6).  On one device ``a2a_chunks`` changes nothing.
+devices: ROADMAP Queue 1 item 4) and r2r ``transforms=`` (item 6).  On
+one device every executor (``'auto'``, ``'gspmd'``, ``'shard_map'``)
+runs the one-device chain and the plan reports ``executor == 'gspmd'``,
+as the JAX package falls back to it on a one-device mesh; ``a2a_chunks``
+changes nothing.
 """
 import numpy as np
 import torch
@@ -278,9 +281,7 @@ class PFFT(object):
                  grid=None, padding=False, collapse=False, backend='jax',
                  transforms=None, darray=None, device=None, **kw):
         executor = kw.pop('executor', None)
-        if executor == 'shard_map':
-            raise _multi_device("PFFT's shard_map executor")
-        if executor not in (None, 'auto', 'gspmd'):
+        if executor not in (None, 'auto', 'gspmd', 'shard_map'):
             raise ValueError(f"unknown executor {executor!r}")
         kw.pop('a2a_chunks', None)
         if transforms:
@@ -419,7 +420,8 @@ class PFFT(object):
         host_mode = backend in ('numpy', 'scipy', 'mkl_fft')
         in_dtype = self.xfftn[0].forward.input_array.dtype
         out_dtype = self.xfftn[-1].forward.output_array.dtype
-        self.executor = 'local'
+        # one device: the JAX package's fallback (mpifft.py:669-673)
+        self.executor = 'gspmd'
         if host_mode:
             fwd_stages = [o.forward_fn for o in self.xfftn]
             bck_stages = [o.backward_fn for o in self.xfftn[::-1]]

@@ -146,3 +146,58 @@ def test_engine_products_full_f32_on_cuda(card, monkeypatch):
     ref = torch.fft.fft(torch.complex(p[0], p[1]).to(torch.complex128), dim=0)
     assert _rel(got, torch.stack([ref.real, ref.imag])) <= 5e-6
     assert torch.backends.cuda.matmul.allow_tf32 is True
+
+
+@pytest.mark.cuda
+def test_probe_kernels_on_cuda(card):
+    """The probe kernels on the card: launched and counted; block_copy and
+    move bit for bit (in place, two streams, both grid orders), bfly
+    within 5e-6 of its plain version (copy and moves bit for bit, in place
+    equal to out of place), fma_chain within 5e-6 (f64 2e-13); a tensor
+    the kernels do not take raises, with no fallback."""
+    from mpi4py_fft_torch.ops import probes as tp
+
+    def nan(t):         # an output no correct launch leaves as it is
+        return torch.full_like(t, float('nan'))
+    g = torch.Generator(device=card).manual_seed(5)
+    x = torch.randn((2, 64, 64, 64), generator=g, device=card)
+    for box, order in (((2, 1, 64, 64), None), ((2, 64, 8, 32), None),
+                       ((2, 64, 8, 32), (0, 1, 3, 2))):
+        c0 = tp.LAUNCHES['block_copy']
+        assert torch.equal(tp.block_copy(x, box, order, out=nan(x)), x)
+        ya, yb = tp.block_copy(x, box, order, out=nan(x), x2=2 * x,
+                               out2=nan(x))
+        assert torch.equal(ya, x) and torch.equal(yb, 2 * x)
+        z = x.clone()
+        assert tp.block_copy(z, box, order, out=z) is z
+        assert torch.equal(z, x)
+        assert tp.LAUNCHES['block_copy'] == c0 + 3
+    r = torch.randn((24, 10, 96), generator=g, device=card)
+    for axis in (0, 1, 2):
+        for kind, shift in (('even', 0), ('odd', 0), ('reverse', 0),
+                            ('roll', 7)):
+            ref = tp.move_plain(r, axis, kind, shift)
+            assert torch.equal(tp.move(r, axis, kind, shift, out=nan(ref)),
+                               ref)
+    for shape, ax in (((64, 8, 40), 0), ((6, 64, 40), 1), ((50, 256), 1)):
+        q = torch.randn((2,) + shape, generator=g, device=card)
+        for mode in tp.MODES:
+            got = tp.bfly(q, ax, mode, 2, out=nan(q))
+            ref = tp.bfly_plain(q, ax, mode, 2)
+            if mode in ('copy', 'moves'):
+                assert torch.equal(got, ref)
+            else:
+                assert _rel(got, ref) <= 5e-6
+            w = q.clone()
+            assert torch.equal(tp.bfly(w, ax, mode, 2, out=w), got)
+    for dtype, tol in ((torch.float32, 5e-6), (torch.float64, 2e-13)):
+        v = 1.0 + 0.5 * torch.rand(5000, generator=g, device=card,
+                                   dtype=dtype)
+        # constants each step moves by far more than tol
+        for acc in (1, 4, 8, 16):
+            assert _rel(tp.fma_chain(v, 64, acc, 0.9990234375, 0.25),
+                        tp.fma_chain_plain(v, 64, 0.9990234375, 0.25)) <= tol
+    with pytest.raises(TypeError, match='float32'):
+        tp.block_copy(x.half(), (2, 1, 64, 64))
+    with pytest.raises(ValueError, match='contiguous'):
+        tp.move(x.transpose(2, 3), 1, 'even')

@@ -40,7 +40,7 @@ def _emu_source(cu):
                flags=re.S)
     s, n = re.subn(r'extern __shared__ __align__\(16\) unsigned char '
                    r'smem\[\];', 'unsigned char* smem = emu_smem;', s)
-    assert n >= 1, cu
+    assert n >= 1 or '__shared__' not in s, cu     # every smem replaced
     return s
 
 

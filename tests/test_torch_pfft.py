@@ -256,15 +256,11 @@ def test_pfft_not_ported_yet_raise():
     with pytest.raises(NotImplementedError, match='Queue 1 item 4'):
         PFFT(None, (8, 8, 8), grid=(2,), device='cpu')
     with pytest.raises(NotImplementedError, match='Queue 1 item 4'):
-        PFFT(None, (8, 8, 8), executor='shard_map', device='cpu')
-    with pytest.raises(NotImplementedError, match='Queue 1 item 4'):
         tpkg.Subcomm(two, [0, 0])
     with pytest.raises(NotImplementedError, match='Queue 1 item 6'):
         PFFT(None, (8, 8, 8), transforms={(2,): (None, None)},
              device='cpu')
     u = DistArray((8, 8, 8), val=0, device='cpu')
-    with pytest.raises(NotImplementedError, match='Queue 1 item 4'):
-        u.redistribute(0)
     with pytest.raises(NotImplementedError, match='Queue 1 item 11'):
         u.write('u.h5')
     with pytest.raises(NotImplementedError, match='Queue 1 item 11'):
@@ -318,3 +314,100 @@ def test_pfft_default_device_is_cuda():
                  lambda: tpkg.fftw.fftn(np.zeros((4, 8), 'D'))):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
+
+
+# the JAX package on one device of the CPU mesh: every axis group of
+# size 1, as the port's
+def _jax_one():
+    import jax
+    from mpi4py_fft_tpu.parallel.pencil import DeviceComm as JComm
+    return JComm(jax.devices()[:1])
+
+
+def test_redistribute_one_device_vs_jax():
+    """On one device redistribute relabels the pencil and returns the
+    array itself; with out= alone it copies into out, which keeps its
+    alignment; with an axis and out= it relabels and returns the array
+    (JAX distarray.py:431-447)."""
+    from mpi4py_fft_tpu.parallel.pencil import Subcomm as JSubcomm
+    sc = JSubcomm(_jax_one(), [0, 0, 0])
+    X = np.random.default_rng(21).random((8, 6, 4))
+    ja = jpkg.DistArray((8, 6, 4), subcomm=sc, alignment=0, dtype='d')
+    ta = DistArray((8, 6, 4), alignment=0, dtype='d', device='cpu')
+    ja[:] = X
+    ta[:] = X
+    jb, tb_ = ja.redistribute(2), ta.redistribute(2)
+    assert tb_ is ta and jb is ja
+    assert tb_.alignment == jb.alignment == 2
+    assert tb_.shape == tuple(jb.shape) == (8, 6, 4)
+    assert tb_.pencil.axis == 2 and tb_.commsizes == jb.commsizes
+    np.testing.assert_array_equal(np.asarray(tb_), np.asarray(jb))
+    assert ta.redistribute(2) is ta
+    jo = jpkg.DistArray((8, 6, 4), subcomm=sc, alignment=1, dtype='d')
+    to = DistArray((8, 6, 4), alignment=1, dtype='d', device='cpu')
+    jc, tc = ja.redistribute(out=jo), ta.redistribute(out=to)
+    assert tc is to and jc is jo and tc.alignment == jc.alignment == 1
+    np.testing.assert_array_equal(np.asarray(tc), np.asarray(jc))
+    np.testing.assert_array_equal(np.asarray(tc), X)
+    jd, td = ja.redistribute(1, out=jo), ta.redistribute(1, out=to)
+    assert td is ta and jd is ja and td.alignment == jd.alignment == 1
+    # tensor-rank arrays keep their leading axes undistributed
+    tv = DistArray((3, 8, 6, 4), rank=1, alignment=2, device='cpu')
+    assert tv.redistribute(0).alignment == 0 and tv.commsizes == [1] * 4
+    with pytest.raises(ValueError, match='alignment'):
+        ta.redistribute(2, out=to)
+    with pytest.raises(ValueError, match='same global shape'):
+        ta.redistribute(out=DistArray((8, 6, 5), device='cpu'))
+
+
+def test_get_pencil_and_transfer_vs_jax():
+    from mpi4py_fft_tpu.parallel.pencil import Subcomm as JSubcomm
+    ja = jpkg.DistArray((8, 6, 4), subcomm=JSubcomm(_jax_one(), [0, 0, 0]),
+                        alignment=0, dtype='d')
+    ta = DistArray((8, 6, 4), alignment=0, dtype='d', device='cpu')
+    for ax in (1, 2):
+        jp, jt = ja.get_pencil_and_transfer(ax)
+        tp, tt = ta.get_pencil_and_transfer(ax)
+        assert isinstance(tp, tpkg.Pencil) and isinstance(tt, tpkg.Transfer)
+        assert tp.axis == jp.axis == ax
+        assert tp.subshape == tuple(jp.subshape)
+        assert (tt.axisA, tt.axisB) == (jt.axisA, jt.axisB) == (0, ax)
+        assert tt.subshapeB == tuple(jt.subshapeB)
+        assert tt.dtype == np.dtype('d')
+        tt.destroy()
+
+
+@pytest.mark.parametrize('executor', ['shard_map', 'auto', 'gspmd'])
+def test_executor_on_one_device_vs_jax(executor):
+    """Every executor takes the one-device chain and reports 'gspmd', as
+    the JAX PFFT falls back on a one-device mesh (mpifft.py:669-673); the
+    round trip holds at 2e-10 and the spectrum against JAX."""
+    jfft = jpkg.PFFT(_jax_one(), (8, 9, 10), dtype='d', executor=executor)
+    tfft = PFFT(None, (8, 9, 10), dtype='d', executor=executor,
+                device='cpu')
+    assert tfft.executor == jfft.executor == 'gspmd'
+    u = _rand((8, 9, 10), 'd', 22)
+    uh = tfft.forward.fn(torch.from_numpy(u))
+    assert _rel(uh.numpy(), np.array(jfft.forward(u))) <= TOL['d']
+    back = tfft.backward.fn(uh).numpy()
+    assert _rel(back, u) <= TOL['d']
+    with pytest.raises(ValueError, match='unknown executor'):
+        PFFT(None, (8, 9, 10), executor='mpi', device='cpu')
+
+
+def test_function_alias_vs_jax():
+    """The deprecated Function: a FutureWarning, then newDistArray, with
+    tensor= asking for rank 1 (JAX distarray.py:536)."""
+    jfft = jpkg.PFFT(_jax_one(), (8, 9, 10), dtype='d')
+    tfft = PFFT(None, (8, 9, 10), dtype='d', device='cpu')
+    with pytest.warns(FutureWarning, match='newDistArray'):
+        jv = jpkg.Function(jfft, False, tensor=3)
+    with pytest.warns(FutureWarning, match='newDistArray'):
+        tv = tpkg.Function(tfft, False, tensor=3)
+    assert isinstance(tv, DistArray) and tv.rank == jv.rank == 1
+    assert tv.shape == tuple(jv.shape) == (3, 8, 9, 10)
+    with pytest.warns(FutureWarning):
+        tu = tpkg.Function(tfft, True, val=2)
+    assert tu.rank == 0 and tu.shape == tfft.global_shape(True)
+    assert float(tu.v[0, 0, 0].real) == 2.0
+    assert 'Function' in tpkg.__all__
