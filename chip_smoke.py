@@ -8,12 +8,17 @@ Run from the root of a checkout, on a machine with one CUDA card:
 Phases, run in the order 1-15, 19-22, 16-18, 23, 24; any failure raises
 and the script exits non-zero:
 
-1. build     the kernels from ``mpi4py_fft_torch/ops/csrc`` with nvcc;
+1. build     the kernels from ``mpi4py_fft_torch/ops/csrc`` with nvcc,
+             their ``ptxas`` lines, and how many two-CTA clusters of the
+             pair kernel's cluster instance (N = 1536, 2048) the card
+             holds at once (``cudaOccupancyMaxActiveClusters``, > 0);
 2. holds     every kernel against its plain PyTorch version on the card
              (relative L2 <= 5e-6), the pair kernels at lead, mid and last
-             positions for N up to 2048, and the fp64 builds of
+             positions for N up to 2048 (A's tile up to 1024, the cluster
+             kernel at 1536 and 2048), and the fp64 builds of
              ``fft_axis_p``, ``rfft_axis_p``, ``irfft_axis_p`` and
-             ``fft_axis_tp`` on float64 tensors (<= 2e-13); the fused
+             ``fft_axis_tp`` on float64 tensors (<= 2e-13; the float64
+             r2c on whole lines is the line kernel); the fused
              dealiasing kernel ``fft_axis_tp`` at lead, mid and last
              positions, truncation and padding, even and odd Nt, with and
              without a scale; J (``fft2stage_p``) at every S = 1..8 and
@@ -30,7 +35,8 @@ and the script exits non-zero:
              4 ``fft_axis_p`` + 4 ``fft_axis2_p`` launches per transform,
              and the schedule's peak device memory;
 6. long      ``PlanarPFFT`` at (2048, 1024, 512) (one ``fft_axis_pair_p``
-             pass on axis 0) and (4096, 1024, 256) (the four-step around
+             pass on axis 0, the cluster kernel) and (4096, 1024, 256)
+             (the four-step around
              ``fft_axis_p`` on axis 0): forward against ``torch.fft.fftn``
              and the round trip;
 7. dealias   ``PlanarPFFT(None, (512,)*3, dtype='f', padding=1.5)`` (a
@@ -82,10 +88,18 @@ and the script exits non-zero:
              end-to-end 1024^3 c2c transform, unquartered and quartered.
              Every main-path shape of a kernel is also held against its
              plain version at <= 5e-6, and so are the pair kernels at the
-             N = 2048 passes of every axis position;
+             N = 2048 passes of every axis position; G (the cluster
+             kernel) is timed at the (2048, 1024, 512) lead pass and at
+             (2, 1536, 1024, 512) axis 0, held there on both signs, and
+             held in place (``fft_axis2_p(..., alias=True)`` at N = 2048)
+             against out of place into NaN-filled halves, bit for bit;
 17. times64  the fp64 builds at the 512^3 DNS's shapes (held at 2e-13 on
              both signs), timed beside their plain versions, complex128
-             ``torch.fft`` and their bounds; ``fft_axis_p_f64`` at the six
+             ``torch.fft`` and their bounds; B64 (the line kernel) also at
+             the truncating pass of the dealiased f64 plan (a 768^3 input,
+             trunc 257, scale 1/768: held at 2e-13, timed beside its plain
+             version, its bound and ``torch.fft.rfft``); ``fft_axis_p_f64``
+             at the six
              passes of the 1024^3 ``'D'`` transform on the full volume,
              held at 2e-13 against its plain version slab by slab; and
              the 1024^3 ``'D'`` transform end to end;
@@ -150,6 +164,7 @@ from nvidia-smi, and last ``{"ok": true, "device": {...}}``.  Without a
 CUDA device the script prints no result and exits with 1.
 """
 import contextlib
+import ctypes
 import json
 import math
 import os
@@ -182,6 +197,9 @@ LONG_SHAPES = ((2048, 1024, 512), (4096, 1024, 256))
 # the lead pass of LONG_SHAPES[0], the one timed)
 PAIR_SHAPES = (((2048, 1024, 512), 0), ((512, 2048, 1024), 1),
                ((512, 1024, 2048), 2))
+# ... and at N = 1536 on the lead axis of a volume like the first, held
+# and timed the same way
+PAIR_1536 = ((1536, 1024, 512), 0)
 NORTH64_N = 1024           # the c2c north star at float64 ('D')
 DEALIAS64_N = 512          # the r2c 'd' 3/2-rule plan
 DNS_N = 512                # the spectral DNS at float64
@@ -320,7 +338,17 @@ def phase_build():
     ptxas = [ln.strip() for out in _build.LOG.values()
              for ln in out.splitlines()
              if 'registers' in ln or 'spill' in ln or 'Compiling' in ln]
-    _emit({'phase': 'build', 'seconds': secs, 'ptxas': ptxas})
+    clusters = {}
+    k = _build.load()
+    for n in (1536, 2048):
+        c = ctypes.c_int(0)
+        rc = k.fft_axis2_clusters_f32(n, ctypes.byref(c))
+        _check(rc == 0 and c.value > 0,
+               f"pair kernel at N = {n}: no two-CTA cluster fits "
+               f"(rc {rc}, {c.value})")
+        clusters[n] = c.value
+    _emit({'phase': 'build', 'seconds': secs, 'ptxas': ptxas,
+           'pair_max_active_clusters': clusters})
     print(_smi(), flush=True)
 
 
@@ -924,6 +952,7 @@ def phase_times64(dev, bf, holds):
         'library_ms': _median_ms(lambda: torch.fft.rfft(r, dim=2)),
         'bound_ms': b, 'bound_by': by}
     del r
+    out['rfft_axis_p_f64']['trunc768'] = _times_trunc64(dev, bf, holds, g)
     hc = torch.complex(h[0], h[1])
     for sc in (None, 1.0 / n):
         holds.hold('irfft_axis_p_f64', bf.irfft_axis_p(h, 2, n, scale=sc),
@@ -961,6 +990,33 @@ def phase_times64(dev, bf, holds):
            / (e2e * 1e-3) / 1e9, 'full_volume_slabs_held': slabs,
            'kernels': out})
     return out
+
+
+def _times_trunc64(dev, bf, holds, g):
+    """B64 at the truncating pass of the dealiased f64 plan (libfft's
+    r2c stage of PFFT((512,)*3, padding=[1.5]*3, dtype='d'): a 768^3
+    input, trunc 257, the stage's scale 1/768), held at 2e-13 and timed
+    beside its plain version, its bound and torch.fft.rfft."""
+    m = 3 * DEALIAS64_N // 2
+    nt = DEALIAS64_N // 2 + 1
+    kw = dict(trunc=nt, scale=1.0 / m)
+    r = torch.rand((m, m, m), generator=g, device=dev,
+                   dtype=torch.float64) - 0.5
+    holds.hold('rfft_axis_p_f64', bf.rfft_axis_p(r, 2, **kw),
+               bf.rfft_axis_plain(r, 2, **kw),
+               f"rfft_axis_p_f64 {m}^3 last axis trunc={nt}")
+    b, by = _bound_ms(r.numel() * 8 + 2 * m * m * nt * 8,
+                      m * m * 2.5 * m * math.log2(m), f64=True)
+    row = {'shape': f'({m}, {m}, {m}) f64 -> (2, {m}, {m}, {nt}), last '
+                    f'axis, trunc {nt}, scale 1/{m}',
+           'ms': _median_ms(lambda: bf.rfft_axis_p(r, 2, **kw)),
+           'plain_ms': _median_ms(lambda: bf.rfft_axis_plain(r, 2, **kw),
+                                  reps=3, warm=1),
+           'library_ms': _median_ms(lambda: torch.fft.rfft(r, dim=2)),
+           'bound_ms': b, 'bound_by': by}
+    del r
+    torch.cuda.empty_cache()
+    return row
 
 
 def _holds_volume64(dev, bf, holds):
@@ -1146,28 +1202,53 @@ def _times_axis2(bf, holds, x):
     return row
 
 
+def _pair_row(p, shape, ax, bf):
+    """Time of fft_axis_pair_p on p beside its plain version, cuFFT's
+    pass and its bound."""
+    pc = torch.complex(p[0], p[1])
+    b, by = _pass_bound(p.numel(), shape[ax])
+    row = {'shape': f'(2, {shape[0]}, {shape[1]}, {shape[2]}) f32, '
+                    f'axis {ax}',
+           'ms': _median_ms(lambda: bf.fft_axis_pair_p(p, ax)),
+           'plain_ms': _median_ms(lambda: bf.fft_axis_pair_plain(p, ax)),
+           'library_ms': _median_ms(lambda: torch.fft.fft(pc, dim=ax)),
+           'bound_ms': b, 'bound_by': by}
+    del pc
+    return row
+
+
+def _hold_pair_in_place(p, bf):
+    """G in place (fft_axis2_p with alias=True on the two halves of a copy
+    of p along axis 0) against out of place into NaN-filled halves, bit
+    for bit."""
+    h = p.shape[1] // 2
+    q = p.clone()
+    ga, gb = bf.fft_axis2_p(q.narrow(1, 0, h), q.narrow(1, h, h), 0,
+                            alias=True)
+    oa, ob = _nan(ga), _nan(gb)
+    bf._launch_pair('fft_axis2_p', p.narrow(1, 0, h), p.narrow(1, h, h),
+                    oa, ob, 0, True, None)
+    _exact(ga, oa, "fft_axis2_p in place, first half")
+    _exact(gb, ob, "fft_axis2_p in place, second half")
+    del q, ga, gb, oa, ob
+
+
 def _times_pair(dev, bf, holds):
-    """G at N = 2048 on every axis position, both signs held; timed on
-    the (2048, 1024, 512) plan's lead pass."""
+    """G (the cluster kernel) at N = 2048 on every axis position and at
+    N = 1536 on the lead axis, both signs held; timed on the (2048, 1024,
+    512) plan's lead pass and at N = 1536; held in place at the first."""
     row = None
-    for i, (shape, ax) in enumerate(PAIR_SHAPES):
+    for i, (shape, ax) in enumerate(PAIR_SHAPES + (PAIR_1536,)):
         p = _rand((2,) + shape, dev, SEED + 8 + i)
         for fwd in (True, False):
             holds.hold('fft_axis_pair_p', bf.fft_axis_pair_p(p, ax, fwd),
                        bf.fft_axis_pair_plain(p, ax, fwd),
                        f"fft_axis_pair_p {shape} axis {ax} fwd={fwd}")
         if row is None:
-            pc = torch.complex(p[0], p[1])
-            b, by = _pass_bound(p.numel(), shape[ax])
-            row = {'shape': f'(2, {shape[0]}, {shape[1]}, {shape[2]}) f32, '
-                            f'axis {ax}',
-                   'ms': _median_ms(lambda: bf.fft_axis_pair_p(p, ax)),
-                   'plain_ms': _median_ms(
-                       lambda: bf.fft_axis_pair_plain(p, ax)),
-                   'library_ms': _median_ms(
-                       lambda: torch.fft.fft(pc, dim=ax)),
-                   'bound_ms': b, 'bound_by': by}
-            del pc
+            row = _pair_row(p, shape, ax, bf)
+            _hold_pair_in_place(p, bf)
+        elif (shape, ax) == PAIR_1536:
+            row['n1536'] = _pair_row(p, shape, ax, bf)
         del p
         torch.cuda.empty_cache()
     return row
@@ -2159,7 +2240,8 @@ def main():
             'plain_ms': t['plain_ms'], 'bound_ms': t['bound_ms'],
             'bound_by': t['bound_by'], 'library_ms': t['library_ms'],
             'shape': t['shape']})
-        for extra in ('cufft_unfused_ms', 'two_a_passes_ms'):
+        for extra in ('cufft_unfused_ms', 'two_a_passes_ms', 'n1536',
+                      'trunc768'):
             if extra in t:
                 kernels[-1][extra] = t[extra]
     _emit({'kernels': kernels + probe_rows})

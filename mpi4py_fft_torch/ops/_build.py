@@ -70,6 +70,8 @@ _ENTRIES = {
         # nstages, scale, stream
         'mff_fft_axis2_f32': [_P, _P, _P, _P, _LLA, _P, _LL, _LL, _I, _LL,
                               _I, _IA, _I, _F, _P],
+        # n, count
+        'mff_fft_axis2_clusters_f32': [_I, _IA],
     },
     'fft2stage': {
         # x, y, tab, row, B, S, sign, plan, nstages, stream

@@ -9,8 +9,9 @@ of the CUDA kernels on the single-device path:
 * ``irfft_axis_p``    (csrc/rfft_axis.cu) half spectrum -> real;
 * ``fft_axis2_p``     (csrc/fft_axis2.cu) planar c2c along an axis split
   across two tensors (the quartered schedule, ``oop3d.py``);
-* ``fft_axis_pair_p`` (csrc/fft_axis2.cu) the same kernel on the two
-  halves of one tensor: axes of 1536 and 2048;
+* ``fft_axis_pair_p`` (csrc/fft_axis2.cu) the same entry on the two
+  halves of one tensor: axes of 1536 and 2048 (above 1024 both take the
+  entry's two-CTA cluster kernel);
 * ``fft_axis_tp``     (csrc/fft_axis_tp.cu) planar c2c along one axis with
   the 3/2-rule truncation fused into the write or the zero-padding into
   the read;
@@ -165,12 +166,31 @@ def _tw_pack(N, sign, dtype_str):
 
 
 @functools.lru_cache(maxsize=None)
-def _tw_tensor(N, sign, packed, dtype, device):
+def _tw_pack_pair(N, sign, dtype_str):
+    """Twiddles for the pair kernel's cluster pass (N = 1536, 2048): the
+    N/2-point stage pack, then the N/2 cross twiddles
+    (cos, sin)(sign * 2*pi*k/N), k = 0..N/2-1, of the radix-2 step
+    across the two halves."""
+    h = N // 2
+    base = _tw_pack(h, sign, dtype_str)
+    ang = sign * 2.0 * np.pi * np.arange(h) / N
+    extra = np.stack([np.cos(ang), np.sin(ang)]).astype(dtype_str)
+    return np.concatenate([base, extra], axis=1)
+
+
+@functools.lru_cache(maxsize=None)
+def _tw_tensor(N, sign, kind, dtype, device):
     """The twiddle table of one (N, sign, kind) as a contiguous tensor,
-    uploaded once per dtype and device."""
+    uploaded once per dtype and device; ``kind``: False (stages), True
+    (stages and unpack rows, _tw_pack_packed) or ``'pair'``
+    (_tw_pack_pair)."""
     name = str(dtype).replace('torch.', '')
-    tab = _tw_pack_packed(N, sign, name) if packed else \
-        _tw_pack(N, sign, name)
+    if kind == 'pair':
+        tab = _tw_pack_pair(N, sign, name)
+    elif kind:
+        tab = _tw_pack_packed(N, sign, name)
+    else:
+        tab = _tw_pack(N, sign, name)
     return torch.tensor(tab, dtype=dtype, device=device)
 
 
@@ -755,7 +775,15 @@ def rfft_axis_p(x, axis, hext=None, scale=None, trunc=None):
     Output extent is ``hext`` (default N//2+1, or ``trunc`` when given)
     with exact zero rows beyond the spectrum.  ``trunc`` (< N//2+1)
     applies the 3/2-rule Hermitian truncation in the kernel's write
-    (Nyquist fold for even ``trunc``).  Packed N/2-point method."""
+    (Nyquist fold for even ``trunc``).  Packed N/2-point method.
+
+    Which kernel runs is decided before the launch, by layout: a float64
+    CUDA tensor along its last axis (whole lines) at N >= 4 whose data
+    is 16-byte aligned takes the line kernel (a warp-resident group of
+    threads a line, 16-byte point loads); every other case, N = 2 (not
+    packed), an inner axis, float32, or float64 data 8 bytes off a
+    16-byte boundary, takes the tile kernel.  Both count as
+    ``rfft_axis_p`` / ``rfft_axis_p_f64``."""
     what = 'rfft_axis_p'
     shape = tuple(x.shape)
     if not shape:
@@ -833,7 +861,11 @@ def _half_strides(t, pre, h, post, what):
 
 def _launch_pair(what, a, b, oa, ob, axis, forward, scale):
     """The pair kernel on input halves a, b into output halves oa, ob
-    (any of them views), along complex axis ``axis``."""
+    (any of them views), along complex axis ``axis``.  N <= 1024 takes
+    A's tile at W = N (the N-point plan and table); N = 1536 and 2048
+    take the cluster kernel, two CTAs a line group, one radix-2 step
+    across the halves and the h = N/2-point plan in each (the h-point
+    plan and the table of _tw_pack_pair)."""
     shape = tuple(a.shape[1:])
     h = shape[axis]
     N = 2 * h
@@ -842,8 +874,10 @@ def _launch_pair(what, a, b, oa, ob, axis, forward, scale):
     for t in (a, b, oa, ob):
         strides += _half_strides(t, pre, h, post, what)
     sign = -1 if forward else +1
-    tw = _tw_tensor(N, sign, False, a.dtype, a.device)
-    plan, nst = _plan_args(N)
+    cluster = N > _MAX_N_AXIS
+    tw = _tw_tensor(N, sign, 'pair' if cluster else False, a.dtype,
+                    a.device)
+    plan, nst = _plan_args(h if cluster else N)
     _launch(what, _build.load().fft_axis2_f32, a,
             _ptr(a), _ptr(b), _ptr(oa), _ptr(ob),
             (ctypes.c_longlong * 8)(*strides), _ptr(tw), tw.shape[1], pre,

@@ -37,9 +37,10 @@ struct Budget;
 
 // float: three 512-thread blocks an SM cap a thread at 40 registers; on
 // an H100 the spills cost less than the occupancy buys (PERF.md).  Every
-// f32 tile up to W = 1536 (74 KB at W = 1024) fits three times; the pair
-// kernel's tile at N = 2048 (80 KB) fits only twice, and the bound gives
-// a thread 64 registers.
+// f32 tile up to W = 1536 (74 KB at W = 1024) fits three times.  The
+// pair kernel's cluster pass (N = 1536, 2048) is bound to kWideMinBlocks
+// (64 registers a thread) although its tiles fit three times: there the
+// spills cost more (fft_axis2.cu).
 template <>
 struct Budget<float> {
   static constexpr int kTile = 8192;

@@ -15,21 +15,47 @@
 // stride; the row stride is post and the column stride 1.  So one entry
 // takes two separate tensors (the quarters of the quartered schedule), the
 // two halves of one contiguous tensor passed as views (no slice copy, no
-// concat), and outputs written over their inputs (alias): a block reads
-// its whole tile before it writes any of it, and no two blocks share a
-// line.
+// concat), and outputs written over their inputs (alias).
 //
 // Bound on an H100: bytes, as for fft_axis.cu: one pass reads and writes
-// both halves once.  Design: A's tile (butterfly.cuh) at W = N.  A block
-// loads C lines, rows below h from a and the rest from b, into one
-// shared-memory tile, runs every stage there and writes rows below h to
-// oa and the rest to ob.  At N = 2048 the tile holds C = 4 lines (80 KB,
-// two blocks an SM: the wide bound of butterfly.cuh), so a row segment is
-// 16 bytes a plane: half a 32-byte sector, and the lead and mid passes
-// sit further from their bound than A's at N = 1024.
+// both halves once.  Two kernels, chosen by n before the launch:
+//
+// * N <= 1024: A's tile (butterfly.cuh) at W = N.  A block loads C lines,
+//   rows below h from a and the rest from b, into one shared-memory tile,
+//   runs every stage there and writes rows below h to oa and the rest to
+//   ob.  A block reads its whole tile before it writes any of it, and no
+//   two blocks share a line, so alias is safe.
+// * N = 1536 and 2048: a cluster of two CTAs (Hopper thread-block
+//   clusters, distributed shared memory) owns C lines, C = 8: the lines of
+//   A's tile at N = 1024, where one tile holding whole 2048-point lines
+//   would keep only 4 (16-byte row segments, 80 KB, two blocks an SM).
+//   CTA rank r loads half r from its own operand, so no index picks an
+//   operand per element; the 64-bit line bases are computed once a line,
+//   and every load of a thread is issued before its first store to the
+//   tile.  A warp loads 4 rows of the 8 lines (tile_index's map): with
+//   16-byte vectors across the lines (a warp then loads 16 rows) the
+//   tile's copy alone ran faster on an H100, but the whole pass ran 4-6%
+//   slower (tools/pair_ab.py, PERF.md §6).  After a cluster barrier each CTA
+//   reaches the peer's half through the peer's shared memory for one
+//   radix-2 decimation-in-frequency step across the pair: the thread of
+//   rank r takes every other element of its map, reads x[k] and x[k+h]
+//   there from both tiles and writes x[k] + x[k+h] to rank 0's tile and
+//   (x[k] - x[k+h]) w_N^(sign k) to rank 1's, places no other thread of
+//   the cluster touches; a second cluster barrier publishes them.  Each
+//   CTA then runs butterfly.cuh's unchanged run_plan over its h-point
+//   lines: rank 0 holds the even bins X[2m], rank 1 the odd X[2m+1], and
+//   writes row 2m+r (to oa below h, else ob), the scale folded in.  Every
+//   global read of both CTAs comes before the first cluster barrier and
+//   every global write after the second, and a cluster owns its lines
+//   whole, so alias is safe although rank 0 writes rows of the half that
+//   rank 1 read.
 #include <cstdint>
 
+#include <cooperative_groups.h>
+
 #include "butterfly.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -118,13 +144,176 @@ fft_axis2_kernel(Half<const float> a, Half<const float> b, Half<float> oa,
   }
 }
 
+// The cluster helpers, kept apart so that nvcc and the CPU emulation
+// compile the same kernel body: this CTA's rank in its cluster, a barrier
+// over every thread of the cluster, and the address of the same
+// shared-memory object in CTA `rank`.
+__device__ __forceinline__ unsigned cluster_rank() {
+  return cg::this_cluster().block_rank();
+}
+__device__ __forceinline__ void cluster_sync() { cg::this_cluster().sync(); }
+template <class T>
+__device__ __forceinline__ T* peer_smem(T* p, unsigned rank) {
+  return cg::this_cluster().map_shared_rank(p, rank);
+}
+
+// The cluster kernel's lines (C = 8) and the elements of a thread: a
+// thread owns 16 elements of its CTA's h x C half tile, mapped as in
+// tile_index (a warp reads 4 rows of 8 lines, or along a line).
+constexpr int kPairLc = 3;
+constexpr int kPairPer = 16;
+
+// The N = 2h-point pass for h = 768 or 1024 by a cluster of two CTAs
+// (see the note at the top).  tw: the h-point stage twiddles, then at t2
+// the h cross twiddles (cos, sin)(sign 2 pi k / N).  Bound to two blocks
+// an SM (64 registers), although three tiles fit: at three (40 registers
+// and more spills) the pass took 1.36x as long on an H100
+// (tools/pair_ab.py, PERF.md §6).
+__global__ void __launch_bounds__(mff::Budget<float>::kTile / 16,
+                                  mff::Budget<float>::kWideMinBlocks)
+fft_pair_cluster_kernel(Half<const float> a, Half<const float> b,
+                        Half<float> oa, Half<float> ob,
+                        const float* __restrict__ tw, long long tw_len,
+                        int t2, long long pre, int h, long long post,
+                        float sign, mff::Plan plan, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int C = 1 << kPairLc;
+  const unsigned r = cluster_rank();
+  // each line's offset in this CTA's input half and in the two output
+  // halves (-1 past the last line), computed once
+  long long* lin = reinterpret_cast<long long*>(smem);
+  long long* loa = lin + C;
+  long long* lob = loa + C;
+  mff::Tile<float> t;
+  t.lc = kPairLc;
+  t.cp = C + 1;
+  t.re = reinterpret_cast<float*>(lob + C);
+  t.im = t.re + h * t.cp;
+  const long long nlines = pre * post;
+  const long long l0 = static_cast<long long>(blockIdx.x >> 1) << kPairLc;
+  const float* src = r ? b.ptr : a.ptr;
+  const long long splane = r ? b.plane : a.plane;
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    const long long l = l0 + c;
+    const long long i = l / post, col = l - i * post;
+    const bool live = l < nlines;
+    lin[c] = live ? i * (r ? b.pre : a.pre) + col : -1;
+    loa[c] = live ? i * oa.pre + col : -1;
+    lob[c] = live ? i * ob.pre + col : -1;
+  }
+  __syncthreads();
+
+  // half r from its own operand: every load before the first store
+  float vr[kPairPer], vi[kPairPer];
+#pragma unroll
+  for (int j = 0; j < kPairPer; ++j) {
+    int c, k;
+    tile_index(threadIdx.x + j * blockDim.x, h, kPairLc, post, &c, &k);
+    const long long o = lin[c];
+    vr[j] = vi[j] = 0.f;
+    if (o >= 0) {
+      vr[j] = __ldg(src + o + k * post);
+      vi[j] = __ldg(src + splane + o + k * post);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kPairPer; ++j) {
+    int c, k;
+    tile_index(threadIdx.x + j * blockDim.x, h, kPairLc, post, &c, &k);
+    t.re[k * t.cp + c] = vr[j];
+    t.im[k * t.cp + c] = vi[j];
+  }
+  cluster_sync();
+
+  // the radix-2 DIF step across the pair: rank r takes the elements j
+  // with j % 2 == r of its map, reads x[k] and x[k+h] there from the two
+  // tiles, and writes x[k] + x[k+h] to rank 0's tile and (x[k] - x[k+h])
+  // w_N^(sign k) to rank 1's; no other thread of the cluster touches
+  // those places
+  float* qre = peer_smem(t.re, r ^ 1u);
+  float* qim = peer_smem(t.im, r ^ 1u);
+  float* s0re = r ? qre : t.re;
+  float* s0im = r ? qim : t.im;
+  float* s1re = r ? t.re : qre;
+  float* s1im = r ? t.im : qim;
+#pragma unroll
+  for (int jj = 0; jj < kPairPer / 2; ++jj) {
+    int c, k;
+    tile_index(threadIdx.x + (2 * jj + static_cast<int>(r)) * blockDim.x, h,
+               kPairLc, post, &c, &k);
+    const int s = k * t.cp + c;
+    const float ar = s0re[s], ai = s0im[s];      // x[k]
+    const float br = s1re[s], bi = s1im[s];      // x[k+h]
+    const float dr = ar - br, di = ai - bi;
+    const float wr = __ldg(tw + t2 + k), wi = __ldg(tw + tw_len + t2 + k);
+    s0re[s] = ar + br;
+    s0im[s] = ai + bi;
+    s1re[s] = dr * wr - di * wi;
+    s1im[s] = dr * wi + di * wr;
+  }
+  cluster_sync();
+
+  mff::run_plan(t, h, plan, tw, tw + tw_len, sign);
+
+  // bin m of this CTA is X[2m + r]: row 2m + r of the output
+#pragma unroll
+  for (int j = 0; j < kPairPer; ++j) {
+    int c, m;
+    tile_index(threadIdx.x + j * blockDim.x, h, kPairLc, post, &c, &m);
+    const int row = 2 * m + static_cast<int>(r);
+    const bool lo = row < h;
+    const long long o = (lo ? loa : lob)[c];
+    if (o < 0) continue;
+    float* dp = (lo ? oa.ptr : ob.ptr) + o +
+                static_cast<long long>(lo ? row : row - h) * post;
+    dp[0] = t.re[m * t.cp + c] * scale;
+    dp[lo ? oa.plane : ob.plane] = t.im[m * t.cp + c] * scale;
+  }
+}
+
+// The launch of the cluster kernel at h = n/2 on `lines` lines: a config
+// of clusters of two CTAs and its shared memory; false if the pass is not
+// one it takes.
+struct PairLaunch {
+  void (*kern)(Half<const float>, Half<const float>, Half<float>,
+               Half<float>, const float*, long long, int, long long, int,
+               long long, float, mff::Plan, float);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+};
+
+inline bool pair_launch(int h, long long lines, PairLaunch* L) {
+  constexpr int C = 1 << kPairLc;
+  if (h != 768 && h != 1024) return false;
+  const long long clusters = (lines + C - 1) / C;
+  if (lines <= 0 || 2 * clusters > 0x7fffffffLL) return false;
+  const size_t smem = 3 * sizeof(long long) * C +
+                      2 * sizeof(float) * static_cast<size_t>(h) * (C + 1);
+  L->kern = &fft_pair_cluster_kernel;
+  L->cfg = cudaLaunchConfig_t{};
+  L->cfg.gridDim = dim3{static_cast<unsigned>(2 * clusters), 1u, 1u};
+  L->cfg.blockDim = dim3{static_cast<unsigned>(h * C / kPairPer), 1u, 1u};
+  L->cfg.dynamicSmemBytes = smem;
+  L->attr[0].id = cudaLaunchAttributeClusterDimension;
+  L->attr[0].val.clusterDim.x = 2;
+  L->attr[0].val.clusterDim.y = 1;
+  L->attr[0].val.clusterDim.z = 1;
+  L->cfg.attrs = L->attr;
+  L->cfg.numAttrs = 1;
+  return true;
+}
+
 }  // namespace
 
 // xa, xb: the input halves, ya, yb: the output halves, each viewed as
 // (2, pre, n/2, post) with row stride post and column stride 1;
 // strides: their (plane, pre) strides in elements, in the order xa, xb,
-// ya, yb.  tw: the (2, tw_len) table of _tw_pack(n, sign).  Returns
-// cudaGetLastError() after the launch.
+// ya, yb.  n <= 1024: plan and tw are the n-point stage plan and the
+// (2, tw_len) table of _tw_pack(n, sign).  n = 1536 or 2048: the h = n/2
+// plan and the table of _tw_pack_pair(n, sign) (the h-point stage
+// twiddles, then the h cross twiddles of n), for the cluster kernel.
+// Returns the error of a refused launch (a cluster that does not fit
+// included), else cudaGetLastError() after the launch.
 extern "C" int mff_fft_axis2_f32(const float* xa, const float* xb, float* ya,
                                  float* yb, const long long* strides,
                                  const float* tw, long long tw_len,
@@ -132,19 +321,36 @@ extern "C" int mff_fft_axis2_f32(const float* xa, const float* xb, float* ya,
                                  int sign, const int* plan, int nstages,
                                  float scale, void* stream) {
   mff::Plan p;
+  const bool pair = n > 1024;
   if (n < 2 || n % 2 != 0 || n > 2048 ||
-      !mff::make_plan(plan, nstages, n, &p))
-    return cudaErrorInvalidValue;
-  const int lc = mff::tile_log2_lines<float>(n);
-  const int C = 1 << lc;
-  const long long nlines = pre * post;
-  const long long blocks = (nlines + C - 1) / C;
-  if (nlines <= 0 || blocks > 0x7fffffffLL || ((n << lc) % 16) != 0)
+      !mff::make_plan(plan, nstages, pair ? n / 2 : n, &p))
     return cudaErrorInvalidValue;
   const Half<const float> a{xa, strides[0], strides[1]};
   const Half<const float> b{xb, strides[2], strides[3]};
   const Half<float> oa{ya, strides[4], strides[5]};
   const Half<float> ob{yb, strides[6], strides[7]};
+  const long long nlines = pre * post;
+  if (pair) {
+    const int h = n / 2;
+    PairLaunch L;
+    if (tw_len < h || !pair_launch(h, nlines, &L))
+      return cudaErrorInvalidValue;
+    L.cfg.stream = static_cast<cudaStream_t>(stream);
+    cudaError_t e = cudaFuncSetAttribute(
+        L.kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(L.cfg.dynamicSmemBytes));
+    if (e != cudaSuccess) return e;
+    e = cudaLaunchKernelEx(&L.cfg, L.kern, a, b, oa, ob, tw, tw_len,
+                           static_cast<int>(tw_len - h), pre, h, post,
+                           static_cast<float>(sign), p, scale);
+    if (e != cudaSuccess) return e;
+    return cudaGetLastError();
+  }
+  const int lc = mff::tile_log2_lines<float>(n);
+  const int C = 1 << lc;
+  const long long blocks = (nlines + C - 1) / C;
+  if (nlines <= 0 || blocks > 0x7fffffffLL || ((n << lc) % 16) != 0)
+    return cudaErrorInvalidValue;
   const int threads = (n << lc) / 16;
   const size_t smem = 2 * sizeof(long long) * C +
                       2 * sizeof(float) * static_cast<size_t>(n) * (C + 1);
@@ -160,4 +366,20 @@ extern "C" int mff_fft_axis2_f32(const float* xa, const float* xb, float* ya,
       a, b, oa, ob, tw, tw_len, pre, n, post, static_cast<float>(sign), p,
       scale, lc);
   return cudaGetLastError();
+}
+
+// The most clusters of the n-point pair kernel (n = 1536 or 2048) that
+// the device holds at once, into *count
+// (cudaOccupancyMaxActiveClusters); 0 if none fits.
+extern "C" int mff_fft_axis2_clusters_f32(int n, int* count) {
+  PairLaunch L;
+  *count = 0;
+  if (!pair_launch(n / 2, 1 << kPairLc, &L))
+    return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      L.kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(L.cfg.dynamicSmemBytes));
+  if (e != cudaSuccess) return e;
+  return cudaOccupancyMaxActiveClusters(
+      count, reinterpret_cast<const void*>(L.kern), &L.cfg);
 }

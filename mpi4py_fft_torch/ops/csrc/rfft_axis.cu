@@ -24,7 +24,32 @@
 // Hermitian truncation and the zero rows up to hext); the c2r kernel pads
 // the spectrum in its read, repacks it in shared memory, runs the inverse
 // stages and interleaves the real output in its write.
+//
+// The float64 r2c on whole lines (post == 1: the last axis, as the DNS
+// solvers call it) takes a line kernel instead, at every packed length
+// (N = 4 to 1024).  The tile kernel's fp64 build holds 16 lines of 256
+// points at N = 512, so three 256-thread blocks an SM cap a thread at 80
+// registers, its four radix-4 stages spill 1852 B a thread and need eight
+// block-wide barriers, and it reads one 8-byte element at a time.  The
+// line kernel gives each line of W = N/2 points to a group of G = W/P
+// threads (P = 16 points a thread for W = 2^a, 24 for W = 3*2^a; G <= 32,
+// so a group lies inside one warp).  A thread issues all its P loads,
+// each point z[m] one 16-byte double2 (a group's load reads 16 G
+// contiguous bytes), before it computes.  The W-point transform runs as
+// Stockham stages of radix 16 or 8 and one remainder (radix 3 last), two
+// stages at W = 256 and three at W = 384 or 512; each stage's butterflies
+// sit in registers, and the exchange between stages goes through the
+// group's own W-point buffer in shared memory behind __syncwarp, with no
+// block-wide barrier.  The stage twiddles w_W^e are read from the unpack
+// rows of the table ((cos, sin)(2 pi k/N), k <= W; w_W^e = w_N^(2e), with
+// w_N^(k+W) = -w_N^k).  The untangle (Z[j] with Z[W-j]) reads the buffer;
+// the rows of both planes are written by neighbouring threads, so a
+// group's stores are coalesced into the 8-byte-aligned (hext)-row lines,
+// with the truncation, the Nyquist fold, the zero rows and the scale as
+// in the tile kernel.  The launch bound (128 threads, one block) leaves a
+// thread up to 255 registers, so no stage spills.
 #include <cstdint>
+#include <type_traits>
 
 #include "butterfly.cuh"
 
@@ -238,6 +263,220 @@ irfft_axis_kernel(const T* __restrict__ x, T* __restrict__ y,
   }
 }
 
+// ---------------------------------------------------------------------------
+// the float64 r2c on whole lines
+// ---------------------------------------------------------------------------
+
+constexpr int kLineThreads = 128;
+
+// Points a thread of a W-point line holds: 16 (W = 2^a) or 24 (3*2^a),
+// or the whole line when it is shorter.
+__host__ __device__ constexpr int line_points(int W) {
+  return W % 3 == 0 ? (W >= 24 ? 24 : W) : (W >= 16 ? 16 : W);
+}
+
+// Radix of stage s of a W-point line (0 past the last): radix 16 (8 for
+// 3*2^a) while the power-of-two part allows, then its remainder, then 3.
+// Every radix divides line_points(W).
+__host__ __device__ constexpr int line_radix(int W, int s) {
+  const bool k3 = W % 3 == 0;
+  const int top = k3 ? 8 : 16;
+  int rest = k3 ? W / 3 : W;
+  int i = 0;
+  for (; rest > 1; ++i) {
+    const int r = rest >= top ? top : rest;
+    if (i == s) return r;
+    rest /= r;
+  }
+  return k3 && i == s ? 3 : 0;
+}
+
+// Product of the radices before stage s.
+__host__ __device__ constexpr int line_span(int W, int s) {
+  int m = 1;
+  for (int i = 0; i < s; ++i) m *= line_radix(W, i);
+  return m;
+}
+
+// One Stockham stage of radix R over the W-point line of a group, with
+// M sub-transforms interleaved (M: the earlier radices' product); thread
+// g of the group owns butterflies b = g + G k, k < P/R.  The first stage
+// reads the thread's own points (z[g + G s] in zr/zi[s]); the others read
+// the group's buffer.  Every stage writes its outputs to the buffer.
+template <int W, int R, int M, bool kFirst>
+__device__ __forceinline__ void line_stage(const double* zr,
+                                           const double* zi, double* br,
+                                           double* bi, int g,
+                                           const double* __restrict__ cw,
+                                           const double* __restrict__ sw) {
+  constexpr int P = line_points(W), G = W / P, K = P / R;
+  constexpr int Lq = W / M / R;
+  double vr[K][R], vi[K][R];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int b = g + G * k;
+    const int lp = b / M, m = b % M;
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      if constexpr (kFirst) {
+        vr[k][j] = zr[k + K * j];
+        vi[k][j] = zi[k + K * j];
+      } else {
+        const int s = (j * Lq + lp) * M + m;
+        vr[k][j] = br[s];
+        vi[k][j] = bi[s];
+      }
+    }
+    mff::Dft<R, double>::run(vr[k], vi[k], -1.0);
+    if constexpr (Lq > 1) {    // w_L^(j lp) = w_N^(2 j lp M), sign -1
+#pragma unroll
+      for (int j = 1; j < R; ++j) {
+        const int u = 2 * j * lp * M;
+        double c, s;
+        if (u <= W) {
+          c = __ldg(cw + u);
+          s = __ldg(sw + u);
+        } else {
+          c = -__ldg(cw + u - W);
+          s = -__ldg(sw + u - W);
+        }
+        const double yr = vr[k][j], yi = vi[k][j];
+        vr[k][j] = yr * c + yi * s;
+        vi[k][j] = yi * c - yr * s;
+      }
+    }
+  }
+  if (!kFirst) __syncwarp();   // the group has read the buffer
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int b = g + G * k;
+    const int lp = b / M, m = b % M;
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const int d = (lp * R + j) * M + m;
+      br[d] = vr[k][j];
+      bi[d] = vi[k][j];
+    }
+  }
+  __syncwarp();
+}
+
+// Stages s.. of a W-point line.
+template <int W, int S>
+__device__ __forceinline__ void line_stages(const double* zr,
+                                            const double* zi, double* br,
+                                            double* bi, int g,
+                                            const double* __restrict__ cw,
+                                            const double* __restrict__ sw) {
+  if constexpr (line_radix(W, S) != 0) {
+    line_stage<W, line_radix(W, S), line_span(W, S), S == 0>(zr, zi, br, bi,
+                                                             g, cw, sw);
+    line_stages<W, S + 1>(zr, zi, br, bi, g, cw, sw);
+  }
+}
+
+// Real (nlines, 2W) -> planar (2, nlines, hext) with the packed W-point
+// transform, a group of W/P threads a line (see the note at the top).
+// tw: the table of _tw_pack_packed(2W, -1), its unpack rows at t2.
+template <int W>
+__global__ void __launch_bounds__(kLineThreads, 1)
+rfft_lines_kernel(const double* __restrict__ x, double* __restrict__ y,
+                  const double* __restrict__ tw, long long tw_len, int t2,
+                  long long nlines, int hext, int nrows, int fold,
+                  double scale) {
+  constexpr int P = line_points(W), G = W / P;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int grp = threadIdx.x / G, g = threadIdx.x % G;
+  double* br = reinterpret_cast<double*>(smem) + grp * 2 * W;
+  double* bi = br + W;
+  const long long line =
+      static_cast<long long>(blockIdx.x) * (kLineThreads / G) + grp;
+  const bool live = line < nlines;
+  const double* cw = tw + t2;
+  const double* sw = tw + tw_len + t2;
+
+  // every load first: point g + G s of the line, one double2 each
+  const double2* xz =
+      reinterpret_cast<const double2*>(x) + (live ? line : 0) * W;
+  double zr[P], zi[P];
+#pragma unroll
+  for (int s = 0; s < P; ++s) {
+    const double2 v = __ldg(xz + g + G * s);
+    zr[s] = v.x;
+    zi[s] = v.y;
+  }
+  line_stages<W, 0>(zr, zi, br, bi, g, cw, sw);
+  if (!live) return;
+
+  // untangle Z[j] with Z[W - j] into row j, both planes
+  double* yr = y + line * hext;
+  double* yi = yr + nlines * hext;
+  for (int j = g; j < hext; j += G) {
+    double r = 0, i = 0;
+    if (j < nrows) {
+      const int je = j == W ? 0 : j;
+      const int jr = j == 0 ? 0 : W - j;
+      const double zre = br[je], zie = bi[je];
+      const double zrr = br[jr], zir = bi[jr];
+      const double er = 0.5 * (zre + zrr);
+      const double ei = 0.5 * (zie - zir);
+      const double orr = 0.5 * (zie + zir);
+      const double oi = 0.5 * (zrr - zre);
+      const double c = __ldg(cw + j), s = __ldg(sw + j);
+      // X = E + w^j O, w^j = c - i s
+      r = (er + c * orr + s * oi) * scale;
+      i = (ei + c * oi - s * orr) * scale;
+      if (fold && j == nrows - 1) {
+        r = 2.0 * r;
+        i = 0;
+      }
+    }
+    yr[j] = r;
+    yi[j] = i;
+  }
+}
+
+template <int W>
+int launch_lines(const double* x, double* y, const double* tw,
+                 long long tw_len, long long nlines, int hext, int nrows,
+                 int fold, double scale, cudaStream_t stream) {
+  constexpr int P = line_points(W), G = W / P;
+  static_assert(G <= 32 && 32 % G == 0 && kLineThreads % 32 == 0,
+                "a group lies inside one warp");
+  constexpr int lines = kLineThreads / G;
+  const long long blocks = (nlines + lines - 1) / lines;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const size_t smem = sizeof(double) * 2 * W * lines;
+  auto kern = &rfft_lines_kernel<W>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  kern<<<static_cast<unsigned>(blocks), kLineThreads, smem, stream>>>(
+      x, y, tw, tw_len, static_cast<int>(tw_len) - (W + 1), nlines, hext,
+      nrows, fold, scale);
+  return cudaGetLastError();
+}
+
+// The line kernel of W = n/2 (every packed length up to 1024).
+int launch_rfft_lines(const double* x, double* y, const double* tw,
+                      long long tw_len, long long nlines, int W, int hext,
+                      int nrows, int fold, double scale, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define MFF_LINES(w)                                                      \
+  case w:                                                                 \
+    return launch_lines<w>(x, y, tw, tw_len, nlines, hext, nrows, fold,   \
+                           scale, st)
+  switch (W) {
+    MFF_LINES(2); MFF_LINES(4); MFF_LINES(8); MFF_LINES(16); MFF_LINES(32);
+    MFF_LINES(64); MFF_LINES(128); MFF_LINES(256); MFF_LINES(512);
+    MFF_LINES(3); MFF_LINES(6); MFF_LINES(12); MFF_LINES(24); MFF_LINES(48);
+    MFF_LINES(96); MFF_LINES(192); MFF_LINES(384);
+    default: return cudaErrorInvalidValue;
+  }
+#undef MFF_LINES
+}
+
 // Tile of a launch.
 template <class T>
 bool launch_shape(int W, long long nlines, int* lc, long long* blocks,
@@ -260,6 +499,16 @@ int launch_rfft_axis(const T* x, T* y, const T* tw, long long tw_len,
   mff::Plan p;
   if (!mff::make_plan(plan, nstages, W, &p) || hext < nrows)
     return cudaErrorInvalidValue;
+  // float64 whole lines of a packed length, 16-byte aligned: the line
+  // kernel (its own stage plan; tw's unpack rows give every twiddle)
+  if constexpr (std::is_same<T, double>::value) {
+    if (post == 1 && packed &&
+        reinterpret_cast<std::uintptr_t>(x) % 16 == 0) {
+      if (pre <= 0 || tw_len < W + 1) return cudaErrorInvalidValue;
+      return launch_rfft_lines(x, y, tw, tw_len, pre, W, hext, nrows, fold,
+                               scale, stream);
+    }
+  }
   int lc, threads;
   long long blocks;
   if (!launch_shape<T>(W, pre * post, &lc, &blocks, &threads))

@@ -172,8 +172,15 @@ PAIR_SHAPES = [((16, 6, 5), 0), ((3, 32, 7), 1), ((5, 4, 24), 2),
                ((2, 1024, 3), 1)]
 
 
-@pytest.mark.parametrize('shape,axis', PAIR_SHAPES)
-def test_pair_kernel_vs_plain(kernel_path, shape, axis):
+def _emu_count(emu_kernels, lib, name):
+    """An emulation counter of one library (tests/cuda_emu): cluster
+    launches or __syncwarp() calls since it was loaded."""
+    fn = getattr(emu_kernels._libs[lib], name)
+    fn.restype = ctypes.c_longlong
+    return fn()
+
+
+def _hold_pair(plain_ok, shape, axis):
     """fft_axis2_p on two halves sliced out of one volume (views, not
     contiguous off axis 0), fft_axis_pair_p on the whole of it, and
     fft_axis2_p with alias=True on contiguous halves."""
@@ -184,12 +191,12 @@ def test_pair_kernel_vs_plain(kernel_path, shape, axis):
     pa, pb = x.narrow(d, 0, h), x.narrow(d, h, h)
     for fwd, sc in ((True, None), (False, None), (True, 0.37)):
         oa, ob = bf.fft_axis2_p(pa, pb, axis, fwd, scale=sc)
-        ra, rb = _plain(kernel_path, bf.fft_axis2_p, pa, pb, axis, fwd,
+        ra, rb = _plain(plain_ok, bf.fft_axis2_p, pa, pb, axis, fwd,
                         scale=sc)
         assert oa.shape == pa.shape and ob.shape == pb.shape
         assert _rel(torch.cat([oa, ob], d), torch.cat([ra, rb], d)) <= TOL
         y = bf.fft_axis_pair_p(x, axis, fwd, scale=sc)
-        ref = _plain(kernel_path, bf.fft_axis_pair_p, x, axis, fwd, scale=sc)
+        ref = _plain(plain_ok, bf.fft_axis_pair_p, x, axis, fwd, scale=sc)
         assert _rel(y, ref) <= TOL
         assert torch.equal(y, torch.cat([oa, ob], d))
     # aliased, with the two halves in different layouts (a view of a
@@ -200,6 +207,71 @@ def test_pair_kernel_vs_plain(kernel_path, shape, axis):
     oa, ob = bf.fft_axis2_p(pa, pb, axis, False)
     assert torch.equal(ga, oa) and torch.equal(gb, ob)
     assert _launched() == {'fft_axis2_p': 5, 'fft_axis_pair_p': 3}
+
+
+@pytest.mark.parametrize('shape,axis', PAIR_SHAPES)
+def test_pair_kernel_vs_plain(kernel_path, emu_kernels, shape, axis):
+    """The pair kernel: N <= 1024 on A's tile, N = 1536 and 2048 on the
+    cluster kernel (one cluster launch each)."""
+    c0 = _emu_count(emu_kernels, 'fft_axis2', 'emu_cluster_launches')
+    _hold_pair(kernel_path, shape, axis)
+    clusters = _emu_count(emu_kernels, 'fft_axis2',
+                          'emu_cluster_launches') - c0
+    assert clusters == (8 if shape[axis] > 1024 else 0)
+
+
+# the cluster kernel of G (N = 1536 and 2048): lead rows over whole
+# line groups and with a ragged post, mid rows over two clusters and with
+# a cluster across two pre rows, last-axis whole lines, a ragged mid pass
+# of one cluster
+CLUSTER_SHAPES = [((2048, 8), 0), ((1536, 5), 0), ((2, 1536, 8), 1),
+                  ((2, 2048, 4), 1), ((3, 2048), 1), ((2, 1536, 3), 1)]
+
+
+@pytest.mark.parametrize('shape,axis', CLUSTER_SHAPES)
+def test_pair_cluster_kernel_vs_plain(kernel_path, emu_kernels, shape,
+                                      axis):
+    """Both signs, a scale, views, the whole tensor and alias=True on the
+    two-CTA cluster kernel, each launch a cluster launch."""
+    c0 = _emu_count(emu_kernels, 'fft_axis2', 'emu_cluster_launches')
+    _hold_pair(kernel_path, shape, axis)
+    assert _emu_count(emu_kernels, 'fft_axis2',
+                      'emu_cluster_launches') - c0 == 8
+
+
+# the float64 r2c on whole lines (the line kernel): W = N/2 of one
+# thread (N = 4, 16), of a group of 2, 32 and 16 threads with radix 3
+# (N = 96, 768) and without (N = 512, 1024)
+LINE_NS = [4, 16, 96, 512, 768, 1024]
+
+
+@pytest.mark.parametrize('N', LINE_NS)
+def test_rfft_lines_f64_vs_plain(kernel_path, emu_kernels, N):
+    """rfft_axis_p on float64 whole lines: hext, even (Nyquist fold) and
+    odd trunc, the 3/2 rule's trunc = N//3 + 1, scales; each a line-kernel
+    launch.  An input 8 bytes off a 16-byte boundary takes the tile
+    kernel, held the same way."""
+    rng = np.random.default_rng(16)
+    nh = N // 2 + 1
+    ev = nh - 1 if (nh - 1) % 2 == 0 else nh - 2
+    od = nh - 1 if (nh - 1) % 2 == 1 else nh - 2
+    flat = torch.from_numpy(rng.standard_normal(1 + 6 * N))
+    x = flat[:6 * N].view(2, 3, N)
+    xm = flat[1:].view(2, 3, N)
+    assert x.data_ptr() % 16 == 0 and xm.data_ptr() % 16 == 8
+    cases = ((None, None, None), (nh + 3, None, 0.5), (None, ev, None),
+             (nh + 2, od, 2.0), (None, N // 3 + 1, 1.0 / N))
+    for t, lines in ((x, True), (xm, False)):
+        for hext, trunc, sc in cases:
+            w0 = _emu_count(emu_kernels, 'rfft_axis', 'emu_syncwarps')
+            got = bf.rfft_axis_p(t, 2, hext=hext, trunc=trunc, scale=sc)
+            ran = _emu_count(emu_kernels, 'rfft_axis', 'emu_syncwarps') > w0
+            ref = _plain(kernel_path, bf.rfft_axis_p, t, 2, hext=hext,
+                         trunc=trunc, scale=sc)
+            assert got.shape == ref.shape and got.dtype == t.dtype
+            assert _rel(got, ref) <= TOL64, (hext, trunc, sc)
+            assert ran == lines, (hext, trunc, sc)
+    assert _launched() == {'rfft_axis_p_f64': 2 * len(cases)}
 
 
 # the fused dealiasing kernel E (shape of the N-row side, axis, Nt): lead,
