@@ -164,7 +164,6 @@ from nvidia-smi, and last ``{"ok": true, "device": {...}}``.  Without a
 CUDA device the script prints no result and exits with 1.
 """
 import contextlib
-import ctypes
 import json
 import math
 import os
@@ -338,15 +337,10 @@ def phase_build():
     ptxas = [ln.strip() for out in _build.LOG.values()
              for ln in out.splitlines()
              if 'registers' in ln or 'spill' in ln or 'Compiling' in ln]
-    clusters = {}
-    k = _build.load()
-    for n in (1536, 2048):
-        c = ctypes.c_int(0)
-        rc = k.fft_axis2_clusters_f32(n, ctypes.byref(c))
-        _check(rc == 0 and c.value > 0,
-               f"pair kernel at N = {n}: no two-CTA cluster fits "
-               f"(rc {rc}, {c.value})")
-        clusters[n] = c.value
+    from mpi4py_fft_torch.ops import butterfly as bf
+    clusters = {n: bf.pair_max_active_clusters(n) for n in (1536, 2048)}
+    for n, c in clusters.items():
+        _check(c > 0, f"pair kernel at N = {n}: no two-CTA cluster fits")
     _emit({'phase': 'build', 'seconds': secs, 'ptxas': ptxas,
            'pair_max_active_clusters': clusters})
     print(_smi(), flush=True)
@@ -1225,9 +1219,8 @@ def _hold_pair_in_place(p, bf):
     q = p.clone()
     ga, gb = bf.fft_axis2_p(q.narrow(1, 0, h), q.narrow(1, h, h), 0,
                             alias=True)
-    oa, ob = _nan(ga), _nan(gb)
-    bf._launch_pair('fft_axis2_p', p.narrow(1, 0, h), p.narrow(1, h, h),
-                    oa, ob, 0, True, None)
+    oa, ob = bf.fft_axis2_p(p.narrow(1, 0, h), p.narrow(1, h, h), 0,
+                            out=(_nan(ga), _nan(gb)))
     _exact(ga, oa, "fft_axis2_p in place, first half")
     _exact(gb, ob, "fft_axis2_p in place, second half")
     del q, ga, gb, oa, ob

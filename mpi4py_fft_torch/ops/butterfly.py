@@ -50,7 +50,8 @@ import torch
 from . import _build
 
 __all__ = ['fft_axis_p', 'rfft_axis_p', 'irfft_axis_p', 'fft_axis2_p',
-           'fft_axis_pair_p', 'fft_axis_tp', 'supported_axis',
+           'fft_axis_pair_p', 'pair_max_active_clusters', 'fft_axis_tp',
+           'supported_axis',
            'supported_r2c', 'supported_c2r', 'supported_axis_split',
            'supported_axis_tp', 'fft_axis_plain', 'rfft_axis_plain',
            'irfft_axis_plain', 'fft_axis2_plain', 'fft_axis_pair_plain',
@@ -179,19 +180,22 @@ def _tw_pack_pair(N, sign, dtype_str):
 
 
 @functools.lru_cache(maxsize=None)
-def _tw_tensor(N, sign, kind, dtype, device):
-    """The twiddle table of one (N, sign, kind) as a contiguous tensor,
-    uploaded once per dtype and device; ``kind``: False (stages), True
-    (stages and unpack rows, _tw_pack_packed) or ``'pair'``
-    (_tw_pack_pair)."""
+def _tw_tensor(N, sign, packed, dtype, device):
+    """The twiddle table of one (N, sign, packed) as a contiguous tensor,
+    uploaded once per dtype and device."""
     name = str(dtype).replace('torch.', '')
-    if kind == 'pair':
-        tab = _tw_pack_pair(N, sign, name)
-    elif kind:
-        tab = _tw_pack_packed(N, sign, name)
-    else:
-        tab = _tw_pack(N, sign, name)
+    tab = _tw_pack_packed(N, sign, name) if packed else \
+        _tw_pack(N, sign, name)
     return torch.tensor(tab, dtype=dtype, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _tw_tensor_pair(N, sign, dtype, device):
+    """_tw_pack_pair(N, sign) as a contiguous tensor, uploaded once per
+    dtype and device."""
+    name = str(dtype).replace('torch.', '')
+    return torch.tensor(_tw_pack_pair(N, sign, name), dtype=dtype,
+                        device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -874,25 +878,29 @@ def _launch_pair(what, a, b, oa, ob, axis, forward, scale):
     for t in (a, b, oa, ob):
         strides += _half_strides(t, pre, h, post, what)
     sign = -1 if forward else +1
-    cluster = N > _MAX_N_AXIS
-    tw = _tw_tensor(N, sign, 'pair' if cluster else False, a.dtype,
-                    a.device)
-    plan, nst = _plan_args(h if cluster else N)
+    if N > _MAX_N_AXIS:
+        tw = _tw_tensor_pair(N, sign, a.dtype, a.device)
+        plan, nst = _plan_args(h)
+    else:
+        tw = _tw_tensor(N, sign, False, a.dtype, a.device)
+        plan, nst = _plan_args(N)
     _launch(what, _build.load().fft_axis2_f32, a,
             _ptr(a), _ptr(b), _ptr(oa), _ptr(ob),
             (ctypes.c_longlong * 8)(*strides), _ptr(tw), tw.shape[1], pre,
             N, post, sign, plan, nst, 1.0 if scale is None else float(scale))
 
 
-def fft_axis2_p(pa, pb, axis, forward=True, scale=None, alias=False):
+def fft_axis2_p(pa, pb, axis, forward=True, scale=None, alias=False,
+                out=None):
     """Planar c2c FFT along ``axis`` (complex coords) where that axis is
     split across two (2, ...) tensors: ``pa`` holds rows 0..N/2 and ``pb``
     rows N/2..N.  Returns the two output halves, in natural order.
 
     Unnormalized unless ``scale`` is given (applied in the last write).
     ``alias=True`` writes each output over its input half and returns the
-    inputs.  The halves need not be contiguous: the dims after the axis
-    must be, and the dims before it must merge into one."""
+    inputs; ``out=(oa, ob)`` writes into two tensors like the halves
+    instead of new ones.  The halves need not be contiguous: the dims
+    after the axis must be, and the dims before it must merge into one."""
     what = 'fft_axis2_p'
     _check_planar(pa, what)
     _check_planar(pb, what)
@@ -904,17 +912,31 @@ def fft_axis2_p(pa, pb, axis, forward=True, scale=None, alias=False):
     shape = tuple(pa.shape[1:])
     axis = axis % len(shape)
     _require_pair_len(2 * shape[axis], what)
+    if out is not None:
+        if alias:
+            raise ValueError(f"{what}: alias=True and out= together")
+        for o in out:
+            if o.shape != pa.shape or o.dtype != pa.dtype or \
+                    o.device != pa.device:
+                raise ValueError(f"{what}: out half {tuple(o.shape)} "
+                                 f"{o.dtype} on {o.device} is not a "
+                                 f"{tuple(pa.shape)} {pa.dtype} on "
+                                 f"{pa.device}")
     plain = _plain_ok(pa, what, contiguous=False, f64=False)
     _plain_ok(pb, what, contiguous=False, f64=False)
     if plain:
         oa, ob = fft_axis2_plain(pa, pb, axis, forward, scale)
         if alias:
-            pa.copy_(oa)
-            pb.copy_(ob)
-            return pa, pb
+            out = (pa, pb)
+        if out is not None:
+            out[0].copy_(oa)
+            out[1].copy_(ob)
+            return tuple(out)
         return oa, ob
     if alias:
         oa, ob = pa, pb
+    elif out is not None:
+        oa, ob = out
     else:
         oa = torch.empty(pa.shape, dtype=pa.dtype, device=pa.device)
         ob = torch.empty_like(oa)
@@ -946,6 +968,21 @@ def fft_axis_pair_p(p, axis, forward=True, scale=None):
                  out.narrow(d, 0, h), out.narrow(d, h, h), axis, forward,
                  scale)
     return out
+
+
+def pair_max_active_clusters(N):
+    """How many two-CTA clusters of the pair kernel's N-point pass
+    (N = 1536 or 2048) the current CUDA device holds at once
+    (cudaOccupancyMaxActiveClusters); 0 if none fits there."""
+    if N not in (1536, 2048):
+        raise ValueError(f"pair_max_active_clusters: N = {N}; the cluster "
+                         f"pass takes 1536 and 2048")
+    count = ctypes.c_int(0)
+    rc = _build.load().fft_axis2_clusters_f32(N, ctypes.byref(count))
+    if rc != 0:
+        raise RuntimeError(f"pair_max_active_clusters: CUDA error {rc} "
+                           f"({_build.error_string(rc)})")
+    return count.value
 
 
 def fft_axis_tp(p, axis, forward=True, trunc=None, pad=None, scale=None):

@@ -35,7 +35,7 @@
 //   tile.  A warp loads 4 rows of the 8 lines (tile_index's map): with
 //   16-byte vectors across the lines (a warp then loads 16 rows) the
 //   tile's copy alone ran faster on an H100, but the whole pass ran 4-6%
-//   slower (tools/pair_ab.py, PERF.md §6).  After a cluster barrier each CTA
+//   slower (PERF.md §6).  After a cluster barrier each CTA
 //   reaches the peer's half through the peer's shared memory for one
 //   radix-2 decimation-in-frequency step across the pair: the thread of
 //   rank r takes every other element of its map, reads x[k] and x[k+h]
@@ -167,8 +167,7 @@ constexpr int kPairPer = 16;
 // (see the note at the top).  tw: the h-point stage twiddles, then at t2
 // the h cross twiddles (cos, sin)(sign 2 pi k / N).  Bound to two blocks
 // an SM (64 registers), although three tiles fit: at three (40 registers
-// and more spills) the pass took 1.36x as long on an H100
-// (tools/pair_ab.py, PERF.md §6).
+// and more spills) the pass took 1.36x as long on an H100 (PERF.md §6).
 __global__ void __launch_bounds__(mff::Budget<float>::kTile / 16,
                                   mff::Budget<float>::kWideMinBlocks)
 fft_pair_cluster_kernel(Half<const float> a, Half<const float> b,
@@ -354,9 +353,8 @@ extern "C" int mff_fft_axis2_f32(const float* xa, const float* xb, float* ya,
   const int threads = (n << lc) / 16;
   const size_t smem = 2 * sizeof(long long) * C +
                       2 * sizeof(float) * static_cast<size_t>(n) * (C + 1);
-  using B = mff::Budget<float>;
-  auto kern = mff::pick_bound<float>(smem, &fft_axis2_kernel<B::kMinBlocks>,
-                                     &fft_axis2_kernel<B::kWideMinBlocks>);
+  // every tile up to N = 1024 (74 KB at 1024) fits three blocks an SM
+  auto kern = &fft_axis2_kernel<mff::Budget<float>::kMinBlocks>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));

@@ -36,8 +36,9 @@
 // so a group lies inside one warp).  A thread issues all its P loads,
 // each point z[m] one 16-byte double2 (a group's load reads 16 G
 // contiguous bytes), before it computes.  The W-point transform runs as
-// Stockham stages of radix 16 or 8 and one remainder (radix 3 last), two
-// stages at W = 256 and three at W = 384 or 512; each stage's butterflies
+// Stockham stages of radix 16 or 8 and one remainder (radix 3 last): two
+// stages at W = 256 (16, 16), three at W = 512 (16, 16, 2) and four at
+// W = 384 (8, 8, 2, 3); each stage's butterflies
 // sit in registers, and the exchange between stages goes through the
 // group's own W-point buffer in shared memory behind __syncwarp, with no
 // block-wide barrier.  The stage twiddles w_W^e are read from the unpack

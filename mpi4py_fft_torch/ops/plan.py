@@ -237,6 +237,7 @@ def forget_wisdom():
     (reference: fftw/factory.py:165-167)."""
     _build.unload()
     butterfly._tw_tensor.cache_clear()
+    butterfly._tw_tensor_pair.cache_clear()
     matfft._const.cache_clear()
     fft2stage._table_tensor.cache_clear()
 

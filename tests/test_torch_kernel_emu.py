@@ -206,7 +206,13 @@ def _hold_pair(plain_ok, shape, axis):
     assert ga is ca and gb is cb
     oa, ob = bf.fft_axis2_p(pa, pb, axis, False)
     assert torch.equal(ga, oa) and torch.equal(gb, ob)
-    assert _launched() == {'fft_axis2_p': 5, 'fft_axis_pair_p': 3}
+    # into given halves, NaN-filled
+    na = torch.full_like(pa, float('nan'))
+    nb = torch.full_like(pb, float('nan'))
+    ra, rb = bf.fft_axis2_p(pa, pb, axis, False, out=(na, nb))
+    assert ra is na and rb is nb
+    assert torch.equal(na, oa) and torch.equal(nb, ob)
+    assert _launched() == {'fft_axis2_p': 6, 'fft_axis_pair_p': 3}
 
 
 @pytest.mark.parametrize('shape,axis', PAIR_SHAPES)
@@ -217,7 +223,7 @@ def test_pair_kernel_vs_plain(kernel_path, emu_kernels, shape, axis):
     _hold_pair(kernel_path, shape, axis)
     clusters = _emu_count(emu_kernels, 'fft_axis2',
                           'emu_cluster_launches') - c0
-    assert clusters == (8 if shape[axis] > 1024 else 0)
+    assert clusters == (9 if shape[axis] > 1024 else 0)
 
 
 # the cluster kernel of G (N = 1536 and 2048): lead rows over whole
@@ -236,7 +242,17 @@ def test_pair_cluster_kernel_vs_plain(kernel_path, emu_kernels, shape,
     c0 = _emu_count(emu_kernels, 'fft_axis2', 'emu_cluster_launches')
     _hold_pair(kernel_path, shape, axis)
     assert _emu_count(emu_kernels, 'fft_axis2',
-                      'emu_cluster_launches') - c0 == 8
+                      'emu_cluster_launches') - c0 == 9
+
+
+@pytest.mark.parametrize('N', [1536, 2048])
+def test_pair_max_active_clusters(kernel_path, N):
+    """The cluster query answers for the two lengths of the cluster pass
+    (the emulation holds one cluster whose tile fits) and refuses
+    others."""
+    assert bf.pair_max_active_clusters(N) == 1
+    with pytest.raises(ValueError):
+        bf.pair_max_active_clusters(N // 2)
 
 
 # the float64 r2c on whole lines (the line kernel): W = N/2 of one

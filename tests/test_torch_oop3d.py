@@ -89,6 +89,23 @@ def test_fft_axis2_alias_matches_oop():
                 np.concatenate(_np([ra, rb]), 1)) < TOL
 
 
+def test_fft_axis2_out_matches_oop():
+    """out=(oa, ob) writes the same transform into the given halves, and
+    does not go with alias=True."""
+    x = _x((16, 64, 128), 10)
+    a, b = (torch.from_numpy(h) for h in _halves(x, 0))
+    oa, ob = tb.fft_axis2_p(a, b, 0, False, scale=0.5)
+    na = torch.full_like(a, float('nan'))
+    nb = torch.full_like(b, float('nan'))
+    ra, rb = tb.fft_axis2_p(a, b, 0, False, scale=0.5, out=(na, nb))
+    assert ra is na and rb is nb
+    assert torch.equal(na, oa) and torch.equal(nb, ob)
+    with pytest.raises(ValueError):
+        tb.fft_axis2_p(a, b, 0, alias=True, out=(na, nb))
+    with pytest.raises(ValueError):
+        tb.fft_axis2_p(a, b, 0, out=(na, nb[:, :1]))
+
+
 @pytest.mark.parametrize('full,axis', AXIS2_CASES)
 def test_fft_axis_pair_vs_pallas(full, axis):
     x = _x(full, 2)
