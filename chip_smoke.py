@@ -9,9 +9,11 @@ Phases, run in the order 1-15, 19-22, 16-18, 23, 24; any failure raises
 and the script exits non-zero:
 
 1. build     the kernels from ``mpi4py_fft_torch/ops/csrc`` with nvcc,
-             their ``ptxas`` lines, and how many two-CTA clusters of the
+             their ``ptxas`` lines, how many two-CTA clusters of the
              pair kernel's cluster instance (N = 1536, 2048) the card
-             holds at once (``cudaOccupancyMaxActiveClusters``, > 0);
+             holds at once (``cudaOccupancyMaxActiveClusters``, > 0),
+             and the same for H's plane-holding kernel at 256 x 256 (a
+             cluster of 8 CTAs a plane) and 64 x 64 (one CTA, > 0);
 2. holds     every kernel against its plain PyTorch version on the card
              (relative L2 <= 5e-6), the pair kernels at lead, mid and last
              positions for N up to 2048 (A's tile up to 1024, the cluster
@@ -23,7 +25,8 @@ and the script exits non-zero:
              positions, truncation and padding, even and odd Nt, with and
              without a scale; J (``fft2stage_p``) at every S = 1..8 and
              both signs; H and I (``fft_plane_p``, ``fft_plane_large_p``)
-             on planes from 4 x 2 to 1024 x 1024;
+             on planes from 4 x 2 to 1024 x 1024 (H's one-CTA planes,
+             ragged, and its clusters of 2, 4 and 8);
 3. entry     the port's ``entry()``: a 64^3 r2c f32 forward;
 4. north     ``PlanarPFFT(None, (1024,)*3, dtype='F')``: normalized
              forward and backward against ``torch.fft.fftn`` (oracle only)
@@ -126,18 +129,22 @@ and the script exits non-zero:
 21. bluestein ``PlanarPFFT(None, (509, 512, 512), dtype='F')``: axis 0 is
              Bluestein, two J launches of M = 1024 a direction, axes 1 and
              2 take A; against ``torch.fft.fftn`` and the round trip;
-22. plane    the entry points H (``fft_plane_p``, (2, 1024, 256, 256)) and
-             I (``fft_plane_large_p``, (2, 1024, 1024, 1024)), forward and
-             backward with the 1/(N1 N2) scale, against a
+22. plane    the entry points H (``fft_plane_p``, (2, 1024, 256, 256), a
+             cluster a plane, and (2, 16384, 64, 64), two planes a CTA)
+             and I (``fft_plane_large_p``, (2, 1024, 1024, 1024)), forward
+             and backward with the 1/(N1 N2) scale, against a
              ``torch.fft.fft2`` oracle and the round trip, and against
-             their plain versions slab by slab;
-23. times_any J at the 640^3 last-axis pass (held slab by slab there, on
-             the stacked 896^3 real axis and on Bluestein's padded
-             (512, 512, 1024) axis, both signs) and H and I at phase 22's
-             shapes, each timed beside its plain version, its bound, the
-             PyTorch call that computes the same function
-             (``torch.fft.fft`` over the last axis; ``torch.fft.fft2``)
-             and, for H and I, two chained A passes at the same shape.
+             their plain versions slab by slab (outputs in memory filled
+             with NaN first), with H's CTAs a plane and active clusters;
+23. times_any J at the three S of the main path: the 640^3 last-axis
+             pass (S = 5), the stacked 896^3 real axis (S = 7) and
+             Bluestein's padded (512, 512, 1024) axis (S = 8), each held
+             slab by slab on both signs (outputs filled with NaN first);
+             H and I at phase 22's shapes; each timed beside its plain
+             version, its bound, the PyTorch call that computes the same
+             function (``torch.fft.fft`` over the last axis;
+             ``torch.fft.fft2``) and, for H and I, two chained A passes
+             at the same shape.
 24. probes   the port of the JAX package's TPU probes (``scripts/tpu_*.py``,
              ``mpi4py_fft_torch/probes``): first every probe kernel
              (``ops/probes.py``) against its plain version on the card,
@@ -213,6 +220,8 @@ BLUESTEIN_SHAPE = (509, 512, 512)   # a prime lead axis (Bluestein, M = 1024)
 # the JAX package's A/B (scripts/tpu_plane_large_test.py)
 PLANE_H = (1024, 256, 256)
 PLANE_I = (1024, 1024, 1024)
+# H on planes one CTA holds whole (two planes a CTA), the same volume
+PLANE_H_ONE_CTA = (16384, 64, 64)
 PROBE_N = 1024             # the probes' floors: the north star's 1024^3
 FMA_HOLD_ITERS = 256       # fma_chain against its plain loop
 # the hold's constants: every step moves each value by far more than the
@@ -341,8 +350,16 @@ def phase_build():
     clusters = {n: bf.pair_max_active_clusters(n) for n in (1536, 2048)}
     for n, c in clusters.items():
         _check(c > 0, f"pair kernel at N = {n}: no two-CTA cluster fits")
+    planes = {}
+    for shape in (PLANE_H, PLANE_H_ONE_CTA):
+        k, c = bf.plane_max_active_clusters(*shape[-2:])
+        _check(c > 0, f"plane kernel at {shape[-2:]}: no cluster of {k} "
+                      f"fits")
+        planes[f'{shape[-2]}x{shape[-1]}'] = {'ctas_a_plane': k,
+                                              'max_active': c}
     _emit({'phase': 'build', 'seconds': secs, 'ptxas': ptxas,
-           'pair_max_active_clusters': clusters})
+           'pair_max_active_clusters': clusters,
+           'plane_max_active_clusters': planes})
     print(_smi(), flush=True)
 
 
@@ -410,7 +427,8 @@ def _holds_any(holds, rnd):
                            f"fft2stage_p {shape} sign {sign}")
                 n += 1
     for shape in ((3, 32, 64), (5, 256, 256), (4, 8, 2), (2, 2, 1024),
-                  (2, 1024, 4), (2, 1024, 1024), (2, 3, 16, 16)):
+                  (2, 1024, 4), (2, 1024, 1024), (2, 3, 16, 16),
+                  (7, 16, 32), (3, 64, 256), (2, 256, 128)):
         p = rnd(2, *shape)
         names = ['fft_plane_large_p']
         if bf.supported_plane(shape, p.dtype):
@@ -1724,21 +1742,26 @@ def phase_bluestein(dev, bf):
 
 
 def phase_plane(dev, bf, holds):
-    """The plane entry points, which nothing dispatches: H on PLANE_H and I
-    on PLANE_I, forward, then backward with the 1/(N1 N2) scale, against
-    a torch.fft.fft2 oracle and the round trip (5e-5), and against their
-    plain versions slab by slab (5e-6)."""
+    """The plane entry points, which nothing dispatches: H on PLANE_H (a
+    cluster a plane) and PLANE_H_ONE_CTA (two planes a CTA) and I on
+    PLANE_I, forward, then backward with the 1/(N1 N2) scale, against a
+    torch.fft.fft2 oracle and the round trip (5e-5), and against their
+    plain versions slab by slab (5e-6), each output in memory filled with
+    NaN first."""
     out = {}
-    for i, (name, shape) in enumerate((('fft_plane_p', PLANE_H),
-                                       ('fft_plane_large_p', PLANE_I))):
+    runs = (('fft_plane_p', PLANE_H), ('fft_plane_p', PLANE_H_ONE_CTA),
+            ('fft_plane_large_p', PLANE_I))
+    for i, (name, shape) in enumerate(runs):
         fn = getattr(bf, name)
         plain = getattr(bf, name[:-2] + '_plain')
         x = _rand((2,) + shape, dev, SEED + 63 + i)
         sc = 1.0 / (shape[-1] * shape[-2])
         c0 = dict(bf.LAUNCHES)
+        _nan(x)     # freed at once: the output's block starts as NaN
         y = fn(x, True)
         torch.cuda.synchronize()
         c1 = dict(bf.LAUNCHES)
+        _nan(x)
         z = fn(y, False, scale=sc)
         torch.cuda.synchronize()
         c2 = dict(bf.LAUNCHES)
@@ -1763,9 +1786,15 @@ def phase_plane(dev, bf, holds):
             y.narrow(1, j, w), False, sc), 1, f"{name} {shape} bwd")
         del x, y, z
         torch.cuda.empty_cache()
-        out[name] = {'shape': list(shape), 'rel_l2_fwd_vs_fft2': err_o,
-                     'rel_l2_round_trip': err_rt, 'slabs_held': n}
-    _emit({'phase': 'plane', 'launches': {k: 2 for k in out}, 'plans': out})
+        row = {'shape': list(shape), 'rel_l2_fwd_vs_fft2': err_o,
+               'rel_l2_round_trip': err_rt, 'slabs_held': n}
+        if name == 'fft_plane_p':
+            k, c = bf.plane_max_active_clusters(*shape[-2:])
+            row.update(ctas_a_plane=k, max_active=c)
+        out[f'{name} {shape}'] = row
+    _emit({'phase': 'plane', 'launches': {'fft_plane_p': 4,
+                                          'fft_plane_large_p': 2},
+           'plans': out})
 
 
 def _j_flops(lines, N):
@@ -1777,68 +1806,83 @@ def _j_flops(lines, N):
     return lines * (128 * S * S * 8 + 6 * N + S * 5 * 128 * 7)
 
 
-def phase_times_any(dev, bf, holds):
-    """J at the any_c2c plan's last-axis pass, held slab by slab on both
-    signs there, on the stacked any_r2c real axis and on the Bluestein
-    (509, 512, 512) plan's padded M = 1024 axis; H and I at PLANE_H and
-    PLANE_I, beside two chained A passes at the same shape (the JAX
-    package's own A/B)."""
-    from mpi4py_fft_torch.ops import fft2stage as j2
-    out = {}
-    slabs = 0
-    b3 = BLUESTEIN_SHAPE
-    for shape in ((2,) + ANY_R2C_SHAPE, (2, b3[1], b3[2], 1024)):
-        x = _rand(shape, dev, SEED + 71)
-        for sign in (-1, 1):
-            k = j2.fft2stage_p(x, sign)
-            slabs += _slab_hold(holds, 'fft2stage_p', k, lambda i, w: (
-                j2.fft2stage_plain(x.narrow(1, i, w), sign)), 1,
-                f"fft2stage_p {shape} sign {sign}")
-            del k
-        del x
-        torch.cuda.empty_cache()
-    shape = ANY_C2C_SHAPE
-    x = _rand((2,) + shape, dev, SEED + 70)
+def _j_row(j2, x, holds, slabs):
+    """J on the last axis of x: held slab by slab on both signs (each
+    output in memory filled with NaN first), then timed beside its plain
+    version, torch.fft.fft and its bound."""
     for sign in (-1, 1):
+        _nan(x)     # freed at once: the output's block starts as NaN
         k = j2.fft2stage_p(x, sign)
-        slabs += _slab_hold(holds, 'fft2stage_p', k, lambda i, w: (
+        slabs[0] += _slab_hold(holds, 'fft2stage_p', k, lambda i, w: (
             j2.fft2stage_plain(x.narrow(1, i, w), sign)), 1,
-            f"fft2stage_p {shape} sign {sign}")
+            f"fft2stage_p {tuple(x.shape)} sign {sign}")
         del k
     xc = torch.complex(x[0], x[1])
-    n = shape[-1]
+    n = x.shape[-1]
     b, by = _bound_ms(2 * x.numel() * 4, _j_flops(x.numel() // 2 // n, n))
-    out['fft2stage_p'] = {
-        'shape': f'(2, {shape[0]}, {shape[1]}, {n}) f32, last axis '
-                 f'(S = {n // 128})',
-        'ms': _median_ms(lambda: j2.fft2stage_p(x, -1)),
-        'plain_ms': _median_ms(lambda: j2.fft2stage_plain(x, -1), reps=3,
-                               warm=1),
-        'library_ms': _median_ms(lambda: torch.fft.fft(xc, dim=-1)),
-        'bound_ms': b, 'bound_by': by, 'slabs_held': slabs}
-    del x, xc
-    torch.cuda.empty_cache()
-    for i, (name, shape) in enumerate((('fft_plane_p', PLANE_H),
-                                       ('fft_plane_large_p', PLANE_I))):
-        fn = getattr(bf, name)
-        plain = getattr(bf, name[:-2] + '_plain')
-        x = _rand((2,) + shape, dev, SEED + 72 + i)
-        N1, N2 = shape[-2], shape[-1]
-        lines = x.numel() // 2
-        b, by = _bound_ms(2 * x.numel() * 4,
-                          5 * lines * math.log2(N1 * N2))
-        row = {'shape': f'(2, {shape[0]}, {N1}, {N2}) f32, last two axes',
-               'ms': _median_ms(lambda: fn(x, True)),
-               'two_a_passes_ms': _median_ms(
-                   lambda: bf.fft_axis_p(bf.fft_axis_p(x, 2), 1)),
-               'plain_ms': _median_ms(lambda: plain(x, True), reps=3,
-                                      warm=1)}
-        xc = torch.complex(x[0], x[1])
-        row['library_ms'] = _median_ms(lambda: torch.fft.fft2(xc))
-        row.update(bound_ms=b, bound_by=by)
-        del x, xc
+    row = {'shape': f'{tuple(x.shape)} f32, last axis (S = {n // 128})',
+           'ms': _median_ms(lambda: j2.fft2stage_p(x, -1)),
+           'plain_ms': _median_ms(lambda: j2.fft2stage_plain(x, -1), reps=3,
+                                  warm=1),
+           'library_ms': _median_ms(lambda: torch.fft.fft(xc, dim=-1)),
+           'bound_ms': b, 'bound_by': by}
+    del xc
+    return row
+
+
+def _plane_row(bf, name, x):
+    """A plane kernel at x's shape, timed beside two chained A passes,
+    its plain version, torch.fft.fft2 and its bound."""
+    fn = getattr(bf, name)
+    plain = getattr(bf, name[:-2] + '_plain')
+    N1, N2 = x.shape[-2], x.shape[-1]
+    b, by = _bound_ms(2 * x.numel() * 4,
+                      5 * (x.numel() // 2) * math.log2(N1 * N2))
+    row = {'shape': f'{tuple(x.shape)} f32, last two axes',
+           'ms': _median_ms(lambda: fn(x, True)),
+           'two_a_passes_ms': _median_ms(
+               lambda: bf.fft_axis_p(bf.fft_axis_p(x, 2), 1)),
+           'plain_ms': _median_ms(lambda: plain(x, True), reps=3, warm=1)}
+    xc = torch.complex(x[0], x[1])
+    row['library_ms'] = _median_ms(lambda: torch.fft.fft2(xc))
+    row.update(bound_ms=b, bound_by=by)
+    if name == 'fft_plane_p':
+        row['ctas_a_plane'], row['max_active'] = \
+            bf.plane_max_active_clusters(N1, N2)
+    return row
+
+
+def phase_times_any(dev, bf, holds):
+    """J at the three S of the main path, held slab by slab on both signs
+    and timed there: the any_c2c plan's 640^3 last axis (S = 5, the
+    kernels line's row), the stacked any_r2c real axis (S = 7) and the
+    Bluestein (509, 512, 512) plan's padded M = 1024 axis (S = 8); H at
+    PLANE_H (its row) and PLANE_H_ONE_CTA, and I at PLANE_I, beside two
+    chained A passes at the same shape (the JAX package's own A/B)."""
+    from mpi4py_fft_torch.ops import fft2stage as j2
+    out = {}
+    slabs = [0]
+    b3 = BLUESTEIN_SHAPE
+    rows = {}
+    for s, shape in ((5, ANY_C2C_SHAPE), (7, ANY_R2C_SHAPE),
+                     (8, (b3[1], b3[2], 1024))):
+        x = _rand((2,) + shape, dev, SEED + 70 + s)
+        rows[s] = _j_row(j2, x, holds, slabs)
+        del x
         torch.cuda.empty_cache()
-        out[name] = row
+    out['fft2stage_p'] = dict(rows[5], s7=rows[7], s8=rows[8],
+                              slabs_held=slabs[0])
+    for i, (name, shape) in enumerate((('fft_plane_p', PLANE_H),
+                                       ('fft_plane_p', PLANE_H_ONE_CTA),
+                                       ('fft_plane_large_p', PLANE_I))):
+        x = _rand((2,) + shape, dev, SEED + 72 + i)
+        row = _plane_row(bf, name, x)
+        del x
+        torch.cuda.empty_cache()
+        if shape == PLANE_H_ONE_CTA:
+            out[name]['one_cta'] = row
+        else:
+            out[name] = row
     _emit({'phase': 'times_any', 'kernels': out})
     return out
 
@@ -2234,7 +2278,8 @@ def main():
             'bound_by': t['bound_by'], 'library_ms': t['library_ms'],
             'shape': t['shape']})
         for extra in ('cufft_unfused_ms', 'two_a_passes_ms', 'n1536',
-                      'trunc768'):
+                      'trunc768', 's7', 's8', 'one_cta', 'ctas_a_plane',
+                      'max_active'):
             if extra in t:
                 kernels[-1][extra] = t[extra]
     _emit({'kernels': kernels + probe_rows})

@@ -57,7 +57,8 @@ __all__ = ['fft_axis_p', 'rfft_axis_p', 'irfft_axis_p', 'fft_axis2_p',
            'irfft_axis_plain', 'fft_axis2_plain', 'fft_axis_pair_plain',
            'fft_axis_tp_plain', 'fft_plane_p', 'fft_plane_large_p',
            'supported_plane', 'supported_plane_large', 'fft_plane_plain',
-           'fft_plane_large_plain', 'LAUNCHES', 'reset_launches']
+           'fft_plane_large_plain', 'plane_max_active_clusters', 'LAUNCHES',
+           'reset_launches']
 
 _MAX_N_AXIS = 1024
 _MAX_N_PAIR = 2048
@@ -180,6 +181,15 @@ def _tw_pack_pair(N, sign, dtype_str):
 
 
 @functools.lru_cache(maxsize=None)
+def _tw_pack_powers(N, sign, dtype_str):
+    """Every power of w_N: (cos, sin)(sign * 2*pi*e/N), e = 0..N-1, as
+    (2, N): the twiddles of the plane-holding kernel's stages and its
+    cluster step over an N-point axis."""
+    ang = sign * 2.0 * np.pi * np.arange(N) / N
+    return np.stack([np.cos(ang), np.sin(ang)]).astype(dtype_str)
+
+
+@functools.lru_cache(maxsize=None)
 def _tw_tensor(N, sign, packed, dtype, device):
     """The twiddle table of one (N, sign, packed) as a contiguous tensor,
     uploaded once per dtype and device."""
@@ -195,6 +205,15 @@ def _tw_tensor_pair(N, sign, dtype, device):
     dtype and device."""
     name = str(dtype).replace('torch.', '')
     return torch.tensor(_tw_pack_pair(N, sign, name), dtype=dtype,
+                        device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _tw_tensor_powers(N, sign, dtype, device):
+    """_tw_pack_powers(N, sign) as a contiguous tensor, uploaded once per
+    dtype and device."""
+    name = str(dtype).replace('torch.', '')
+    return torch.tensor(_tw_pack_powers(N, sign, name), dtype=dtype,
                         device=device)
 
 
@@ -1067,6 +1086,9 @@ def fft_plane_large_plain(p, forward=True, scale=None):
 
 
 def _plane(what, p, forward, scale, gate, plain):
+    """The plane kernels, chosen by shape: planes whose two axes are both
+    at most 256 points (every plane of H's gate) on the plane-holding
+    kernel, any other (I's larger planes) on the queue kernel."""
     _check_planar(p, what)
     shape = tuple(p.shape[1:])
     if not gate(shape, p.dtype):
@@ -1075,28 +1097,44 @@ def _plane(what, p, forward, scale, gate, plain):
                          f"{gate.__name__})")
     if _plain_ok(p, what):
         return plain(p, forward, scale)
+    N1, N2 = shape[-2], shape[-1]
+    hold = max(N1, N2) <= _MAX_N_PLANE
+    if hold and p.data_ptr() % 16:
+        p = p.clone()
     out = torch.empty_like(p)
     if out.numel() == 0:
         return out
-    N1, N2 = shape[-2], shape[-1]
     P = math.prod(shape[:-2])
     sign = -1 if forward else +1
+    sc = 1.0 if scale is None else float(scale)
+    if hold:
+        tw2 = _tw_tensor_powers(N2, sign, p.dtype, p.device)
+        tw1 = _tw_tensor_powers(N1, sign, p.dtype, p.device)
+        _launch(what, _build.load().fft_plane_f32, p,
+                _ptr(p), _ptr(out), _ptr(tw2), _ptr(tw1), P, N1, N2, sign,
+                sc)
+        return out
     tw2 = _tw_tensor(N2, sign, False, p.dtype, p.device)
-    tw1 = _tw_tensor(N1, sign, False, p.dtype, p.device)
     plan2, nst2 = _plan_args(N2)
+    tw1 = _tw_tensor(N1, sign, False, p.dtype, p.device)
     plan1, nst1 = _plan_args(N1)
     counters = torch.zeros(P + 1, dtype=torch.int32, device=p.device)
-    _launch(what, _build.load().fft_plane_f32, p,
+    _launch(what, _build.load().fft_plane_queue_f32, p,
             _ptr(p), _ptr(out), _ptr(tw2), tw2.shape[1], _ptr(tw1),
-            tw1.shape[1], P, N1, N2, sign, plan2, nst2, plan1, nst1,
-            1.0 if scale is None else float(scale), _ptr(counters))
+            tw1.shape[1], P, N1, N2, sign, plan2, nst2, plan1, nst1, sc,
+            _ptr(counters))
     return out
 
 
 def fft_plane_p(p, forward=True, scale=None):
     """Planar c2c FFT over both of the last two axes of (2, ...) float32
     data in one launch (H: axes of at most 256 points).  Unnormalized
-    unless ``scale`` is given (folded into the last write)."""
+    unless ``scale`` is given (folded into the last write).
+
+    On CUDA every plane takes the plane-holding kernel: a plane of at most
+    8192 points is held whole by one CTA (several planes a CTA), a larger
+    one by a cluster of N1 * N2 / 8192 CTAs; each plane crosses device
+    memory once each way."""
     return _plane('fft_plane_p', p, forward, scale, supported_plane,
                   fft_plane_plain)
 
@@ -1104,6 +1142,27 @@ def fft_plane_p(p, forward=True, scale=None):
 def fft_plane_large_p(p, forward=True, scale=None):
     """Planar c2c FFT over both of the last two axes of (2, ...) float32
     data in one launch (I: planes of N1 * N2 <= 2^20 points, each axis at
-    most 1024).  Unnormalized unless ``scale`` is given."""
+    most 1024).  Unnormalized unless ``scale`` is given.
+
+    On CUDA the kernel is chosen by shape: a plane whose two axes are
+    both at most 256 points takes H's plane-holding kernel, any other the
+    queue kernel (each plane's rows, then its columns through L2)."""
     return _plane('fft_plane_large_p', p, forward, scale,
                   supported_plane_large, fft_plane_large_plain)
+
+
+def plane_max_active_clusters(N1, N2):
+    """(K, count) for N1 x N2 planes on the plane-holding kernel: the
+    CTAs of a plane, and how many clusters of K (K > 1;
+    cudaOccupancyMaxActiveClusters) or single CTAs (K = 1) the current
+    CUDA device holds at once; count is 0 if none fits there."""
+    if not supported_plane((N1, N2), torch.float32):
+        raise ValueError(f"plane_max_active_clusters: ({N1}, {N2}) is not "
+                         f"a plane of H's gate")
+    k, count = ctypes.c_int(0), ctypes.c_int(0)
+    rc = _build.load().fft_plane_clusters_f32(N1, N2, ctypes.byref(k),
+                                              ctypes.byref(count))
+    if rc != 0:
+        raise RuntimeError(f"plane_max_active_clusters: CUDA error {rc} "
+                           f"({_build.error_string(rc)})")
+    return k.value, count.value

@@ -12,11 +12,20 @@ pass over device memory.  With n = n1*128 + n2:
 
 The JAX wrapper's final swap of (k1, k2) is folded into the kernel's
 store.  Stage 1 is the direct S-point DFT with ``_dft_matrix(S)``, as the
-JAX kernel computes it; stage 2 is the 128-point Stockham of
-``butterfly.cuh`` (the plan and twiddles of ``butterfly._stage_plan(128)``)
-where the JAX kernel takes a product with the 128 x 128 DFT matrix on the
-MXU.  Unnormalized, float32 only (the JAX package dispatches it for f32
-only; f64 lengths take the engine's matrix stages).
+JAX kernel computes it; stage 2 is a 128-point Stockham where the JAX
+kernel takes a product with the 128 x 128 DFT matrix on the MXU: in the
+plain version the plan and twiddles of ``butterfly._stage_plan(128)``, in
+the CUDA kernel radix 16 then radix 8 (the same function; the rounding
+differs within the kernels' tolerance).  Unnormalized, float32 only (the
+JAX package dispatches it for f32 only; f64 lengths take the engine's
+matrix stages).
+
+The CUDA kernel is a line kernel: one warp a line, the line's points in
+registers, stage 1 and the twiddle in the thread that holds a column,
+stage 2's exchanges through the warp's own buffer in shared memory (see
+``csrc/fft2stage.cu``).  It loads and stores 16-byte vectors, so a CUDA
+input whose storage does not start on a 16-byte boundary is copied
+first.
 
 On a CPU tensor ``fft2stage_p`` runs ``fft2stage_plain``, which repeats the
 kernel's arithmetic; on a CUDA tensor it launches ``csrc/fft2stage.cu`` or
@@ -54,13 +63,14 @@ def _tables(S, sign):
 
 @functools.lru_cache(maxsize=None)
 def _table_tensor(S, sign, device):
-    """The three tables of ``_tables`` side by side in one (2, row)
-    float32 tensor, real parts in row 0 and imaginary parts in row 1:
-    W1 (S*S), the twiddle (S*128), the 128-point stage twiddles; uploaded
-    once per device."""
-    w1, tw, t128 = _tables(S, sign)
-    flat = np.concatenate([w1.reshape(2, -1), tw.reshape(2, -1), t128],
-                          axis=1)
+    """The kernel's tables of ``_tables`` side by side in one (2, row)
+    float32 tensor, real parts in row 0 and imaginary parts in row 1: the
+    twiddle (S*128), then the 128-point stage twiddles padded to 128, so
+    that both blocks start on 16-byte boundaries; uploaded once per
+    device.  The kernel takes W1's values as constants."""
+    _, tw, t128 = _tables(S, sign)
+    t128 = np.pad(t128, ((0, 0), (0, _LANE - t128.shape[1])))
+    flat = np.concatenate([tw.reshape(2, -1), t128], axis=1)
     return torch.tensor(flat, dtype=torch.float32, device=device)
 
 
@@ -117,15 +127,15 @@ def fft2stage_p(p, sign):
         return fft2stage_plain(p, sign)
     if p.dtype != torch.float32:
         raise TypeError(f"{what}: the kernel takes float32, got {p.dtype}")
+    if p.data_ptr() % 16:
+        p = p.clone()
     out = torch.empty_like(p)
     if out.numel() == 0:
         return out
     S = N // _LANE
     B = out.numel() // (2 * N)
     tab = _table_tensor(S, int(sign), p.device)
-    plan, nst = butterfly._plan_args(_LANE)
     butterfly._launch(what, _build.load().fft2stage_f32, p,
                       butterfly._ptr(p), butterfly._ptr(out),
-                      butterfly._ptr(tab), tab.shape[1], B, S, int(sign),
-                      plan, nst)
+                      butterfly._ptr(tab), tab.shape[1], B, S, int(sign))
     return out

@@ -61,6 +61,10 @@ inline void __syncwarp(unsigned = 0xffffffffu) {
 struct alignas(16) float4 {
   float x, y, z, w;
 };
+struct alignas(8) float2 {
+  float x, y;
+};
+inline float2 make_float2(float x, float y) { return float2{x, y}; }
 struct alignas(16) double2 {
   double x, y;
 };
@@ -221,9 +225,16 @@ inline cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg,
   return cudaSuccess;
 }
 
-// an emulated device that holds one cluster at a time
+// an emulated device that holds one cluster, or one block an SM, at a
+// time
 inline cudaError_t cudaOccupancyMaxActiveClusters(
     int* count, const void*, const cudaLaunchConfig_t* cfg) {
   *count = cfg->dynamicSmemBytes <= kEmuMaxShared ? 1 : 0;
+  return cudaSuccess;
+}
+template <class F>
+inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+    int* count, F, int, std::size_t shared) {
+  *count = shared <= kEmuMaxShared ? 1 : 0;
   return cudaSuccess;
 }

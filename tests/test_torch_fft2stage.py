@@ -42,6 +42,19 @@ def test_fft2stage_plain_vs_pallas(S):
                                                    sign)) == 0.0
 
 
+@pytest.mark.parametrize('S,lines', [(6, 7)])
+def test_fft2stage_plain_vs_pallas_ragged(S, lines):
+    """A line count that is not a multiple of the CUDA kernel's four lines
+    a block (the last block has a warp without a line)."""
+    rng = np.random.default_rng(70 + S)
+    p = rng.standard_normal((2, lines, 128 * S)).astype(np.float32)
+    for sign in (-1, +1):
+        ref = jfft2.fft2stage_p(jnp.asarray(p), sign, interpret=True)
+        got = fft2stage.fft2stage_p(torch.from_numpy(p), sign)
+        assert got.shape == p.shape and got.dtype == torch.float32
+        assert _rel(got, ref) <= TOL, sign
+
+
 def test_fft2stage_gates():
     assert [n for n in range(1, 1200) if fft2stage.supported_length(n)] \
         == [128 * s for s in range(1, 9)]

@@ -374,26 +374,78 @@ def test_c_entry_rejects_bad_plan(emu_kernels):
         assert rc != 0, n
 
 
-# J (fft2stage.cu): every S, both signs, a line count that leaves the last
-# block partly empty, one line, and leading dims that flatten
+# J (fft2stage.cu): every S, both signs, line counts that leave warps of
+# the last block without a line (13, 5, 22, 18, 13, 11, 10 and 6 lines,
+# four warps a block), one line, and leading dims that flatten
 J_SHAPES = [((13, 128), 1), ((5, 256), 2), ((22, 384), 3), ((3, 6, 512), 4),
             ((13, 640), 5), ((11, 768), 6), ((10, 896), 7), ((1, 1024), 8),
-            ((2, 3, 1024), 8)]
+            ((2, 3, 1024), 8), ((2, 3, 768), 6)]
+
+def _j_warp_syncs(S):
+    """The __syncwarp() calls of one line: after stage 1, after the
+    radix-16 stage, between the radix-8 stage's butterflies of a lane
+    (16 S of them over 32 lanes), and after its reads and its writes."""
+    return 3 + (16 * S + 31) // 32
+
 
 
 @pytest.mark.parametrize('shape,S', J_SHAPES)
-def test_fft2stage_kernel_vs_plain(kernel_path, shape, S):
+def test_fft2stage_kernel_vs_plain(kernel_path, emu_kernels, shape, S):
+    """The line kernel, a warp a line: every lane of every warp that has a
+    line meets each of its __syncwarp() barriers, and no other warp
+    does."""
     from mpi4py_fft_torch.ops import fft2stage
     rng = np.random.default_rng(14)
     p = torch.from_numpy(rng.standard_normal((2,) + shape)
                          .astype(np.float32))
     assert shape[-1] == 128 * S
+    lines = int(np.prod(shape[:-1]))
     for sign in (-1, +1):
+        w0 = _emu_count(emu_kernels, 'fft2stage', 'emu_syncwarps')
         got = fft2stage.fft2stage_p(p, sign)
+        syncs = _emu_count(emu_kernels, 'fft2stage', 'emu_syncwarps') - w0
         ref = _plain(kernel_path, fft2stage.fft2stage_p, p, sign)
         assert got.shape == p.shape and got.dtype == p.dtype
         assert _rel(got, ref) <= TOL, sign
+        assert syncs == lines * 32 * _j_warp_syncs(S), sign
     assert _launched() == {'fft2stage_p': 2}
+
+
+def test_misaligned_inputs_are_copied(kernel_path):
+    """J and H load 16-byte vectors: an input whose storage starts 4
+    bytes off a 16-byte boundary is copied first, with the same result."""
+    from mpi4py_fft_torch.ops import fft2stage
+    rng = np.random.default_rng(19)
+    flat = torch.from_numpy(rng.standard_normal(1 + 2 * 3 * 640)
+                            .astype(np.float32))
+    p = flat[1:].view(2, 3, 640)
+    assert p.data_ptr() % 16 == 4
+    got = fft2stage.fft2stage_p(p, -1)
+    assert _rel(got, _plain(kernel_path, fft2stage.fft2stage_p, p, -1)) \
+        <= TOL
+    flat = torch.from_numpy(rng.standard_normal(1 + 2 * 3 * 16 * 32)
+                            .astype(np.float32))
+    q = flat[1:].view(2, 3, 16, 32)
+    got = bf.fft_plane_p(q, False, scale=0.5)
+    assert _rel(got, _plain(kernel_path, bf.fft_plane_p, q, False,
+                            scale=0.5)) <= TOL
+    assert _launched() == {'fft2stage_p': 1, 'fft_plane_p': 1}
+
+
+@pytest.fixture
+def plane_entries(emu_kernels, monkeypatch):
+    """Calls of the plane-holding and the queue kernels' C entries."""
+    calls = {'hold': 0, 'queue': 0}
+    for key, name in (('hold', 'fft_plane_f32'),
+                      ('queue', 'fft_plane_queue_f32')):
+        fn = getattr(emu_kernels, name)
+
+        def spy(*args, _fn=fn, _key=key):
+            calls[_key] += 1
+            return _fn(*args)
+
+        monkeypatch.setattr(emu_kernels, name, spy)
+    return calls
 
 
 # H and I (fft_plane.cu): square and oblong planes, N = 2 on either
@@ -404,14 +456,19 @@ PLANE_SHAPES = [(3, 32, 64), (2, 256, 256), (4, 8, 2), (1, 2, 1024),
 
 
 @pytest.mark.parametrize('shape', PLANE_SHAPES)
-def test_plane_kernel_vs_plain(kernel_path, shape):
+def test_plane_kernel_vs_plain(kernel_path, emu_kernels, plane_entries,
+                               shape):
     """fft_plane_p where H's gate takes the plane, and fft_plane_large_p
-    always: both signs, with and without a scale."""
+    always: both signs, with and without a scale.  The route is by shape:
+    planes of H's gate on the plane-holding kernel from either entry (a
+    cluster launch each when the plane is larger than 8192 points), I's
+    larger planes on the queue kernel."""
     rng = np.random.default_rng(15)
     p = torch.from_numpy(rng.standard_normal((2,) + shape)
                          .astype(np.float32))
     h = bf.supported_plane(shape, np.float32)
     assert bf.supported_plane_large(shape, np.float32)
+    c0 = _emu_count(emu_kernels, 'fft_plane', 'emu_cluster_launches')
     for fwd, sc in ((True, None), (False, None), (True, 0.37)):
         fns = [bf.fft_plane_large_p] + ([bf.fft_plane_p] if h else [])
         for fn in fns:
@@ -423,3 +480,73 @@ def test_plane_kernel_vs_plain(kernel_path, shape):
     if h:
         want['fft_plane_p'] = 3
     assert _launched() == want
+    assert plane_entries == ({'hold': 6, 'queue': 0} if h else
+                             {'hold': 0, 'queue': 3})
+    clusters = _emu_count(emu_kernels, 'fft_plane',
+                          'emu_cluster_launches') - c0
+    assert clusters == (6 if h and shape[-1] * shape[-2] > 8192 else 0)
+
+
+# H's plane-holding kernel (shape, CTAs a plane): one-CTA planes with
+# several planes a CTA and a ragged last CTA (T = 2 over 5 planes, T = 16
+# over 7, T = 2048 over 9), clusters of the smallest K on oblong planes
+# (rows of 256 and of 64 points), K = 4, and the largest K on one
+# 256 x 256 plane
+HOLD_SHAPES = [((5, 64, 64), 1), ((7, 16, 32), 1), ((9, 2, 2), 1),
+               ((2, 64, 256), 2), ((1, 256, 64), 2), ((1, 256, 128), 4),
+               ((1, 256, 256), 8)]
+
+
+@pytest.mark.parametrize('shape,K', HOLD_SHAPES)
+def test_plane_hold_kernel_vs_plain(kernel_path, emu_kernels, plane_entries,
+                                    shape, K):
+    """fft_plane_p on the plane-holding kernel: both signs and a scale,
+    one cluster launch a call when a plane takes K > 1 CTAs."""
+    rng = np.random.default_rng(18)
+    p = torch.from_numpy(rng.standard_normal((2,) + shape)
+                         .astype(np.float32))
+    assert bf.plane_max_active_clusters(*shape[-2:])[0] == K
+    c0 = _emu_count(emu_kernels, 'fft_plane', 'emu_cluster_launches')
+    for fwd, sc in ((True, None), (False, None), (False, 0.37)):
+        got = bf.fft_plane_p(p, fwd, scale=sc)
+        ref = _plain(kernel_path, bf.fft_plane_p, p, fwd, scale=sc)
+        assert got.shape == p.shape and got.dtype == p.dtype
+        assert _rel(got, ref) <= TOL, (fwd, sc)
+    assert _launched() == {'fft_plane_p': 3}
+    assert plane_entries == {'hold': 3, 'queue': 0}
+    assert _emu_count(emu_kernels, 'fft_plane', 'emu_cluster_launches') \
+        - c0 == (3 if K > 1 else 0)
+
+
+@pytest.mark.parametrize('N1,N2,K', [(64, 64, 1), (256, 64, 2),
+                                     (256, 256, 8)])
+def test_plane_max_active_clusters(kernel_path, N1, N2, K):
+    """The occupancy query of the plane-holding kernel: K and one cluster
+    (K > 1) or one block on each of the emulated device's two SMs; a
+    plane beyond H's gate is refused."""
+    assert bf.plane_max_active_clusters(N1, N2) == (K, 1 if K > 1 else 2)
+    with pytest.raises(ValueError):
+        bf.plane_max_active_clusters(N1, 512)
+
+
+def test_plane_entry_refuses(emu_kernels):
+    """The plane-holding kernel's C entry refuses an axis above 256 or not
+    a power of two, a sign other than +-1, and an input or output off a
+    16-byte boundary, before any launch."""
+    x = torch.zeros(2 * 256 * 256 + 4)
+    y = torch.zeros_like(x)
+    tw = bf._tw_tensor_powers(256, -1, torch.float32, x.device)
+
+    def call(xp, yp, n1, n2, sign=-1):
+        t = ctypes.c_void_p(tw.data_ptr())
+        return emu_kernels.fft_plane_f32(
+            ctypes.c_void_p(xp), ctypes.c_void_p(yp), t, t, 1, n1, n2, sign,
+            1.0, ctypes.c_void_p(0))
+
+    xb, yb = x.data_ptr(), y.data_ptr()
+    assert xb % 16 == 0 and yb % 16 == 0
+    for args in ((xb, yb, 512, 256), (xb, yb, 256, 96), (xb, yb, 1, 256),
+                 (xb, yb, 256, 256, 0), (xb + 4, yb, 256, 256),
+                 (xb, yb + 8, 64, 64)):
+        assert call(*args) != 0, args
+    assert bf.LAUNCHES['fft_plane_p'] == 0
