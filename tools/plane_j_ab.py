@@ -18,25 +18,10 @@ Prints one JSON line.  Run it for each tree in turns on one card
 (parent, change, change, parent):
 
     python3 tools/plane_j_ab.py TREE [--no-i]
-
-``--make-variants OUT`` writes, beside a tree, the design variants that
-were timed against it, each a copy of the tree's package with one change
-(string patches): ``r16``, H's stages of radix 16 instead of 8; ``k4``,
-H's CTAs of 16384 points (1024 threads, one an SM), so that a 256 x 256
-plane takes a cluster of 4; ``k16``, H's CTAs of 4096 points (256
-threads, four an SM), so that it takes a non-portable cluster of 16;
-``b3``, H at three CTAs an SM (40 registers) instead of two (64);
-``jpar``, J's radix-8 butterflies of a lane all in flight at once;
-``jv4``, J's stage 1 in one round of 16-byte vectors at every S; ``jv2``,
-in two rounds of 8-byte vectors at every S.
-Each variant's ``build`` is a link to the tree's, so the libraries they
-share are built once.
 """
 import argparse
 import importlib
 import json
-import os
-import shutil
 import statistics
 import subprocess
 import sys
@@ -111,70 +96,12 @@ def _rand(shape, seed):
     return torch.rand(shape, generator=g, device='cuda') - 0.5
 
 
-_PL = 'ops/csrc/fft_plane.cu'
-_J = 'ops/csrc/fft2stage.cu'
-_B2 = 'constexpr int kHoldMinBlocks = 2;'
-_LR = 'constexpr int kHoldLr = 3;'
-# each variant: (file of the package, text, its replacement), ...
-VARIANTS = {
-    'r16': ((_PL, _LR, 'constexpr int kHoldLr = 4;'),),
-    'k4': ((_PL, 'constexpr int kHoldElems = 8192;',
-            'constexpr int kHoldElems = 16384;'),
-           (_PL, 'constexpr int kHoldThreads = 512;',
-            'constexpr int kHoldThreads = 1024;'),
-           (_PL, _B2, 'constexpr int kHoldMinBlocks = 1;')),
-    'k16': ((_PL, 'constexpr int kHoldElems = 8192;',
-             'constexpr int kHoldElems = 4096;'),
-            (_PL, 'constexpr int kHoldThreads = 512;',
-             'constexpr int kHoldThreads = 256;'),
-            (_PL, _B2, 'constexpr int kHoldMinBlocks = 4;'),
-            (_PL, '    case 8: L->kern = &fft_plane_hold_kernel<8, '
-                  'kHoldMinBlocks>; break;\n',
-             '    case 8: L->kern = &fft_plane_hold_kernel<8, '
-             'kHoldMinBlocks>; break;\n    case 16: L->kern = '
-             '&fft_plane_hold_kernel<16, kHoldMinBlocks>; break;\n'),
-            (_PL, '  cudaError_t e = cudaFuncSetAttribute(\n      L.kern, '
-                  'cudaFuncAttributeMaxDynamicSharedMemorySize,',
-             '  if (L.K > 8) cudaFuncSetAttribute(L.kern, '
-             'cudaFuncAttributeNonPortableClusterSizeAllowed, 1);\n'
-             '  cudaError_t e = cudaFuncSetAttribute(\n      L.kern, '
-             'cudaFuncAttributeMaxDynamicSharedMemorySize,')),
-    'b3': ((_PL, _B2, 'constexpr int kHoldMinBlocks = 3;'),),
-    'jpar': ((_J, '      if (k + 1 < K) __syncwarp();\n', ''),),
-    'jv4': ((_J, 'constexpr int V = S == 8 ? 2 : 4;',
-             'constexpr int V = 4;'),),
-    'jv2': ((_J, 'constexpr int V = S == 8 ? 2 : 4;',
-             'constexpr int V = 2;'),),
-}
-
-
-def make_variants(tree, out):
-    for name, patches in VARIANTS.items():
-        d = out / name
-        shutil.rmtree(d, ignore_errors=True)
-        shutil.copytree(tree / 'mpi4py_fft_torch', d / 'mpi4py_fft_torch',
-                        ignore=shutil.ignore_patterns('__pycache__'))
-        (tree / 'build').mkdir(exist_ok=True)
-        os.symlink(tree / 'build', d / 'build')
-        for rel, a, b in patches:
-            f = d / 'mpi4py_fft_torch' / rel
-            s = f.read_text()
-            assert s.count(a) >= 1, (name, a)
-            f.write_text(s.replace(a, b))
-
-
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument('tree')
     ap.add_argument('--no-i', action='store_true',
                     help='skip I at (2, 1024, 1024, 1024)')
-    ap.add_argument('--make-variants', metavar='OUT',
-                    help='write the design variants of TREE under OUT')
     args = ap.parse_args()
-    if args.make_variants:
-        make_variants(Path(args.tree).resolve(),
-                      Path(args.make_variants).resolve())
-        return
     tree = Path(args.tree).resolve()
     sys.path.insert(0, str(tree))
     pkg = importlib.import_module('mpi4py_fft_torch')
