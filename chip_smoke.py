@@ -162,6 +162,11 @@ and the script exits non-zero:
              kernel's time beside its plain version, its bound and its
              PyTorch yardstick for the ``kernels`` line.
 
+``python3 chip_smoke.py --times-any TREE`` runs only phases 1, 22 and 23,
+on the port of the checkout at TREE (a tree from the plane-holding H on),
+and prints no last line: run it for two trees in turns on one card
+(parent, change, change, parent) to compare H, I and J between them.
+
 Phases 3 to 15 and 19 to 22 are the main path: the launch counters are
 set to 0 just before phase 3 and read after phase 22 (phases 16 to 18
 run after it, as do times_any).  The probe kernels' path is phase 24's
@@ -170,6 +175,8 @@ then come the ``{"kernels": [...]}`` line, the card's name and power limit
 from nvidia-smi, and last ``{"ok": true, "device": {...}}``.  Without a
 CUDA device the script prints no result and exits with 1.
 """
+import argparse
+import collections
 import contextlib
 import json
 import math
@@ -1749,6 +1756,7 @@ def phase_plane(dev, bf, holds):
     plain versions slab by slab (5e-6), each output in memory filled with
     NaN first."""
     out = {}
+    launches = collections.Counter()
     runs = (('fft_plane_p', PLANE_H), ('fft_plane_p', PLANE_H_ONE_CTA),
             ('fft_plane_large_p', PLANE_I))
     for i, (name, shape) in enumerate(runs):
@@ -1765,8 +1773,11 @@ def phase_plane(dev, bf, holds):
         z = fn(y, False, scale=sc)
         torch.cuda.synchronize()
         c2 = dict(bf.LAUNCHES)
-        _check(_delta(c0, c1) == {name: 1} and _delta(c1, c2) == {name: 1},
-               f"{name} launches {_delta(c0, c1)} {_delta(c1, c2)}")
+        d0, d1 = _delta(c0, c1), _delta(c1, c2)
+        _check(d0 == {name: 1} and d1 == {name: 1},
+               f"{name} launches {d0} {d1}")
+        launches.update(d0)
+        launches.update(d1)
         _check(tuple(y.shape) == (2,) + shape, f"{name}: {y.shape}")
         num = den = 0.0
         for j in range(0, shape[0], 64):
@@ -1792,9 +1803,7 @@ def phase_plane(dev, bf, holds):
             k, c = bf.plane_max_active_clusters(*shape[-2:])
             row.update(ctas_a_plane=k, max_active=c)
         out[f'{name} {shape}'] = row
-    _emit({'phase': 'plane', 'launches': {'fft_plane_p': 4,
-                                          'fft_plane_large_p': 2},
-           'plans': out})
+    _emit({'phase': 'plane', 'launches': dict(launches), 'plans': out})
 
 
 def _j_flops(lines, N):
@@ -2215,17 +2224,33 @@ KERNELS = {
 }
 
 
-def main():
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    ap.add_argument('--times-any', metavar='TREE', nargs='?',
+                    const=os.path.dirname(os.path.abspath(__file__)),
+                    help="run only phases 1, 22 and 23 on the port in TREE "
+                         "(default: this script's checkout), to compare "
+                         "two trees on one card")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    tree = os.path.abspath(args.times_any or os.path.dirname(
+        os.path.abspath(__file__)))
+    sys.path.insert(0, tree)
     from mpi4py_fft_torch.ops import butterfly as bf
+    _check(os.path.abspath(bf.__file__).startswith(tree + os.sep),
+           f"mpi4py_fft_torch imported from {bf.__file__}, not {tree}")
     t_start = time.perf_counter()
     dev = torch.device('cuda', 0)
     torch.cuda.set_device(dev)
     phase_build()
     holds = Holds(KERNELS)
+    if args.times_any:
+        phase_plane(dev, bf, holds)
+        phase_times_any(dev, bf, holds)
+        print(_smi(), flush=True)
+        return 0
     phase_holds(holds, dev)
 
     # the main path: counters at 0 just before, read just after

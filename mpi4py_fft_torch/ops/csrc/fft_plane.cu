@@ -188,12 +188,11 @@ int log2_of(int n) {
 // the plane-holding kernel (N1, N2 <= 256)
 // ---------------------------------------------------------------------------
 
-// Points of each plane component a CTA holds, its threads, its launch
-// bound, and the log2 of the largest radix of its stages.
+// Points of each plane component a CTA holds, its threads and its launch
+// bound.
 constexpr int kHoldElems = 8192;
 constexpr int kHoldThreads = 512;
 constexpr int kHoldMinBlocks = 2;
-constexpr int kHoldLr = 3;
 
 // A row's points in shared memory: point p at pad(p), a gap after every
 // 16, so that the strided points of a butterfly and the permuted points
@@ -203,12 +202,12 @@ __host__ __device__ __forceinline__ int row_stride(int n2) {
   return (n2 + ((n2 - 1) >> 4)) | 1;
 }
 
-// Where the decimation-in-frequency stages of a 2^lw-point line (radix
-// 2^kHoldLr while it divides, then the rest) leave frequency f.
+// Where the decimation-in-frequency stages of a 2^lw-point line (radix 8
+// while it divides, then 4 or 2) leave frequency f.
 __device__ __forceinline__ int dif_pos(int f, int lw) {
   int p = 0;
   for (int ll = lw; ll > 0;) {
-    const int a = ll < kHoldLr ? ll : kHoldLr;
+    const int a = ll < 3 ? ll : 3;
     ll -= a;
     p |= (f & ((1 << a) - 1)) << ll;
     f >>= a;
@@ -291,19 +290,13 @@ __device__ __forceinline__ void dif_pass(const Block& k, int lc, int lw,
                                          float sign) {
   const float* twi = tw + (1 << (lw + ls));
   for (int ll = lw; ll > 0;) {
-    const int a = ll < kHoldLr ? ll : kHoldLr;
-    if (a == 1) {
+    const int a = ll < 3 ? ll : 3;
+    if (a == 1)
       dif_stage<2, 1, kRows>(k, lc, lw, ll, ls, tw, twi, sign);
-    } else if (a == 2) {
+    else if (a == 2)
       dif_stage<4, 2, kRows>(k, lc, lw, ll, ls, tw, twi, sign);
-    } else if constexpr (kHoldLr == 3) {
+    else
       dif_stage<8, 3, kRows>(k, lc, lw, ll, ls, tw, twi, sign);
-    } else {
-      if (a == 3)
-        dif_stage<8, 3, kRows>(k, lc, lw, ll, ls, tw, twi, sign);
-      else
-        dif_stage<16, 4, kRows>(k, lc, lw, ll, ls, tw, twi, sign);
-    }
     ll -= a;
   }
 }
@@ -340,8 +333,8 @@ __device__ __forceinline__ float comp(const float4& v, int c) {
 // kHoldElems.  tw2, tw1: the (2, n2) and (2, n1) tables of
 // _tw_pack_powers(n2, sign) and (n1, sign), for the row pass, and for
 // the cross step and the column pass.
-template <int K, int kBlocks>
-__global__ void __launch_bounds__(kHoldThreads, kBlocks)
+template <int K>
+__global__ void __launch_bounds__(kHoldThreads, kHoldMinBlocks)
 fft_plane_hold_kernel(const float* __restrict__ x, float* __restrict__ y,
                       const float* __restrict__ tw2,
                       const float* __restrict__ tw1, long long P, int n1,
@@ -425,7 +418,7 @@ fft_plane_hold_kernel(const float* __restrict__ x, float* __restrict__ y,
   }
 
   // the second-to-last axis: each column of each plane a line of R points
-  constexpr int lk = K == 16 ? 4 : K == 8 ? 3 : K == 4 ? 2 : K == 2 ? 1 : 0;
+  constexpr int lk = K == 8 ? 3 : K == 4 ? 2 : K == 2 ? 1 : 0;
   dif_pass<false>(blk, l2 + lt, lr, lk, tw1, sign);
 
   // output row m of plane t (row kk + K m of the plane in a cluster) from
@@ -482,10 +475,10 @@ inline bool hold_launch(int n1, int n2, long long P, HoldLaunch* L) {
   const long long grid = K > 1 ? P * K : (P + T - 1) / T;
   if (grid > 0x7fffffffLL) return false;
   switch (K) {
-    case 1: L->kern = &fft_plane_hold_kernel<1, kHoldMinBlocks>; break;
-    case 2: L->kern = &fft_plane_hold_kernel<2, kHoldMinBlocks>; break;
-    case 4: L->kern = &fft_plane_hold_kernel<4, kHoldMinBlocks>; break;
-    case 8: L->kern = &fft_plane_hold_kernel<8, kHoldMinBlocks>; break;
+    case 1: L->kern = &fft_plane_hold_kernel<1>; break;
+    case 2: L->kern = &fft_plane_hold_kernel<2>; break;
+    case 4: L->kern = &fft_plane_hold_kernel<4>; break;
+    case 8: L->kern = &fft_plane_hold_kernel<8>; break;
     default: return false;
   }
   L->cfg = cudaLaunchConfig_t{};
@@ -588,10 +581,9 @@ extern "C" int mff_fft_plane_queue_f32(const float* x, float* y,
   const size_t cells = std::max(static_cast<size_t>(n2) * ((1 << lc2) + 1),
                                 static_cast<size_t>(n1) * ((1 << lc1) + 1));
   const size_t smem = 16 + 2 * sizeof(float) * cells;
-  using B = mff::Budget<float>;
-  const bool narrow = mff::fits_blocks(smem, B::kMinBlocks);
-  auto kern = narrow ? &fft_plane_kernel<B::kMinBlocks>
-                     : &fft_plane_kernel<B::kWideMinBlocks>;
+  // at most 1024 (8 + 1) cells: kMinBlocks tiles always fit an SM
+  constexpr int kBlocks = mff::Budget<float>::kMinBlocks;
+  auto kern = &fft_plane_kernel<kBlocks>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -601,9 +593,8 @@ extern "C" int mff_fft_plane_queue_f32(const float* x, float* y,
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
-  const long long grid = std::min<long long>(
-      P * per, static_cast<long long>(sms) *
-                   (narrow ? B::kMinBlocks : B::kWideMinBlocks));
+  const long long grid =
+      std::min<long long>(P * per, static_cast<long long>(sms) * kBlocks);
   kern<<<static_cast<unsigned>(grid), kThreads, smem,
          static_cast<cudaStream_t>(stream)>>>(
       x, y, tw2, tw2_len, tw1, tw1_len, P, n1, n2, static_cast<float>(sign),
