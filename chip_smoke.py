@@ -971,7 +971,8 @@ def phase_times64(dev, bf, holds):
         'library_ms': _median_ms(lambda: torch.fft.rfft(r, dim=2)),
         'bound_ms': b, 'bound_by': by}
     del r
-    out['rfft_axis_p_f64']['trunc768'] = _times_trunc64(dev, bf, holds, g)
+    out['rfft_axis_p_f64']['trunc768'] = _times_trunc(dev, bf, holds, g,
+                                                     f64=True)
     hc = torch.complex(h[0], h[1])
     for sc in (None, 1.0 / n):
         holds.hold('irfft_axis_p_f64', bf.irfft_axis_p(h, 2, n, scale=sc),
@@ -1011,22 +1012,26 @@ def phase_times64(dev, bf, holds):
     return out
 
 
-def _times_trunc64(dev, bf, holds, g):
-    """B64 at the truncating pass of the dealiased f64 plan (libfft's
-    r2c stage of PFFT((512,)*3, padding=[1.5]*3, dtype='d'): a 768^3
-    input, trunc 257, the stage's scale 1/768), held at 2e-13 and timed
-    beside its plain version, its bound and torch.fft.rfft."""
-    m = 3 * DEALIAS64_N // 2
-    nt = DEALIAS64_N // 2 + 1
+def _times_trunc(dev, bf, holds, g, f64=False):
+    """B (B64 with ``f64``) at the truncating pass of the dealiased plan
+    (libfft's r2c stage of PFFT((512,)*3, padding=[1.5]*3) at 'f', which
+    m3 runs, or 'd': a 768^3 input, trunc 257, the stage's scale 1/768),
+    held at 5e-6 (2e-13) and timed beside its plain version, its bound and
+    torch.fft.rfft."""
+    n = DEALIAS64_N if f64 else DEALIAS_N
+    m = 3 * n // 2
+    nt = n // 2 + 1
     kw = dict(trunc=nt, scale=1.0 / m)
-    r = torch.rand((m, m, m), generator=g, device=dev,
-                   dtype=torch.float64) - 0.5
-    holds.hold('rfft_axis_p_f64', bf.rfft_axis_p(r, 2, **kw),
-               bf.rfft_axis_plain(r, 2, **kw),
-               f"rfft_axis_p_f64 {m}^3 last axis trunc={nt}")
-    b, by = _bound_ms(r.numel() * 8 + 2 * m * m * nt * 8,
-                      m * m * 2.5 * m * math.log2(m), f64=True)
-    row = {'shape': f'({m}, {m}, {m}) f64 -> (2, {m}, {m}, {nt}), last '
+    dtype, size, sfx, tag = ((torch.float64, 8, '_f64', 'f64') if f64 else
+                             (torch.float32, 4, '', 'f32'))
+    r = torch.rand((m, m, m), generator=g, device=dev, dtype=dtype) - 0.5
+    _nan_block((2, m, m, nt), dtype, dev)
+    _slab_hold(holds, 'rfft_axis_p' + sfx, bf.rfft_axis_p(r, 2, **kw),
+               lambda i, w: bf.rfft_axis_plain(r.narrow(0, i, w), 2, **kw),
+               1, f"rfft_axis_p{sfx} {m}^3 last axis trunc={nt}")
+    b, by = _bound_ms(r.numel() * size + 2 * m * m * nt * size,
+                      m * m * 2.5 * m * math.log2(m), f64=f64)
+    row = {'shape': f'({m}, {m}, {m}) {tag} -> (2, {m}, {m}, {nt}), last '
                     f'axis, trunc {nt}, scale 1/{m}',
            'ms': _median_ms(lambda: bf.rfft_axis_p(r, 2, **kw)),
            'plain_ms': _median_ms(lambda: bf.rfft_axis_plain(r, 2, **kw),
@@ -1036,6 +1041,33 @@ def _times_trunc64(dev, bf, holds, g):
     del r
     torch.cuda.empty_cache()
     return row
+
+
+def _times_b(dev, bf, holds):
+    """B (f32) on the dealiasing grid's 768^3 last axis, held at 5e-6 on
+    a NaN-filled output and timed beside its plain version, torch.fft.rfft
+    and its bound, with the truncating pass of m3's forward as its
+    ``trunc768`` row; returns the row and the spectrum (C's input)."""
+    m = 3 * DEALIAS_N // 2
+    nh = m // 2 + 1
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    r = torch.rand((m, m, m), generator=g, device=dev) - 0.5
+    _nan_block((2, m, m, nh), torch.float32, dev)
+    k = bf.rfft_axis_p(r, 2)
+    _slab_hold(holds, 'rfft_axis_p', k, lambda i, w: bf.rfft_axis_plain(
+        r.narrow(0, i, w), 2), 1, f"rfft_axis_p {m}^3 last axis")
+    b, by = _bound_ms(r.numel() * 4 + 2 * m * m * nh * 4,
+                      m * m * 2.5 * m * math.log2(m))
+    row = {
+        'shape': f'({m}, {m}, {m}) f32 -> (2, {m}, {m}, {nh}), last axis',
+        'ms': _median_ms(lambda: bf.rfft_axis_p(r, 2)),
+        'plain_ms': _median_ms(lambda: bf.rfft_axis_plain(r, 2)),
+        'library_ms': _median_ms(lambda: torch.fft.rfft(r, dim=2)),
+        'bound_ms': b, 'bound_by': by}
+    del r
+    torch.cuda.empty_cache()
+    row['trunc768'] = _times_trunc(dev, bf, holds, g)
+    return row, k
 
 
 def _holds_volume64(dev, bf, holds):
@@ -1114,20 +1146,11 @@ def phase_times(dev, bf, holds, pfft, x):
     long_ms = _times_long(dev)
     # B and C: the last axis of the dealiasing grid
     m = 3 * DEALIAS_N // 2
-    g = torch.Generator(device=dev).manual_seed(SEED + 4)
-    r = torch.rand((m, m, m), generator=g, device=dev) - 0.5
-    k = bf.rfft_axis_p(r, 2)
-    holds.hold('rfft_axis_p', k, bf.rfft_axis_plain(r, 2),
-               f"rfft_axis_p {m}^3 last axis")
     nh = m // 2 + 1
-    b, by = _bound_ms(r.numel() * 4 + 2 * m * m * nh * 4,
+    out['rfft_axis_p'], k = _times_b(dev, bf, holds)
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    b, by = _bound_ms(m ** 3 * 4 + 2 * m * m * nh * 4,
                       m * m * 2.5 * m * math.log2(m))
-    out['rfft_axis_p'] = {
-        'shape': f'({m}, {m}, {m}) f32 -> (2, {m}, {m}, {nh}), last axis',
-        'ms': _median_ms(lambda: bf.rfft_axis_p(r, 2)),
-        'plain_ms': _median_ms(lambda: bf.rfft_axis_plain(r, 2)),
-        'library_ms': _median_ms(lambda: torch.fft.rfft(r, dim=2)),
-        'bound_ms': b, 'bound_by': by}
     h = k
     hc = torch.complex(h[0], h[1])
     holds.hold('irfft_axis_p', bf.irfft_axis_p(h, 2, m),
@@ -1904,6 +1927,12 @@ def _exact(got, ref, what):
            f"{what}: differs from its plain version")
 
 
+def _nan_block(shape, dtype, dev):
+    """Leave a freed NaN-filled block of ``shape`` for the next output of
+    that size to take."""
+    torch.full(shape, float('nan'), dtype=dtype, device=dev)
+
+
 def _nan(t):
     """An output for a kernel under hold that no correct run leaves as it
     is (a new tensor may reuse a freed block that already holds the
@@ -2249,6 +2278,8 @@ def main(argv=None):
     if args.times_any:
         phase_plane(dev, bf, holds)
         phase_times_any(dev, bf, holds)
+        _emit({'phase': 'times_b', 'kernels': {
+            'rfft_axis_p': _times_b(dev, bf, holds)[0]}})
         print(_smi(), flush=True)
         return 0
     phase_holds(holds, dev)

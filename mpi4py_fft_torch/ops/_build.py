@@ -82,10 +82,9 @@ _ENTRIES = {
         'mff_fft_plane_f32': [_P, _P, _P, _P, _LL, _I, _I, _I, _F, _P],
         # n1, n2, k, count
         'mff_fft_plane_clusters_f32': [_I, _I, _IA, _IA],
-        # x, y, tw2, tw2_len, tw1, tw1_len, P, n1, n2, sign, plan2, nst2,
-        # plan1, nst1, scale, counters, stream
-        'mff_fft_plane_queue_f32': [_P, _P, _P, _LL, _P, _LL, _LL, _I, _I,
-                                    _I, _IA, _I, _IA, _I, _F, _P, _P],
+        # x, y, tw2, tw1, P, n1, n2, sign, scale, stream
+        'mff_fft_plane_large_f32': [_P, _P, _P, _P, _LL, _I, _I, _I, _F,
+                                    _P],
     },
     # the probes of ops/probes.py
     'probe_copy': {

@@ -800,13 +800,14 @@ def rfft_axis_p(x, axis, hext=None, scale=None, trunc=None):
     applies the 3/2-rule Hermitian truncation in the kernel's write
     (Nyquist fold for even ``trunc``).  Packed N/2-point method.
 
-    Which kernel runs is decided before the launch, by layout: a float64
-    CUDA tensor along its last axis (whole lines) at N >= 4 whose data
-    is 16-byte aligned takes the line kernel (a warp-resident group of
-    threads a line, 16-byte point loads); every other case, N = 2 (not
-    packed), an inner axis, float32, or float64 data 8 bytes off a
-    16-byte boundary, takes the tile kernel.  Both count as
-    ``rfft_axis_p`` / ``rfft_axis_p_f64``."""
+    Which kernel runs is decided before the launch, by layout: a CUDA
+    tensor along its last axis (whole lines) at N >= 4 whose data is
+    aligned to the line kernel's vector (16 bytes; 8 for the float32
+    lengths below N = 64 whose points load one float2 each) takes the
+    line kernel (a warp-resident group of threads a line); every other
+    case, N = 2 (not packed), an inner axis, or misaligned data, takes
+    the tile kernel.  Both count as ``rfft_axis_p`` /
+    ``rfft_axis_p_f64``."""
     what = 'rfft_axis_p'
     shape = tuple(x.shape)
     if not shape:
@@ -1088,7 +1089,8 @@ def fft_plane_large_plain(p, forward=True, scale=None):
 def _plane(what, p, forward, scale, gate, plain):
     """The plane kernels, chosen by shape: planes whose two axes are both
     at most 256 points (every plane of H's gate) on the plane-holding
-    kernel, any other (I's larger planes) on the queue kernel."""
+    kernel, any other (I's larger planes) on the row line kernel and the
+    column band kernel, launched together."""
     _check_planar(p, what)
     shape = tuple(p.shape[1:])
     if not gate(shape, p.dtype):
@@ -1098,8 +1100,7 @@ def _plane(what, p, forward, scale, gate, plain):
     if _plain_ok(p, what):
         return plain(p, forward, scale)
     N1, N2 = shape[-2], shape[-1]
-    hold = max(N1, N2) <= _MAX_N_PLANE
-    if hold and p.data_ptr() % 16:
+    if p.data_ptr() % 16:
         p = p.clone()
     out = torch.empty_like(p)
     if out.numel() == 0:
@@ -1107,22 +1108,13 @@ def _plane(what, p, forward, scale, gate, plain):
     P = math.prod(shape[:-2])
     sign = -1 if forward else +1
     sc = 1.0 if scale is None else float(scale)
-    if hold:
-        tw2 = _tw_tensor_powers(N2, sign, p.dtype, p.device)
-        tw1 = _tw_tensor_powers(N1, sign, p.dtype, p.device)
-        _launch(what, _build.load().fft_plane_f32, p,
-                _ptr(p), _ptr(out), _ptr(tw2), _ptr(tw1), P, N1, N2, sign,
-                sc)
-        return out
-    tw2 = _tw_tensor(N2, sign, False, p.dtype, p.device)
-    plan2, nst2 = _plan_args(N2)
-    tw1 = _tw_tensor(N1, sign, False, p.dtype, p.device)
-    plan1, nst1 = _plan_args(N1)
-    counters = torch.zeros(P + 1, dtype=torch.int32, device=p.device)
-    _launch(what, _build.load().fft_plane_queue_f32, p,
-            _ptr(p), _ptr(out), _ptr(tw2), tw2.shape[1], _ptr(tw1),
-            tw1.shape[1], P, N1, N2, sign, plan2, nst2, plan1, nst1, sc,
-            _ptr(counters))
+    tw2 = _tw_tensor_powers(N2, sign, p.dtype, p.device)
+    tw1 = _tw_tensor_powers(N1, sign, p.dtype, p.device)
+    hold = max(N1, N2) <= _MAX_N_PLANE
+    entry = _build.load().fft_plane_f32 if hold else \
+        _build.load().fft_plane_large_f32
+    _launch(what, entry, p, _ptr(p), _ptr(out), _ptr(tw2), _ptr(tw1), P,
+            N1, N2, sign, sc)
     return out
 
 
@@ -1146,7 +1138,10 @@ def fft_plane_large_p(p, forward=True, scale=None):
 
     On CUDA the kernel is chosen by shape: a plane whose two axes are
     both at most 256 points takes H's plane-holding kernel, any other the
-    queue kernel (each plane's rows, then its columns through L2)."""
+    row line kernel (a group of threads a row, held in registers), then
+    the column band kernel (adjacent columns of whole planes held in
+    shared memory, in place), both launched by one C entry and counted
+    as one launch."""
     return _plane('fft_plane_large_p', p, forward, scale,
                   supported_plane_large, fft_plane_large_plain)
 

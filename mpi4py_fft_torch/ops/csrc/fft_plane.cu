@@ -80,104 +80,6 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = mff::Budget<float>::kTile / 16;
-
-// counters: [0] the next item, [1 + q] the row items of plane q done.
-template <int kBlocks>
-__global__ void __launch_bounds__(kThreads, kBlocks)
-fft_plane_kernel(const float* __restrict__ x, float* y,
-                 const float* __restrict__ tw2, long long tw2_len,
-                 const float* __restrict__ tw1, long long tw1_len,
-                 long long P, int n1, int n2, float sign, mff::Plan plan2,
-                 mff::Plan plan1, float scale, int* counters, int lc2,
-                 int lc1) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  int* slot = reinterpret_cast<int*>(smem);
-  float* tile = reinterpret_cast<float*>(smem + 16);
-  const int rows = n1 >> lc2;          // row items a plane
-  const int per = rows + (n2 >> lc1);  // items a plane
-  const long long total = P * per;
-  const long long area = static_cast<long long>(n1) * n2;
-  const long long plane = P * area;    // offset of the imaginary parts
-  int* next = counters;
-  int* done = counters + 1;
-
-  for (;;) {
-    if (threadIdx.x == 0) slot[0] = atomicAdd(next, 1);
-    __syncthreads();
-    const int item = slot[0];
-    __syncthreads();
-    if (item >= total) break;
-    const long long q = item / per;
-    const int j = item - static_cast<int>(q * per);
-    const long long base = q * area;
-    mff::Tile<float> t;
-    t.re = tile;
-    if (j < rows) {
-      // rows j*C2 .. of plane q: lines of n2 contiguous points, x -> y
-      t.lc = lc2;
-      t.cp = (1 << lc2) + 1;
-      t.im = t.re + n2 * t.cp;
-      const long long r0 = base + static_cast<long long>(j << lc2) * n2;
-      const int count = n2 << lc2;
-      for (int idx = threadIdx.x; idx < count; idx += blockDim.x) {
-        const int c = idx / n2;
-        const int k = idx - c * n2;
-        t.re[k * t.cp + c] = x[r0 + idx];
-        t.im[k * t.cp + c] = x[plane + r0 + idx];
-      }
-      __syncthreads();
-      mff::run_plan(t, n2, plan2, tw2, tw2 + tw2_len, sign);
-      for (int idx = threadIdx.x; idx < count; idx += blockDim.x) {
-        const int c = idx / n2;
-        const int k = idx - c * n2;
-        y[r0 + idx] = t.re[k * t.cp + c];
-        y[plane + r0 + idx] = t.im[k * t.cp + c];
-      }
-      __threadfence();
-      __syncthreads();
-      if (threadIdx.x == 0) atomicAdd(done + q, 1);
-    } else {
-      // columns (j - rows)*C1 .. of plane q: lines of n1 points, stride
-      // n2, read from y once q's rows are all written, and written back
-      if (threadIdx.x == 0) {
-        // the row items were taken before this one and wait on nothing;
-        // a count that never comes is a fault: stop, do not hang
-        long long spins = 0;
-        while (atomicAdd(done + q, 0) < rows) {
-          __nanosleep(128);
-          if (++spins > (1LL << 26)) __trap();
-        }
-        __threadfence();
-      }
-      __syncthreads();
-      t.lc = lc1;
-      t.cp = (1 << lc1) + 1;
-      t.im = t.re + n1 * t.cp;
-      const long long c0 = base + (static_cast<long long>(j - rows) << lc1);
-      const int count = n1 << lc1;
-      const int cmask = (1 << lc1) - 1;
-      for (int idx = threadIdx.x; idx < count; idx += blockDim.x) {
-        const int c = idx & cmask;
-        const int k = idx >> lc1;
-        const long long a = c0 + static_cast<long long>(k) * n2 + c;
-        t.re[k * t.cp + c] = __ldcg(y + a);
-        t.im[k * t.cp + c] = __ldcg(y + plane + a);
-      }
-      __syncthreads();
-      mff::run_plan(t, n1, plan1, tw1, tw1 + tw1_len, sign);
-      for (int idx = threadIdx.x; idx < count; idx += blockDim.x) {
-        const int c = idx & cmask;
-        const int k = idx >> lc1;
-        const long long a = c0 + static_cast<long long>(k) * n2 + c;
-        y[a] = t.re[k * t.cp + c] * scale;
-        y[plane + a] = t.im[k * t.cp + c] * scale;
-      }
-      __syncthreads();
-    }
-  }
-}
-
 int log2_of(int n) {
   int l = 0;
   while ((1 << l) < n) ++l;
@@ -495,6 +397,345 @@ inline bool hold_launch(int n1, int n2, long long P, HoldLaunch* L) {
   return true;
 }
 
+// ---------------------------------------------------------------------------
+// I's larger planes (an axis above 256): the row line kernel, then the
+// column band kernel
+// ---------------------------------------------------------------------------
+
+// The row line kernel: 128 threads a block, four blocks an SM (a thread
+// may take 128 registers).
+constexpr int kRowThreads = 128;
+constexpr int kRowMinBlocks = 4;
+
+// Points a thread of an N-point row holds: 32, or the whole row; the
+// group of N / P threads that holds a row lies inside one warp.
+__host__ __device__ constexpr int row_points(int N) {
+  return N >= 32 ? 32 : N;
+}
+
+// Adjacent points of one component a thread loads as one vector: 4 (a
+// float4), 2 for two-point rows.
+__host__ __device__ constexpr int row_vec(int N) { return N >= 4 ? 4 : N; }
+
+// Radix of stage s of an N-point row (0 past the last).  A row of 64
+// points or more (a group of 2 to 32 threads) starts and ends on radix 8,
+// so that a thread's first-stage butterflies come in fours, one float4 of
+// each component a four (the middle stage takes the rest: 1, 2, 4, 8,
+// 16); a row of at most 32 points is one thread's.
+__host__ __device__ constexpr int row_radix(int N, int s) {
+  if (N >= 64) {
+    const int mid = N / 64;
+    if (mid == 1) return s < 2 ? 8 : 0;
+    return s == 0 || s == 2 ? 8 : s == 1 ? mid : 0;
+  }
+  if (N <= 16) return s == 0 ? N : 0;
+  return s == 0 ? 8 : s == 1 ? 4 : 0;     // 32 = 8 * 4
+}
+
+__host__ __device__ constexpr int row_span(int N, int s) {
+  int m = 1;
+  for (int i = 0; i < s; ++i) m *= row_radix(N, i);
+  return m;
+}
+
+// A row's buffer in shared memory: point i at bpad(i), 4 floats of gap
+// after every 32 (quads stay 16-byte aligned; the first stage's quad
+// writes and the store's quad reads fall on distinct banks).
+__host__ __device__ constexpr int row_buf(int N) {
+  return N >= 32 ? N + N / 8 : N;
+}
+__device__ __forceinline__ int bpad(int i) { return i + ((i >> 5) << 2); }
+
+// Point or butterfly k of thread g in a group of G: g + G k, or, in runs
+// of V adjacent ones, V (g + G (k / V)) + k % V.
+template <int V, int G>
+__device__ __forceinline__ int row_own(int g, int k) {
+  return V * (g + G * (k / V)) + k % V;
+}
+
+// One Stockham stage of radix R over the N-point row of a group, with M
+// sub-transforms interleaved (M: the earlier radices' product): butterfly
+// b (lp = b / M, m = b % M) takes points (j Lq + lp) M + m, j < R, of the
+// stage's input, forms their DFT, multiplies output j by
+// w_N^(j lp M) and writes it to point (lp R + j) M + m of the buffer.
+// Thread g owns butterflies b = g + G k, k < P/R; in the first stage the
+// butterflies of the points it loaded (row_own with V = row_vec), which
+// it reads from its registers (point row_own(g, s) in zr/zi[s]) and
+// writes as quads.  The others read the buffer; every stage ends on
+// __syncwarp.  tw: the (2, N) table of _tw_pack_powers(N, sign).
+template <int N, int R, int M, bool kFirst>
+__device__ __forceinline__ void row_stage(const float* zr, const float* zi,
+                                          float* br, float* bi, int g,
+                                          const float* __restrict__ tw,
+                                          float sign) {
+  constexpr int P = row_points(N), G = N / P, K = P / R;
+  constexpr int V = kFirst ? row_vec(N) : 1;
+  constexpr int Lq = N / M / R;
+  float vr[K][R], vi[K][R];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int b = row_own<V, G>(g, k);
+    const int lp = b / M, m = b % M;
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      if constexpr (kFirst) {
+        vr[k][j] = zr[k + K * j];
+        vi[k][j] = zi[k + K * j];
+      } else {
+        const int s = bpad((j * Lq + lp) * M + m);
+        vr[k][j] = br[s];
+        vi[k][j] = bi[s];
+      }
+    }
+    mff::Dft<R, float>::run(vr[k], vi[k], sign);
+    if constexpr (Lq > 1) {
+#pragma unroll
+      for (int j = 1; j < R; ++j) {
+        const int e = j * lp * M;
+        const float wr = __ldg(tw + e), wi = __ldg(tw + N + e);
+        const float yr = vr[k][j], yi = vi[k][j];
+        vr[k][j] = yr * wr - yi * wi;
+        vi[k][j] = yr * wi + yi * wr;
+      }
+    }
+  }
+  if (!kFirst) __syncwarp();   // the group has read the buffer
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int b = row_own<V, G>(g, k);
+    const int lp = b / M, m = b % M;
+    if constexpr (kFirst && R % 4 == 0) {   // M = 1: outputs b R + j
+#pragma unroll
+      for (int j = 0; j < R; j += 4) {
+        const int d = bpad(b * R + j);
+        *reinterpret_cast<float4*>(br + d) =
+            make_float4(vr[k][j], vr[k][j + 1], vr[k][j + 2], vr[k][j + 3]);
+        *reinterpret_cast<float4*>(bi + d) =
+            make_float4(vi[k][j], vi[k][j + 1], vi[k][j + 2], vi[k][j + 3]);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const int d = bpad((lp * R + j) * M + m);
+        br[d] = vr[k][j];
+        bi[d] = vi[k][j];
+      }
+    }
+  }
+  __syncwarp();
+}
+
+template <int N, int S>
+__device__ __forceinline__ void row_stages(const float* zr, const float* zi,
+                                           float* br, float* bi, int g,
+                                           const float* __restrict__ tw,
+                                           float sign) {
+  if constexpr (row_radix(N, S) != 0) {
+    row_stage<N, row_radix(N, S), row_span(N, S), S == 0>(zr, zi, br, bi, g,
+                                                          tw, sign);
+    row_stages<N, S + 1>(zr, zi, br, bi, g, tw, sign);
+  }
+}
+
+// Rows blk * (blockDim.x / G) .. of the `lines` rows of N points of x
+// (planar, imaginary parts vol floats on), transformed into y.
+template <int N>
+__device__ __forceinline__ void row_block(const float* __restrict__ x,
+                                          float* __restrict__ y,
+                                          const float* __restrict__ tw,
+                                          long long lines, long long vol,
+                                          float sign, long long blk) {
+  constexpr int P = row_points(N), G = N / P, V = row_vec(N);
+  static_assert(G <= 32 && 32 % G == 0, "a group lies inside one warp");
+  static_assert(G == 1 || (P / row_radix(N, 0)) % V == 0,
+                "first-stage butterflies in whole vectors");
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int grp = threadIdx.x / G, g = threadIdx.x % G;
+  float* br = reinterpret_cast<float*>(smem) + grp * 2 * row_buf(N);
+  float* bi = br + row_buf(N);
+  const long long line = blk * (blockDim.x / G) + grp;
+  const bool live = line < lines;
+  const long long a = (live ? line : 0) * N;
+
+  // every load first: points row_own(g, s), V adjacent ones a vector
+  float zr[P], zi[P];
+#pragma unroll
+  for (int s = 0; s < P; s += V) {
+    const int p = row_own<V, G>(g, s);
+    if constexpr (V == 4) {
+      const float4 u = __ldg(reinterpret_cast<const float4*>(x + a + p));
+      const float4 v =
+          __ldg(reinterpret_cast<const float4*>(x + vol + a + p));
+      zr[s] = u.x; zr[s + 1] = u.y; zr[s + 2] = u.z; zr[s + 3] = u.w;
+      zi[s] = v.x; zi[s + 1] = v.y; zi[s + 2] = v.z; zi[s + 3] = v.w;
+    } else {
+      const float2 u = __ldg(reinterpret_cast<const float2*>(x + a + p));
+      const float2 v =
+          __ldg(reinterpret_cast<const float2*>(x + vol + a + p));
+      zr[s] = u.x; zr[s + 1] = u.y;
+      zi[s] = v.x; zi[s + 1] = v.y;
+    }
+  }
+  row_stages<N, 0>(zr, zi, br, bi, g, tw, sign);
+  if (!live) return;
+
+  // the row in natural order, V adjacent points a vector
+#pragma unroll
+  for (int i = 0; i < N / V / G; ++i) {
+    const int p = V * (g + G * i);
+    if constexpr (V == 4) {
+      *reinterpret_cast<float4*>(y + a + p) =
+          *reinterpret_cast<const float4*>(br + bpad(p));
+      *reinterpret_cast<float4*>(y + vol + a + p) =
+          *reinterpret_cast<const float4*>(bi + bpad(p));
+    } else {
+      *reinterpret_cast<float2*>(y + a + p) =
+          *reinterpret_cast<const float2*>(br + p);
+      *reinterpret_cast<float2*>(y + vol + a + p) =
+          *reinterpret_cast<const float2*>(bi + p);
+    }
+  }
+}
+
+template <int N>
+__global__ void __launch_bounds__(kRowThreads, kRowMinBlocks)
+fft_rows_kernel(const float* __restrict__ x, float* __restrict__ y,
+                const float* __restrict__ tw, long long lines,
+                long long vol, float sign) {
+  row_block<N>(x, y, tw, lines, vol, sign, blockIdx.x);
+}
+
+// The column band kernel: a CTA of 512 threads holds kBandElems points of
+// each component: T = 2^lt planes of n1 = 2^lr rows by C = 2^lc columns
+// (C = n2 when T > 1), the columns c0 .. c0 + C - 1 of each row.
+constexpr int kBandElems = 16384;
+constexpr int kBandThreads = 512;
+
+// The band's shape for (n1, n2) planes: lt, lr, lc.
+__host__ __device__ inline void band_shape(int l1, int l2, int* lt, int* lc) {
+  int lb = 0;                                 // log2(kBandElems)
+  while ((1 << lb) < kBandElems) ++lb;
+  *lc = l2 < lb - l1 ? l2 : lb - l1;
+  *lt = l1 + l2 < lb ? lb - l1 - l2 : 0;
+}
+
+// Band blk of y (planar, vol floats apart), transformed along its columns
+// in place, the scale folded into the store.  tw1: the (2, n1) table of
+// _tw_pack_powers(n1, sign).
+__device__ __forceinline__ void band_block(float* y,
+                                           const float* __restrict__ tw1,
+                                           long long P, int n1, int n2,
+                                           int lt, int lr, int lc,
+                                           float sign, float scale,
+                                           long long blk) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int C = 1 << lc, R = 1 << lr;
+  const int rs = row_stride(C);
+  const int lines = R << lt;            // rows held
+  Block k{reinterpret_cast<float*>(smem), nullptr, lt, lr, lc, rs};
+  k.im = k.re + lines * rs;
+  const long long bands = n2 >> lc;     // bands a plane (1 when T > 1)
+  const long long q0 = (blk / bands) << lt;
+  const int c0 = static_cast<int>(blk % bands) << lc;
+  const long long planes = P - q0 < (1LL << lt) ? P - q0 : (1LL << lt);
+  const int valid = static_cast<int>(planes) << (lr + lc);
+  const long long area = static_cast<long long>(n1) * n2;
+  const long long vol = P * area;
+  // element e of the band: plane e >> (lr + lc), row (e >> lc) % R,
+  // column c0 + e % C
+  const auto addr = [&](int e) {
+    return (q0 + (e >> (lr + lc))) * area +
+           static_cast<long long>((e >> lc) & (R - 1)) * n2 + c0 +
+           (e & (C - 1));
+  };
+  if (C >= 4) {
+    // 16-byte vectors of 4 adjacent columns, every load before the first
+    // store to shared memory
+    constexpr int kChunks = kBandElems / 4 / kBandThreads;
+    float4 ar[kChunks], ai[kChunks];
+#pragma unroll
+    for (int i = 0; i < kChunks; ++i) {
+      const int e = 4 * (static_cast<int>(threadIdx.x) + i * kBandThreads);
+      ar[i] = ai[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (e < valid) {
+        const long long a = addr(e);
+        ar[i] = __ldcg(reinterpret_cast<const float4*>(y + a));
+        ai[i] = __ldcg(reinterpret_cast<const float4*>(y + vol + a));
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kChunks; ++i) {
+      const int e = 4 * (static_cast<int>(threadIdx.x) + i * kBandThreads);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int s = at<true>(k, (e + c) >> lc, (e + c) & (C - 1));
+        k.re[s] = comp(ar[i], c);
+        k.im[s] = comp(ai[i], c);
+      }
+    }
+  } else {
+    for (int e = threadIdx.x; e < (lines << lc); e += blockDim.x) {
+      const int s = at<true>(k, e >> lc, e & (C - 1));
+      const bool in = e < valid;
+      k.re[s] = in ? __ldcg(y + addr(e)) : 0.f;
+      k.im[s] = in ? __ldcg(y + vol + addr(e)) : 0.f;
+    }
+  }
+  __syncthreads();
+
+  // each column of each plane a line of n1 points
+  dif_pass<false>(k, lc + lt, lr, 0, tw1, sign);
+
+  // output row n of plane t from where the stages left it, scaled
+  const auto held = [&](int e) {
+    const int line = e >> lc;
+    return (((line >> lr) << lr) + dif_pos(line & (R - 1), lr)) * rs +
+           pad(e & (C - 1));
+  };
+  if (C >= 4) {
+    for (int e = 4 * threadIdx.x; e < valid; e += 4 * kBandThreads) {
+      const int s = held(e);
+      const long long a = addr(e);
+      *reinterpret_cast<float4*>(y + a) =
+          make_float4(k.re[s] * scale, k.re[s + 1] * scale,
+                      k.re[s + 2] * scale, k.re[s + 3] * scale);
+      *reinterpret_cast<float4*>(y + vol + a) =
+          make_float4(k.im[s] * scale, k.im[s + 1] * scale,
+                      k.im[s + 2] * scale, k.im[s + 3] * scale);
+    }
+  } else {
+    for (int e = threadIdx.x; e < valid; e += blockDim.x) {
+      const int s = held(e);
+      y[addr(e)] = k.re[s] * scale;
+      y[vol + addr(e)] = k.im[s] * scale;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kBandThreads, 1)
+fft_band_kernel(float* y, const float* __restrict__ tw1, long long P,
+                int n1, int n2, int lt, int lr, int lc, float sign,
+                float scale) {
+  band_block(y, tw1, P, n1, n2, lt, lr, lc, sign, scale, blockIdx.x);
+}
+
+template <int N>
+int launch_rows(const float* x, float* y, const float* tw, long long lines,
+                long long vol, float sign, cudaStream_t stream) {
+  constexpr int G = N / row_points(N);
+  const long long blocks = (lines + kRowThreads / G - 1) / (kRowThreads / G);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * 2 * row_buf(N) * (kRowThreads / G);
+  auto kern = &fft_rows_kernel<N>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  kern<<<static_cast<unsigned>(blocks), kRowThreads, smem, stream>>>(
+      x, y, tw, lines, vol, sign);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // The plane-holding kernel.  x, y: (2, P, n1, n2) float32, contiguous,
@@ -553,51 +794,53 @@ extern "C" int mff_fft_plane_clusters_f32(int n1, int n2, int* k,
   return e;
 }
 
-// The queue kernel.  x, y: (2, P, n1, n2) float32, contiguous and
-// distinct, on the current device; tw2/tw1: the (2, len) tables of
-// _tw_pack(n2, sign) and _tw_pack(n1, sign); plan2/plan1 their stage
-// radices; counters: P + 1 ints set to 0.  Returns cudaGetLastError()
-// after the launch.
-extern "C" int mff_fft_plane_queue_f32(const float* x, float* y,
-                                       const float* tw2, long long tw2_len,
-                                       const float* tw1, long long tw1_len,
+// I's larger planes (the wrapper sends planes with an axis above 256;
+// any plane of two powers of two from 2 to 1024 is taken).  x, y: (2, P,
+// n1, n2) float32, contiguous, distinct and 16-byte aligned, on the
+// current device; tw2, tw1: the (2, n2) and (2, n1) tables of
+// butterfly._tw_pack_powers(n2, sign) and (n1, sign).  Launches the row
+// line kernel (x -> y), then the column band kernel (in place on y, with
+// the scale).  Returns the error of a refused launch, else
+// cudaGetLastError() after the second.
+extern "C" int mff_fft_plane_large_f32(const float* x, float* y,
+                                       const float* tw2, const float* tw1,
                                        long long P, int n1, int n2,
-                                       int sign, const int* plan2, int nst2,
-                                       const int* plan1, int nst1,
-                                       float scale, int* counters,
-                                       void* stream) {
-  mff::Plan p2, p1;
-  if (!mff::make_plan(plan2, nst2, n2, &p2) ||
-      !mff::make_plan(plan1, nst1, n1, &p1) || P <= 0 ||
-      n1 < 2 || n2 < 2 || n1 > 1024 || n2 > 1024 || (n1 & (n1 - 1)) ||
-      (n2 & (n2 - 1)) || (sign != 1 && sign != -1))
+                                       int sign, float scale, void* stream) {
+  const auto mis = [](const void* p) {
+    return reinterpret_cast<std::uintptr_t>(p) % 16 != 0;
+  };
+  if (P <= 0 || n1 < 2 || n2 < 2 || n1 > 1024 || n2 > 1024 ||
+      (n1 & (n1 - 1)) || (n2 & (n2 - 1)) || (sign != 1 && sign != -1) ||
+      mis(x) || mis(y))
     return cudaErrorInvalidValue;
-  // C2 rows of n2 and C1 columns of n1 a tile, at most the plane's
-  const int lc2 = std::min(mff::tile_log2_lines<float>(n2), log2_of(n1));
-  const int lc1 = std::min(mff::tile_log2_lines<float>(n1), log2_of(n2));
-  const long long per = (n1 >> lc2) + (n2 >> lc1);
-  // the item counter passes the last item once a block
-  if (P * per > INT_MAX / 2) return cudaErrorInvalidValue;
-  const size_t cells = std::max(static_cast<size_t>(n2) * ((1 << lc2) + 1),
-                                static_cast<size_t>(n1) * ((1 << lc1) + 1));
-  const size_t smem = 16 + 2 * sizeof(float) * cells;
-  // at most 1024 (8 + 1) cells: kMinBlocks tiles always fit an SM
-  constexpr int kBlocks = mff::Budget<float>::kMinBlocks;
-  auto kern = &fft_plane_kernel<kBlocks>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long vol = P * n1 * n2;
+  const float sg = static_cast<float>(sign);
+  int e;
+  switch (n2) {
+#define MFF_ROWS(n) \
+  case n: e = launch_rows<n>(x, y, tw2, P * n1, vol, sg, st); break
+    MFF_ROWS(2); MFF_ROWS(4); MFF_ROWS(8); MFF_ROWS(16); MFF_ROWS(32);
+    MFF_ROWS(64); MFF_ROWS(128); MFF_ROWS(256); MFF_ROWS(512);
+    MFF_ROWS(1024);
+#undef MFF_ROWS
+    default: return cudaErrorInvalidValue;
+  }
+  if (e != 0) return e;
+  const int l1 = log2_of(n1), l2 = log2_of(n2);
+  int lt, lc;
+  band_shape(l1, l2, &lt, &lc);
+  const long long blocks = lt > 0 ? (P + (1LL << lt) - 1) >> lt
+                                  : P * (n2 >> lc);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const size_t smem =
+      2 * sizeof(float) * (static_cast<size_t>(n1) << lt) *
+      row_stride(1 << lc);
+  e = cudaFuncSetAttribute(fft_band_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  int dev = 0, sms = 0;
-  e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return e;
-  const long long grid =
-      std::min<long long>(P * per, static_cast<long long>(sms) * kBlocks);
-  kern<<<static_cast<unsigned>(grid), kThreads, smem,
-         static_cast<cudaStream_t>(stream)>>>(
-      x, y, tw2, tw2_len, tw1, tw1_len, P, n1, n2, static_cast<float>(sign),
-      p2, p1, scale, counters, lc2, lc1);
+  fft_band_kernel<<<static_cast<unsigned>(blocks), kBandThreads, smem, st>>>(
+      y, tw1, P, n1, n2, lt, l1, lc, sg, scale);
   return cudaGetLastError();
 }

@@ -25,30 +25,35 @@
 // the spectrum in its read, repacks it in shared memory, runs the inverse
 // stages and interleaves the real output in its write.
 //
-// The float64 r2c on whole lines (post == 1: the last axis, as the DNS
-// solvers call it) takes a line kernel instead, at every packed length
-// (N = 4 to 1024).  The tile kernel's fp64 build holds 16 lines of 256
-// points at N = 512, so three 256-thread blocks an SM cap a thread at 80
-// registers, its four radix-4 stages spill 1852 B a thread and need eight
-// block-wide barriers, and it reads one 8-byte element at a time.  The
-// line kernel gives each line of W = N/2 points to a group of G = W/P
-// threads (P = 16 points a thread for W = 2^a, 24 for W = 3*2^a; G <= 32,
-// so a group lies inside one warp).  A thread issues all its P loads,
-// each point z[m] one 16-byte double2 (a group's load reads 16 G
-// contiguous bytes), before it computes.  The W-point transform runs as
-// Stockham stages of radix 16 or 8 and one remainder (radix 3 last): two
-// stages at W = 256 (16, 16), three at W = 512 (16, 16, 2) and four at
-// W = 384 (8, 8, 2, 3); each stage's butterflies
-// sit in registers, and the exchange between stages goes through the
-// group's own W-point buffer in shared memory behind __syncwarp, with no
-// block-wide barrier.  The stage twiddles w_W^e are read from the unpack
-// rows of the table ((cos, sin)(2 pi k/N), k <= W; w_W^e = w_N^(2e), with
-// w_N^(k+W) = -w_N^k).  The untangle (Z[j] with Z[W-j]) reads the buffer;
-// the rows of both planes are written by neighbouring threads, so a
-// group's stores are coalesced into the 8-byte-aligned (hext)-row lines,
-// with the truncation, the Nyquist fold, the zero rows and the scale as
-// in the tile kernel.  The launch bound (128 threads, one block) leaves a
-// thread up to 255 registers, so no stage spills.
+// The r2c on whole lines (post == 1: the last axis, as the DNS solvers
+// and the dealiased plans call it) takes a line kernel instead, at every
+// packed length (N = 4 to 1024), in both builds.  The tile kernel holds
+// C lines in one block: its fp64 build at N = 512 caps a thread at 80
+// registers, its four radix-4 stages spill 1852 B a thread (f32: 40
+// registers, 968 B at N = 768) and need eight block-wide barriers, and
+// it reads one element at a time.  The line kernel gives each line of
+// W = N/2 points to a group of G = W/P threads (P = 16 points a thread
+// for W = 2^a, 24 for W = 3*2^a in float64; 32 and 48 in float32, whose
+// points take half the registers; G <= 32, so a group lies inside one
+// warp).  A thread issues all its loads before it computes, 16 bytes
+// each: a point z[m] is one double2, and in float32 two adjacent points
+// are one float4 where the first stage gives a thread an even number of
+// butterflies (every length from N = 64 up; else one float2 a point), so
+// a group's load reads 16 G contiguous bytes.  The W-point transform runs
+// as Stockham stages of radix 16 or 8 and one remainder (radix 3 last):
+// two stages at W = 256 (16, 16), three at W = 512 (16, 16, 2) and four
+// at W = 384 (8, 8, 2, 3); each stage's butterflies sit in registers, and
+// the exchange between stages goes through the group's own W-point
+// buffer in shared memory behind __syncwarp, with no block-wide barrier.
+// The stage twiddles w_W^e are read from the unpack rows of the table
+// ((cos, sin)(2 pi k/N), k <= W; w_W^e = w_N^(2e), with w_N^(k+W) =
+// -w_N^k).  The untangle (Z[j] with Z[W-j]) reads the buffer; the rows of
+// both planes are written by neighbouring threads, so a group's stores
+// are coalesced into the (hext)-row lines, with the truncation, the
+// Nyquist fold, the zero rows and the scale as in the tile kernel.  The
+// launch bound (128 threads, one block) leaves a thread up to 255
+// registers, so no stage spills.  An input that is not aligned to the
+// kernel's vector, N = 2 and inner axes take the tile kernel.
 #include <cstdint>
 #include <type_traits>
 
@@ -265,15 +270,19 @@ irfft_axis_kernel(const T* __restrict__ x, T* __restrict__ y,
 }
 
 // ---------------------------------------------------------------------------
-// the float64 r2c on whole lines
+// the r2c on whole lines
 // ---------------------------------------------------------------------------
 
 constexpr int kLineThreads = 128;
 
-// Points a thread of a W-point line holds: 16 (W = 2^a) or 24 (3*2^a),
-// or the whole line when it is shorter.
+// Points a thread of a W-point line holds: for float64 16 (W = 2^a) or
+// 24 (3*2^a), for float32 twice as many (half the registers a point), or
+// the whole line when it is shorter.
+template <class T>
 __host__ __device__ constexpr int line_points(int W) {
-  return W % 3 == 0 ? (W >= 24 ? 24 : W) : (W >= 16 ? 16 : W);
+  constexpr int k = std::is_same<T, double>::value ? 1 : 2;
+  return W % 3 == 0 ? (W >= 24 * k ? 24 * k : W)
+                    : (W >= 16 * k ? 16 * k : W);
 }
 
 // Radix of stage s of a W-point line (0 past the last): radix 16 (8 for
@@ -299,23 +308,42 @@ __host__ __device__ constexpr int line_span(int W, int s) {
   return m;
 }
 
+// Adjacent points a thread loads as one 16-byte vector: 2 for float32
+// when the first stage gives each thread an even number of butterflies
+// (a float4 of two packed points), else 1 (a float2 or a double2).
+template <class T>
+__host__ __device__ constexpr int line_vec(int W) {
+  return std::is_same<T, float>::value &&
+                 (line_points<T>(W) / line_radix(W, 0)) % 2 == 0
+             ? 2 : 1;
+}
+
+// Point or butterfly k of thread g in a group of G: g + G k, or, in
+// pairs of adjacent ones (V = 2), 2 (g + G (k / 2)) + k % 2.
+template <int V, int G>
+__device__ __forceinline__ int line_own(int g, int k) {
+  return V * (g + G * (k / V)) + k % V;
+}
+
 // One Stockham stage of radix R over the W-point line of a group, with
 // M sub-transforms interleaved (M: the earlier radices' product); thread
-// g of the group owns butterflies b = g + G k, k < P/R.  The first stage
-// reads the thread's own points (z[g + G s] in zr/zi[s]); the others read
-// the group's buffer.  Every stage writes its outputs to the buffer.
-template <int W, int R, int M, bool kFirst>
-__device__ __forceinline__ void line_stage(const double* zr,
-                                           const double* zi, double* br,
-                                           double* bi, int g,
-                                           const double* __restrict__ cw,
-                                           const double* __restrict__ sw) {
-  constexpr int P = line_points(W), G = W / P, K = P / R;
+// g of the group owns butterflies b = g + G k, k < P/R (the first stage:
+// line_own, the butterflies of the points it loaded).  The first stage
+// reads the thread's own points (point line_own(g, s) in zr/zi[s]); the
+// others read the group's buffer.  Every stage writes its outputs to the
+// buffer.
+template <class T, int W, int R, int M, bool kFirst>
+__device__ __forceinline__ void line_stage(const T* zr, const T* zi, T* br,
+                                           T* bi, int g,
+                                           const T* __restrict__ cw,
+                                           const T* __restrict__ sw) {
+  constexpr int P = line_points<T>(W), G = W / P, K = P / R;
+  constexpr int V = kFirst ? line_vec<T>(W) : 1;
   constexpr int Lq = W / M / R;
-  double vr[K][R], vi[K][R];
+  T vr[K][R], vi[K][R];
 #pragma unroll
   for (int k = 0; k < K; ++k) {
-    const int b = g + G * k;
+    const int b = line_own<V, G>(g, k);
     const int lp = b / M, m = b % M;
 #pragma unroll
     for (int j = 0; j < R; ++j) {
@@ -328,12 +356,12 @@ __device__ __forceinline__ void line_stage(const double* zr,
         vi[k][j] = bi[s];
       }
     }
-    mff::Dft<R, double>::run(vr[k], vi[k], -1.0);
+    mff::Dft<R, T>::run(vr[k], vi[k], T(-1));
     if constexpr (Lq > 1) {    // w_L^(j lp) = w_N^(2 j lp M), sign -1
 #pragma unroll
       for (int j = 1; j < R; ++j) {
         const int u = 2 * j * lp * M;
-        double c, s;
+        T c, s;
         if (u <= W) {
           c = __ldg(cw + u);
           s = __ldg(sw + u);
@@ -341,7 +369,7 @@ __device__ __forceinline__ void line_stage(const double* zr,
           c = -__ldg(cw + u - W);
           s = -__ldg(sw + u - W);
         }
-        const double yr = vr[k][j], yi = vi[k][j];
+        const T yr = vr[k][j], yi = vi[k][j];
         vr[k][j] = yr * c + yi * s;
         vi[k][j] = yi * c - yr * s;
       }
@@ -350,7 +378,7 @@ __device__ __forceinline__ void line_stage(const double* zr,
   if (!kFirst) __syncwarp();   // the group has read the buffer
 #pragma unroll
   for (int k = 0; k < K; ++k) {
-    const int b = g + G * k;
+    const int b = line_own<V, G>(g, k);
     const int lp = b / M, m = b % M;
 #pragma unroll
     for (int j = 0; j < R; ++j) {
@@ -363,72 +391,90 @@ __device__ __forceinline__ void line_stage(const double* zr,
 }
 
 // Stages s.. of a W-point line.
-template <int W, int S>
-__device__ __forceinline__ void line_stages(const double* zr,
-                                            const double* zi, double* br,
-                                            double* bi, int g,
-                                            const double* __restrict__ cw,
-                                            const double* __restrict__ sw) {
+template <class T, int W, int S>
+__device__ __forceinline__ void line_stages(const T* zr, const T* zi, T* br,
+                                            T* bi, int g,
+                                            const T* __restrict__ cw,
+                                            const T* __restrict__ sw) {
   if constexpr (line_radix(W, S) != 0) {
-    line_stage<W, line_radix(W, S), line_span(W, S), S == 0>(zr, zi, br, bi,
-                                                             g, cw, sw);
-    line_stages<W, S + 1>(zr, zi, br, bi, g, cw, sw);
+    line_stage<T, W, line_radix(W, S), line_span(W, S), S == 0>(
+        zr, zi, br, bi, g, cw, sw);
+    line_stages<T, W, S + 1>(zr, zi, br, bi, g, cw, sw);
   }
 }
+
+template <class T> struct Pair;
+template <> struct Pair<float> { using type = float2; };
+template <> struct Pair<double> { using type = double2; };
 
 // Real (nlines, 2W) -> planar (2, nlines, hext) with the packed W-point
 // transform, a group of W/P threads a line (see the note at the top).
 // tw: the table of _tw_pack_packed(2W, -1), its unpack rows at t2.
-template <int W>
-__global__ void __launch_bounds__(kLineThreads, 1)
-rfft_lines_kernel(const double* __restrict__ x, double* __restrict__ y,
-                  const double* __restrict__ tw, long long tw_len, int t2,
-                  long long nlines, int hext, int nrows, int fold,
-                  double scale) {
-  constexpr int P = line_points(W), G = W / P;
+template <class T, int W>
+__device__ __forceinline__ void rfft_lines(const T* __restrict__ x,
+                                           T* __restrict__ y,
+                                           const T* __restrict__ tw,
+                                           long long tw_len, int t2,
+                                           long long nlines, int hext,
+                                           int nrows, int fold, T scale) {
+  constexpr int P = line_points<T>(W), G = W / P, V = line_vec<T>(W);
   extern __shared__ __align__(16) unsigned char smem[];
   const int grp = threadIdx.x / G, g = threadIdx.x % G;
-  double* br = reinterpret_cast<double*>(smem) + grp * 2 * W;
-  double* bi = br + W;
+  T* br = reinterpret_cast<T*>(smem) + grp * 2 * W;
+  T* bi = br + W;
   const long long line =
       static_cast<long long>(blockIdx.x) * (kLineThreads / G) + grp;
   const bool live = line < nlines;
-  const double* cw = tw + t2;
-  const double* sw = tw + tw_len + t2;
+  const T* cw = tw + t2;
+  const T* sw = tw + tw_len + t2;
 
-  // every load first: point g + G s of the line, one double2 each
-  const double2* xz =
-      reinterpret_cast<const double2*>(x) + (live ? line : 0) * W;
-  double zr[P], zi[P];
+  // every load first: point line_own(g, s) of the line in zr/zi[s], one
+  // 16-byte vector of V points each (8 bytes when a float32 V is 1)
+  T zr[P], zi[P];
+  if constexpr (V == 2) {
+    const float4* xz =
+        reinterpret_cast<const float4*>(x) + (live ? line : 0) * (W / 2);
 #pragma unroll
-  for (int s = 0; s < P; ++s) {
-    const double2 v = __ldg(xz + g + G * s);
-    zr[s] = v.x;
-    zi[s] = v.y;
+    for (int s = 0; s < P; s += 2) {
+      const float4 v = __ldg(xz + g + G * (s / 2));
+      zr[s] = v.x;
+      zi[s] = v.y;
+      zr[s + 1] = v.z;
+      zi[s + 1] = v.w;
+    }
+  } else {
+    using V2 = typename Pair<T>::type;
+    const V2* xz = reinterpret_cast<const V2*>(x) + (live ? line : 0) * W;
+#pragma unroll
+    for (int s = 0; s < P; ++s) {
+      const V2 v = __ldg(xz + g + G * s);
+      zr[s] = v.x;
+      zi[s] = v.y;
+    }
   }
-  line_stages<W, 0>(zr, zi, br, bi, g, cw, sw);
+  line_stages<T, W, 0>(zr, zi, br, bi, g, cw, sw);
   if (!live) return;
 
   // untangle Z[j] with Z[W - j] into row j, both planes
-  double* yr = y + line * hext;
-  double* yi = yr + nlines * hext;
+  T* yr = y + line * hext;
+  T* yi = yr + nlines * hext;
   for (int j = g; j < hext; j += G) {
-    double r = 0, i = 0;
+    T r = 0, i = 0;
     if (j < nrows) {
       const int je = j == W ? 0 : j;
       const int jr = j == 0 ? 0 : W - j;
-      const double zre = br[je], zie = bi[je];
-      const double zrr = br[jr], zir = bi[jr];
-      const double er = 0.5 * (zre + zrr);
-      const double ei = 0.5 * (zie - zir);
-      const double orr = 0.5 * (zie + zir);
-      const double oi = 0.5 * (zrr - zre);
-      const double c = __ldg(cw + j), s = __ldg(sw + j);
+      const T zre = br[je], zie = bi[je];
+      const T zrr = br[jr], zir = bi[jr];
+      const T er = T(0.5) * (zre + zrr);
+      const T ei = T(0.5) * (zie - zir);
+      const T orr = T(0.5) * (zie + zir);
+      const T oi = T(0.5) * (zrr - zre);
+      const T c = __ldg(cw + j), s = __ldg(sw + j);
       // X = E + w^j O, w^j = c - i s
       r = (er + c * orr + s * oi) * scale;
       i = (ei + c * oi - s * orr) * scale;
       if (fold && j == nrows - 1) {
-        r = 2.0 * r;
+        r = T(2) * r;
         i = 0;
       }
     }
@@ -438,17 +484,43 @@ rfft_lines_kernel(const double* __restrict__ x, double* __restrict__ y,
 }
 
 template <int W>
-int launch_lines(const double* x, double* y, const double* tw,
-                 long long tw_len, long long nlines, int hext, int nrows,
-                 int fold, double scale, cudaStream_t stream) {
-  constexpr int P = line_points(W), G = W / P;
+__global__ void __launch_bounds__(kLineThreads, 1)
+rfft_lines_kernel(const double* __restrict__ x, double* __restrict__ y,
+                  const double* __restrict__ tw, long long tw_len, int t2,
+                  long long nlines, int hext, int nrows, int fold,
+                  double scale) {
+  rfft_lines<double, W>(x, y, tw, tw_len, t2, nlines, hext, nrows, fold,
+                        scale);
+}
+
+template <int W>
+__global__ void __launch_bounds__(kLineThreads, 1)
+rfft_lines_kernel_f32(const float* __restrict__ x, float* __restrict__ y,
+                      const float* __restrict__ tw, long long tw_len, int t2,
+                      long long nlines, int hext, int nrows, int fold,
+                      float scale) {
+  rfft_lines<float, W>(x, y, tw, tw_len, t2, nlines, hext, nrows, fold,
+                       scale);
+}
+
+template <class T, int W>
+int launch_lines(const T* x, T* y, const T* tw, long long tw_len,
+                 long long nlines, int hext, int nrows, int fold, T scale,
+                 cudaStream_t stream) {
+  constexpr int P = line_points<T>(W), G = W / P;
   static_assert(G <= 32 && 32 % G == 0 && kLineThreads % 32 == 0,
                 "a group lies inside one warp");
+  static_assert(P % line_vec<T>(W) == 0, "whole vectors a thread");
   constexpr int lines = kLineThreads / G;
   const long long blocks = (nlines + lines - 1) / lines;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const size_t smem = sizeof(double) * 2 * W * lines;
-  auto kern = &rfft_lines_kernel<W>;
+  const size_t smem = sizeof(T) * 2 * W * lines;
+  void (*kern)(const T*, T*, const T*, long long, int, long long, int, int,
+               int, T);
+  if constexpr (std::is_same<T, double>::value)
+    kern = &rfft_lines_kernel<W>;
+  else
+    kern = &rfft_lines_kernel_f32<W>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -459,15 +531,31 @@ int launch_lines(const double* x, double* y, const double* tw,
   return cudaGetLastError();
 }
 
+// The bytes a line kernel's input must be aligned to: one vector.
+template <class T>
+int line_align(int W) {
+  switch (W) {
+#define MFF_ALIGN(w) \
+  case w: return 2 * line_vec<T>(w) * static_cast<int>(sizeof(T))
+    MFF_ALIGN(2); MFF_ALIGN(4); MFF_ALIGN(8); MFF_ALIGN(16); MFF_ALIGN(32);
+    MFF_ALIGN(64); MFF_ALIGN(128); MFF_ALIGN(256); MFF_ALIGN(512);
+    MFF_ALIGN(3); MFF_ALIGN(6); MFF_ALIGN(12); MFF_ALIGN(24); MFF_ALIGN(48);
+    MFF_ALIGN(96); MFF_ALIGN(192); MFF_ALIGN(384);
+#undef MFF_ALIGN
+    default: return 0;
+  }
+}
+
 // The line kernel of W = n/2 (every packed length up to 1024).
-int launch_rfft_lines(const double* x, double* y, const double* tw,
-                      long long tw_len, long long nlines, int W, int hext,
-                      int nrows, int fold, double scale, void* stream) {
+template <class T>
+int launch_rfft_lines(const T* x, T* y, const T* tw, long long tw_len,
+                      long long nlines, int W, int hext, int nrows, int fold,
+                      T scale, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define MFF_LINES(w)                                                      \
   case w:                                                                 \
-    return launch_lines<w>(x, y, tw, tw_len, nlines, hext, nrows, fold,   \
-                           scale, st)
+    return launch_lines<T, w>(x, y, tw, tw_len, nlines, hext, nrows,      \
+                              fold, scale, st)
   switch (W) {
     MFF_LINES(2); MFF_LINES(4); MFF_LINES(8); MFF_LINES(16); MFF_LINES(32);
     MFF_LINES(64); MFF_LINES(128); MFF_LINES(256); MFF_LINES(512);
@@ -500,15 +588,15 @@ int launch_rfft_axis(const T* x, T* y, const T* tw, long long tw_len,
   mff::Plan p;
   if (!mff::make_plan(plan, nstages, W, &p) || hext < nrows)
     return cudaErrorInvalidValue;
-  // float64 whole lines of a packed length, 16-byte aligned: the line
-  // kernel (its own stage plan; tw's unpack rows give every twiddle)
-  if constexpr (std::is_same<T, double>::value) {
-    if (post == 1 && packed &&
-        reinterpret_cast<std::uintptr_t>(x) % 16 == 0) {
-      if (pre <= 0 || tw_len < W + 1) return cudaErrorInvalidValue;
-      return launch_rfft_lines(x, y, tw, tw_len, pre, W, hext, nrows, fold,
-                               scale, stream);
-    }
+  // whole lines of a packed length, aligned to the line kernel's vector:
+  // the line kernel (its own stage plan; tw's unpack rows give every
+  // twiddle)
+  const int align = line_align<T>(W);
+  if (post == 1 && packed && align > 0 &&
+      reinterpret_cast<std::uintptr_t>(x) % align == 0) {
+    if (pre <= 0 || tw_len < W + 1) return cudaErrorInvalidValue;
+    return launch_rfft_lines(x, y, tw, tw_len, pre, W, hext, nrows, fold,
+                             scale, stream);
   }
   int lc, threads;
   long long blocks;

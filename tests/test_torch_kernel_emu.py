@@ -255,9 +255,10 @@ def test_pair_max_active_clusters(kernel_path, N):
         bf.pair_max_active_clusters(N // 2)
 
 
-# the float64 r2c on whole lines (the line kernel): W = N/2 of one
-# thread (N = 4, 16), of a group of 2, 32 and 16 threads with radix 3
-# (N = 96, 768) and without (N = 512, 1024)
+# the r2c on whole lines (the line kernel): W = N/2 of one thread (N =
+# 4, 16; float32 also N = 96), of a group of 2, 32 and 16 threads (f32:
+# 8) with radix 3 (N = 96, 768) and of 32 and 16 threads (f32: 8 and 16)
+# without (N = 512, 1024)
 LINE_NS = [4, 16, 96, 512, 768, 1024]
 
 
@@ -288,6 +289,36 @@ def test_rfft_lines_f64_vs_plain(kernel_path, emu_kernels, N):
             assert _rel(got, ref) <= TOL64, (hext, trunc, sc)
             assert ran == lines, (hext, trunc, sc)
     assert _launched() == {'rfft_axis_p_f64': 2 * len(cases)}
+
+
+@pytest.mark.parametrize('N', LINE_NS)
+def test_rfft_lines_f32_vs_plain(kernel_path, emu_kernels, N):
+    """rfft_axis_p on float32 whole lines, the cases of the float64 test:
+    each a line-kernel launch (two points a 16-byte load from N = 96 up,
+    one float2 a point below); an input 4 bytes off a 16-byte boundary
+    takes the tile kernel, held the same way."""
+    rng = np.random.default_rng(20)
+    nh = N // 2 + 1
+    ev = nh - 1 if (nh - 1) % 2 == 0 else nh - 2
+    od = nh - 1 if (nh - 1) % 2 == 1 else nh - 2
+    flat = torch.from_numpy(rng.standard_normal(1 + 6 * N)
+                            .astype(np.float32))
+    x = flat[:6 * N].view(2, 3, N)
+    xm = flat[1:].view(2, 3, N)
+    assert x.data_ptr() % 16 == 0 and xm.data_ptr() % 16 == 4
+    cases = ((None, None, None), (nh + 3, None, 0.5), (None, ev, None),
+             (nh + 2, od, 2.0), (None, N // 3 + 1, 1.0 / N))
+    for t, lines in ((x, True), (xm, False)):
+        for hext, trunc, sc in cases:
+            w0 = _emu_count(emu_kernels, 'rfft_axis', 'emu_syncwarps')
+            got = bf.rfft_axis_p(t, 2, hext=hext, trunc=trunc, scale=sc)
+            ran = _emu_count(emu_kernels, 'rfft_axis', 'emu_syncwarps') > w0
+            ref = _plain(kernel_path, bf.rfft_axis_p, t, 2, hext=hext,
+                         trunc=trunc, scale=sc)
+            assert got.shape == ref.shape and got.dtype == t.dtype
+            assert _rel(got, ref) <= TOL, (hext, trunc, sc)
+            assert ran == lines, (hext, trunc, sc)
+    assert _launched() == {'rfft_axis_p': 2 * len(cases)}
 
 
 # the fused dealiasing kernel E (shape of the N-row side, axis, Nt): lead,
@@ -434,10 +465,11 @@ def test_misaligned_inputs_are_copied(kernel_path):
 
 @pytest.fixture
 def plane_entries(emu_kernels, monkeypatch):
-    """Calls of the plane-holding and the queue kernels' C entries."""
-    calls = {'hold': 0, 'queue': 0}
+    """Calls of the plane-holding C entry and of the one that launches the
+    row line and column band kernels."""
+    calls = {'hold': 0, 'large': 0}
     for key, name in (('hold', 'fft_plane_f32'),
-                      ('queue', 'fft_plane_queue_f32')):
+                      ('large', 'fft_plane_large_f32')):
         fn = getattr(emu_kernels, name)
 
         def spy(*args, _fn=fn, _key=key):
@@ -450,9 +482,13 @@ def plane_entries(emu_kernels, monkeypatch):
 
 # H and I (fft_plane.cu): square and oblong planes, N = 2 on either
 # axis, planes smaller than one tile, the 256 x 256 plane of H, a
-# 1024-long axis, one plane and several
+# 1024-long axis, one plane and several; I's thin and oblong planes:
+# rows of 8 points a thread each under a 1024-row band, 1024-point rows
+# (a warp a row) over 8-row bands, 64-point rows of a two-thread group
+# under 512-row bands of 32 columns
 PLANE_SHAPES = [(3, 32, 64), (2, 256, 256), (4, 8, 2), (1, 2, 1024),
-                (2, 1024, 4), (2, 3, 16, 16)]
+                (2, 1024, 4), (2, 3, 16, 16), (1, 1024, 8), (1, 8, 1024),
+                (1, 512, 64)]
 
 
 @pytest.mark.parametrize('shape', PLANE_SHAPES)
@@ -462,7 +498,8 @@ def test_plane_kernel_vs_plain(kernel_path, emu_kernels, plane_entries,
     always: both signs, with and without a scale.  The route is by shape:
     planes of H's gate on the plane-holding kernel from either entry (a
     cluster launch each when the plane is larger than 8192 points), I's
-    larger planes on the queue kernel."""
+    larger planes on the row line and column band kernels (one C entry,
+    one counted launch a call)."""
     rng = np.random.default_rng(15)
     p = torch.from_numpy(rng.standard_normal((2,) + shape)
                          .astype(np.float32))
@@ -480,8 +517,8 @@ def test_plane_kernel_vs_plain(kernel_path, emu_kernels, plane_entries,
     if h:
         want['fft_plane_p'] = 3
     assert _launched() == want
-    assert plane_entries == ({'hold': 6, 'queue': 0} if h else
-                             {'hold': 0, 'queue': 3})
+    assert plane_entries == ({'hold': 6, 'large': 0} if h else
+                             {'hold': 0, 'large': 3})
     clusters = _emu_count(emu_kernels, 'fft_plane',
                           'emu_cluster_launches') - c0
     assert clusters == (6 if h and shape[-1] * shape[-2] > 8192 else 0)
@@ -513,7 +550,7 @@ def test_plane_hold_kernel_vs_plain(kernel_path, emu_kernels, plane_entries,
         assert got.shape == p.shape and got.dtype == p.dtype
         assert _rel(got, ref) <= TOL, (fwd, sc)
     assert _launched() == {'fft_plane_p': 3}
-    assert plane_entries == {'hold': 3, 'queue': 0}
+    assert plane_entries == {'hold': 3, 'large': 0}
     assert _emu_count(emu_kernels, 'fft_plane', 'emu_cluster_launches') \
         - c0 == (3 if K > 1 else 0)
 
