@@ -89,6 +89,9 @@ and the script exits non-zero:
              7 after 2 warm-ups) beside its plain version, the one PyTorch
              call that computes the same function, and its bound; and the
              end-to-end 1024^3 c2c transform, unquartered and quartered.
+             B (the line kernel) is timed at the 768^3 last axis and at
+             m3's truncating pass (trunc 257, scale 1/768), each held slab
+             by slab on a NaN-filled output.
              Every main-path shape of a kernel is also held against its
              plain version at <= 5e-6, and so are the pair kernels at the
              N = 2048 passes of every axis position; G (the cluster
@@ -162,10 +165,11 @@ and the script exits non-zero:
              kernel's time beside its plain version, its bound and its
              PyTorch yardstick for the ``kernels`` line.
 
-``python3 chip_smoke.py --times-any TREE`` runs only phases 1, 22 and 23,
-on the port of the checkout at TREE (a tree from the plane-holding H on),
-and prints no last line: run it for two trees in turns on one card
-(parent, change, change, parent) to compare H, I and J between them.
+``python3 chip_smoke.py --times-any TREE`` runs only phases 1, 22 and 23
+and B's two rows of phase 16, on the port of the checkout at TREE (a tree
+from the plane-holding H on), and prints no last line: run it for two
+trees in turns on one card (parent, change, change, parent) to compare H,
+I, J and B between them.
 
 Phases 3 to 15 and 19 to 22 are the main path: the launch counters are
 set to 0 just before phase 3 and read after phase 22 (phases 16 to 18
@@ -2257,7 +2261,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--times-any', metavar='TREE', nargs='?',
                     const=os.path.dirname(os.path.abspath(__file__)),
-                    help="run only phases 1, 22 and 23 on the port in TREE "
+                    help="run only phases 1, 22 and 23 and B's rows on "
+                         "the port in TREE "
                          "(default: this script's checkout), to compare "
                          "two trees on one card")
     args = ap.parse_args(argv)

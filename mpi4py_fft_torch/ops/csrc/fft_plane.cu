@@ -1,18 +1,19 @@
 // fft_plane_p (H) and fft_plane_large_p (I): unnormalized planar c2c FFT
-// over the last two axes of (2, P, N1, N2) float32 data in one launch,
-// N1 and N2 powers of two up to 1024, either sign, with an optional scale
-// folded into the last write.  The last axis (N2) is transformed first,
-// then the second-to-last (N1), as the JAX kernels order the two stages.
+// over the last two axes of (2, P, N1, N2) float32 data, N1 and N2 powers
+// of two up to 1024, either sign, with an optional scale folded into the
+// last write.  The last axis (N2) is transformed first, then the
+// second-to-last (N1), as the JAX kernels order the two stages.
 //
 // Replaces the TPU kernels of mpi4py_fft_tpu/ops/pallas_butterfly.py
 // reached from fft_plane_p :1056 through _dispatch_plane :1018
 // (_kern_plane :981, planes of N1, N2 <= 256 packed T to a block) and from
 // fft_plane_large_p :1167 through _dispatch_plane_large :1139
 // (_kern_plane_large :1095, one full plane of N1*N2 <= 2^20 a block).
-// Both entries compute the same function; the kernel is chosen by shape:
-// planes whose axes are both at most 256 (every plane H's gate takes) go
-// to the plane-holding kernel, every other plane (I's larger planes) to
-// the queue kernel.
+// Both entries compute the same function; the kernels are chosen by
+// shape: planes whose axes are both at most 256 (every plane H's gate
+// takes) go to the plane-holding kernel in one launch, every other plane
+// (I's larger planes) to the row line kernel and then the column band
+// kernel, two launches of one C entry.
 //
 // Bound on an H100: bytes, as fft_axis.cu (about 3 flops a byte a pass):
 // the least the card can take is one read and one write of the volume.
@@ -52,24 +53,40 @@
 // vectors, every load of a thread issued before its first store to
 // shared memory; a warp takes 8 vectors of each of 4 rows.
 //
-// The queue kernel (mff_fft_plane_queue_f32, I's planes with an axis
-// above 256): a persistent grid (the SMs times the blocks an SM holds)
-// takes work items from a counter in device memory, in order.  A plane
-// does not fit one block's shared memory (1024 x 1024 complex f32 is
-// 8 MB, against 227 KB), so the two axes take two tiles each: the plane
-// goes from the first axis to the second through L2 (50 MB) instead of
-// HBM while a few planes are in flight.  Plane q gives first its row items
-// (C2 whole rows of N2 points each, A's tile with neighbours along the
-// line, from x into y), then its column items (C1 adjacent columns of N1
-// points, stride N2, read from y, transformed and written back in place
-// with the scale).  A row item, once written, adds one to q's counter
-// (every thread fences its stores first); a column item of q waits until
-// that counter holds q's row items, then reads through L2 (__ldcg).  An
-// item only waits on items taken before it, by blocks that are running,
-// and a row item waits on nothing: no deadlock, and a grid whose blocks
-// run one after another runs the queue in order.
-#include <algorithm>
-#include <climits>
+// I's larger planes (mff_fft_plane_large_f32, an axis above 256).  A
+// 1024 x 1024 plane (8 MB) does not fit a CTA's shared memory (227 KB)
+// nor a cluster's, so here it crosses device memory twice each way: two
+// reads and two writes of the volume take at least 10.26 ms at (2, 1024,
+// 1024, 1024), twice the function's bound.  The queue kernel that this design
+// replaces ran both axes on A's tile (butterfly.cuh), whose stages held
+// 16 points a thread at 40 registers and spilled 1936 B a thread, and
+// moved one 4-byte float a thread a load: its stages took more than half
+// its time, its column items read 32-byte row segments, and its L2
+// hand-off between the axes cost more in waits than it saved.
+// * The row line kernel (x -> y): a group of G = N2 / P threads holds one
+//   row, P = 32 points a thread (the whole row below 32 points), in
+//   registers.  Each thread loads 16-byte vectors of 4 adjacent points of
+//   each component, every load before any arithmetic; the row runs as
+//   Stockham stages (radix 8, then 16, 8, 4 or 2, then 8 for rows of 64
+//   points and more; one thread's radix-N or 8 x 4 below), each stage's
+//   butterflies in registers and the exchange through the group's own
+//   buffer in shared memory behind __syncwarp, with no block-wide
+//   barrier; the store reads the row from the buffer in its natural order
+//   as 16-byte vectors.  128 threads a block, four blocks an SM.
+// * The column band kernel (in place on y): a CTA of 512 threads, two an
+//   SM, holds a band of 8192 points of each component, C adjacent columns
+//   of a plane by its N1 rows (C = 8 at N1 = 1024, 32-byte row segments;
+//   bands of 16 columns, 64-byte segments at one CTA an SM, ran 8%
+//   slower on an H100), or several whole planes when a plane is smaller,
+//   loaded as 16-byte vectors of 4 adjacent columns (single floats for
+//   two-column planes), every load before the first store to shared
+//   memory.  The columns run as the plane-holding
+//   kernel's in-place radix-8 decimation-in-frequency stages (below), one
+//   butterfly a thread at a time, and the store writes whole row segments
+//   from the digit-reversed places with the scale folded in.
+// Neither kernel holds more than one stage's butterflies a thread, so
+// neither spills.
+#include <algorithm>#include <algorithm>
 #include <cstdint>
 
 #include <cooperative_groups.h>
@@ -605,11 +622,13 @@ fft_rows_kernel(const float* __restrict__ x, float* __restrict__ y,
   row_block<N>(x, y, tw, lines, vol, sign, blockIdx.x);
 }
 
-// The column band kernel: a CTA of 512 threads holds kBandElems points of
-// each component: T = 2^lt planes of n1 = 2^lr rows by C = 2^lc columns
-// (C = n2 when T > 1), the columns c0 .. c0 + C - 1 of each row.
-constexpr int kBandElems = 16384;
+// The column band kernel: a CTA of 512 threads, two an SM (64 registers
+// a thread), holds kBandElems points of each component: T = 2^lt planes
+// of n1 = 2^lr rows by C = 2^lc columns (C = n2 when T > 1), the columns
+// c0 .. c0 + C - 1 of each row.
+constexpr int kBandElems = 8192;
 constexpr int kBandThreads = 512;
+constexpr int kBandMinBlocks = 2;
 
 // The band's shape for (n1, n2) planes: lt, lr, lc.
 __host__ __device__ inline void band_shape(int l1, int l2, int* lt, int* lc) {
@@ -620,8 +639,10 @@ __host__ __device__ inline void band_shape(int l1, int l2, int* lt, int* lc) {
 }
 
 // Band blk of y (planar, vol floats apart), transformed along its columns
-// in place, the scale folded into the store.  tw1: the (2, n1) table of
-// _tw_pack_powers(n1, sign).
+// in place, the scale folded into the store; kVec: C >= 4, loads and
+// stores of 16-byte vectors (else of single floats).  tw1: the (2, n1)
+// table of _tw_pack_powers(n1, sign).
+template <bool kVec>
 __device__ __forceinline__ void band_block(float* y,
                                            const float* __restrict__ tw1,
                                            long long P, int n1, int n2,
@@ -648,7 +669,7 @@ __device__ __forceinline__ void band_block(float* y,
            static_cast<long long>((e >> lc) & (R - 1)) * n2 + c0 +
            (e & (C - 1));
   };
-  if (C >= 4) {
+  if constexpr (kVec) {
     // 16-byte vectors of 4 adjacent columns, every load before the first
     // store to shared memory
     constexpr int kChunks = kBandElems / 4 / kBandThreads;
@@ -692,7 +713,7 @@ __device__ __forceinline__ void band_block(float* y,
     return (((line >> lr) << lr) + dif_pos(line & (R - 1), lr)) * rs +
            pad(e & (C - 1));
   };
-  if (C >= 4) {
+  if constexpr (kVec) {
     for (int e = 4 * threadIdx.x; e < valid; e += 4 * kBandThreads) {
       const int s = held(e);
       const long long a = addr(e);
@@ -712,11 +733,12 @@ __device__ __forceinline__ void band_block(float* y,
   }
 }
 
-__global__ void __launch_bounds__(kBandThreads, 1)
+template <bool kVec>
+__global__ void __launch_bounds__(kBandThreads, kBandMinBlocks)
 fft_band_kernel(float* y, const float* __restrict__ tw1, long long P,
                 int n1, int n2, int lt, int lr, int lc, float sign,
                 float scale) {
-  band_block(y, tw1, P, n1, n2, lt, lr, lc, sign, scale, blockIdx.x);
+  band_block<kVec>(y, tw1, P, n1, n2, lt, lr, lc, sign, scale, blockIdx.x);
 }
 
 template <int N>
@@ -836,11 +858,11 @@ extern "C" int mff_fft_plane_large_f32(const float* x, float* y,
   const size_t smem =
       2 * sizeof(float) * (static_cast<size_t>(n1) << lt) *
       row_stride(1 << lc);
-  e = cudaFuncSetAttribute(fft_band_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+  auto band = lc >= 2 ? &fft_band_kernel<true> : &fft_band_kernel<false>;
+  e = cudaFuncSetAttribute(band, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  fft_band_kernel<<<static_cast<unsigned>(blocks), kBandThreads, smem, st>>>(
+  band<<<static_cast<unsigned>(blocks), kBandThreads, smem, st>>>(
       y, tw1, P, n1, n2, lt, l1, lc, sg, scale);
   return cudaGetLastError();
 }

@@ -33,16 +33,15 @@
 // registers, 968 B at N = 768) and need eight block-wide barriers, and
 // it reads one element at a time.  The line kernel gives each line of
 // W = N/2 points to a group of G = W/P threads (P = 16 points a thread
-// for W = 2^a, 24 for W = 3*2^a in float64; 32 and 48 in float32, whose
-// points take half the registers; G <= 32, so a group lies inside one
-// warp).  A thread issues all its loads before it computes, 16 bytes
-// each: a point z[m] is one double2, and in float32 two adjacent points
-// are one float4 where the first stage gives a thread an even number of
-// butterflies (every length from N = 64 up; else one float2 a point), so
-// a group's load reads 16 G contiguous bytes.  The W-point transform runs
-// as Stockham stages of radix 16 or 8 and one remainder (radix 3 last):
-// two stages at W = 256 (16, 16), three at W = 512 (16, 16, 2) and four
-// at W = 384 (8, 8, 2, 3); each stage's butterflies sit in registers, and
+// for W = 2^a, 24 for W = 3*2^a; G <= 32, so a group lies inside one
+// warp; float32 at twice the points a thread, 32 and 48, ran 39% slower
+// on an H100 at N = 768, at 238 registers).  A thread issues all its P
+// loads, each point z[m] one double2 or float2, before it computes, so
+// that a group's load reads 16 G (float32: 8 G) contiguous bytes.  The
+// W-point transform runs as Stockham stages of radix 16 or 8 and one
+// remainder (radix 3 last): two stages at W = 256 (16, 16), three at
+// W = 512 (16, 16, 2) and four at W = 384 (8, 8, 2, 3); each stage's
+// butterflies sit in registers, and
 // the exchange between stages goes through the group's own W-point
 // buffer in shared memory behind __syncwarp, with no block-wide barrier.
 // The stage twiddles w_W^e are read from the unpack rows of the table
@@ -52,10 +51,9 @@
 // are coalesced into the (hext)-row lines, with the truncation, the
 // Nyquist fold, the zero rows and the scale as in the tile kernel.  The
 // launch bound (128 threads, one block) leaves a thread up to 255
-// registers, so no stage spills.  An input that is not aligned to the
-// kernel's vector, N = 2 and inner axes take the tile kernel.
+// registers, so no stage spills.  An input that is not aligned to a
+// packed point, N = 2 and inner axes take the tile kernel.
 #include <cstdint>
-#include <type_traits>
 
 #include "butterfly.cuh"
 
@@ -275,14 +273,10 @@ irfft_axis_kernel(const T* __restrict__ x, T* __restrict__ y,
 
 constexpr int kLineThreads = 128;
 
-// Points a thread of a W-point line holds: for float64 16 (W = 2^a) or
-// 24 (3*2^a), for float32 twice as many (half the registers a point), or
-// the whole line when it is shorter.
-template <class T>
+// Points a thread of a W-point line holds: 16 (W = 2^a) or 24 (3*2^a),
+// or the whole line when it is shorter.
 __host__ __device__ constexpr int line_points(int W) {
-  constexpr int k = std::is_same<T, double>::value ? 1 : 2;
-  return W % 3 == 0 ? (W >= 24 * k ? 24 * k : W)
-                    : (W >= 16 * k ? 16 * k : W);
+  return W % 3 == 0 ? (W >= 24 ? 24 : W) : (W >= 16 ? 16 : W);
 }
 
 // Radix of stage s of a W-point line (0 past the last): radix 16 (8 for
@@ -308,42 +302,22 @@ __host__ __device__ constexpr int line_span(int W, int s) {
   return m;
 }
 
-// Adjacent points a thread loads as one 16-byte vector: 2 for float32
-// when the first stage gives each thread an even number of butterflies
-// (a float4 of two packed points), else 1 (a float2 or a double2).
-template <class T>
-__host__ __device__ constexpr int line_vec(int W) {
-  return std::is_same<T, float>::value &&
-                 (line_points<T>(W) / line_radix(W, 0)) % 2 == 0
-             ? 2 : 1;
-}
-
-// Point or butterfly k of thread g in a group of G: g + G k, or, in
-// pairs of adjacent ones (V = 2), 2 (g + G (k / 2)) + k % 2.
-template <int V, int G>
-__device__ __forceinline__ int line_own(int g, int k) {
-  return V * (g + G * (k / V)) + k % V;
-}
-
 // One Stockham stage of radix R over the W-point line of a group, with
 // M sub-transforms interleaved (M: the earlier radices' product); thread
-// g of the group owns butterflies b = g + G k, k < P/R (the first stage:
-// line_own, the butterflies of the points it loaded).  The first stage
-// reads the thread's own points (point line_own(g, s) in zr/zi[s]); the
-// others read the group's buffer.  Every stage writes its outputs to the
-// buffer.
+// g of the group owns butterflies b = g + G k, k < P/R.  The first stage
+// reads the thread's own points (z[g + G s] in zr/zi[s]); the others read
+// the group's buffer.  Every stage writes its outputs to the buffer.
 template <class T, int W, int R, int M, bool kFirst>
 __device__ __forceinline__ void line_stage(const T* zr, const T* zi, T* br,
                                            T* bi, int g,
                                            const T* __restrict__ cw,
                                            const T* __restrict__ sw) {
-  constexpr int P = line_points<T>(W), G = W / P, K = P / R;
-  constexpr int V = kFirst ? line_vec<T>(W) : 1;
+  constexpr int P = line_points(W), G = W / P, K = P / R;
   constexpr int Lq = W / M / R;
   T vr[K][R], vi[K][R];
 #pragma unroll
   for (int k = 0; k < K; ++k) {
-    const int b = line_own<V, G>(g, k);
+    const int b = g + G * k;
     const int lp = b / M, m = b % M;
 #pragma unroll
     for (int j = 0; j < R; ++j) {
@@ -378,7 +352,7 @@ __device__ __forceinline__ void line_stage(const T* zr, const T* zi, T* br,
   if (!kFirst) __syncwarp();   // the group has read the buffer
 #pragma unroll
   for (int k = 0; k < K; ++k) {
-    const int b = line_own<V, G>(g, k);
+    const int b = g + G * k;
     const int lp = b / M, m = b % M;
 #pragma unroll
     for (int j = 0; j < R; ++j) {
@@ -403,21 +377,21 @@ __device__ __forceinline__ void line_stages(const T* zr, const T* zi, T* br,
   }
 }
 
-template <class T> struct Pair;
-template <> struct Pair<float> { using type = float2; };
-template <> struct Pair<double> { using type = double2; };
+// A packed point z[m] = x[2m] + i x[2m+1]: one double2 or float2.
+template <class T> struct Point;
+template <> struct Point<float> { using type = float2; };
+template <> struct Point<double> { using type = double2; };
 
 // Real (nlines, 2W) -> planar (2, nlines, hext) with the packed W-point
 // transform, a group of W/P threads a line (see the note at the top).
 // tw: the table of _tw_pack_packed(2W, -1), its unpack rows at t2.
 template <class T, int W>
-__device__ __forceinline__ void rfft_lines(const T* __restrict__ x,
-                                           T* __restrict__ y,
-                                           const T* __restrict__ tw,
-                                           long long tw_len, int t2,
-                                           long long nlines, int hext,
-                                           int nrows, int fold, T scale) {
-  constexpr int P = line_points<T>(W), G = W / P, V = line_vec<T>(W);
+__global__ void __launch_bounds__(kLineThreads, 1)
+rfft_lines_kernel(const T* __restrict__ x, T* __restrict__ y,
+                  const T* __restrict__ tw, long long tw_len, int t2,
+                  long long nlines, int hext, int nrows, int fold,
+                  T scale) {
+  constexpr int P = line_points(W), G = W / P;
   extern __shared__ __align__(16) unsigned char smem[];
   const int grp = threadIdx.x / G, g = threadIdx.x % G;
   T* br = reinterpret_cast<T*>(smem) + grp * 2 * W;
@@ -428,29 +402,15 @@ __device__ __forceinline__ void rfft_lines(const T* __restrict__ x,
   const T* cw = tw + t2;
   const T* sw = tw + tw_len + t2;
 
-  // every load first: point line_own(g, s) of the line in zr/zi[s], one
-  // 16-byte vector of V points each (8 bytes when a float32 V is 1)
+  // every load first: point g + G s of the line, one vector each
+  using V = typename Point<T>::type;
+  const V* xz = reinterpret_cast<const V*>(x) + (live ? line : 0) * W;
   T zr[P], zi[P];
-  if constexpr (V == 2) {
-    const float4* xz =
-        reinterpret_cast<const float4*>(x) + (live ? line : 0) * (W / 2);
 #pragma unroll
-    for (int s = 0; s < P; s += 2) {
-      const float4 v = __ldg(xz + g + G * (s / 2));
-      zr[s] = v.x;
-      zi[s] = v.y;
-      zr[s + 1] = v.z;
-      zi[s + 1] = v.w;
-    }
-  } else {
-    using V2 = typename Pair<T>::type;
-    const V2* xz = reinterpret_cast<const V2*>(x) + (live ? line : 0) * W;
-#pragma unroll
-    for (int s = 0; s < P; ++s) {
-      const V2 v = __ldg(xz + g + G * s);
-      zr[s] = v.x;
-      zi[s] = v.y;
-    }
+  for (int s = 0; s < P; ++s) {
+    const V v = __ldg(xz + g + G * s);
+    zr[s] = v.x;
+    zi[s] = v.y;
   }
   line_stages<T, W, 0>(zr, zi, br, bi, g, cw, sw);
   if (!live) return;
@@ -483,44 +443,18 @@ __device__ __forceinline__ void rfft_lines(const T* __restrict__ x,
   }
 }
 
-template <int W>
-__global__ void __launch_bounds__(kLineThreads, 1)
-rfft_lines_kernel(const double* __restrict__ x, double* __restrict__ y,
-                  const double* __restrict__ tw, long long tw_len, int t2,
-                  long long nlines, int hext, int nrows, int fold,
-                  double scale) {
-  rfft_lines<double, W>(x, y, tw, tw_len, t2, nlines, hext, nrows, fold,
-                        scale);
-}
-
-template <int W>
-__global__ void __launch_bounds__(kLineThreads, 1)
-rfft_lines_kernel_f32(const float* __restrict__ x, float* __restrict__ y,
-                      const float* __restrict__ tw, long long tw_len, int t2,
-                      long long nlines, int hext, int nrows, int fold,
-                      float scale) {
-  rfft_lines<float, W>(x, y, tw, tw_len, t2, nlines, hext, nrows, fold,
-                       scale);
-}
-
 template <class T, int W>
 int launch_lines(const T* x, T* y, const T* tw, long long tw_len,
                  long long nlines, int hext, int nrows, int fold, T scale,
                  cudaStream_t stream) {
-  constexpr int P = line_points<T>(W), G = W / P;
+  constexpr int P = line_points(W), G = W / P;
   static_assert(G <= 32 && 32 % G == 0 && kLineThreads % 32 == 0,
                 "a group lies inside one warp");
-  static_assert(P % line_vec<T>(W) == 0, "whole vectors a thread");
   constexpr int lines = kLineThreads / G;
   const long long blocks = (nlines + lines - 1) / lines;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   const size_t smem = sizeof(T) * 2 * W * lines;
-  void (*kern)(const T*, T*, const T*, long long, int, long long, int, int,
-               int, T);
-  if constexpr (std::is_same<T, double>::value)
-    kern = &rfft_lines_kernel<W>;
-  else
-    kern = &rfft_lines_kernel_f32<W>;
+  auto kern = &rfft_lines_kernel<T, W>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -529,21 +463,6 @@ int launch_lines(const T* x, T* y, const T* tw, long long tw_len,
       x, y, tw, tw_len, static_cast<int>(tw_len) - (W + 1), nlines, hext,
       nrows, fold, scale);
   return cudaGetLastError();
-}
-
-// The bytes a line kernel's input must be aligned to: one vector.
-template <class T>
-int line_align(int W) {
-  switch (W) {
-#define MFF_ALIGN(w) \
-  case w: return 2 * line_vec<T>(w) * static_cast<int>(sizeof(T))
-    MFF_ALIGN(2); MFF_ALIGN(4); MFF_ALIGN(8); MFF_ALIGN(16); MFF_ALIGN(32);
-    MFF_ALIGN(64); MFF_ALIGN(128); MFF_ALIGN(256); MFF_ALIGN(512);
-    MFF_ALIGN(3); MFF_ALIGN(6); MFF_ALIGN(12); MFF_ALIGN(24); MFF_ALIGN(48);
-    MFF_ALIGN(96); MFF_ALIGN(192); MFF_ALIGN(384);
-#undef MFF_ALIGN
-    default: return 0;
-  }
 }
 
 // The line kernel of W = n/2 (every packed length up to 1024).
@@ -588,12 +507,11 @@ int launch_rfft_axis(const T* x, T* y, const T* tw, long long tw_len,
   mff::Plan p;
   if (!mff::make_plan(plan, nstages, W, &p) || hext < nrows)
     return cudaErrorInvalidValue;
-  // whole lines of a packed length, aligned to the line kernel's vector:
-  // the line kernel (its own stage plan; tw's unpack rows give every
-  // twiddle)
-  const int align = line_align<T>(W);
-  if (post == 1 && packed && align > 0 &&
-      reinterpret_cast<std::uintptr_t>(x) % align == 0) {
+  // whole lines of a packed length, aligned to a packed point (2
+  // elements): the line kernel (its own stage plan; tw's unpack rows give
+  // every twiddle)
+  if (post == 1 && packed &&
+      reinterpret_cast<std::uintptr_t>(x) % (2 * sizeof(T)) == 0) {
     if (pre <= 0 || tw_len < W + 1) return cudaErrorInvalidValue;
     return launch_rfft_lines(x, y, tw, tw_len, pre, W, hext, nrows, fold,
                              scale, stream);

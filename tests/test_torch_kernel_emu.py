@@ -256,9 +256,8 @@ def test_pair_max_active_clusters(kernel_path, N):
 
 
 # the r2c on whole lines (the line kernel): W = N/2 of one thread (N =
-# 4, 16; float32 also N = 96), of a group of 2, 32 and 16 threads (f32:
-# 8) with radix 3 (N = 96, 768) and of 32 and 16 threads (f32: 8 and 16)
-# without (N = 512, 1024)
+# 4, 16), of a group of 2, 32 and 16 threads with radix 3 (N = 96, 768)
+# and without (N = 512, 1024)
 LINE_NS = [4, 16, 96, 512, 768, 1024]
 
 
@@ -294,9 +293,9 @@ def test_rfft_lines_f64_vs_plain(kernel_path, emu_kernels, N):
 @pytest.mark.parametrize('N', LINE_NS)
 def test_rfft_lines_f32_vs_plain(kernel_path, emu_kernels, N):
     """rfft_axis_p on float32 whole lines, the cases of the float64 test:
-    each a line-kernel launch (two points a 16-byte load from N = 96 up,
-    one float2 a point below); an input 4 bytes off a 16-byte boundary
-    takes the tile kernel, held the same way."""
+    each a line-kernel launch (one float2 a packed point); an input 4
+    bytes off an 8-byte boundary takes the tile kernel, held the same
+    way."""
     rng = np.random.default_rng(20)
     nh = N // 2 + 1
     ev = nh - 1 if (nh - 1) % 2 == 0 else nh - 2

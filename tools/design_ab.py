@@ -5,6 +5,7 @@ A/B on one CUDA card against the tree they are made from.
     python3 tools/design_ab.py make [VARIANT ...]
     python3 chip_smoke.py --times-any build/ab/VARIANT   # one per variant
     python3 tools/design_ab.py summary LOG ...
+    python3 tools/design_ab.py time TREE
 
 ``make`` copies this tree's ``mpi4py_fft_torch`` package into
 ``build/ab/VARIANT/`` and patches its sources there (each patch asserts
@@ -15,13 +16,20 @@ that its text is found); with no VARIANT it makes all of them:
   counter (a plane's row items, then its column items, each column item
   waiting on its plane's row count and reading it through L2), instead of
   two launches; only the (1024, 1024) planes that ``--times-any`` runs;
-* ``band8``: the column band of 8192 points (8 columns at 1024 rows), two
-  CTAs an SM, instead of 16384 and one;
-* ``b24``: B's float32 line kernel at float64's points a thread (16 and
-  24, so 8-byte point loads at 768), instead of 32 and 48.
+* ``rows_only``, ``band_only``: I's C entry launching only the row line
+  kernel, or only the column band kernel (in place on the output buffer
+  as it is), to split I's time;
+* ``b_lb3``, ``b_lb4``: B's float32 line kernel bound to 3 or 4 blocks of
+  128 threads an SM (at most 168 or 128 registers a thread), instead of
+  one (255).
 
 ``summary`` prints, for each ``chip_smoke.py --times-any`` log given, one
-JSON line with the times of H, I, J and B there.
+JSON line with the times of H, I, J and B there.  ``time`` times, with the
+package of TREE and no hold (the split variants compute part of the
+function), I forward at (2, 1024, 1024, 1024) and B at 768^3 and at m3's
+truncating pass, and prints one JSON line with the times, the relative
+L2 error of each against its plain version on a slab, and the ``ptxas``
+lines of the two libraries.
 """
 import json
 import shutil
@@ -123,18 +131,25 @@ VARIANTS = {
         ('fft_plane.cu', '  return cudaGetLastError();\n}\n',
          None),                      # appended below: the queue entry
     ],
-    'band8': [
-        ('fft_plane.cu', 'constexpr int kBandElems = 16384;',
-         'constexpr int kBandElems = 8192;'),
-        ('fft_plane.cu', '__global__ void __launch_bounds__(kBandThreads, '
-         '1)\nfft_band_kernel(',
-         '__global__ void __launch_bounds__(kBandThreads, 2)\n'
-         'fft_band_kernel('),
+    'rows_only': [
+        ('fft_plane.cu', '  if (e != 0) return e;\n  const int l1',
+         '  if (e != 0 || n1 > 0) return e;\n  const int l1'),
     ],
-    'b24': [
-        ('rfft_axis.cu',
-         'constexpr int k = std::is_same<T, double>::value ? 1 : 2;',
-         'constexpr int k = 1;'),
+    'band_only': [
+        ('fft_plane.cu', 'case n: e = launch_rows<n>(x, y, tw2, P * n1, '
+         'vol, sg, st); break', 'case n: e = 0; break'),
+    ],
+    'b_lb3': [
+        ('rfft_axis.cu', '__global__ void __launch_bounds__(kLineThreads, '
+         '1)\nrfft_lines_kernel(',
+         '__global__ void __launch_bounds__(kLineThreads, sizeof(T) == 4 ? '
+         '3 : 1)\nrfft_lines_kernel('),
+    ],
+    'b_lb4': [
+        ('rfft_axis.cu', '__global__ void __launch_bounds__(kLineThreads, '
+         '1)\nrfft_lines_kernel(',
+         '__global__ void __launch_bounds__(kLineThreads, sizeof(T) == 4 ? '
+         '4 : 1)\nrfft_lines_kernel('),
     ],
 }
 
@@ -182,10 +197,47 @@ def summary(logs):
         print(json.dumps({'log': log, 'times': rows, 'ptxas': ptxas}))
 
 
+def time_tree(tree):
+    tree = Path(tree).resolve()
+    sys.path.insert(0, str(tree))
+    sys.path.insert(1, str(ROOT))
+    import torch
+    import chip_smoke as cs
+    from mpi4py_fft_torch.ops import _build
+    from mpi4py_fft_torch.ops import butterfly as bf
+    assert bf.__file__.startswith(str(tree) + '/')
+    dev = torch.device('cuda', 0)
+    _build.load()
+    out = {'tree': str(tree), 'ptxas': [
+        ln.strip() for lib in ('fft_plane', 'rfft_axis')
+        for ln in _build.LOG[lib].splitlines()
+        if 'registers' in ln or 'spill' in ln or 'Compiling' in ln]}
+    x = cs._rand((2,) + cs.PLANE_I, dev, 1)
+    y = bf.fft_plane_large_p(x, True)
+    out['I_rel_l2_slab'] = cs._rel(
+        y[:, :4], bf.fft_plane_large_plain(x[:, :4], True))[0]
+    del y
+    out['I_ms'] = cs._median_ms(lambda: bf.fft_plane_large_p(x, True))
+    del x
+    torch.cuda.empty_cache()
+    m = 3 * cs.DEALIAS_N // 2
+    nt = cs.DEALIAS_N // 2 + 1
+    r = cs._rand((m, m, m), dev, 2)
+    for name, kw in (('B', {}), ('B_trunc', dict(trunc=nt, scale=1.0 / m))):
+        out[name + '_rel_l2_slab'] = cs._rel(
+            bf.rfft_axis_p(r, 2, **kw)[:, :16],
+            bf.rfft_axis_plain(r[:16], 2, **kw))[0]
+        out[name + '_ms'] = cs._median_ms(
+            lambda: bf.rfft_axis_p(r, 2, **kw))
+    print(json.dumps(out), flush=True)
+
+
 if __name__ == '__main__':
     if sys.argv[1:2] == ['make']:
         make(sys.argv[2:])
     elif sys.argv[1:2] == ['summary']:
         summary(sys.argv[2:])
+    elif sys.argv[1:2] == ['time']:
+        time_tree(sys.argv[2])
     else:
         sys.exit(__doc__)
