@@ -624,25 +624,35 @@ fft_rows_kernel(const float* __restrict__ x, float* __restrict__ y,
 
 // The column band kernel: a CTA of 512 threads, two an SM (64 registers
 // a thread), holds kBandElems points of each component: T = 2^lt planes
-// of n1 = 2^lr rows by C = 2^lc columns (C = n2 when T > 1), the columns
-// c0 .. c0 + C - 1 of each row.
+// of R = 2^lr rows by C = 2^lc columns (C = n2 when T > 1), the columns
+// c0 .. c0 + C - 1 of each row.  A band of kBandCols columns of a plane
+// whose rows do not fit one CTA is held by a cluster of K = C n1 /
+// kBandElems CTAs, R = n1 / K rows each.
 constexpr int kBandElems = 8192;
 constexpr int kBandThreads = 512;
 constexpr int kBandMinBlocks = 2;
+constexpr int kBandCols = 16;
 
-// The band's shape for (n1, n2) planes: lt, lr, lc.
-__host__ __device__ inline void band_shape(int l1, int l2, int* lt, int* lc) {
-  int lb = 0;                                 // log2(kBandElems)
-  while ((1 << lb) < kBandElems) ++lb;
-  *lc = l2 < lb - l1 ? l2 : lb - l1;
-  *lt = l1 + l2 < lb ? lb - l1 - l2 : 0;
+// The band's shape for (n1, n2) planes: lt, lk (K = 2^lk), lc.
+inline void band_shape(int n1, int n2, int* lt, int* lk, int* lc) {
+  const int area = n1 * n2;
+  const int C = area <= kBandElems ? n2
+                : std::min(n2, std::max(kBandCols, kBandElems / n1));
+  *lc = log2_of(C);
+  *lt = area < kBandElems ? log2_of(kBandElems / area) : 0;
+  *lk = C * n1 > kBandElems ? log2_of(C * n1 / kBandElems) : 0;
 }
 
-// Band blk of y (planar, vol floats apart), transformed along its columns
-// in place, the scale folded into the store; kVec: C >= 4, loads and
-// stores of 16-byte vectors (else of single floats).  tw1: the (2, n1)
-// table of _tw_pack_powers(n1, sign).
-template <bool kVec>
+// Band blk / K of y (planar, vol floats apart), transformed along its
+// columns in place, the scale folded into the store; this CTA's rows
+// kk R .. of it (kk: its rank in the cluster).  kVec: C >= 4, loads and
+// stores of 16-byte vectors (else of single floats).  With K > 1 the
+// first radix-K step runs across the cluster, as the plane-holding
+// kernel's: point (n, col) of every CTA's block by one thread of the
+// cluster, y_k = sum_j x_j W_K^(jk) W_n1^(nk) written to CTA k, which
+// then holds output rows kk + K m.  tw1: the (2, n1) table of
+// _tw_pack_powers(n1, sign).
+template <bool kVec, int K>
 __device__ __forceinline__ void band_block(float* y,
                                            const float* __restrict__ tw1,
                                            long long P, int n1, int n2,
@@ -655,19 +665,24 @@ __device__ __forceinline__ void band_block(float* y,
   const int lines = R << lt;            // rows held
   Block k{reinterpret_cast<float*>(smem), nullptr, lt, lr, lc, rs};
   k.im = k.re + lines * rs;
+  const unsigned kk = K > 1 ? cluster_rank() : 0u;
   const long long bands = n2 >> lc;     // bands a plane (1 when T > 1)
-  const long long q0 = (blk / bands) << lt;
-  const int c0 = static_cast<int>(blk % bands) << lc;
+  const long long band = blk / K;
+  const long long q0 = (band / bands) << lt;
+  const int c0 = static_cast<int>(band % bands) << lc;
   const long long planes = P - q0 < (1LL << lt) ? P - q0 : (1LL << lt);
   const int valid = static_cast<int>(planes) << (lr + lc);
   const long long area = static_cast<long long>(n1) * n2;
   const long long vol = P * area;
-  // element e of the band: plane e >> (lr + lc), row (e >> lc) % R,
-  // column c0 + e % C
-  const auto addr = [&](int e) {
+  // element e of the block: plane e >> (lr + lc), column c0 + e % C, held
+  // row m = (e >> lc) % R, which is row kk R + m of the plane in the load
+  // and output row kk + K m in the store
+  const auto addr = [&](int e, int row) {
     return (q0 + (e >> (lr + lc))) * area +
-           static_cast<long long>((e >> lc) & (R - 1)) * n2 + c0 +
-           (e & (C - 1));
+           static_cast<long long>(row) * n2 + c0 + (e & (C - 1));
+  };
+  const auto in_row = [&](int e) {
+    return static_cast<int>(kk) * R + ((e >> lc) & (R - 1));
   };
   if constexpr (kVec) {
     // 16-byte vectors of 4 adjacent columns, every load before the first
@@ -679,7 +694,7 @@ __device__ __forceinline__ void band_block(float* y,
       const int e = 4 * (static_cast<int>(threadIdx.x) + i * kBandThreads);
       ar[i] = ai[i] = make_float4(0.f, 0.f, 0.f, 0.f);
       if (e < valid) {
-        const long long a = addr(e);
+        const long long a = addr(e, in_row(e));
         ar[i] = __ldcg(reinterpret_cast<const float4*>(y + a));
         ai[i] = __ldcg(reinterpret_cast<const float4*>(y + vol + a));
       }
@@ -698,25 +713,62 @@ __device__ __forceinline__ void band_block(float* y,
     for (int e = threadIdx.x; e < (lines << lc); e += blockDim.x) {
       const int s = at<true>(k, e >> lc, e & (C - 1));
       const bool in = e < valid;
-      k.re[s] = in ? __ldcg(y + addr(e)) : 0.f;
-      k.im[s] = in ? __ldcg(y + vol + addr(e)) : 0.f;
+      k.re[s] = in ? __ldcg(y + addr(e, in_row(e))) : 0.f;
+      k.im[s] = in ? __ldcg(y + vol + addr(e, in_row(e))) : 0.f;
     }
   }
-  __syncthreads();
 
-  // each column of each plane a line of n1 points
-  dif_pass<false>(k, lc + lt, lr, 0, tw1, sign);
+  if constexpr (K > 1) {
+    // the radix-K step across the cluster, in place
+    cluster_sync();
+#pragma unroll 1
+    for (int p = static_cast<int>(kk) * kBandThreads + threadIdx.x;
+         p < kBandElems; p += K * kBandThreads) {
+      const int n = p >> lc;
+      const int s = n * rs + pad(p & (C - 1));
+      float vr[K], vi[K];
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        vr[j] = *peer_smem(k.re + s, static_cast<unsigned>(j));
+        vi[j] = *peer_smem(k.im + s, static_cast<unsigned>(j));
+      }
+      mff::Dft<K, float>::run(vr, vi, sign);
+#pragma unroll
+      for (int j = 1; j < K; ++j) {     // output j times w_n1^(n j)
+        const int e = n * j;
+        const float wr = __ldg(tw1 + e), wi = __ldg(tw1 + n1 + e);
+        const float yr = vr[j], yi = vi[j];
+        vr[j] = yr * wr - yi * wi;
+        vi[j] = yr * wi + yi * wr;
+      }
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        *peer_smem(k.re + s, static_cast<unsigned>(j)) = vr[j];
+        *peer_smem(k.im + s, static_cast<unsigned>(j)) = vi[j];
+      }
+    }
+    cluster_sync();
+  } else {
+    __syncthreads();
+  }
 
-  // output row n of plane t from where the stages left it, scaled
+  // each column of each plane (of the CTA's rows) a line of R points
+  constexpr int lk = K == 8 ? 3 : K == 4 ? 2 : K == 2 ? 1 : 0;
+  dif_pass<false>(k, lc + lt, lr, lk, tw1, sign);
+
+  // output row kk + K m of plane t from where the stages left it, scaled
   const auto held = [&](int e) {
     const int line = e >> lc;
     return (((line >> lr) << lr) + dif_pos(line & (R - 1), lr)) * rs +
            pad(e & (C - 1));
   };
+  const auto out_row = [&](int e) {
+    return static_cast<int>(kk) + K * ((e >> lc) & (R - 1));
+  };
   if constexpr (kVec) {
     for (int e = 4 * threadIdx.x; e < valid; e += 4 * kBandThreads) {
       const int s = held(e);
-      const long long a = addr(e);
+      const long long a = addr(e, out_row(e));
       *reinterpret_cast<float4*>(y + a) =
           make_float4(k.re[s] * scale, k.re[s + 1] * scale,
                       k.re[s + 2] * scale, k.re[s + 3] * scale);
@@ -727,18 +779,19 @@ __device__ __forceinline__ void band_block(float* y,
   } else {
     for (int e = threadIdx.x; e < valid; e += blockDim.x) {
       const int s = held(e);
-      y[addr(e)] = k.re[s] * scale;
-      y[vol + addr(e)] = k.im[s] * scale;
+      y[addr(e, out_row(e))] = k.re[s] * scale;
+      y[vol + addr(e, out_row(e))] = k.im[s] * scale;
     }
   }
 }
 
-template <bool kVec>
+template <bool kVec, int K>
 __global__ void __launch_bounds__(kBandThreads, kBandMinBlocks)
 fft_band_kernel(float* y, const float* __restrict__ tw1, long long P,
                 int n1, int n2, int lt, int lr, int lc, float sign,
                 float scale) {
-  band_block<kVec>(y, tw1, P, n1, n2, lt, lr, lc, sign, scale, blockIdx.x);
+  band_block<kVec, K>(y, tw1, P, n1, n2, lt, lr, lc, sign, scale,
+                      blockIdx.x);
 }
 
 template <int N>
@@ -849,20 +902,36 @@ extern "C" int mff_fft_plane_large_f32(const float* x, float* y,
     default: return cudaErrorInvalidValue;
   }
   if (e != 0) return e;
-  const int l1 = log2_of(n1), l2 = log2_of(n2);
-  int lt, lc;
-  band_shape(l1, l2, &lt, &lc);
+  int lt, lk, lc;
+  band_shape(n1, n2, &lt, &lk, &lc);
+  const int K = 1 << lk;
   const long long blocks = lt > 0 ? (P + (1LL << lt) - 1) >> lt
-                                  : P * (n2 >> lc);
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const size_t smem =
-      2 * sizeof(float) * (static_cast<size_t>(n1) << lt) *
-      row_stride(1 << lc);
-  auto band = lc >= 2 ? &fft_band_kernel<true> : &fft_band_kernel<false>;
+                                  : P * (n2 >> lc) * K;
+  if (blocks > 0x7fffffffLL || K > 4) return cudaErrorInvalidValue;
+  void (*band)(float*, const float*, long long, int, int, int, int, int,
+               float, float) =
+      lc < 2 ? &fft_band_kernel<false, 1>
+      : K == 1 ? &fft_band_kernel<true, 1>
+      : K == 2 ? &fft_band_kernel<true, 2> : &fft_band_kernel<true, 4>;
+  cudaLaunchConfig_t cfg{};
+  cudaLaunchAttribute attr[1];
+  cfg.gridDim = dim3{static_cast<unsigned>(blocks), 1u, 1u};
+  cfg.blockDim = dim3{static_cast<unsigned>(kBandThreads), 1u, 1u};
+  cfg.dynamicSmemBytes = 2 * sizeof(float) *
+                         (static_cast<size_t>(n1 / K) << lt) *
+                         row_stride(1 << lc);
+  cfg.stream = st;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(K);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = K > 1 ? 1 : 0;
   e = cudaFuncSetAttribute(band, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(smem));
+                           static_cast<int>(cfg.dynamicSmemBytes));
   if (e != cudaSuccess) return e;
-  band<<<static_cast<unsigned>(blocks), kBandThreads, smem, st>>>(
-      y, tw1, P, n1, n2, lt, l1, lc, sg, scale);
+  e = cudaLaunchKernelEx(&cfg, band, y, tw1, P, n1, n2, lt,
+                         log2_of(n1 / K), lc, sg, scale);
+  if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }

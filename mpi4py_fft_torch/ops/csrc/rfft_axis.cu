@@ -50,8 +50,9 @@
 // both planes are written by neighbouring threads, so a group's stores
 // are coalesced into the (hext)-row lines, with the truncation, the
 // Nyquist fold, the zero rows and the scale as in the tile kernel.  The
-// launch bound (128 threads, one block) leaves a thread up to 255
-// registers, so no stage spills.  An input that is not aligned to a
+// launch bound (128 threads; one block an SM in float64, four in float32,
+// kLineMinBlocks) leaves a thread 255 or 128 registers, and no stage
+// spills.  An input that is not aligned to a
 // packed point, N = 2 and inner axes take the tile kernel.
 #include <cstdint>
 
@@ -273,6 +274,13 @@ irfft_axis_kernel(const T* __restrict__ x, T* __restrict__ y,
 
 constexpr int kLineThreads = 128;
 
+// Blocks an SM the line kernel is bound to: one for float64 (a thread may
+// take 255 registers, 168-241 with no spill), four for float32 (128
+// registers, no spill; one block an SM ran 22% slower on an H100 at
+// N = 768, at 199 registers).
+template <class T>
+constexpr int kLineMinBlocks = sizeof(T) == 4 ? 4 : 1;
+
 // Points a thread of a W-point line holds: 16 (W = 2^a) or 24 (3*2^a),
 // or the whole line when it is shorter.
 __host__ __device__ constexpr int line_points(int W) {
@@ -386,7 +394,7 @@ template <> struct Point<double> { using type = double2; };
 // transform, a group of W/P threads a line (see the note at the top).
 // tw: the table of _tw_pack_packed(2W, -1), its unpack rows at t2.
 template <class T, int W>
-__global__ void __launch_bounds__(kLineThreads, 1)
+__global__ void __launch_bounds__(kLineThreads, kLineMinBlocks<T>)
 rfft_lines_kernel(const T* __restrict__ x, T* __restrict__ y,
                   const T* __restrict__ tw, long long tw_len, int t2,
                   long long nlines, int hext, int nrows, int fold,

@@ -261,20 +261,20 @@ def test_pair_max_active_clusters(kernel_path, N):
 LINE_NS = [4, 16, 96, 512, 768, 1024]
 
 
-@pytest.mark.parametrize('N', LINE_NS)
-def test_rfft_lines_f64_vs_plain(kernel_path, emu_kernels, N):
-    """rfft_axis_p on float64 whole lines: hext, even (Nyquist fold) and
-    odd trunc, the 3/2 rule's trunc = N//3 + 1, scales; each a line-kernel
-    launch.  An input 8 bytes off a 16-byte boundary takes the tile
-    kernel, held the same way."""
-    rng = np.random.default_rng(16)
+def _hold_lines(plain_ok, emu_kernels, N, dtype, tol, seed):
+    """rfft_axis_p on whole lines: hext, even (Nyquist fold) and odd
+    trunc, the 3/2 rule's trunc = N//3 + 1, scales, on an input aligned to
+    a packed point (a line-kernel launch each: __syncwarp calls) and on
+    one an element off it (the tile kernel, held the same way)."""
+    rng = np.random.default_rng(seed)
     nh = N // 2 + 1
     ev = nh - 1 if (nh - 1) % 2 == 0 else nh - 2
     od = nh - 1 if (nh - 1) % 2 == 1 else nh - 2
-    flat = torch.from_numpy(rng.standard_normal(1 + 6 * N))
+    flat = torch.from_numpy(rng.standard_normal(1 + 6 * N).astype(dtype))
     x = flat[:6 * N].view(2, 3, N)
     xm = flat[1:].view(2, 3, N)
-    assert x.data_ptr() % 16 == 0 and xm.data_ptr() % 16 == 8
+    point = 2 * flat.element_size()
+    assert x.data_ptr() % point == 0 and xm.data_ptr() % point != 0
     cases = ((None, None, None), (nh + 3, None, 0.5), (None, ev, None),
              (nh + 2, od, 2.0), (None, N // 3 + 1, 1.0 / N))
     for t, lines in ((x, True), (xm, False)):
@@ -282,42 +282,30 @@ def test_rfft_lines_f64_vs_plain(kernel_path, emu_kernels, N):
             w0 = _emu_count(emu_kernels, 'rfft_axis', 'emu_syncwarps')
             got = bf.rfft_axis_p(t, 2, hext=hext, trunc=trunc, scale=sc)
             ran = _emu_count(emu_kernels, 'rfft_axis', 'emu_syncwarps') > w0
-            ref = _plain(kernel_path, bf.rfft_axis_p, t, 2, hext=hext,
+            ref = _plain(plain_ok, bf.rfft_axis_p, t, 2, hext=hext,
                          trunc=trunc, scale=sc)
             assert got.shape == ref.shape and got.dtype == t.dtype
-            assert _rel(got, ref) <= TOL64, (hext, trunc, sc)
+            assert _rel(got, ref) <= tol, (hext, trunc, sc)
             assert ran == lines, (hext, trunc, sc)
-    assert _launched() == {'rfft_axis_p_f64': 2 * len(cases)}
+    return 2 * len(cases)
+
+
+@pytest.mark.parametrize('N', LINE_NS)
+def test_rfft_lines_f64_vs_plain(kernel_path, emu_kernels, N):
+    """rfft_axis_p on float64 whole lines, each case a line-kernel
+    launch; an input 8 bytes off a 16-byte boundary takes the tile
+    kernel."""
+    n = _hold_lines(kernel_path, emu_kernels, N, np.float64, TOL64, 16)
+    assert _launched() == {'rfft_axis_p_f64': n}
 
 
 @pytest.mark.parametrize('N', LINE_NS)
 def test_rfft_lines_f32_vs_plain(kernel_path, emu_kernels, N):
-    """rfft_axis_p on float32 whole lines, the cases of the float64 test:
-    each a line-kernel launch (one float2 a packed point); an input 4
-    bytes off an 8-byte boundary takes the tile kernel, held the same
-    way."""
-    rng = np.random.default_rng(20)
-    nh = N // 2 + 1
-    ev = nh - 1 if (nh - 1) % 2 == 0 else nh - 2
-    od = nh - 1 if (nh - 1) % 2 == 1 else nh - 2
-    flat = torch.from_numpy(rng.standard_normal(1 + 6 * N)
-                            .astype(np.float32))
-    x = flat[:6 * N].view(2, 3, N)
-    xm = flat[1:].view(2, 3, N)
-    assert x.data_ptr() % 16 == 0 and xm.data_ptr() % 16 == 4
-    cases = ((None, None, None), (nh + 3, None, 0.5), (None, ev, None),
-             (nh + 2, od, 2.0), (None, N // 3 + 1, 1.0 / N))
-    for t, lines in ((x, True), (xm, False)):
-        for hext, trunc, sc in cases:
-            w0 = _emu_count(emu_kernels, 'rfft_axis', 'emu_syncwarps')
-            got = bf.rfft_axis_p(t, 2, hext=hext, trunc=trunc, scale=sc)
-            ran = _emu_count(emu_kernels, 'rfft_axis', 'emu_syncwarps') > w0
-            ref = _plain(kernel_path, bf.rfft_axis_p, t, 2, hext=hext,
-                         trunc=trunc, scale=sc)
-            assert got.shape == ref.shape and got.dtype == t.dtype
-            assert _rel(got, ref) <= TOL, (hext, trunc, sc)
-            assert ran == lines, (hext, trunc, sc)
-    assert _launched() == {'rfft_axis_p': 2 * len(cases)}
+    """rfft_axis_p on float32 whole lines (one float2 a packed point),
+    the cases of the float64 test; an input 4 bytes off an 8-byte
+    boundary takes the tile kernel."""
+    n = _hold_lines(kernel_path, emu_kernels, N, np.float32, TOL, 20)
+    assert _launched() == {'rfft_axis_p': n}
 
 
 # the fused dealiasing kernel E (shape of the N-row side, axis, Nt): lead,
@@ -484,10 +472,11 @@ def plane_entries(emu_kernels, monkeypatch):
 # 1024-long axis, one plane and several; I's thin and oblong planes:
 # rows of 8 points a thread each under a 1024-row band, 1024-point rows
 # (a warp a row) over 8-row bands, 64-point rows of a two-thread group
-# under 512-row bands of 32 columns
+# under 512-row bands of 16 columns, and 1024-row bands of 16 columns on
+# clusters of 2 CTAs
 PLANE_SHAPES = [(3, 32, 64), (2, 256, 256), (4, 8, 2), (1, 2, 1024),
                 (2, 1024, 4), (2, 3, 16, 16), (1, 1024, 8), (1, 8, 1024),
-                (1, 512, 64)]
+                (1, 512, 64), (1, 1024, 32)]
 
 
 @pytest.mark.parametrize('shape', PLANE_SHAPES)
@@ -498,7 +487,8 @@ def test_plane_kernel_vs_plain(kernel_path, emu_kernels, plane_entries,
     planes of H's gate on the plane-holding kernel from either entry (a
     cluster launch each when the plane is larger than 8192 points), I's
     larger planes on the row line and column band kernels (one C entry,
-    one counted launch a call)."""
+    one counted launch a call; the band a cluster launch when the plane
+    has 1024 rows of 16 points or more)."""
     rng = np.random.default_rng(15)
     p = torch.from_numpy(rng.standard_normal((2,) + shape)
                          .astype(np.float32))
@@ -520,7 +510,9 @@ def test_plane_kernel_vs_plain(kernel_path, emu_kernels, plane_entries,
                              {'hold': 0, 'large': 3})
     clusters = _emu_count(emu_kernels, 'fft_plane',
                           'emu_cluster_launches') - c0
-    assert clusters == (6 if h and shape[-1] * shape[-2] > 8192 else 0)
+    band_clusters = not h and shape[-2] == 1024 and shape[-1] >= 16
+    assert clusters == (6 if h and shape[-1] * shape[-2] > 8192 else
+                        3 if band_clusters else 0)
 
 
 # H's plane-holding kernel (shape, CTAs a plane): one-CTA planes with

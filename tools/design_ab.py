@@ -11,17 +11,12 @@ A/B on one CUDA card against the tree they are made from.
 ``build/ab/VARIANT/`` and patches its sources there (each patch asserts
 that its text is found); with no VARIANT it makes all of them:
 
-* ``queue``: I as design (a): the row line and column band bodies behind
-  one persistent grid of one CTA an SM that takes work items from a
-  counter (a plane's row items, then its column items, each column item
-  waiting on its plane's row count and reading it through L2), instead of
-  two launches; only the (1024, 1024) planes that ``--times-any`` runs;
 * ``rows_only``, ``band_only``: I's C entry launching only the row line
   kernel, or only the column band kernel (in place on the output buffer
   as it is), to split I's time;
-* ``b_lb3``, ``b_lb4``: B's float32 line kernel bound to 3 or 4 blocks of
-  128 threads an SM (at most 168 or 128 registers a thread), instead of
-  one (255).
+* ``band_k1``, ``band_k4``: bands of 8 columns on one CTA (K = 1) or of
+  32 columns on a cluster of 4 CTAs at 1024 rows, instead of 16 columns
+  on 2.
 
 ``summary`` prints, for each ``chip_smoke.py --times-any`` log given, one
 JSON line with the times of H, I, J and B there.  ``time`` times, with the
@@ -39,117 +34,22 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 CSRC = Path('mpi4py_fft_torch') / 'ops' / 'csrc'
 
-_QUEUE_KERNEL = r'''
-template <int N>
-__global__ void __launch_bounds__(kBandThreads, 1)
-fft_queue_kernel(const float* __restrict__ x, float* y,
-                 const float* __restrict__ tw2,
-                 const float* __restrict__ tw1, long long P, int n1, int n2,
-                 int lr, int lc, float sign, float scale, int* counters) {
-  __shared__ int slot;
-  constexpr int G = N / row_points(N);
-  const int ritems = n1 / (kBandThreads / G);
-  const int bands = n2 >> lc;
-  const int per = ritems + bands;
-  const long long total = P * per;
-  const long long vol = P * static_cast<long long>(n1) * n2;
-  for (;;) {
-    if (threadIdx.x == 0) slot = atomicAdd(counters, 1);
-    __syncthreads();
-    const int item = slot;
-    __syncthreads();
-    if (item >= total) break;
-    const long long q = item / per;
-    const int j = item - static_cast<int>(q * per);
-    if (j < ritems) {
-      row_block<N>(x, y, tw2, P * n1, vol, sign, q * ritems + j);
-      __threadfence();
-      __syncthreads();
-      if (threadIdx.x == 0) atomicAdd(counters + 1 + q, 1);
-    } else {
-      if (threadIdx.x == 0) {
-        long long spins = 0;
-        while (atomicAdd(counters + 1 + q, 0) < ritems) {
-          __nanosleep(128);
-          if (++spins > (1LL << 26)) __trap();
-        }
-        __threadfence();
-      }
-      __syncthreads();
-      band_block(y, tw1, P, n1, n2, 0, lr, lc, sign, scale,
-                 q * bands + (j - ritems));
-      __syncthreads();
-    }
-  }
-}
-
-}  // namespace
-'''
-
-_QUEUE_ENTRY = r'''
-extern "C" int mff_fft_plane_large_f32(const float* x, float* y,
-                                       const float* tw2, const float* tw1,
-                                       long long P, int n1, int n2,
-                                       int sign, float scale, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int l1 = log2_of(n1), l2 = log2_of(n2);
-  int lt, lc;
-  band_shape(l1, l2, &lt, &lc);
-  if (n2 != 1024 || n1 != 1024 || lt != 0) return cudaErrorInvalidValue;
-  const size_t smem = std::max(
-      2 * sizeof(float) * n1 * row_stride(1 << lc),
-      2 * sizeof(float) * row_buf(1024) * (kBandThreads / 32));
-  auto kern = &fft_queue_kernel<1024>;
-  int e = cudaFuncSetAttribute(kern,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-  if (e != cudaSuccess) return e;
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  int* cnt = nullptr;
-  e = cudaMallocAsync(reinterpret_cast<void**>(&cnt), (P + 1) * sizeof(int),
-                      st);
-  if (e != cudaSuccess) return e;
-  cudaMemsetAsync(cnt, 0, (P + 1) * sizeof(int), st);
-  const long long per = n1 / (kBandThreads / 32) + (n2 >> lc);
-  const long long grid = std::min<long long>(P * per, sms);
-  kern<<<static_cast<unsigned>(grid), kBandThreads, smem, st>>>(
-      x, y, tw2, tw1, P, n1, n2, l1, lc, static_cast<float>(sign), scale,
-      cnt);
-  e = cudaGetLastError();
-  cudaFreeAsync(cnt, st);
-  return e;
-}
-'''
-
 VARIANTS = {
-    'queue': [
-        ('fft_plane.cu', '}  // namespace\n', _QUEUE_KERNEL),
-        ('fft_plane.cu', 'extern "C" int mff_fft_plane_large_f32(',
-         'int two_launches_unused('),
-        ('fft_plane.cu', '  return cudaGetLastError();\n}\n',
-         None),                      # appended below: the queue entry
-    ],
     'rows_only': [
-        ('fft_plane.cu', '  if (e != 0) return e;\n  const int l1',
-         '  if (e != 0 || n1 > 0) return e;\n  const int l1'),
+        ('fft_plane.cu', '  if (e != 0) return e;\n  int lt, lk, lc;',
+         '  if (e != 0 || n1 > 0) return e;\n  int lt, lk, lc;'),
     ],
     'band_only': [
         ('fft_plane.cu', 'case n: e = launch_rows<n>(x, y, tw2, P * n1, '
          'vol, sg, st); break', 'case n: e = 0; break'),
     ],
-    'b_lb3': [
-        ('rfft_axis.cu', '__global__ void __launch_bounds__(kLineThreads, '
-         '1)\nrfft_lines_kernel(',
-         '__global__ void __launch_bounds__(kLineThreads, sizeof(T) == 4 ? '
-         '3 : 1)\nrfft_lines_kernel('),
+    'band_k1': [
+        ('fft_plane.cu', 'constexpr int kBandCols = 16;',
+         'constexpr int kBandCols = 8;'),
     ],
-    'b_lb4': [
-        ('rfft_axis.cu', '__global__ void __launch_bounds__(kLineThreads, '
-         '1)\nrfft_lines_kernel(',
-         '__global__ void __launch_bounds__(kLineThreads, sizeof(T) == 4 ? '
-         '4 : 1)\nrfft_lines_kernel('),
+    'band_k4': [
+        ('fft_plane.cu', 'constexpr int kBandCols = 16;',
+         'constexpr int kBandCols = 32;'),
     ],
 }
 
@@ -165,12 +65,8 @@ def make(names):
         for f, old, new in VARIANTS[name]:
             path = dst / CSRC / f
             s = path.read_text()
-            if new is None:          # append the queue's C entry
-                assert s.endswith(old), (name, f)
-                s += _QUEUE_ENTRY
-            else:
-                assert s.count(old) == 1, (name, f, old)
-                s = s.replace(old, new)
+            assert s.count(old) == 1, (name, f, old)
+            s = s.replace(old, new)
             path.write_text(s)
         print(dst)
 
@@ -210,7 +106,7 @@ def time_tree(tree):
     _build.load()
     out = {'tree': str(tree), 'ptxas': [
         ln.strip() for lib in ('fft_plane', 'rfft_axis')
-        for ln in _build.LOG[lib].splitlines()
+        for ln in _build.LOG.get(lib, '').splitlines()
         if 'registers' in ln or 'spill' in ln or 'Compiling' in ln]}
     x = cs._rand((2,) + cs.PLANE_I, dev, 1)
     y = bf.fft_plane_large_p(x, True)
