@@ -14,8 +14,8 @@ that its text is found); with no VARIANT it makes all of them:
 * ``rows_only``, ``band_only``: I's C entry launching only the row line
   kernel, or only the column band kernel (in place on the output buffer
   as it is), to split I's time;
-* ``band_copy``: the column band kernel alone with no stages and no step
-  across the cluster (its loads and stores only);
+* ``band_copy``: the column band kernel alone with no stages and no
+  exchange across the cluster (its loads, stores and cluster barriers);
 * ``band_k1``, ``band_k4``: bands of 8 columns on one CTA (K = 1) or of
   32 columns on a cluster of 4 CTAs at 1024 rows, instead of 16 columns
   on 2.
@@ -48,8 +48,8 @@ VARIANTS = {
     'band_copy': [
         ('fft_plane.cu', 'case n: e = launch_rows<n>(x, y, tw2, P * n1, '
          'vol, sg, st); break', 'case n: e = 0; break'),
-        ('fft_plane.cu', '  if constexpr (K > 1) {\n    // the radix-K step',
-         '  if constexpr (K < 0) {\n    // the radix-K step'),
+        ('fft_plane.cu', 'for (int p = static_cast<int>(kk) * kBandThreads '
+         '+ threadIdx.x;', 'for (int p = kBandElems;'),
         ('fft_plane.cu', '  dif_pass<false>(k, lc + lt, lr, lk, tw1, sign);\n',
          ''),
     ],
