@@ -67,23 +67,27 @@
 //   row, P = 32 points a thread (the whole row below 32 points), in
 //   registers.  Each thread loads 16-byte vectors of 4 adjacent points of
 //   each component, every load before any arithmetic; the row runs as
-//   Stockham stages (radix 8, then 16, 8, 4 or 2, then 8 for rows of 64
-//   points and more; one thread's radix-N or 8 x 4 below), each stage's
+//   Stockham stages (radix 8, then 16 while it divides, then the rest:
+//   8 x 16 x 8 at 1024 points), each stage's
 //   butterflies in registers and the exchange through the group's own
 //   buffer in shared memory behind __syncwarp, with no block-wide
 //   barrier; the store reads the row from the buffer in its natural order
 //   as 16-byte vectors.  128 threads a block, four blocks an SM.
 // * The column band kernel (in place on y): a CTA of 512 threads, two an
-//   SM, holds a band of 8192 points of each component, C adjacent columns
-//   of a plane by its N1 rows (C = 8 at N1 = 1024, 32-byte row segments;
-//   bands of 16 columns, 64-byte segments at one CTA an SM, ran 8%
-//   slower on an H100), or several whole planes when a plane is smaller,
-//   loaded as 16-byte vectors of 4 adjacent columns (single floats for
-//   two-column planes), every load before the first store to shared
-//   memory.  The columns run as the plane-holding
-//   kernel's in-place radix-8 decimation-in-frequency stages (below), one
-//   butterfly a thread at a time, and the store writes whole row segments
-//   from the digit-reversed places with the scale folded in.
+//   SM, holds 8192 points of each component, loaded as 16-byte vectors of
+//   4 adjacent columns (single floats for two-column planes), every load
+//   before the first store to shared memory: C adjacent columns of a plane
+//   by its N1 rows (C = 16 at N1 = 512), or several whole planes when a
+//   plane is smaller.  At N1 = 1024 a band of 16 columns (64-byte row
+//   segments) is held by a cluster of two CTAs, 512 rows each, with one
+//   radix-2 step across the cluster as the plane-holding kernel's
+//   (below); 8 columns on one CTA ran 3.5% slower on an H100, 32 on a
+//   cluster of four 6% slower, and a queue of row and band items with an
+//   L2 hand-off between them 20% slower than two launches.  The columns
+//   run as the plane-holding kernel's in-place radix-8
+//   decimation-in-frequency stages, one butterfly a thread at a time, and
+//   the store writes whole row segments from the digit-reversed places
+//   with the scale folded in.
 // Neither kernel holds more than one stage's butterflies a thread, so
 // neither spills.
 #include <algorithm>#include <algorithm>
@@ -435,18 +439,21 @@ __host__ __device__ constexpr int row_points(int N) {
 __host__ __device__ constexpr int row_vec(int N) { return N >= 4 ? 4 : N; }
 
 // Radix of stage s of an N-point row (0 past the last).  A row of 64
-// points or more (a group of 2 to 32 threads) starts and ends on radix 8,
-// so that a thread's first-stage butterflies come in fours, one float4 of
-// each component a four (the middle stage takes the rest: 1, 2, 4, 8,
-// 16); a row of at most 32 points is one thread's.
+// points or more (a group of 2 to 32 threads) starts on radix 8, so that
+// a thread's first-stage butterflies, 32 / 8 = 4, are those of the four
+// adjacent points of each of its float4 loads; then radix 16 while it
+// divides, then the remainder.  A row of at most 32 points is one
+// thread's, which takes any order: radix N, or 8 then 4.
 __host__ __device__ constexpr int row_radix(int N, int s) {
-  if (N >= 64) {
-    const int mid = N / 64;
-    if (mid == 1) return s < 2 ? 8 : 0;
-    return s == 0 || s == 2 ? 8 : s == 1 ? mid : 0;
-  }
   if (N <= 16) return s == 0 ? N : 0;
-  return s == 0 ? 8 : s == 1 ? 4 : 0;     // 32 = 8 * 4
+  int rest = N / 8;
+  if (s == 0) return 8;
+  for (int i = 1; rest > 1; ++i) {
+    const int r = rest >= 16 ? 16 : rest;
+    if (i == s) return r;
+    rest /= r;
+  }
+  return 0;
 }
 
 __host__ __device__ constexpr int row_span(int N, int s) {
@@ -907,12 +914,11 @@ extern "C" int mff_fft_plane_large_f32(const float* x, float* y,
   const int K = 1 << lk;
   const long long blocks = lt > 0 ? (P + (1LL << lt) - 1) >> lt
                                   : P * (n2 >> lc) * K;
-  if (blocks > 0x7fffffffLL || K > 4) return cudaErrorInvalidValue;
+  if (blocks > 0x7fffffffLL || K > 2) return cudaErrorInvalidValue;
   void (*band)(float*, const float*, long long, int, int, int, int, int,
                float, float) =
       lc < 2 ? &fft_band_kernel<false, 1>
-      : K == 1 ? &fft_band_kernel<true, 1>
-      : K == 2 ? &fft_band_kernel<true, 2> : &fft_band_kernel<true, 4>;
+      : K == 1 ? &fft_band_kernel<true, 1> : &fft_band_kernel<true, 2>;
   cudaLaunchConfig_t cfg{};
   cudaLaunchAttribute attr[1];
   cfg.gridDim = dim3{static_cast<unsigned>(blocks), 1u, 1u};

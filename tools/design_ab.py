@@ -16,9 +16,6 @@ that its text is found); with no VARIANT it makes all of them:
   as it is), to split I's time;
 * ``band_copy``: the column band kernel alone with no stages and no
   exchange across the cluster (its loads, stores and cluster barriers);
-* ``band_k1``, ``band_k4``: bands of 8 columns on one CTA (K = 1) or of
-  32 columns on a cluster of 4 CTAs at 1024 rows, instead of 16 columns
-  on 2.
 
 ``summary`` prints, for each ``chip_smoke.py --times-any`` log given, one
 JSON line with the times of H, I, J and B there.  ``time`` times, with the
@@ -52,14 +49,6 @@ VARIANTS = {
          '+ threadIdx.x;', 'for (int p = kBandElems;'),
         ('fft_plane.cu', '  dif_pass<false>(k, lc + lt, lr, lk, tw1, sign);\n',
          ''),
-    ],
-    'band_k1': [
-        ('fft_plane.cu', 'constexpr int kBandCols = 16;',
-         'constexpr int kBandCols = 8;'),
-    ],
-    'band_k4': [
-        ('fft_plane.cu', 'constexpr int kBandCols = 16;',
-         'constexpr int kBandCols = 32;'),
     ],
 }
 
