@@ -802,11 +802,10 @@ def rfft_axis_p(x, axis, hext=None, scale=None, trunc=None):
 
     Which kernel runs is decided before the launch, by layout: a CUDA
     tensor along its last axis (whole lines) at N >= 4 whose data is
-    aligned to the line kernel's vector (16 bytes; 8 for the float32
-    lengths below N = 64 whose points load one float2 each) takes the
-    line kernel (a warp-resident group of threads a line); every other
-    case, N = 2 (not packed), an inner axis, or misaligned data, takes
-    the tile kernel.  Both count as ``rfft_axis_p`` /
+    aligned to a packed point (16 bytes in float64, 8 in float32) takes
+    the line kernel (a warp-resident group of threads a line); every
+    other case, N = 2 (not packed), an inner axis, or misaligned data,
+    takes the tile kernel.  Both count as ``rfft_axis_p`` /
     ``rfft_axis_p_f64``."""
     what = 'rfft_axis_p'
     shape = tuple(x.shape)
@@ -1139,9 +1138,9 @@ def fft_plane_large_p(p, forward=True, scale=None):
     On CUDA the kernel is chosen by shape: a plane whose two axes are
     both at most 256 points takes H's plane-holding kernel, any other the
     row line kernel (a group of threads a row, held in registers), then
-    the column band kernel (adjacent columns of whole planes held in
-    shared memory, in place), both launched by one C entry and counted
-    as one launch."""
+    the column band kernel (adjacent columns over all of a plane's rows
+    held in shared memory, by a cluster of two CTAs at 1024 rows, in
+    place), both launched by one C entry and counted as one launch."""
     return _plane('fft_plane_large_p', p, forward, scale,
                   supported_plane_large, fft_plane_large_plain)
 
