@@ -92,6 +92,15 @@ and the script exits non-zero:
              B (the line kernel) is timed at the 768^3 last axis and at
              m3's truncating pass (trunc 257, scale 1/768), each held slab
              by slab on a NaN-filled output.
+             D (``fft_axis2_p``) is timed by route: the band kernel at the
+             quartered lead pass and at ``fft3_8``'s y pass (axis 1 of two
+             eighths), the line kernel at the quartered last pass and at
+             N = 768 (the halves of a 768^3 last axis), each held slab by
+             slab on both signs into NaN-filled halves and timed beside
+             its plain version, cuFFT, its bound and its reachable bound
+             (bytes over the copy floor of its pattern); at both quarter
+             pairs also against A on the assembled line and in place
+             (``alias=True``) bit for bit against out of place.
              Every main-path shape of a kernel is also held against its
              plain version at <= 5e-6, and so are the pair kernels at the
              N = 2048 passes of every axis position; G (the cluster
@@ -101,7 +110,15 @@ and the script exits non-zero:
              against out of place into NaN-filled halves, bit for bit;
 17. times64  the fp64 builds at the 512^3 DNS's shapes (held at 2e-13 on
              both signs), timed beside their plain versions, complex128
-             ``torch.fft`` and their bounds; B64 (the line kernel) also at
+             ``torch.fft`` and their bounds; A64 (``fft_axis_p_f64``) by
+             route, each pass held slab by slab on both signs into a
+             NaN-filled output and in place (``out=``) bit for bit
+             against out of place, with its reachable bound: the DNS's
+             mid (single elements, post 257) and lead (vectors) passes on
+             the band kernel, the three passes of a 768^3 volume (the
+             last on the line kernel, the others on the tile) and of the
+             1024^3 volume (the last on the line kernel, a 64-thread block
+             a line, the others on the band kernel); B64 (the line kernel) also at
              the truncating pass of the dealiased f64 plan (a 768^3 input,
              trunc 257, scale 1/768: held at 2e-13, timed beside its plain
              version, its bound and ``torch.fft.rfft``); ``fft_axis_p_f64``
@@ -165,11 +182,12 @@ and the script exits non-zero:
              kernel's time beside its plain version, its bound and its
              PyTorch yardstick for the ``kernels`` line.
 
-``python3 chip_smoke.py --times-any TREE`` runs only phases 1, 22 and 23
-and B's two rows of phase 16, on the port of the checkout at TREE (a tree
-from the plane-holding H on), and prints no last line: run it for two
-trees in turns on one card (parent, change, change, parent) to compare H,
-I, J and B between them.
+``python3 chip_smoke.py --times-any TREE`` runs only phases 1, 22 and 23,
+B's two rows of phase 16, and D's and A64's rows of phases 16 and 17, on
+the port of the checkout at TREE (a tree from the plane-holding H on),
+and prints no last line: run it for two trees in turns on one card
+(parent, change, change, parent) to compare H, I, J, B, D and A64
+between them.
 
 Phases 3 to 15 and 19 to 22 are the main path: the launch counters are
 set to 0 just before phase 3 and read after phase 22 (phases 16 to 18
@@ -200,6 +218,13 @@ SEED = 0
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
 PEAK_F64_S = 34e12
+# the copy floors (GB/s read + write at 1024^3, out of place) that the
+# probes phase measured on an H100 (700 W) for each access pattern: the
+# plane box (a last-axis pass), the mid and lead boxes, and the x pair on
+# four quarters (a pair pass); a pass's reachable bound is its bytes over
+# the floor of its pattern
+COPY_FLOOR_S = {'last': 2719e9, 'mid': 2725e9, 'lead': 2688e9,
+                'pair': 2822e9}
 KERNEL_TOL = 5e-6          # one kernel against its plain version
 PIPE_TOL = 5e-5            # a 3-axis composition
 # float64: the JAX suite's tolerance for its f64 kernel F
@@ -332,6 +357,13 @@ def _bound_ms(nbytes, flops, f64=False):
     return 1e3 * max(tb, tf), 'bytes' if tb >= tf else 'operations'
 
 
+def _reach_ms(numel, pattern, f64=False):
+    """The reachable bound of one pass over a planar tensor of ``numel``
+    elements: read and write it once at the copy floor of its access
+    pattern."""
+    return 1e3 * 2 * numel * (8 if f64 else 4) / COPY_FLOOR_S[pattern]
+
+
 class Holds:
     """Largest errors of each kernel against its plain version."""
 
@@ -390,7 +422,7 @@ def phase_holds(holds, dev):
         n += _holds_tp(holds, bf, lambda *s: rnd(*s, dtype=dtype), sfx)
     # the pair kernels: halves sliced out of one tensor (views, strided
     # off axis 0), the whole tensor, and contiguous halves aliased
-    for N in (4, 6, 96, 1024, 1536, 2048):
+    for N in (4, 6, 96, 512, 768, 1024, 1536, 2048):
         for shape, ax in (((N, 24, 40), 0), ((6, N, 40), 1), ((50, N), 1)):
             p = rnd(2, *shape)
             d, h = 1 + ax, N // 2
@@ -461,8 +493,9 @@ def _holds_abc(holds, bf, rnd, sfx):
     a, b, c = ('fft_axis_p' + sfx, 'rfft_axis_p' + sfx,
                'irfft_axis_p' + sfx)
     n = 0
-    for N in (2, 8, 96, 256, 768, 1024):
-        for shape, ax in (((N, 24, 40), 0), ((6, N, 40), 1), ((50, N), 1)):
+    for N in (2, 8, 96, 256, 512, 768, 1024):
+        for shape, ax in (((N, 24, 40), 0), ((6, N, 40), 1), ((50, N), 1),
+                          ((3, N, 33), 1)):
             p = rnd(2, *shape)
             for fwd, sc in ((True, None), (False, None), (True, 1.0 / N)):
                 holds.hold(a, bf.fft_axis_p(p, ax, fwd, scale=sc),
@@ -935,29 +968,28 @@ def phase_times64(dev, bf, holds):
     nh = n // 2 + 1
     g = torch.Generator(device=dev).manual_seed(SEED + 21)
     out = {}
-    # A: the two c2c passes of one DNS transform, on its spectrum
+    # A: the two c2c passes of one DNS transform, on its spectrum (the
+    # band kernel: single elements at the odd post of the mid pass)
     p = torch.rand((2, n, n, nh), generator=g, device=dev,
                    dtype=torch.float64) - 0.5
-    pc = torch.complex(p[0], p[1])
-    per_axis = []
-    for ax in (1, 0):
-        for fwd in (True, False):
-            holds.hold('fft_axis_p_f64', bf.fft_axis_p(p, ax, fwd),
-                       bf.fft_axis_plain(p, ax, fwd),
-                       f"fft_axis_p_f64 {tuple(p.shape)} axis {ax} "
-                       f"fwd={fwd}")
-        b, by = _pass_bound(p.numel(), n, f64=True)
-        per_axis.append({
-            'axis': ax, 'ms': _median_ms(lambda: bf.fft_axis_p(p, ax)),
-            'plain_ms': _median_ms(lambda: bf.fft_axis_plain(p, ax),
-                                   reps=3, warm=1),
-            'library_ms': _median_ms(lambda: torch.fft.fft(pc, dim=ax)),
-            'bound_ms': b})
-    del p, pc
-    row = {k: sum(a[k] for a in per_axis)
-           for k in ('ms', 'plain_ms', 'library_ms', 'bound_ms')}
+    per_axis = [_axis64_pass(bf, holds, p, 1, 'band, single elements',
+                             'mid'),
+                _axis64_pass(bf, holds, p, 0, 'band, vectors', 'lead')]
+    del p
+    keys = ('ms', 'plain_ms', 'library_ms', 'bound_ms', 'reach_ms')
+    row = {k: sum(a[k] for a in per_axis) for k in keys}
     row.update(shape=f'2 passes, axes 1 and 0 of (2, {n}, {n}, {nh}) f64',
-               bound_by=by, per_axis=per_axis)
+               bound_by=per_axis[0]['bound_by'], per_axis=per_axis)
+    # the passes of a 768^3 volume: the last axis on the line kernel, the
+    # others on the tile kernel
+    m = 3 * DEALIAS64_N // 2
+    p = torch.rand((2, m, m, m), generator=g, device=dev,
+                   dtype=torch.float64) - 0.5
+    row['w768'] = [_axis64_pass(bf, holds, p, 2, 'lines', 'last'),
+                   _axis64_pass(bf, holds, p, 1, 'tile', 'mid'),
+                   _axis64_pass(bf, holds, p, 0, 'tile', 'lead')]
+    del p
+    torch.cuda.empty_cache()
     out['fft_axis_p_f64'] = row
     # B and C: the last axis of the DNS's real volume
     r = torch.rand((n, n, n), generator=g, device=dev,
@@ -992,7 +1024,7 @@ def phase_times64(dev, bf, holds):
         'bound_ms': b, 'bound_by': by}
     del h, hc
     torch.cuda.empty_cache()
-    slabs = _holds_volume64(dev, bf, holds)
+    slabs, row['w1024'] = _holds_volume64(dev, bf, holds)
     # end to end: the normalized 'D' forward and the backward, timed apart
     # (x, y and the two volumes in flight fill 3 of the card's 80 GB)
     from mpi4py_fft_torch import PlanarPFFT
@@ -1074,12 +1106,57 @@ def _times_b(dev, bf, holds):
     return row, k
 
 
+def _axis64_pass(bf, holds, p, ax, route, pattern, in_place=True):
+    """A64 (fft_axis_p on float64) on p along ax: held on both signs slab
+    by slab against its plain version into a NaN-filled output, in place
+    (out= a copy of p, ``in_place``) bit for bit against out of place,
+    then timed beside its plain version, complex128 torch.fft.fft, its
+    bound and its reachable bound."""
+    sd = 2 if ax == 0 else 1                   # slabs off the pass axis
+    N = p.shape[1 + ax]
+    tag = f"fft_axis_p_f64 {tuple(p.shape)} axis {ax} ({route})"
+    for fwd in (True, False):
+        k = bf.fft_axis_p(p, ax, fwd, out=_nan(p))
+        _slab_hold(holds, 'fft_axis_p_f64', k, lambda i, w: (
+            bf.fft_axis_plain(p.narrow(sd, i, w), ax, fwd)), sd,
+            f"{tag} fwd={fwd}")
+        del k
+    if in_place:
+        _hold_axis64_in_place(bf, p, ax, tag)
+    b, by = _pass_bound(p.numel(), N, f64=True)
+    row = {'axis': ax, 'route': route, 'shape': f'{tuple(p.shape)} f64, '
+                                                 f'axis {ax}',
+           'ms': _median_ms(lambda: bf.fft_axis_p(p, ax)),
+           'plain_ms': _median_ms(lambda: bf.fft_axis_plain(p, ax), reps=3,
+                                  warm=1)}
+    pc = torch.complex(p[0], p[1])
+    row['library_ms'] = _median_ms(lambda: torch.fft.fft(pc, dim=ax))
+    del pc
+    row.update(bound_ms=b, bound_by=by,
+               reach_ms=_reach_ms(p.numel(), pattern, f64=True))
+    return row
+
+
+def _hold_axis64_in_place(bf, p, ax, tag):
+    """fft_axis_p on float64 in place (out= a copy of p) against out of
+    place into a NaN-filled tensor, bit for bit, with a scale."""
+    q = p.clone()
+    _check(bf.fft_axis_p(q, ax, False, scale=0.5, out=q) is q,
+           f"{tag}: out= returned a new tensor")
+    _exact(q, bf.fft_axis_p(p, ax, False, scale=0.5, out=_nan(p)),
+           f"{tag} in place")
+    del q
+
+
 def _holds_volume64(dev, bf, holds):
     """fft_axis_p_f64 on a random (2, 1024, 1024, 1024) volume at the six
     passes of a normalized 'D' forward and backward (forward axes 2, 1,
-    then 0 with the 1/n^3 scale; backward axes 0, 1, 2), each held against
-    fft_axis_plain slab by slab along an axis it does not transform (64
-    rows, 1.07 GB a slab); returns the number of slabs held."""
+    then 0 with the 1/n^3 scale; backward axes 0, 1, 2), each output
+    starting as NaN and held against fft_axis_plain slab by slab along an
+    axis it does not transform (64 rows, 1.07 GB a slab); then each axis
+    timed beside its plain version, complex128 torch.fft.fft, its bound
+    and its reachable bound, and held in place bit for bit on a 64-row
+    slab of the volume.  Returns the number of slabs held and the rows."""
     n = NORTH64_N
     g = torch.Generator(device=dev).manual_seed(SEED + 22)
     x = torch.rand((2, n, n, n), generator=g, device=dev,
@@ -1088,6 +1165,7 @@ def _holds_volume64(dev, bf, holds):
               (0, False, None), (1, False, None), (2, False, None))
     s = min(64, n)
     for ax, fwd, sc in passes:
+        _nan_block(x.shape, x.dtype, dev)
         k = bf.fft_axis_p(x, ax, fwd, scale=sc)
         d = 2 if ax == 0 else 1         # the slabs' dim in the planar view
         for i in range(0, n, s):
@@ -1097,9 +1175,30 @@ def _holds_volume64(dev, bf, holds):
                        f"fft_axis_p_f64 {n}^3 axis {ax} fwd={fwd} "
                        f"slab {i}")
         del k
+    rows = []
+    for ax, route, pattern in ((2, 'lines, a 64-thread block a line',
+                                'last'), (1, 'band, vectors', 'mid'),
+                               (0, 'band, vectors', 'lead')):
+        sd = 2 if ax == 0 else 1
+        _hold_axis64_in_place(bf, x.narrow(sd, 0, s).contiguous(), ax,
+                              f"fft_axis_p_f64 {n}^3 slab, axis {ax}")
+        b, by = _pass_bound(x.numel(), n, f64=True)
+        row = {'axis': ax, 'route': route,
+               'shape': f'{tuple(x.shape)} f64, axis {ax}',
+               'ms': _median_ms(lambda: bf.fft_axis_p(x, ax), reps=5),
+               'plain_ms': _median_ms(lambda: bf.fft_axis_plain(x, ax),
+                                      reps=1, warm=1)}
+        xc = torch.complex(x[0], x[1])
+        row['library_ms'] = _median_ms(lambda: torch.fft.fft(xc, dim=ax),
+                                       reps=5)
+        del xc
+        torch.cuda.empty_cache()
+        row.update(bound_ms=b, bound_by=by,
+                   reach_ms=_reach_ms(x.numel(), pattern, f64=True))
+        rows.append(row)
     del x
     torch.cuda.empty_cache()
-    return len(passes) * n // s
+    return len(passes) * n // s, rows
 
 
 def phase_times(dev, bf, holds, pfft, x):
@@ -1208,43 +1307,89 @@ def _pass_bound(numel, N, f64=False):
                      lines * 5 * N * math.log2(N), f64)
 
 
+def _pair_pass(bf, holds, pa, pb, ax, route, pattern):
+    """D (fft_axis2_p) on the halves pa, pb along ax: held on both signs
+    slab by slab against its plain version into NaN-filled output halves,
+    then timed beside its plain version, cuFFT's pass over the assembled
+    axis, its bound and its reachable bound."""
+    d = 1 + ax
+    sd = 2 if ax == 0 else 1                   # slabs off the pass axis
+    N = 2 * pa.shape[d]
+    tag = f"fft_axis2_p {tuple(pa.shape)} pair axis {ax} ({route})"
+    for fwd in (True, False):
+        oa, ob = bf.fft_axis2_p(pa, pb, ax, fwd, out=(_nan(pa), _nan(pb)))
+        for i in range(0, pa.shape[sd], 64):
+            w = min(64, pa.shape[sd] - i)
+            ra, rb = bf.fft_axis2_plain(pa.narrow(sd, i, w),
+                                        pb.narrow(sd, i, w), ax, fwd)
+            holds.hold('fft_axis2_p',
+                       torch.cat([oa.narrow(sd, i, w),
+                                  ob.narrow(sd, i, w)], d),
+                       torch.cat([ra, rb], d), f"{tag} fwd={fwd} slab {i}")
+            del ra, rb
+        del oa, ob
+    full = torch.cat([pa, pb], d)
+    fc = torch.complex(full[0], full[1])
+    del full
+    b, by = _pass_bound(2 * pa.numel(), N)
+    row = {'axis': ax, 'route': route,
+           'shape': f'{tuple(pa.shape)} f32 pair, axis {ax}, N = {N}',
+           'ms': _median_ms(lambda: bf.fft_axis2_p(pa, pb, ax)),
+           'plain_ms': _median_ms(lambda: bf.fft_axis2_plain(pa, pb, ax),
+                                  reps=3, warm=1),
+           'library_ms': _median_ms(lambda: torch.fft.fft(fc, dim=ax)),
+           'bound_ms': b, 'bound_by': by,
+           'reach_ms': _reach_ms(2 * pa.numel(), pattern)}
+    del fc
+    return row
+
+
 def _times_axis2(bf, holds, x):
-    """D at the quartered schedule's pair passes: axis 0 of (Q00, Q10) and
-    axis 2 of (Q00, Q01), both signs held, and against A on the assembled
-    line (the same arithmetic at N = 1024)."""
+    """D at the quartered schedule's pair passes: axis 0 of (Q00, Q10)
+    (the band kernel) and axis 2 of (Q00, Q01) (the line kernel), each
+    also against A on the assembled line (the same arithmetic at N =
+    1024) and in place (alias=True) bit for bit against out of place; at
+    fft3_8's y pass (axis 1 of two eighths, the band kernel); and at
+    N = 768 (the line kernel on the halves of a 768^3 volume's last
+    axis).  Each held on both signs slab by slab into NaN-filled halves
+    and timed (``_pair_pass``)."""
     from mpi4py_fft_torch.ops import oop3d
     qs = oop3d.split_q(x)
     q00, q01, q10 = qs[:3]
     del qs
+    qshape = tuple(q00.shape)
     per_axis = []
-    d_vs_a = {}
-    for ax, (pa, pb) in ((0, (q00, q10)), (2, (q00, q01))):
+    for ax, (pa, pb), route in ((0, (q00, q10), 'band'),
+                                (2, (q00, q01), 'lines')):
+        row = _pair_pass(bf, holds, pa, pb, ax, route, 'pair')
         d = 1 + ax
-        full = torch.cat([pa, pb], d)
-        for fwd in (True, False):
-            k = torch.cat(bf.fft_axis2_p(pa, pb, ax, fwd), d)
-            holds.hold('fft_axis2_p', k,
-                       torch.cat(bf.fft_axis2_plain(pa, pb, ax, fwd), d),
-                       f"fft_axis2_p quarter pair axis {ax} fwd={fwd}")
-            if fwd:
-                _, d_vs_a[ax] = _rel(k, bf.fft_axis_p(full, ax))
-            del k
-        fc = torch.complex(full[0], full[1])
-        del full
-        b, by = _pass_bound(2 * pa.numel(), 2 * pa.shape[d])
-        per_axis.append({
-            'axis': ax,
-            'ms': _median_ms(lambda: bf.fft_axis2_p(pa, pb, ax)),
-            'plain_ms': _median_ms(lambda: bf.fft_axis2_plain(pa, pb, ax)),
-            'library_ms': _median_ms(lambda: torch.fft.fft(fc, dim=ax)),
-            'bound_ms': b, 'max_abs_vs_fft_axis_p': d_vs_a[ax]})
-        del fc
+        k = torch.cat(bf.fft_axis2_p(pa, pb, ax), d)
+        _, row['max_abs_vs_fft_axis_p'] = _rel(
+            k, bf.fft_axis_p(torch.cat([pa, pb], d), ax))
+        del k
+        _hold_pair_in_place(pa, pb, pa.clone(), pb.clone(), ax, bf)
+        per_axis.append(row)
+    del q00, q01, q10, pa, pb
     # a quartered transform runs two pair passes on each of axes 0 and 2
-    row = {k: 2 * sum(a[k] for a in per_axis)
-           for k in ('ms', 'plain_ms', 'library_ms', 'bound_ms')}
-    row.update(shape=f'4 passes, 2 on each of axes 0 and 2 of '
-                     f'{tuple(q00.shape)} f32 pairs',
-               bound_by=by, per_axis=per_axis)
+    keys = ('ms', 'plain_ms', 'library_ms', 'bound_ms', 'reach_ms')
+    row = {k: 2 * sum(a[k] for a in per_axis) for k in keys}
+    row.update(shape=f'4 passes, 2 on each of axes 0 and 2 of {qshape} '
+                     f'f32 pairs', bound_by=per_axis[0]['bound_by'],
+               per_axis=per_axis)
+    h = x.shape[1] // 2
+    ea = x[:, :h, :h, :h].contiguous()
+    eb = x[:, :h, h:, :h].contiguous()
+    row['mid_pair'] = _pair_pass(bf, holds, ea, eb, 1, 'band', 'pair')
+    del ea, eb
+    m = 3 * DEALIAS_N // 2
+    v = _rand((2, m, m, m), x.device, SEED + 6)
+    va = v[..., :m // 2].contiguous()
+    vb = v[..., m // 2:].contiguous()
+    del v
+    torch.cuda.empty_cache()
+    row['n768'] = _pair_pass(bf, holds, va, vb, 2, 'lines', 'pair')
+    del va, vb
+    torch.cuda.empty_cache()
     return row
 
 
@@ -1263,19 +1408,16 @@ def _pair_row(p, shape, ax, bf):
     return row
 
 
-def _hold_pair_in_place(p, bf):
-    """G in place (fft_axis2_p with alias=True on the two halves of a copy
-    of p along axis 0) against out of place into NaN-filled halves, bit
-    for bit."""
-    h = p.shape[1] // 2
-    q = p.clone()
-    ga, gb = bf.fft_axis2_p(q.narrow(1, 0, h), q.narrow(1, h, h), 0,
-                            alias=True)
-    oa, ob = bf.fft_axis2_p(p.narrow(1, 0, h), p.narrow(1, h, h), 0,
-                            out=(_nan(ga), _nan(gb)))
-    _exact(ga, oa, "fft_axis2_p in place, first half")
-    _exact(gb, ob, "fft_axis2_p in place, second half")
-    del q, ga, gb, oa, ob
+def _hold_pair_in_place(pa, pb, qa, qb, ax, bf):
+    """fft_axis2_p in place (alias=True on qa, qb, copies of the halves
+    pa, pb) against out of place into NaN-filled halves, bit for bit."""
+    ga, gb = bf.fft_axis2_p(qa, qb, ax, alias=True)
+    _check(ga is qa and gb is qb, "alias=True returned new tensors")
+    oa, ob = bf.fft_axis2_p(pa, pb, ax, out=(_nan(ga), _nan(gb)))
+    what = f"fft_axis2_p {tuple(pa.shape)} axis {ax} in place"
+    _exact(ga, oa, f"{what}, first half")
+    _exact(gb, ob, f"{what}, second half")
+    del ga, gb, oa, ob
 
 
 def _times_pair(dev, bf, holds):
@@ -1291,7 +1433,11 @@ def _times_pair(dev, bf, holds):
                        f"fft_axis_pair_p {shape} axis {ax} fwd={fwd}")
         if row is None:
             row = _pair_row(p, shape, ax, bf)
-            _hold_pair_in_place(p, bf)
+            h = p.shape[1] // 2
+            q = p.clone()
+            _hold_pair_in_place(p.narrow(1, 0, h), p.narrow(1, h, h),
+                                q.narrow(1, 0, h), q.narrow(1, h, h), 0, bf)
+            del q
         elif (shape, ax) == PAIR_1536:
             row['n1536'] = _pair_row(p, shape, ax, bf)
         del p
@@ -1888,6 +2034,28 @@ def _plane_row(bf, name, x):
     return row
 
 
+def phase_times_d_a64(dev, bf, holds):
+    """D's and A64's rows of phases 16 and 17 alone (for --times-any):
+    D at the quarter pairs, fft3_8's y pass and N = 768; A64 at the DNS's
+    two passes and the three passes of a 1024^3 volume, each held first."""
+    x = _rand((2,) + (NORTH_N,) * 3, dev, SEED + 2)
+    d = _times_axis2(bf, holds, x)
+    del x
+    torch.cuda.empty_cache()
+    n = DNS_N
+    g = torch.Generator(device=dev).manual_seed(SEED + 21)
+    p = torch.rand((2, n, n, n // 2 + 1), generator=g, device=dev,
+                   dtype=torch.float64) - 0.5
+    a64 = [_axis64_pass(bf, holds, p, 1, 'band, single elements', 'mid'),
+           _axis64_pass(bf, holds, p, 0, 'band, vectors', 'lead')]
+    del p
+    torch.cuda.empty_cache()
+    _, w1024 = _holds_volume64(dev, bf, holds)
+    _emit({'phase': 'times_d_a64', 'kernels': {
+        'fft_axis2_p': d, 'fft_axis_p_f64': {'dns': a64,
+                                             'w1024': w1024}}})
+
+
 def phase_times_any(dev, bf, holds):
     """J at the three S of the main path, held slab by slab on both signs
     and timed there: the any_c2c plan's 640^3 last axis (S = 5, the
@@ -2261,8 +2429,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--times-any', metavar='TREE', nargs='?',
                     const=os.path.dirname(os.path.abspath(__file__)),
-                    help="run only phases 1, 22 and 23 and B's rows on "
-                         "the port in TREE "
+                    help="run only phases 1, 22 and 23, B's rows and "
+                         "D's and A64's rows on the port in TREE "
                          "(default: this script's checkout), to compare "
                          "two trees on one card")
     args = ap.parse_args(argv)
@@ -2285,6 +2453,7 @@ def main(argv=None):
         phase_times_any(dev, bf, holds)
         _emit({'phase': 'times_b', 'kernels': {
             'rfft_axis_p': _times_b(dev, bf, holds)[0]}})
+        phase_times_d_a64(dev, bf, holds)
         print(_smi(), flush=True)
         return 0
     phase_holds(holds, dev)
@@ -2338,9 +2507,10 @@ def main(argv=None):
             'plain_ms': t['plain_ms'], 'bound_ms': t['bound_ms'],
             'bound_by': t['bound_by'], 'library_ms': t['library_ms'],
             'shape': t['shape']})
-        for extra in ('cufft_unfused_ms', 'two_a_passes_ms', 'n1536',
-                      'trunc768', 's7', 's8', 'one_cta', 'ctas_a_plane',
-                      'max_active'):
+        for extra in ('reach_ms', 'per_axis', 'mid_pair', 'n768', 'w768',
+                      'w1024', 'cufft_unfused_ms', 'two_a_passes_ms',
+                      'n1536', 'trunc768', 's7', 's8', 'one_cta',
+                      'ctas_a_plane', 'max_active'):
             if extra in t:
                 kernels[-1][extra] = t[extra]
     _emit({'kernels': kernels + probe_rows})

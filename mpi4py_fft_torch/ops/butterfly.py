@@ -190,6 +190,16 @@ def _tw_pack_powers(N, sign, dtype_str):
 
 
 @functools.lru_cache(maxsize=None)
+def _tw_pack_axis(N, sign, dtype_str):
+    """Twiddles for fft_axis_p and the pair kernel at N <= 1024: the
+    stage pack of _tw_pack(N, sign), which the tile kernels read, then
+    the N powers of w_N of _tw_pack_powers(N, sign), which the line and
+    band kernels read."""
+    return np.concatenate([_tw_pack(N, sign, dtype_str),
+                           _tw_pack_powers(N, sign, dtype_str)], axis=1)
+
+
+@functools.lru_cache(maxsize=None)
 def _tw_tensor(N, sign, packed, dtype, device):
     """The twiddle table of one (N, sign, packed) as a contiguous tensor,
     uploaded once per dtype and device."""
@@ -197,6 +207,15 @@ def _tw_tensor(N, sign, packed, dtype, device):
     tab = _tw_pack_packed(N, sign, name) if packed else \
         _tw_pack(N, sign, name)
     return torch.tensor(tab, dtype=dtype, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _tw_tensor_axis(N, sign, dtype, device):
+    """_tw_pack_axis(N, sign) as a contiguous tensor, uploaded once per
+    dtype and device."""
+    name = str(dtype).replace('torch.', '')
+    return torch.tensor(_tw_pack_axis(N, sign, name), dtype=dtype,
+                        device=device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -762,8 +781,18 @@ def fft_axis_p(p, axis, forward=True, scale=None, out=None):
     Unnormalized unless ``scale`` is given (applied in the last stage).
     forward=False is the unscaled inverse.  ``out``: a contiguous tensor
     like ``p`` to write into (a new one by default), ``p`` itself for in
-    place: the kernel loads every line of a tile before it stores them,
-    and no other block touches them."""
+    place: every kernel loads each line whole before it stores it, and no
+    other block touches it.
+
+    Which kernel runs is decided before the launch, by shape and
+    alignment.  float32 (A) takes the tile kernel.  float64 (A64) takes
+    the line kernel on whole lines (the last axis) at N = 2^a from 64 to
+    1024 or 3*2^a from 96 to 768 when ``p`` and the output are 16-byte
+    aligned; the column band kernel on inner axes at N = 2^a from 64 to
+    1024 (16-byte vectors where the dims after the axis have an even size
+    and both tensors are 16-byte aligned, else single elements); the tile
+    kernel for every other call.  All count as ``fft_axis_p`` /
+    ``fft_axis_p_f64``."""
     what = 'fft_axis_p'
     _check_planar(p, what)
     shape = tuple(p.shape[1:])
@@ -784,7 +813,7 @@ def fft_axis_p(p, axis, forward=True, scale=None, out=None):
     out = torch.empty_like(p) if out is None else out
     if out.numel() == 0:
         return out
-    tw = _tw_tensor(N, sign, False, p.dtype, p.device)
+    tw = _tw_tensor_axis(N, sign, p.dtype, p.device)
     plan, nst = _plan_args(N)
     _launch(*_build_of(what, 'fft_axis', p), p,
             _ptr(p), _ptr(out), _ptr(tw), tw.shape[1], pre, N, post, sign,
@@ -885,10 +914,11 @@ def _half_strides(t, pre, h, post, what):
 def _launch_pair(what, a, b, oa, ob, axis, forward, scale):
     """The pair kernel on input halves a, b into output halves oa, ob
     (any of them views), along complex axis ``axis``.  N <= 1024 takes
-    A's tile at W = N (the N-point plan and table); N = 1536 and 2048
-    take the cluster kernel, two CTAs a line group, one radix-2 step
-    across the halves and the h = N/2-point plan in each (the h-point
-    plan and the table of _tw_pack_pair)."""
+    the line, band or tile kernel (the N-point plan and the table of
+    _tw_pack_axis; fft_axis2_p names the rule); N = 1536 and 2048 take
+    the cluster kernel, two CTAs a line group, one radix-2 step across
+    the halves and the h = N/2-point plan in each (the h-point plan and
+    the table of _tw_pack_pair)."""
     shape = tuple(a.shape[1:])
     h = shape[axis]
     N = 2 * h
@@ -901,7 +931,7 @@ def _launch_pair(what, a, b, oa, ob, axis, forward, scale):
         tw = _tw_tensor_pair(N, sign, a.dtype, a.device)
         plan, nst = _plan_args(h)
     else:
-        tw = _tw_tensor(N, sign, False, a.dtype, a.device)
+        tw = _tw_tensor_axis(N, sign, a.dtype, a.device)
         plan, nst = _plan_args(N)
     _launch(what, _build.load().fft_axis2_f32, a,
             _ptr(a), _ptr(b), _ptr(oa), _ptr(ob),
@@ -919,7 +949,17 @@ def fft_axis2_p(pa, pb, axis, forward=True, scale=None, alias=False,
     ``alias=True`` writes each output over its input half and returns the
     inputs; ``out=(oa, ob)`` writes into two tensors like the halves
     instead of new ones.  The halves need not be contiguous: the dims
-    after the axis must be, and the dims before it must merge into one."""
+    after the axis must be, and the dims before it must merge into one.
+
+    Which kernel runs is decided before the launch, by shape and
+    alignment.  At N <= 1024, when all four halves start 16-byte aligned
+    and their plane and pre strides are multiples of 4 elements: whole
+    lines (the last axis) at N = 512, 768 and 1024 take the line kernel,
+    and inner axes at N = 512 and 1024 whose dims after the axis have a
+    size that is a multiple of 4 take the band kernel (a cluster of two
+    CTAs, each loading its own half).  Every other call at N <= 1024
+    takes A's tile.  N = 1536 and 2048 take the cluster kernel.  All
+    count as one ``fft_axis2_p`` launch."""
     what = 'fft_axis2_p'
     _check_planar(pa, what)
     _check_planar(pb, what)
@@ -970,7 +1010,7 @@ def fft_axis_pair_p(p, axis, forward=True, scale=None):
     2048) of (2, ...) data as one pass of the pair kernel, which reads and
     writes the two halves of the axis as views of ``p`` and of the
     output: no slice copy and no concat.  Unnormalized unless ``scale``
-    is given."""
+    is given.  The kernel is fft_axis2_p's, by its rule."""
     what = 'fft_axis_pair_p'
     _check_planar(p, what)
     shape = tuple(p.shape[1:])

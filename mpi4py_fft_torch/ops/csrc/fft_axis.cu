@@ -23,12 +23,44 @@
 // one pre index, or C whole lines when post == 1), loads it with
 // neighbouring threads on neighbouring addresses, runs every Stockham
 // stage in shared memory and writes the tile once: the two unavoidable
-// passes over device memory and nothing else.
+// passes over device memory and nothing else.  The float32 build (A)
+// runs every call on this tile kernel.
+//
+// The float64 build (A64) takes two other kernels, chosen by shape and
+// alignment before the launch; the tile kernel keeps every other call.
+// The tile's fp64 stages hold 16 points a thread across a block barrier
+// (80 registers and 1852 B of spill stores a thread at W = 512, 128 and
+// 1408 B at 1024), and its loads move one 8-byte element a thread: 64-
+// or 32-byte row segments at the lead and mid positions, misaligned at
+// the DNS's odd post = 257.
+// * Whole lines (post == 1), N = 2^a from 64 to 1024 or 3*2^a from 96 to
+//   768, x and y 16-byte aligned: the line kernel (lines.cuh's line
+//   body, as fft_axis2.cu's, on the tensor's two halves).  A group of
+//   G = N / P threads holds a line in registers, P = 16 points a thread
+//   (24 for 3*2^a, B64's), loads it as 16-byte vectors of 2 adjacent
+//   points, and runs Stockham stages (radix 8, 16, then the rest; 3, 8,
+//   8, .. for 3*2^a) with the exchange through the group's buffer; at
+//   N = 1024 the group is a 64-thread block, whose exchange waits on
+//   __syncthreads, else it lies inside one warp (__syncwarp).
+// * post > 1, N = 2^a from 64 to 1024: the column band kernel
+//   (lines.cuh's band body).  A CTA of 256 threads, three an SM, holds
+//   4096 points of each component (64 KB and padding): R = N / K rows of
+//   C = 4096 K / N adjacent lines, K = band64_cluster(N) CTAs a band (a
+//   cluster, with one radix-K step across it, when K > 1).  Its loads and
+//   stores move 16-byte vectors of 2 adjacent columns where post is even
+//   and x and y are 16-byte aligned (no vector then straddles two pre
+//   rows), else single elements (the DNS's mid pass, post = 257).  The
+//   columns run as H's in-place radix-8 stages, one butterfly a thread
+//   at a time, and the store writes row segments with the scale.
+// Every kernel reads each line whole before it writes any of it, and no
+// two blocks or clusters share a line, so y may be x.
 #include <cstdint>
 
-#include "butterfly.cuh"
+#include "lines.cuh"
 
 namespace {
+
+using mff::Half;
 
 // Offset of element 0 of each tile line; -1 past the last line.
 __device__ __forceinline__ void line_bases(long long* base, long long l0,
@@ -102,12 +134,140 @@ fft_axis_kernel(const T* __restrict__ x, T* __restrict__ y,
   }
 }
 
+// ---------------------------------------------------------------------------
+// float64: the line kernel (post == 1) and the band kernel (post > 1)
+// ---------------------------------------------------------------------------
+
+// Points a thread of the line kernel holds: 16, 24 for 3*2^a.
+__host__ __device__ constexpr int line_points64(int n) { return n % 3 == 0 ? 24 : 16; }
+
+template <int N>
+using Lines64 = mff::LineLaunch<double, N / line_points64(N)>;
+template <int N>
+constexpr int kLine64Threads = Lines64<N>::kThreads;
+template <int N>
+constexpr int kLine64Blocks = Lines64<N>::kMinBlocks;
+
+template <int N>
+__global__ void __launch_bounds__(kLine64Threads<N>, kLine64Blocks<N>)
+fft_lines64_kernel(Half<const double> a, Half<const double> b,
+                   Half<double> oa, Half<double> ob,
+                   const double* __restrict__ twr,
+                   const double* __restrict__ twi, long long lines,
+                   double sign, double scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  mff::line_body<double, N, line_points64(N)>(
+      a, b, oa, ob, twr, twi, lines, sign, scale,
+      reinterpret_cast<double*>(smem));
+}
+
+template <int N>
+int launch_lines64(Half<const double> a, Half<const double> b,
+                   Half<double> oa, Half<double> ob, const double* twr,
+                   const double* twi, long long lines, double sign,
+                   double scale, cudaStream_t stream) {
+  constexpr int G = N / line_points64(N);
+  constexpr int threads = kLine64Threads<N>;
+  const long long blocks = (lines + threads / G - 1) / (threads / G);
+  return mff::launch_ex(&fft_lines64_kernel<N>, blocks, threads,
+                        sizeof(double) * 2 * mff::row_buf(N) * (threads / G),
+                        1, stream, a, b, oa, ob, twr, twi, lines, sign,
+                        scale);
+}
+
+// CTAs a band of the float64 band kernel from N = 512 rows (a cluster);
+// one CTA below.
+constexpr int kBand64K = 2;
+
+template <int K, bool kVec>
+__global__ void __launch_bounds__(mff::BandBudget<double>::kThreads,
+                                  mff::BandBudget<double>::kMinBlocks)
+fft_band64_kernel(Half<const double> a, Half<const double> b,
+                  Half<double> oa, Half<double> ob,
+                  const double* __restrict__ twr,
+                  const double* __restrict__ twi, long long pre,
+                  long long post, int lr, int lc, double sign,
+                  double scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  mff::axis_band<double, K, kVec>(a, b, oa, ob, twr, twi, pre, post, lr, lc,
+                                  sign, scale,
+                                  reinterpret_cast<double*>(smem));
+}
+
+int log2_of(int n) {
+  int l = 0;
+  while ((1 << l) < n) ++l;
+  return l;
+}
+
+// The line or band kernel for an n-point pass of x into y, or -1 if
+// neither takes it (the tile kernel does); twr, twi: the powers of w_n.
+// float32 (A): -1, the tile kernel takes every call.
+int launch_lines_bands(const float*, float*, const float*, const float*,
+                       long long, int, long long, float, float,
+                       cudaStream_t) {
+  return -1;
+}
+
+int launch_lines_bands(const double* x, double* y, const double* twr,
+                       const double* twi, long long pre, int n,
+                       long long post, double sign, double scale,
+                       cudaStream_t stream) {
+  const auto mis = [](const void* p) {
+    return reinterpret_cast<std::uintptr_t>(p) % 16 != 0;
+  };
+  const long long plane = pre * n * post;
+  const long long h = (n / 2) * post;
+  const Half<const double> a{x, plane, n * post}, b{x + h, plane, n * post};
+  const Half<double> oa{y, plane, n * post}, ob{y + h, plane, n * post};
+  const bool pow2 = (n & (n - 1)) == 0;
+  if (post == 1) {
+    if (mis(x) || mis(y)) return -1;
+    switch (n) {
+#define MFF_LINES64(w)                                                    \
+  case w:                                                                 \
+    return launch_lines64<w>(a, b, oa, ob, twr, twi, pre, sign, scale,    \
+                             stream)
+      MFF_LINES64(64); MFF_LINES64(128); MFF_LINES64(256);
+      MFF_LINES64(512); MFF_LINES64(1024); MFF_LINES64(96);
+      MFF_LINES64(192); MFF_LINES64(384); MFF_LINES64(768);
+#undef MFF_LINES64
+      default: return -1;
+    }
+  }
+  if (!pow2 || n < 64 || n > 1024) return -1;
+  using B = mff::BandBudget<double>;
+  const int K = n >= 512 ? kBand64K : 1;
+  const int lr = log2_of(n / K);
+  const int lc = log2_of(B::kElems * K / n);
+  const long long grid = K * ((pre * post + (1 << lc) - 1) >> lc);
+  const bool vec = post % 2 == 0 && !mis(x) && !mis(y);
+  void (*kern)(Half<const double>, Half<const double>, Half<double>,
+               Half<double>, const double*, const double*, long long,
+               long long, int, int, double, double) =
+      K == 1 ? (vec ? &fft_band64_kernel<1, true>
+                    : &fft_band64_kernel<1, false>)
+             : (vec ? &fft_band64_kernel<kBand64K, true>
+                    : &fft_band64_kernel<kBand64K, false>);
+  return mff::launch_ex(kern, grid, B::kThreads,
+                        mff::band_smem<double>(lr, lc), K, stream, a, b, oa,
+                        ob, twr, twi, pre, post, lr, lc, sign, scale);
+}
+
 template <class T>
 int launch_fft_axis(const T* x, T* y, const T* tw, long long tw_len,
                     long long pre, int n, long long post, int sign,
                     const int* plan, int nstages, T scale, void* stream) {
   mff::Plan p;
-  if (!mff::make_plan(plan, nstages, n, &p)) return cudaErrorInvalidValue;
+  if (!mff::make_plan(plan, nstages, n, &p) || tw_len < n)
+    return cudaErrorInvalidValue;
+  if (pre > 0 && post > 0) {
+    const T* twr = tw + (tw_len - n);
+    const int rc = launch_lines_bands(x, y, twr, twr + tw_len, pre, n, post,
+                                      static_cast<T>(sign), scale,
+                                      static_cast<cudaStream_t>(stream));
+    if (rc >= 0) return rc;
+  }
   const int lc = mff::tile_log2_lines<T>(n);
   const int C = 1 << lc;
   const long long nlines = pre * post;
@@ -136,9 +296,11 @@ extern "C" const char* mff_error_string(int rc) {
   return cudaGetErrorString(static_cast<cudaError_t>(rc));
 }
 
-// x, y: (2, pre, n, post) float32, contiguous, on the current device.
-// tw: the (2, tw_len) table of _tw_pack(n, sign).  Returns
-// cudaGetLastError() after the launch.
+// x, y: (2, pre, n, post) float32, contiguous, on the current device (y
+// may be x).  tw: the (2, tw_len) table of _tw_pack_axis(n, sign): the
+// stage twiddles of _tw_pack(n, sign), then the n powers of w_n (which
+// only the float64 build's line and band kernels read).  Returns the
+// error of a refused launch, else cudaGetLastError() after the launch.
 extern "C" int mff_fft_axis_f32(const float* x, float* y, const float* tw,
                                 long long tw_len, long long pre, int n,
                                 long long post, int sign, const int* plan,

@@ -20,11 +20,38 @@
 // Bound on an H100: bytes, as for fft_axis.cu: one pass reads and writes
 // both halves once.  Two kernels, chosen by n before the launch:
 //
-// * N <= 1024: A's tile (butterfly.cuh) at W = N.  A block loads C lines,
-//   rows below h from a and the rest from b, into one shared-memory tile,
-//   runs every stage there and writes rows below h to oa and the rest to
-//   ob.  A block reads its whole tile before it writes any of it, and no
-//   two blocks share a line, so alias is safe.
+// * N <= 1024, whole lines (post == 1), N = 512, 768 or 1024: the line
+//   kernel.  A group of G threads inside one warp holds a line in
+//   registers, P = 32 points a thread (24 at 768; G = 16, 32, 32): it
+//   loads rows below h from a and the rest from b as 16-byte vectors of 4
+//   adjacent rows (each vector lies in one half, so the half is known at
+//   compile time), runs the line as Stockham stages (radix 8, 16, 8 at
+//   1024; 8, 16, 4 at 512; 3, 8, 8, 4 at 768), butterflies in registers
+//   and the exchange through the group's buffer behind __syncwarp
+//   (lines.cuh, I's row stages), and stores rows below h to oa and the
+//   rest to ob with the scale.  A's tile took 7.4 ms for this pass on the
+//   quartered 1024^3 transform, at 40 registers and 968 B of spill stores
+//   a thread, one 4-byte element a load and one operand picked per element.
+// * N <= 1024, post > 1, N = 512 or 1024: the column band kernel, a
+//   cluster of two CTAs a band of C = 8192 / h adjacent lines (16 at
+//   1024: 64-byte row segments; 32 at 512).  CTA rank r loads half r, h
+//   rows by C columns, from its own operand as 16-byte vectors of 4
+//   columns; between two cluster barriers one radix-2 step joins the
+//   halves (lines.cuh's cluster step, I's band at 1024 rows); each CTA
+//   then runs its h-point columns as in-place radix-8 stages, one
+//   butterfly a thread at a time, and rank r writes rows 2m + r.
+// * Every other call at N <= 1024 takes A's tile (butterfly.cuh) at
+//   W = N: the other lengths, and halves whose rows are not 16-byte
+//   aligned (a base pointer off 16 bytes, or a plane or pre stride, or
+//   post > 1, not a multiple of 4 elements; the halves may be any views).
+//   A block loads C lines, rows below h from a and the rest from b, into
+//   one shared-memory tile, runs every stage there and writes rows below
+//   h to oa and the rest to ob.
+//   The rule is by shape and alignment only, decided before the launch.
+// Every kernel reads each line whole before it writes any of it (the
+// line kernel in one group, the band kernel before its first cluster
+// barrier, the tile in one block), and no two groups, clusters or
+// blocks share a line, so alias is safe.
 // * N = 1536 and 2048: a cluster of two CTAs (Hopper thread-block
 //   clusters, distributed shared memory) owns C lines, C = 8: the lines of
 //   A's tile at N = 1024, where one tile holding whole 2048-point lines
@@ -51,22 +78,14 @@
 //   rank 1 read.
 #include <cstdint>
 
-#include <cooperative_groups.h>
-
-#include "butterfly.cuh"
-
-namespace cg = cooperative_groups;
+#include "lines.cuh"
 
 namespace {
 
-// One half of the axis: element (plane p, pre index i, row k, column c)
-// sits at ptr[p * plane + i * pre + k * post + c].
-template <class T>
-struct Half {
-  T* ptr;
-  long long plane;
-  long long pre;
-};
+using mff::cluster_rank;
+using mff::cluster_sync;
+using mff::Half;
+using mff::peer_smem;
 
 // Line c and row k of tile element idx (the map of fft_axis.cu).
 __device__ __forceinline__ void tile_index(int idx, int n, int lc,
@@ -142,19 +161,6 @@ fft_axis2_kernel(Half<const float> a, Half<const float> b, Half<float> oa,
       p[(lo ? oa.plane : ob.plane) + o] = t.im[k * t.cp + c] * scale;
     }
   }
-}
-
-// The cluster helpers, kept apart so that nvcc and the CPU emulation
-// compile the same kernel body: this CTA's rank in its cluster, a barrier
-// over every thread of the cluster, and the address of the same
-// shared-memory object in CTA `rank`.
-__device__ __forceinline__ unsigned cluster_rank() {
-  return cg::this_cluster().block_rank();
-}
-__device__ __forceinline__ void cluster_sync() { cg::this_cluster().sync(); }
-template <class T>
-__device__ __forceinline__ T* peer_smem(T* p, unsigned rank) {
-  return cg::this_cluster().map_shared_rank(p, rank);
 }
 
 // The cluster kernel's lines (C = 8) and the elements of a thread: a
@@ -302,13 +308,118 @@ inline bool pair_launch(int h, long long lines, PairLaunch* L) {
   return true;
 }
 
+// ---------------------------------------------------------------------------
+// N <= 1024: the line kernel (post == 1) and the band kernel (post > 1)
+// ---------------------------------------------------------------------------
+
+// Points a thread of the line kernel holds: 32, 24 for 3*2^a.
+__host__ __device__ constexpr int pair_line_points(int n) { return n % 3 == 0 ? 24 : 32; }
+
+template <int N>
+using PairLines = mff::LineLaunch<float, N / pair_line_points(N)>;
+template <int N>
+constexpr int kPairLineThreads = PairLines<N>::kThreads;
+template <int N>
+constexpr int kPairLineBlocks = PairLines<N>::kMinBlocks;
+
+// Whole lines of N points (see the note at the top); twr, twi: the powers
+// of w_N.
+template <int N>
+__global__ void __launch_bounds__(kPairLineThreads<N>, kPairLineBlocks<N>)
+fft_pair_lines_kernel(Half<const float> a, Half<const float> b,
+                      Half<float> oa, Half<float> ob,
+                      const float* __restrict__ twr,
+                      const float* __restrict__ twi, long long lines,
+                      float sign, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  mff::line_body<float, N, pair_line_points(N)>(
+      a, b, oa, ob, twr, twi, lines, sign, scale,
+      reinterpret_cast<float*>(smem));
+}
+
+template <int N>
+int launch_pair_lines(Half<const float> a, Half<const float> b,
+                      Half<float> oa, Half<float> ob, const float* twr,
+                      const float* twi, long long lines, float sign,
+                      float scale, cudaStream_t stream) {
+  constexpr int G = N / pair_line_points(N);
+  constexpr int threads = mff::LineLaunch<float, G>::kThreads;
+  const long long blocks = (lines + threads / G - 1) / (threads / G);
+  return mff::launch_ex(&fft_pair_lines_kernel<N>, blocks, threads,
+                        sizeof(float) * 2 * mff::row_buf(N) * (threads / G),
+                        1, stream, a, b, oa, ob, twr, twi, lines, sign,
+                        scale);
+}
+
+// CTAs a band of the band kernel (a cluster): each loads its own half.
+constexpr int kPairBandK = 2;
+
+// Bands of lines on clusters of kPairBandK CTAs, 16-byte vectors (see the
+// note at the top); twr, twi: the powers of w_N.
+__global__ void __launch_bounds__(mff::BandBudget<float>::kThreads,
+                                  mff::BandBudget<float>::kMinBlocks)
+fft_pair_band_kernel(Half<const float> a, Half<const float> b,
+                     Half<float> oa, Half<float> ob,
+                     const float* __restrict__ twr,
+                     const float* __restrict__ twi, long long pre,
+                     long long post, int lr, int lc, float sign,
+                     float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  mff::axis_band<float, kPairBandK, true>(a, b, oa, ob, twr, twi, pre, post,
+                                          lr, lc, sign, scale,
+                                          reinterpret_cast<float*>(smem));
+}
+
+// The line or band kernel for an n-point pass of these halves, or -1 if
+// neither takes it (the tile kernel does).
+int launch_pair_axis(Half<const float> a, Half<const float> b,
+                     Half<float> oa, Half<float> ob, const float* twr,
+                     const float* twi, long long pre, int n, long long post,
+                     float sign, float scale, cudaStream_t stream) {
+  const auto mis = [](const void* p) {
+    return reinterpret_cast<std::uintptr_t>(p) % 16 != 0;
+  };
+  const auto odd = [](long long s) { return s % 4 != 0; };
+  if (mis(a.ptr) || mis(b.ptr) || mis(oa.ptr) || mis(ob.ptr) ||
+      odd(a.plane) || odd(a.pre) || odd(b.plane) || odd(b.pre) ||
+      odd(oa.plane) || odd(oa.pre) || odd(ob.plane) || odd(ob.pre))
+    return -1;
+  if (post == 1) {
+    switch (n) {
+      case 512:
+        return launch_pair_lines<512>(a, b, oa, ob, twr, twi, pre, sign,
+                                      scale, stream);
+      case 768:
+        return launch_pair_lines<768>(a, b, oa, ob, twr, twi, pre, sign,
+                                      scale, stream);
+      case 1024:
+        return launch_pair_lines<1024>(a, b, oa, ob, twr, twi, pre, sign,
+                                       scale, stream);
+      default:
+        return -1;
+    }
+  }
+  if ((n != 512 && n != 1024) || odd(post)) return -1;
+  using B = mff::BandBudget<float>;
+  constexpr int K = kPairBandK;
+  static_assert(B::kElems == 1 << 13, "a CTA holds 2^13 points");
+  const int lr = (n == 1024 ? 10 : 9) - (K == 8 ? 3 : K == 4 ? 2 : 1);
+  const int lc = 13 - lr;                    // n / K rows of 8192 K / n
+  const long long bands = (pre * post + (1 << lc) - 1) >> lc;
+  return mff::launch_ex(&fft_pair_band_kernel, K * bands, B::kThreads,
+                        mff::band_smem<float>(lr, lc), K, stream, a, b, oa,
+                        ob, twr, twi, pre, post, lr, lc, sign, scale);
+}
+
 }  // namespace
 
 // xa, xb: the input halves, ya, yb: the output halves, each viewed as
 // (2, pre, n/2, post) with row stride post and column stride 1;
 // strides: their (plane, pre) strides in elements, in the order xa, xb,
 // ya, yb.  n <= 1024: plan and tw are the n-point stage plan and the
-// (2, tw_len) table of _tw_pack(n, sign).  n = 1536 or 2048: the h = n/2
+// (2, tw_len) table of _tw_pack_axis(n, sign) (the stage twiddles of
+// _tw_pack(n, sign), then the n powers of w_n, which the line and band
+// kernels read).  n = 1536 or 2048: the h = n/2
 // plan and the table of _tw_pack_pair(n, sign) (the h-point stage
 // twiddles, then the h cross twiddles of n), for the cluster kernel.
 // Returns the error of a refused launch (a cluster that does not fit
@@ -345,10 +456,16 @@ extern "C" int mff_fft_axis2_f32(const float* xa, const float* xb, float* ya,
     if (e != cudaSuccess) return e;
     return cudaGetLastError();
   }
+  if (nlines <= 0 || tw_len < n) return cudaErrorInvalidValue;
+  const float* twr = tw + (tw_len - n);
+  const int rc = launch_pair_axis(a, b, oa, ob, twr, twr + tw_len, pre, n,
+                                  post, static_cast<float>(sign), scale,
+                                  static_cast<cudaStream_t>(stream));
+  if (rc >= 0) return rc;
   const int lc = mff::tile_log2_lines<float>(n);
   const int C = 1 << lc;
   const long long blocks = (nlines + C - 1) / C;
-  if (nlines <= 0 || blocks > 0x7fffffffLL || ((n << lc) % 16) != 0)
+  if (blocks > 0x7fffffffLL || ((n << lc) % 16) != 0)
     return cudaErrorInvalidValue;
   const int threads = (n << lc) / 16;
   const size_t smem = 2 * sizeof(long long) * C +

@@ -90,16 +90,22 @@
 //   with the scale folded in.
 // Neither kernel holds more than one stage's butterflies a thread, so
 // neither spills.
-#include <algorithm>#include <algorithm>
+#include <algorithm>
 #include <cstdint>
 
-#include <cooperative_groups.h>
-
-#include "butterfly.cuh"
-
-namespace cg = cooperative_groups;
+#include "lines.cuh"
 
 namespace {
+
+using mff::at;
+using mff::Block;
+using mff::cluster_rank;
+using mff::cluster_sync;
+using mff::cluster_dif_step;
+using mff::dif_pass;
+using mff::dif_pos;
+using mff::pad;
+using mff::row_stride;
 
 int log2_of(int n) {
   int l = 0;
@@ -116,125 +122,6 @@ int log2_of(int n) {
 constexpr int kHoldElems = 8192;
 constexpr int kHoldThreads = 512;
 constexpr int kHoldMinBlocks = 2;
-
-// A row's points in shared memory: point p at pad(p), a gap after every
-// 16, so that the strided points of a butterfly and the permuted points
-// of the store fall on distinct banks; rows are row_stride(n2) apart (odd).
-__host__ __device__ __forceinline__ int pad(int p) { return p + (p >> 4); }
-__host__ __device__ __forceinline__ int row_stride(int n2) {
-  return (n2 + ((n2 - 1) >> 4)) | 1;
-}
-
-// Where the decimation-in-frequency stages of a 2^lw-point line (radix 8
-// while it divides, then 4 or 2) leave frequency f.
-__device__ __forceinline__ int dif_pos(int f, int lw) {
-  int p = 0;
-  for (int ll = lw; ll > 0;) {
-    const int a = ll < 3 ? ll : 3;
-    ll -= a;
-    p |= (f & ((1 << a) - 1)) << ll;
-    f >>= a;
-  }
-  return p;
-}
-
-// The block's lines: rows (kRows; line c = t R + n, point p at
-// c rs + pad(p)) or columns (line c = t n2 + col, point n at
-// (t R + n) rs + pad(col)), with T = 2^lt planes of R = 2^lr rows of
-// n2 = 2^l2 points.
-struct Block {
-  float* re;
-  float* im;
-  int lt, lr, l2, rs;
-};
-
-template <bool kRows>
-__device__ __forceinline__ int at(const Block& k, int c, int p) {
-  if (kRows) return c * k.rs + pad(p);
-  return (((c >> k.l2) << k.lr) + p) * k.rs + pad(c & ((1 << k.l2) - 1));
-}
-
-// One in-place decimation-in-frequency stage of radix R = 2^lrr over
-// sub-blocks of L = 2^ll points of every line of 2^lw points: butterfly
-// (line c, block, i < L/R) takes the points block L + j L/R + i, and
-// writes their DFT over j, output a times w_L^(a i), back to the same
-// points.  No other butterfly touches them, so a thread takes its
-// butterflies one at a time, and the block synchronises once a stage.
-// tw: (cos, sin)(sign 2 pi e / 2^(lw + ls)), e < 2^(lw + ls), at twr/twi.
-template <int R, int lrr, bool kRows>
-__device__ __forceinline__ void dif_stage(const Block& k, int lc, int lw,
-                                          int ll, int ls,
-                                          const float* __restrict__ twr,
-                                          const float* __restrict__ twi,
-                                          float sign) {
-  const int lq = ll - lrr;
-  const int nb = 1 << (lc + lw - lrr);
-#pragma unroll 1
-  for (int b = threadIdx.x; b < nb; b += blockDim.x) {
-    const int c = b & ((1 << lc) - 1);
-    const int q = b >> lc;
-    const int i = q & ((1 << lq) - 1);
-    const int p0 = ((q >> lq) << ll) + i;
-    float vr[R], vi[R];
-#pragma unroll
-    for (int j = 0; j < R; ++j) {
-      const int s = at<kRows>(k, c, p0 + (j << lq));
-      vr[j] = k.re[s];
-      vi[j] = k.im[s];
-    }
-    mff::Dft<R, float>::run(vr, vi, sign);
-    if (lq > 0) {
-#pragma unroll
-      for (int a = 1; a < R; ++a) {
-        const int e = (a * i) << (lw - ll + ls);
-        const float wr = __ldg(twr + e), wi = __ldg(twi + e);
-        const float yr = vr[a], yi = vi[a];
-        vr[a] = yr * wr - yi * wi;
-        vi[a] = yr * wi + yi * wr;
-      }
-    }
-#pragma unroll
-    for (int a = 0; a < R; ++a) {
-      const int s = at<kRows>(k, c, p0 + (a << lq));
-      k.re[s] = vr[a];
-      k.im[s] = vi[a];
-    }
-  }
-  __syncthreads();
-}
-
-// Every stage of the 2^lw-point transforms of the block's 2^lc lines;
-// tw: the (2, 2^(lw + ls)) table of _tw_pack_powers(2^(lw + ls), sign),
-// whose every 2^ls-th entry is a power of w_(2^lw).
-template <bool kRows>
-__device__ __forceinline__ void dif_pass(const Block& k, int lc, int lw,
-                                         int ls,
-                                         const float* __restrict__ tw,
-                                         float sign) {
-  const float* twi = tw + (1 << (lw + ls));
-  for (int ll = lw; ll > 0;) {
-    const int a = ll < 3 ? ll : 3;
-    if (a == 1)
-      dif_stage<2, 1, kRows>(k, lc, lw, ll, ls, tw, twi, sign);
-    else if (a == 2)
-      dif_stage<4, 2, kRows>(k, lc, lw, ll, ls, tw, twi, sign);
-    else
-      dif_stage<8, 3, kRows>(k, lc, lw, ll, ls, tw, twi, sign);
-    ll -= a;
-  }
-}
-
-// The cluster helpers (as fft_axis2.cu's): this CTA's rank, a barrier
-// over every thread of the cluster, and the address of the same
-// shared-memory object in CTA `rank`.
-__device__ __forceinline__ unsigned cluster_rank() {
-  return cg::this_cluster().block_rank();
-}
-__device__ __forceinline__ void cluster_sync() { cg::this_cluster().sync(); }
-template <class T>
-__device__ __forceinline__ T* peer_smem(T* p, unsigned rank) {
-  return cg::this_cluster().map_shared_rank(p, rank);
-}
 
 // The float4 chunk (of 4 points) that the block's chunk f stands for: a
 // warp's 32 chunks are 8 adjacent chunks of each of 4 rows when a row has
@@ -267,7 +154,7 @@ fft_plane_hold_kernel(const float* __restrict__ x, float* __restrict__ y,
   const int R = 1 << lr;
   const int lines = R << lt;            // rows a CTA
   const int rs = row_stride(n2);
-  Block blk{reinterpret_cast<float*>(smem), nullptr, lt, lr, l2, rs};
+  Block<float> blk{reinterpret_cast<float*>(smem), nullptr, lt, lr, l2, rs};
   blk.im = blk.re + lines * rs;
   const unsigned kk = K > 1 ? cluster_rank() : 0u;
   const long long area = static_cast<long long>(n1) * n2;
@@ -305,44 +192,20 @@ fft_plane_hold_kernel(const float* __restrict__ x, float* __restrict__ y,
   __syncthreads();
 
   // the last axis: each row a line
-  dif_pass<true>(blk, lr + lt, l2, 0, tw2, sign);
+  dif_pass<true>(blk, lr + lt, l2, 0, tw2, tw2 + (1 << l2), sign);
 
   if constexpr (K > 1) {
     // the radix-K step across the cluster, in place: point (n, col) of
     // every CTA's block, by one thread of the cluster
     cluster_sync();
-#pragma unroll 1
-    for (int p = static_cast<int>(kk) * kHoldThreads + threadIdx.x;
-         p < kHoldElems; p += K * kHoldThreads) {
-      const int n = p >> l2;
-      const int s = n * rs + pad(p & (n2 - 1));
-      float vr[K], vi[K];
-#pragma unroll
-      for (int j = 0; j < K; ++j) {
-        vr[j] = *peer_smem(blk.re + s, static_cast<unsigned>(j));
-        vi[j] = *peer_smem(blk.im + s, static_cast<unsigned>(j));
-      }
-      mff::Dft<K, float>::run(vr, vi, sign);
-#pragma unroll
-      for (int j = 1; j < K; ++j) {     // output j times w_n1^(n j)
-        const int e = n * j;
-        const float wr = __ldg(tw1 + e), wi = __ldg(tw1 + n1 + e);
-        const float yr = vr[j], yi = vi[j];
-        vr[j] = yr * wr - yi * wi;
-        vi[j] = yr * wi + yi * wr;
-      }
-#pragma unroll
-      for (int j = 0; j < K; ++j) {
-        *peer_smem(blk.re + s, static_cast<unsigned>(j)) = vr[j];
-        *peer_smem(blk.im + s, static_cast<unsigned>(j)) = vi[j];
-      }
-    }
+    cluster_dif_step<K, kHoldThreads, kHoldElems>(blk, l2, kk, tw1, tw1 + n1,
+                                                  sign);
     cluster_sync();
   }
 
   // the second-to-last axis: each column of each plane a line of R points
   constexpr int lk = K == 8 ? 3 : K == 4 ? 2 : K == 2 ? 1 : 0;
-  dif_pass<false>(blk, l2 + lt, lr, lk, tw1, sign);
+  dif_pass<false>(blk, l2 + lt, lr, lk, tw1, tw1 + (1 << (lr + lk)), sign);
 
   // output row m of plane t (row kk + K m of the plane in a cluster) from
   // where the stages left it: whole rows, scaled
@@ -429,136 +292,11 @@ constexpr int kRowThreads = 128;
 constexpr int kRowMinBlocks = 4;
 
 // Points a thread of an N-point row holds: 32, or the whole row; the
-// group of N / P threads that holds a row lies inside one warp.
+// group of N / P threads that holds a row lies inside one warp, and runs
+// the line stages of lines.cuh (radix 8, then 16 while it divides, then
+// the rest: 8 x 16 x 8 at 1024 points).
 __host__ __device__ constexpr int row_points(int N) {
   return N >= 32 ? 32 : N;
-}
-
-// Adjacent points of one component a thread loads as one vector: 4 (a
-// float4), 2 for two-point rows.
-__host__ __device__ constexpr int row_vec(int N) { return N >= 4 ? 4 : N; }
-
-// Radix of stage s of an N-point row (0 past the last).  A row of 64
-// points or more (a group of 2 to 32 threads) starts on radix 8, so that
-// a thread's first-stage butterflies, 32 / 8 = 4, are those of the four
-// adjacent points of each of its float4 loads; then radix 16 while it
-// divides, then the remainder.  A row of at most 32 points is one
-// thread's, which takes any order: radix N, or 8 then 4.
-__host__ __device__ constexpr int row_radix(int N, int s) {
-  if (N <= 16) return s == 0 ? N : 0;
-  int rest = N / 8;
-  if (s == 0) return 8;
-  for (int i = 1; rest > 1; ++i) {
-    const int r = rest >= 16 ? 16 : rest;
-    if (i == s) return r;
-    rest /= r;
-  }
-  return 0;
-}
-
-__host__ __device__ constexpr int row_span(int N, int s) {
-  int m = 1;
-  for (int i = 0; i < s; ++i) m *= row_radix(N, i);
-  return m;
-}
-
-// A row's buffer in shared memory: point i at bpad(i), 4 floats of gap
-// after every 32 (quads stay 16-byte aligned; the first stage's quad
-// writes and the store's quad reads fall on distinct banks).
-__host__ __device__ constexpr int row_buf(int N) {
-  return N >= 32 ? N + N / 8 : N;
-}
-__device__ __forceinline__ int bpad(int i) { return i + ((i >> 5) << 2); }
-
-// Point or butterfly k of thread g in a group of G: g + G k, or, in runs
-// of V adjacent ones, V (g + G (k / V)) + k % V.
-template <int V, int G>
-__device__ __forceinline__ int row_own(int g, int k) {
-  return V * (g + G * (k / V)) + k % V;
-}
-
-// One Stockham stage of radix R over the N-point row of a group, with M
-// sub-transforms interleaved (M: the earlier radices' product): butterfly
-// b (lp = b / M, m = b % M) takes points (j Lq + lp) M + m, j < R, of the
-// stage's input, forms their DFT, multiplies output j by
-// w_N^(j lp M) and writes it to point (lp R + j) M + m of the buffer.
-// Thread g owns butterflies b = g + G k, k < P/R; in the first stage the
-// butterflies of the points it loaded (row_own with V = row_vec), which
-// it reads from its registers (point row_own(g, s) in zr/zi[s]) and
-// writes as quads.  The others read the buffer; every stage ends on
-// __syncwarp.  tw: the (2, N) table of _tw_pack_powers(N, sign).
-template <int N, int R, int M, bool kFirst>
-__device__ __forceinline__ void row_stage(const float* zr, const float* zi,
-                                          float* br, float* bi, int g,
-                                          const float* __restrict__ tw,
-                                          float sign) {
-  constexpr int P = row_points(N), G = N / P, K = P / R;
-  constexpr int V = kFirst ? row_vec(N) : 1;
-  constexpr int Lq = N / M / R;
-  float vr[K][R], vi[K][R];
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const int b = row_own<V, G>(g, k);
-    const int lp = b / M, m = b % M;
-#pragma unroll
-    for (int j = 0; j < R; ++j) {
-      if constexpr (kFirst) {
-        vr[k][j] = zr[k + K * j];
-        vi[k][j] = zi[k + K * j];
-      } else {
-        const int s = bpad((j * Lq + lp) * M + m);
-        vr[k][j] = br[s];
-        vi[k][j] = bi[s];
-      }
-    }
-    mff::Dft<R, float>::run(vr[k], vi[k], sign);
-    if constexpr (Lq > 1) {
-#pragma unroll
-      for (int j = 1; j < R; ++j) {
-        const int e = j * lp * M;
-        const float wr = __ldg(tw + e), wi = __ldg(tw + N + e);
-        const float yr = vr[k][j], yi = vi[k][j];
-        vr[k][j] = yr * wr - yi * wi;
-        vi[k][j] = yr * wi + yi * wr;
-      }
-    }
-  }
-  if (!kFirst) __syncwarp();   // the group has read the buffer
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const int b = row_own<V, G>(g, k);
-    const int lp = b / M, m = b % M;
-    if constexpr (kFirst && R % 4 == 0) {   // M = 1: outputs b R + j
-#pragma unroll
-      for (int j = 0; j < R; j += 4) {
-        const int d = bpad(b * R + j);
-        *reinterpret_cast<float4*>(br + d) =
-            make_float4(vr[k][j], vr[k][j + 1], vr[k][j + 2], vr[k][j + 3]);
-        *reinterpret_cast<float4*>(bi + d) =
-            make_float4(vi[k][j], vi[k][j + 1], vi[k][j + 2], vi[k][j + 3]);
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        const int d = bpad((lp * R + j) * M + m);
-        br[d] = vr[k][j];
-        bi[d] = vi[k][j];
-      }
-    }
-  }
-  __syncwarp();
-}
-
-template <int N, int S>
-__device__ __forceinline__ void row_stages(const float* zr, const float* zi,
-                                           float* br, float* bi, int g,
-                                           const float* __restrict__ tw,
-                                           float sign) {
-  if constexpr (row_radix(N, S) != 0) {
-    row_stage<N, row_radix(N, S), row_span(N, S), S == 0>(zr, zi, br, bi, g,
-                                                          tw, sign);
-    row_stages<N, S + 1>(zr, zi, br, bi, g, tw, sign);
-  }
 }
 
 // Rows blk * (blockDim.x / G) .. of the `lines` rows of N points of x
@@ -569,14 +307,14 @@ __device__ __forceinline__ void row_block(const float* __restrict__ x,
                                           const float* __restrict__ tw,
                                           long long lines, long long vol,
                                           float sign, long long blk) {
-  constexpr int P = row_points(N), G = N / P, V = row_vec(N);
+  constexpr int P = row_points(N), G = N / P, V = mff::line_vec<float>(N);
   static_assert(G <= 32 && 32 % G == 0, "a group lies inside one warp");
-  static_assert(G == 1 || (P / row_radix(N, 0)) % V == 0,
+  static_assert(G == 1 || (P / mff::line_radix(N, P, 0)) % V == 0,
                 "first-stage butterflies in whole vectors");
   extern __shared__ __align__(16) unsigned char smem[];
   const int grp = threadIdx.x / G, g = threadIdx.x % G;
-  float* br = reinterpret_cast<float*>(smem) + grp * 2 * row_buf(N);
-  float* bi = br + row_buf(N);
+  float* br = reinterpret_cast<float*>(smem) + grp * 2 * mff::row_buf(N);
+  float* bi = br + mff::row_buf(N);
   const long long line = blk * (blockDim.x / G) + grp;
   const bool live = line < lines;
   const long long a = (live ? line : 0) * N;
@@ -585,7 +323,7 @@ __device__ __forceinline__ void row_block(const float* __restrict__ x,
   float zr[P], zi[P];
 #pragma unroll
   for (int s = 0; s < P; s += V) {
-    const int p = row_own<V, G>(g, s);
+    const int p = mff::row_own<V, G>(g, s);
     if constexpr (V == 4) {
       const float4 u = __ldg(reinterpret_cast<const float4*>(x + a + p));
       const float4 v =
@@ -600,7 +338,7 @@ __device__ __forceinline__ void row_block(const float* __restrict__ x,
       zi[s] = v.x; zi[s + 1] = v.y;
     }
   }
-  row_stages<N, 0>(zr, zi, br, bi, g, tw, sign);
+  mff::line_stages<float, N, P, 0>(zr, zi, br, bi, g, tw, tw + N, sign);
   if (!live) return;
 
   // the row in natural order, V adjacent points a vector
@@ -609,9 +347,9 @@ __device__ __forceinline__ void row_block(const float* __restrict__ x,
     const int p = V * (g + G * i);
     if constexpr (V == 4) {
       *reinterpret_cast<float4*>(y + a + p) =
-          *reinterpret_cast<const float4*>(br + bpad(p));
+          *reinterpret_cast<const float4*>(br + mff::bpad(p));
       *reinterpret_cast<float4*>(y + vol + a + p) =
-          *reinterpret_cast<const float4*>(bi + bpad(p));
+          *reinterpret_cast<const float4*>(bi + mff::bpad(p));
     } else {
       *reinterpret_cast<float2*>(y + a + p) =
           *reinterpret_cast<const float2*>(br + p);
@@ -635,9 +373,9 @@ fft_rows_kernel(const float* __restrict__ x, float* __restrict__ y,
 // c0 .. c0 + C - 1 of each row.  A band of kBandCols columns of a plane
 // whose rows do not fit one CTA is held by a cluster of K = C n1 /
 // kBandElems CTAs, R = n1 / K rows each.
-constexpr int kBandElems = 8192;
-constexpr int kBandThreads = 512;
-constexpr int kBandMinBlocks = 2;
+constexpr int kBandElems = mff::BandBudget<float>::kElems;
+constexpr int kBandThreads = mff::BandBudget<float>::kThreads;
+constexpr int kBandMinBlocks = mff::BandBudget<float>::kMinBlocks;
 constexpr int kBandCols = 16;
 
 // The band's shape for (n1, n2) planes: lt, lk (K = 2^lk), lc.
@@ -670,7 +408,7 @@ __device__ __forceinline__ void band_block(float* y,
   const int C = 1 << lc, R = 1 << lr;
   const int rs = row_stride(C);
   const int lines = R << lt;            // rows held
-  Block k{reinterpret_cast<float*>(smem), nullptr, lt, lr, lc, rs};
+  Block<float> k{reinterpret_cast<float*>(smem), nullptr, lt, lr, lc, rs};
   k.im = k.re + lines * rs;
   const unsigned kk = K > 1 ? cluster_rank() : 0u;
   const long long bands = n2 >> lc;     // bands a plane (1 when T > 1)
@@ -728,32 +466,8 @@ __device__ __forceinline__ void band_block(float* y,
   if constexpr (K > 1) {
     // the radix-K step across the cluster, in place
     cluster_sync();
-#pragma unroll 1
-    for (int p = static_cast<int>(kk) * kBandThreads + threadIdx.x;
-         p < kBandElems; p += K * kBandThreads) {
-      const int n = p >> lc;
-      const int s = n * rs + pad(p & (C - 1));
-      float vr[K], vi[K];
-#pragma unroll
-      for (int j = 0; j < K; ++j) {
-        vr[j] = *peer_smem(k.re + s, static_cast<unsigned>(j));
-        vi[j] = *peer_smem(k.im + s, static_cast<unsigned>(j));
-      }
-      mff::Dft<K, float>::run(vr, vi, sign);
-#pragma unroll
-      for (int j = 1; j < K; ++j) {     // output j times w_n1^(n j)
-        const int e = n * j;
-        const float wr = __ldg(tw1 + e), wi = __ldg(tw1 + n1 + e);
-        const float yr = vr[j], yi = vi[j];
-        vr[j] = yr * wr - yi * wi;
-        vi[j] = yr * wi + yi * wr;
-      }
-#pragma unroll
-      for (int j = 0; j < K; ++j) {
-        *peer_smem(k.re + s, static_cast<unsigned>(j)) = vr[j];
-        *peer_smem(k.im + s, static_cast<unsigned>(j)) = vi[j];
-      }
-    }
+    cluster_dif_step<K, kBandThreads, kBandElems>(k, lc, kk, tw1, tw1 + n1,
+                                                  sign);
     cluster_sync();
   } else {
     __syncthreads();
@@ -761,7 +475,7 @@ __device__ __forceinline__ void band_block(float* y,
 
   // each column of each plane (of the CTA's rows) a line of R points
   constexpr int lk = K == 8 ? 3 : K == 4 ? 2 : K == 2 ? 1 : 0;
-  dif_pass<false>(k, lc + lt, lr, lk, tw1, sign);
+  dif_pass<false>(k, lc + lt, lr, lk, tw1, tw1 + (1 << (lr + lk)), sign);
 
   // output row kk + K m of plane t from where the stages left it, scaled
   const auto held = [&](int e) {
@@ -807,7 +521,8 @@ int launch_rows(const float* x, float* y, const float* tw, long long lines,
   constexpr int G = N / row_points(N);
   const long long blocks = (lines + kRowThreads / G - 1) / (kRowThreads / G);
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * 2 * row_buf(N) * (kRowThreads / G);
+  const size_t smem =
+      sizeof(float) * 2 * mff::row_buf(N) * (kRowThreads / G);
   auto kern = &fft_rows_kernel<N>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,

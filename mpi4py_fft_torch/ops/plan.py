@@ -238,6 +238,7 @@ def forget_wisdom():
     _build.unload()
     butterfly._tw_tensor.cache_clear()
     butterfly._tw_tensor_pair.cache_clear()
+    butterfly._tw_tensor_axis.cache_clear()
     butterfly._tw_tensor_powers.cache_clear()
     matfft._const.cache_clear()
     fft2stage._table_tensor.cache_clear()

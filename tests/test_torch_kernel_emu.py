@@ -226,6 +226,142 @@ def test_pair_kernel_vs_plain(kernel_path, emu_kernels, shape, axis):
     assert clusters == (9 if shape[axis] > 1024 else 0)
 
 
+def _routes(emu_kernels, lib):
+    """A library's route counters (tests/cuda_emu): cluster launches,
+    __syncwarp() calls and __ldcg() loads so far."""
+    return {k: _emu_count(emu_kernels, lib, f'emu_{k}')
+            for k in ('cluster_launches', 'syncwarps', 'ldcg_loads')}
+
+
+def _route_delta(c0, c1):
+    return {k: c1[k] - c0[k] for k in c0}
+
+
+# D at N <= 1024 by route (full shape, axis, route): whole lines at 1024
+# (four lines a block over five: a ragged block), at 512 (a group of 16
+# threads) and at 768 (24 points a thread, radix 3 first) on the line
+# kernel; lead axes at 1024 with fewer lines than a band's 16 and at 512
+# over a ragged second band of 32, and a mid axis at 1024 whose bands
+# straddle pre rows, on the band kernel (a cluster of two CTAs); 768 on an
+# inner axis and a post that is not a multiple of 4 on A's tile
+D_ROUTES = [((5, 1024), 1, 'lines'), ((3, 2, 512), 2, 'lines'),
+            ((2, 768), 1, 'lines'), ((1024, 8), 0, 'band'),
+            ((512, 36), 0, 'band'), ((2, 1024, 12), 1, 'band'),
+            ((768, 8), 0, 'tile'), ((2, 512, 6), 1, 'tile')]
+
+
+@pytest.mark.parametrize('shape,axis,route', D_ROUTES)
+def test_pair_lines_band_vs_plain(kernel_path, emu_kernels, shape, axis,
+                                  route):
+    """fft_axis2_p and fft_axis_pair_p at N <= 1024 (both signs, a scale,
+    views, the whole tensor, alias=True and out=) on the kernel the rule
+    picks by shape: the line kernel (__syncwarp calls, no cluster
+    launch), the band kernel (a cluster launch each, no __syncwarp) or A's
+    tile (neither)."""
+    c0 = _routes(emu_kernels, 'fft_axis2')
+    _hold_pair(kernel_path, shape, axis)
+    d = _route_delta(c0, _routes(emu_kernels, 'fft_axis2'))
+    assert d['cluster_launches'] == (9 if route == 'band' else 0)
+    assert (d['syncwarps'] > 0) == (route == 'lines')
+    assert (d['ldcg_loads'] > 0) == (route == 'band')
+
+
+def test_pair_misaligned_takes_tile(kernel_path, emu_kernels):
+    """Halves that start 4 bytes off a 16-byte boundary take A's tile,
+    with the same result, where aligned ones take the line kernel (whole
+    lines at N = 1024) or the band kernel (a lead axis of 1024)."""
+    rng = np.random.default_rng(21)
+    for shape, axis in (((3, 1024), 1), ((1024, 8), 0)):
+        m = int(np.prod(shape))
+        flat = torch.from_numpy(rng.standard_normal(1 + 2 * m)
+                                .astype(np.float32))
+        x = flat[1:].view((2,) + shape)
+        assert x.data_ptr() % 16 == 4
+        d, h = 1 + axis, shape[axis] // 2
+        pa, pb = x.narrow(d, 0, h), x.narrow(d, h, h)
+        for sc in (None, 0.5):
+            c0 = _routes(emu_kernels, 'fft_axis2')
+            oa, ob = bf.fft_axis2_p(pa, pb, axis, False, scale=sc)
+            assert _routes(emu_kernels, 'fft_axis2') == c0
+            ra, rb = _plain(kernel_path, bf.fft_axis2_p, pa, pb, axis,
+                            False, scale=sc)
+            assert _rel(torch.cat([oa, ob], d),
+                        torch.cat([ra, rb], d)) <= TOL
+    assert _launched() == {'fft_axis2_p': 4}
+
+
+# A64 by route (shape, axis, route): whole lines at 512 (a warp a line),
+# 768 (24 points a thread, radix 3 first), 1024 (a 64-thread block a
+# line) and 64 (a group of 4 threads, a ragged block) on the line kernel;
+# an odd post (the DNS's mid pass, post = 257, at a small size) and a
+# 128-row lead axis on the band kernel on one CTA (single elements, and
+# vectors of 2 columns), the 1024-row mid axis of an odd post and lead
+# axes of 512 and 1024 rows on clusters of two CTAs; 32 points and
+# 3*2^a on inner axes on the tile kernel
+A64_ROUTES = [((3, 512), 1, 'lines'), ((5, 768), 1, 'lines'),
+              ((3, 1024), 1, 'block'), ((9, 64), 1, 'lines'),
+              ((4, 64, 5), 1, 'band'), ((128, 4, 2), 0, 'band'),
+              ((2, 1024, 3), 1, 'cluster'), ((512, 6), 0, 'cluster'),
+              ((1024, 2), 0, 'cluster'), ((2, 32, 5), 1, 'tile'),
+              ((96, 4), 0, 'tile')]
+
+
+def _hold_axis64(plain_ok, shape, axis):
+    """fft_axis_p on float64 (both signs, a scale) against its plain
+    version, and in place (out=p) bit for bit against out of place into
+    a NaN-filled tensor; five launches."""
+    rng = np.random.default_rng(22)
+    p = torch.from_numpy(rng.standard_normal((2,) + shape))
+    for fwd, sc in ((True, None), (False, None), (True, 0.37)):
+        got = bf.fft_axis_p(p, axis, fwd, scale=sc)
+        ref = _plain(plain_ok, bf.fft_axis_p, p, axis, fwd, scale=sc)
+        assert got.dtype == torch.float64
+        assert _rel(got, ref) <= TOL64, (fwd, sc)
+    q = p.clone()
+    assert bf.fft_axis_p(q, axis, False, scale=0.5, out=q) is q
+    n = torch.full_like(p, float('nan'))
+    bf.fft_axis_p(p, axis, False, scale=0.5, out=n)
+    assert torch.equal(q, n)
+
+
+@pytest.mark.parametrize('shape,axis,route', A64_ROUTES)
+def test_axis64_lines_band_vs_plain(kernel_path, emu_kernels, shape, axis,
+                                    route):
+    """fft_axis_p on float64 on the kernel the rule picks by shape: the
+    line kernel (__syncwarp calls; at N = 1024 a 64-thread block a line),
+    the band kernel (__ldcg loads; a cluster launch each at 512 and 1024
+    rows) or the tile kernel (none of these)."""
+    c0 = _routes(emu_kernels, 'fft_axis')
+    _hold_axis64(kernel_path, shape, axis)
+    d = _route_delta(c0, _routes(emu_kernels, 'fft_axis'))
+    assert d['cluster_launches'] == (5 if route == 'cluster' else 0)
+    assert (d['syncwarps'] > 0) == (route == 'lines')
+    assert (d['ldcg_loads'] > 0) == (route in ('band', 'cluster'))
+    last = _emu_count(emu_kernels, 'fft_axis', 'emu_last_block')
+    assert (last == 64) == (route == 'block')
+    assert _launched() == {'fft_axis_p_f64': 5}
+
+
+def test_axis64_misaligned(kernel_path, emu_kernels):
+    """A float64 tensor that starts 8 bytes off a 16-byte boundary: whole
+    lines take the tile kernel, a lead axis the band kernel's single
+    elements; the same results."""
+    rng = np.random.default_rng(23)
+    for shape, axis, band in (((3, 512), 1, False), ((512, 4), 0, True)):
+        m = int(np.prod(shape))
+        flat = torch.from_numpy(rng.standard_normal(1 + 2 * m))
+        p = flat[1:].view((2,) + shape)
+        assert p.data_ptr() % 16 == 8
+        c0 = _routes(emu_kernels, 'fft_axis')
+        got = bf.fft_axis_p(p, axis, True, scale=0.25)
+        d = _route_delta(c0, _routes(emu_kernels, 'fft_axis'))
+        assert d['syncwarps'] == 0 and (d['ldcg_loads'] > 0) == band
+        assert d['cluster_launches'] == (1 if band else 0)
+        ref = _plain(kernel_path, bf.fft_axis_p, p, axis, True, scale=0.25)
+        assert _rel(got, ref) <= TOL64
+    assert _launched() == {'fft_axis_p_f64': 2}
+
+
 # the cluster kernel of G (N = 1536 and 2048): lead rows over whole
 # line groups and with a ragged post, mid rows over two clusters and with
 # a cluster across two pre rows, last-axis whole lines, a ragged mid pass
