@@ -117,9 +117,8 @@ and the script exits non-zero:
              mid (single elements, post 257) and lead (vectors) passes on
              the band kernel, the three passes of a 768^3 volume (the
              last on the line kernel, the others on the tile) and of the
-             1024^3 volume (the last on the line kernel, a 64-thread block
-             a line, the others on the band kernel); B64 (the line kernel) also at
-             the truncating pass of the dealiased f64 plan (a 768^3 input,
+             1024^3 volume (the last on the line kernel, the others on the
+             band kernel); B64 (the line kernel) also at the truncating pass of the dealiased f64 plan (a 768^3 input,
              trunc 257, scale 1/768: held at 2e-13, timed beside its plain
              version, its bound and ``torch.fft.rfft``); ``fft_axis_p_f64``
              at the six
@@ -1176,8 +1175,8 @@ def _holds_volume64(dev, bf, holds):
                        f"slab {i}")
         del k
     rows = []
-    for ax, route, pattern in ((2, 'lines, a 64-thread block a line',
-                                'last'), (1, 'band, vectors', 'mid'),
+    for ax, route, pattern in ((2, 'lines', 'last'),
+                               (1, 'band, vectors', 'mid'),
                                (0, 'band, vectors', 'lead')):
         sd = 2 if ax == 0 else 1
         _hold_axis64_in_place(bf, x.narrow(sd, 0, s).contiguous(), ax,

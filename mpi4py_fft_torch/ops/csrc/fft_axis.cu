@@ -36,17 +36,20 @@
 // * Whole lines (post == 1), N = 2^a from 64 to 1024 or 3*2^a from 96 to
 //   768, x and y 16-byte aligned: the line kernel (lines.cuh's line
 //   body, as fft_axis2.cu's, on the tensor's two halves).  A group of
-//   G = N / P threads holds a line in registers, P = 16 points a thread
-//   (24 for 3*2^a, B64's), loads it as 16-byte vectors of 2 adjacent
-//   points, and runs Stockham stages (radix 8, 16, then the rest; 3, 8,
-//   8, .. for 3*2^a) with the exchange through the group's buffer; at
-//   N = 1024 the group is a 64-thread block, whose exchange waits on
-//   __syncthreads, else it lies inside one warp (__syncwarp).
+//   G = N / P threads inside one warp holds a line in registers, P = 16
+//   points a thread (24 for 3*2^a, B64's; 32 at N = 1024, 255 registers
+//   and no spill), loads it as 16-byte vectors of 2 adjacent points, and
+//   runs Stockham stages (radix 8, 16, then the rest; 3, 8, 8, .. for
+//   3*2^a) with the exchange through the group's buffer behind
+//   __syncwarp.  At N = 1024 a line on a 64-thread block (16 points a
+//   thread, the exchange behind __syncthreads) ran as fast on an H100
+//   (PERF.md §6).
 // * post > 1, N = 2^a from 64 to 1024: the column band kernel
 //   (lines.cuh's band body).  A CTA of 256 threads, three an SM, holds
 //   4096 points of each component (64 KB and padding): R = N / K rows of
 //   C = 4096 K / N adjacent lines, K = band64_cluster(N) CTAs a band (a
-//   cluster, with one radix-K step across it, when K > 1).  Its loads and
+//   cluster, with one radix-K step across it, when K > 1: 4 at N = 1024,
+//   2 at 512, the fastest of 1, 2 and 4 on an H100).  Its loads and
 //   stores move 16-byte vectors of 2 adjacent columns where post is even
 //   and x and y are 16-byte aligned (no vector then straddles two pre
 //   rows), else single elements (the DNS's mid pass, post = 257).  The
@@ -138,18 +141,16 @@ fft_axis_kernel(const T* __restrict__ x, T* __restrict__ y,
 // float64: the line kernel (post == 1) and the band kernel (post > 1)
 // ---------------------------------------------------------------------------
 
-// Points a thread of the line kernel holds: 16, 24 for 3*2^a.
-__host__ __device__ constexpr int line_points64(int n) { return n % 3 == 0 ? 24 : 16; }
+// Points a thread of the line kernel holds: 16, 24 for 3*2^a, and 32 at
+// N = 1024, so that a line lies in one warp.
+__host__ __device__ constexpr int line_points64(int n) {
+  return n % 3 == 0 ? 24 : n == 1024 ? 32 : 16;
+}
+
+using Lines64 = mff::LineLaunch<double>;
 
 template <int N>
-using Lines64 = mff::LineLaunch<double, N / line_points64(N)>;
-template <int N>
-constexpr int kLine64Threads = Lines64<N>::kThreads;
-template <int N>
-constexpr int kLine64Blocks = Lines64<N>::kMinBlocks;
-
-template <int N>
-__global__ void __launch_bounds__(kLine64Threads<N>, kLine64Blocks<N>)
+__global__ void __launch_bounds__(Lines64::kThreads, Lines64::kMinBlocks)
 fft_lines64_kernel(Half<const double> a, Half<const double> b,
                    Half<double> oa, Half<double> ob,
                    const double* __restrict__ twr,
@@ -167,17 +168,13 @@ int launch_lines64(Half<const double> a, Half<const double> b,
                    const double* twi, long long lines, double sign,
                    double scale, cudaStream_t stream) {
   constexpr int G = N / line_points64(N);
-  constexpr int threads = kLine64Threads<N>;
+  constexpr int threads = Lines64::kThreads;
   const long long blocks = (lines + threads / G - 1) / (threads / G);
   return mff::launch_ex(&fft_lines64_kernel<N>, blocks, threads,
                         sizeof(double) * 2 * mff::row_buf(N) * (threads / G),
                         1, stream, a, b, oa, ob, twr, twi, lines, sign,
                         scale);
 }
-
-// CTAs a band of the float64 band kernel from N = 512 rows (a cluster);
-// one CTA below.
-constexpr int kBand64K = 2;
 
 template <int K, bool kVec>
 __global__ void __launch_bounds__(mff::BandBudget<double>::kThreads,
@@ -192,6 +189,18 @@ fft_band64_kernel(Half<const double> a, Half<const double> b,
   mff::axis_band<double, K, kVec>(a, b, oa, ob, twr, twi, pre, post, lr, lc,
                                   sign, scale,
                                   reinterpret_cast<double*>(smem));
+}
+
+// CTAs a band of the float64 band kernel (a cluster when K > 1): 4 at
+// N = 1024 (16 columns, 128-byte row segments), 2 at 512 (16 columns),
+// one CTA below.
+constexpr int band64_cluster(int n) {
+  return n == 1024 ? 4 : n == 512 ? 2 : 1;
+}
+
+template <int K>
+auto band64_kernel(bool vec) {
+  return vec ? &fft_band64_kernel<K, true> : &fft_band64_kernel<K, false>;
 }
 
 int log2_of(int n) {
@@ -237,18 +246,14 @@ int launch_lines_bands(const double* x, double* y, const double* twr,
   }
   if (!pow2 || n < 64 || n > 1024) return -1;
   using B = mff::BandBudget<double>;
-  const int K = n >= 512 ? kBand64K : 1;
+  const int K = band64_cluster(n);
   const int lr = log2_of(n / K);
   const int lc = log2_of(B::kElems * K / n);
   const long long grid = K * ((pre * post + (1 << lc) - 1) >> lc);
   const bool vec = post % 2 == 0 && !mis(x) && !mis(y);
-  void (*kern)(Half<const double>, Half<const double>, Half<double>,
-               Half<double>, const double*, const double*, long long,
-               long long, int, int, double, double) =
-      K == 1 ? (vec ? &fft_band64_kernel<1, true>
-                    : &fft_band64_kernel<1, false>)
-             : (vec ? &fft_band64_kernel<kBand64K, true>
-                    : &fft_band64_kernel<kBand64K, false>);
+  const auto kern = K == 4   ? band64_kernel<4>(vec)
+                    : K == 2 ? band64_kernel<2>(vec)
+                             : band64_kernel<1>(vec);
   return mff::launch_ex(kern, grid, B::kThreads,
                         mff::band_smem<double>(lr, lc), K, stream, a, b, oa,
                         ob, twr, twi, pre, post, lr, lc, sign, scale);

@@ -315,17 +315,12 @@ inline bool pair_launch(int h, long long lines, PairLaunch* L) {
 // Points a thread of the line kernel holds: 32, 24 for 3*2^a.
 __host__ __device__ constexpr int pair_line_points(int n) { return n % 3 == 0 ? 24 : 32; }
 
-template <int N>
-using PairLines = mff::LineLaunch<float, N / pair_line_points(N)>;
-template <int N>
-constexpr int kPairLineThreads = PairLines<N>::kThreads;
-template <int N>
-constexpr int kPairLineBlocks = PairLines<N>::kMinBlocks;
+using PairLines = mff::LineLaunch<float>;
 
 // Whole lines of N points (see the note at the top); twr, twi: the powers
 // of w_N.
 template <int N>
-__global__ void __launch_bounds__(kPairLineThreads<N>, kPairLineBlocks<N>)
+__global__ void __launch_bounds__(PairLines::kThreads, PairLines::kMinBlocks)
 fft_pair_lines_kernel(Half<const float> a, Half<const float> b,
                       Half<float> oa, Half<float> ob,
                       const float* __restrict__ twr,
@@ -343,7 +338,7 @@ int launch_pair_lines(Half<const float> a, Half<const float> b,
                       const float* twi, long long lines, float sign,
                       float scale, cudaStream_t stream) {
   constexpr int G = N / pair_line_points(N);
-  constexpr int threads = mff::LineLaunch<float, G>::kThreads;
+  constexpr int threads = PairLines::kThreads;
   const long long blocks = (lines + threads / G - 1) / (threads / G);
   return mff::launch_ex(&fft_pair_lines_kernel<N>, blocks, threads,
                         sizeof(float) * 2 * mff::row_buf(N) * (threads / G),
@@ -352,7 +347,7 @@ int launch_pair_lines(Half<const float> a, Half<const float> b,
 }
 
 // CTAs a band of the band kernel (a cluster): each loads its own half.
-constexpr int kPairBandK = 2;
+constexpr int kPairBandK = 4;
 
 // Bands of lines on clusters of kPairBandK CTAs, 16-byte vectors (see the
 // note at the top); twr, twi: the powers of w_N.

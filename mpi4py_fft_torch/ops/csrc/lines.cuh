@@ -4,11 +4,10 @@
 //
 // * Line stages (line_stage, line_stages): the Stockham stages of one
 //   N-point line held by a group of G = N / P threads, P points a thread
-//   in registers; each stage's butterflies in registers, the exchange
-//   between stages through the group's own buffer in shared memory behind
-//   a barrier over the group (__syncwarp when the group lies inside one
-//   warp, __syncthreads when it is a whole block).  I's row kernel and
-//   the line body below run them.
+//   in registers, the group inside one warp; each stage's butterflies in
+//   registers, the exchange between stages through the group's own buffer
+//   in shared memory behind __syncwarp.  I's row kernel and the line body
+//   below run them.
 // * The line body (line_body): whole lines (post == 1) of an axis whose
 //   rows arrive as two halves of h = N/2 rows, each a "Half" with its own
 //   base pointer and strides (D's two operands; A64's one tensor is its
@@ -181,15 +180,6 @@ __device__ __forceinline__ int row_own(int g, int k) {
   return V * (g + G * (k / V)) + k % V;
 }
 
-// The barrier of a group of G threads: its warp, or its whole block.
-template <int G>
-__device__ __forceinline__ void group_sync() {
-  if constexpr (G <= 32)
-    __syncwarp();
-  else
-    __syncthreads();
-}
-
 // One Stockham stage of radix R over the N-point line of a group of
 // G = N / P threads, with M sub-transforms interleaved (M: the earlier
 // radices' product): butterfly b (lp = b / M, m = b % M) takes points
@@ -199,7 +189,7 @@ __device__ __forceinline__ void group_sync() {
 // k < P/R; in the first stage the butterflies of the points it loaded
 // (row_own with V = line_vec), which it reads from its registers (point
 // row_own(g, s) in zr/zi[s]) and writes as vectors.  The others read the
-// buffer; every stage ends on the group's barrier.  twr, twi: the powers
+// buffer; every stage ends on __syncwarp.  twr, twi: the powers
 // w_N^e, e < N (cos and sin of sign 2 pi e / N).
 template <class T, int N, int P, int R, int M, bool kFirst>
 __device__ __forceinline__ void line_stage(const T* zr, const T* zi, T* br,
@@ -238,7 +228,7 @@ __device__ __forceinline__ void line_stage(const T* zr, const T* zi, T* br,
       }
     }
   }
-  if (!kFirst) group_sync<G>();   // the group has read the buffer
+  if (!kFirst) __syncwarp();   // the group has read the buffer
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     const int b = row_own<V, G>(g, k);
@@ -260,7 +250,7 @@ __device__ __forceinline__ void line_stage(const T* zr, const T* zi, T* br,
       }
     }
   }
-  group_sync<G>();
+  __syncwarp();
 }
 
 // Stages s.. of an N-point line of P points a thread.
@@ -277,13 +267,12 @@ __device__ __forceinline__ void line_stages(const T* zr, const T* zi, T* br,
   }
 }
 
-// Threads a block and blocks an SM of the line body's kernels: a group
-// inside one warp takes 128-thread blocks (128 / G lines a block), a
-// 64-thread group a block of its own.  float: four blocks an SM (128
-// registers a thread); double: the registers a thread needs (up to 255).
-template <class T, int G>
+// Threads a block (128 / G lines) and blocks an SM of the line body's
+// kernels.  float: four blocks an SM (128 registers a thread); double:
+// the registers a thread needs (up to 255).
+template <class T>
 struct LineLaunch {
-  static constexpr int kThreads = G <= 32 ? 128 : G;
+  static constexpr int kThreads = 128;
   static constexpr int kMinBlocks = sizeof(T) == 4 ? 4 : 1;
 };
 
@@ -302,9 +291,8 @@ __device__ __forceinline__ void line_body(Half<const T> a, Half<const T> b,
                                           long long lines, T sign, T scale,
                                           T* smem) {
   constexpr int G = N / P, V = kVec16<T>, h = N / 2;
-  constexpr int kThreads = LineLaunch<T, G>::kThreads;
-  static_assert(G == 64 || (G <= 32 && 32 % G == 0),
-                "a group lies inside one warp, or is a block");
+  constexpr int kThreads = LineLaunch<T>::kThreads;
+  static_assert(G <= 32 && 32 % G == 0, "a group lies inside one warp");
   static_assert((P / line_radix(N, P, 0)) % V == 0,
                 "first-stage butterflies in whole vectors");
   static_assert(h % (V * G) == 0, "each vector lies in one half");

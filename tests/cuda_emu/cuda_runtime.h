@@ -40,16 +40,13 @@ inline thread_local unsigned char* const* emu_cluster_smem = nullptr;
 inline thread_local unsigned emu_cluster_rank = 0;
 
 // what a test reads to tell which kernel ran: the cluster launches, the
-// __syncwarp() calls and the __ldcg() loads since the library was loaded,
-// and the threads a block of its last launch (each library is one
-// translation unit, so these are defined once in it)
+// __syncwarp() calls and the __ldcg() loads since the library was loaded
+// (each library is one translation unit, so these are defined once in it)
 inline std::atomic<long long> emu_clusters{0}, emu_warp_syncs{0},
     emu_ldcgs{0};
-inline long long emu_threads_last = 0;
 extern "C" long long emu_cluster_launches() { return emu_clusters; }
 extern "C" long long emu_syncwarps() { return emu_warp_syncs; }
 extern "C" long long emu_ldcg_loads() { return emu_ldcgs; }
-extern "C" long long emu_last_block() { return emu_threads_last; }
 
 #define __syncthreads() emu_barrier->arrive_and_wait()
 inline void __syncwarp(unsigned = 0xffffffffu) {
@@ -181,7 +178,6 @@ inline void emu_launch(F f, unsigned grid, int threads, std::size_t shared,
   }
   gridDim.x = grid;
   blockDim.x = threads;
-  emu_threads_last = threads;
   for (unsigned b = 0; b < grid; ++b)
     emu_run_ctas([&] { f(args...); }, b, 1, threads, shared);
 }
@@ -225,7 +221,6 @@ inline cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg,
     return cudaErrorInvalidConfiguration;
   gridDim = cfg->gridDim;
   blockDim = cfg->blockDim;
-  emu_threads_last = threads;
   if (cl > 1) ++emu_clusters;
   for (unsigned b = 0; b < cfg->gridDim.x; b += cl)
     emu_run_ctas([&] { f(args...); }, b, cl, threads,

@@ -291,15 +291,16 @@ def test_pair_misaligned_takes_tile(kernel_path, emu_kernels):
 
 
 # A64 by route (shape, axis, route): whole lines at 512 (a warp a line),
-# 768 (24 points a thread, radix 3 first), 1024 (a 64-thread block a
-# line) and 64 (a group of 4 threads, a ragged block) on the line kernel;
+# 768 (24 points a thread, radix 3 first), 1024 (a warp a line, 32 points
+# a thread) and 64 (a group of 4 threads, a ragged block) on the line
+# kernel;
 # an odd post (the DNS's mid pass, post = 257, at a small size) and a
 # 128-row lead axis on the band kernel on one CTA (single elements, and
 # vectors of 2 columns), the 1024-row mid axis of an odd post and lead
 # axes of 512 and 1024 rows on clusters of two CTAs; 32 points and
 # 3*2^a on inner axes on the tile kernel
 A64_ROUTES = [((3, 512), 1, 'lines'), ((5, 768), 1, 'lines'),
-              ((3, 1024), 1, 'block'), ((9, 64), 1, 'lines'),
+              ((3, 1024), 1, 'lines'), ((9, 64), 1, 'lines'),
               ((4, 64, 5), 1, 'band'), ((128, 4, 2), 0, 'band'),
               ((2, 1024, 3), 1, 'cluster'), ((512, 6), 0, 'cluster'),
               ((1024, 2), 0, 'cluster'), ((2, 32, 5), 1, 'tile'),
@@ -328,17 +329,15 @@ def _hold_axis64(plain_ok, shape, axis):
 def test_axis64_lines_band_vs_plain(kernel_path, emu_kernels, shape, axis,
                                     route):
     """fft_axis_p on float64 on the kernel the rule picks by shape: the
-    line kernel (__syncwarp calls; at N = 1024 a 64-thread block a line),
-    the band kernel (__ldcg loads; a cluster launch each at 512 and 1024
-    rows) or the tile kernel (none of these)."""
+    line kernel (__syncwarp calls), the band kernel (__ldcg loads; a
+    cluster launch each at 512 and 1024 rows) or the tile kernel (none of
+    these)."""
     c0 = _routes(emu_kernels, 'fft_axis')
     _hold_axis64(kernel_path, shape, axis)
     d = _route_delta(c0, _routes(emu_kernels, 'fft_axis'))
     assert d['cluster_launches'] == (5 if route == 'cluster' else 0)
     assert (d['syncwarps'] > 0) == (route == 'lines')
     assert (d['ldcg_loads'] > 0) == (route in ('band', 'cluster'))
-    last = _emu_count(emu_kernels, 'fft_axis', 'emu_last_block')
-    assert (last == 64) == (route == 'block')
     assert _launched() == {'fft_axis_p_f64': 5}
 
 
