@@ -22,23 +22,43 @@ CSRC = os.path.join('mpi4py_fft_torch', 'ops', 'csrc')
 
 # name -> [(file in CSRC, text, replacement)]
 VARIANTS = {
-    # D's band on clusters of 4 or 8 CTAs (32 or 64 columns at N = 1024)
-    'd_band_k4': [('fft_axis2.cu', 'constexpr int kPairBandK = 2;',
-                   'constexpr int kPairBandK = 4;')],
-    'd_band_k8': [('fft_axis2.cu', 'constexpr int kPairBandK = 2;',
+    # D's band on clusters of 2 or 8 CTAs (16 or 64 columns at N = 1024)
+    'd_band_k2': [('fft_axis2.cu', 'constexpr int kPairBandK = 4;',
+                   'constexpr int kPairBandK = 2;')],
+    'd_band_k8': [('fft_axis2.cu', 'constexpr int kPairBandK = 4;',
                    'constexpr int kPairBandK = 8;')],
     # D's (and A64's) line kernels bound to three blocks an SM
     'lines_3blocks': [('lines.cuh',
                        'kMinBlocks = sizeof(T) == 4 ? 4 : 1;',
                        'kMinBlocks = sizeof(T) == 4 ? 3 : 1;')],
-    # A64's band on one CTA, or on clusters of 4, from N = 512 rows
-    'a64_band_k1': [('fft_axis.cu', 'constexpr int kBand64K = 2;',
-                     'constexpr int kBand64K = 1;')],
-    'a64_band_k4': [('fft_axis.cu', 'constexpr int kBand64K = 2;',
-                     'constexpr int kBand64K = 4;')],
-    # A64's lines at N = 1024 on one warp, 32 points a thread
-    'a64_lines_warp': [('fft_axis.cu', 'return n % 3 == 0 ? 24 : 16;',
-                        'return n % 3 == 0 ? 24 : n == 1024 ? 32 : 16;')],
+    # A64's band on one CTA at every length, or on two at N = 1024
+    'a64_band_k1': [('fft_axis.cu',
+                     'return n == 1024 ? 4 : n == 512 ? 2 : 1;',
+                     'return 1;')],
+    'a64_band_k2': [('fft_axis.cu',
+                     'return n == 1024 ? 4 : n == 512 ? 2 : 1;',
+                     'return n >= 512 ? 2 : 1;')],
+    # A64's lines at N = 1024 on a 64-thread block, 16 points a thread,
+    # the exchange behind __syncthreads
+    'a64_lines_block': [
+        ('fft_axis.cu', 'n == 1024 ? 32 : 16;', '16;'),
+        ('lines.cuh', 'static constexpr int kThreads = 128;',
+         'static constexpr int kThreads = 64;'),
+        ('lines.cuh', 'static_assert(G <= 32 && 32 % G == 0,',
+         'static_assert(G <= 64,'),
+        ('lines.cuh', '  if (!kFirst) __syncwarp();',
+         '  if (!kFirst) __syncthreads();'),
+        ('lines.cuh', '    }\n  }\n  __syncwarp();\n}',
+         '    }\n  }\n  __syncthreads();\n}')],
+    # the band loads in rounds of two chunks
+    'band_round2': [('lines.cuh', 'kRound = kChunks < 4 ? kChunks : 4;',
+                     'kRound = kChunks < 2 ? kChunks : 2;')],
+    # A64's band bound to two CTAs an SM (128 registers)
+    'band64_2blocks': [('lines.cuh',
+                        'kThreads = 256;\n  static constexpr int '
+                        'kMinBlocks = 3;',
+                        'kThreads = 256;\n  static constexpr int '
+                        'kMinBlocks = 2;')],
 }
 
 
