@@ -18,7 +18,8 @@
 // concat), and outputs written over their inputs (alias).
 //
 // Bound on an H100: bytes, as for fft_axis.cu: one pass reads and writes
-// both halves once.  Two kernels, chosen by n before the launch:
+// both halves once.  Four kernels, chosen by shape and alignment before
+// the launch:
 //
 // * N <= 1024, whole lines (post == 1), N = 512, 768 or 1024: the line
 //   kernel.  A group of G threads inside one warp holds a line in
@@ -32,14 +33,20 @@
 //   rest to ob with the scale.  A's tile took 7.4 ms for this pass on the
 //   quartered 1024^3 transform, at 40 registers and 968 B of spill stores
 //   a thread, one 4-byte element a load and one operand picked per element.
+//   Bound to four blocks an SM: the 1024-point instance spills 8 B at 128
+//   registers; at three blocks (168 registers, no spill) it ran no faster
+//   on an H100 (PERF.md §6).
 // * N <= 1024, post > 1, N = 512 or 1024: the column band kernel, a
-//   cluster of two CTAs a band of C = 8192 / h adjacent lines (16 at
-//   1024: 64-byte row segments; 32 at 512).  CTA rank r loads half r, h
-//   rows by C columns, from its own operand as 16-byte vectors of 4
-//   columns; between two cluster barriers one radix-2 step joins the
-//   halves (lines.cuh's cluster step, I's band at 1024 rows); each CTA
-//   then runs its h-point columns as in-place radix-8 stages, one
-//   butterfly a thread at a time, and rank r writes rows 2m + r.
+//   cluster of K = 4 CTAs a band of C = 8192 K / N adjacent lines (32 at
+//   1024: 128-byte row segments; 64 at 512), R = N / 4 rows a CTA.  CTA
+//   rank r loads rows r R .. of the band, ranks 0 and 1 from operand a
+//   and ranks 2 and 3 from b, as 16-byte vectors of 4 columns; between
+//   two cluster barriers one radix-4 step joins the four row blocks
+//   (lines.cuh's cluster step, as I's band at 1024 rows); each CTA then
+//   runs its R-point columns as in-place radix-8 stages, one butterfly a
+//   thread at a time, and rank r writes rows 4m + r.  Clusters of 2 and 8
+//   CTAs (64- and 256-byte segments) ran 4% and 13% slower on the
+//   quartered lead pass on an H100 (PERF.md §6).
 // * Every other call at N <= 1024 takes A's tile (butterfly.cuh) at
 //   W = N: the other lengths, and halves whose rows are not 16-byte
 //   aligned (a base pointer off 16 bytes, or a plane or pre stride, or
@@ -346,7 +353,8 @@ int launch_pair_lines(Half<const float> a, Half<const float> b,
                         scale);
 }
 
-// CTAs a band of the band kernel (a cluster): each loads its own half.
+// CTAs a band of the band kernel (a cluster): the first half of them load
+// operand a, the others b.
 constexpr int kPairBandK = 4;
 
 // Bands of lines on clusters of kPairBandK CTAs, 16-byte vectors (see the

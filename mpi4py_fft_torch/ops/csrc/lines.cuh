@@ -497,9 +497,13 @@ __device__ __forceinline__ void cluster_dif_step(const Block<T>& k, int lc,
 // the band body (post > 1)
 // ---------------------------------------------------------------------------
 
-// Points of each component a band CTA holds, its threads and its launch
-// bound.  float: 512 threads, two CTAs an SM (64 registers); double:
-// 4096 points (64 KB and padding), 256 threads, three CTAs an SM.
+// Points of each component a band CTA holds, its threads, its launch
+// bound and the chunks a thread loads at once.  float: 512 threads, two
+// CTAs an SM (64 registers), all four chunks at once; double: 4096
+// points (64 KB and padding), 256 threads, three CTAs an SM (80
+// registers, with spill stores; bound to two, 104-118 registers and no
+// spill, the band ran 15-34% slower on an H100), two chunks at once (four
+// ran 5-6% slower at N = 1024, where at float four are 3-4% faster).
 template <class T>
 struct BandBudget;
 template <>
@@ -507,12 +511,14 @@ struct BandBudget<float> {
   static constexpr int kElems = 8192;
   static constexpr int kThreads = 512;
   static constexpr int kMinBlocks = 2;
+  static constexpr int kRound = 4;
 };
 template <>
 struct BandBudget<double> {
   static constexpr int kElems = 4096;
   static constexpr int kThreads = 256;
   static constexpr int kMinBlocks = 3;
+  static constexpr int kRound = 2;
 };
 
 // Dynamic shared memory of a band CTA: R = 2^lr rows of 2^lc points.
@@ -530,7 +536,7 @@ inline std::size_t band_smem(int lr, int lc) {
 // them.  kVec: 16-byte vectors of V adjacent columns (post a multiple of
 // V and every base 16-byte aligned, so no vector straddles two pre
 // rows), else single elements.  A thread keeps one column (kThreads V is
-// a multiple of C) and loads its chunks in rounds of four.  With K > 1
+// a multiple of C) and loads its chunks in rounds of B::kRound.  With K > 1
 // the first radix-K step runs across the cluster, and CTA kk then holds
 // output rows kk + K m; with K = 1 the CTA holds all n rows.  Every
 // global read of a cluster comes before its first barrier and every write
@@ -566,7 +572,7 @@ __device__ __forceinline__ void axis_band(Half<const T> a, Half<const T> b,
   const T* ib = b.ptr + li * b.pre + col;
 
   constexpr int kChunks = B::kElems / V / B::kThreads;
-  constexpr int kRound = kChunks < 4 ? kChunks : 4;
+  constexpr int kRound = kChunks < B::kRound ? kChunks : B::kRound;
 #pragma unroll
   for (int j0 = 0; j0 < kChunks; j0 += kRound) {
     T vr[kRound][V], vi[kRound][V];
