@@ -203,12 +203,6 @@ auto band64_kernel(bool vec) {
   return vec ? &fft_band64_kernel<K, true> : &fft_band64_kernel<K, false>;
 }
 
-int log2_of(int n) {
-  int l = 0;
-  while ((1 << l) < n) ++l;
-  return l;
-}
-
 // The line or band kernel for an n-point pass of x into y, or -1 if
 // neither takes it (the tile kernel does); twr, twi: the powers of w_n.
 // float32 (A): -1, the tile kernel takes every call.
@@ -247,8 +241,8 @@ int launch_lines_bands(const double* x, double* y, const double* twr,
   if (!pow2 || n < 64 || n > 1024) return -1;
   using B = mff::BandBudget<double>;
   const int K = band64_cluster(n);
-  const int lr = log2_of(n / K);
-  const int lc = log2_of(B::kElems * K / n);
+  const int lr = mff::log2_of(n / K);
+  const int lc = mff::log2_of(B::kElems * K / n);
   const long long grid = K * ((pre * post + (1 << lc) - 1) >> lc);
   const bool vec = post % 2 == 0 && !mis(x) && !mis(y);
   const auto kern = K == 4   ? band64_kernel<4>(vec)

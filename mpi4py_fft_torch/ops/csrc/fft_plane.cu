@@ -89,7 +89,8 @@
 //   the store writes whole row segments from the digit-reversed places
 //   with the scale folded in.
 // Neither kernel holds more than one stage's butterflies a thread, so
-// neither spills.
+// neither spills.  The in-place stages, the cluster step and the row
+// stages are lines.cuh's, shared with D's and A64's line and band kernels.
 #include <algorithm>
 #include <cstdint>
 
@@ -104,14 +105,9 @@ using mff::cluster_sync;
 using mff::cluster_dif_step;
 using mff::dif_pass;
 using mff::dif_pos;
+using mff::log2_of;
 using mff::pad;
 using mff::row_stride;
-
-int log2_of(int n) {
-  int l = 0;
-  while ((1 << l) < n) ++l;
-  return l;
-}
 
 // ---------------------------------------------------------------------------
 // the plane-holding kernel (N1, N2 <= 256)
@@ -629,30 +625,12 @@ extern "C" int mff_fft_plane_large_f32(const float* x, float* y,
   const int K = 1 << lk;
   const long long blocks = lt > 0 ? (P + (1LL << lt) - 1) >> lt
                                   : P * (n2 >> lc) * K;
-  if (blocks > 0x7fffffffLL || K > 2) return cudaErrorInvalidValue;
-  void (*band)(float*, const float*, long long, int, int, int, int, int,
-               float, float) =
-      lc < 2 ? &fft_band_kernel<false, 1>
-      : K == 1 ? &fft_band_kernel<true, 1> : &fft_band_kernel<true, 2>;
-  cudaLaunchConfig_t cfg{};
-  cudaLaunchAttribute attr[1];
-  cfg.gridDim = dim3{static_cast<unsigned>(blocks), 1u, 1u};
-  cfg.blockDim = dim3{static_cast<unsigned>(kBandThreads), 1u, 1u};
-  cfg.dynamicSmemBytes = 2 * sizeof(float) *
-                         (static_cast<size_t>(n1 / K) << lt) *
-                         row_stride(1 << lc);
-  cfg.stream = st;
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = static_cast<unsigned>(K);
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = K > 1 ? 1 : 0;
-  e = cudaFuncSetAttribute(band, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(cfg.dynamicSmemBytes));
-  if (e != cudaSuccess) return e;
-  e = cudaLaunchKernelEx(&cfg, band, y, tw1, P, n1, n2, lt,
-                         log2_of(n1 / K), lc, sg, scale);
-  if (e != cudaSuccess) return e;
-  return cudaGetLastError();
+  if (K > 2) return cudaErrorInvalidValue;
+  const auto band = lc < 2    ? &fft_band_kernel<false, 1>
+                    : K == 1 ? &fft_band_kernel<true, 1>
+                             : &fft_band_kernel<true, 2>;
+  const int lr = log2_of(n1 / K);
+  return mff::launch_ex(band, blocks, kBandThreads,
+                        mff::band_smem<float>(lr + lt, lc), K, st, y, tw1,
+                        P, n1, n2, lt, lr, lc, sg, scale);
 }

@@ -35,6 +35,13 @@
 
 namespace mff {
 
+// The least l with 2^l >= n.
+inline int log2_of(int n) {
+  int l = 0;
+  while ((1 << l) < n) ++l;
+  return l;
+}
+
 // ---------------------------------------------------------------------------
 // clusters
 // ---------------------------------------------------------------------------
