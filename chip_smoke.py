@@ -94,8 +94,9 @@ and the script exits non-zero:
              by slab on a NaN-filled output.
              D (``fft_axis2_p``) is timed by route: the band kernel at the
              quartered lead pass and at ``fft3_8``'s y pass (axis 1 of two
-             eighths), the line kernel at the quartered last pass and at
-             N = 768 (the halves of a 768^3 last axis), each held slab by
+             eighths) and at N = 768 (the halves of a 768^3 lead axis),
+             the line kernel at the quartered last pass and at N = 768
+             (the halves of a 768^3 last axis), each held slab by
              slab on both signs into NaN-filled halves and timed beside
              its plain version, cuFFT, its bound and its reachable bound
              (bytes over the copy floor of its pattern); at both quarter
@@ -116,7 +117,7 @@ and the script exits non-zero:
              against out of place, with its reachable bound: the DNS's
              mid (single elements, post 257) and lead (vectors) passes on
              the band kernel, the three passes of a 768^3 volume (the
-             last on the line kernel, the others on the tile) and of the
+             last on the line kernel, the others on the band) and of the
              1024^3 volume (the last on the line kernel, the others on the
              band kernel); B64 (the line kernel) also at the truncating pass of the dealiased f64 plan (a 768^3 input,
              trunc 257, scale 1/768: held at 2e-13, timed beside its plain
@@ -979,16 +980,7 @@ def phase_times64(dev, bf, holds):
     row = {k: sum(a[k] for a in per_axis) for k in keys}
     row.update(shape=f'2 passes, axes 1 and 0 of (2, {n}, {n}, {nh}) f64',
                bound_by=per_axis[0]['bound_by'], per_axis=per_axis)
-    # the passes of a 768^3 volume: the last axis on the line kernel, the
-    # others on the tile kernel
-    m = 3 * DEALIAS64_N // 2
-    p = torch.rand((2, m, m, m), generator=g, device=dev,
-                   dtype=torch.float64) - 0.5
-    row['w768'] = [_axis64_pass(bf, holds, p, 2, 'lines', 'last'),
-                   _axis64_pass(bf, holds, p, 1, 'tile', 'mid'),
-                   _axis64_pass(bf, holds, p, 0, 'tile', 'lead')]
-    del p
-    torch.cuda.empty_cache()
+    row['w768'] = _axis64_w768(dev, bf, holds, g)
     out['fft_axis_p_f64'] = row
     # B and C: the last axis of the DNS's real volume
     r = torch.rand((n, n, n), generator=g, device=dev,
@@ -1103,6 +1095,21 @@ def _times_b(dev, bf, holds):
     torch.cuda.empty_cache()
     row['trunc768'] = _times_trunc(dev, bf, holds, g)
     return row, k
+
+
+def _axis64_w768(dev, bf, holds, g):
+    """A64 at the three passes of a 768^3 volume (the dealiased 'd'
+    plans' length): the last axis on the line kernel, the others on the
+    band kernel (a radix-3 column stage first, clusters of four CTAs)."""
+    m = 3 * DEALIAS64_N // 2
+    p = torch.rand((2, m, m, m), generator=g, device=dev,
+                   dtype=torch.float64) - 0.5
+    rows = [_axis64_pass(bf, holds, p, 2, 'lines', 'last'),
+            _axis64_pass(bf, holds, p, 1, 'band, vectors', 'mid'),
+            _axis64_pass(bf, holds, p, 0, 'band, vectors', 'lead')]
+    del p
+    torch.cuda.empty_cache()
+    return rows
 
 
 def _axis64_pass(bf, holds, p, ax, route, pattern, in_place=True):
@@ -1349,8 +1356,8 @@ def _times_axis2(bf, holds, x):
     also against A on the assembled line (the same arithmetic at N =
     1024) and in place (alias=True) bit for bit against out of place; at
     fft3_8's y pass (axis 1 of two eighths, the band kernel); and at
-    N = 768 (the line kernel on the halves of a 768^3 volume's last
-    axis).  Each held on both signs slab by slab into NaN-filled halves
+    N = 768 (the halves of a 768^3 volume's last axis on the line kernel,
+    of its lead axis on the band kernel).  Each held on both signs slab by slab into NaN-filled halves
     and timed (``_pair_pass``)."""
     from mpi4py_fft_torch.ops import oop3d
     qs = oop3d.split_q(x)
@@ -1380,14 +1387,17 @@ def _times_axis2(bf, holds, x):
     eb = x[:, :h, h:, :h].contiguous()
     row['mid_pair'] = _pair_pass(bf, holds, ea, eb, 1, 'band', 'pair')
     del ea, eb
+    # N = 768: the halves of a 768^3 volume's last axis (lines) and lead
+    # axis (the band, a radix-3 column stage first)
     m = 3 * DEALIAS_N // 2
     v = _rand((2, m, m, m), x.device, SEED + 6)
-    va = v[..., :m // 2].contiguous()
-    vb = v[..., m // 2:].contiguous()
+    for key, ax, route in (('n768', 2, 'lines'), ('n768_band', 0, 'band')):
+        va = v.narrow(1 + ax, 0, m // 2).contiguous()
+        vb = v.narrow(1 + ax, m // 2, m // 2).contiguous()
+        row[key] = _pair_pass(bf, holds, va, vb, ax, route, 'pair')
+        del va, vb
+        torch.cuda.empty_cache()
     del v
-    torch.cuda.empty_cache()
-    row['n768'] = _pair_pass(bf, holds, va, vb, 2, 'lines', 'pair')
-    del va, vb
     torch.cuda.empty_cache()
     return row
 
@@ -2036,7 +2046,8 @@ def _plane_row(bf, name, x):
 def phase_times_d_a64(dev, bf, holds):
     """D's and A64's rows of phases 16 and 17 alone (for --times-any):
     D at the quarter pairs, fft3_8's y pass and N = 768; A64 at the DNS's
-    two passes and the three passes of a 1024^3 volume, each held first."""
+    two passes and the three passes of 768^3 and 1024^3 volumes, each
+    held first."""
     x = _rand((2,) + (NORTH_N,) * 3, dev, SEED + 2)
     d = _times_axis2(bf, holds, x)
     del x
@@ -2049,9 +2060,10 @@ def phase_times_d_a64(dev, bf, holds):
            _axis64_pass(bf, holds, p, 0, 'band, vectors', 'lead')]
     del p
     torch.cuda.empty_cache()
+    w768 = _axis64_w768(dev, bf, holds, g)
     _, w1024 = _holds_volume64(dev, bf, holds)
     _emit({'phase': 'times_d_a64', 'kernels': {
-        'fft_axis2_p': d, 'fft_axis_p_f64': {'dns': a64,
+        'fft_axis2_p': d, 'fft_axis_p_f64': {'dns': a64, 'w768': w768,
                                              'w1024': w1024}}})
 
 
@@ -2506,7 +2518,8 @@ def main(argv=None):
             'plain_ms': t['plain_ms'], 'bound_ms': t['bound_ms'],
             'bound_by': t['bound_by'], 'library_ms': t['library_ms'],
             'shape': t['shape']})
-        for extra in ('reach_ms', 'per_axis', 'mid_pair', 'n768', 'w768',
+        for extra in ('reach_ms', 'per_axis', 'mid_pair', 'n768',
+                      'n768_band', 'w768',
                       'w1024', 'cufft_unfused_ms', 'two_a_passes_ms',
                       'n1536', 'trunc768', 's7', 's8', 'one_cta',
                       'ctas_a_plane', 'max_active'):

@@ -789,7 +789,8 @@ def fft_axis_p(p, axis, forward=True, scale=None, out=None):
     the line kernel on whole lines (the last axis) at N = 2^a from 64 to
     1024 or 3*2^a from 96 to 768 when ``p`` and the output are 16-byte
     aligned; the column band kernel on inner axes at N = 2^a from 64 to
-    1024 (16-byte vectors where the dims after the axis have an even size
+    1024 or 3*2^a from 96 to 768 (16-byte vectors where the dims after
+    the axis have an even size
     and both tensors are 16-byte aligned, else single elements); the tile
     kernel for every other call.  All count as ``fft_axis_p`` /
     ``fft_axis_p_f64``."""
@@ -955,9 +956,10 @@ def fft_axis2_p(pa, pb, axis, forward=True, scale=None, alias=False,
     alignment.  At N <= 1024, when all four halves start 16-byte aligned
     and their plane and pre strides are multiples of 4 elements: whole
     lines (the last axis) at N = 512, 768 and 1024 take the line kernel,
-    and inner axes at N = 512 and 1024 whose dims after the axis have a
-    size that is a multiple of 4 take the band kernel (a cluster of two
-    CTAs, each loading its own half).  Every other call at N <= 1024
+    and inner axes at N = 512, 768 and 1024 whose dims after the axis
+    have a size that is a multiple of 4 take the band kernel (a cluster of
+    four CTAs, the first two loading rows of ``pa``, the others of
+    ``pb``).  Every other call at N <= 1024
     takes A's tile.  N = 1536 and 2048 take the cluster kernel.  All
     count as one ``fft_axis2_p`` launch."""
     what = 'fft_axis2_p'

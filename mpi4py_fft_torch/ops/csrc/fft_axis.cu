@@ -44,17 +44,20 @@
 //   __syncwarp.  At N = 1024 a line on a 64-thread block (16 points a
 //   thread, the exchange behind __syncthreads) ran as fast on an H100
 //   (PERF.md §6).
-// * post > 1, N = 2^a from 64 to 1024: the column band kernel
-//   (lines.cuh's band body).  A CTA of 256 threads, three an SM, holds
-//   4096 points of each component (64 KB and padding): R = N / K rows of
-//   C = 4096 K / N adjacent lines, K = band64_cluster(N) CTAs a band (a
-//   cluster, with one radix-K step across it, when K > 1: 4 at N = 1024,
-//   2 at 512, the fastest of 1, 2 and 4 on an H100).  Its loads and
+// * post > 1, N = 2^a from 64 to 1024 or 3*2^a from 96 to 768: the
+//   column band kernel (lines.cuh's band body).  A CTA of 256 threads,
+//   three an SM, holds up to 4096 points of each component (64 KB and
+//   padding): R = N / K rows of C adjacent lines (the most C with
+//   R C <= 4096), K = band64_cluster(N) CTAs a band (a cluster, with one
+//   radix-K step across it, when K > 1: 4 at N = 1024, 2 at 512, the
+//   fastest of 1, 2 and 4 on an H100; 768 and 384 as 1024 and 512).  Its
+//   loads and
 //   stores move 16-byte vectors of 2 adjacent columns where post is even
 //   and x and y are 16-byte aligned (no vector then straddles two pre
 //   rows), else single elements (the DNS's mid pass, post = 257).  The
-//   columns run as H's in-place radix-8 stages, one butterfly a thread
-//   at a time, and the store writes row segments with the scale.
+//   columns run as H's in-place radix-8 stages (after a radix-3 stage for
+//   3*2^a), one butterfly a thread at a time, and the store writes row
+//   segments with the scale.
 // Every kernel reads each line whole before it writes any of it, and no
 // two blocks or clusters share a line, so y may be x.
 #include <cstdint>
@@ -176,7 +179,7 @@ int launch_lines64(Half<const double> a, Half<const double> b,
                         scale);
 }
 
-template <int K, bool kVec>
+template <int K, bool kVec, int kB>
 __global__ void __launch_bounds__(mff::BandBudget<double>::kThreads,
                                   mff::BandBudget<double>::kMinBlocks)
 fft_band64_kernel(Half<const double> a, Half<const double> b,
@@ -186,21 +189,22 @@ fft_band64_kernel(Half<const double> a, Half<const double> b,
                   long long post, int lr, int lc, double sign,
                   double scale) {
   extern __shared__ __align__(16) unsigned char smem[];
-  mff::axis_band<double, K, kVec>(a, b, oa, ob, twr, twi, pre, post, lr, lc,
-                                  sign, scale,
-                                  reinterpret_cast<double*>(smem));
+  mff::axis_band<double, K, kVec, kB>(a, b, oa, ob, twr, twi, pre, post,
+                                      lr, lc, sign, scale,
+                                      reinterpret_cast<double*>(smem));
 }
 
 // CTAs a band of the float64 band kernel (a cluster when K > 1): 4 at
-// N = 1024 (16 columns, 128-byte row segments), 2 at 512 (16 columns),
-// one CTA below.
-constexpr int band64_cluster(int n) {
-  return n == 1024 ? 4 : n == 512 ? 2 : 1;
-}
+// N = 1024 and 768 (16 columns, 128-byte row segments), 2 at 512 and 384
+// (16 columns), one CTA below.
+constexpr int band64_cluster(int n) { return n > 512 ? 4 : n > 256 ? 2 : 1; }
 
 template <int K>
-auto band64_kernel(bool vec) {
-  return vec ? &fft_band64_kernel<K, true> : &fft_band64_kernel<K, false>;
+auto band64_kernel(bool vec, bool k3) {
+  return vec ? (k3 ? &fft_band64_kernel<K, true, 3>
+                   : &fft_band64_kernel<K, true, 1>)
+             : (k3 ? &fft_band64_kernel<K, false, 3>
+                   : &fft_band64_kernel<K, false, 1>);
 }
 
 // The line or band kernel for an n-point pass of x into y, or -1 if
@@ -223,7 +227,6 @@ int launch_lines_bands(const double* x, double* y, const double* twr,
   const long long h = (n / 2) * post;
   const Half<const double> a{x, plane, n * post}, b{x + h, plane, n * post};
   const Half<double> oa{y, plane, n * post}, ob{y + h, plane, n * post};
-  const bool pow2 = (n & (n - 1)) == 0;
   if (post == 1) {
     if (mis(x) || mis(y)) return -1;
     switch (n) {
@@ -238,18 +241,19 @@ int launch_lines_bands(const double* x, double* y, const double* twr,
       default: return -1;
     }
   }
-  if (!pow2 || n < 64 || n > 1024) return -1;
-  using B = mff::BandBudget<double>;
+  const bool k3 = n % 3 == 0;
+  if (n < (k3 ? 96 : 64)) return -1;
   const int K = band64_cluster(n);
-  const int lr = mff::log2_of(n / K);
-  const int lc = mff::log2_of(B::kElems * K / n);
+  const int R = n / K;                       // kB 2^lr rows a CTA
+  const int lr = mff::log2_of(R / (k3 ? 3 : 1));
+  const int lc = mff::band_log2_cols<double>(R);
   const long long grid = K * ((pre * post + (1 << lc) - 1) >> lc);
   const bool vec = post % 2 == 0 && !mis(x) && !mis(y);
-  const auto kern = K == 4   ? band64_kernel<4>(vec)
-                    : K == 2 ? band64_kernel<2>(vec)
-                             : band64_kernel<1>(vec);
-  return mff::launch_ex(kern, grid, B::kThreads,
-                        mff::band_smem<double>(lr, lc), K, stream, a, b, oa,
+  const auto kern = K == 4   ? band64_kernel<4>(vec, k3)
+                    : K == 2 ? band64_kernel<2>(vec, k3)
+                             : band64_kernel<1>(vec, k3);
+  return mff::launch_ex(kern, grid, mff::BandBudget<double>::kThreads,
+                        mff::band_smem<double>(R, lc), K, stream, a, b, oa,
                         ob, twr, twi, pre, post, lr, lc, sign, scale);
 }
 

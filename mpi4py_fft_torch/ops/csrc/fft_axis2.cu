@@ -36,17 +36,19 @@
 //   Bound to four blocks an SM: the 1024-point instance spills 8 B at 128
 //   registers; at three blocks (168 registers, no spill) it ran no faster
 //   on an H100 (PERF.md §6).
-// * N <= 1024, post > 1, N = 512 or 1024: the column band kernel, a
-//   cluster of K = 4 CTAs a band of C = 8192 K / N adjacent lines (32 at
-//   1024: 128-byte row segments; 64 at 512), R = N / 4 rows a CTA.  CTA
+// * N <= 1024, post > 1, N = 512, 768 or 1024: the column band kernel, a
+//   cluster of K = 4 CTAs a band of C adjacent lines, R = N / 4 rows a
+//   CTA, the most C with R C <= 8192 (32 at 1024: 128-byte row segments;
+//   64 at 512; 32 at 768).  CTA
 //   rank r loads rows r R .. of the band, ranks 0 and 1 from operand a
 //   and ranks 2 and 3 from b, as 16-byte vectors of 4 columns; between
 //   two cluster barriers one radix-4 step joins the four row blocks
 //   (lines.cuh's cluster step, as I's band at 1024 rows); each CTA then
-//   runs its R-point columns as in-place radix-8 stages, one butterfly a
-//   thread at a time, and rank r writes rows 4m + r.  Clusters of 2 and 8
-//   CTAs (64- and 256-byte segments) ran 4% and 13% slower on the
-//   quartered lead pass on an H100 (PERF.md §6).
+//   runs its R-point columns as in-place radix-8 stages (a radix-3 stage
+//   first at 768, R = 3 * 64), one butterfly a thread at a time, and rank
+//   r writes rows 4m + r.  Clusters of 2 and 8 CTAs (64- and 256-byte
+//   segments) ran 3-7% and 15% slower on the quartered lead pass on an
+//   H100 (PERF.md §6).
 // * Every other call at N <= 1024 takes A's tile (butterfly.cuh) at
 //   W = N: the other lengths, and halves whose rows are not 16-byte
 //   aligned (a base pointer off 16 bytes, or a plane or pre stride, or
@@ -357,8 +359,9 @@ int launch_pair_lines(Half<const float> a, Half<const float> b,
 // operand a, the others b.
 constexpr int kPairBandK = 4;
 
-// Bands of lines on clusters of kPairBandK CTAs, 16-byte vectors (see the
-// note at the top); twr, twi: the powers of w_N.
+// Bands of lines on clusters of kPairBandK CTAs, 16-byte vectors, N =
+// kB 2^a (see the note at the top); twr, twi: the powers of w_N.
+template <int kB>
 __global__ void __launch_bounds__(mff::BandBudget<float>::kThreads,
                                   mff::BandBudget<float>::kMinBlocks)
 fft_pair_band_kernel(Half<const float> a, Half<const float> b,
@@ -368,9 +371,9 @@ fft_pair_band_kernel(Half<const float> a, Half<const float> b,
                      long long post, int lr, int lc, float sign,
                      float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
-  mff::axis_band<float, kPairBandK, true>(a, b, oa, ob, twr, twi, pre, post,
-                                          lr, lc, sign, scale,
-                                          reinterpret_cast<float*>(smem));
+  mff::axis_band<float, kPairBandK, true, kB>(
+      a, b, oa, ob, twr, twi, pre, post, lr, lc, sign, scale,
+      reinterpret_cast<float*>(smem));
 }
 
 // The line or band kernel for an n-point pass of these halves, or -1 if
@@ -402,16 +405,17 @@ int launch_pair_axis(Half<const float> a, Half<const float> b,
         return -1;
     }
   }
-  if ((n != 512 && n != 1024) || odd(post)) return -1;
-  using B = mff::BandBudget<float>;
+  if ((n != 512 && n != 768 && n != 1024) || odd(post)) return -1;
   constexpr int K = kPairBandK;
-  static_assert(B::kElems == 1 << 13, "a CTA holds 2^13 points");
-  const int lr = (n == 1024 ? 10 : 9) - (K == 8 ? 3 : K == 4 ? 2 : 1);
-  const int lc = 13 - lr;                    // n / K rows of 8192 K / n
+  const int R = n / K, kB = n % 3 == 0 ? 3 : 1;   // R = kB 2^lr rows a CTA
+  const int lr = mff::log2_of(R / kB);
+  const int lc = mff::band_log2_cols<float>(R);
   const long long bands = (pre * post + (1 << lc) - 1) >> lc;
-  return mff::launch_ex(&fft_pair_band_kernel, K * bands, B::kThreads,
-                        mff::band_smem<float>(lr, lc), K, stream, a, b, oa,
-                        ob, twr, twi, pre, post, lr, lc, sign, scale);
+  return mff::launch_ex(
+      kB == 3 ? &fft_pair_band_kernel<3> : &fft_pair_band_kernel<1>,
+      K * bands, mff::BandBudget<float>::kThreads,
+      mff::band_smem<float>(R, lc), K, stream, a, b, oa, ob, twr, twi, pre,
+      post, lr, lc, sign, scale);
 }
 
 }  // namespace

@@ -194,8 +194,8 @@ fft_plane_hold_kernel(const float* __restrict__ x, float* __restrict__ y,
     // the radix-K step across the cluster, in place: point (n, col) of
     // every CTA's block, by one thread of the cluster
     cluster_sync();
-    cluster_dif_step<K, kHoldThreads, kHoldElems>(blk, l2, kk, tw1, tw1 + n1,
-                                                  sign);
+    cluster_dif_step<K, kHoldThreads>(blk, l2, kHoldElems, kk, tw1, tw1 + n1,
+                                      sign);
     cluster_sync();
   }
 
@@ -462,8 +462,8 @@ __device__ __forceinline__ void band_block(float* y,
   if constexpr (K > 1) {
     // the radix-K step across the cluster, in place
     cluster_sync();
-    cluster_dif_step<K, kBandThreads, kBandElems>(k, lc, kk, tw1, tw1 + n1,
-                                                  sign);
+    cluster_dif_step<K, kBandThreads>(k, lc, kBandElems, kk, tw1, tw1 + n1,
+                                      sign);
     cluster_sync();
   } else {
     __syncthreads();
@@ -631,6 +631,6 @@ extern "C" int mff_fft_plane_large_f32(const float* x, float* y,
                              : &fft_band_kernel<true, 2>;
   const int lr = log2_of(n1 / K);
   return mff::launch_ex(band, blocks, kBandThreads,
-                        mff::band_smem<float>(lr + lt, lc), K, st, y, tw1,
-                        P, n1, n2, lt, lr, lc, sg, scale);
+                        mff::band_smem<float>((n1 / K) << lt, lc), K, st, y,
+                        tw1, P, n1, n2, lt, lr, lc, sg, scale);
 }

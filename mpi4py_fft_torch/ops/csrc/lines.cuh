@@ -19,9 +19,10 @@
 //   (cluster_dif_step): H's and I's stages, and the band body below.
 // * The band body (axis_band): C adjacent lines of an axis with post > 1
 //   held as an N x C band of shared memory by one CTA or a cluster of K
-//   CTAs (R = N / K rows each, CTA r rows r R ..), loaded and stored as
-//   16-byte vectors of adjacent columns (or single elements), the scale
-//   folded into the store.
+//   CTAs (R = N / K rows each, CTA r rows r R ..; R = 2^a or 3*2^a, whose
+//   columns take a radix-3 stage first), loaded and stored as 16-byte
+//   vectors of adjacent columns (or single elements), the scale folded
+//   into the store.
 // Device bodies take their shared memory as an argument and the kernels
 // that run them declare it, so that the CPU emulation of the tests
 // (tests/cuda_emu) compiles this header as it is.
@@ -371,6 +372,14 @@ __device__ __forceinline__ int dif_pos(int f, int lw) {
   return p;
 }
 
+// The same for a kB 2^lw-point line, kB = 1 or 3: a radix-3 stage first
+// leaves the frequencies f = 3 m + a in block a, at dif_pos(m) of it.
+template <int kB>
+__device__ __forceinline__ int dif_pos_b(int f, int lw) {
+  if constexpr (kB == 3) return ((f % 3) << lw) + dif_pos(f / 3, lw);
+  return dif_pos(f, lw);
+}
+
 // The block's lines: rows (kRows; line c = t R + n, point p at
 // c rs + pad(p)) or columns (line c = t n2 + col, point n at
 // (t R + n) rs + pad(col)), with T = 2^lt planes of R = 2^lr rows of
@@ -389,20 +398,21 @@ __device__ __forceinline__ int at(const Block<T>& k, int c, int p) {
 }
 
 // One in-place decimation-in-frequency stage of radix R = 2^lrr over
-// sub-blocks of L = 2^ll points of every line of 2^lw points: butterfly
-// (line c, block, i < L/R) takes the points block L + j L/R + i, and
-// writes their DFT over j, output a times w_L^(a i), back to the same
-// points.  No other butterfly touches them, so a thread takes its
-// butterflies one at a time, and the block synchronises once a stage.
-// twr, twi: (cos, sin)(sign 2 pi e / 2^(lw + ls)), e < 2^(lw + ls).
-template <int R, int lrr, bool kRows, class T>
+// sub-blocks of L = 2^ll points of every line of kB 2^lw points (kB = 1,
+// or 3 after dif_stage3): butterfly (line c, block, i < L/R) takes the
+// points block L + j L/R + i, and writes their DFT over j, output a times
+// w_L^(a i), back to the same points.  No other butterfly touches them,
+// so a thread takes its butterflies one at a time, and the block
+// synchronises once a stage.  twr, twi: (cos, sin)(sign 2 pi e / N),
+// e < N = kB 2^(lw + ls).
+template <int R, int lrr, bool kRows, int kB = 1, class T>
 __device__ __forceinline__ void dif_stage(const Block<T>& k, int lc, int lw,
                                           int ll, int ls,
                                           const T* __restrict__ twr,
                                           const T* __restrict__ twi,
                                           T sign) {
   const int lq = ll - lrr;
-  const int nb = 1 << (lc + lw - lrr);
+  const int nb = kB << (lc + lw - lrr);
 #pragma unroll 1
   for (int b = threadIdx.x; b < nb; b += blockDim.x) {
     const int c = b & ((1 << lc) - 1);
@@ -420,7 +430,7 @@ __device__ __forceinline__ void dif_stage(const Block<T>& k, int lc, int lw,
     if (lq > 0) {
 #pragma unroll
       for (int a = 1; a < R; ++a) {
-        const int e = (a * i) << (lw - ll + ls);
+        const int e = kB * ((a * i) << (lw - ll + ls));
         const T wr = __ldg(twr + e), wi = __ldg(twi + e);
         const T yr = vr[a], yi = vi[a];
         vr[a] = yr * wr - yi * wi;
@@ -437,10 +447,11 @@ __device__ __forceinline__ void dif_stage(const Block<T>& k, int lc, int lw,
   __syncthreads();
 }
 
-// Every stage of the 2^lw-point transforms of the block's 2^lc lines;
-// twr, twi: the powers of w_(2^(lw + ls)), whose every 2^ls-th entry is a
-// power of w_(2^lw).
-template <bool kRows, class T>
+// Every stage of the 2^lw-point transforms of the block's 2^lc lines
+// (of each of their kB blocks of 2^lw points); twr, twi: the powers of
+// w_N, N = kB 2^(lw + ls), whose every kB 2^ls-th entry is a power of
+// w_(2^lw).
+template <bool kRows, int kB = 1, class T>
 __device__ __forceinline__ void dif_pass(const Block<T>& k, int lc, int lw,
                                          int ls, const T* __restrict__ twr,
                                          const T* __restrict__ twi,
@@ -448,17 +459,60 @@ __device__ __forceinline__ void dif_pass(const Block<T>& k, int lc, int lw,
   for (int ll = lw; ll > 0;) {
     const int a = ll < 3 ? ll : 3;
     if (a == 1)
-      dif_stage<2, 1, kRows>(k, lc, lw, ll, ls, twr, twi, sign);
+      dif_stage<2, 1, kRows, kB>(k, lc, lw, ll, ls, twr, twi, sign);
     else if (a == 2)
-      dif_stage<4, 2, kRows>(k, lc, lw, ll, ls, twr, twi, sign);
+      dif_stage<4, 2, kRows, kB>(k, lc, lw, ll, ls, twr, twi, sign);
     else
-      dif_stage<8, 3, kRows>(k, lc, lw, ll, ls, twr, twi, sign);
+      dif_stage<8, 3, kRows, kB>(k, lc, lw, ll, ls, twr, twi, sign);
     ll -= a;
   }
 }
 
+// The radix-3 decimation-in-frequency stage that starts the transforms of
+// the block's 2^lc columns of 3 L points (L = 2^lw), in place: butterfly
+// (column c, i < L) takes points i + j L, j < 3, and writes their DFT over
+// j, output a times w_(3L)^(a i), back to the same points; block a then
+// holds the L-point sequence of the frequencies 3 m + a.  twr, twi: the
+// powers of w_N, N = 3 L 2^ls.
+template <class T>
+__device__ __forceinline__ void dif_stage3(const Block<T>& k, int lc, int lw,
+                                           int ls,
+                                           const T* __restrict__ twr,
+                                           const T* __restrict__ twi,
+                                           T sign) {
+  const int L = 1 << lw;
+#pragma unroll 1
+  for (int b = threadIdx.x; b < (L << lc); b += blockDim.x) {
+    const int c = b & ((1 << lc) - 1);
+    const int i = b >> lc;
+    T vr[3], vi[3];
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const int s = at<false>(k, c, i + j * L);
+      vr[j] = k.re[s];
+      vi[j] = k.im[s];
+    }
+    Dft<3, T>::run(vr, vi, sign);
+#pragma unroll
+    for (int a = 1; a < 3; ++a) {
+      const int e = (a * i) << ls;
+      const T wr = __ldg(twr + e), wi = __ldg(twi + e);
+      const T yr = vr[a], yi = vi[a];
+      vr[a] = yr * wr - yi * wi;
+      vi[a] = yr * wi + yi * wr;
+    }
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const int s = at<false>(k, c, i + a * L);
+      k.re[s] = vr[a];
+      k.im[s] = vi[a];
+    }
+  }
+  __syncthreads();
+}
+
 // The radix-K decimation-in-frequency step across a cluster of K CTAs,
-// each holding R rows of 2^lc points (kElems points, R = kElems >> lc;
+// each holding R rows of 2^lc points (elems points, R = elems >> lc;
 // CTA j rows j R ..) of n1 = K R-point columns: point (n, col) of every
 // CTA's block by one thread of the cluster (kThreads a CTA), which reads
 // x_j from every CTA j, forms y_k = sum_j x_j W_K^(jk) W_n1^(n k) and
@@ -466,14 +520,14 @@ __device__ __forceinline__ void dif_pass(const Block<T>& k, int lc, int lw,
 // cluster touches; CTA k then holds the rows k + K m of the
 // decimation.  twr, twi: the powers of w_n1.  Between two cluster
 // barriers (the caller's).
-template <int K, int kThreads, int kElems, class T>
+template <int K, int kThreads, class T>
 __device__ __forceinline__ void cluster_dif_step(const Block<T>& k, int lc,
-                                                 unsigned kk,
+                                                 int elems, unsigned kk,
                                                  const T* __restrict__ twr,
                                                  const T* __restrict__ twi,
                                                  T sign) {
 #pragma unroll 1
-  for (int p = static_cast<int>(kk) * kThreads + threadIdx.x; p < kElems;
+  for (int p = static_cast<int>(kk) * kThreads + threadIdx.x; p < elems;
        p += K * kThreads) {
     const int n = p >> lc;
     const int s = n * k.rs + pad(p & ((1 << lc) - 1));
@@ -528,15 +582,24 @@ struct BandBudget<double> {
   static constexpr int kRound = 2;
 };
 
-// Dynamic shared memory of a band CTA: R = 2^lr rows of 2^lc points.
+// Dynamic shared memory of a band CTA: `rows` rows of 2^lc points.
 template <class T>
-inline std::size_t band_smem(int lr, int lc) {
-  return 2 * sizeof(T) * (static_cast<std::size_t>(1) << lr) *
+inline std::size_t band_smem(int rows, int lc) {
+  return 2 * sizeof(T) * static_cast<std::size_t>(rows) *
          row_stride(1 << lc);
 }
 
-// The N-point transforms (N = K R = 2^(lr + lk), n = N) of the band
-// blockIdx.x / K of an axis seen as (2, pre, n, post) lines, rows below
+// The band's columns for R rows a CTA: lc, the most 2^lc with R 2^lc <=
+// BandBudget<T>::kElems.
+template <class T>
+inline int band_log2_cols(int rows) {
+  int lc = 0;
+  while ((rows << (lc + 1)) <= BandBudget<T>::kElems) ++lc;
+  return lc;
+}
+
+// The N-point transforms (N = K R, R = kB 2^lr, kB = 1 or 3; n = N) of
+// the band blockIdx.x / K of an axis seen as (2, pre, n, post) lines, rows below
 // h = n/2 from a and the rest from b, written to oa and ob with the
 // scale: the C = 2^lc adjacent lines (pre * post of them, flattened) of
 // that band, each CTA (rank kk of its cluster) holding rows kk R .. of
@@ -548,8 +611,10 @@ inline std::size_t band_smem(int lr, int lc) {
 // output rows kk + K m; with K = 1 the CTA holds all n rows.  Every
 // global read of a cluster comes before its first barrier and every write
 // after its last, and a cluster owns its lines whole, so the outputs may
-// be the inputs.  twr, twi: the powers of w_n.  smem: band_smem(lr, lc).
-template <class T, int K, bool kVec>
+// be the inputs.  The R-point columns run as in-place radix-8 stages
+// (after one radix-3 stage when kB = 3).  twr, twi: the powers of w_n.
+// smem: band_smem(R, lc).
+template <class T, int K, bool kVec, int kB>
 __device__ __forceinline__ void axis_band(Half<const T> a, Half<const T> b,
                                           Half<T> oa, Half<T> ob,
                                           const T* __restrict__ twr,
@@ -561,7 +626,7 @@ __device__ __forceinline__ void axis_band(Half<const T> a, Half<const T> b,
   constexpr int V = kVec ? kVec16<T> : 1;
   constexpr int lk = K == 8 ? 3 : K == 4 ? 2 : K == 2 ? 1 : 0;
   using U = typename Vec16<T>::type;
-  const int C = 1 << lc, R = 1 << lr;
+  const int C = 1 << lc, R = kB << lr;
   const int h = (R * K) >> 1;
   const int elems = R << lc;
   Block<T> k{smem, nullptr, 0, lr, lc, row_stride(C)};
@@ -621,14 +686,15 @@ __device__ __forceinline__ void axis_band(Half<const T> a, Half<const T> b,
 
   if constexpr (K > 1) {
     cluster_sync();
-    cluster_dif_step<K, B::kThreads, B::kElems>(k, lc, kk, twr, twi, sign);
+    cluster_dif_step<K, B::kThreads>(k, lc, elems, kk, twr, twi, sign);
     cluster_sync();
   } else {
     __syncthreads();
   }
 
   // each column a line of R points
-  dif_pass<false>(k, lc, lr, lk, twr, twi, sign);
+  if constexpr (kB == 3) dif_stage3(k, lc, lr, lk, twr, twi, sign);
+  dif_pass<false, kB>(k, lc, lr, lk, twr, twi, sign);
 
   // output row kk + K m from where the stages left it, scaled
   if (!live) return;
@@ -636,7 +702,7 @@ __device__ __forceinline__ void axis_band(Half<const T> a, Half<const T> b,
   T* yb = ob.ptr + li * ob.pre + col;
   for (int e = V * static_cast<int>(threadIdx.x); e < elems;
        e += V * B::kThreads) {
-    const int s = dif_pos(e >> lc, lr) * k.rs + pad(e & (C - 1));
+    const int s = dif_pos_b<kB>(e >> lc, lr) * k.rs + pad(e & (C - 1));
     const int r = static_cast<int>(kk) + K * (e >> lc);
     const bool lo = r < h;
     T* q = (lo ? ya : yb) + static_cast<long long>(lo ? r : r - h) * post;

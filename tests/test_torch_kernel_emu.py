@@ -240,14 +240,16 @@ def _route_delta(c0, c1):
 # D at N <= 1024 by route (full shape, axis, route): whole lines at 1024
 # (four lines a block over five: a ragged block), at 512 (a group of 16
 # threads) and at 768 (24 points a thread, radix 3 first) on the line
-# kernel; lead axes at 1024 with fewer lines than a band's 16 and at 512
-# over a ragged second band of 32, and a mid axis at 1024 whose bands
-# straddle pre rows, on the band kernel (a cluster of two CTAs); 768 on an
-# inner axis and a post that is not a multiple of 4 on A's tile
+# kernel; lead axes at 1024 with fewer lines than a band's 32 and at 512
+# over a ragged second band of 64, a mid axis at 1024 whose bands
+# straddle pre rows, and 768 (a radix-3 column stage first) on the band
+# kernel (a cluster of four CTAs); 96 on an inner axis and a post that is
+# not a multiple of 4 on A's tile
 D_ROUTES = [((5, 1024), 1, 'lines'), ((3, 2, 512), 2, 'lines'),
             ((2, 768), 1, 'lines'), ((1024, 8), 0, 'band'),
-            ((512, 36), 0, 'band'), ((2, 1024, 12), 1, 'band'),
-            ((768, 8), 0, 'tile'), ((2, 512, 6), 1, 'tile')]
+            ((512, 68), 0, 'band'), ((2, 1024, 12), 1, 'band'),
+            ((768, 8), 0, 'band'), ((2, 768, 4), 1, 'band'),
+            ((96, 8), 0, 'tile'), ((2, 512, 6), 1, 'tile')]
 
 
 @pytest.mark.parametrize('shape,axis,route', D_ROUTES)
@@ -293,18 +295,19 @@ def test_pair_misaligned_takes_tile(kernel_path, emu_kernels):
 # A64 by route (shape, axis, route): whole lines at 512 (a warp a line),
 # 768 (24 points a thread, radix 3 first), 1024 (a warp a line, 32 points
 # a thread) and 64 (a group of 4 threads, a ragged block) on the line
-# kernel;
-# an odd post (the DNS's mid pass, post = 257, at a small size) and a
-# 128-row lead axis on the band kernel on one CTA (single elements, and
-# vectors of 2 columns), the 1024-row mid axis of an odd post and lead
-# axes of 512 and 1024 rows on clusters of two CTAs; 32 points and
-# 3*2^a on inner axes on the tile kernel
+# kernel; an odd post (the DNS's mid pass, post = 257, at a small size),
+# a 128-row and a 96-row (radix 3 first) lead axis on the band kernel on
+# one CTA (single elements, and vectors of 2 columns), the 1024-row mid
+# axis of an odd post and lead axes of 512, 1024 and 768 rows on
+# clusters of two or four CTAs; 32 and 48 points on inner axes on the
+# tile kernel
 A64_ROUTES = [((3, 512), 1, 'lines'), ((5, 768), 1, 'lines'),
               ((3, 1024), 1, 'lines'), ((9, 64), 1, 'lines'),
               ((4, 64, 5), 1, 'band'), ((128, 4, 2), 0, 'band'),
-              ((2, 1024, 3), 1, 'cluster'), ((512, 6), 0, 'cluster'),
-              ((1024, 2), 0, 'cluster'), ((2, 32, 5), 1, 'tile'),
-              ((96, 4), 0, 'tile')]
+              ((96, 4), 0, 'band'), ((2, 1024, 3), 1, 'cluster'),
+              ((512, 6), 0, 'cluster'), ((1024, 2), 0, 'cluster'),
+              ((768, 3), 0, 'cluster'), ((2, 32, 5), 1, 'tile'),
+              ((48, 4), 0, 'tile')]
 
 
 def _hold_axis64(plain_ok, shape, axis):
