@@ -99,7 +99,8 @@ and the script exits non-zero:
              (the halves of a 768^3 last axis), each held slab by
              slab on both signs into NaN-filled halves and timed beside
              its plain version, cuFFT, its bound and its reachable bound
-             (bytes over the copy floor of its pattern); at both quarter
+             (``block_copy`` of the same halves in the boxes of its
+             access pattern, timed in the same run); at both quarter
              pairs also against A on the assembled line and in place
              (``alias=True``) bit for bit against out of place.
              Every main-path shape of a kernel is also held against its
@@ -183,11 +184,11 @@ and the script exits non-zero:
              PyTorch yardstick for the ``kernels`` line.
 
 ``python3 chip_smoke.py --times-any TREE`` runs only phases 1, 22 and 23,
-B's two rows of phase 16, and D's and A64's rows of phases 16 and 17, on
-the port of the checkout at TREE (a tree from the plane-holding H on),
-and prints no last line: run it for two trees in turns on one card
-(parent, change, change, parent) to compare H, I, J, B, D and A64
-between them.
+B's two rows of phase 16, D's and A64's rows of phases 16 and 17, and
+phases 13 and 18, on the port of the checkout at TREE (a tree from the
+plane-holding H on), and prints no last line: run it for two trees in
+turns on one card (parent, change, change, parent) to compare H, I, J,
+B, D, A64, E and E64 and the m3 plan at 'd' between them.
 
 Phases 3 to 15 and 19 to 22 are the main path: the launch counters are
 set to 0 just before phase 3 and read after phase 22 (phases 16 to 18
@@ -218,13 +219,6 @@ SEED = 0
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
 PEAK_F64_S = 34e12
-# the copy floors (GB/s read + write at 1024^3, out of place) that the
-# probes phase measured on an H100 (700 W) for each access pattern: the
-# plane box (a last-axis pass), the mid and lead boxes, and the x pair on
-# four quarters (a pair pass); a pass's reachable bound is its bytes over
-# the floor of its pattern
-COPY_FLOOR_S = {'last': 2719e9, 'mid': 2725e9, 'lead': 2688e9,
-                'pair': 2822e9}
 KERNEL_TOL = 5e-6          # one kernel against its plain version
 PIPE_TOL = 5e-5            # a 3-axis composition
 # float64: the JAX suite's tolerance for its f64 kernel F
@@ -357,11 +351,32 @@ def _bound_ms(nbytes, flops, f64=False):
     return 1e3 * max(tb, tf), 'bytes' if tb >= tf else 'operations'
 
 
-def _reach_ms(numel, pattern, f64=False):
-    """The reachable bound of one pass over a planar tensor of ``numel``
-    elements: read and write it once at the copy floor of its access
-    pattern."""
-    return 1e3 * 2 * numel * (8 if f64 else 4) / COPY_FLOOR_S[pattern]
+def _reach_ms(xs, ax):
+    """The reachable bound of one pass along complex axis ``ax`` of the
+    contiguous planar (2, A, B, C) tensors ``xs`` (one, or a pair's two
+    halves), measured: the time of ``block_copy`` (the probes' copy
+    kernel) of the same tensors out of place, in boxes of the pass's
+    access pattern: (2, 1, B, C) planes for the last axis; for the mid
+    axis (2, 8, B, 128) where 128 elements divide the row, else (2, 1, B,
+    C), whole rows (the DNS's odd post, which allows no vector); for the
+    lead axis 512-byte runs of every row, (2, A, 128) on the (2, A, B C)
+    view.  float64 is copied as pairs of float32."""
+    from mpi4py_fft_torch.ops import probes as tp
+    vs = [x.view(torch.float32) for x in xs]
+    _, A, B, C = vs[0].shape
+    if ax == 0:
+        vs = [v.view(2, A, B * C) for v in vs]
+        box = (2, A, 128 if B * C % 128 == 0 else B * C)
+    elif ax == 1:
+        box = (2, 8, B, 128) if C % 128 == 0 else (2, 1, B, C)
+    else:
+        box = (2, 1, B, C)
+    ys = [torch.empty_like(v) for v in vs]
+    pair = {} if len(vs) == 1 else {'x2': vs[1], 'out2': ys[1]}
+    ms = _median_ms(lambda: tp.block_copy(vs[0], box, out=ys[0], **pair))
+    del ys
+    torch.cuda.empty_cache()
+    return ms
 
 
 class Holds:
@@ -972,9 +987,8 @@ def phase_times64(dev, bf, holds):
     # band kernel: single elements at the odd post of the mid pass)
     p = torch.rand((2, n, n, nh), generator=g, device=dev,
                    dtype=torch.float64) - 0.5
-    per_axis = [_axis64_pass(bf, holds, p, 1, 'band, single elements',
-                             'mid'),
-                _axis64_pass(bf, holds, p, 0, 'band, vectors', 'lead')]
+    per_axis = [_axis64_pass(bf, holds, p, 1, 'band, single elements'),
+                _axis64_pass(bf, holds, p, 0, 'band, vectors')]
     del p
     keys = ('ms', 'plain_ms', 'library_ms', 'bound_ms', 'reach_ms')
     row = {k: sum(a[k] for a in per_axis) for k in keys}
@@ -1104,15 +1118,15 @@ def _axis64_w768(dev, bf, holds, g):
     m = 3 * DEALIAS64_N // 2
     p = torch.rand((2, m, m, m), generator=g, device=dev,
                    dtype=torch.float64) - 0.5
-    rows = [_axis64_pass(bf, holds, p, 2, 'lines', 'last'),
-            _axis64_pass(bf, holds, p, 1, 'band, vectors', 'mid'),
-            _axis64_pass(bf, holds, p, 0, 'band, vectors', 'lead')]
+    rows = [_axis64_pass(bf, holds, p, 2, 'lines'),
+            _axis64_pass(bf, holds, p, 1, 'band, vectors'),
+            _axis64_pass(bf, holds, p, 0, 'band, vectors')]
     del p
     torch.cuda.empty_cache()
     return rows
 
 
-def _axis64_pass(bf, holds, p, ax, route, pattern, in_place=True):
+def _axis64_pass(bf, holds, p, ax, route, in_place=True):
     """A64 (fft_axis_p on float64) on p along ax: held on both signs slab
     by slab against its plain version into a NaN-filled output, in place
     (out= a copy of p, ``in_place``) bit for bit against out of place,
@@ -1139,7 +1153,7 @@ def _axis64_pass(bf, holds, p, ax, route, pattern, in_place=True):
     row['library_ms'] = _median_ms(lambda: torch.fft.fft(pc, dim=ax))
     del pc
     row.update(bound_ms=b, bound_by=by,
-               reach_ms=_reach_ms(p.numel(), pattern, f64=True))
+               reach_ms=_reach_ms((p,), ax))
     return row
 
 
@@ -1182,9 +1196,8 @@ def _holds_volume64(dev, bf, holds):
                        f"slab {i}")
         del k
     rows = []
-    for ax, route, pattern in ((2, 'lines', 'last'),
-                               (1, 'band, vectors', 'mid'),
-                               (0, 'band, vectors', 'lead')):
+    for ax, route in ((2, 'lines'), (1, 'band, vectors'),
+                      (0, 'band, vectors')):
         sd = 2 if ax == 0 else 1
         _hold_axis64_in_place(bf, x.narrow(sd, 0, s).contiguous(), ax,
                               f"fft_axis_p_f64 {n}^3 slab, axis {ax}")
@@ -1200,7 +1213,7 @@ def _holds_volume64(dev, bf, holds):
         del xc
         torch.cuda.empty_cache()
         row.update(bound_ms=b, bound_by=by,
-                   reach_ms=_reach_ms(x.numel(), pattern, f64=True))
+                   reach_ms=_reach_ms((x,), ax))
         rows.append(row)
     del x
     torch.cuda.empty_cache()
@@ -1313,7 +1326,7 @@ def _pass_bound(numel, N, f64=False):
                      lines * 5 * N * math.log2(N), f64)
 
 
-def _pair_pass(bf, holds, pa, pb, ax, route, pattern):
+def _pair_pass(bf, holds, pa, pb, ax, route):
     """D (fft_axis2_p) on the halves pa, pb along ax: held on both signs
     slab by slab against its plain version into NaN-filled output halves,
     then timed beside its plain version, cuFFT's pass over the assembled
@@ -1345,7 +1358,7 @@ def _pair_pass(bf, holds, pa, pb, ax, route, pattern):
                                   reps=3, warm=1),
            'library_ms': _median_ms(lambda: torch.fft.fft(fc, dim=ax)),
            'bound_ms': b, 'bound_by': by,
-           'reach_ms': _reach_ms(2 * pa.numel(), pattern)}
+           'reach_ms': _reach_ms((pa, pb), ax)}
     del fc
     return row
 
@@ -1367,7 +1380,7 @@ def _times_axis2(bf, holds, x):
     per_axis = []
     for ax, (pa, pb), route in ((0, (q00, q10), 'band'),
                                 (2, (q00, q01), 'lines')):
-        row = _pair_pass(bf, holds, pa, pb, ax, route, 'pair')
+        row = _pair_pass(bf, holds, pa, pb, ax, route)
         d = 1 + ax
         k = torch.cat(bf.fft_axis2_p(pa, pb, ax), d)
         _, row['max_abs_vs_fft_axis_p'] = _rel(
@@ -1385,7 +1398,7 @@ def _times_axis2(bf, holds, x):
     h = x.shape[1] // 2
     ea = x[:, :h, :h, :h].contiguous()
     eb = x[:, :h, h:, :h].contiguous()
-    row['mid_pair'] = _pair_pass(bf, holds, ea, eb, 1, 'band', 'pair')
+    row['mid_pair'] = _pair_pass(bf, holds, ea, eb, 1, 'band')
     del ea, eb
     # N = 768: the halves of a 768^3 volume's last axis (lines) and lead
     # axis (the band, a radix-3 column stage first)
@@ -1394,7 +1407,7 @@ def _times_axis2(bf, holds, x):
     for key, ax, route in (('n768', 2, 'lines'), ('n768_band', 0, 'band')):
         va = v.narrow(1 + ax, 0, m // 2).contiguous()
         vb = v.narrow(1 + ax, m // 2, m // 2).contiguous()
-        row[key] = _pair_pass(bf, holds, va, vb, ax, route, 'pair')
+        row[key] = _pair_pass(bf, holds, va, vb, ax, route)
         del va, vb
         torch.cuda.empty_cache()
     del v
@@ -2056,8 +2069,8 @@ def phase_times_d_a64(dev, bf, holds):
     g = torch.Generator(device=dev).manual_seed(SEED + 21)
     p = torch.rand((2, n, n, n // 2 + 1), generator=g, device=dev,
                    dtype=torch.float64) - 0.5
-    a64 = [_axis64_pass(bf, holds, p, 1, 'band, single elements', 'mid'),
-           _axis64_pass(bf, holds, p, 0, 'band, vectors', 'lead')]
+    a64 = [_axis64_pass(bf, holds, p, 1, 'band, single elements'),
+           _axis64_pass(bf, holds, p, 0, 'band, vectors')]
     del p
     torch.cuda.empty_cache()
     w768 = _axis64_w768(dev, bf, holds, g)
@@ -2440,10 +2453,10 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--times-any', metavar='TREE', nargs='?',
                     const=os.path.dirname(os.path.abspath(__file__)),
-                    help="run only phases 1, 22 and 23, B's rows and "
-                         "D's and A64's rows on the port in TREE "
-                         "(default: this script's checkout), to compare "
-                         "two trees on one card")
+                    help="run only phases 1, 22 and 23, B's, D's and "
+                         "A64's rows and phases 13 and 18 on the port in "
+                         "TREE (default: this script's checkout), to "
+                         "compare two trees on one card")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2465,6 +2478,8 @@ def main(argv=None):
         _emit({'phase': 'times_b', 'kernels': {
             'rfft_axis_p': _times_b(dev, bf, holds)[0]}})
         phase_times_d_a64(dev, bf, holds)
+        phase_pfft(dev, bf, 'd')
+        phase_times_tp(dev, bf, holds)
         print(_smi(), flush=True)
         return 0
     phase_holds(holds, dev)

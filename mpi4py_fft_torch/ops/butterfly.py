@@ -785,15 +785,13 @@ def fft_axis_p(p, axis, forward=True, scale=None, out=None):
     other block touches it.
 
     Which kernel runs is decided before the launch, by shape and
-    alignment.  float32 (A) takes the tile kernel.  float64 (A64) takes
-    the line kernel on whole lines (the last axis) at N = 2^a from 64 to
-    1024 or 3*2^a from 96 to 768 when ``p`` and the output are 16-byte
-    aligned; the column band kernel on inner axes at N = 2^a from 64 to
-    1024 or 3*2^a from 96 to 768 (16-byte vectors where the dims after
-    the axis have an even size
-    and both tensors are 16-byte aligned, else single elements); the tile
-    kernel for every other call.  All count as ``fft_axis_p`` /
-    ``fft_axis_p_f64``."""
+    alignment.  float32 (A) takes the tile kernel.  float64 (A64) at
+    N = 512, 768 and 1024 takes the line kernel on whole lines (the last
+    axis) when ``p`` and the output are 16-byte aligned, and the column
+    band kernel on inner axes (16-byte vectors where the dims after the
+    axis have an even size and both tensors are 16-byte aligned, else
+    single elements); every other float64 call takes the tile kernel.
+    All count as ``fft_axis_p`` / ``fft_axis_p_f64``."""
     what = 'fft_axis_p'
     _check_planar(p, what)
     shape = tuple(p.shape[1:])
@@ -814,7 +812,9 @@ def fft_axis_p(p, axis, forward=True, scale=None, out=None):
     out = torch.empty_like(p) if out is None else out
     if out.numel() == 0:
         return out
-    tw = _tw_tensor_axis(N, sign, p.dtype, p.device)
+    tw = (_tw_tensor_axis(N, sign, p.dtype, p.device)
+          if p.dtype == torch.float64
+          else _tw_tensor(N, sign, False, p.dtype, p.device))
     plan, nst = _plan_args(N)
     _launch(*_build_of(what, 'fft_axis', p), p,
             _ptr(p), _ptr(out), _ptr(tw), tw.shape[1], pre, N, post, sign,

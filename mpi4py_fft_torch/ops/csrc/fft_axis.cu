@@ -33,34 +33,35 @@
 // 1408 B at 1024), and its loads move one 8-byte element a thread: 64-
 // or 32-byte row segments at the lead and mid positions, misaligned at
 // the DNS's odd post = 257.
-// * Whole lines (post == 1), N = 2^a from 64 to 1024 or 3*2^a from 96 to
-//   768, x and y 16-byte aligned: the line kernel (lines.cuh's line
-//   body, as fft_axis2.cu's, on the tensor's two halves).  A group of
-//   G = N / P threads inside one warp holds a line in registers, P = 16
-//   points a thread (24 for 3*2^a, B64's; 32 at N = 1024, 255 registers
-//   and no spill), loads it as 16-byte vectors of 2 adjacent points, and
-//   runs Stockham stages (radix 8, 16, then the rest; 3, 8, 8, .. for
-//   3*2^a) with the exchange through the group's buffer behind
-//   __syncwarp.  At N = 1024 a line on a 64-thread block (16 points a
-//   thread, the exchange behind __syncthreads) ran as fast on an H100
-//   (PERF.md §6).
-// * post > 1, N = 2^a from 64 to 1024 or 3*2^a from 96 to 768: the
-//   column band kernel (lines.cuh's band body).  A CTA of 256 threads,
-//   three an SM, holds up to 4096 points of each component (64 KB and
-//   padding): R = N / K rows of C adjacent lines (the most C with
-//   R C <= 4096), K = band64_cluster(N) CTAs a band (a cluster, with one
-//   radix-K step across it, when K > 1: 4 at N = 1024, 2 at 512, the
-//   fastest of 1, 2 and 4 on an H100; 768 and 384 as 1024 and 512).  Its
-//   loads and
-//   stores move 16-byte vectors of 2 adjacent columns where post is even
-//   and x and y are 16-byte aligned (no vector then straddles two pre
-//   rows), else single elements (the DNS's mid pass, post = 257).  The
-//   columns run as H's in-place radix-8 stages (after a radix-3 stage for
-//   3*2^a), one butterfly a thread at a time, and the store writes row
-//   segments with the scale.
+// * Whole lines (post == 1), N = 512, 768 or 1024, x and y 16-byte
+//   aligned: the line kernel (lines.cuh's line body, as fft_axis2.cu's,
+//   on the tensor's two halves).  A group of G = N / P threads inside one
+//   warp holds a line in registers, P = 16 points a thread (24 at 768,
+//   B64's; 32 at 1024, 255 registers and no spill), loads it as 16-byte
+//   vectors of 2 adjacent points, and runs Stockham stages (radix 8, 16,
+//   then the rest; 3, 8, 8, .. at 768) with the exchange through the
+//   group's buffer behind __syncwarp.  At N = 1024 a line on a 64-thread
+//   block (16 points a thread, the exchange behind __syncthreads) ran as
+//   fast on an H100 (PERF.md §6).
+// * post > 1, N = 512, 768 or 1024: the column band kernel (lines.cuh's
+//   band body).  A CTA of 256 threads, three an SM, holds up to 4096
+//   points of each component (64 KB and padding): R = N / K rows of C
+//   adjacent lines (the most C with R C <= 4096) on a cluster of
+//   K = band64_cluster(N) CTAs, with one radix-K step across it (4 at
+//   1024, 2 at 512: the fastest of 1, 2 and 4 on an H100; 768 on 4 as
+//   1024, timed against the tile only).  Its loads and stores move
+//   16-byte vectors of 2 adjacent columns where post is even and x and y
+//   are 16-byte aligned (no vector then straddles two pre rows), else
+//   single elements (the DNS's mid pass, post = 257).  The columns run
+//   as H's in-place radix-8 stages (after a radix-3 stage at 768), one
+//   butterfly a thread at a time, and the store writes row segments with
+//   the scale.
+// Other lengths (none of them timed against the tile on the card) take
+// the tile kernel.
 // Every kernel reads each line whole before it writes any of it, and no
 // two blocks or clusters share a line, so y may be x.
 #include <cstdint>
+#include <type_traits>
 
 #include "lines.cuh"
 
@@ -144,10 +145,10 @@ fft_axis_kernel(const T* __restrict__ x, T* __restrict__ y,
 // float64: the line kernel (post == 1) and the band kernel (post > 1)
 // ---------------------------------------------------------------------------
 
-// Points a thread of the line kernel holds: 16, 24 for 3*2^a, and 32 at
-// N = 1024, so that a line lies in one warp.
+// Points a thread of the line kernel holds: 16 at N = 512, 24 at 768
+// and 32 at 1024, so that a line lies in one warp.
 __host__ __device__ constexpr int line_points64(int n) {
-  return n % 3 == 0 ? 24 : n == 1024 ? 32 : 16;
+  return n == 768 ? 24 : n == 1024 ? 32 : 16;
 }
 
 using Lines64 = mff::LineLaunch<double>;
@@ -194,28 +195,18 @@ fft_band64_kernel(Half<const double> a, Half<const double> b,
                                       reinterpret_cast<double*>(smem));
 }
 
-// CTAs a band of the float64 band kernel (a cluster when K > 1): 4 at
-// N = 1024 and 768 (16 columns, 128-byte row segments), 2 at 512 and 384
-// (16 columns), one CTA below.
-constexpr int band64_cluster(int n) { return n > 512 ? 4 : n > 256 ? 2 : 1; }
+// CTAs a band of the float64 band kernel (a cluster): 4 at N = 1024 and
+// 768 (16 columns, 128-byte row segments), 2 at 512 (16 columns).
+constexpr int band64_cluster(int n) { return n > 512 ? 4 : 2; }
 
-template <int K>
-auto band64_kernel(bool vec, bool k3) {
-  return vec ? (k3 ? &fft_band64_kernel<K, true, 3>
-                   : &fft_band64_kernel<K, true, 1>)
-             : (k3 ? &fft_band64_kernel<K, false, 3>
-                   : &fft_band64_kernel<K, false, 1>);
+template <int K, int kB>
+auto band64_kernel(bool vec) {
+  return vec ? &fft_band64_kernel<K, true, kB>
+             : &fft_band64_kernel<K, false, kB>;
 }
 
-// The line or band kernel for an n-point pass of x into y, or -1 if
-// neither takes it (the tile kernel does); twr, twi: the powers of w_n.
-// float32 (A): -1, the tile kernel takes every call.
-int launch_lines_bands(const float*, float*, const float*, const float*,
-                       long long, int, long long, float, float,
-                       cudaStream_t) {
-  return -1;
-}
-
+// The line or band kernel for an n-point float64 pass of x into y, or -1
+// if neither takes it (the tile kernel does); twr, twi: the powers of w_n.
 int launch_lines_bands(const double* x, double* y, const double* twr,
                        const double* twi, long long pre, int n,
                        long long post, double sign, double scale,
@@ -227,31 +218,26 @@ int launch_lines_bands(const double* x, double* y, const double* twr,
   const long long h = (n / 2) * post;
   const Half<const double> a{x, plane, n * post}, b{x + h, plane, n * post};
   const Half<double> oa{y, plane, n * post}, ob{y + h, plane, n * post};
+  if (n != 512 && n != 768 && n != 1024) return -1;
   if (post == 1) {
     if (mis(x) || mis(y)) return -1;
-    switch (n) {
-#define MFF_LINES64(w)                                                    \
-  case w:                                                                 \
-    return launch_lines64<w>(a, b, oa, ob, twr, twi, pre, sign, scale,    \
-                             stream)
-      MFF_LINES64(64); MFF_LINES64(128); MFF_LINES64(256);
-      MFF_LINES64(512); MFF_LINES64(1024); MFF_LINES64(96);
-      MFF_LINES64(192); MFF_LINES64(384); MFF_LINES64(768);
-#undef MFF_LINES64
-      default: return -1;
-    }
+    return n == 512   ? launch_lines64<512>(a, b, oa, ob, twr, twi, pre,
+                                            sign, scale, stream)
+           : n == 768 ? launch_lines64<768>(a, b, oa, ob, twr, twi, pre,
+                                            sign, scale, stream)
+                      : launch_lines64<1024>(a, b, oa, ob, twr, twi, pre,
+                                             sign, scale, stream);
   }
-  const bool k3 = n % 3 == 0;
-  if (n < (k3 ? 96 : 64)) return -1;
+  const bool k3 = n == 768;
   const int K = band64_cluster(n);
   const int R = n / K;                       // kB 2^lr rows a CTA
   const int lr = mff::log2_of(R / (k3 ? 3 : 1));
   const int lc = mff::band_log2_cols<double>(R);
   const long long grid = K * ((pre * post + (1 << lc) - 1) >> lc);
   const bool vec = post % 2 == 0 && !mis(x) && !mis(y);
-  const auto kern = K == 4   ? band64_kernel<4>(vec, k3)
-                    : K == 2 ? band64_kernel<2>(vec, k3)
-                             : band64_kernel<1>(vec, k3);
+  const auto kern = K == 2 ? band64_kernel<2, 1>(vec)
+                    : k3   ? band64_kernel<4, 3>(vec)
+                           : band64_kernel<4, 1>(vec);
   return mff::launch_ex(kern, grid, mff::BandBudget<double>::kThreads,
                         mff::band_smem<double>(R, lc), K, stream, a, b, oa,
                         ob, twr, twi, pre, post, lr, lc, sign, scale);
@@ -262,14 +248,16 @@ int launch_fft_axis(const T* x, T* y, const T* tw, long long tw_len,
                     long long pre, int n, long long post, int sign,
                     const int* plan, int nstages, T scale, void* stream) {
   mff::Plan p;
-  if (!mff::make_plan(plan, nstages, n, &p) || tw_len < n)
-    return cudaErrorInvalidValue;
-  if (pre > 0 && post > 0) {
-    const T* twr = tw + (tw_len - n);
-    const int rc = launch_lines_bands(x, y, twr, twr + tw_len, pre, n, post,
-                                      static_cast<T>(sign), scale,
-                                      static_cast<cudaStream_t>(stream));
-    if (rc >= 0) return rc;
+  if (!mff::make_plan(plan, nstages, n, &p)) return cudaErrorInvalidValue;
+  if constexpr (std::is_same<T, double>::value) {
+    if (tw_len < n) return cudaErrorInvalidValue;
+    if (pre > 0 && post > 0) {
+      const T* twr = tw + (tw_len - n);
+      const int rc = launch_lines_bands(x, y, twr, twr + tw_len, pre, n,
+                                        post, static_cast<T>(sign), scale,
+                                        static_cast<cudaStream_t>(stream));
+      if (rc >= 0) return rc;
+    }
   }
   const int lc = mff::tile_log2_lines<T>(n);
   const int C = 1 << lc;
@@ -300,10 +288,9 @@ extern "C" const char* mff_error_string(int rc) {
 }
 
 // x, y: (2, pre, n, post) float32, contiguous, on the current device (y
-// may be x).  tw: the (2, tw_len) table of _tw_pack_axis(n, sign): the
-// stage twiddles of _tw_pack(n, sign), then the n powers of w_n (which
-// only the float64 build's line and band kernels read).  Returns the
-// error of a refused launch, else cudaGetLastError() after the launch.
+// may be x).  tw: the (2, tw_len) table of _tw_pack(n, sign).  Returns
+// the error of a refused launch, else cudaGetLastError() after the
+// launch.
 extern "C" int mff_fft_axis_f32(const float* x, float* y, const float* tw,
                                 long long tw_len, long long pre, int n,
                                 long long post, int sign, const int* plan,
@@ -312,7 +299,9 @@ extern "C" int mff_fft_axis_f32(const float* x, float* y, const float* tw,
                          nstages, scale, stream);
 }
 
-// The same for float64 x, y and tw, with a double scale.
+// The same for float64 x, y and tw, with a double scale; tw: the table of
+// _tw_pack_axis(n, sign), the stage twiddles of _tw_pack(n, sign) (the
+// tile kernel's) then the n powers of w_n (the line and band kernels').
 extern "C" int mff_fft_axis_f64(const double* x, double* y, const double* tw,
                                 long long tw_len, long long pre, int n,
                                 long long post, int sign, const int* plan,

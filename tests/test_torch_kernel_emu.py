@@ -293,21 +293,22 @@ def test_pair_misaligned_takes_tile(kernel_path, emu_kernels):
 
 
 # A64 by route (shape, axis, route): whole lines at 512 (a warp a line),
-# 768 (24 points a thread, radix 3 first), 1024 (a warp a line, 32 points
-# a thread) and 64 (a group of 4 threads, a ragged block) on the line
-# kernel; an odd post (the DNS's mid pass, post = 257, at a small size),
-# a 128-row and a 96-row (radix 3 first) lead axis on the band kernel on
-# one CTA (single elements, and vectors of 2 columns), the 1024-row mid
-# axis of an odd post and lead axes of 512, 1024 and 768 rows on
-# clusters of two or four CTAs; 32 and 48 points on inner axes on the
-# tile kernel
+# 768 (24 points a thread, radix 3 first) and 1024 (a warp a line, 32
+# points a thread) on the line kernel; an odd post at 512 and 1024 rows
+# (the DNS's mid pass, post = 257, at a small size: single elements),
+# lead axes of 512, 1024 and 768 rows (radix 3 first) and a mid axis of
+# 768 rows (vectors of 2 columns) on the band kernel, clusters of two
+# CTAs at 512 rows and four above; whole lines of 64 and 384 points, an
+# odd post at 64 rows, lead axes of 128 and 96 rows and inner axes of 32
+# and 48 points on the tile kernel
 A64_ROUTES = [((3, 512), 1, 'lines'), ((5, 768), 1, 'lines'),
-              ((3, 1024), 1, 'lines'), ((9, 64), 1, 'lines'),
-              ((4, 64, 5), 1, 'band'), ((128, 4, 2), 0, 'band'),
-              ((96, 4), 0, 'band'), ((2, 1024, 3), 1, 'cluster'),
-              ((512, 6), 0, 'cluster'), ((1024, 2), 0, 'cluster'),
-              ((768, 3), 0, 'cluster'), ((2, 32, 5), 1, 'tile'),
-              ((48, 4), 0, 'tile')]
+              ((3, 1024), 1, 'lines'), ((2, 512, 5), 1, 'band'),
+              ((2, 1024, 3), 1, 'band'), ((512, 6), 0, 'band'),
+              ((1024, 2), 0, 'band'), ((768, 3), 0, 'band'),
+              ((2, 768, 2), 1, 'band'), ((9, 64), 1, 'tile'),
+              ((3, 384), 1, 'tile'), ((4, 64, 5), 1, 'tile'),
+              ((128, 4, 2), 0, 'tile'), ((96, 4), 0, 'tile'),
+              ((2, 32, 5), 1, 'tile'), ((48, 4), 0, 'tile')]
 
 
 def _hold_axis64(plain_ok, shape, axis):
@@ -332,15 +333,14 @@ def _hold_axis64(plain_ok, shape, axis):
 def test_axis64_lines_band_vs_plain(kernel_path, emu_kernels, shape, axis,
                                     route):
     """fft_axis_p on float64 on the kernel the rule picks by shape: the
-    line kernel (__syncwarp calls), the band kernel (__ldcg loads; a
-    cluster launch each at 512 and 1024 rows) or the tile kernel (none of
-    these)."""
+    line kernel (__syncwarp calls), the band kernel (__ldcg loads and a
+    cluster launch each) or the tile kernel (none of these)."""
     c0 = _routes(emu_kernels, 'fft_axis')
     _hold_axis64(kernel_path, shape, axis)
     d = _route_delta(c0, _routes(emu_kernels, 'fft_axis'))
-    assert d['cluster_launches'] == (5 if route == 'cluster' else 0)
+    assert d['cluster_launches'] == (5 if route == 'band' else 0)
     assert (d['syncwarps'] > 0) == (route == 'lines')
-    assert (d['ldcg_loads'] > 0) == (route in ('band', 'cluster'))
+    assert (d['ldcg_loads'] > 0) == (route == 'band')
     assert _launched() == {'fft_axis_p_f64': 5}
 
 
