@@ -987,8 +987,8 @@ def phase_times64(dev, bf, holds):
     # band kernel: single elements at the odd post of the mid pass)
     p = torch.rand((2, n, n, nh), generator=g, device=dev,
                    dtype=torch.float64) - 0.5
-    per_axis = [_axis64_pass(bf, holds, p, 1, 'band, single elements'),
-                _axis64_pass(bf, holds, p, 0, 'band, vectors')]
+    per_axis = [_axis_pass(bf, holds, p, 1, 'band, single elements'),
+                _axis_pass(bf, holds, p, 0, 'band, vectors')]
     del p
     keys = ('ms', 'plain_ms', 'library_ms', 'bound_ms', 'reach_ms')
     row = {k: sum(a[k] for a in per_axis) for k in keys}
@@ -1014,20 +1014,8 @@ def phase_times64(dev, bf, holds):
     del r
     out['rfft_axis_p_f64']['trunc768'] = _times_trunc(dev, bf, holds, g,
                                                      f64=True)
-    hc = torch.complex(h[0], h[1])
-    for sc in (None, 1.0 / n):
-        holds.hold('irfft_axis_p_f64', bf.irfft_axis_p(h, 2, n, scale=sc),
-                   bf.irfft_axis_plain(h, 2, n, scale=sc),
-                   f"irfft_axis_p_f64 {n}^3 last axis scale={sc}")
-    out['irfft_axis_p_f64'] = {
-        'shape': f'(2, {n}, {n}, {nh}) f64 -> ({n}, {n}, {n}), last axis',
-        'ms': _median_ms(lambda: bf.irfft_axis_p(h, 2, n)),
-        'plain_ms': _median_ms(lambda: bf.irfft_axis_plain(h, 2, n),
-                               reps=3, warm=1),
-        'library_ms': _median_ms(
-            lambda: torch.fft.irfft(hc, n=n, dim=2, norm='forward')),
-        'bound_ms': b, 'bound_by': by}
-    del h, hc
+    out['irfft_axis_p_f64'] = _times_c64(dev, bf, holds, h, g)
+    del h
     torch.cuda.empty_cache()
     slabs, row['w1024'] = _holds_volume64(dev, bf, holds)
     # end to end: the normalized 'D' forward and the backward, timed apart
@@ -1051,6 +1039,65 @@ def phase_times64(dev, bf, holds):
            / (e2e * 1e-3) / 1e9, 'full_volume_slabs_held': slabs,
            'kernels': out})
     return out
+
+
+def _c2r_reach_ms(h, y):
+    """The reachable bound of a c2r pass along the last axis of the
+    planar spectrum h into the real y: half the sum of ``_reach_ms`` of
+    the two tensors (a copy of each moves its bytes twice; the pass reads
+    h and writes y once)."""
+    yv = y.view((2, y.shape[0] // 2) + tuple(y.shape[1:]))   # even lead
+    return (_reach_ms((h,), 2) + _reach_ms((yv,), 2)) / 2
+
+
+def _c64_row(bf, holds, h, n, what):
+    """C64 (irfft_axis_p on float64) along the last axis of the spectrum
+    h into n points: held at 2e-13 slab by slab on both scales (None,
+    1/n) into a NaN-filled output, then timed beside its plain version,
+    torch.fft.irfft, its bound and its reachable bound."""
+    pre = h.shape[1] * h.shape[2]
+    for sc in (None, 1.0 / n):
+        _nan_block((h.shape[1], h.shape[2], n), h.dtype, h.device)
+        _slab_hold(holds, 'irfft_axis_p_f64', bf.irfft_axis_p(h, 2, n,
+                                                              scale=sc),
+                   lambda i, w: bf.irfft_axis_plain(h.narrow(1, i, w), 2, n,
+                                                    scale=sc),
+                   0, f"irfft_axis_p_f64 {what} scale={sc}")
+    b, by = _bound_ms(h.numel() * 8 + pre * n * 8,
+                      pre * 2.5 * n * math.log2(n), f64=True)
+    hc = torch.complex(h[0], h[1])
+    row = {'shape': f'{tuple(h.shape)} f64 -> ({h.shape[1]}, {h.shape[2]}, '
+                    f'{n}), last axis',
+           'ms': _median_ms(lambda: bf.irfft_axis_p(h, 2, n)),
+           'plain_ms': _median_ms(lambda: bf.irfft_axis_plain(h, 2, n),
+                                  reps=3, warm=1),
+           'library_ms': _median_ms(
+               lambda: torch.fft.irfft(hc, n=n, dim=2, norm='forward')),
+           'bound_ms': b, 'bound_by': by}
+    del hc
+    y = bf.irfft_axis_p(h, 2, n)
+    row['reach_ms'] = _c2r_reach_ms(h, y)
+    del y
+    torch.cuda.empty_cache()
+    return row
+
+
+def _times_c64(dev, bf, holds, h, g):
+    """C64 on the 512^3 DNS's last axis (the spectrum h of its real
+    volume; the row) and at the dealiased solvers' shape (``pad768``: a
+    random (2, 768, 768, 257) spectrum, hin 257 < 385 rows, into 768
+    points, Hermitian zero-padded in the read)."""
+    n = 2 * (h.shape[-1] - 1)
+    row = _c64_row(bf, holds, h, n, f"{n}^3 last axis")
+    m = 3 * DEALIAS64_N // 2
+    nt = DEALIAS64_N // 2 + 1
+    p = torch.rand((2, m, m, nt), generator=g, device=dev,
+                   dtype=torch.float64) - 0.5
+    row['pad768'] = _c64_row(bf, holds, p, m,
+                             f"(2, {m}, {m}, {nt}) -> {m}^3 last axis")
+    del p
+    torch.cuda.empty_cache()
+    return row
 
 
 def _times_trunc(dev, bf, holds, g, f64=False):
@@ -1118,48 +1165,52 @@ def _axis64_w768(dev, bf, holds, g):
     m = 3 * DEALIAS64_N // 2
     p = torch.rand((2, m, m, m), generator=g, device=dev,
                    dtype=torch.float64) - 0.5
-    rows = [_axis64_pass(bf, holds, p, 2, 'lines'),
-            _axis64_pass(bf, holds, p, 1, 'band, vectors'),
-            _axis64_pass(bf, holds, p, 0, 'band, vectors')]
+    rows = [_axis_pass(bf, holds, p, 2, 'lines'),
+            _axis_pass(bf, holds, p, 1, 'band, vectors'),
+            _axis_pass(bf, holds, p, 0, 'band, vectors')]
     del p
     torch.cuda.empty_cache()
     return rows
 
 
-def _axis64_pass(bf, holds, p, ax, route, in_place=True):
-    """A64 (fft_axis_p on float64) on p along ax: held on both signs slab
-    by slab against its plain version into a NaN-filled output, in place
-    (out= a copy of p, ``in_place``) bit for bit against out of place,
-    then timed beside its plain version, complex128 torch.fft.fft, its
-    bound and its reachable bound."""
+def _axis_pass(bf, holds, p, ax, route, in_place=True):
+    """A (fft_axis_p; A64 on float64) on p along ax: held on both signs
+    slab by slab against its plain version into a NaN-filled output, in
+    place (out= a copy of p, ``in_place``) bit for bit against out of
+    place, then timed beside its plain version, torch.fft.fft, its bound
+    and its reachable bound."""
+    f64 = p.dtype == torch.float64
+    name = 'fft_axis_p_f64' if f64 else 'fft_axis_p'
     sd = 2 if ax == 0 else 1                   # slabs off the pass axis
     N = p.shape[1 + ax]
-    tag = f"fft_axis_p_f64 {tuple(p.shape)} axis {ax} ({route})"
+    tag = f"{name} {tuple(p.shape)} axis {ax} ({route})"
     for fwd in (True, False):
         k = bf.fft_axis_p(p, ax, fwd, out=_nan(p))
-        _slab_hold(holds, 'fft_axis_p_f64', k, lambda i, w: (
+        _slab_hold(holds, name, k, lambda i, w: (
             bf.fft_axis_plain(p.narrow(sd, i, w), ax, fwd)), sd,
             f"{tag} fwd={fwd}")
         del k
     if in_place:
-        _hold_axis64_in_place(bf, p, ax, tag)
-    b, by = _pass_bound(p.numel(), N, f64=True)
-    row = {'axis': ax, 'route': route, 'shape': f'{tuple(p.shape)} f64, '
-                                                 f'axis {ax}',
+        _hold_axis_in_place(bf, p, ax, tag)
+    b, by = _pass_bound(p.numel(), N, f64=f64)
+    row = {'axis': ax, 'route': route,
+           'shape': f"{tuple(p.shape)} {'f64' if f64 else 'f32'}, "
+                    f"axis {ax}",
            'ms': _median_ms(lambda: bf.fft_axis_p(p, ax)),
            'plain_ms': _median_ms(lambda: bf.fft_axis_plain(p, ax), reps=3,
                                   warm=1)}
     pc = torch.complex(p[0], p[1])
     row['library_ms'] = _median_ms(lambda: torch.fft.fft(pc, dim=ax))
     del pc
+    torch.cuda.empty_cache()
     row.update(bound_ms=b, bound_by=by,
                reach_ms=_reach_ms((p,), ax))
     return row
 
 
-def _hold_axis64_in_place(bf, p, ax, tag):
-    """fft_axis_p on float64 in place (out= a copy of p) against out of
-    place into a NaN-filled tensor, bit for bit, with a scale."""
+def _hold_axis_in_place(bf, p, ax, tag):
+    """fft_axis_p in place (out= a copy of p) against out of place into a
+    NaN-filled tensor, bit for bit, with a scale."""
     q = p.clone()
     _check(bf.fft_axis_p(q, ax, False, scale=0.5, out=q) is q,
            f"{tag}: out= returned a new tensor")
@@ -1199,7 +1250,7 @@ def _holds_volume64(dev, bf, holds):
     for ax, route in ((2, 'lines'), (1, 'band, vectors'),
                       (0, 'band, vectors')):
         sd = 2 if ax == 0 else 1
-        _hold_axis64_in_place(bf, x.narrow(sd, 0, s).contiguous(), ax,
+        _hold_axis_in_place(bf, x.narrow(sd, 0, s).contiguous(), ax,
                               f"fft_axis_p_f64 {n}^3 slab, axis {ax}")
         b, by = _pass_bound(x.numel(), n, f64=True)
         row = {'axis': ax, 'route': route,
@@ -1220,34 +1271,46 @@ def _holds_volume64(dev, bf, holds):
     return len(passes) * n // s, rows
 
 
+def _times_a(dev, bf, holds, x):
+    """A at the main path's shapes (``_axis_pass``: held on both signs
+    slab by slab, in place, timed with its reachable bound): the three
+    passes of the north-star volume x (the row: the last axis on the
+    line kernel, the others on the band kernel), the mid pass of one of
+    the quartered schedule's quarters (``quarter_mid``), and the two
+    768-point passes of the dealiased 'f' plan (``f768``: the mid axis at
+    post 257, single elements, and the lead axis, vectors)."""
+    from mpi4py_fft_torch.ops import oop3d
+    n = x.shape[1]
+    per_axis = [_axis_pass(bf, holds, x, 2, 'lines'),
+                _axis_pass(bf, holds, x, 1, 'band, vectors'),
+                _axis_pass(bf, holds, x, 0, 'band, vectors')]
+    keys = ('ms', 'plain_ms', 'library_ms', 'bound_ms', 'reach_ms')
+    row = {k: sum(a[k] for a in per_axis) for k in keys}
+    row.update(shape=f'3 passes, axes 2, 1, 0 of (2, {n}, {n}, {n}) f32',
+               bound_by=per_axis[0]['bound_by'], per_axis=per_axis)
+    q = oop3d.split_q(x)[0]
+    row['quarter_mid'] = _axis_pass(bf, holds, q, 1, 'band, vectors')
+    del q
+    torch.cuda.empty_cache()
+    m = 3 * DEALIAS_N // 2
+    nt = DEALIAS_N // 2 + 1
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    row['f768'] = []
+    for shape, ax, route in (((m, m, nt), 1, 'band, single elements'),
+                             ((m, DEALIAS_N, nt), 0, 'band, vectors')):
+        p = torch.rand((2,) + shape, generator=g, device=dev) - 0.5
+        row['f768'].append(_axis_pass(bf, holds, p, ax, route))
+        del p
+        torch.cuda.empty_cache()
+    return row
+
+
 def phase_times(dev, bf, holds, pfft, x):
     """Kernel, plain and library times at the main path's shapes."""
     out = {}
     n = x.shape[1]
-    lines = n * n
     from mpi4py_fft_torch.ops import oop3d
-    # A: one pass per axis position of the north-star volume
-    xc = torch.complex(x[0], x[1])
-    per_axis = []
-    for ax in (2, 1, 0):
-        k = bf.fft_axis_p(x, ax)
-        pl = bf.fft_axis_plain(x, ax)
-        holds.hold('fft_axis_p', k, pl, f"fft_axis_p {n}^3 axis {ax}")
-        del k, pl
-        t_k = _median_ms(lambda: bf.fft_axis_p(x, ax))
-        t_p = _median_ms(lambda: bf.fft_axis_plain(x, ax))
-        t_l = _median_ms(lambda: torch.fft.fft(xc, dim=ax))
-        b, by = _bound_ms(2 * x.numel() * 4, lines * 5 * n * math.log2(n))
-        per_axis.append({'axis': ax, 'ms': t_k, 'plain_ms': t_p,
-                         'library_ms': t_l, 'bound_ms': b})
-    del xc
-    out['fft_axis_p'] = {
-        'shape': f'3 passes, axes 2, 1, 0 of (2, {n}, {n}, {n}) f32',
-        'ms': sum(a['ms'] for a in per_axis),
-        'plain_ms': sum(a['plain_ms'] for a in per_axis),
-        'library_ms': sum(a['library_ms'] for a in per_axis),
-        'bound_ms': sum(a['bound_ms'] for a in per_axis),
-        'bound_by': by, 'per_axis': per_axis}
+    out['fft_axis_p'] = _times_a(dev, bf, holds, x)
     # end to end: normalized forward + backward of the north star, on the
     # full volume and on the quartered schedule (state kept quartered)
     t_pair = _median_ms(lambda: pfft.backward(pfft.forward(x)), reps=5)
@@ -1270,7 +1333,6 @@ def phase_times(dev, bf, holds, pfft, x):
     m = 3 * DEALIAS_N // 2
     nh = m // 2 + 1
     out['rfft_axis_p'], k = _times_b(dev, bf, holds)
-    g = torch.Generator(device=dev).manual_seed(SEED + 5)
     b, by = _bound_ms(m ** 3 * 4 + 2 * m * m * nh * 4,
                       m * m * 2.5 * m * math.log2(m))
     h = k
@@ -1284,15 +1346,6 @@ def phase_times(dev, bf, holds, pfft, x):
         'library_ms': _median_ms(
             lambda: torch.fft.irfft(hc, n=m, dim=2, norm='forward')),
         'bound_ms': b, 'bound_by': by}
-    # A at the dealiasing grid's mid- and lead-axis passes, both signs
-    nt = DEALIAS_N // 2 + 1
-    for shape, ax in (((m, m, nt), 1), ((m, DEALIAS_N, nt), 0)):
-        p = torch.rand((2,) + shape, generator=g, device=dev) - 0.5
-        for fwd in (True, False):
-            holds.hold('fft_axis_p', bf.fft_axis_p(p, ax, fwd),
-                       bf.fft_axis_plain(p, ax, fwd),
-                       f"fft_axis_p {shape} axis {ax} fwd={fwd}")
-        del p
     _emit({'phase': 'times', 'e2e_shape': [n] * 3, 'e2e_dtype': 'F',
            'e2e_ms_per_transform': e2e_ms,
            'e2e_gflops_5nlogn': gfs,
@@ -2069,8 +2122,8 @@ def phase_times_d_a64(dev, bf, holds):
     g = torch.Generator(device=dev).manual_seed(SEED + 21)
     p = torch.rand((2, n, n, n // 2 + 1), generator=g, device=dev,
                    dtype=torch.float64) - 0.5
-    a64 = [_axis64_pass(bf, holds, p, 1, 'band, single elements'),
-           _axis64_pass(bf, holds, p, 0, 'band, vectors')]
+    a64 = [_axis_pass(bf, holds, p, 1, 'band, single elements'),
+           _axis_pass(bf, holds, p, 0, 'band, vectors')]
     del p
     torch.cuda.empty_cache()
     w768 = _axis64_w768(dev, bf, holds, g)
@@ -2078,6 +2131,29 @@ def phase_times_d_a64(dev, bf, holds):
     _emit({'phase': 'times_d_a64', 'kernels': {
         'fft_axis2_p': d, 'fft_axis_p_f64': {'dns': a64, 'w768': w768,
                                              'w1024': w1024}}})
+
+
+def phase_times_a_c64(dev, bf, holds):
+    """A's and C64's rows of phases 16 and 17 alone (for --times-any):
+    A at the north-star volume's three passes, a quarter's mid pass and
+    the dealiased 'f' plan's 768-point passes; C64 at the 512^3 DNS's
+    last axis and at the dealiased solvers' (2, 768, 768, 257) spectrum,
+    each held first."""
+    x = _rand((2,) + (NORTH_N,) * 3, dev, SEED + 2)
+    a = _times_a(dev, bf, holds, x)
+    del x
+    torch.cuda.empty_cache()
+    n = DNS_N
+    g = torch.Generator(device=dev).manual_seed(SEED + 21)
+    r = torch.rand((n, n, n), generator=g, device=dev,
+                   dtype=torch.float64) - 0.5
+    h = bf.rfft_axis_p(r, 2)
+    del r
+    c64 = _times_c64(dev, bf, holds, h, g)
+    del h
+    torch.cuda.empty_cache()
+    _emit({'phase': 'times_a_c64', 'kernels': {'fft_axis_p': a,
+                                               'irfft_axis_p_f64': c64}})
 
 
 def phase_times_any(dev, bf, holds):
@@ -2449,43 +2525,9 @@ KERNELS = {
 }
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
-    ap.add_argument('--times-any', metavar='TREE', nargs='?',
-                    const=os.path.dirname(os.path.abspath(__file__)),
-                    help="run only phases 1, 22 and 23, B's, D's and "
-                         "A64's rows and phases 13 and 18 on the port in "
-                         "TREE (default: this script's checkout), to "
-                         "compare two trees on one card")
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
-        return 1
-    tree = os.path.abspath(args.times_any or os.path.dirname(
-        os.path.abspath(__file__)))
-    sys.path.insert(0, tree)
-    from mpi4py_fft_torch.ops import butterfly as bf
-    _check(os.path.abspath(bf.__file__).startswith(tree + os.sep),
-           f"mpi4py_fft_torch imported from {bf.__file__}, not {tree}")
-    t_start = time.perf_counter()
-    dev = torch.device('cuda', 0)
-    torch.cuda.set_device(dev)
-    phase_build()
-    holds = Holds(KERNELS)
-    if args.times_any:
-        phase_plane(dev, bf, holds)
-        phase_times_any(dev, bf, holds)
-        _emit({'phase': 'times_b', 'kernels': {
-            'rfft_axis_p': _times_b(dev, bf, holds)[0]}})
-        phase_times_d_a64(dev, bf, holds)
-        phase_pfft(dev, bf, 'd')
-        phase_times_tp(dev, bf, holds)
-        print(_smi(), flush=True)
-        return 0
-    phase_holds(holds, dev)
-
-    # the main path: counters at 0 just before, read just after
-    bf.reset_launches()
+def _planar_path(dev, bf):
+    """Phases 3 to 10 (the planar pipeline); returns the north-star
+    plan."""
     phase_entry(dev)
     pfft, x = phase_north(dev, bf)
     phase_quartered(bf, pfft, x)
@@ -2496,27 +2538,129 @@ def main(argv=None):
     phase_north64(dev, bf)
     phase_dealias(dev, bf, dtype='d')
     phase_dns64(dev, bf)
-    marks = {'planar_path_s': time.perf_counter() - t_start}
+    return pfft
+
+
+def _reference_path(dev, bf):
+    """Phases 11 to 15 (the reference API)."""
     phase_pfft(dev, bf, 'f')
     phase_pfft(dev, bf, 'F')
     phase_pfft(dev, bf, 'd')
     phase_buffer(dev, bf)
     phase_dns_solver(dev, bf)
-    marks['reference_api_path_s'] = time.perf_counter() - t_start
+
+
+def _any_path(dev, bf, holds):
+    """Phases 19 to 22 (any extent and the plane entry points)."""
     phase_any_c2c(dev, bf)
     phase_any_r2c(dev, bf)
     phase_bluestein(dev, bf)
     phase_plane(dev, bf, holds)
+
+
+def _times_north(dev, bf, holds, pfft=None):
+    """Phase 16 on a new north-star volume (and plan, if none is
+    given)."""
+    if pfft is None:
+        from mpi4py_fft_torch import PlanarPFFT
+        pfft = PlanarPFFT(None, (NORTH_N,) * 3, dtype='F')
+    x = _rand((2,) + (NORTH_N,) * 3, dev, SEED + 2)
+    out = phase_times(dev, bf, holds, pfft, x)
+    del x, pfft
+    torch.cuda.empty_cache()
+    return out
+
+
+# --phases: groups of phases by name, each a function of (dev, bf, ctx)
+GROUPS = {
+    'holds': lambda dev, bf, ctx: phase_holds(ctx['holds'], dev),
+    'planar': lambda dev, bf, ctx: _planar_path(dev, bf),
+    'reference': lambda dev, bf, ctx: _reference_path(dev, bf),
+    'any': lambda dev, bf, ctx: _any_path(dev, bf, ctx['holds']),
+    'times': lambda dev, bf, ctx: _times_north(dev, bf, ctx['holds']),
+    'times64': lambda dev, bf, ctx: phase_times64(dev, bf, ctx['holds']),
+    'times_tp': lambda dev, bf, ctx: phase_times_tp(dev, bf, ctx['holds']),
+    'times_any': lambda dev, bf, ctx: phase_times_any(dev, bf,
+                                                      ctx['holds']),
+    'times_a_c64': lambda dev, bf, ctx: phase_times_a_c64(dev, bf,
+                                                          ctx['holds']),
+    'probes': lambda dev, bf, ctx: phase_probes(dev),
+    'm3d': lambda dev, bf, ctx: phase_pfft(dev, bf, 'd'),
+    'dns_solver': lambda dev, bf, ctx: phase_dns_solver(dev, bf),
+}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    ap.add_argument('--times-any', metavar='TREE', nargs='?',
+                    const=os.path.dirname(os.path.abspath(__file__)),
+                    help="run only phases 1, 22 and 23, A's, B's, C64's, "
+                         "D's and A64's rows and phases 13 and 18 on the "
+                         "port in TREE (default: this script's checkout), "
+                         "to compare two trees on one card")
+    ap.add_argument('--phases', metavar='GROUPS',
+                    help="run only phase 1 and these groups of phases, in "
+                         "this order (comma-separated: "
+                         + ', '.join(GROUPS) + "), on the port in --tree")
+    ap.add_argument('--tree', metavar='TREE',
+                    help="the checkout whose port --phases runs (default: "
+                         "this script's)")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 1
+    groups = args.phases.split(',') if args.phases else []
+    for name in groups:
+        if name not in GROUPS:
+            ap.error(f"unknown group {name!r}")
+    tree = os.path.abspath(args.times_any or args.tree or os.path.dirname(
+        os.path.abspath(__file__)))
+    sys.path.insert(0, tree)
+    from mpi4py_fft_torch.ops import butterfly as bf
+    _check(os.path.abspath(bf.__file__).startswith(tree + os.sep),
+           f"mpi4py_fft_torch imported from {bf.__file__}, not {tree}")
+    t_start = time.perf_counter()
+    dev = torch.device('cuda', 0)
+    torch.cuda.set_device(dev)
+    phase_build()
+    holds = Holds(KERNELS)
+    ctx = {'holds': holds}
+    if args.times_any:
+        phase_plane(dev, bf, holds)
+        phase_times_any(dev, bf, holds)
+        _emit({'phase': 'times_b', 'kernels': {
+            'rfft_axis_p': _times_b(dev, bf, holds)[0]}})
+        phase_times_a_c64(dev, bf, holds)
+        phase_times_d_a64(dev, bf, holds)
+        phase_pfft(dev, bf, 'd')
+        phase_times_tp(dev, bf, holds)
+        print(_smi(), flush=True)
+        return 0
+    if groups:
+        for name in groups:
+            t0 = time.perf_counter()
+            GROUPS[name](dev, bf, ctx)
+            torch.cuda.empty_cache()
+            _emit({'group': name, 'seconds': time.perf_counter() - t0})
+        print(_smi(), flush=True)
+        return 0
+    phase_holds(holds, dev)
+
+    # the main path: counters at 0 just before, read just after
+    bf.reset_launches()
+    pfft = _planar_path(dev, bf)
+    marks = {'planar_path_s': time.perf_counter() - t_start}
+    _reference_path(dev, bf)
+    marks['reference_api_path_s'] = time.perf_counter() - t_start
+    _any_path(dev, bf, holds)
     marks['any_extent_path_s'] = time.perf_counter() - t_start
     launches = dict(bf.LAUNCHES)
     _check(set(launches) == set(KERNELS), f"counters {sorted(launches)}")
     for name, c in launches.items():
         _check(c > 0, f"{name} was not launched on the main path")
 
-    x = _rand((2,) + (NORTH_N,) * 3, dev, SEED + 2)
-    times = phase_times(dev, bf, holds, pfft, x)
-    del x, pfft
-    torch.cuda.empty_cache()
+    times = _times_north(dev, bf, holds, pfft)
+    del pfft
     times.update(phase_times64(dev, bf, holds))
     marks['times_s'] = time.perf_counter() - t_start
     times.update(phase_times_tp(dev, bf, holds))
@@ -2534,8 +2678,8 @@ def main(argv=None):
             'bound_by': t['bound_by'], 'library_ms': t['library_ms'],
             'shape': t['shape']})
         for extra in ('reach_ms', 'per_axis', 'mid_pair', 'n768',
-                      'n768_band', 'w768',
-                      'w1024', 'cufft_unfused_ms', 'two_a_passes_ms',
+                      'n768_band', 'w768', 'w1024', 'quarter_mid', 'f768',
+                      'pad768', 'cufft_unfused_ms', 'two_a_passes_ms',
                       'n1536', 'trunc768', 's7', 's8', 'one_cta',
                       'ctas_a_plane', 'max_active'):
             if extra in t:

@@ -785,13 +785,14 @@ def fft_axis_p(p, axis, forward=True, scale=None, out=None):
     other block touches it.
 
     Which kernel runs is decided before the launch, by shape and
-    alignment.  float32 (A) takes the tile kernel.  float64 (A64) at
-    N = 512, 768 and 1024 takes the line kernel on whole lines (the last
-    axis) when ``p`` and the output are 16-byte aligned, and the column
-    band kernel on inner axes (16-byte vectors where the dims after the
-    axis have an even size and both tensors are 16-byte aligned, else
-    single elements); every other float64 call takes the tile kernel.
-    All count as ``fft_axis_p`` / ``fft_axis_p_f64``."""
+    alignment, the same rule for float32 (A) and float64 (A64): at
+    N = 512, 768 and 1024 the line kernel on whole lines (the last axis)
+    when ``p`` and the output are 16-byte aligned, and the column band
+    kernel on inner axes (16-byte vectors where the size of the dims
+    after the axis is a multiple of a vector, 4 floats or 2 doubles, and
+    both tensors are 16-byte aligned, else single elements); every other
+    call takes the tile kernel.  All count as ``fft_axis_p`` /
+    ``fft_axis_p_f64``."""
     what = 'fft_axis_p'
     _check_planar(p, what)
     shape = tuple(p.shape[1:])
@@ -812,9 +813,7 @@ def fft_axis_p(p, axis, forward=True, scale=None, out=None):
     out = torch.empty_like(p) if out is None else out
     if out.numel() == 0:
         return out
-    tw = (_tw_tensor_axis(N, sign, p.dtype, p.device)
-          if p.dtype == torch.float64
-          else _tw_tensor(N, sign, False, p.dtype, p.device))
+    tw = _tw_tensor_axis(N, sign, p.dtype, p.device)
     plan, nst = _plan_args(N)
     _launch(*_build_of(what, 'fft_axis', p), p,
             _ptr(p), _ptr(out), _ptr(tw), tw.shape[1], pre, N, post, sign,
@@ -867,7 +866,14 @@ def irfft_axis_p(p, axis, n, scale=None):
     """Planar Hermitian half spectrum -> real tensor of length ``n`` along
     ``axis``.  Input rows beyond n//2+1 are ignored; fewer rows are
     Hermitian zero-padded in the read.  Unscaled inverse (FFTW's c2r:
-    N*x) unless ``scale`` is given.  Packed N/2-point method."""
+    N*x) unless ``scale`` is given.  Packed N/2-point method.
+
+    Which kernel runs is decided before the launch, by layout: a float64
+    CUDA spectrum along its last axis (whole lines) at n >= 4 whose input
+    and output are aligned to a packed point (16 bytes) takes the c2r
+    line kernel (a warp-resident group of threads a line); every other
+    case, float32, n = 2, an inner axis or misaligned data, takes the tile
+    kernel.  Both count as ``irfft_axis_p`` / ``irfft_axis_p_f64``."""
     what = 'irfft_axis_p'
     _check_planar(p, what)
     shape = tuple(p.shape[1:])

@@ -23,45 +23,45 @@
 // one pre index, or C whole lines when post == 1), loads it with
 // neighbouring threads on neighbouring addresses, runs every Stockham
 // stage in shared memory and writes the tile once: the two unavoidable
-// passes over device memory and nothing else.  The float32 build (A)
-// runs every call on this tile kernel.
+// passes over device memory and nothing else.
 //
-// The float64 build (A64) takes two other kernels, chosen by shape and
-// alignment before the launch; the tile kernel keeps every other call.
-// The tile's fp64 stages hold 16 points a thread across a block barrier
-// (80 registers and 1852 B of spill stores a thread at W = 512, 128 and
-// 1408 B at 1024), and its loads move one 8-byte element a thread: 64-
-// or 32-byte row segments at the lead and mid positions, misaligned at
-// the DNS's odd post = 257.
-// * Whole lines (post == 1), N = 512, 768 or 1024, x and y 16-byte
-//   aligned: the line kernel (lines.cuh's line body, as fft_axis2.cu's,
-//   on the tensor's two halves).  A group of G = N / P threads inside one
-//   warp holds a line in registers, P = 16 points a thread (24 at 768,
-//   B64's; 32 at 1024, 255 registers and no spill), loads it as 16-byte
-//   vectors of 2 adjacent points, and runs Stockham stages (radix 8, 16,
-//   then the rest; 3, 8, 8, .. at 768) with the exchange through the
-//   group's buffer behind __syncwarp.  At N = 1024 a line on a 64-thread
-//   block (16 points a thread, the exchange behind __syncthreads) ran as
-//   fast on an H100 (PERF.md §6).
-// * post > 1, N = 512, 768 or 1024: the column band kernel (lines.cuh's
-//   band body).  A CTA of 256 threads, three an SM, holds up to 4096
-//   points of each component (64 KB and padding): R = N / K rows of C
-//   adjacent lines (the most C with R C <= 4096) on a cluster of
-//   K = band64_cluster(N) CTAs, with one radix-K step across it (4 at
-//   1024, 2 at 512: the fastest of 1, 2 and 4 on an H100; 768 on 4 as
-//   1024, timed against the tile only).  Its loads and stores move
-//   16-byte vectors of 2 adjacent columns where post is even and x and y
-//   are 16-byte aligned (no vector then straddles two pre rows), else
-//   single elements (the DNS's mid pass, post = 257).  The columns run
-//   as H's in-place radix-8 stages (after a radix-3 stage at 768), one
+// At N = 512, 768 and 1024 (the lengths timed against the tile on the
+// card) both builds take two other kernels, chosen by shape and alignment
+// before the launch; the tile kernel keeps every other call.  The tile's
+// stages hold 16 points a thread across a block barrier (float32: 40
+// registers and 968 B of spill stores a thread; float64: 80 and 1852 B at
+// W = 512, 128 and 1408 B at 1024), and its loads move one element a
+// thread: 64- or 32-byte row segments at the lead and mid positions
+// (1.45 TB/s on the 1024^3 lead axis of an H100, where copies of the
+// same boxes reach 2.7), misaligned at the DNS's odd post = 257.
+// * Whole lines (post == 1), x and y 16-byte aligned: the line kernel
+//   (lines.cuh's line body, as fft_axis2.cu's, on the tensor's two
+//   halves).  A group of G = N / P threads inside one warp holds a line
+//   in registers, P points a thread (float64 16, 24 at 768, B64's, 32 at
+//   1024, 255 registers and no spill; float32 32, 24 at 768, D's lines),
+//   loads it as 16-byte vectors of adjacent points, and runs Stockham
+//   stages (radix 8, 16, then the rest; 3, 8, 8, .. at 768) with the
+//   exchange through the group's buffer behind __syncwarp.  At N = 1024
+//   a float64 line on a 64-thread block (16 points a thread, the exchange
+//   behind __syncthreads) ran as fast on an H100 (PERF.md §6).
+// * post > 1: the column band kernel (lines.cuh's band body).  A CTA
+//   (256 threads, three an SM; up to 4096 points of each component in
+//   float64, 8192 in float32, D's band's, which runs them on 512 threads,
+//   two an SM)
+//   holds R = N / K rows of C adjacent lines (the most C with R C within
+//   those points) on a cluster of K = band_cluster(N) CTAs, with one
+//   radix-K step across it (float64: 4 at 1024, 2 at 512, the fastest of
+//   1, 2 and 4 on an H100, 768 on 4 as 1024; float32: 4, D's).  Its loads
+//   and stores move 16-byte vectors of adjacent columns where post is a
+//   multiple of the vector and x and y are 16-byte aligned (no vector
+//   then straddles two pre rows), else single elements (the DNS's mid
+//   pass and the dealiased 'f' plan's, post = 257).  The columns run as
+//   H's in-place radix-8 stages (after a radix-3 stage at 768), one
 //   butterfly a thread at a time, and the store writes row segments with
 //   the scale.
-// Other lengths (none of them timed against the tile on the card) take
-// the tile kernel.
 // Every kernel reads each line whole before it writes any of it, and no
 // two blocks or clusters share a line, so y may be x.
 #include <cstdint>
-#include <type_traits>
 
 #include "lines.cuh"
 
@@ -142,105 +142,287 @@ fft_axis_kernel(const T* __restrict__ x, T* __restrict__ y,
 }
 
 // ---------------------------------------------------------------------------
-// float64: the line kernel (post == 1) and the band kernel (post > 1)
+// N = 512, 768, 1024: the line kernel (post == 1) and the band kernel
+// (post > 1)
 // ---------------------------------------------------------------------------
 
-// Points a thread of the line kernel holds: 16 at N = 512, 24 at 768
-// and 32 at 1024, so that a line lies in one warp.
-__host__ __device__ constexpr int line_points64(int n) {
-  return n == 768 ? 24 : n == 1024 ? 32 : 16;
+// Points a thread of the line kernel holds, so that a line lies in one
+// warp: float64 16 at N = 512, 24 at 768 and 32 at 1024; float32 32, 24
+// at 768 (D's lines).
+template <class T>
+__host__ __device__ constexpr int axis_line_points(int n) {
+  return n == 768 ? 24 : n == 1024 || sizeof(T) == 4 ? 32 : 16;
 }
 
-using Lines64 = mff::LineLaunch<double>;
-
-template <int N>
-__global__ void __launch_bounds__(Lines64::kThreads, Lines64::kMinBlocks)
-fft_lines64_kernel(Half<const double> a, Half<const double> b,
-                   Half<double> oa, Half<double> ob,
-                   const double* __restrict__ twr,
-                   const double* __restrict__ twi, long long lines,
-                   double sign, double scale) {
+template <class T, int N>
+__global__ void __launch_bounds__(mff::LineLaunch<T>::kThreads,
+                                  mff::LineLaunch<T>::kMinBlocks)
+fft_lines_kernel(Half<const T> a, Half<const T> b, Half<T> oa, Half<T> ob,
+                 const T* __restrict__ twr, const T* __restrict__ twi,
+                 long long lines, T sign, T scale) {
   extern __shared__ __align__(16) unsigned char smem[];
-  mff::line_body<double, N, line_points64(N)>(
+  mff::line_body<T, N, axis_line_points<T>(N)>(
       a, b, oa, ob, twr, twi, lines, sign, scale,
-      reinterpret_cast<double*>(smem));
+      reinterpret_cast<T*>(smem));
 }
 
-template <int N>
-int launch_lines64(Half<const double> a, Half<const double> b,
-                   Half<double> oa, Half<double> ob, const double* twr,
-                   const double* twi, long long lines, double sign,
-                   double scale, cudaStream_t stream) {
-  constexpr int G = N / line_points64(N);
-  constexpr int threads = Lines64::kThreads;
+template <class T, int N>
+int launch_lines(Half<const T> a, Half<const T> b, Half<T> oa, Half<T> ob,
+                 const T* twr, const T* twi, long long lines, T sign,
+                 T scale, cudaStream_t stream) {
+  constexpr int G = N / axis_line_points<T>(N);
+  constexpr int threads = mff::LineLaunch<T>::kThreads;
   const long long blocks = (lines + threads / G - 1) / (threads / G);
-  return mff::launch_ex(&fft_lines64_kernel<N>, blocks, threads,
-                        sizeof(double) * 2 * mff::row_buf(N) * (threads / G),
-                        1, stream, a, b, oa, ob, twr, twi, lines, sign,
-                        scale);
+  return mff::launch_ex(&fft_lines_kernel<T, N>, blocks, threads,
+                        sizeof(T) * 2 * mff::row_buf(N) * (threads / G), 1,
+                        stream, a, b, oa, ob, twr, twi, lines, sign, scale);
 }
 
-template <int K, bool kVec, int kB>
-__global__ void __launch_bounds__(mff::BandBudget<double>::kThreads,
-                                  mff::BandBudget<double>::kMinBlocks)
-fft_band64_kernel(Half<const double> a, Half<const double> b,
-                  Half<double> oa, Half<double> ob,
-                  const double* __restrict__ twr,
-                  const double* __restrict__ twi, long long pre,
-                  long long post, int lr, int lc, double sign,
-                  double scale) {
+// The band CTA's budget: float64 lines.cuh's; float32 the same 8192
+// points on 256 threads, three CTAs an SM (80 registers, no spill), all
+// four chunks of a round at once.  At D's 512 threads, two CTAs an SM,
+// A took 12.1-12.5 ms on the 1024^3 mid and lead passes of an H100,
+// 10.0-10.2 on 256 (PERF.md §6); its loads and stores alone took 6.3-6.8.
+template <class T>
+struct AxisBandBudget : mff::BandBudget<T> {};
+template <>
+struct AxisBandBudget<float> {
+  static constexpr int kElems = mff::BandBudget<float>::kElems;
+  static constexpr int kThreads = 256;
+  static constexpr int kMinBlocks = 3;
+  static constexpr int kRound = 4;
+};
+
+template <class T, int K, bool kVec, int kB>
+__global__ void __launch_bounds__(AxisBandBudget<T>::kThreads,
+                                  AxisBandBudget<T>::kMinBlocks)
+fft_band_kernel(Half<const T> a, Half<const T> b, Half<T> oa, Half<T> ob,
+                const T* __restrict__ twr, const T* __restrict__ twi,
+                long long pre, long long post, int lr, int lc, T sign,
+                T scale) {
   extern __shared__ __align__(16) unsigned char smem[];
-  mff::axis_band<double, K, kVec, kB>(a, b, oa, ob, twr, twi, pre, post,
-                                      lr, lc, sign, scale,
-                                      reinterpret_cast<double*>(smem));
+  mff::axis_band<T, K, kVec, kB, AxisBandBudget<T>>(
+      a, b, oa, ob, twr, twi, pre, post, lr, lc, sign, scale,
+      reinterpret_cast<T*>(smem));
 }
 
-// CTAs a band of the float64 band kernel (a cluster): 4 at N = 1024 and
-// 768 (16 columns, 128-byte row segments), 2 at 512 (16 columns).
-constexpr int band64_cluster(int n) { return n > 512 ? 4 : 2; }
+// A's float32 band at N = K R, R = 2^lr, with 16-byte vectors: the same
+// band of C adjacent lines on a cluster of K CTAs, in another order, so
+// that the first radix-8 stage runs in registers as the line stages' do.
+// CTA kk holds the rows kk + K n (n < R) of its lines: the R-point
+// sequence x_kk.  A thread's eight chunks are the rows m + R/8 j (j < 8)
+// of V adjacent columns (R C = 8192 = 4 V 256, so each chunk covers R/8
+// rows): for each column it forms the first decimation-in-frequency
+// stage of the R-point transform (radix 8 over j, output a times
+// w_R^(a m)) from the registers it loaded, and writes its outputs once;
+// the other stages run in place as the band body's.  CTA kk then holds
+// X_kk[f] at row dif_pos(f), and one radix-K step across the cluster
+// (each position read from every CTA j, times w_N^(j f), a K-point DFT
+// over j, output k2 written to CTA k2) leaves X[f + R k2] in CTA k2: the
+// output rows k2 R .. k2 R + R - 1, stored with the scale.  Every read
+// of device memory comes before the first barrier and every write after
+// the last, and a cluster owns its lines whole, so y may be x.
+template <int K, class B>
+__device__ __forceinline__ void band_rows_first(
+    Half<const float> a, Half<const float> b, Half<float> oa,
+    Half<float> ob, const float* __restrict__ twr,
+    const float* __restrict__ twi, long long pre, long long post, int lr,
+    int lc, float sign, float scale, float* smem) {
+  constexpr int V = mff::kVec16<float>, kChunks = 8;
+  constexpr int lk = K == 8 ? 3 : K == 4 ? 2 : K == 2 ? 1 : 0;
+  static_assert(B::kElems == kChunks * V * B::kThreads, "R/8 rows a chunk");
+  using U = float4;
+  const int C = 1 << lc, R = 1 << lr, R8 = R >> 3;
+  const int h = (R * K) >> 1;
+  const int elems = R << lc;
+  mff::Block<float> k{smem, nullptr, 0, lr, lc, mff::row_stride(C)};
+  k.im = k.re + R * k.rs;
+  const unsigned kk = mff::cluster_rank();
+  const int t = static_cast<int>(threadIdx.x);
+  const int c = (V * t) & (C - 1);
+  const int m = (V * t) >> lc;
+  const long long l = ((static_cast<long long>(blockIdx.x) / K) << lc) + c;
+  const bool live = l < pre * post;
+  const long long li = live ? l / post : 0;
+  const long long col = live ? l - li * post : 0;
 
-template <int K, int kB>
-auto band64_kernel(bool vec) {
-  return vec ? &fft_band64_kernel<K, true, kB>
-             : &fft_band64_kernel<K, false, kB>;
+  // every load first: rows m + R/8 j of this CTA's sequence
+  float vr[kChunks][V], vi[kChunks][V];
+#pragma unroll
+  for (int j = 0; j < kChunks; ++j) {
+    const int g = (m + R8 * j) * K + static_cast<int>(kk);
+    const bool lo = g < h;
+    const Half<const float>& x = lo ? a : b;
+    const float* q = x.ptr + li * x.pre + col +
+                     static_cast<long long>(lo ? g : g - h) * post;
+    if (live) {
+      mff::Vec16<float>::split(__ldcg(reinterpret_cast<const U*>(q)), vr[j]);
+      mff::Vec16<float>::split(__ldcg(reinterpret_cast<const U*>(q + x.plane)),
+                               vi[j]);
+    } else {
+#pragma unroll
+      for (int cc = 0; cc < V; ++cc) vr[j][cc] = vi[j][cc] = 0.0f;
+    }
+  }
+  // the first stage of each column: radix 8 over j, output o times
+  // w_R^(o m) = w_N^(K o m), to row m + R/8 o
+#pragma unroll
+  for (int cc = 0; cc < V; ++cc) {
+    float ur[kChunks], ui[kChunks];
+#pragma unroll
+    for (int j = 0; j < kChunks; ++j) {
+      ur[j] = vr[j][cc];
+      ui[j] = vi[j][cc];
+    }
+    mff::Dft<kChunks, float>::run(ur, ui, sign);
+#pragma unroll
+    for (int o = 0; o < kChunks; ++o) {
+      float yr = ur[o], yi = ui[o];
+      if (o > 0) {
+        const int e = (o * m) << lk;
+        const float wr = __ldg(twr + e), wi = __ldg(twi + e);
+        yr = ur[o] * wr - ui[o] * wi;
+        yi = ur[o] * wi + ui[o] * wr;
+      }
+      const int s = mff::at<true>(k, m + R8 * o, c + cc);
+      k.re[s] = yr;
+      k.im[s] = yi;
+    }
+  }
+  __syncthreads();
+  // the other stages, sub-blocks of R/8 points
+  for (int ll = lr - 3; ll > 0;) {
+    const int st = ll < 3 ? ll : 3;
+    if (st == 1)
+      mff::dif_stage<2, 1, false>(k, lc, lr, ll, lk, twr, twi, sign);
+    else if (st == 2)
+      mff::dif_stage<4, 2, false>(k, lc, lr, ll, lk, twr, twi, sign);
+    else
+      mff::dif_stage<8, 3, false>(k, lc, lr, ll, lk, twr, twi, sign);
+    ll -= st;
+  }
+
+  // the radix-K step across the cluster: X[f + R k2] from X_j[f]
+  mff::cluster_sync();
+#pragma unroll 1
+  for (int p = static_cast<int>(kk) * B::kThreads + t; p < elems;
+       p += K * B::kThreads) {
+    const int f = p >> lc;
+    const int s = mff::dif_pos(f, lr) * k.rs + mff::pad(p & (C - 1));
+    float ur[K], ui[K];
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      const float xr = *mff::peer_smem(k.re + s, static_cast<unsigned>(j));
+      const float xi = *mff::peer_smem(k.im + s, static_cast<unsigned>(j));
+      if (j == 0) {
+        ur[j] = xr;
+        ui[j] = xi;
+      } else {                           // times w_N^(j f)
+        const int e = j * f;
+        const float wr = __ldg(twr + e), wi = __ldg(twi + e);
+        ur[j] = xr * wr - xi * wi;
+        ui[j] = xr * wi + xi * wr;
+      }
+    }
+    mff::Dft<K, float>::run(ur, ui, sign);
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      *mff::peer_smem(k.re + s, static_cast<unsigned>(j)) = ur[j];
+      *mff::peer_smem(k.im + s, static_cast<unsigned>(j)) = ui[j];
+    }
+  }
+  mff::cluster_sync();
+
+  // output rows kk R + f from row dif_pos(f), scaled
+  if (!live) return;
+  float* ya = oa.ptr + li * oa.pre + col;
+  float* yb = ob.ptr + li * ob.pre + col;
+  for (int e = V * t; e < elems; e += V * B::kThreads) {
+    const int f = e >> lc;
+    const int s = mff::dif_pos(f, lr) * k.rs + mff::pad(e & (C - 1));
+    const int r = static_cast<int>(kk) * R + f;
+    const bool lo = r < h;
+    float* q = (lo ? ya : yb) + static_cast<long long>(lo ? r : r - h) * post;
+    const long long pl = lo ? oa.plane : ob.plane;
+    float wr[V], wi[V];
+#pragma unroll
+    for (int cc = 0; cc < V; ++cc) {
+      wr[cc] = k.re[s + cc] * scale;
+      wi[cc] = k.im[s + cc] * scale;
+    }
+    *reinterpret_cast<U*>(q) = mff::Vec16<float>::make(wr);
+    *reinterpret_cast<U*>(q + pl) = mff::Vec16<float>::make(wi);
+  }
 }
 
-// The line or band kernel for an n-point float64 pass of x into y, or -1
-// if neither takes it (the tile kernel does); twr, twi: the powers of w_n.
-int launch_lines_bands(const double* x, double* y, const double* twr,
-                       const double* twi, long long pre, int n,
-                       long long post, double sign, double scale,
-                       cudaStream_t stream) {
+template <int K>
+__global__ void __launch_bounds__(AxisBandBudget<float>::kThreads,
+                                  AxisBandBudget<float>::kMinBlocks)
+fft_band_rows_kernel(Half<const float> a, Half<const float> b,
+                     Half<float> oa, Half<float> ob,
+                     const float* __restrict__ twr,
+                     const float* __restrict__ twi, long long pre,
+                     long long post, int lr, int lc, float sign,
+                     float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  band_rows_first<K, AxisBandBudget<float>>(
+      a, b, oa, ob, twr, twi, pre, post, lr, lc, sign, scale,
+      reinterpret_cast<float*>(smem));
+}
+
+// CTAs a band of the band kernel (a cluster): float64 4 at N = 1024 and
+// 768 (16 columns, 128-byte row segments), 2 at 512 (16 columns);
+// float32 4 (D's band: 32 columns at 1024 and 768, 64 at 512).
+template <class T>
+constexpr int band_cluster(int n) {
+  return sizeof(T) == 4 || n > 512 ? 4 : 2;
+}
+
+template <class T, int K, int kB>
+auto band_kernel(bool vec) {
+  return vec ? &fft_band_kernel<T, K, true, kB>
+             : &fft_band_kernel<T, K, false, kB>;
+}
+
+// The line or band kernel for an n-point pass of x into y, or -1 if
+// neither takes it (the tile kernel does); twr, twi: the powers of w_n.
+template <class T>
+int launch_lines_bands(const T* x, T* y, const T* twr, const T* twi,
+                       long long pre, int n, long long post, T sign,
+                       T scale, cudaStream_t stream) {
   const auto mis = [](const void* p) {
     return reinterpret_cast<std::uintptr_t>(p) % 16 != 0;
   };
   const long long plane = pre * n * post;
   const long long h = (n / 2) * post;
-  const Half<const double> a{x, plane, n * post}, b{x + h, plane, n * post};
-  const Half<double> oa{y, plane, n * post}, ob{y + h, plane, n * post};
+  const Half<const T> a{x, plane, n * post}, b{x + h, plane, n * post};
+  const Half<T> oa{y, plane, n * post}, ob{y + h, plane, n * post};
   if (n != 512 && n != 768 && n != 1024) return -1;
   if (post == 1) {
     if (mis(x) || mis(y)) return -1;
-    return n == 512   ? launch_lines64<512>(a, b, oa, ob, twr, twi, pre,
-                                            sign, scale, stream)
-           : n == 768 ? launch_lines64<768>(a, b, oa, ob, twr, twi, pre,
-                                            sign, scale, stream)
-                      : launch_lines64<1024>(a, b, oa, ob, twr, twi, pre,
-                                             sign, scale, stream);
+    return n == 512   ? launch_lines<T, 512>(a, b, oa, ob, twr, twi, pre,
+                                             sign, scale, stream)
+           : n == 768 ? launch_lines<T, 768>(a, b, oa, ob, twr, twi, pre,
+                                             sign, scale, stream)
+                      : launch_lines<T, 1024>(a, b, oa, ob, twr, twi, pre,
+                                              sign, scale, stream);
   }
   const bool k3 = n == 768;
-  const int K = band64_cluster(n);
+  const int K = band_cluster<T>(n);
   const int R = n / K;                       // kB 2^lr rows a CTA
   const int lr = mff::log2_of(R / (k3 ? 3 : 1));
-  const int lc = mff::band_log2_cols<double>(R);
+  const int lc = mff::band_log2_cols<T>(R);
   const long long grid = K * ((pre * post + (1 << lc) - 1) >> lc);
-  const bool vec = post % 2 == 0 && !mis(x) && !mis(y);
-  const auto kern = K == 2 ? band64_kernel<2, 1>(vec)
-                    : k3   ? band64_kernel<4, 3>(vec)
-                           : band64_kernel<4, 1>(vec);
-  return mff::launch_ex(kern, grid, mff::BandBudget<double>::kThreads,
-                        mff::band_smem<double>(R, lc), K, stream, a, b, oa,
-                        ob, twr, twi, pre, post, lr, lc, sign, scale);
+  const bool vec = post % mff::kVec16<T> == 0 && !mis(x) && !mis(y);
+  auto kern = k3 ? band_kernel<T, 4, 3>(vec) : band_kernel<T, 4, 1>(vec);
+  if constexpr (band_cluster<T>(512) == 2) {
+    if (K == 2) kern = band_kernel<T, 2, 1>(vec);
+  } else {
+    if (vec && !k3) kern = &fft_band_rows_kernel<4>;
+  }
+  return mff::launch_ex(kern, grid, AxisBandBudget<T>::kThreads,
+                        mff::band_smem<T>(R, lc), K, stream, a, b, oa, ob,
+                        twr, twi, pre, post, lr, lc, sign, scale);
 }
 
 template <class T>
@@ -248,16 +430,14 @@ int launch_fft_axis(const T* x, T* y, const T* tw, long long tw_len,
                     long long pre, int n, long long post, int sign,
                     const int* plan, int nstages, T scale, void* stream) {
   mff::Plan p;
-  if (!mff::make_plan(plan, nstages, n, &p)) return cudaErrorInvalidValue;
-  if constexpr (std::is_same<T, double>::value) {
-    if (tw_len < n) return cudaErrorInvalidValue;
-    if (pre > 0 && post > 0) {
-      const T* twr = tw + (tw_len - n);
-      const int rc = launch_lines_bands(x, y, twr, twr + tw_len, pre, n,
-                                        post, static_cast<T>(sign), scale,
-                                        static_cast<cudaStream_t>(stream));
-      if (rc >= 0) return rc;
-    }
+  if (!mff::make_plan(plan, nstages, n, &p) || tw_len < n)
+    return cudaErrorInvalidValue;
+  if (pre > 0 && post > 0) {
+    const T* twr = tw + (tw_len - n);
+    const int rc = launch_lines_bands(x, y, twr, twr + tw_len, pre, n, post,
+                                      static_cast<T>(sign), scale,
+                                      static_cast<cudaStream_t>(stream));
+    if (rc >= 0) return rc;
   }
   const int lc = mff::tile_log2_lines<T>(n);
   const int C = 1 << lc;
@@ -288,9 +468,10 @@ extern "C" const char* mff_error_string(int rc) {
 }
 
 // x, y: (2, pre, n, post) float32, contiguous, on the current device (y
-// may be x).  tw: the (2, tw_len) table of _tw_pack(n, sign).  Returns
-// the error of a refused launch, else cudaGetLastError() after the
-// launch.
+// may be x).  tw: the (2, tw_len) table of _tw_pack_axis(n, sign), the
+// stage twiddles of _tw_pack(n, sign) (the tile kernel's) then the n
+// powers of w_n (the line and band kernels').  Returns the error of a
+// refused launch, else cudaGetLastError() after the launch.
 extern "C" int mff_fft_axis_f32(const float* x, float* y, const float* tw,
                                 long long tw_len, long long pre, int n,
                                 long long post, int sign, const int* plan,
@@ -299,9 +480,7 @@ extern "C" int mff_fft_axis_f32(const float* x, float* y, const float* tw,
                          nstages, scale, stream);
 }
 
-// The same for float64 x, y and tw, with a double scale; tw: the table of
-// _tw_pack_axis(n, sign), the stage twiddles of _tw_pack(n, sign) (the
-// tile kernel's) then the n powers of w_n (the line and band kernels').
+// The same for float64 x, y and tw, with a double scale.
 extern "C" int mff_fft_axis_f64(const double* x, double* y, const double* tw,
                                 long long tw_len, long long pre, int n,
                                 long long post, int sign, const int* plan,

@@ -565,6 +565,7 @@ __device__ __forceinline__ void cluster_dif_step(const Block<T>& k, int lc,
 // registers, with spill stores; bound to two, 104-118 registers and no
 // spill, the band ran 15-34% slower on an H100), two chunks at once (four
 // ran 5-6% slower at N = 1024, where at float four are 3-4% faster).
+// A kernel may run the band body on a budget of its own (axis_band's B).
 template <class T>
 struct BandBudget;
 template <>
@@ -613,8 +614,9 @@ inline int band_log2_cols(int rows) {
 // after its last, and a cluster owns its lines whole, so the outputs may
 // be the inputs.  The R-point columns run as in-place radix-8 stages
 // (after one radix-3 stage when kB = 3).  twr, twi: the powers of w_n.
-// smem: band_smem(R, lc).
-template <class T, int K, bool kVec, int kB>
+// B: the CTA's budget (BandBudget<T>'s points, its own threads and
+// chunks).  smem: band_smem(R, lc).
+template <class T, int K, bool kVec, int kB, class B = BandBudget<T>>
 __device__ __forceinline__ void axis_band(Half<const T> a, Half<const T> b,
                                           Half<T> oa, Half<T> ob,
                                           const T* __restrict__ twr,
@@ -622,7 +624,8 @@ __device__ __forceinline__ void axis_band(Half<const T> a, Half<const T> b,
                                           long long pre, long long post,
                                           int lr, int lc, T sign, T scale,
                                           T* smem) {
-  using B = BandBudget<T>;
+  static_assert(B::kElems == BandBudget<T>::kElems,
+                "band_log2_cols and band_smem size the CTA");
   constexpr int V = kVec ? kVec16<T> : 1;
   constexpr int lk = K == 8 ? 3 : K == 4 ? 2 : K == 2 ? 1 : 0;
   using U = typename Vec16<T>::type;

@@ -55,6 +55,7 @@
 // spills.  An input that is not aligned to a
 // packed point, N = 2 and inner axes take the tile kernel.
 #include <cstdint>
+#include <type_traits>
 
 #include "butterfly.cuh"
 
@@ -310,12 +311,13 @@ __host__ __device__ constexpr int line_span(int W, int s) {
   return m;
 }
 
-// One Stockham stage of radix R over the W-point line of a group, with
-// M sub-transforms interleaved (M: the earlier radices' product); thread
-// g of the group owns butterflies b = g + G k, k < P/R.  The first stage
-// reads the thread's own points (z[g + G s] in zr/zi[s]); the others read
-// the group's buffer.  Every stage writes its outputs to the buffer.
-template <class T, int W, int R, int M, bool kFirst>
+// One Stockham stage of radix R and sign kSign (-1 forward, +1 inverse)
+// over the W-point line of a group, with M sub-transforms interleaved (M:
+// the earlier radices' product); thread g of the group owns butterflies
+// b = g + G k, k < P/R.  The first stage reads the thread's own points
+// (z[g + G s] in zr/zi[s]); the others read the group's buffer.  Every
+// stage writes its outputs to the buffer.
+template <class T, int W, int R, int M, bool kFirst, int kSign>
 __device__ __forceinline__ void line_stage(const T* zr, const T* zi, T* br,
                                            T* bi, int g,
                                            const T* __restrict__ cw,
@@ -338,8 +340,8 @@ __device__ __forceinline__ void line_stage(const T* zr, const T* zi, T* br,
         vi[k][j] = bi[s];
       }
     }
-    mff::Dft<R, T>::run(vr[k], vi[k], T(-1));
-    if constexpr (Lq > 1) {    // w_L^(j lp) = w_N^(2 j lp M), sign -1
+    mff::Dft<R, T>::run(vr[k], vi[k], T(kSign));
+    if constexpr (Lq > 1) {    // w_L^(j lp) = w_N^(2 j lp M), of sign kSign
 #pragma unroll
       for (int j = 1; j < R; ++j) {
         const int u = 2 * j * lp * M;
@@ -352,8 +354,13 @@ __device__ __forceinline__ void line_stage(const T* zr, const T* zi, T* br,
           s = -__ldg(sw + u - W);
         }
         const T yr = vr[k][j], yi = vi[k][j];
-        vr[k][j] = yr * c + yi * s;
-        vi[k][j] = yi * c - yr * s;
+        if constexpr (kSign < 0) {     // times c - i s
+          vr[k][j] = yr * c + yi * s;
+          vi[k][j] = yi * c - yr * s;
+        } else {                       // times c + i s
+          vr[k][j] = yr * c - yi * s;
+          vi[k][j] = yi * c + yr * s;
+        }
       }
     }
   }
@@ -372,16 +379,16 @@ __device__ __forceinline__ void line_stage(const T* zr, const T* zi, T* br,
   __syncwarp();
 }
 
-// Stages s.. of a W-point line.
-template <class T, int W, int S>
+// Stages s.. of a W-point line of sign kSign.
+template <class T, int W, int S, int kSign>
 __device__ __forceinline__ void line_stages(const T* zr, const T* zi, T* br,
                                             T* bi, int g,
                                             const T* __restrict__ cw,
                                             const T* __restrict__ sw) {
   if constexpr (line_radix(W, S) != 0) {
-    line_stage<T, W, line_radix(W, S), line_span(W, S), S == 0>(
+    line_stage<T, W, line_radix(W, S), line_span(W, S), S == 0, kSign>(
         zr, zi, br, bi, g, cw, sw);
-    line_stages<T, W, S + 1>(zr, zi, br, bi, g, cw, sw);
+    line_stages<T, W, S + 1, kSign>(zr, zi, br, bi, g, cw, sw);
   }
 }
 
@@ -420,7 +427,7 @@ rfft_lines_kernel(const T* __restrict__ x, T* __restrict__ y,
     zr[s] = v.x;
     zi[s] = v.y;
   }
-  line_stages<T, W, 0>(zr, zi, br, bi, g, cw, sw);
+  line_stages<T, W, 0, -1>(zr, zi, br, bi, g, cw, sw);
   if (!live) return;
 
   // untangle Z[j] with Z[W - j] into row j, both planes
@@ -483,6 +490,130 @@ int launch_rfft_lines(const T* x, T* y, const T* tw, long long tw_len,
   case w:                                                                 \
     return launch_lines<T, w>(x, y, tw, tw_len, nlines, hext, nrows,      \
                               fold, scale, st)
+  switch (W) {
+    MFF_LINES(2); MFF_LINES(4); MFF_LINES(8); MFF_LINES(16); MFF_LINES(32);
+    MFF_LINES(64); MFF_LINES(128); MFF_LINES(256); MFF_LINES(512);
+    MFF_LINES(3); MFF_LINES(6); MFF_LINES(12); MFF_LINES(24); MFF_LINES(48);
+    MFF_LINES(96); MFF_LINES(192); MFF_LINES(384);
+    default: return cudaErrorInvalidValue;
+  }
+#undef MFF_LINES
+}
+
+// Planar (2, nlines, hin) -> real (nlines, 2W) by the packed W-point
+// inverse, a group of W/P threads a line: the inverse of
+// rfft_lines_kernel.  The group loads spectrum rows 0..W of its line
+// (rows at or past hin are zero, and row hin-1 is halved with a zero
+// imaginary part when hin is even and short of W+1: the Hermitian
+// zero-pad in the read; rows past W are not read) into its buffer of
+// W+1 points, every load first; each thread forms its points
+// z[g + G s] = E + i O from X[k] and X[W-k] in registers, then the
+// inverse stages run as the r2c's, and out[2m], out[2m+1] = Re z[m],
+// Im z[m] go out scaled, one packed point a vector.  tw: the table of
+// _tw_pack_packed(2W, +1), its unpack rows at t2; scale carries the
+// packed inverse's factor 2.
+template <class T, int W>
+__global__ void __launch_bounds__(kLineThreads, kLineMinBlocks<T>)
+irfft_lines_kernel(const T* __restrict__ x, T* __restrict__ y,
+                   const T* __restrict__ tw, long long tw_len, int t2,
+                   long long nlines, int hin, T scale) {
+  constexpr int P = line_points(W), G = W / P;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int grp = threadIdx.x / G, g = threadIdx.x % G;
+  T* br = reinterpret_cast<T*>(smem) + grp * 2 * (W + 1);
+  T* bi = br + W + 1;
+  const long long line =
+      static_cast<long long>(blockIdx.x) * (kLineThreads / G) + grp;
+  const bool live = line < nlines;
+  const T* cw = tw + t2;
+  const T* sw = tw + tw_len + t2;
+
+  // rows k = g + G s <= W of both planes (P + 1 a thread), every load
+  // first
+  const T* xr = x + (live ? line : 0) * hin;
+  const T* xi = xr + nlines * hin;
+  T hr[P + 1], hi[P + 1];
+#pragma unroll
+  for (int s = 0; s <= P; ++s) {
+    const int k = g + G * s;
+    hr[s] = hi[s] = T(0);
+    if (k <= W && k < hin) {
+      hr[s] = __ldg(xr + k);
+      hi[s] = __ldg(xi + k);
+    }
+  }
+  const bool halve = hin <= W && hin % 2 == 0;
+#pragma unroll
+  for (int s = 0; s <= P; ++s) {
+    const int k = g + G * s;
+    if (k > W) continue;
+    if (halve && k == hin - 1) {
+      hr[s] = T(0.5) * hr[s];
+      hi[s] = T(0);
+    }
+    br[k] = hr[s];
+    bi[k] = hi[s];
+  }
+  __syncwarp();
+
+  // Z[k] = E[k] + i O[k]: E = (X[k] + conj X[W-k]) / 2,
+  // O = w_N^k (X[k] - conj X[W-k]) / 2
+  T zr[P], zi[P];
+#pragma unroll
+  for (int s = 0; s < P; ++s) {
+    const int k = g + G * s;
+    const T xrh = br[k], xih = bi[k];
+    const T xrr = br[W - k], xir = bi[W - k];
+    const T er = T(0.5) * (xrh + xrr);
+    const T ei = T(0.5) * (xih - xir);
+    const T dr = xrh - xrr;
+    const T di = xih + xir;
+    const T c = __ldg(cw + k), sn = __ldg(sw + k);
+    const T ore = T(0.5) * (c * dr - sn * di);
+    const T oim = T(0.5) * (c * di + sn * dr);
+    zr[s] = er - oim;
+    zi[s] = ei + ore;
+  }
+  __syncwarp();   // the group has read the buffer
+  line_stages<T, W, 0, +1>(zr, zi, br, bi, g, cw, sw);
+  if (!live) return;
+
+  using V = typename Point<T>::type;
+  V* yz = reinterpret_cast<V*>(y) + line * W;
+  for (int m = g; m < W; m += G) yz[m] = V{br[m] * scale, bi[m] * scale};
+}
+
+template <class T, int W>
+int launch_c2r_lines(const T* x, T* y, const T* tw, long long tw_len,
+                     long long nlines, int hin, T scale,
+                     cudaStream_t stream) {
+  constexpr int P = line_points(W), G = W / P;
+  static_assert(G <= 32 && 32 % G == 0 && kLineThreads % 32 == 0,
+                "a group lies inside one warp");
+  constexpr int lines = kLineThreads / G;
+  const long long blocks = (nlines + lines - 1) / lines;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const size_t smem = sizeof(T) * 2 * (W + 1) * lines;
+  auto kern = &irfft_lines_kernel<T, W>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  kern<<<static_cast<unsigned>(blocks), kLineThreads, smem, stream>>>(
+      x, y, tw, tw_len, static_cast<int>(tw_len) - (W + 1), nlines, hin,
+      scale);
+  return cudaGetLastError();
+}
+
+// The c2r line kernel of W = n/2 (the packed lengths of the r2c's).
+template <class T>
+int launch_irfft_lines(const T* x, T* y, const T* tw, long long tw_len,
+                       long long nlines, int W, int hin, T scale,
+                       void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define MFF_LINES(w)                                                      \
+  case w:                                                                 \
+    return launch_c2r_lines<T, w>(x, y, tw, tw_len, nlines, hin, scale, st)
   switch (W) {
     MFF_LINES(2); MFF_LINES(4); MFF_LINES(8); MFF_LINES(16); MFF_LINES(32);
     MFF_LINES(64); MFF_LINES(128); MFF_LINES(256); MFF_LINES(512);
@@ -556,6 +687,19 @@ int launch_irfft_axis(const T* x, T* y, const T* tw, long long tw_len,
   mff::Plan p;
   if (!mff::make_plan(plan, nstages, W, &p) || hin < 1)
     return cudaErrorInvalidValue;
+  // float64 whole lines of a packed length, input and output aligned to
+  // a packed point (16 bytes): the c2r line kernel (float32 keeps the
+  // tile)
+  if constexpr (std::is_same<T, double>::value) {
+    const auto aligned = [](const void* q) {
+      return reinterpret_cast<std::uintptr_t>(q) % (2 * sizeof(T)) == 0;
+    };
+    if (post == 1 && packed && aligned(x) && aligned(y)) {
+      if (pre <= 0 || tw_len < W + 1) return cudaErrorInvalidValue;
+      return launch_irfft_lines(x, y, tw, tw_len, pre, W, hin, scale,
+                                stream);
+    }
+  }
   int lc, threads;
   long long blocks;
   if (!launch_shape<T>(W, pre * post, &lc, &blocks, &threads))

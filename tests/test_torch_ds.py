@@ -4,7 +4,8 @@
   float64 tensors (their plain versions here; their fp64 CUDA builds on
   the card) against F, ``pallas_ds.fft_axis_ds`` and its r2c/c2r glue
   ``rfft_axis_ds``/``irfft_axis_ds``, run in interpret mode on
-  double-single data (``to_ds``/``from_ds``).  Tolerance: relative L2
+  double-single data (``to_ds``/``from_ds``); the c2r also on a
+  truncated spectrum, against F's glue after ``libfft.pad_planar``.  Tolerance: relative L2
   2e-13, the JAX suite's own for F (tests/test_ds.py:58).  The shapes
   pass F's gates: power-of-two N <= 1024, complementary volume a
   multiple of 1024.
@@ -24,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from mpi4py_fft_tpu import libfft as jlibfft
 from mpi4py_fft_tpu.ops import pallas_ds as ds
 from mpi4py_fft_tpu.parallel import DeviceComm
 from mpi4py_fft_tpu.parallel.planar import PlanarPFFT as JPlanarPFFT
@@ -81,6 +83,24 @@ def test_rfft_irfft_vs_ds(hext):
                          scale=1.0 / 128, interpret=True)
     ref = np.asarray(ds.join_real_ds(y))
     got = tb.irfft_axis_p(torch.from_numpy(h), 2, 128, scale=1.0 / 128)
+    assert got.dtype == torch.float64 and tuple(got.shape) == SHAPE
+    assert _rel(got, ref) < F_TOL
+
+
+@pytest.mark.parametrize('hin,scale', [(43, None), (42, 1.0 / 128)])
+def test_irfft_short_spectrum_vs_ds(hin, scale):
+    """The c2r of a truncated spectrum, as the dealiased backward runs
+    it: the port's ``irfft_axis_p`` zero-pads the ``hin`` rows in its
+    read (an odd hin, the 3/2 rule's n/3 + 1, and an even one, whose last
+    row is halved), F's glue runs on the same spectrum padded by
+    ``libfft.pad_planar(..., hermitian=True)``."""
+    rng = np.random.default_rng(27 + hin)
+    h = rng.standard_normal((2, 16, 64, hin))
+    padded = jlibfft.pad_planar(jnp.asarray(h), 3, 65, True)
+    y = ds.irfft_axis_ds(ds.split_planar_ds(padded), 2, 128, scale=scale,
+                         interpret=True)
+    ref = np.asarray(ds.join_real_ds(y))
+    got = tb.irfft_axis_p(torch.from_numpy(h), 2, 128, scale=scale)
     assert got.dtype == torch.float64 and tuple(got.shape) == SHAPE
     assert _rel(got, ref) < F_TOL
 

@@ -364,6 +364,83 @@ def test_axis64_misaligned(kernel_path, emu_kernels):
     assert _launched() == {'fft_axis_p_f64': 2}
 
 
+# A (float32) by route (shape, axis, route): whole lines at 512, 768 (24
+# points a thread, radix 3 first) and 1024 on the line kernel; an odd
+# post at 768 and 1024 rows (the dealiased 'f' plan's mid pass, post =
+# 257, at a small size: single elements, bands across pre rows), lead
+# axes of 512, 1024 and 768 rows (radix 3 first) and mid axes of 768
+# and 512 rows on the band kernel with vectors of 4 columns (clusters of
+# four CTAs); whole lines of 64 and 384 points, lead axes of 128 and 96
+# rows and an inner axis of 32 points on the tile kernel
+A32_ROUTES = [((3, 512), 1, 'lines'), ((5, 768), 1, 'lines'),
+              ((3, 1024), 1, 'lines'), ((2, 768, 5), 1, 'elements'),
+              ((2, 1024, 3), 1, 'elements'), ((512, 8), 0, 'vectors'),
+              ((1024, 4), 0, 'vectors'), ((768, 4), 0, 'vectors'),
+              ((2, 768, 8), 1, 'vectors'), ((3, 512, 4), 1, 'vectors'),
+              ((9, 64), 1, 'tile'), ((3, 384), 1, 'tile'),
+              ((128, 4, 2), 0, 'tile'), ((96, 4), 0, 'tile'),
+              ((2, 32, 5), 1, 'tile')]
+
+
+def _hold_axis(plain_ok, shape, axis, dtype, tol, seed):
+    """fft_axis_p (both signs, a scale) against its plain version, and in
+    place (out=p) bit for bit against out of place into a NaN-filled
+    tensor; five launches."""
+    rng = np.random.default_rng(seed)
+    p = torch.from_numpy(rng.standard_normal((2,) + shape).astype(dtype))
+    for fwd, sc in ((True, None), (False, None), (True, 0.37)):
+        got = bf.fft_axis_p(p, axis, fwd, scale=sc)
+        ref = _plain(plain_ok, bf.fft_axis_p, p, axis, fwd, scale=sc)
+        assert got.dtype == p.dtype
+        assert _rel(got, ref) <= tol, (fwd, sc)
+    q = p.clone()
+    assert bf.fft_axis_p(q, axis, False, scale=0.5, out=q) is q
+    n = torch.full_like(p, float('nan'))
+    bf.fft_axis_p(p, axis, False, scale=0.5, out=n)
+    assert torch.equal(q, n)
+    return p.numel()
+
+
+@pytest.mark.parametrize('shape,axis,route', A32_ROUTES)
+def test_axis32_lines_band_vs_plain(kernel_path, emu_kernels, shape, axis,
+                                    route):
+    """fft_axis_p on float32 on the kernel the rule picks by shape: the
+    line kernel (__syncwarp calls), the band kernel (a cluster launch
+    each, its __ldcg loads one a 16-byte vector of each plane, or one an
+    element) or the tile kernel (none of these)."""
+    c0 = _routes(emu_kernels, 'fft_axis')
+    numel = _hold_axis(kernel_path, shape, axis, np.float32, TOL, 24)
+    d = _route_delta(c0, _routes(emu_kernels, 'fft_axis'))
+    band = route in ('vectors', 'elements')
+    assert d['cluster_launches'] == (5 if band else 0)
+    assert (d['syncwarps'] > 0) == (route == 'lines')
+    loads = {'vectors': 5 * numel // 4, 'elements': 5 * numel}
+    assert d['ldcg_loads'] == loads.get(route, 0)
+    assert _launched() == {'fft_axis_p': 5}
+
+
+def test_axis32_misaligned(kernel_path, emu_kernels):
+    """A float32 tensor that starts 4 bytes off a 16-byte boundary: whole
+    lines take the tile kernel, a lead axis the band kernel's single
+    elements; the same results."""
+    rng = np.random.default_rng(25)
+    for shape, axis, band in (((3, 1024), 1, False), ((768, 4), 0, True)):
+        m = int(np.prod(shape))
+        flat = torch.from_numpy(rng.standard_normal(1 + 2 * m)
+                                .astype(np.float32))
+        p = flat[1:].view((2,) + shape)
+        assert p.data_ptr() % 16 == 4
+        c0 = _routes(emu_kernels, 'fft_axis')
+        got = bf.fft_axis_p(p, axis, True, scale=0.25)
+        d = _route_delta(c0, _routes(emu_kernels, 'fft_axis'))
+        assert d['syncwarps'] == 0
+        assert d['ldcg_loads'] == (2 * m if band else 0)
+        assert d['cluster_launches'] == (1 if band else 0)
+        ref = _plain(kernel_path, bf.fft_axis_p, p, axis, True, scale=0.25)
+        assert _rel(got, ref) <= TOL
+    assert _launched() == {'fft_axis_p': 2}
+
+
 # the cluster kernel of G (N = 1536 and 2048): lead rows over whole
 # line groups and with a ragged post, mid rows over two clusters and with
 # a cluster across two pre rows, last-axis whole lines, a ragged mid pass
@@ -444,6 +521,43 @@ def test_rfft_lines_f32_vs_plain(kernel_path, emu_kernels, N):
     boundary takes the tile kernel."""
     n = _hold_lines(kernel_path, emu_kernels, N, np.float32, TOL, 20)
     assert _launched() == {'rfft_axis_p': n}
+
+
+def _hold_c2r_lines(plain_ok, emu_kernels, N, seed):
+    """irfft_axis_p on float64 whole lines: the full spectrum (hin =
+    N//2 + 1) with and without a scale, shorter ones of even (the last row
+    halved) and odd hin, the 3/2 rule's hin = N//3 + 1, and a longer one
+    (rows past N//2 + 1 ignored), on an input aligned to a packed point
+    (a c2r line-kernel launch each: __syncwarp calls) and on one an
+    element off it (the tile kernel, held the same way)."""
+    rng = np.random.default_rng(seed)
+    nh = N // 2 + 1
+    ev = nh - 1 if (nh - 1) % 2 == 0 else nh - 2
+    od = nh - 1 if (nh - 1) % 2 == 1 else nh - 2
+    cases = ((nh, None), (nh, 1.0 / N), (max(1, ev), None),
+             (max(1, od), 0.25), (N // 3 + 1, 1.0 / N), (nh + 3, None))
+    for hin, sc in cases:
+        flat = torch.from_numpy(rng.standard_normal(1 + 6 * hin))
+        for h, lines in ((flat[:6 * hin].view(2, 3, hin), True),
+                         (flat[1:].view(2, 3, hin), False)):
+            assert (h.data_ptr() % 16 == 0) == lines
+            w0 = _emu_count(emu_kernels, 'rfft_axis', 'emu_syncwarps')
+            got = bf.irfft_axis_p(h, 1, N, scale=sc)
+            ran = _emu_count(emu_kernels, 'rfft_axis', 'emu_syncwarps') > w0
+            ref = _plain(plain_ok, bf.irfft_axis_p, h, 1, N, scale=sc)
+            assert got.shape == ref.shape == (3, N)
+            assert _rel(got, ref) <= TOL64, (hin, sc)
+            assert ran == lines, (hin, sc)
+    return 2 * len(cases)
+
+
+@pytest.mark.parametrize('N', LINE_NS)
+def test_irfft_lines_f64_vs_plain(kernel_path, emu_kernels, N):
+    """irfft_axis_p on float64 whole lines, each aligned case a c2r
+    line-kernel launch; an input 8 bytes off a 16-byte boundary takes the
+    tile kernel."""
+    n = _hold_c2r_lines(kernel_path, emu_kernels, N, 26)
+    assert _launched() == {'irfft_axis_p_f64': n}
 
 
 # the fused dealiasing kernel E (shape of the N-row side, axis, Nt): lead,
