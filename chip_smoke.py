@@ -89,6 +89,13 @@ and the script exits non-zero:
              7 after 2 warm-ups) beside its plain version, the one PyTorch
              call that computes the same function, and its bound; and the
              end-to-end 1024^3 c2c transform, unquartered and quartered.
+             A (``fft_axis_p``) is timed by route with its reachable
+             bound: the three 1024^3 passes (the last on the line kernel,
+             the others on the band kernel), a quarter's mid pass and the
+             dealiased 'f' plan's two 768-point passes (post 257, single
+             elements; the lead axis, vectors), each held slab by slab on
+             both signs into a NaN-filled output and in place (``out=``)
+             bit for bit against out of place.
              B (the line kernel) is timed at the 768^3 last axis and at
              m3's truncating pass (trunc 257, scale 1/768), each held slab
              by slab on a NaN-filled output.
@@ -122,7 +129,13 @@ and the script exits non-zero:
              1024^3 volume (the last on the line kernel, the others on the
              band kernel); B64 (the line kernel) also at the truncating pass of the dealiased f64 plan (a 768^3 input,
              trunc 257, scale 1/768: held at 2e-13, timed beside its plain
-             version, its bound and ``torch.fft.rfft``); ``fft_axis_p_f64``
+             version, its bound and ``torch.fft.rfft``); C64 (the c2r
+             line kernel) on the 512^3 last axis and at the dealiased
+             solvers' shape, (2, 768, 768, 257) -> 768^3 (hin 257 of 385
+             rows, padded in the read), each held slab by slab at 2e-13
+             with and without the 1/n scale and timed beside its plain
+             version, ``torch.fft.irfft(..., norm='forward')``, its bound
+             and its reachable bound; ``fft_axis_p_f64``
              at the six
              passes of the 1024^3 ``'D'`` transform on the full volume,
              held at 2e-13 against its plain version slab by slab; and
@@ -184,11 +197,18 @@ and the script exits non-zero:
              PyTorch yardstick for the ``kernels`` line.
 
 ``python3 chip_smoke.py --times-any TREE`` runs only phases 1, 22 and 23,
-B's two rows of phase 16, D's and A64's rows of phases 16 and 17, and
-phases 13 and 18, on the port of the checkout at TREE (a tree from the
-plane-holding H on), and prints no last line: run it for two trees in
-turns on one card (parent, change, change, parent) to compare H, I, J,
-B, D, A64, E and E64 and the m3 plan at 'd' between them.
+B's two rows of phase 16, A's, C64's, D's and A64's rows of phases 16
+and 17, and phases 13 and 18, on the port of the checkout at TREE (a
+tree from the plane-holding H on), and prints no last line: run it for
+two trees in turns on one card (parent, change, change, parent) to
+compare H, I, J, A, B, C64, D, A64, E and E64 and the m3 plan at 'd'
+between them.  ``python3 chip_smoke.py --phases GROUPS [--tree TREE]``
+runs phase 1, then the named groups of phases in the order given (holds;
+planar, phases 3-10; reference, 11-15; any, 19-22; times, times64,
+times_tp, times_any, probes; times_a_c64, A's and C64's rows; m3d, phase
+13; dns_solver, phase 15), with no launch check and no last line: what
+``tools/phase_drift.py`` runs to see which phases slow the ones after
+them.
 
 Phases 3 to 15 and 19 to 22 are the main path: the launch counters are
 set to 0 just before phase 3 and read after phase 22 (phases 16 to 18

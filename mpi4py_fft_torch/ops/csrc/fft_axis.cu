@@ -206,170 +206,6 @@ fft_band_kernel(Half<const T> a, Half<const T> b, Half<T> oa, Half<T> ob,
       reinterpret_cast<T*>(smem));
 }
 
-// A's float32 band at N = K R, R = 2^lr, with 16-byte vectors: the same
-// band of C adjacent lines on a cluster of K CTAs, in another order, so
-// that the first radix-8 stage runs in registers as the line stages' do.
-// CTA kk holds the rows kk + K n (n < R) of its lines: the R-point
-// sequence x_kk.  A thread's eight chunks are the rows m + R/8 j (j < 8)
-// of V adjacent columns (R C = 8192 = 4 V 256, so each chunk covers R/8
-// rows): for each column it forms the first decimation-in-frequency
-// stage of the R-point transform (radix 8 over j, output a times
-// w_R^(a m)) from the registers it loaded, and writes its outputs once;
-// the other stages run in place as the band body's.  CTA kk then holds
-// X_kk[f] at row dif_pos(f), and one radix-K step across the cluster
-// (each position read from every CTA j, times w_N^(j f), a K-point DFT
-// over j, output k2 written to CTA k2) leaves X[f + R k2] in CTA k2: the
-// output rows k2 R .. k2 R + R - 1, stored with the scale.  Every read
-// of device memory comes before the first barrier and every write after
-// the last, and a cluster owns its lines whole, so y may be x.
-template <int K, class B>
-__device__ __forceinline__ void band_rows_first(
-    Half<const float> a, Half<const float> b, Half<float> oa,
-    Half<float> ob, const float* __restrict__ twr,
-    const float* __restrict__ twi, long long pre, long long post, int lr,
-    int lc, float sign, float scale, float* smem) {
-  constexpr int V = mff::kVec16<float>, kChunks = 8;
-  constexpr int lk = K == 8 ? 3 : K == 4 ? 2 : K == 2 ? 1 : 0;
-  static_assert(B::kElems == kChunks * V * B::kThreads, "R/8 rows a chunk");
-  using U = float4;
-  const int C = 1 << lc, R = 1 << lr, R8 = R >> 3;
-  const int h = (R * K) >> 1;
-  const int elems = R << lc;
-  mff::Block<float> k{smem, nullptr, 0, lr, lc, mff::row_stride(C)};
-  k.im = k.re + R * k.rs;
-  const unsigned kk = mff::cluster_rank();
-  const int t = static_cast<int>(threadIdx.x);
-  const int c = (V * t) & (C - 1);
-  const int m = (V * t) >> lc;
-  const long long l = ((static_cast<long long>(blockIdx.x) / K) << lc) + c;
-  const bool live = l < pre * post;
-  const long long li = live ? l / post : 0;
-  const long long col = live ? l - li * post : 0;
-
-  // every load first: rows m + R/8 j of this CTA's sequence
-  float vr[kChunks][V], vi[kChunks][V];
-#pragma unroll
-  for (int j = 0; j < kChunks; ++j) {
-    const int g = (m + R8 * j) * K + static_cast<int>(kk);
-    const bool lo = g < h;
-    const Half<const float>& x = lo ? a : b;
-    const float* q = x.ptr + li * x.pre + col +
-                     static_cast<long long>(lo ? g : g - h) * post;
-    if (live) {
-      mff::Vec16<float>::split(__ldcg(reinterpret_cast<const U*>(q)), vr[j]);
-      mff::Vec16<float>::split(__ldcg(reinterpret_cast<const U*>(q + x.plane)),
-                               vi[j]);
-    } else {
-#pragma unroll
-      for (int cc = 0; cc < V; ++cc) vr[j][cc] = vi[j][cc] = 0.0f;
-    }
-  }
-  // the first stage of each column: radix 8 over j, output o times
-  // w_R^(o m) = w_N^(K o m), to row m + R/8 o
-#pragma unroll
-  for (int cc = 0; cc < V; ++cc) {
-    float ur[kChunks], ui[kChunks];
-#pragma unroll
-    for (int j = 0; j < kChunks; ++j) {
-      ur[j] = vr[j][cc];
-      ui[j] = vi[j][cc];
-    }
-    mff::Dft<kChunks, float>::run(ur, ui, sign);
-#pragma unroll
-    for (int o = 0; o < kChunks; ++o) {
-      float yr = ur[o], yi = ui[o];
-      if (o > 0) {
-        const int e = (o * m) << lk;
-        const float wr = __ldg(twr + e), wi = __ldg(twi + e);
-        yr = ur[o] * wr - ui[o] * wi;
-        yi = ur[o] * wi + ui[o] * wr;
-      }
-      const int s = mff::at<true>(k, m + R8 * o, c + cc);
-      k.re[s] = yr;
-      k.im[s] = yi;
-    }
-  }
-  __syncthreads();
-  // the other stages, sub-blocks of R/8 points
-  for (int ll = lr - 3; ll > 0;) {
-    const int st = ll < 3 ? ll : 3;
-    if (st == 1)
-      mff::dif_stage<2, 1, false>(k, lc, lr, ll, lk, twr, twi, sign);
-    else if (st == 2)
-      mff::dif_stage<4, 2, false>(k, lc, lr, ll, lk, twr, twi, sign);
-    else
-      mff::dif_stage<8, 3, false>(k, lc, lr, ll, lk, twr, twi, sign);
-    ll -= st;
-  }
-
-  // the radix-K step across the cluster: X[f + R k2] from X_j[f]
-  mff::cluster_sync();
-#pragma unroll 1
-  for (int p = static_cast<int>(kk) * B::kThreads + t; p < elems;
-       p += K * B::kThreads) {
-    const int f = p >> lc;
-    const int s = mff::dif_pos(f, lr) * k.rs + mff::pad(p & (C - 1));
-    float ur[K], ui[K];
-#pragma unroll
-    for (int j = 0; j < K; ++j) {
-      const float xr = *mff::peer_smem(k.re + s, static_cast<unsigned>(j));
-      const float xi = *mff::peer_smem(k.im + s, static_cast<unsigned>(j));
-      if (j == 0) {
-        ur[j] = xr;
-        ui[j] = xi;
-      } else {                           // times w_N^(j f)
-        const int e = j * f;
-        const float wr = __ldg(twr + e), wi = __ldg(twi + e);
-        ur[j] = xr * wr - xi * wi;
-        ui[j] = xr * wi + xi * wr;
-      }
-    }
-    mff::Dft<K, float>::run(ur, ui, sign);
-#pragma unroll
-    for (int j = 0; j < K; ++j) {
-      *mff::peer_smem(k.re + s, static_cast<unsigned>(j)) = ur[j];
-      *mff::peer_smem(k.im + s, static_cast<unsigned>(j)) = ui[j];
-    }
-  }
-  mff::cluster_sync();
-
-  // output rows kk R + f from row dif_pos(f), scaled
-  if (!live) return;
-  float* ya = oa.ptr + li * oa.pre + col;
-  float* yb = ob.ptr + li * ob.pre + col;
-  for (int e = V * t; e < elems; e += V * B::kThreads) {
-    const int f = e >> lc;
-    const int s = mff::dif_pos(f, lr) * k.rs + mff::pad(e & (C - 1));
-    const int r = static_cast<int>(kk) * R + f;
-    const bool lo = r < h;
-    float* q = (lo ? ya : yb) + static_cast<long long>(lo ? r : r - h) * post;
-    const long long pl = lo ? oa.plane : ob.plane;
-    float wr[V], wi[V];
-#pragma unroll
-    for (int cc = 0; cc < V; ++cc) {
-      wr[cc] = k.re[s + cc] * scale;
-      wi[cc] = k.im[s + cc] * scale;
-    }
-    *reinterpret_cast<U*>(q) = mff::Vec16<float>::make(wr);
-    *reinterpret_cast<U*>(q + pl) = mff::Vec16<float>::make(wi);
-  }
-}
-
-template <int K>
-__global__ void __launch_bounds__(AxisBandBudget<float>::kThreads,
-                                  AxisBandBudget<float>::kMinBlocks)
-fft_band_rows_kernel(Half<const float> a, Half<const float> b,
-                     Half<float> oa, Half<float> ob,
-                     const float* __restrict__ twr,
-                     const float* __restrict__ twi, long long pre,
-                     long long post, int lr, int lc, float sign,
-                     float scale) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  band_rows_first<K, AxisBandBudget<float>>(
-      a, b, oa, ob, twr, twi, pre, post, lr, lc, sign, scale,
-      reinterpret_cast<float*>(smem));
-}
-
 // CTAs a band of the band kernel (a cluster): float64 4 at N = 1024 and
 // 768 (16 columns, 128-byte row segments), 2 at 512 (16 columns);
 // float32 4 (D's band: 32 columns at 1024 and 768, 64 at 512).
@@ -417,8 +253,6 @@ int launch_lines_bands(const T* x, T* y, const T* twr, const T* twi,
   auto kern = k3 ? band_kernel<T, 4, 3>(vec) : band_kernel<T, 4, 1>(vec);
   if constexpr (band_cluster<T>(512) == 2) {
     if (K == 2) kern = band_kernel<T, 2, 1>(vec);
-  } else {
-    if (vec && !k3) kern = &fft_band_rows_kernel<4>;
   }
   return mff::launch_ex(kern, grid, AxisBandBudget<T>::kThreads,
                         mff::band_smem<T>(R, lc), K, stream, a, b, oa, ob,

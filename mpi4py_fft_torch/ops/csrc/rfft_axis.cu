@@ -54,6 +54,18 @@
 // kLineMinBlocks) leaves a thread 255 or 128 registers, and no stage
 // spills.  An input that is not aligned to a
 // packed point, N = 2 and inner axes take the tile kernel.
+//
+// The c2r on whole lines in float64 (C64, as the DNS solvers' backwards
+// call it) takes the same line kernel run backwards, at the same packed
+// lengths, when its input and output are aligned to a packed point; its
+// tile kernel spills 1900 B a thread at 80 registers.  A group loads
+// spectrum rows 0..W of its line (P + 1 a thread, every load first;
+// rows at or past hin are zero and row hin-1 is halved when hin is even
+// and short: the Hermitian zero-pad in the read) into its buffer of W+1
+// points, forms each of its points Z[k] = E[k] + i O[k] from X[k] and
+// X[W-k] in registers, runs the inverse stages (the r2c's stages with
+// the sign +1) and stores out[2m], out[2m+1] = Re z[m], Im z[m] scaled,
+// one packed point a vector.  The float32 c2r keeps the tile kernel.
 #include <cstdint>
 #include <type_traits>
 

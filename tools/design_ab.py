@@ -14,30 +14,27 @@ plain version on a 16-row slab (a variant that skips work shows it
 there) and the ``ptxas`` lines of its float32 band instances.  One JSON
 line a tree; each tree's output also goes to ``chiprun_out/ab_<tag>.log``.
 
-Variants:
+Variants (the 1024-row passes of A take the band on clusters of 4 CTAs,
+32 columns, 128-byte row segments, on 256 threads, three CTAs an SM):
 
 * ``a_copy``: the band's loads and stores alone, with no exchange across
   the cluster and no stages (the cluster barriers kept), to split the
-  lead pass into memory and stages;
-* ``a_k8``: the float32 band on clusters of 8 CTAs (64 columns, 256-byte
-  row segments at 1024 rows) instead of 4;
-* ``a_16k``: the float32 band CTA at 16384 points of each component (64
-  columns at 1024 rows on 4 CTAs), 1024 threads, one CTA an SM;
-* ``a_256t``: the float32 band CTA on 256 threads, three CTAs an SM
-  (85 registers a thread), the loads in two rounds of four chunks;
-* ``a_k2``: the float32 band on clusters of 2 CTAs (16 columns, 64-byte
-  row segments at 1024 rows);
+  pass into memory and stages;
 * ``a_step4``: the radix-K step across the cluster with four of a
   thread's points in flight at once (its loop unrolled 4 times), so that
   their reads of the peer CTAs' shared memory overlap;
 * ``a_stage2``: the in-place stages two butterflies of a thread at once;
-* ``a_both``: both;
-* ``b_step4``, ``b_stage2``, ``b_r8``: ``a_256t`` with ``a_step4``, with
-  ``a_stage2``, or with all eight chunks of a thread loaded at once;
-* ``b_4k``: the float32 band CTA at 4096 points (16 columns at 1024
-  rows on 4 CTAs), 128 threads, six CTAs an SM;
-* ``c_norows``: A's vector passes at 512 and 1024 on the band body
-  (``fft_band_kernel``) instead of the rows-first one.
+* ``a_r8``: all eight chunks of a thread loaded at once (two rounds of
+  four in the tree);
+* ``a_4k``: CTAs of 4096 points (16 columns, 64-byte row segments), 128
+  threads, six CTAs an SM;
+* ``a_512t``: D's budget, 512 threads, two CTAs an SM (64 registers), as
+  A's band first ran; ``a_512t_copy``, ``a_512t_step4`` the same with
+  ``a_copy`` or ``a_step4``;
+* ``a_512t_k8``, ``a_512t_k2``: D's budget on clusters of 8 CTAs (64
+  columns, 256-byte row segments) or 2 (16 columns, 64-byte segments);
+* ``a_16k``: CTAs of 16384 points (64 columns on 4 CTAs), 1024 threads,
+  one CTA an SM.
 """
 import json
 import os
@@ -54,63 +51,54 @@ _STEP4 = ('lines.cuh', '#pragma unroll 1\n  for (int p = static_cast<int>(kk) '
 _STAGE2 = ('lines.cuh', '#pragma unroll 1\n  for (int b = threadIdx.x; b < nb; '
            'b += blockDim.x) {', '#pragma unroll 2\n  for (int b = '
            'threadIdx.x; b < nb; b += blockDim.x) {')
+_COPY = [('lines.cuh', '    cluster_dif_step<K, B::kThreads>(k, lc, elems, kk, '
+          'twr, twi, sign);\n', ''),
+         ('lines.cuh', '  if constexpr (kB == 3) dif_stage3(k, lc, lr, lk, '
+          'twr, twi, sign);\n  dif_pass<false, kB>(k, lc, lr, lk, twr, twi, '
+          'sign);\n', '')]
+_A_BUDGET = ('  static constexpr int kThreads = 256;\n'
+             '  static constexpr int kMinBlocks = 3;\n'
+             '  static constexpr int kRound = 4;\n};')
 
-_256T = ('lines.cuh', '  static constexpr int kElems = 8192;\n'
-         '  static constexpr int kThreads = 512;\n'
-         '  static constexpr int kMinBlocks = 2;',
-         '  static constexpr int kElems = 8192;\n'
-         '  static constexpr int kThreads = 256;\n'
-         '  static constexpr int kMinBlocks = 3;')
+
+def _budget(threads, blocks, rnd=4):
+    """A's float32 band CTA on `threads` threads, `blocks` CTAs an SM."""
+    return ('fft_axis.cu', _A_BUDGET,
+            f'  static constexpr int kThreads = {threads};\n'
+            f'  static constexpr int kMinBlocks = {blocks};\n'
+            f'  static constexpr int kRound = {rnd};\n}};')
+
+
+def _elems(n):
+    """Band CTAs of n points of each component (lines.cuh's float32)."""
+    return ('lines.cuh', '  static constexpr int kElems = 8192;\n'
+            '  static constexpr int kThreads = 512;',
+            f'  static constexpr int kElems = {n};\n'
+            '  static constexpr int kThreads = 512;')
+
+
+def _cluster(k):
+    """A's float32 band on clusters of k CTAs."""
+    return [('fft_axis.cu', 'return sizeof(T) == 4 || n > 512 ? 4 : 2;',
+             f'return sizeof(T) == 4 ? {k} : n > 512 ? 4 : 2;'),
+            ('fft_axis.cu', 'auto kern = k3 ? band_kernel<T, 4, 3>(vec) : '
+             'band_kernel<T, 4, 1>(vec);',
+             f'auto kern = k3 ? band_kernel<T, {k}, 3>(vec) : '
+             f'band_kernel<T, {k}, 1>(vec);')]
+
 
 VARIANTS = {
-    'a_copy': [
-        ('lines.cuh', '    cluster_dif_step<K, B::kThreads>(k, lc, elems, kk, '
-         'twr, twi, sign);\n', ''),
-        ('lines.cuh', '  if constexpr (kB == 3) dif_stage3(k, lc, lr, lk, twr, '
-         'twi, sign);\n  dif_pass<false, kB>(k, lc, lr, lk, twr, twi, '
-         'sign);\n', ''),
-    ],
-    'a_k8': [
-        ('fft_axis.cu', 'return sizeof(T) == 4 || n > 512 ? 4 : 2;',
-         'return sizeof(T) == 4 ? 8 : n > 512 ? 4 : 2;'),
-        ('fft_axis.cu', 'auto kern = k3 ? band_kernel<T, 4, 3>(vec) : '
-         'band_kernel<T, 4, 1>(vec);',
-         'auto kern = k3 ? band_kernel<T, 8, 3>(vec) : '
-         'band_kernel<T, 8, 1>(vec);'),
-    ],
-    'a_16k': [
-        ('lines.cuh', '  static constexpr int kElems = 8192;\n'
-         '  static constexpr int kThreads = 512;\n'
-         '  static constexpr int kMinBlocks = 2;',
-         '  static constexpr int kElems = 16384;\n'
-         '  static constexpr int kThreads = 1024;\n'
-         '  static constexpr int kMinBlocks = 1;'),
-    ],
-    'a_256t': [_256T],
-    'a_k2': [
-        ('fft_axis.cu', 'return sizeof(T) == 4 || n > 512 ? 4 : 2;',
-         'return sizeof(T) == 4 ? 2 : n > 512 ? 4 : 2;'),
-        ('fft_axis.cu', 'auto kern = k3 ? band_kernel<T, 4, 3>(vec) : '
-         'band_kernel<T, 4, 1>(vec);',
-         'auto kern = k3 ? band_kernel<T, 2, 3>(vec) : '
-         'band_kernel<T, 2, 1>(vec);'),
-    ],
+    'a_copy': _COPY,
     'a_step4': [_STEP4],
     'a_stage2': [_STAGE2],
-    'a_both': [_STEP4, _STAGE2],
-    'b_step4': [_256T, _STEP4],
-    'b_stage2': [_256T, _STAGE2],
-    'b_r8': [_256T, ('lines.cuh', 'kRound = 4;', 'kRound = 8;')],
-    'c_norows': [('fft_axis.cu', '    if (vec && !k3) kern = '
-                  '&fft_band_rows_kernel<4>;', '')],
-    'b_4k': [
-        ('lines.cuh', '  static constexpr int kElems = 8192;\n'
-         '  static constexpr int kThreads = 512;\n'
-         '  static constexpr int kMinBlocks = 2;',
-         '  static constexpr int kElems = 4096;\n'
-         '  static constexpr int kThreads = 128;\n'
-         '  static constexpr int kMinBlocks = 6;'),
-    ],
+    'a_r8': [_budget(256, 3, 8)],
+    'a_4k': [_elems(4096), _budget(128, 6)],
+    'a_512t': [_budget(512, 2)],
+    'a_512t_copy': [_budget(512, 2)] + _COPY,
+    'a_512t_step4': [_budget(512, 2), _STEP4],
+    'a_512t_k8': [_budget(512, 2)] + _cluster(8),
+    'a_512t_k2': [_budget(512, 2)] + _cluster(2),
+    'a_16k': [_elems(16384), _budget(1024, 1)],
 }
 
 
@@ -155,7 +143,7 @@ def time_tree(tree):
     out['ptxas'] = [ln.strip() for ln in
                     _build.LOG.get('fft_axis', '').splitlines()
                     if 'registers' in ln or 'spill' in ln
-                    or 'fft_band_kernelIf' in ln]
+                    or 'fft_band_kernelIf' in ln or 'fft_band_' in ln]
     print(json.dumps(out), flush=True)
 
 
