@@ -1086,7 +1086,8 @@ def _c64_row(bf, holds, h, n, what):
     b, by = _bound_ms(h.numel() * 8 + pre * n * 8,
                       pre * 2.5 * n * math.log2(n), f64=True)
     hc = torch.complex(h[0], h[1])
-    row = {'shape': f'{tuple(h.shape)} f64 -> ({h.shape[1]}, {h.shape[2]}, '
+    row = {'kernel': 'irfft_lines_kernel (the c2r line kernel)',
+           'shape': f'{tuple(h.shape)} f64 -> ({h.shape[1]}, {h.shape[2]}, '
                     f'{n}), last axis',
            'ms': _median_ms(lambda: bf.irfft_axis_p(h, 2, n)),
            'plain_ms': _median_ms(lambda: bf.irfft_axis_plain(h, 2, n),
@@ -1271,7 +1272,7 @@ def _holds_volume64(dev, bf, holds):
                       (0, 'band, vectors')):
         sd = 2 if ax == 0 else 1
         _hold_axis_in_place(bf, x.narrow(sd, 0, s).contiguous(), ax,
-                              f"fft_axis_p_f64 {n}^3 slab, axis {ax}")
+                            f"fft_axis_p_f64 {n}^3 slab, axis {ax}")
         b, by = _pass_bound(x.numel(), n, f64=True)
         row = {'axis': ax, 'route': route,
                'shape': f'{tuple(x.shape)} f64, axis {ax}',
@@ -2697,7 +2698,7 @@ def main(argv=None):
             'plain_ms': t['plain_ms'], 'bound_ms': t['bound_ms'],
             'bound_by': t['bound_by'], 'library_ms': t['library_ms'],
             'shape': t['shape']})
-        for extra in ('reach_ms', 'per_axis', 'mid_pair', 'n768',
+        for extra in ('kernel', 'reach_ms', 'per_axis', 'mid_pair', 'n768',
                       'n768_band', 'w768', 'w1024', 'quarter_mid', 'f768',
                       'pad768', 'cufft_unfused_ms', 'two_a_passes_ms',
                       'n1536', 'trunc768', 's7', 's8', 'one_cta',

@@ -56,16 +56,11 @@
 // packed point, N = 2 and inner axes take the tile kernel.
 //
 // The c2r on whole lines in float64 (C64, as the DNS solvers' backwards
-// call it) takes the same line kernel run backwards, at the same packed
-// lengths, when its input and output are aligned to a packed point; its
-// tile kernel spills 1900 B a thread at 80 registers.  A group loads
-// spectrum rows 0..W of its line (P + 1 a thread, every load first;
-// rows at or past hin are zero and row hin-1 is halved when hin is even
-// and short: the Hermitian zero-pad in the read) into its buffer of W+1
-// points, forms each of its points Z[k] = E[k] + i O[k] from X[k] and
-// X[W-k] in registers, runs the inverse stages (the r2c's stages with
-// the sign +1) and stores out[2m], out[2m+1] = Re z[m], Im z[m] scaled,
-// one packed point a vector.  The float32 c2r keeps the tile kernel.
+// call it) takes the same line kernel run backwards (irfft_lines_kernel,
+// the r2c's stages with the sign +1), at the same packed lengths, when
+// its input and output are aligned to a packed point: its tile kernel
+// spills 1900 B a thread at 80 registers.  The float32 c2r keeps the
+// tile kernel.
 #include <cstdint>
 #include <type_traits>
 
@@ -492,24 +487,20 @@ int launch_lines(const T* x, T* y, const T* tw, long long tw_len,
   return cudaGetLastError();
 }
 
-// The line kernel of W = n/2 (every packed length up to 1024).
-template <class T>
-int launch_rfft_lines(const T* x, T* y, const T* tw, long long tw_len,
-                      long long nlines, int W, int hext, int nrows, int fold,
-                      T scale, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define MFF_LINES(w)                                                      \
+// f(std::integral_constant<int, W>) for a packed length W of the line
+// kernels (every one up to 512), else cudaErrorInvalidValue.
+template <class F>
+int with_line_length(int W, F f) {
+#define MFF_W(w)                                                          \
   case w:                                                                 \
-    return launch_lines<T, w>(x, y, tw, tw_len, nlines, hext, nrows,      \
-                              fold, scale, st)
+    return f(std::integral_constant<int, w>{})
   switch (W) {
-    MFF_LINES(2); MFF_LINES(4); MFF_LINES(8); MFF_LINES(16); MFF_LINES(32);
-    MFF_LINES(64); MFF_LINES(128); MFF_LINES(256); MFF_LINES(512);
-    MFF_LINES(3); MFF_LINES(6); MFF_LINES(12); MFF_LINES(24); MFF_LINES(48);
-    MFF_LINES(96); MFF_LINES(192); MFF_LINES(384);
+    MFF_W(2); MFF_W(4); MFF_W(8); MFF_W(16); MFF_W(32); MFF_W(64);
+    MFF_W(128); MFF_W(256); MFF_W(512); MFF_W(3); MFF_W(6); MFF_W(12);
+    MFF_W(24); MFF_W(48); MFF_W(96); MFF_W(192); MFF_W(384);
     default: return cudaErrorInvalidValue;
   }
-#undef MFF_LINES
+#undef MFF_W
 }
 
 // Planar (2, nlines, hin) -> real (nlines, 2W) by the packed W-point
@@ -617,25 +608,6 @@ int launch_c2r_lines(const T* x, T* y, const T* tw, long long tw_len,
   return cudaGetLastError();
 }
 
-// The c2r line kernel of W = n/2 (the packed lengths of the r2c's).
-template <class T>
-int launch_irfft_lines(const T* x, T* y, const T* tw, long long tw_len,
-                       long long nlines, int W, int hin, T scale,
-                       void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define MFF_LINES(w)                                                      \
-  case w:                                                                 \
-    return launch_c2r_lines<T, w>(x, y, tw, tw_len, nlines, hin, scale, st)
-  switch (W) {
-    MFF_LINES(2); MFF_LINES(4); MFF_LINES(8); MFF_LINES(16); MFF_LINES(32);
-    MFF_LINES(64); MFF_LINES(128); MFF_LINES(256); MFF_LINES(512);
-    MFF_LINES(3); MFF_LINES(6); MFF_LINES(12); MFF_LINES(24); MFF_LINES(48);
-    MFF_LINES(96); MFF_LINES(192); MFF_LINES(384);
-    default: return cudaErrorInvalidValue;
-  }
-#undef MFF_LINES
-}
-
 // Tile of a launch.
 template <class T>
 bool launch_shape(int W, long long nlines, int* lc, long long* blocks,
@@ -664,8 +636,11 @@ int launch_rfft_axis(const T* x, T* y, const T* tw, long long tw_len,
   if (post == 1 && packed &&
       reinterpret_cast<std::uintptr_t>(x) % (2 * sizeof(T)) == 0) {
     if (pre <= 0 || tw_len < W + 1) return cudaErrorInvalidValue;
-    return launch_rfft_lines(x, y, tw, tw_len, pre, W, hext, nrows, fold,
-                             scale, stream);
+    return with_line_length(W, [&](auto w) {
+      return launch_lines<T, decltype(w)::value>(
+          x, y, tw, tw_len, pre, hext, nrows, fold, scale,
+          static_cast<cudaStream_t>(stream));
+    });
   }
   int lc, threads;
   long long blocks;
@@ -708,8 +683,11 @@ int launch_irfft_axis(const T* x, T* y, const T* tw, long long tw_len,
     };
     if (post == 1 && packed && aligned(x) && aligned(y)) {
       if (pre <= 0 || tw_len < W + 1) return cudaErrorInvalidValue;
-      return launch_irfft_lines(x, y, tw, tw_len, pre, W, hin, scale,
-                                stream);
+      return with_line_length(W, [&](auto w) {
+        return launch_c2r_lines<T, decltype(w)::value>(
+            x, y, tw, tw_len, pre, hin, scale,
+            static_cast<cudaStream_t>(stream));
+      });
     }
   }
   int lc, threads;
