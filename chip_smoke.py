@@ -206,9 +206,9 @@ between them.  ``python3 chip_smoke.py --phases GROUPS [--tree TREE]``
 runs phase 1, then the named groups of phases in the order given (holds;
 planar, phases 3-10; reference, 11-15; any, 19-22; times, times64,
 times_tp, times_any, probes; times_a_c64, A's and C64's rows; m3d, phase
-13; dns_solver, phase 15), with no launch check and no last line: what
-``tools/phase_drift.py`` runs to see which phases slow the ones after
-them.
+13; dns_solver, phase 15), with no launch check and no last line: run
+``--phases times_a_c64`` for two trees in turns to compare A's and C64's
+rows, or a group before the rows it may slow, in fresh processes.
 
 Phases 3 to 15 and 19 to 22 are the main path: the launch counters are
 set to 0 just before phase 3 and read after phase 22 (phases 16 to 18
