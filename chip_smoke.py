@@ -202,13 +202,7 @@ and 17, and phases 13 and 18, on the port of the checkout at TREE (a
 tree from the plane-holding H on), and prints no last line: run it for
 two trees in turns on one card (parent, change, change, parent) to
 compare H, I, J, A, B, C64, D, A64, E and E64 and the m3 plan at 'd'
-between them.  ``python3 chip_smoke.py --phases GROUPS [--tree TREE]``
-runs phase 1, then the named groups of phases in the order given (holds;
-planar, phases 3-10; reference, 11-15; any, 19-22; times, times64,
-times_tp, times_any, probes; times_a_c64, A's and C64's rows; m3d, phase
-13; dns_solver, phase 15), with no launch check and no last line: run
-``--phases times_a_c64`` for two trees in turns to compare A's and C64's
-rows, or a group before the rows it may slow, in fresh processes.
+between them.
 
 Phases 3 to 15 and 19 to 22 are the main path: the launch counters are
 set to 0 just before phase 3 and read after phase 22 (phases 16 to 18
@@ -2546,71 +2540,6 @@ KERNELS = {
 }
 
 
-def _planar_path(dev, bf):
-    """Phases 3 to 10 (the planar pipeline); returns the north-star
-    plan."""
-    phase_entry(dev)
-    pfft, x = phase_north(dev, bf)
-    phase_quartered(bf, pfft, x)
-    del x
-    torch.cuda.empty_cache()
-    phase_long(dev, bf)
-    phase_dealias(dev, bf)
-    phase_north64(dev, bf)
-    phase_dealias(dev, bf, dtype='d')
-    phase_dns64(dev, bf)
-    return pfft
-
-
-def _reference_path(dev, bf):
-    """Phases 11 to 15 (the reference API)."""
-    phase_pfft(dev, bf, 'f')
-    phase_pfft(dev, bf, 'F')
-    phase_pfft(dev, bf, 'd')
-    phase_buffer(dev, bf)
-    phase_dns_solver(dev, bf)
-
-
-def _any_path(dev, bf, holds):
-    """Phases 19 to 22 (any extent and the plane entry points)."""
-    phase_any_c2c(dev, bf)
-    phase_any_r2c(dev, bf)
-    phase_bluestein(dev, bf)
-    phase_plane(dev, bf, holds)
-
-
-def _times_north(dev, bf, holds, pfft=None):
-    """Phase 16 on a new north-star volume (and plan, if none is
-    given)."""
-    if pfft is None:
-        from mpi4py_fft_torch import PlanarPFFT
-        pfft = PlanarPFFT(None, (NORTH_N,) * 3, dtype='F')
-    x = _rand((2,) + (NORTH_N,) * 3, dev, SEED + 2)
-    out = phase_times(dev, bf, holds, pfft, x)
-    del x, pfft
-    torch.cuda.empty_cache()
-    return out
-
-
-# --phases: groups of phases by name, each a function of (dev, bf, ctx)
-GROUPS = {
-    'holds': lambda dev, bf, ctx: phase_holds(ctx['holds'], dev),
-    'planar': lambda dev, bf, ctx: _planar_path(dev, bf),
-    'reference': lambda dev, bf, ctx: _reference_path(dev, bf),
-    'any': lambda dev, bf, ctx: _any_path(dev, bf, ctx['holds']),
-    'times': lambda dev, bf, ctx: _times_north(dev, bf, ctx['holds']),
-    'times64': lambda dev, bf, ctx: phase_times64(dev, bf, ctx['holds']),
-    'times_tp': lambda dev, bf, ctx: phase_times_tp(dev, bf, ctx['holds']),
-    'times_any': lambda dev, bf, ctx: phase_times_any(dev, bf,
-                                                      ctx['holds']),
-    'times_a_c64': lambda dev, bf, ctx: phase_times_a_c64(dev, bf,
-                                                          ctx['holds']),
-    'probes': lambda dev, bf, ctx: phase_probes(dev),
-    'm3d': lambda dev, bf, ctx: phase_pfft(dev, bf, 'd'),
-    'dns_solver': lambda dev, bf, ctx: phase_dns_solver(dev, bf),
-}
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--times-any', metavar='TREE', nargs='?',
@@ -2619,22 +2548,11 @@ def main(argv=None):
                          "D's and A64's rows and phases 13 and 18 on the "
                          "port in TREE (default: this script's checkout), "
                          "to compare two trees on one card")
-    ap.add_argument('--phases', metavar='GROUPS',
-                    help="run only phase 1 and these groups of phases, in "
-                         "this order (comma-separated: "
-                         + ', '.join(GROUPS) + "), on the port in --tree")
-    ap.add_argument('--tree', metavar='TREE',
-                    help="the checkout whose port --phases runs (default: "
-                         "this script's)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
-    groups = args.phases.split(',') if args.phases else []
-    for name in groups:
-        if name not in GROUPS:
-            ap.error(f"unknown group {name!r}")
-    tree = os.path.abspath(args.times_any or args.tree or os.path.dirname(
+    tree = os.path.abspath(args.times_any or os.path.dirname(
         os.path.abspath(__file__)))
     sys.path.insert(0, tree)
     from mpi4py_fft_torch.ops import butterfly as bf
@@ -2645,7 +2563,6 @@ def main(argv=None):
     torch.cuda.set_device(dev)
     phase_build()
     holds = Holds(KERNELS)
-    ctx = {'holds': holds}
     if args.times_any:
         phase_plane(dev, bf, holds)
         phase_times_any(dev, bf, holds)
@@ -2657,31 +2574,41 @@ def main(argv=None):
         phase_times_tp(dev, bf, holds)
         print(_smi(), flush=True)
         return 0
-    if groups:
-        for name in groups:
-            t0 = time.perf_counter()
-            GROUPS[name](dev, bf, ctx)
-            torch.cuda.empty_cache()
-            _emit({'group': name, 'seconds': time.perf_counter() - t0})
-        print(_smi(), flush=True)
-        return 0
     phase_holds(holds, dev)
 
     # the main path: counters at 0 just before, read just after
     bf.reset_launches()
-    pfft = _planar_path(dev, bf)
+    phase_entry(dev)
+    pfft, x = phase_north(dev, bf)
+    phase_quartered(bf, pfft, x)
+    del x
+    torch.cuda.empty_cache()
+    phase_long(dev, bf)
+    phase_dealias(dev, bf)
+    phase_north64(dev, bf)
+    phase_dealias(dev, bf, dtype='d')
+    phase_dns64(dev, bf)
     marks = {'planar_path_s': time.perf_counter() - t_start}
-    _reference_path(dev, bf)
+    phase_pfft(dev, bf, 'f')
+    phase_pfft(dev, bf, 'F')
+    phase_pfft(dev, bf, 'd')
+    phase_buffer(dev, bf)
+    phase_dns_solver(dev, bf)
     marks['reference_api_path_s'] = time.perf_counter() - t_start
-    _any_path(dev, bf, holds)
+    phase_any_c2c(dev, bf)
+    phase_any_r2c(dev, bf)
+    phase_bluestein(dev, bf)
+    phase_plane(dev, bf, holds)
     marks['any_extent_path_s'] = time.perf_counter() - t_start
     launches = dict(bf.LAUNCHES)
     _check(set(launches) == set(KERNELS), f"counters {sorted(launches)}")
     for name, c in launches.items():
         _check(c > 0, f"{name} was not launched on the main path")
 
-    times = _times_north(dev, bf, holds, pfft)
-    del pfft
+    x = _rand((2,) + (NORTH_N,) * 3, dev, SEED + 2)
+    times = phase_times(dev, bf, holds, pfft, x)
+    del x, pfft
+    torch.cuda.empty_cache()
     times.update(phase_times64(dev, bf, holds))
     marks['times_s'] = time.perf_counter() - t_start
     times.update(phase_times_tp(dev, bf, holds))

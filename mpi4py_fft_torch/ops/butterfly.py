@@ -869,10 +869,10 @@ def irfft_axis_p(p, axis, n, scale=None):
     N*x) unless ``scale`` is given.  Packed N/2-point method.
 
     Which kernel runs is decided before the launch, by layout: a float64
-    CUDA spectrum along its last axis (whole lines) at n >= 4 whose input
-    and output are aligned to a packed point (16 bytes) takes the c2r
-    line kernel (a warp-resident group of threads a line); every other
-    case, float32, n = 2, an inner axis or misaligned data, takes the tile
+    CUDA spectrum along its last axis (whole lines) at n >= 4 whose
+    output is aligned to a packed point (16 bytes) takes the c2r line
+    kernel (a warp-resident group of threads a line); every other case,
+    float32, n = 2, an inner axis or a misaligned output, takes the tile
     kernel.  Both count as ``irfft_axis_p`` / ``irfft_axis_p_f64``."""
     what = 'irfft_axis_p'
     _check_planar(p, what)

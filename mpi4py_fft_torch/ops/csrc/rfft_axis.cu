@@ -465,25 +465,27 @@ rfft_lines_kernel(const T* __restrict__ x, T* __restrict__ y,
   }
 }
 
-template <class T, int W>
-int launch_lines(const T* x, T* y, const T* tw, long long tw_len,
-                 long long nlines, int hext, int nrows, int fold, T scale,
-                 cudaStream_t stream) {
+// Launches a line kernel of packed length W on nlines lines, buf points
+// of both planes a group in shared memory; the kernel takes x, y, tw,
+// tw_len, the unpack rows' offset t2 = tw_len - (W + 1), nlines, then
+// args.
+template <class T, int W, class K, class... A>
+int launch_line_kernel(K kern, int buf, const T* x, T* y, const T* tw,
+                       long long tw_len, long long nlines,
+                       cudaStream_t stream, A... args) {
   constexpr int P = line_points(W), G = W / P;
   static_assert(G <= 32 && 32 % G == 0 && kLineThreads % 32 == 0,
                 "a group lies inside one warp");
   constexpr int lines = kLineThreads / G;
   const long long blocks = (nlines + lines - 1) / lines;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const size_t smem = sizeof(T) * 2 * W * lines;
-  auto kern = &rfft_lines_kernel<T, W>;
+  const size_t smem = sizeof(T) * 2 * static_cast<size_t>(buf) * lines;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return e;
   kern<<<static_cast<unsigned>(blocks), kLineThreads, smem, stream>>>(
-      x, y, tw, tw_len, static_cast<int>(tw_len) - (W + 1), nlines, hext,
-      nrows, fold, scale);
+      x, y, tw, tw_len, static_cast<int>(tw_len) - (W + 1), nlines, args...);
   return cudaGetLastError();
 }
 
@@ -586,28 +588,6 @@ irfft_lines_kernel(const T* __restrict__ x, T* __restrict__ y,
   for (int m = g; m < W; m += G) yz[m] = V{br[m] * scale, bi[m] * scale};
 }
 
-template <class T, int W>
-int launch_c2r_lines(const T* x, T* y, const T* tw, long long tw_len,
-                     long long nlines, int hin, T scale,
-                     cudaStream_t stream) {
-  constexpr int P = line_points(W), G = W / P;
-  static_assert(G <= 32 && 32 % G == 0 && kLineThreads % 32 == 0,
-                "a group lies inside one warp");
-  constexpr int lines = kLineThreads / G;
-  const long long blocks = (nlines + lines - 1) / lines;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const size_t smem = sizeof(T) * 2 * (W + 1) * lines;
-  auto kern = &irfft_lines_kernel<T, W>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (e != cudaSuccess) return e;
-  kern<<<static_cast<unsigned>(blocks), kLineThreads, smem, stream>>>(
-      x, y, tw, tw_len, static_cast<int>(tw_len) - (W + 1), nlines, hin,
-      scale);
-  return cudaGetLastError();
-}
-
 // Tile of a launch.
 template <class T>
 bool launch_shape(int W, long long nlines, int* lc, long long* blocks,
@@ -637,9 +617,10 @@ int launch_rfft_axis(const T* x, T* y, const T* tw, long long tw_len,
       reinterpret_cast<std::uintptr_t>(x) % (2 * sizeof(T)) == 0) {
     if (pre <= 0 || tw_len < W + 1) return cudaErrorInvalidValue;
     return with_line_length(W, [&](auto w) {
-      return launch_lines<T, decltype(w)::value>(
-          x, y, tw, tw_len, pre, hext, nrows, fold, scale,
-          static_cast<cudaStream_t>(stream));
+      constexpr int kW = decltype(w)::value;
+      return launch_line_kernel<T, kW>(
+          &rfft_lines_kernel<T, kW>, kW, x, y, tw, tw_len, pre,
+          static_cast<cudaStream_t>(stream), hext, nrows, fold, scale);
     });
   }
   int lc, threads;
@@ -674,19 +655,19 @@ int launch_irfft_axis(const T* x, T* y, const T* tw, long long tw_len,
   mff::Plan p;
   if (!mff::make_plan(plan, nstages, W, &p) || hin < 1)
     return cudaErrorInvalidValue;
-  // float64 whole lines of a packed length, input and output aligned to
-  // a packed point (16 bytes): the c2r line kernel (float32 keeps the
-  // tile)
+  // float64 whole lines of a packed length, the output aligned to a
+  // packed point (16 bytes; the kernel stores one a vector and reads the
+  // spectrum an element at a time): the c2r line kernel (float32 keeps
+  // the tile)
   if constexpr (std::is_same<T, double>::value) {
-    const auto aligned = [](const void* q) {
-      return reinterpret_cast<std::uintptr_t>(q) % (2 * sizeof(T)) == 0;
-    };
-    if (post == 1 && packed && aligned(x) && aligned(y)) {
+    if (post == 1 && packed &&
+        reinterpret_cast<std::uintptr_t>(y) % (2 * sizeof(T)) == 0) {
       if (pre <= 0 || tw_len < W + 1) return cudaErrorInvalidValue;
       return with_line_length(W, [&](auto w) {
-        return launch_c2r_lines<T, decltype(w)::value>(
-            x, y, tw, tw_len, pre, hin, scale,
-            static_cast<cudaStream_t>(stream));
+        constexpr int kW = decltype(w)::value;
+        return launch_line_kernel<T, kW>(
+            &irfft_lines_kernel<T, kW>, kW + 1, x, y, tw, tw_len, pre,
+            static_cast<cudaStream_t>(stream), hin, scale);
       });
     }
   }

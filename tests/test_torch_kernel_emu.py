@@ -523,13 +523,30 @@ def test_rfft_lines_f32_vs_plain(kernel_path, emu_kernels, N):
     assert _launched() == {'rfft_axis_p': n}
 
 
+def _c2r_into(emu_kernels, h, N, sc, y):
+    """irfft_axis_p's C entry (float64, packed) on the spectrum h (2, pre,
+    hin) along its last axis, into the given output y (pre, N)."""
+    tw = bf._tw_tensor(N, +1, True, h.dtype, h.device)
+    plan, nst = bf._plan_args(N // 2)
+    rc = emu_kernels.irfft_axis_f64(
+        ctypes.c_void_p(h.data_ptr()), ctypes.c_void_p(y.data_ptr()),
+        ctypes.c_void_p(tw.data_ptr()), tw.shape[1], h.shape[1],
+        h.shape[2], N, 1, 1, plan, nst,
+        ctypes.c_double(2.0 * (1.0 if sc is None else sc)),
+        ctypes.c_void_p(0))
+    assert rc == 0
+    return y
+
+
 def _hold_c2r_lines(plain_ok, emu_kernels, N, seed):
     """irfft_axis_p on float64 whole lines: the full spectrum (hin =
     N//2 + 1) with and without a scale, shorter ones of even (the last row
     halved) and odd hin, the 3/2 rule's hin = N//3 + 1, and a longer one
     (rows past N//2 + 1 ignored), on an input aligned to a packed point
-    (a c2r line-kernel launch each: __syncwarp calls) and on one an
-    element off it (the tile kernel, held the same way)."""
+    and on one an element off it (the spectrum is read an element at a
+    time: a c2r line-kernel launch each, __syncwarp calls), and through
+    the C entry into an output an element off a packed point (the tile
+    kernel, held the same way)."""
     rng = np.random.default_rng(seed)
     nh = N // 2 + 1
     ev = nh - 1 if (nh - 1) % 2 == 0 else nh - 2
@@ -538,24 +555,29 @@ def _hold_c2r_lines(plain_ok, emu_kernels, N, seed):
              (max(1, od), 0.25), (N // 3 + 1, 1.0 / N), (nh + 3, None))
     for hin, sc in cases:
         flat = torch.from_numpy(rng.standard_normal(1 + 6 * hin))
-        for h, lines in ((flat[:6 * hin].view(2, 3, hin), True),
-                         (flat[1:].view(2, 3, hin), False)):
-            assert (h.data_ptr() % 16 == 0) == lines
+        h = flat[:6 * hin].view(2, 3, hin)
+        for t in (flat[1:].view(2, 3, hin), h):
             w0 = _emu_count(emu_kernels, 'rfft_axis', 'emu_syncwarps')
-            got = bf.irfft_axis_p(h, 1, N, scale=sc)
+            got = bf.irfft_axis_p(t, 1, N, scale=sc)
             ran = _emu_count(emu_kernels, 'rfft_axis', 'emu_syncwarps') > w0
-            ref = _plain(plain_ok, bf.irfft_axis_p, h, 1, N, scale=sc)
+            ref = _plain(plain_ok, bf.irfft_axis_p, t, 1, N, scale=sc)
             assert got.shape == ref.shape == (3, N)
             assert _rel(got, ref) <= TOL64, (hin, sc)
-            assert ran == lines, (hin, sc)
+            assert ran, (hin, sc)
+        ym = torch.full((1 + 3 * N,), float('nan'), dtype=h.dtype)[1:]
+        assert ym.data_ptr() % 16 != 0
+        w0 = _emu_count(emu_kernels, 'rfft_axis', 'emu_syncwarps')
+        got = _c2r_into(emu_kernels, h, N, sc, ym).view(3, N)
+        assert _emu_count(emu_kernels, 'rfft_axis', 'emu_syncwarps') == w0
+        assert _rel(got, ref) <= TOL64, (hin, sc)
     return 2 * len(cases)
 
 
 @pytest.mark.parametrize('N', LINE_NS)
 def test_irfft_lines_f64_vs_plain(kernel_path, emu_kernels, N):
-    """irfft_axis_p on float64 whole lines, each aligned case a c2r
-    line-kernel launch; an input 8 bytes off a 16-byte boundary takes the
-    tile kernel."""
+    """irfft_axis_p on float64 whole lines, each case a c2r line-kernel
+    launch, also on an input 8 bytes off a 16-byte boundary; an output 8
+    bytes off it takes the tile kernel."""
     n = _hold_c2r_lines(kernel_path, emu_kernels, N, 26)
     assert _launched() == {'irfft_axis_p_f64': n}
 
