@@ -45,6 +45,9 @@ and the script exits non-zero:
 7. dealias   ``PlanarPFFT(None, (512,)*3, dtype='f', padding=1.5)`` (a
              768^3 grid): the kernel path against the port's plain path on
              the card and the forward against a ``torch.fft.rfftn`` oracle;
+             the backward's c2r (C on the line kernel) held slab by slab
+             against its plain version on the plan's spectrum, into a
+             NaN-filled output;
 8. north64  ``PlanarPFFT(None, (1024,)*3, dtype='D')``: the normalized
              forward held against the exact spectrum of a sum of plane
              waves with random complex amplitudes, the round trip against
@@ -68,10 +71,15 @@ and the script exits non-zero:
              ``fft_axis_tp`` launches a forward and 2 ``fft_axis_tp`` + 1
              ``irfft_axis_p`` a backward, against the port's plain path on
              the card and a truncated ``torch.fft.rfftn`` oracle (5e-5),
-             timed, with its peak device memory;
+             then a forward and a backward again with each fused pass and
+             the c2r held slab by slab against its plain version on the
+             plan's own data (outputs NaN-filled first), timed, with its
+             peak device memory;
 12. pfft_c2c the same plan at ``'F'`` (3 ``fft_axis_tp`` launches each way)
              against a truncated ``torch.fft.fftn``;
-13. pfft64   the same plan at ``'d'`` (``fft_axis_tp_f64``, 2e-10);
+13. pfft64   the same plan at ``'d'`` (``fft_axis_tp_f64``: E64's four
+             passes on the column band kernel, held at 2e-13; the plan at
+             2e-10);
 14. buffer   ``newDistArray`` and the buffer call ``fft.forward(u)``/
              ``fft.backward(u_hat, u)`` on DistArrays kept on the card, 256^3
              ``'d'`` (real) and ``'D'`` (complex): the forward against
@@ -97,8 +105,10 @@ and the script exits non-zero:
              both signs into a NaN-filled output and in place (``out=``)
              bit for bit against out of place.
              B (the line kernel) is timed at the 768^3 last axis and at
-             m3's truncating pass (trunc 257, scale 1/768), each held slab
-             by slab on a NaN-filled output.
+             m3's truncating pass (trunc 257, scale 1/768), and C (the c2r
+             line kernel) on B's 768^3 spectrum back to the real volume,
+             each held slab by slab on a NaN-filled output (C with and
+             without the 1/n scale), C with its reachable bound.
              D (``fft_axis2_p``) is timed by route: the band kernel at the
              quartered lead pass and at ``fft3_8``'s y pass (axis 1 of two
              eighths) and at N = 768 (the halves of a 768^3 lead axis),
@@ -144,10 +154,13 @@ and the script exits non-zero:
              the dealiased 512^3 plan (forward axes 1 and 0 with the
              truncation and the stage's scale, backward axes 0 and 1 with
              the padding), each held against ``fft_axis_tp_plain`` slab by
-             slab on its full volume, timed beside the plain version, its
-             bound and cuFFT's unfused c2c pass at the same shape (no one
-             PyTorch call computes the fused function: ``library_ms`` is
-             null).
+             slab on its full volume into a NaN-filled output, timed beside
+             the plain version, its bound, its reachable bound (half the
+             ``block_copy`` times of its input and its output in the
+             pass's access pattern) and cuFFT's unfused c2c pass at the
+             same shape (no one PyTorch call computes the fused function:
+             ``library_ms`` is null); each pass names its route (E64: the
+             column band kernel; E: the tile).
 
 19. any_c2c  ``PlanarPFFT(None, (640,)*3, dtype='F')``, an extent no
              Stockham kernel takes: a normalized forward and the backward
@@ -197,12 +210,12 @@ and the script exits non-zero:
              PyTorch yardstick for the ``kernels`` line.
 
 ``python3 chip_smoke.py --times-any TREE`` runs only phases 1, 22 and 23,
-B's two rows of phase 16, A's, C64's, D's and A64's rows of phases 16
-and 17, and phases 13 and 18, on the port of the checkout at TREE (a
-tree from the plane-holding H on), and prints no last line: run it for
-two trees in turns on one card (parent, change, change, parent) to
-compare H, I, J, A, B, C64, D, A64, E and E64 and the m3 plan at 'd'
-between them.
+B's two rows and C's row of phase 16, A's, C64's, D's and A64's rows of
+phases 16 and 17, and phases 11, 13 and 18, on the port of the checkout
+at TREE (a tree from the plane-holding H on), and prints no last line:
+run it for two trees in turns on one card (parent, change, change,
+parent) to compare H, I, J, A, B, C, C64, D, A64, E and E64 and the m3
+plan at 'f' and 'd' between them.
 
 Phases 3 to 15 and 19 to 22 are the main path: the launch counters are
 set to 0 just before phase 3 and read after phase 22 (phases 16 to 18
@@ -733,9 +746,10 @@ def phase_long(dev, bf):
     _emit({'phase': 'long', 'dtype': 'F', 'plans': out})
 
 
-def phase_dealias(dev, bf, dtype='f'):
+def phase_dealias(dev, bf, holds, dtype='f'):
     """The r2c 3/2-rule plan at float32 ('f', phase dealias) or float64
-    ('d', phase dealias64)."""
+    ('d', phase dealias64); the backward's c2r held slab by slab against
+    its plain version on the pipeline's spectrum."""
     from mpi4py_fft_torch import PlanarPFFT
     from mpi4py_fft_torch.libfft import truncate_planar
     f64 = dtype == 'd'
@@ -752,7 +766,8 @@ def phase_dealias(dev, bf, dtype='f'):
     y = pfft.forward(x)
     torch.cuda.synchronize()
     c1 = dict(bf.LAUNCHES)
-    z = pfft.backward(y)
+    with _held_calls(bf, holds, ('irfft_axis_p',)):
+        z = pfft.backward(y)
     torch.cuda.synchronize()
     c2 = dict(bf.LAUNCHES)
     fwd = _delta(c0, c1)
@@ -1064,25 +1079,28 @@ def _c2r_reach_ms(h, y):
     return (_reach_ms((h,), 2) + _reach_ms((yv,), 2)) / 2
 
 
-def _c64_row(bf, holds, h, n, what):
-    """C64 (irfft_axis_p on float64) along the last axis of the spectrum
-    h into n points: held at 2e-13 slab by slab on both scales (None,
-    1/n) into a NaN-filled output, then timed beside its plain version,
-    torch.fft.irfft, its bound and its reachable bound."""
+def _c2r_row(bf, holds, h, n, what):
+    """C (irfft_axis_p; C64 on float64) along the last axis of the
+    spectrum h into n points, on the c2r line kernel: held at 5e-6 (2e-13)
+    slab by slab on both scales (None, 1/n) into a NaN-filled output, then
+    timed beside its plain version, torch.fft.irfft, its bound and its
+    reachable bound."""
+    f64 = h.dtype == torch.float64
+    name = 'irfft_axis_p' + ('_f64' if f64 else '')
+    size = h.element_size()
     pre = h.shape[1] * h.shape[2]
     for sc in (None, 1.0 / n):
         _nan_block((h.shape[1], h.shape[2], n), h.dtype, h.device)
-        _slab_hold(holds, 'irfft_axis_p_f64', bf.irfft_axis_p(h, 2, n,
-                                                              scale=sc),
+        _slab_hold(holds, name, bf.irfft_axis_p(h, 2, n, scale=sc),
                    lambda i, w: bf.irfft_axis_plain(h.narrow(1, i, w), 2, n,
                                                     scale=sc),
-                   0, f"irfft_axis_p_f64 {what} scale={sc}")
-    b, by = _bound_ms(h.numel() * 8 + pre * n * 8,
-                      pre * 2.5 * n * math.log2(n), f64=True)
+                   0, f"{name} {what} scale={sc}")
+    b, by = _bound_ms(h.numel() * size + pre * n * size,
+                      pre * 2.5 * n * math.log2(n), f64=f64)
     hc = torch.complex(h[0], h[1])
     row = {'kernel': 'irfft_lines_kernel (the c2r line kernel)',
-           'shape': f'{tuple(h.shape)} f64 -> ({h.shape[1]}, {h.shape[2]}, '
-                    f'{n}), last axis',
+           'shape': f"{tuple(h.shape)} {'f64' if f64 else 'f32'} -> "
+                    f"({h.shape[1]}, {h.shape[2]}, {n}), last axis",
            'ms': _median_ms(lambda: bf.irfft_axis_p(h, 2, n)),
            'plain_ms': _median_ms(lambda: bf.irfft_axis_plain(h, 2, n),
                                   reps=3, warm=1),
@@ -1103,12 +1121,12 @@ def _times_c64(dev, bf, holds, h, g):
     random (2, 768, 768, 257) spectrum, hin 257 < 385 rows, into 768
     points, Hermitian zero-padded in the read)."""
     n = 2 * (h.shape[-1] - 1)
-    row = _c64_row(bf, holds, h, n, f"{n}^3 last axis")
+    row = _c2r_row(bf, holds, h, n, f"{n}^3 last axis")
     m = 3 * DEALIAS64_N // 2
     nt = DEALIAS64_N // 2 + 1
     p = torch.rand((2, m, m, nt), generator=g, device=dev,
                    dtype=torch.float64) - 0.5
-    row['pad768'] = _c64_row(bf, holds, p, m,
+    row['pad768'] = _c2r_row(bf, holds, p, m,
                              f"(2, {m}, {m}, {nt}) -> {m}^3 last axis")
     del p
     torch.cuda.empty_cache()
@@ -1171,6 +1189,17 @@ def _times_b(dev, bf, holds):
     torch.cuda.empty_cache()
     row['trunc768'] = _times_trunc(dev, bf, holds, g)
     return row, k
+
+
+def _times_b_c(dev, bf, holds):
+    """B's row (``_times_b``) and C's: the c2r line kernel on B's 768^3
+    spectrum back to the real volume (``_c2r_row``)."""
+    b, k = _times_b(dev, bf, holds)
+    m = 3 * DEALIAS_N // 2
+    c = _c2r_row(bf, holds, k, m, f"{m}^3 last axis")
+    del k
+    torch.cuda.empty_cache()
+    return b, c
 
 
 def _axis64_w768(dev, bf, holds, g):
@@ -1345,22 +1374,7 @@ def phase_times(dev, bf, holds, pfft, x):
     out['fft_axis_pair_p'] = _times_pair(dev, bf, holds)
     long_ms = _times_long(dev)
     # B and C: the last axis of the dealiasing grid
-    m = 3 * DEALIAS_N // 2
-    nh = m // 2 + 1
-    out['rfft_axis_p'], k = _times_b(dev, bf, holds)
-    b, by = _bound_ms(m ** 3 * 4 + 2 * m * m * nh * 4,
-                      m * m * 2.5 * m * math.log2(m))
-    h = k
-    hc = torch.complex(h[0], h[1])
-    holds.hold('irfft_axis_p', bf.irfft_axis_p(h, 2, m),
-               bf.irfft_axis_plain(h, 2, m), f"irfft_axis_p {m}^3 last axis")
-    out['irfft_axis_p'] = {
-        'shape': f'(2, {m}, {m}, {nh}) f32 -> ({m}, {m}, {m}), last axis',
-        'ms': _median_ms(lambda: bf.irfft_axis_p(h, 2, m)),
-        'plain_ms': _median_ms(lambda: bf.irfft_axis_plain(h, 2, m)),
-        'library_ms': _median_ms(
-            lambda: torch.fft.irfft(hc, n=m, dim=2, norm='forward')),
-        'bound_ms': b, 'bound_by': by}
+    out['rfft_axis_p'], out['irfft_axis_p'] = _times_b_c(dev, bf, holds)
     _emit({'phase': 'times', 'e2e_shape': [n] * 3, 'e2e_dtype': 'F',
            'e2e_ms_per_transform': e2e_ms,
            'e2e_gflops_5nlogn': gfs,
@@ -1551,10 +1565,11 @@ def _truncate_all(ref, d, hermitian):
     return truncate_planar(ref, 1, d, hermitian=False)
 
 
-def phase_pfft(dev, bf, dtype):
+def phase_pfft(dev, bf, holds, dtype):
     """The reference API's dealiased plan ``PFFT(None, (d,)*3,
     padding=[1.5]*3)`` on planar tensors (phase pfft at 'f', pfft_c2c at
-    'F', pfft64 at 'd')."""
+    'F', pfft64 at 'd'), its fused passes and c2r held slab by slab on
+    the plan's own data."""
     from mpi4py_fft_torch import PFFT
     f64, real = dtype in 'dD', dtype in 'fd'
     d = PFFT_N
@@ -1588,6 +1603,16 @@ def phase_pfft(dev, bf, dtype):
                                      f"{_delta(c0, c1)}")
     _check(_delta(c1, c2) == want_b, f"'{dtype}' backward launches "
                                      f"{_delta(c1, c2)}")
+    # E's passes and C held slab by slab on the plan's own data, a forward
+    # and a backward again (the kernels' outputs NaN-filled first)
+    with _held_calls(bf, holds, ('fft_axis_tp', 'irfft_axis_p')):
+        fft.backward.fn_p(fft.forward.fn_p(x))
+    torch.cuda.synchronize()
+    c2h = dict(bf.LAUNCHES)
+    _check(_delta(c2, c2h) == {k: want_f.get(k, 0) + want_b.get(k, 0)
+                               for k in set(want_f) | set(want_b)},
+           f"'{dtype}' held launches {_delta(c2, c2h)}")
+    c2 = c2h
     spec = (2, d, d, d // 2 + 1) if real else (2, d, d, d)
     _check(tuple(y.shape) == spec and y.dtype == tdt,
            f"spectrum {tuple(y.shape)} {y.dtype}")
@@ -1832,23 +1857,21 @@ def phase_times_tp(dev, bf, holds):
         inp = y0
         for direction, ax, kw in passes:
             fwd = direction == 'fwd'
-            k = bf.fft_axis_tp(inp, ax, fwd, **kw)
-            sd = 2 if ax == 0 else 1             # slabs off the pass axis
-            s = 64
-            for i in range(0, inp.shape[sd], s):
-                w = min(s, inp.shape[sd] - i)
-                holds.hold(name, k.narrow(sd, i, w),
-                           bf.fft_axis_tp_plain(inp.narrow(sd, i, w), ax,
-                                                fwd, **kw),
-                           f"{name} {direction} axis {ax} slab {i}")
+            k = _tp_held(bf, bf.fft_axis_tp, holds, inp, ax, fwd, kw,
+                         f"{name} {direction} axis {ax}")
             big = inp if inp.shape[1 + ax] == m else k
             Nin, Nout = inp.shape[1 + ax], k.shape[1 + ax]
             lines = inp.numel() // 2 // Nin
             b, by = _bound_ms((Nin + Nout) * lines * 2 * (8 if f64 else 4),
                               lines * 5 * m * math.log2(m), f64)
             bc = torch.complex(big[0], big[1])
+            post = math.prod(inp.shape[2 + ax:])
+            band = f64 and m == 768 and post > 1
             rows.append({
                 'pass': f"{direction} axis {ax}",
+                'route': ('band, ' + ('vectors' if post % 2 == 0 else
+                                      'single elements')) if band else
+                         'tile',
                 'in': list(inp.shape), 'out': list(k.shape),
                 'ms': _median_ms(lambda: bf.fft_axis_tp(inp, ax, fwd, **kw)),
                 'plain_ms': _median_ms(
@@ -1858,20 +1881,82 @@ def phase_times_tp(dev, bf, holds):
                     lambda: torch.fft.fft(bc, dim=ax)),
                 'bound_ms': b})
             del bc, big
+            # half the copies of the input and the output in the pass's
+            # access pattern (the pass reads the one and writes the other)
+            rows[-1]['reach_ms'] = (_reach_ms((inp,), ax) +
+                                    _reach_ms((k,), ax)) / 2
             inp = k
             del k
         del inp, y0, fft
         torch.cuda.empty_cache()
         row = {key: sum(r[key] for r in rows)
-               for key in ('ms', 'plain_ms', 'cufft_unfused_ms', 'bound_ms')}
+               for key in ('ms', 'plain_ms', 'cufft_unfused_ms', 'bound_ms',
+                           'reach_ms')}
         row.update(shape=f"4 passes of the {d}^3 'f' plan on its {m}^3 "
                          f"grid: fwd axes 1, 0 (trunc {m} -> {d}), bwd axes "
                          f"0, 1 (pad {d} -> {m}), {tdt}".replace(
                              "'f'", f"'{dtype}'"),
-                   bound_by=by, library_ms=None, per_pass=rows)
+                   bound_by=by, library_ms=None, per_pass=rows,
+                   kernel='fft_axis_tp_band_kernel (the column band kernel, '
+                          'clusters of 4 CTAs)' if any(
+                              r['route'] != 'tile' for r in rows) else
+                          'fft_axis_tp_kernel (the tile)')
         out[name] = row
     _emit({'phase': 'times_tp', 'kernels': out})
     return out
+
+
+def _tp_held(bf, tp, holds, inp, ax, fwd, kw, what):
+    """tp(inp, ax, fwd, **kw) (``fft_axis_tp``) into a NaN-filled output,
+    held against its plain version slab by slab along a planar dim off
+    the pass axis; returns the output."""
+    name = 'fft_axis_tp' + ('_f64' if inp.dtype == torch.float64 else '')
+    sd = 2 if ax == 0 else 1
+    shape = list(inp.shape)
+    shape[1 + ax] = kw['pad'] if kw.get('pad') is not None else kw['trunc']
+    _nan_block(shape, inp.dtype, inp.device)
+    k = tp(inp, ax, fwd, **kw)
+    _slab_hold(holds, name, k, lambda i, w: bf.fft_axis_tp_plain(
+        inp.narrow(sd, i, w), ax, fwd, **kw), sd, what)
+    return k
+
+
+@contextlib.contextmanager
+def _held_calls(bf, holds, names):
+    """Within the block, every call of the wrappers ``names``
+    (``irfft_axis_p``, ``fft_axis_tp``) lands in a NaN-filled block and is
+    held slab by slab against its plain version on the data the pipeline
+    gives it (5e-6, 2e-13 on float64)."""
+    saved = {n: getattr(bf, n) for n in names}
+
+    def c2r(p, axis, n, scale=None):
+        axis %= p.dim() - 1
+        shape = list(p.shape[1:])
+        shape[axis] = n
+        _nan_block(shape, p.dtype, p.device)
+        y = saved['irfft_axis_p'](p, axis, n, scale=scale)
+        d = 1 if axis == 0 else 0              # slabs off the pass axis
+        name = 'irfft_axis_p' + ('_f64' if p.dtype == torch.float64 else '')
+        _slab_hold(holds, name, y, lambda i, w: bf.irfft_axis_plain(
+            p.narrow(1 + d, i, w), axis, n, scale=scale), d,
+            f"{name} {tuple(p.shape)} axis {axis} in the pipeline")
+        return y
+
+    def tp(p, axis, forward=True, trunc=None, pad=None, scale=None):
+        axis %= p.dim() - 1
+        return _tp_held(bf, saved['fft_axis_tp'], holds, p, axis, forward,
+                        dict(trunc=trunc, pad=pad, scale=scale),
+                        f"fft_axis_tp {tuple(p.shape)} axis {axis} in the "
+                        f"pipeline")
+
+    wrapped = {'irfft_axis_p': c2r, 'fft_axis_tp': tp}
+    for n in names:
+        setattr(bf, n, wrapped[n])
+    try:
+        yield
+    finally:
+        for n, f in saved.items():
+            setattr(bf, n, f)
 
 
 def _slab_hold(holds, name, got, plain, dim, what, s=64):
@@ -2544,10 +2629,10 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--times-any', metavar='TREE', nargs='?',
                     const=os.path.dirname(os.path.abspath(__file__)),
-                    help="run only phases 1, 22 and 23, A's, B's, C64's, "
-                         "D's and A64's rows and phases 13 and 18 on the "
-                         "port in TREE (default: this script's checkout), "
-                         "to compare two trees on one card")
+                    help="run only phases 1, 22 and 23, A's, B's, C's, "
+                         "C64's, D's and A64's rows and phases 11, 13 and "
+                         "18 on the port in TREE (default: this script's "
+                         "checkout), to compare two trees on one card")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2566,11 +2651,14 @@ def main(argv=None):
     if args.times_any:
         phase_plane(dev, bf, holds)
         phase_times_any(dev, bf, holds)
-        _emit({'phase': 'times_b', 'kernels': {
-            'rfft_axis_p': _times_b(dev, bf, holds)[0]}})
+        b, c = _times_b_c(dev, bf, holds)
+        _emit({'phase': 'times_b_c', 'kernels': {'rfft_axis_p': b,
+                                                 'irfft_axis_p': c}})
+        del b, c
         phase_times_a_c64(dev, bf, holds)
         phase_times_d_a64(dev, bf, holds)
-        phase_pfft(dev, bf, 'd')
+        phase_pfft(dev, bf, holds, 'f')
+        phase_pfft(dev, bf, holds, 'd')
         phase_times_tp(dev, bf, holds)
         print(_smi(), flush=True)
         return 0
@@ -2584,14 +2672,14 @@ def main(argv=None):
     del x
     torch.cuda.empty_cache()
     phase_long(dev, bf)
-    phase_dealias(dev, bf)
+    phase_dealias(dev, bf, holds)
     phase_north64(dev, bf)
-    phase_dealias(dev, bf, dtype='d')
+    phase_dealias(dev, bf, holds, dtype='d')
     phase_dns64(dev, bf)
     marks = {'planar_path_s': time.perf_counter() - t_start}
-    phase_pfft(dev, bf, 'f')
-    phase_pfft(dev, bf, 'F')
-    phase_pfft(dev, bf, 'd')
+    phase_pfft(dev, bf, holds, 'f')
+    phase_pfft(dev, bf, holds, 'F')
+    phase_pfft(dev, bf, holds, 'd')
     phase_buffer(dev, bf)
     phase_dns_solver(dev, bf)
     marks['reference_api_path_s'] = time.perf_counter() - t_start
@@ -2627,7 +2715,8 @@ def main(argv=None):
             'shape': t['shape']})
         for extra in ('kernel', 'reach_ms', 'per_axis', 'mid_pair', 'n768',
                       'n768_band', 'w768', 'w1024', 'quarter_mid', 'f768',
-                      'pad768', 'cufft_unfused_ms', 'two_a_passes_ms',
+                      'pad768', 'cufft_unfused_ms', 'per_pass',
+                      'two_a_passes_ms',
                       'n1536', 'trunc768', 's7', 's8', 'one_cta',
                       'ctas_a_plane', 'max_active'):
             if extra in t:

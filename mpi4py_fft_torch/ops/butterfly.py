@@ -868,12 +868,12 @@ def irfft_axis_p(p, axis, n, scale=None):
     Hermitian zero-padded in the read.  Unscaled inverse (FFTW's c2r:
     N*x) unless ``scale`` is given.  Packed N/2-point method.
 
-    Which kernel runs is decided before the launch, by layout: a float64
-    CUDA spectrum along its last axis (whole lines) at n >= 4 whose
-    output is aligned to a packed point (16 bytes) takes the c2r line
-    kernel (a warp-resident group of threads a line); every other case,
-    float32, n = 2, an inner axis or a misaligned output, takes the tile
-    kernel.  Both count as ``irfft_axis_p`` / ``irfft_axis_p_f64``."""
+    Which kernel runs is decided before the launch, by layout: a CUDA
+    spectrum along its last axis (whole lines) at n >= 4 whose output is
+    aligned to a packed point (16 bytes in float64, 8 in float32) takes
+    the c2r line kernel (a warp-resident group of threads a line); every
+    other case, n = 2, an inner axis or a misaligned output, takes the
+    tile kernel.  Both count as ``irfft_axis_p`` / ``irfft_axis_p_f64``."""
     what = 'irfft_axis_p'
     _check_planar(p, what)
     shape = tuple(p.shape[1:])
@@ -1059,7 +1059,17 @@ def fft_axis_tp(p, axis, forward=True, trunc=None, pad=None, scale=None):
     for even Nt), ``pad=Np`` zero-pads an Nt-row spectrum to the Np-point
     transform in the read (Nyquist split for even Nt).  Exactly one of
     them.  Unnormalized unless ``scale`` is given (folded into the write).
-    Out of place: the extents differ."""
+    Out of place: the extents differ.
+
+    Which kernel runs is decided before the launch, by shape and
+    alignment: a float64 pass of N = 768 on an inner axis (the size of
+    the dims after the axis above 1) takes the column band kernel (A64's
+    band with the row map in its read or its write; 16-byte vectors
+    where that size is even and both tensors are 16-byte aligned, else
+    single elements), unless it truncates to an even ``trunc`` whose
+    folded rows fall in different CTAs of its cluster (4 does not divide
+    N - trunc); every other call, float32 included, takes the tile
+    kernel.  All count as ``fft_axis_tp`` / ``fft_axis_tp_f64``."""
     what = 'fft_axis_tp'
     _check_planar(p, what)
     shape = tuple(p.shape[1:])
@@ -1076,7 +1086,7 @@ def fft_axis_tp(p, axis, forward=True, trunc=None, pad=None, scale=None):
     out = p.new_empty((2,) + shape[:axis] + (Nout,) + shape[axis + 1:])
     if out.numel() == 0:
         return out
-    tw = _tw_tensor(N, sign, False, p.dtype, p.device)
+    tw = _tw_tensor_axis(N, sign, p.dtype, p.device)
     plan, nst = _plan_args(N)
     _launch(*_build_of(what, 'fft_axis_tp', p), p,
             _ptr(p), _ptr(out), _ptr(tw), tw.shape[1], pre, N, Nt,

@@ -35,11 +35,37 @@
 // row, into the rest of the tile; the store writes Nout rows, reading two
 // tile rows for the folded one.  Nothing but the two unavoidable passes
 // over device memory.
+//
+// Float64 at N = 768 on inner axes (post > 1: the dealiased 'd' plans'
+// axis-1 and axis-0 passes, 72 a step of the reference DNS solver) takes
+// the column band kernel instead.  The tile holds 16 points a thread
+// across block barriers at 80 registers and spills 1852 B a thread; its
+// loads move one element a thread.  The band kernel is A64's band at 768
+// (fft_axis.cu; lines.cuh's band body): a cluster of K = 4 CTAs (256
+// threads, three CTAs an SM, loads in rounds of eight chunks) holds R =
+// 192 = 3 * 64 rows each of C = 16 adjacent columns, one radix-4 step
+// across the cluster, a radix-3 stage and radix-8/4 stages in place on
+// each CTA's columns, 16-byte vectors of two columns where post is even
+// and both tensors are aligned (the lead axis, post = 512 * 257), else
+// single elements (the mid axis, post = 257).  The row map (lines.cuh's PadRows, TruncRows) sits in its read or
+// its write: the pad read loads each input row the map takes (the split
+// row twice, halved) and no zero row; the truncating write stores the nt
+// kept rows, the folded row as the sum of band rows h' and h' + top,
+// which one CTA holds when K divides N - nt (at the 3/2 rule N - nt =
+// N / 3 = 256).  A truncation to an even nt with N - nt not a multiple
+// of K, every other length, whole lines and float32 keep the tile.  Its
+// bound is the bytes: at the 768^3 grid's four passes of the 512^3 plan
+// (axis 1: 768 <-> 512 rows of 768 x 257 lines; axis 0: 768 <-> 512 rows
+// of 512 x 257), (768 + 512) rows x 16 bytes x (768 + 512) x 257 lines x
+// 2 passes = 13.5 GB at float64, 4.02 ms at 3.35 TB/s.
 #include <cstdint>
+#include <type_traits>
 
-#include "butterfly.cuh"
+#include "lines.cuh"
 
 namespace {
+
+using mff::Half;
 
 // Offsets of element 0 of each tile line in the input (rows n_in) and the
 // output (rows n_out); -1 past the last line.
@@ -162,15 +188,108 @@ fft_axis_tp_kernel(const T* __restrict__ x, T* __restrict__ y,
   }
 }
 
+// ---------------------------------------------------------------------------
+// float64 at N = 768 on inner axes: the column band kernel
+// ---------------------------------------------------------------------------
+
+// CTAs a band (a cluster) and the length the band kernel takes: A64's
+// band at 768 (fft_axis.cu), 4 CTAs of R = 192 = 3 * 64 rows and 16
+// columns, a radix-3 column stage first.
+constexpr int kTpBandN = 768;
+constexpr int kTpBandK = 4;
+
+// The band CTA's budget: lines.cuh's (float64: 4096 points, 256 threads,
+// three CTAs an SM), with eight chunks a round in place of two, which ran
+// the dealiased 512^3 'd' plan's four passes faster on an H100 than two
+// or four at 80 registers and 24-36 B of spill stores, as clusters of 4
+// CTAs did against 8 (tools/line_band_ab.py, PERF.md §6).
+template <class T>
+struct TpBandBudget : mff::BandBudget<T> {
+  static constexpr int kRound = 8;
+};
+
+// lines.cuh's band body with the row map Map in its read (PadRows) or its
+// write (TruncRows), on TpBandBudget.
+template <class T, int K, bool kVec, int kB, class Map>
+__global__ void __launch_bounds__(TpBandBudget<T>::kThreads,
+                                  TpBandBudget<T>::kMinBlocks)
+fft_axis_tp_band_kernel(Half<const T> a, Half<const T> b, Half<T> oa,
+                        Half<T> ob, const T* __restrict__ twr,
+                        const T* __restrict__ twi, long long pre,
+                        long long post, int lr, int lc, T sign, T scale,
+                        Map map) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  mff::axis_band<T, K, kVec, kB, TpBandBudget<T>, Map>(
+      a, b, oa, ob, twr, twi, pre, post, lr, lc, sign, scale,
+      reinterpret_cast<T*>(smem), map);
+}
+
+template <class T, class Map>
+auto tp_band_kernel(bool vec) {
+  return vec ? &fft_axis_tp_band_kernel<T, kTpBandK, true, 3, Map>
+             : &fft_axis_tp_band_kernel<T, kTpBandK, false, 3, Map>;
+}
+
+// The band kernel for a pass of x into y, or -1 if it does not take it
+// (the tile kernel does): float64, n = 768, post > 1, and for a
+// truncation of even nt the folded rows h' and h' + top in one CTA (K
+// divides n - nt).  16-byte vectors of two columns when post is even and
+// x and y are 16-byte aligned, else single elements.  twr, twi: the
+// powers of w_n.
+template <class T>
+int launch_tp_band(const T* x, T* y, const T* twr, const T* twi,
+                   long long pre, int n, int nt, int pad, long long post,
+                   T sign, T scale, cudaStream_t stream) {
+  if constexpr (!std::is_same<T, double>::value) {
+    return -1;
+  } else {
+    if (n != kTpBandN || post <= 1) return -1;
+    if (!pad && nt % 2 == 0 && (n - nt) % kTpBandK != 0) return -1;
+    const auto mis = [](const void* p) {
+      return reinterpret_cast<std::uintptr_t>(p) % 16 != 0;
+    };
+    const bool vec = post % mff::kVec16<T> == 0 && !mis(x) && !mis(y);
+    const int R = n / kTpBandK;                  // 3 * 2^lr rows a CTA
+    const int lr = mff::log2_of(R / 3);
+    const int lc = mff::band_log2_cols<T>(R);
+    const long long grid = kTpBandK * ((pre * post + (1 << lc) - 1) >> lc);
+    const std::size_t smem = mff::band_smem<T>(R, lc);
+    const int threads = TpBandBudget<T>::kThreads;
+    const int n_in = pad ? nt : n, n_out = pad ? n : nt;
+    const long long pin = pre * n_in * post, pout = pre * n_out * post;
+    const long long h = (n / 2) * post;
+    // the side of n rows in two halves, the other of nt rows in `a` / `oa`
+    const Half<const T> a{x, pin, n_in * post}, b{x + h, pin, n_in * post};
+    const Half<T> oa{y, pout, n_out * post}, ob{y + h, pout, n_out * post};
+    if (pad)
+      return mff::launch_ex(tp_band_kernel<T, mff::PadRows>(vec), grid,
+                            threads, smem, kTpBandK, stream, a, b, oa, ob,
+                            twr, twi, pre, post, lr, lc, sign, scale,
+                            mff::PadRows{nt});
+    return mff::launch_ex(tp_band_kernel<T, mff::TruncRows>(vec), grid,
+                          threads, smem, kTpBandK, stream, a, b, oa, ob,
+                          twr, twi, pre, post, lr, lc, sign, scale,
+                          mff::TruncRows{nt});
+  }
+}
+
 template <class T>
 int launch_fft_axis_tp(const T* x, T* y, const T* tw, long long tw_len,
                        long long pre, int n, int nt, int pad, long long post,
                        int sign, const int* plan, int nstages, T scale,
                        void* stream) {
   mff::Plan p;
-  if (!mff::make_plan(plan, nstages, n, &p)) return cudaErrorInvalidValue;
+  if (!mff::make_plan(plan, nstages, n, &p) || tw_len < n)
+    return cudaErrorInvalidValue;
   if (nt < 1 || nt >= n || (pad != 0 && pad != 1))
     return cudaErrorInvalidValue;
+  if (pre > 0 && post > 0) {
+    const T* twr = tw + (tw_len - n);
+    const int rc = launch_tp_band(x, y, twr, twr + tw_len, pre, n, nt, pad,
+                                  post, static_cast<T>(sign), scale,
+                                  static_cast<cudaStream_t>(stream));
+    if (rc >= 0) return rc;
+  }
   const int lc = mff::tile_log2_lines<T>(n);
   const int C = 1 << lc;
   const long long nlines = pre * post;
@@ -199,8 +318,10 @@ int launch_fft_axis_tp(const T* x, T* y, const T* tw, long long tw_len,
 
 // x: (2, pre, n, post) (pad == 0) or (2, pre, nt, post) (pad == 1);
 // y: (2, pre, nt, post) or (2, pre, n, post); float32, contiguous, on the
-// current device.  tw: the (2, tw_len) table of _tw_pack(n, sign).
-// Returns cudaGetLastError() after the launch.
+// current device.  tw: the (2, tw_len) table of _tw_pack_axis(n, sign),
+// the stage twiddles (the tile kernel's) then the n powers of w_n (the
+// band kernel's).  Returns the error of a refused launch, else
+// cudaGetLastError() after the launch.
 extern "C" int mff_fft_axis_tp_f32(const float* x, float* y, const float* tw,
                                    long long tw_len, long long pre, int n,
                                    int nt, int pad, long long post, int sign,

@@ -22,7 +22,9 @@
 //   CTAs (R = N / K rows each, CTA r rows r R ..; R = 2^a or 3*2^a, whose
 //   columns take a radix-3 stage first), loaded and stored as 16-byte
 //   vectors of adjacent columns (or single elements), the scale folded
-//   into the store.
+//   into the store.  A row map (AllRows, PadRows, TruncRows) lets the
+//   band's read zero-pad a shorter input or its write truncate the
+//   result: the 3/2-rule boundary of fft_axis_tp.cu.
 // Device bodies take their shared memory as an argument and the kernels
 // that run them declare it, so that the CPU emulation of the tests
 // (tests/cuda_emu) compiles this header as it is.
@@ -599,6 +601,61 @@ inline int band_log2_cols(int rows) {
   return lc;
 }
 
+// Row maps of the band body: which rows of the axis the band's N rows
+// are read from or written to.  AllRows: row r is row r, the input and
+// the output both in two halves (a, b; oa, ob).  PadRows (the 3/2 rule's
+// zero-pad of an nt-row spectrum, nt < N, in the read; h' = nt/2, top =
+// N - nt): band row k takes input row k for k < h' (and k = h' for odd
+// nt), input row k - top for k > top + h', half of input row h' for k =
+// h' and k = top + h' (even nt), and is zero otherwise, read from no
+// memory; the input is `a` alone, with nt rows.  TruncRows (the
+// truncation to nt rows in the write): output row j takes band row j for
+// j < h' (and j = h' for odd nt), band row j + top for j > h', and for
+// even nt band rows h' + (h' + top) (the Nyquist fold, both rows in one
+// CTA: K divides top); the output is `oa` alone, with nt rows.  The
+// maps are _pad_rows and _trunc_rows of the JAX package
+// (pallas_butterfly.py:455-481).
+struct AllRows {
+  static constexpr int kMode = 0;
+};
+struct PadRows {
+  static constexpr int kMode = 1;
+  int nt;
+};
+struct TruncRows {
+  static constexpr int kMode = 2;
+  int nt;
+};
+
+// PadRows: the input row of band row k of an n-row band (-1 for a zero
+// row) and its factor (1, or 1/2 for the split row).
+template <class T>
+__device__ __forceinline__ int pad_source(int k, int n, int nt, T* f) {
+  const int hh = nt >> 1, top = n - nt;
+  const bool even = (nt & 1) == 0;
+  *f = T(1);
+  if (k < hh || (!even && k == hh)) return k;
+  if (k > top + hh) return k - top;
+  if (even && (k == hh || k == top + hh)) {
+    *f = T(0.5);
+    return hh;
+  }
+  return -1;
+}
+
+// TruncRows: the output row of band row r of an n-row band (-1 if it is
+// not kept, or is folded into row h' by the CTA that holds row h'), and
+// whether band row r + top is added to it.
+__device__ __forceinline__ int trunc_target(int r, int n, int nt,
+                                            bool* fold) {
+  const int hh = nt >> 1, top = n - nt;
+  const bool even = (nt & 1) == 0;
+  *fold = even && r == hh;
+  if (r < hh || r == hh) return r;
+  if (r > top + hh) return r - top;
+  return -1;
+}
+
 // The N-point transforms (N = K R, R = kB 2^lr, kB = 1 or 3; n = N) of
 // the band blockIdx.x / K of an axis seen as (2, pre, n, post) lines, rows below
 // h = n/2 from a and the rest from b, written to oa and ob with the
@@ -615,15 +672,17 @@ inline int band_log2_cols(int rows) {
 // be the inputs.  The R-point columns run as in-place radix-8 stages
 // (after one radix-3 stage when kB = 3).  twr, twi: the powers of w_n.
 // B: the CTA's budget (BandBudget<T>'s points, its own threads and
-// chunks).  smem: band_smem(R, lc).
-template <class T, int K, bool kVec, int kB, class B = BandBudget<T>>
+// chunks).  smem: band_smem(R, lc).  Map: the row map (AllRows, or
+// PadRows / TruncRows with `map`'s nt, see above).
+template <class T, int K, bool kVec, int kB, class B = BandBudget<T>,
+          class Map = AllRows>
 __device__ __forceinline__ void axis_band(Half<const T> a, Half<const T> b,
                                           Half<T> oa, Half<T> ob,
                                           const T* __restrict__ twr,
                                           const T* __restrict__ twi,
                                           long long pre, long long post,
                                           int lr, int lc, T sign, T scale,
-                                          T* smem) {
+                                          T* smem, Map map = Map{}) {
   static_assert(B::kElems == BandBudget<T>::kElems,
                 "band_log2_cols and band_smem size the CTA");
   constexpr int V = kVec ? kVec16<T> : 1;
@@ -658,7 +717,27 @@ __device__ __forceinline__ void axis_band(Half<const T> a, Half<const T> b,
       const int r = row0 + (e >> lc);
 #pragma unroll
       for (int cc = 0; cc < V; ++cc) vr[j][cc] = vi[j][cc] = T(0);
-      if (live && e < elems) {
+      if constexpr (Map::kMode == PadRows::kMode) {
+        // the input row of band row r, or a zero row (no load)
+        T f;
+        const int src = pad_source(r, R * K, map.nt, &f);
+        if (live && e < elems && src >= 0) {
+          const T* q = ia + static_cast<long long>(src) * post;
+          if constexpr (kVec) {
+            Vec16<T>::split(__ldcg(reinterpret_cast<const U*>(q)), vr[j]);
+            Vec16<T>::split(__ldcg(reinterpret_cast<const U*>(q + a.plane)),
+                            vi[j]);
+          } else {
+            vr[j][0] = __ldcg(q);
+            vi[j][0] = __ldcg(q + a.plane);
+          }
+#pragma unroll
+          for (int cc = 0; cc < V; ++cc) {
+            vr[j][cc] *= f;
+            vi[j][cc] *= f;
+          }
+        }
+      } else if (live && e < elems) {
         // a CTA of a cluster holds rows of one half
         const bool lo = (K > 1 ? row0 : r) < h;
         const T* q = (lo ? ia : ib) +
@@ -707,14 +786,34 @@ __device__ __forceinline__ void axis_band(Half<const T> a, Half<const T> b,
        e += V * B::kThreads) {
     const int s = dif_pos_b<kB>(e >> lc, lr) * k.rs + pad(e & (C - 1));
     const int r = static_cast<int>(kk) + K * (e >> lc);
-    const bool lo = r < h;
-    T* q = (lo ? ya : yb) + static_cast<long long>(lo ? r : r - h) * post;
-    const long long pl = lo ? oa.plane : ob.plane;
+    T* q;
+    long long pl;
+    bool fold = false;     // TruncRows: band row r + top is added, at
+    int m2 = 0;            // index m2 of this CTA's rows
+    if constexpr (Map::kMode == TruncRows::kMode) {
+      const int j = trunc_target(r, R * K, map.nt, &fold);
+      if (j < 0) continue;
+      q = ya + static_cast<long long>(j) * post;
+      pl = oa.plane;
+      m2 = (e >> lc) + (R * K - map.nt) / K;
+    } else {
+      const bool lo = r < h;
+      q = (lo ? ya : yb) + static_cast<long long>(lo ? r : r - h) * post;
+      pl = lo ? oa.plane : ob.plane;
+    }
     T vr[V], vi[V];
 #pragma unroll
     for (int cc = 0; cc < V; ++cc) {
       vr[cc] = k.re[s + cc] * scale;
       vi[cc] = k.im[s + cc] * scale;
+    }
+    if (fold) {
+      const int s2 = dif_pos_b<kB>(m2, lr) * k.rs + pad(e & (C - 1));
+#pragma unroll
+      for (int cc = 0; cc < V; ++cc) {
+        vr[cc] += k.re[s2 + cc] * scale;
+        vi[cc] += k.im[s2 + cc] * scale;
+      }
     }
     if constexpr (kVec) {
       *reinterpret_cast<U*>(q) = Vec16<T>::make(vr);

@@ -55,12 +55,16 @@
 // spills.  An input that is not aligned to a
 // packed point, N = 2 and inner axes take the tile kernel.
 //
-// The c2r on whole lines in float64 (C64, as the DNS solvers' backwards
-// call it) takes the same line kernel run backwards (irfft_lines_kernel,
-// the r2c's stages with the sign +1), at the same packed lengths, when
-// its input and output are aligned to a packed point: its tile kernel
-// spills 1900 B a thread at 80 registers.  The float32 c2r keeps the
-// tile kernel.
+// The c2r on whole lines (C and C64, as the dealiased plans' and the DNS
+// solvers' backwards call it) takes the same line kernel run backwards
+// (irfft_lines_kernel, the r2c's stages with the sign +1) in both
+// builds, at the same packed lengths, when its output is aligned to a
+// packed point (it reads the spectrum an element at a time): the tile
+// kernel spills 1900 B a thread at 80 registers in float64, 1036 B at
+// 40 in float32, and ran 1.6x slower than cuFFT's irfft at the float32
+// 768^3 last axis on an H100 (PERF.md §6).  The float32 line kernel
+// keeps the r2c's budget, four blocks an SM at 128 registers.  Inner
+// axes, N = 2 and a misaligned output take the tile kernel.
 #include <cstdint>
 #include <type_traits>
 
@@ -655,21 +659,19 @@ int launch_irfft_axis(const T* x, T* y, const T* tw, long long tw_len,
   mff::Plan p;
   if (!mff::make_plan(plan, nstages, W, &p) || hin < 1)
     return cudaErrorInvalidValue;
-  // float64 whole lines of a packed length, the output aligned to a
-  // packed point (16 bytes; the kernel stores one a vector and reads the
-  // spectrum an element at a time): the c2r line kernel (float32 keeps
-  // the tile)
-  if constexpr (std::is_same<T, double>::value) {
-    if (post == 1 && packed &&
-        reinterpret_cast<std::uintptr_t>(y) % (2 * sizeof(T)) == 0) {
-      if (pre <= 0 || tw_len < W + 1) return cudaErrorInvalidValue;
-      return with_line_length(W, [&](auto w) {
-        constexpr int kW = decltype(w)::value;
-        return launch_line_kernel<T, kW>(
-            &irfft_lines_kernel<T, kW>, kW + 1, x, y, tw, tw_len, pre,
-            static_cast<cudaStream_t>(stream), hin, scale);
-      });
-    }
+  // whole lines of a packed length, the output aligned to a packed
+  // point (16 bytes in float64, 8 in float32; the kernel stores one a
+  // vector and reads the spectrum an element at a time): the c2r line
+  // kernel
+  if (post == 1 && packed &&
+      reinterpret_cast<std::uintptr_t>(y) % (2 * sizeof(T)) == 0) {
+    if (pre <= 0 || tw_len < W + 1) return cudaErrorInvalidValue;
+    return with_line_length(W, [&](auto w) {
+      constexpr int kW = decltype(w)::value;
+      return launch_line_kernel<T, kW>(
+          &irfft_lines_kernel<T, kW>, kW + 1, x, y, tw, tw_len, pre,
+          static_cast<cudaStream_t>(stream), hin, scale);
+    });
   }
   int lc, threads;
   long long blocks;

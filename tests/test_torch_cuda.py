@@ -56,6 +56,44 @@ def test_tp_wrapper_on_cuda(card):
 
 
 @pytest.mark.cuda
+def test_c2r_lines_f32_on_cuda(card):
+    """C on a float32 768-point last axis (the c2r line kernel): full and
+    3/2-rule spectra, with and without a scale, into NaN-filled outputs,
+    within 5e-6 of the plain version, one launch each."""
+    g = torch.Generator(device=card).manual_seed(6)
+    for hin, sc in ((385, None), (257, 1.0 / 768)):
+        h = torch.randn((2, 40, 6, hin), generator=g, device=card)
+        torch.full((40, 6, 768), float('nan'), device=card)
+        c0 = tb.LAUNCHES['irfft_axis_p']
+        got = tb.irfft_axis_p(h, 2, 768, scale=sc)
+        assert tb.LAUNCHES['irfft_axis_p'] == c0 + 1
+        assert bool(torch.isfinite(got).all())
+        assert _rel(got, tb.irfft_axis_plain(h, 2, 768, scale=sc)) <= 5e-6
+
+
+@pytest.mark.cuda
+def test_tp64_band_on_cuda(card):
+    """E64 at N = 768 on a (2, 768, 4, 6) volume's lead axis (the column
+    band kernel): truncation to 512 and 511 rows and padding back, with
+    and without a scale, within 2e-13 of the plain version."""
+    g = torch.Generator(device=card).manual_seed(7)
+    p = torch.randn((2, 768, 4, 6), generator=g, device=card,
+                    dtype=torch.float64)
+    for nt in (512, 511):
+        q = torch.randn((2, nt, 4, 6), generator=g, device=card,
+                        dtype=torch.float64)
+        for sc in (None, 1.0 / 768):
+            c0 = tb.LAUNCHES['fft_axis_tp_f64']
+            got = tb.fft_axis_tp(p, 0, trunc=nt, scale=sc)
+            assert _rel(got, tb.fft_axis_tp_plain(p, 0, trunc=nt,
+                                                  scale=sc)) <= 2e-13
+            got = tb.fft_axis_tp(q, 0, False, pad=768, scale=sc)
+            assert _rel(got, tb.fft_axis_tp_plain(q, 0, False, pad=768,
+                                                  scale=sc)) <= 2e-13
+            assert tb.LAUNCHES['fft_axis_tp_f64'] == c0 + 2
+
+
+@pytest.mark.cuda
 def test_dns_solver_energy_anchor(card):
     """The reference's Taylor-Green energy at 64^3, T = 0.1 (10 steps),
     unpadded, on the port's kernels (the reference DNS solver on PFFT)."""

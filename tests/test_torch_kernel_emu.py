@@ -524,29 +524,34 @@ def test_rfft_lines_f32_vs_plain(kernel_path, emu_kernels, N):
 
 
 def _c2r_into(emu_kernels, h, N, sc, y):
-    """irfft_axis_p's C entry (float64, packed) on the spectrum h (2, pre,
-    hin) along its last axis, into the given output y (pre, N)."""
+    """irfft_axis_p's C entry (packed; float64 or float32 as h) on the
+    spectrum h (2, pre, hin) along its last axis, into the given output y
+    (pre, N)."""
     tw = bf._tw_tensor(N, +1, True, h.dtype, h.device)
     plan, nst = bf._plan_args(N // 2)
-    rc = emu_kernels.irfft_axis_f64(
-        ctypes.c_void_p(h.data_ptr()), ctypes.c_void_p(y.data_ptr()),
-        ctypes.c_void_p(tw.data_ptr()), tw.shape[1], h.shape[1],
-        h.shape[2], N, 1, 1, plan, nst,
-        ctypes.c_double(2.0 * (1.0 if sc is None else sc)),
-        ctypes.c_void_p(0))
+    f64 = h.dtype == torch.float64
+    fn = emu_kernels.irfft_axis_f64 if f64 else emu_kernels.irfft_axis_f32
+    real = ctypes.c_double if f64 else ctypes.c_float
+    rc = fn(ctypes.c_void_p(h.data_ptr()), ctypes.c_void_p(y.data_ptr()),
+            ctypes.c_void_p(tw.data_ptr()), tw.shape[1], h.shape[1],
+            h.shape[2], N, 1, 1, plan, nst,
+            real(2.0 * (1.0 if sc is None else sc)), ctypes.c_void_p(0))
     assert rc == 0
     return y
 
 
-def _hold_c2r_lines(plain_ok, emu_kernels, N, seed):
-    """irfft_axis_p on float64 whole lines: the full spectrum (hin =
-    N//2 + 1) with and without a scale, shorter ones of even (the last row
-    halved) and odd hin, the 3/2 rule's hin = N//3 + 1, and a longer one
-    (rows past N//2 + 1 ignored), on an input aligned to a packed point
-    and on one an element off it (the spectrum is read an element at a
-    time: a c2r line-kernel launch each, __syncwarp calls), and through
-    the C entry into an output an element off a packed point (the tile
-    kernel, held the same way)."""
+def _hold_c2r_lines(plain_ok, emu_kernels, N, seed, dtype=np.float64,
+                    tol=TOL64):
+    """irfft_axis_p on whole lines (float64 by default): the full
+    spectrum (hin = N//2 + 1) with and without a scale, shorter ones of
+    even (the last row halved) and odd hin, the 3/2 rule's hin = N//3 +
+    1, and a longer one (rows past N//2 + 1 ignored), on an input aligned
+    to a packed point and on one an element off it (the spectrum is read
+    an element at a time: a c2r line-kernel launch each, __syncwarp
+    calls), and through the C entry into an output an element off a
+    packed point (the tile kernel, held the same way).  The spectra are
+    random, not Hermitian-consistent, so the imaginary parts of the DC
+    and Nyquist rows count in the hold (ROADMAP Queue 3, item 1)."""
     rng = np.random.default_rng(seed)
     nh = N // 2 + 1
     ev = nh - 1 if (nh - 1) % 2 == 0 else nh - 2
@@ -554,7 +559,8 @@ def _hold_c2r_lines(plain_ok, emu_kernels, N, seed):
     cases = ((nh, None), (nh, 1.0 / N), (max(1, ev), None),
              (max(1, od), 0.25), (N // 3 + 1, 1.0 / N), (nh + 3, None))
     for hin, sc in cases:
-        flat = torch.from_numpy(rng.standard_normal(1 + 6 * hin))
+        flat = torch.from_numpy(rng.standard_normal(1 + 6 * hin)
+                                .astype(dtype))
         h = flat[:6 * hin].view(2, 3, hin)
         for t in (flat[1:].view(2, 3, hin), h):
             w0 = _emu_count(emu_kernels, 'rfft_axis', 'emu_syncwarps')
@@ -562,14 +568,15 @@ def _hold_c2r_lines(plain_ok, emu_kernels, N, seed):
             ran = _emu_count(emu_kernels, 'rfft_axis', 'emu_syncwarps') > w0
             ref = _plain(plain_ok, bf.irfft_axis_p, t, 1, N, scale=sc)
             assert got.shape == ref.shape == (3, N)
-            assert _rel(got, ref) <= TOL64, (hin, sc)
+            assert got.dtype == t.dtype
+            assert _rel(got, ref) <= tol, (hin, sc)
             assert ran, (hin, sc)
         ym = torch.full((1 + 3 * N,), float('nan'), dtype=h.dtype)[1:]
-        assert ym.data_ptr() % 16 != 0
+        assert ym.data_ptr() % (2 * ym.element_size()) != 0
         w0 = _emu_count(emu_kernels, 'rfft_axis', 'emu_syncwarps')
         got = _c2r_into(emu_kernels, h, N, sc, ym).view(3, N)
         assert _emu_count(emu_kernels, 'rfft_axis', 'emu_syncwarps') == w0
-        assert _rel(got, ref) <= TOL64, (hin, sc)
+        assert _rel(got, ref) <= tol, (hin, sc)
     return 2 * len(cases)
 
 
@@ -580,6 +587,28 @@ def test_irfft_lines_f64_vs_plain(kernel_path, emu_kernels, N):
     bytes off it takes the tile kernel."""
     n = _hold_c2r_lines(kernel_path, emu_kernels, N, 26)
     assert _launched() == {'irfft_axis_p_f64': n}
+
+
+@pytest.mark.parametrize('N', LINE_NS)
+def test_irfft_lines_f32_vs_plain(kernel_path, emu_kernels, N):
+    """irfft_axis_p on float32 whole lines (one float2 a packed point),
+    the cases of the float64 test, each a c2r line-kernel launch, also on
+    an input 4 bytes off an 8-byte boundary; an output 4 bytes off it
+    takes the tile kernel.  Then a spectrum that is zero but for the
+    imaginary parts of its DC and Nyquist rows: the packed c2r keeps them
+    (ROADMAP Queue 3, item 1), in the line kernel as in its plain
+    version."""
+    n = _hold_c2r_lines(kernel_path, emu_kernels, N, 27, np.float32, TOL)
+    h = torch.zeros((2, 3, N // 2 + 1))
+    h[1, :, 0] = torch.tensor([1.0, -0.5, 0.25])
+    h[1, :, N // 2] = torch.tensor([0.75, 2.0, -1.0])
+    w0 = _emu_count(emu_kernels, 'rfft_axis', 'emu_syncwarps')
+    got = bf.irfft_axis_p(h, 1, N)
+    assert _emu_count(emu_kernels, 'rfft_axis', 'emu_syncwarps') > w0
+    ref = _plain(kernel_path, bf.irfft_axis_p, h, 1, N)
+    assert float(ref.abs().max()) > 0.1
+    assert _rel(got, ref) <= TOL
+    assert _launched() == {'irfft_axis_p': n + 1}
 
 
 # the fused dealiasing kernel E (shape of the N-row side, axis, Nt): lead,
@@ -621,6 +650,99 @@ def test_tp_kernel_vs_plain(kernel_path, shape, axis, nt):
 def test_tp_kernel_vs_plain_f64(kernel_path, shape, axis, nt):
     """The float64 entry, counted under fft_axis_tp_f64."""
     _hold_tp(kernel_path, shape, axis, nt, np.float64, TOL64)
+    assert _launched() == {'fft_axis_tp_f64': 4}
+
+
+# E64 by route (shape of the N-row side, axis, Nt, route of the
+# truncation, route of the padding): at N = 768 a lead axis with vectors
+# of two columns, a mid axis (single elements), an odd Nt and an even Nt
+# whose folded rows fall in different CTAs (N - Nt = 258, not a multiple
+# of the cluster's 4: the truncation takes the tile; the padding, whose
+# split row each CTA reads itself, the band) on the band kernel; whole
+# lines and other lengths on the tile
+TP64_ROUTES = [((768, 4), 0, 512, 'vectors', 'vectors'),
+               ((2, 768, 3), 1, 512, 'elements', 'elements'),
+               ((768, 2), 0, 511, 'vectors', 'vectors'),
+               ((768, 2), 0, 510, 'tile', 'vectors'),
+               ((3, 768), 1, 512, 'tile', 'tile'),
+               ((96, 4), 0, 64, 'tile', 'tile')]
+
+
+def _tp_loads(route, rows, lines):
+    """__ldcg loads of a band pass that reads `rows` rows of `lines`
+    lines, both planes: one a 16-byte vector of two columns, or one an
+    element; none on the tile."""
+    per = {'vectors': rows * lines, 'elements': 2 * rows * lines}
+    return per.get(route, 0)
+
+
+def _hold_tp_routes(plain_ok, emu_kernels, shape, axis, nt, routes, p, q,
+                    tol):
+    """fft_axis_tp with trunc (forward) and pad (backward), each with and
+    without a scale, on p (N rows) and q (nt rows), against the plain
+    version, each call on the route given for its direction: a cluster
+    launch and the __ldcg loads of the rows its map reads (the padding
+    reads each kept row once, the split row of an even nt twice, and no
+    zero row), or neither on the tile."""
+    N = shape[axis]
+    lines = p.numel() // 2 // N
+    reads = {'trunc': N, 'pad': nt + (1 - nt % 2)}
+    for mode, route in zip(('trunc', 'pad'), routes):
+        for sc in (None, 1.0 / N):
+            kw = {mode: nt if mode == 'trunc' else N, 'scale': sc}
+            x, fwd = (p, True) if mode == 'trunc' else (q, False)
+            c0 = _routes(emu_kernels, 'fft_axis_tp')
+            got = bf.fft_axis_tp(x, axis, fwd, **kw)
+            d = _route_delta(c0, _routes(emu_kernels, 'fft_axis_tp'))
+            ref = _plain(plain_ok, bf.fft_axis_tp, x, axis, fwd, **kw)
+            assert got.shape == ref.shape and got.dtype == x.dtype
+            assert _rel(got, ref) <= tol, (mode, sc)
+            band = route != 'tile'
+            assert d['cluster_launches'] == int(band), (mode, sc)
+            assert d['ldcg_loads'] == _tp_loads(route, reads[mode],
+                                                lines), (mode, sc)
+            assert d['syncwarps'] == 0
+
+
+def _tp_inputs(shape, axis, nt, dtype, seed):
+    rng = np.random.default_rng(seed)
+    sh = list(shape)
+    sh[axis] = nt
+    p = torch.from_numpy(rng.standard_normal((2,) + shape).astype(dtype))
+    q = torch.from_numpy(rng.standard_normal([2] + sh).astype(dtype))
+    return p, q
+
+
+@pytest.mark.parametrize('shape,axis,nt,trunc_route,pad_route', TP64_ROUTES)
+def test_tp64_band_vs_plain(kernel_path, emu_kernels, shape, axis, nt,
+                            trunc_route, pad_route):
+    """fft_axis_tp on float64 on the kernel the rule picks by shape: at
+    N = 768 on an inner axis the column band kernel (a cluster launch, its
+    loads one a vector or one an element, the row map in its read or its
+    write), else the tile; float32 E at the same shapes on the tile."""
+    p, q = _tp_inputs(shape, axis, nt, np.float64, 28)
+    _hold_tp_routes(kernel_path, emu_kernels, shape, axis, nt,
+                    (trunc_route, pad_route), p, q, TOL64)
+    assert _launched() == {'fft_axis_tp_f64': 4}
+    p, q = _tp_inputs(shape, axis, nt, np.float32, 28)
+    _hold_tp_routes(kernel_path, emu_kernels, shape, axis, nt,
+                    ('tile', 'tile'), p, q, TOL)
+    assert _launched() == {'fft_axis_tp_f64': 4, 'fft_axis_tp': 4}
+
+
+def test_tp64_band_misaligned(kernel_path, emu_kernels):
+    """E64 at N = 768 on a lead axis whose tensors start 8 bytes off a
+    16-byte boundary: the band kernel's single elements, the same
+    results."""
+    shape, axis, nt = (768, 4), 0, 512
+    p, q = _tp_inputs(shape, axis, nt, np.float64, 29)
+    pm = torch.empty(1 + p.numel(), dtype=p.dtype)[1:].view(p.shape)
+    qm = torch.empty(1 + q.numel(), dtype=q.dtype)[1:].view(q.shape)
+    pm.copy_(p)
+    qm.copy_(q)
+    assert pm.data_ptr() % 16 == 8 and qm.data_ptr() % 16 == 8
+    _hold_tp_routes(kernel_path, emu_kernels, shape, axis, nt,
+                    ('elements', 'elements'), pm, qm, TOL64)
     assert _launched() == {'fft_axis_tp_f64': 4}
 
 

@@ -1,0 +1,181 @@
+#!/usr/bin/env python3
+"""A/B of design variants of C's c2r line kernel and E64's dealiasing
+band kernel, on one card.
+
+Each variant is a copy of this checkout's ``mpi4py_fft_torch`` under
+``build/ab/<variant>`` with one constant of its CUDA sources changed by a
+string patch; every tree is timed in a fresh process (its own build), in
+turns: this tree, the variants, the variants in reverse, this tree.  A
+run times C (``irfft_axis_p``) on a (2, 768, 768, 385) float32 spectrum
+back to the 768^3 real volume, and E64 (``fft_axis_tp`` on float64) at
+the four passes of the dealiased 512^3 ``'d'`` plan on its 768^3 grid
+(forward axes 1 and 0 truncating to 512 rows, backward axes 0 and 1
+padding back), each held first against its plain version on one slab,
+and prints one JSON line with the times (CUDA events, median of 9 after
+2 warm-ups) and the ``ptxas`` lines of the C 384-point and E64 band
+instances:
+
+    python3 tools/line_band_ab.py            # every variant, in turns
+    python3 tools/line_band_ab.py --one TREE # one tree (the child run)
+
+The variants (against this tree's constants):
+
+* ``c_bound3``: the line kernels bound to three blocks an SM at float32
+  (``kLineMinBlocks``, ``rfft_axis.cu``) in place of four;
+* ``round2``, ``round4``: E64's band loading two or four chunks a round
+  (``TpBandBudget``, ``fft_axis_tp.cu``) in place of eight;
+* ``k8``: E64's band on clusters of eight CTAs of 96 rows and 32
+  columns (``kTpBandK``) in place of four of 192 rows and 16.
+"""
+import argparse
+import json
+import os
+import re
+import shutil
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+CSRC = Path('mpi4py_fft_torch') / 'ops' / 'csrc'
+VARIANTS = {
+    'c_bound3': ('rfft_axis.cu',
+                 'constexpr int kLineMinBlocks = sizeof(T) == 4 ? 4 : 1;',
+                 'constexpr int kLineMinBlocks = sizeof(T) == 4 ? 3 : 1;'),
+    'round2': ('fft_axis_tp.cu', 'static constexpr int kRound = 8;',
+               'static constexpr int kRound = 2;'),
+    'round4': ('fft_axis_tp.cu', 'static constexpr int kRound = 8;',
+               'static constexpr int kRound = 4;'),
+    'k8': ('fft_axis_tp.cu', 'constexpr int kTpBandK = 4;',
+           'constexpr int kTpBandK = 8;'),
+}
+
+
+def _variant(name):
+    """The patched copy of this tree's package for variant ``name``."""
+    f, old, new = VARIANTS[name]
+    d = ROOT / 'build' / 'ab' / name
+    shutil.rmtree(d, ignore_errors=True)
+    shutil.copytree(ROOT / 'mpi4py_fft_torch', d / 'mpi4py_fft_torch',
+                    ignore=shutil.ignore_patterns('__pycache__'))
+    p = d / CSRC / f
+    s = p.read_text()
+    if s.count(old) != 1:
+        raise RuntimeError(f"{name}: {old!r} is not in {f} once")
+    p.write_text(s.replace(old, new))
+    return d
+
+
+def _ptxas(log):
+    """The ptxas lines of the C 384-point and E64 band instances."""
+    out, cur = {}, None
+    for text in log.values():
+        for ln in text.splitlines():
+            m = re.search(r"Compiling entry function '([^']+)'", ln)
+            if m:
+                cur = m.group(1)
+            elif cur and ('irfft_lines_kernelIfLi384' in cur or
+                          'tp_band' in cur) and ('registers' in ln or
+                                                 'spill' in ln):
+                key = re.sub(r'^.*?(irfft_lines_kernel|tp_band_kernel)',
+                             r'\1', cur)
+                out.setdefault(key, []).append(
+                    ln.split('ptxas info')[-1].strip(' :'))
+    return out
+
+
+def run_one(tree):
+    sys.path.insert(0, str(tree))
+    import torch
+    from mpi4py_fft_torch.ops import _build
+    from mpi4py_fft_torch.ops import butterfly as bf
+    if not bf.__file__.startswith(str(tree)):
+        raise RuntimeError(f"imported {bf.__file__}, not {tree}")
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device")
+    _build.load()
+    dev = torch.device('cuda', 0)
+
+    def med(fn, reps=9, warm=2):
+        for _ in range(warm):
+            fn()
+        ts = []
+        for _ in range(reps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            ts.append(a.elapsed_time(b))
+        return statistics.median(ts)
+
+    def rel(a, b):
+        return float((a.double() - b.double()).norm() / b.double().norm())
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    out = {'tree': str(tree), 'ptxas': _ptxas(_build.LOG)}
+    h = torch.rand((2, 768, 768, 385), generator=g, device=dev) - 0.5
+    y = bf.irfft_axis_p(h, 2, 768)
+    out['c_rel'] = rel(y[:32], bf.irfft_axis_plain(h[:, :32], 2, 768))
+    out['c_ms'] = med(lambda: bf.irfft_axis_p(h, 2, 768))
+    del h, y
+    x = torch.rand((2, 768, 768, 257), generator=g, device=dev,
+                   dtype=torch.float64) - 0.5
+    passes = (('fwd1', 1, True, dict(trunc=512, scale=1 / 768)),
+              ('fwd0', 0, True, dict(trunc=512, scale=1 / 768)),
+              ('bwd0', 0, False, dict(pad=768)),
+              ('bwd1', 1, False, dict(pad=768)))
+    inp, total = x, 0.0
+    for name, ax, fwd, kw in passes:
+        k = bf.fft_axis_tp(inp, ax, fwd, **kw)
+        sd = 2 if ax == 0 else 1
+        out[name + '_rel'] = rel(k.narrow(sd, 0, 32), bf.fft_axis_tp_plain(
+            inp.narrow(sd, 0, 32), ax, fwd, **kw))
+        out[name + '_ms'] = med(lambda: bf.fft_axis_tp(inp, ax, fwd, **kw))
+        total += out[name + '_ms']
+        inp = k
+    out['e64_ms'] = total
+    if out['c_rel'] > 5e-6 or any(out[p[0] + '_rel'] > 2e-13
+                                  for p in passes):
+        raise RuntimeError(f"a kernel disagrees with its plain version: "
+                           f"{out}")
+    print(json.dumps(out), flush=True)
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    ap.add_argument('--one', metavar='TREE', help="time one tree")
+    args = ap.parse_args()
+    if args.one:
+        run_one(Path(args.one).resolve())
+        return 0
+    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                          '--format=csv,noheader'], capture_output=True,
+                         text=True, timeout=60)
+    print(smi.stdout.strip(), flush=True)
+    trees = [ROOT] + [_variant(v) for v in VARIANTS]
+    rows = {}
+    for t in trees + trees[::-1]:
+        r = subprocess.run([sys.executable, __file__, '--one', str(t)],
+                           capture_output=True, text=True)
+        if r.returncode != 0:
+            print(r.stdout, r.stderr, file=sys.stderr)
+            return 1
+        line = r.stdout.strip().splitlines()[-1]
+        print(line, flush=True)
+        o = json.loads(line)
+        name = 'tree' if t == ROOT else t.name
+        rows.setdefault(name, []).append({k: o[k] for k in o
+                                          if k.endswith('_ms')})
+    print(json.dumps({'summary': {n: {k: [min(r[k] for r in rs),
+                                          max(r[k] for r in rs)]
+                                      for k in rs[0]}
+                                  for n, rs in rows.items()}}), flush=True)
+    return 0
+
+
+if __name__ == '__main__':
+    os.chdir(ROOT)
+    sys.exit(main())
