@@ -75,8 +75,11 @@ and the script exits non-zero:
              the c2r held slab by slab against its plain version on the
              plan's own data (outputs NaN-filled first), timed, with its
              peak device memory;
-12. pfft_c2c the same plan at ``'F'`` (3 ``fft_axis_tp`` launches each way)
-             against a truncated ``torch.fft.fftn``;
+12. pfft_c2c the same plan at ``'F'`` (3 ``fft_axis_tp`` launches each way:
+             the line kernel on the last axis, the column band kernel's
+             vectors on axes 1 and 0), against a truncated
+             ``torch.fft.fftn``, each fused pass held slab by slab as in
+             phase 11;
 13. pfft64   the same plan at ``'d'`` (``fft_axis_tp_f64``: E64's four
              passes on the column band kernel, held at 2e-13; the plan at
              2e-10);
@@ -151,16 +154,20 @@ and the script exits non-zero:
              held at 2e-13 against its plain version slab by slab; and
              the 1024^3 ``'D'`` transform end to end;
 18. times_tp ``fft_axis_tp`` and ``fft_axis_tp_f64`` at the four passes of
-             the dealiased 512^3 plan (forward axes 1 and 0 with the
-             truncation and the stage's scale, backward axes 0 and 1 with
-             the padding), each held against ``fft_axis_tp_plain`` slab by
+             the dealiased 512^3 plan at ``'f'`` and ``'d'`` (forward axes
+             1 and 0 with the truncation and the stage's scale, backward
+             axes 0 and 1 with the padding), and ``fft_axis_tp`` at the six
+             of the plan at ``'F'`` (forward axes 2, 1 and 0, backward 0,
+             1 and 2), each held against ``fft_axis_tp_plain`` slab by
              slab on its full volume into a NaN-filled output, timed beside
              the plain version, its bound, its reachable bound (half the
              ``block_copy`` times of its input and its output in the
              pass's access pattern) and cuFFT's unfused c2c pass at the
              same shape (no one PyTorch call computes the fused function:
-             ``library_ms`` is null); each pass names its route (E64: the
-             column band kernel; E: the tile).
+             ``library_ms`` is null); each pass names its route by the C
+             entry's rule (the column band kernel with vectors or single
+             elements on inner axes, the line kernel on float32 whole
+             lines, else the tile).
 
 19. any_c2c  ``PlanarPFFT(None, (640,)*3, dtype='F')``, an extent no
              Stockham kernel takes: a normalized forward and the backward
@@ -211,11 +218,11 @@ and the script exits non-zero:
 
 ``python3 chip_smoke.py --times-any TREE`` runs only phases 1, 22 and 23,
 B's two rows and C's row of phase 16, A's, C64's, D's and A64's rows of
-phases 16 and 17, and phases 11, 13 and 18, on the port of the checkout
-at TREE (a tree from the plane-holding H on), and prints no last line:
-run it for two trees in turns on one card (parent, change, change,
-parent) to compare H, I, J, A, B, C, C64, D, A64, E and E64 and the m3
-plan at 'f' and 'd' between them.
+phases 16 and 17, and phases 11, 12, 13 and 18, on the port of the
+checkout at TREE (a tree from the plane-holding H on), and prints no
+last line: run it for two trees in turns on one card (parent, change,
+change, parent) to compare H, I, J, A, B, C, C64, D, A64, E and E64 and
+the m3 plan at 'f', 'F' and 'd' between them.
 
 Phases 3 to 15 and 19 to 22 are the main path: the launch counters are
 set to 0 just before phase 3 and read after phase 22 (phases 16 to 18
@@ -1832,76 +1839,125 @@ def phase_dns_solver(dev, bf):
            'planar_copies_per_step': {'in': 24, 'out': 12}})
 
 
+def _tp_route(inp, ax, kw):
+    """The kernel fft_axis_tp.cu's C entry picks for the pass of ``inp``
+    along ``ax`` with ``kw`` (trunc or pad) into a new tensor: at N = 768
+    the band kernel on inner axes (vectors where post is a multiple of a
+    16-byte vector and the input is aligned) unless a truncation to an
+    even Nt folds across CTAs (4 does not divide N - Nt), the line kernel
+    on float32 whole lines where Nt/2 and N - Nt are multiples of 4 and
+    the input is aligned; else the tile."""
+    pad = kw.get('pad') is not None
+    N = kw['pad'] if pad else inp.shape[1 + ax]
+    nt = inp.shape[1 + ax] if pad else kw['trunc']
+    post = math.prod(inp.shape[2 + ax:])
+    vec = 16 // inp.element_size()
+    aligned = inp.data_ptr() % 16 == 0
+    if N != 768:
+        return 'tile'
+    if post > 1:
+        if not pad and nt % 2 == 0 and (N - nt) % 4:
+            return 'tile'
+        return 'band, ' + ('vectors' if post % vec == 0 and aligned else
+                           'single elements')
+    if (inp.dtype == torch.float32 and (nt // 2) % 4 == 0 and
+            (N - nt) % 4 == 0 and aligned):
+        return 'lines'
+    return 'tile'
+
+
+_TP_KERNELS = {'band': 'fft_axis_tp_band_kernel (the column band kernel, '
+                       'clusters of 4 CTAs)',
+               'lines': 'fft_axis_tp_lines_kernel (a warp a line)',
+               'tile': 'fft_axis_tp_kernel (the tile)'}
+
+
+def _tp_passes(bf, holds, name, inp, passes):
+    """Each pass (direction, axis, kw) of a dealiased plan in turn, from
+    ``inp``: held slab by slab on its full volume into a NaN-filled
+    output, timed beside the plain version, cuFFT's unfused c2c pass on
+    the pass's larger side, its bound and its reachable bound; returns
+    the rows and their sums."""
+    f64 = inp.dtype == torch.float64
+    rows = []
+    for direction, ax, kw in passes:
+        fwd = direction == 'fwd'
+        route = _tp_route(inp, ax, kw)
+        k = _tp_held(bf, bf.fft_axis_tp, holds, inp, ax, fwd, kw,
+                     f"{name} {direction} axis {ax}")
+        Nin, Nout = inp.shape[1 + ax], k.shape[1 + ax]
+        big = inp if Nin > Nout else k
+        N = max(Nin, Nout)
+        lines = inp.numel() // 2 // Nin
+        b, by = _bound_ms((Nin + Nout) * lines * 2 * (8 if f64 else 4),
+                          lines * 5 * N * math.log2(N), f64)
+        bc = torch.complex(big[0], big[1])
+        rows.append({
+            'pass': f"{direction} axis {ax}", 'route': route,
+            'in': list(inp.shape), 'out': list(k.shape),
+            'ms': _median_ms(lambda: bf.fft_axis_tp(inp, ax, fwd, **kw)),
+            'plain_ms': _median_ms(
+                lambda: bf.fft_axis_tp_plain(inp, ax, fwd, **kw),
+                reps=3, warm=1),
+            'cufft_unfused_ms': _median_ms(
+                lambda: torch.fft.fft(bc, dim=ax)),
+            'bound_ms': b, 'bound_by': by})
+        del bc, big
+        # half the copies of the input and the output in the pass's
+        # access pattern (the pass reads the one and writes the other)
+        rows[-1]['reach_ms'] = (_reach_ms((inp,), ax) +
+                                _reach_ms((k,), ax)) / 2
+        inp = k
+        del k
+    del inp
+    torch.cuda.empty_cache()
+    row = {key: sum(r[key] for r in rows)
+           for key in ('ms', 'plain_ms', 'cufft_unfused_ms', 'bound_ms',
+                       'reach_ms')}
+    row.update(bound_by=rows[0]['bound_by'], library_ms=None, per_pass=rows,
+               kernel=', '.join(_TP_KERNELS[k] for k in _TP_KERNELS
+                                if any(r['route'].startswith(k)
+                                       for r in rows)))
+    return row
+
+
 def phase_times_tp(dev, bf, holds):
     """fft_axis_tp (f32 and f64) at the four passes of the dealiased 512^3
-    plan, each held against its plain version slab by slab on the full
+    plan at 'f' and 'd', and the f32 kernel at the six of the plan at
+    'F', each held against its plain version slab by slab on the full
     volume, and timed beside it, its bound and cuFFT's unfused pass."""
     from mpi4py_fft_torch import PFFT
     d = PFFT_N
     m = 3 * d // 2
     out = {}
-    for dtype, sfx in (('f', ''), ('d', '_f64')):
-        f64 = dtype == 'd'
-        name = 'fft_axis_tp' + sfx
+    for dtype in 'fdF':
+        f64, real = dtype == 'd', dtype in 'fd'
+        name = 'fft_axis_tp' + ('_f64' if f64 else '')
         tdt = torch.float64 if f64 else torch.float32
         fft = PFFT(None, (d,) * 3, padding=[1.5] * 3, dtype=dtype)
         g = torch.Generator(device=dev).manual_seed(SEED + 50)
-        x = torch.rand((m,) * 3, generator=g, device=dev, dtype=tdt) - 0.5
-        y0 = fft.xfftn[0].forward_fn_p(x)          # (2, m, m, d/2 + 1)
+        x = torch.rand((m,) * 3 if real else (2,) + (m,) * 3, generator=g,
+                       device=dev, dtype=tdt) - 0.5
+        # the forward's stages after the first (r2c) one, or every stage
+        first = fft.xfftn[0].forward_fn_p(x) if real else x
         del x
-        sc1, sc0 = float(fft.xfftn[1].M), float(fft.xfftn[2].M)
-        passes = (('fwd', 1, dict(trunc=d, scale=sc1)),
-                  ('fwd', 0, dict(trunc=d, scale=sc0)),
-                  ('bwd', 0, dict(pad=m)), ('bwd', 1, dict(pad=m)))
-        rows = []
-        inp = y0
-        for direction, ax, kw in passes:
-            fwd = direction == 'fwd'
-            k = _tp_held(bf, bf.fft_axis_tp, holds, inp, ax, fwd, kw,
-                         f"{name} {direction} axis {ax}")
-            big = inp if inp.shape[1 + ax] == m else k
-            Nin, Nout = inp.shape[1 + ax], k.shape[1 + ax]
-            lines = inp.numel() // 2 // Nin
-            b, by = _bound_ms((Nin + Nout) * lines * 2 * (8 if f64 else 4),
-                              lines * 5 * m * math.log2(m), f64)
-            bc = torch.complex(big[0], big[1])
-            post = math.prod(inp.shape[2 + ax:])
-            band = f64 and m == 768 and post > 1
-            rows.append({
-                'pass': f"{direction} axis {ax}",
-                'route': ('band, ' + ('vectors' if post % 2 == 0 else
-                                      'single elements')) if band else
-                         'tile',
-                'in': list(inp.shape), 'out': list(k.shape),
-                'ms': _median_ms(lambda: bf.fft_axis_tp(inp, ax, fwd, **kw)),
-                'plain_ms': _median_ms(
-                    lambda: bf.fft_axis_tp_plain(inp, ax, fwd, **kw),
-                    reps=3, warm=1),
-                'cufft_unfused_ms': _median_ms(
-                    lambda: torch.fft.fft(bc, dim=ax)),
-                'bound_ms': b})
-            del bc, big
-            # half the copies of the input and the output in the pass's
-            # access pattern (the pass reads the one and writes the other)
-            rows[-1]['reach_ms'] = (_reach_ms((inp,), ax) +
-                                    _reach_ms((k,), ax)) / 2
-            inp = k
-            del k
-        del inp, y0, fft
+        stages = fft.xfftn[1:] if real else fft.xfftn
+        fwd = [('fwd', s.axes[-1], dict(trunc=d, scale=float(s.M)))
+               for s in stages]
+        bwd = [('bwd', s.axes[-1], dict(pad=m)) for s in stages[::-1]]
+        row = _tp_passes(bf, holds, name, first, fwd + bwd)
+        del first, fft
         torch.cuda.empty_cache()
-        row = {key: sum(r[key] for r in rows)
-               for key in ('ms', 'plain_ms', 'cufft_unfused_ms', 'bound_ms',
-                           'reach_ms')}
-        row.update(shape=f"4 passes of the {d}^3 'f' plan on its {m}^3 "
-                         f"grid: fwd axes 1, 0 (trunc {m} -> {d}), bwd axes "
-                         f"0, 1 (pad {d} -> {m}), {tdt}".replace(
-                             "'f'", f"'{dtype}'"),
-                   bound_by=by, library_ms=None, per_pass=rows,
-                   kernel='fft_axis_tp_band_kernel (the column band kernel, '
-                          'clusters of 4 CTAs)' if any(
-                              r['route'] != 'tile' for r in rows) else
-                          'fft_axis_tp_kernel (the tile)')
-        out[name] = row
+        if dtype == 'F':
+            row['shape'] = (f"6 passes of the {d}^3 'F' plan on its {m}^3 "
+                            f"grid: fwd axes 2, 1, 0 (trunc {m} -> {d}), "
+                            f"bwd axes 0, 1, 2 (pad {d} -> {m}), {tdt}")
+            out['fft_axis_tp']['c2c_F'] = row
+        else:
+            row['shape'] = (f"4 passes of the {d}^3 '{dtype}' plan on its "
+                            f"{m}^3 grid: fwd axes 1, 0 (trunc {m} -> {d}), "
+                            f"bwd axes 0, 1 (pad {d} -> {m}), {tdt}")
+            out[name] = row
     _emit({'phase': 'times_tp', 'kernels': out})
     return out
 
@@ -2630,9 +2686,10 @@ def main(argv=None):
     ap.add_argument('--times-any', metavar='TREE', nargs='?',
                     const=os.path.dirname(os.path.abspath(__file__)),
                     help="run only phases 1, 22 and 23, A's, B's, C's, "
-                         "C64's, D's and A64's rows and phases 11, 13 and "
-                         "18 on the port in TREE (default: this script's "
-                         "checkout), to compare two trees on one card")
+                         "C64's, D's and A64's rows and phases 11, 12, 13 "
+                         "and 18 on the port in TREE (default: this "
+                         "script's checkout), to compare two trees on one "
+                         "card")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2658,6 +2715,7 @@ def main(argv=None):
         phase_times_a_c64(dev, bf, holds)
         phase_times_d_a64(dev, bf, holds)
         phase_pfft(dev, bf, holds, 'f')
+        phase_pfft(dev, bf, holds, 'F')
         phase_pfft(dev, bf, holds, 'd')
         phase_times_tp(dev, bf, holds)
         print(_smi(), flush=True)
@@ -2715,7 +2773,7 @@ def main(argv=None):
             'shape': t['shape']})
         for extra in ('kernel', 'reach_ms', 'per_axis', 'mid_pair', 'n768',
                       'n768_band', 'w768', 'w1024', 'quarter_mid', 'f768',
-                      'pad768', 'cufft_unfused_ms', 'per_pass',
+                      'pad768', 'cufft_unfused_ms', 'per_pass', 'c2c_F',
                       'two_a_passes_ms',
                       'n1536', 'trunc768', 's7', 's8', 'one_cta',
                       'ctas_a_plane', 'max_active'):

@@ -1062,13 +1062,21 @@ def fft_axis_tp(p, axis, forward=True, trunc=None, pad=None, scale=None):
     Out of place: the extents differ.
 
     Which kernel runs is decided before the launch, by shape and
-    alignment: a float64 pass of N = 768 on an inner axis (the size of
-    the dims after the axis above 1) takes the column band kernel (A64's
-    band with the row map in its read or its write; 16-byte vectors
-    where that size is even and both tensors are 16-byte aligned, else
-    single elements), unless it truncates to an even ``trunc`` whose
-    folded rows fall in different CTAs of its cluster (4 does not divide
-    N - trunc); every other call, float32 included, takes the tile
+    alignment.  At N = 768:
+
+    * an inner axis (the size of the dims after the axis above 1) takes
+      the column band kernel (A's band at float32, A64's at float64, with
+      the row map in its read or its write; 16-byte vectors where that
+      size is a multiple of a vector and both tensors are 16-byte
+      aligned, else single elements), unless it truncates to an even
+      ``trunc`` whose folded rows fall in different CTAs of its cluster
+      (4 does not divide N - trunc);
+    * whole lines at float32 take the line kernel (A's float32 line with
+      the map in its vector read or write) where Nt/2 and N - Nt are
+      multiples of 4 (Nt: ``trunc``, or the input's extent when padding)
+      and both tensors are 16-byte aligned.
+
+    Every other call, float64 whole lines included, takes the tile
     kernel.  All count as ``fft_axis_tp`` / ``fft_axis_tp_f64``."""
     what = 'fft_axis_tp'
     _check_planar(p, what)

@@ -67,6 +67,7 @@
 
 namespace {
 
+using mff::AxisBandBudget;
 using mff::Half;
 
 // Offset of element 0 of each tile line; -1 past the last line.
@@ -177,21 +178,6 @@ int launch_lines(Half<const T> a, Half<const T> b, Half<T> oa, Half<T> ob,
                         sizeof(T) * 2 * mff::row_buf(N) * (threads / G), 1,
                         stream, a, b, oa, ob, twr, twi, lines, sign, scale);
 }
-
-// The band CTA's budget: float64 lines.cuh's; float32 the same 8192
-// points on 256 threads, three CTAs an SM (80 registers, no spill), all
-// four chunks of a round at once.  At D's 512 threads, two CTAs an SM,
-// A took 12.1-12.5 ms on the 1024^3 mid and lead passes of an H100,
-// 10.0-10.2 on 256 (PERF.md §6); its loads and stores alone took 6.3-6.8.
-template <class T>
-struct AxisBandBudget : mff::BandBudget<T> {};
-template <>
-struct AxisBandBudget<float> {
-  static constexpr int kElems = mff::BandBudget<float>::kElems;
-  static constexpr int kThreads = 256;
-  static constexpr int kMinBlocks = 3;
-  static constexpr int kRound = 4;
-};
 
 template <class T, int K, bool kVec, int kB>
 __global__ void __launch_bounds__(AxisBandBudget<T>::kThreads,

@@ -36,28 +36,50 @@
 // tile rows for the folded one.  Nothing but the two unavoidable passes
 // over device memory.
 //
-// Float64 at N = 768 on inner axes (post > 1: the dealiased 'd' plans'
-// axis-1 and axis-0 passes, 72 a step of the reference DNS solver) takes
-// the column band kernel instead.  The tile holds 16 points a thread
-// across block barriers at 80 registers and spills 1852 B a thread; its
-// loads move one element a thread.  The band kernel is A64's band at 768
-// (fft_axis.cu; lines.cuh's band body): a cluster of K = 4 CTAs (256
-// threads, three CTAs an SM, loads in rounds of eight chunks) holds R =
-// 192 = 3 * 64 rows each of C = 16 adjacent columns, one radix-4 step
-// across the cluster, a radix-3 stage and radix-8/4 stages in place on
-// each CTA's columns, 16-byte vectors of two columns where post is even
-// and both tensors are aligned (the lead axis, post = 512 * 257), else
-// single elements (the mid axis, post = 257).  The row map (lines.cuh's PadRows, TruncRows) sits in its read or
-// its write: the pad read loads each input row the map takes (the split
-// row twice, halved) and no zero row; the truncating write stores the nt
-// kept rows, the folded row as the sum of band rows h' and h' + top,
-// which one CTA holds when K divides N - nt (at the 3/2 rule N - nt =
-// N / 3 = 256).  A truncation to an even nt with N - nt not a multiple
-// of K, every other length, whole lines and float32 keep the tile.  Its
-// bound is the bytes: at the 768^3 grid's four passes of the 512^3 plan
-// (axis 1: 768 <-> 512 rows of 768 x 257 lines; axis 0: 768 <-> 512 rows
-// of 512 x 257), (768 + 512) rows x 16 bytes x (768 + 512) x 257 lines x
-// 2 passes = 13.5 GB at float64, 4.02 ms at 3.35 TB/s.
+// At N = 768 (the dealiased plans' 512 -> 768 axes) two other kernels
+// take the pass, chosen by shape and alignment before the launch.  The
+// tile holds 16 points a thread across block barriers (float32 40
+// registers and 968 B of spill stores a thread; float64 80 and 1852 B)
+// and its loads move one element a thread.
+// * Inner axes (post > 1: the 'f' and 'd' plans' axis-1 and axis-0
+//   passes, 72 a step of the reference DNS solver; the 'F' plan's too):
+//   the column band kernel, A's and A64's band at 768 (fft_axis.cu;
+//   lines.cuh's band body).  A cluster of K = 4 CTAs (256 threads, three
+//   CTAs an SM, lines.cuh's AxisBandBudget; loads in rounds of eight
+//   chunks, four on float32 padding reads of single elements) holds
+//   R = 192 = 3 * 64 rows each of C = 16 (float64) or 32 (float32)
+//   adjacent columns, one radix-4 step across the cluster, a radix-3
+//   stage and radix-8/4 stages in place on each CTA's columns, 16-byte
+//   vectors of adjacent columns where post is a multiple of a vector and
+//   both tensors are aligned (the lead axis, post = 512 * 257; the 'F'
+//   plan's post = 512 and 512^2), else single elements (the mid axis,
+//   post = 257).  The row map (lines.cuh's PadRows, TruncRows) sits in
+//   its read or its write: the pad read loads each input row the map
+//   takes (the split row twice, halved) and no zero row; the truncating
+//   write stores the nt kept rows, the folded row as the sum of band
+//   rows h' and h' + top, which one CTA holds when K divides N - nt (at
+//   the 3/2 rule N - nt = N / 3 = 256).  A truncation to an even nt with
+//   N - nt not a multiple of K keeps the tile.
+// * Whole lines at float32 (post == 1: the 'F' plan's last axis): the
+//   line kernel, A's float32 line at 768 (fft_axis.cu; lines.cuh's line
+//   body): a warp a line, 24 points a thread in registers, radix-3, 8
+//   and 16 Stockham stages through the warp's buffer, 16-byte vectors.
+//   The pad read starts the loads of the vectors its points map to (the
+//   vector at h' holds the split row and three zero rows, the one at
+//   top + h' the split row and input rows h' + 1 ..), and loads no zero
+//   vector; then it halves the first lane of those two.  The truncating
+//   write reads the nt kept rows back from the buffer in natural order,
+//   the fold added to lane 0 of vector h'.  It takes h' and N - nt
+//   multiples of 4 (every vector of the map one vector of memory) and
+//   16-byte-aligned tensors.
+// Every other length, float64 whole lines and the cases above keep the
+// tile.  The bound is the bytes: at the 768^3 grid's four passes of the
+// 512^3 'f' or 'd' plan (axis 1: 768 <-> 512 rows of 768 x 257 lines;
+// axis 0: 768 <-> 512 rows of 512 x 257), (768 + 512) rows x 8 bytes
+// (16 at float64) x (768 + 512) x 257 lines x 2 passes = 6.7 GB, 2.01 ms
+// at 3.35 TB/s (13.5 GB, 4.02 ms at float64); the 'F' plan's three
+// passes a direction (768^2, 768 x 512 and 512^2 lines of 768 <-> 512
+// rows) 12.75 GB, 3.81 ms.
 #include <cstdint>
 #include <type_traits>
 
@@ -189,37 +211,46 @@ fft_axis_tp_kernel(const T* __restrict__ x, T* __restrict__ y,
 }
 
 // ---------------------------------------------------------------------------
-// float64 at N = 768 on inner axes: the column band kernel
+// N = 768: the column band kernel (post > 1) and, at float32, the line
+// kernel (post == 1)
 // ---------------------------------------------------------------------------
 
-// CTAs a band (a cluster) and the length the band kernel takes: A64's
-// band at 768 (fft_axis.cu), 4 CTAs of R = 192 = 3 * 64 rows and 16
-// columns, a radix-3 column stage first.
+// CTAs a band (a cluster) and the length the band and line kernels take:
+// A's and A64's band at 768 (fft_axis.cu), 4 CTAs of R = 192 = 3 * 64
+// rows and 16 (float64) or 32 (float32) columns, a radix-3 column stage
+// first.
 constexpr int kTpBandN = 768;
 constexpr int kTpBandK = 4;
 
-// The band CTA's budget: lines.cuh's (float64: 4096 points, 256 threads,
-// three CTAs an SM), with eight chunks a round in place of two, which ran
-// the dealiased 512^3 'd' plan's four passes faster on an H100 than two
-// or four at 80 registers and 24-36 B of spill stores, as clusters of 4
-// CTAs did against 8 (tools/line_band_ab.py, PERF.md §6).
-template <class T>
-struct TpBandBudget : mff::BandBudget<T> {
-  static constexpr int kRound = 8;
+// The band CTA's budget: A's (lines.cuh's AxisBandBudget: float64 4096
+// points, float32 8192, on 256 threads, three CTAs an SM), with eight
+// chunks a load round in place of A's two (float64) or four (float32),
+// except on float32 padding reads of single elements.  On an H100, at
+// float64 eight ran the dealiased 512^3 'd' plan's four passes faster
+// than two or four (80 registers, 24-36 B of spill stores), as clusters
+// of 4 CTAs did against 8; at float32 eight ran the 'f' and 'F' plans'
+// band passes faster than four (80 registers, no spill), but for the
+// padding read of single elements (the 'f' plan's mid axis), and D's
+// 512 threads, two CTAs an SM, slower (tools/line_band_ab.py, PERF.md
+// §6).
+template <class T, bool kVec = true, class Map = mff::AllRows>
+struct TpBandBudget : mff::AxisBandBudget<T> {
+  static constexpr int kRound =
+      sizeof(T) == 4 && !kVec && Map::kMode == mff::PadRows::kMode ? 4 : 8;
 };
 
 // lines.cuh's band body with the row map Map in its read (PadRows) or its
 // write (TruncRows), on TpBandBudget.
 template <class T, int K, bool kVec, int kB, class Map>
-__global__ void __launch_bounds__(TpBandBudget<T>::kThreads,
-                                  TpBandBudget<T>::kMinBlocks)
+__global__ void __launch_bounds__(TpBandBudget<T, kVec, Map>::kThreads,
+                                  TpBandBudget<T, kVec, Map>::kMinBlocks)
 fft_axis_tp_band_kernel(Half<const T> a, Half<const T> b, Half<T> oa,
                         Half<T> ob, const T* __restrict__ twr,
                         const T* __restrict__ twi, long long pre,
                         long long post, int lr, int lc, T sign, T scale,
                         Map map) {
   extern __shared__ __align__(16) unsigned char smem[];
-  mff::axis_band<T, K, kVec, kB, TpBandBudget<T>, Map>(
+  mff::axis_band<T, K, kVec, kB, TpBandBudget<T, kVec, Map>, Map>(
       a, b, oa, ob, twr, twi, pre, post, lr, lc, sign, scale,
       reinterpret_cast<T*>(smem), map);
 }
@@ -230,46 +261,109 @@ auto tp_band_kernel(bool vec) {
              : &fft_axis_tp_band_kernel<T, kTpBandK, false, 3, Map>;
 }
 
-// The band kernel for a pass of x into y, or -1 if it does not take it
-// (the tile kernel does): float64, n = 768, post > 1, and for a
-// truncation of even nt the folded rows h' and h' + top in one CTA (K
-// divides n - nt).  16-byte vectors of two columns when post is even and
-// x and y are 16-byte aligned, else single elements.  twr, twi: the
-// powers of w_n.
+// The operands of a pass of x into y on the band or line body: the side
+// of n rows in two halves, the other of nt rows in `a` (pad) or `oa`
+// (trunc) alone.
+template <class T>
+struct TpOperands {
+  Half<const T> a, b;
+  Half<T> oa, ob;
+  TpOperands(const T* x, T* y, long long pre, int n, int nt, int pad,
+             long long post) {
+    const int n_in = pad ? nt : n, n_out = pad ? n : nt;
+    const long long pin = pre * n_in * post, pout = pre * n_out * post;
+    const long long h = (n / 2) * post;
+    a = {x, pin, n_in * post};
+    b = {x + h, pin, n_in * post};
+    oa = {y, pout, n_out * post};
+    ob = {y + h, pout, n_out * post};
+  }
+};
+
+inline bool misaligned16(const void* p) {
+  return reinterpret_cast<std::uintptr_t>(p) % 16 != 0;
+}
+
+// The band kernel for a pass of x into y, or -1 if it does not take it:
+// n = 768, post > 1, and for a truncation of even nt the folded rows h'
+// and h' + top in one CTA (K divides n - nt).  16-byte vectors of
+// adjacent columns when post is a multiple of a vector and x and y are
+// 16-byte aligned, else single elements.  twr, twi: the powers of w_n.
 template <class T>
 int launch_tp_band(const T* x, T* y, const T* twr, const T* twi,
                    long long pre, int n, int nt, int pad, long long post,
                    T sign, T scale, cudaStream_t stream) {
-  if constexpr (!std::is_same<T, double>::value) {
+  if (n != kTpBandN || post <= 1) return -1;
+  if (!pad && nt % 2 == 0 && (n - nt) % kTpBandK != 0) return -1;
+  const bool vec = post % mff::kVec16<T> == 0 && !misaligned16(x) &&
+                   !misaligned16(y);
+  const int R = n / kTpBandK;                  // 3 * 2^lr rows a CTA
+  const int lr = mff::log2_of(R / 3);
+  const int lc = mff::band_log2_cols<T>(R);
+  const long long grid = kTpBandK * ((pre * post + (1 << lc) - 1) >> lc);
+  const std::size_t smem = mff::band_smem<T>(R, lc);
+  const int threads = TpBandBudget<T>::kThreads;
+  const TpOperands<T> o(x, y, pre, n, nt, pad, post);
+  if (pad)
+    return mff::launch_ex(tp_band_kernel<T, mff::PadRows>(vec), grid,
+                          threads, smem, kTpBandK, stream, o.a, o.b, o.oa,
+                          o.ob, twr, twi, pre, post, lr, lc, sign, scale,
+                          mff::PadRows{nt});
+  return mff::launch_ex(tp_band_kernel<T, mff::TruncRows>(vec), grid,
+                        threads, smem, kTpBandK, stream, o.a, o.b, o.oa,
+                        o.ob, twr, twi, pre, post, lr, lc, sign, scale,
+                        mff::TruncRows{nt});
+}
+
+// Points a thread of the line kernel holds: A's float32 line at 768
+// (fft_axis.cu), 24, so that a warp holds a line.
+constexpr int kTpLineP = 24;
+
+// lines.cuh's line body with the row map Map in its read (PadRows) or its
+// write (TruncRows), on A's launch (LineLaunch: 128 threads, four blocks
+// an SM at float32).
+template <class T, int N, class Map>
+__global__ void __launch_bounds__(mff::LineLaunch<T>::kThreads,
+                                  mff::LineLaunch<T>::kMinBlocks)
+fft_axis_tp_lines_kernel(Half<const T> a, Half<const T> b, Half<T> oa,
+                         Half<T> ob, const T* __restrict__ twr,
+                         const T* __restrict__ twi, long long lines, T sign,
+                         T scale, Map map) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  mff::line_body<T, N, kTpLineP, Map>(a, b, oa, ob, twr, twi, lines, sign,
+                                      scale, reinterpret_cast<T*>(smem),
+                                      map);
+}
+
+// The line kernel for a pass of x into y, or -1 if it does not take it:
+// float32, n = 768, whole lines (post == 1), h' = nt/2 and n - nt
+// multiples of a 16-byte vector (so every vector of the map is one
+// vector of the input or the output), x and y 16-byte aligned.
+template <class T>
+int launch_tp_lines(const T* x, T* y, const T* twr, const T* twi,
+                    long long pre, int n, int nt, int pad, long long post,
+                    T sign, T scale, cudaStream_t stream) {
+  if constexpr (!std::is_same<T, float>::value) {
     return -1;
   } else {
-    if (n != kTpBandN || post <= 1) return -1;
-    if (!pad && nt % 2 == 0 && (n - nt) % kTpBandK != 0) return -1;
-    const auto mis = [](const void* p) {
-      return reinterpret_cast<std::uintptr_t>(p) % 16 != 0;
-    };
-    const bool vec = post % mff::kVec16<T> == 0 && !mis(x) && !mis(y);
-    const int R = n / kTpBandK;                  // 3 * 2^lr rows a CTA
-    const int lr = mff::log2_of(R / 3);
-    const int lc = mff::band_log2_cols<T>(R);
-    const long long grid = kTpBandK * ((pre * post + (1 << lc) - 1) >> lc);
-    const std::size_t smem = mff::band_smem<T>(R, lc);
-    const int threads = TpBandBudget<T>::kThreads;
-    const int n_in = pad ? nt : n, n_out = pad ? n : nt;
-    const long long pin = pre * n_in * post, pout = pre * n_out * post;
-    const long long h = (n / 2) * post;
-    // the side of n rows in two halves, the other of nt rows in `a` / `oa`
-    const Half<const T> a{x, pin, n_in * post}, b{x + h, pin, n_in * post};
-    const Half<T> oa{y, pout, n_out * post}, ob{y + h, pout, n_out * post};
+    constexpr int V = mff::kVec16<T>, G = kTpBandN / kTpLineP;
+    constexpr int threads = mff::LineLaunch<T>::kThreads;
+    if (n != kTpBandN || post != 1) return -1;
+    if ((nt / 2) % V != 0 || (n - nt) % V != 0) return -1;
+    if (misaligned16(x) || misaligned16(y)) return -1;
+    const long long blocks = (pre + threads / G - 1) / (threads / G);
+    const std::size_t smem =
+        sizeof(T) * 2 * mff::row_buf(kTpBandN) * (threads / G);
+    const TpOperands<T> o(x, y, pre, n, nt, pad, post);
     if (pad)
-      return mff::launch_ex(tp_band_kernel<T, mff::PadRows>(vec), grid,
-                            threads, smem, kTpBandK, stream, a, b, oa, ob,
-                            twr, twi, pre, post, lr, lc, sign, scale,
-                            mff::PadRows{nt});
-    return mff::launch_ex(tp_band_kernel<T, mff::TruncRows>(vec), grid,
-                          threads, smem, kTpBandK, stream, a, b, oa, ob,
-                          twr, twi, pre, post, lr, lc, sign, scale,
-                          mff::TruncRows{nt});
+      return mff::launch_ex(
+          &fft_axis_tp_lines_kernel<T, kTpBandN, mff::PadRows>, blocks,
+          threads, smem, 1, stream, o.a, o.b, o.oa, o.ob, twr, twi, pre,
+          sign, scale, mff::PadRows{nt});
+    return mff::launch_ex(
+        &fft_axis_tp_lines_kernel<T, kTpBandN, mff::TruncRows>, blocks,
+        threads, smem, 1, stream, o.a, o.b, o.oa, o.ob, twr, twi, pre, sign,
+        scale, mff::TruncRows{nt});
   }
 }
 
@@ -285,9 +379,12 @@ int launch_fft_axis_tp(const T* x, T* y, const T* tw, long long tw_len,
     return cudaErrorInvalidValue;
   if (pre > 0 && post > 0) {
     const T* twr = tw + (tw_len - n);
-    const int rc = launch_tp_band(x, y, twr, twr + tw_len, pre, n, nt, pad,
-                                  post, static_cast<T>(sign), scale,
-                                  static_cast<cudaStream_t>(stream));
+    const auto st = static_cast<cudaStream_t>(stream);
+    int rc = launch_tp_band(x, y, twr, twr + tw_len, pre, n, nt, pad, post,
+                            static_cast<T>(sign), scale, st);
+    if (rc < 0)
+      rc = launch_tp_lines(x, y, twr, twr + tw_len, pre, n, nt, pad, post,
+                           static_cast<T>(sign), scale, st);
     if (rc >= 0) return rc;
   }
   const int lc = mff::tile_log2_lines<T>(n);
@@ -320,7 +417,7 @@ int launch_fft_axis_tp(const T* x, T* y, const T* tw, long long tw_len,
 // y: (2, pre, nt, post) or (2, pre, n, post); float32, contiguous, on the
 // current device.  tw: the (2, tw_len) table of _tw_pack_axis(n, sign),
 // the stage twiddles (the tile kernel's) then the n powers of w_n (the
-// band kernel's).  Returns the error of a refused launch, else
+// band and line kernels').  Returns the error of a refused launch, else
 // cudaGetLastError() after the launch.
 extern "C" int mff_fft_axis_tp_f32(const float* x, float* y, const float* tw,
                                    long long tw_len, long long pre, int n,

@@ -1,6 +1,7 @@
 // Shared bodies of the port's line and band kernels: I and H
-// (fft_plane.cu), D at N <= 1024 (fft_axis2.cu) and A64 (fft_axis.cu's
-// float64 build).  Templated on the element type T (float or double).
+// (fft_plane.cu), D at N <= 1024 (fft_axis2.cu), A and A64 (fft_axis.cu)
+// and E and E64 at N = 768 (fft_axis_tp.cu).  Templated on the element
+// type T (float or double).
 //
 // * Line stages (line_stage, line_stages): the Stockham stages of one
 //   N-point line held by a group of G = N / P threads, P points a thread
@@ -12,7 +13,8 @@
 //   rows arrive as two halves of h = N/2 rows, each a "Half" with its own
 //   base pointer and strides (D's two operands; A64's one tensor is its
 //   two halves): every load of a line before its first store, 16-byte
-//   vectors, the scale folded into the store.
+//   vectors, the scale folded into the store; with a row map (below) in
+//   its read or its write.
 // * In-place decimation-in-frequency stages over a block of rows or
 //   columns held in shared memory (dif_stage, dif_pass), one butterfly a
 //   thread at a time, and the radix-K step across a cluster of K CTAs
@@ -22,9 +24,10 @@
 //   CTAs (R = N / K rows each, CTA r rows r R ..; R = 2^a or 3*2^a, whose
 //   columns take a radix-3 stage first), loaded and stored as 16-byte
 //   vectors of adjacent columns (or single elements), the scale folded
-//   into the store.  A row map (AllRows, PadRows, TruncRows) lets the
-//   band's read zero-pad a shorter input or its write truncate the
-//   result: the 3/2-rule boundary of fft_axis_tp.cu.
+//   into the store.
+// * Row maps (AllRows, PadRows, TruncRows) let the read of a line or a
+//   band zero-pad a shorter input, or its write truncate the result: the
+//   3/2-rule boundary of fft_axis_tp.cu.
 // Device bodies take their shared memory as an argument and the kernels
 // that run them declare it, so that the CPU emulation of the tests
 // (tests/cuda_emu) compiles this header as it is.
@@ -135,6 +138,65 @@ struct Vec16<double> {
     v[1] = u.y;
   }
 };
+
+// ---------------------------------------------------------------------------
+// row maps
+// ---------------------------------------------------------------------------
+
+// Row maps of the line and band bodies: which rows of the axis the N
+// rows of a line or band are read from or written to.  AllRows: row r is
+// row r, the input and the output both in two halves (a, b; oa, ob).
+// PadRows (the 3/2 rule's zero-pad of an nt-row spectrum, nt < N, in the
+// read; h' = nt/2, top = N - nt): band row k takes input row k for k < h'
+// (and k = h' for odd nt), input row k - top for k > top + h', half of
+// input row h' for k = h' and k = top + h' (even nt), and is zero
+// otherwise, read from no memory; the input is `a` alone, with nt rows.
+// TruncRows (the truncation to nt rows in the write): output row j takes
+// band row j for j < h' (and j = h' for odd nt), band row j + top for
+// j > h', and for even nt band rows h' + (h' + top) (the Nyquist fold,
+// both rows in one CTA: K divides top; in one warp on whole lines); the
+// output is `oa` alone, with nt rows.  The maps are _pad_rows and
+// _trunc_rows of the JAX package (pallas_butterfly.py:455-481).
+struct AllRows {
+  static constexpr int kMode = 0;
+};
+struct PadRows {
+  static constexpr int kMode = 1;
+  int nt;
+};
+struct TruncRows {
+  static constexpr int kMode = 2;
+  int nt;
+};
+
+// PadRows: the input row of band row k of an n-row band (-1 for a zero
+// row) and its factor (1, or 1/2 for the split row).
+template <class T>
+__device__ __forceinline__ int pad_source(int k, int n, int nt, T* f) {
+  const int hh = nt >> 1, top = n - nt;
+  const bool even = (nt & 1) == 0;
+  *f = T(1);
+  if (k < hh || (!even && k == hh)) return k;
+  if (k > top + hh) return k - top;
+  if (even && (k == hh || k == top + hh)) {
+    *f = T(0.5);
+    return hh;
+  }
+  return -1;
+}
+
+// TruncRows: the output row of band row r of an n-row band (-1 if it is
+// not kept, or is folded into row h' by the CTA that holds row h'), and
+// whether band row r + top is added to it.
+__device__ __forceinline__ int trunc_target(int r, int n, int nt,
+                                            bool* fold) {
+  const int hh = nt >> 1, top = n - nt;
+  const bool even = (nt & 1) == 0;
+  *fold = even && r == hh;
+  if (r < hh || r == hh) return r;
+  if (r > top + hh) return r - top;
+  return -1;
+}
 
 // ---------------------------------------------------------------------------
 // line stages
@@ -286,20 +348,66 @@ struct LineLaunch {
   static constexpr int kMinBlocks = sizeof(T) == 4 ? 4 : 1;
 };
 
+// PadRows on whole lines: the vector of rows p .. p + V - 1 (p a
+// multiple of V) of an N-point line from the nt-row input x (its planes
+// `plane` apart), where h' = nt/2 and top = N - nt are multiples of V
+// (so nt is even): input rows p .. for p < h', rows p - top .. for
+// p > top + h', the vector at h' for p = h' and p = top + h' (pad_split
+// then halves its first lane, the split row, and zeroes the other lanes
+// at p = h'), else zero, read from no memory.
+template <class T>
+__device__ __forceinline__ void pad_load(const T* x, long long plane, int p,
+                                         int n, int nt, T* vr, T* vi) {
+  using U = typename Vec16<T>::type;
+  constexpr int V = kVec16<T>;
+  const int hh = nt >> 1, top = n - nt;
+  const int src = p < hh ? p : p > top + hh ? p - top
+                : p == hh || p == top + hh ? hh : -1;
+  if (src >= 0) {
+    Vec16<T>::split(__ldg(reinterpret_cast<const U*>(x + src)), vr);
+    Vec16<T>::split(__ldg(reinterpret_cast<const U*>(x + plane + src)), vi);
+  } else {
+#pragma unroll
+    for (int c = 0; c < V; ++c) vr[c] = vi[c] = T(0);
+  }
+}
+
+// The split row of pad_load's vector at p, once every load is in flight (so
+// that no load waits on an earlier one): half of row h' in the first lane
+// at p = h' and p = top + h', and zeros in the other lanes at p = h'.
+template <class T>
+__device__ __forceinline__ void pad_split(int p, int n, int nt, T* vr,
+                                          T* vi) {
+  const int hh = nt >> 1, top = n - nt;
+  if (p == hh || p == top + hh) {
+    vr[0] *= T(0.5);
+    vi[0] *= T(0.5);
+  }
+  if (p == hh) {
+#pragma unroll
+    for (int c = 1; c < kVec16<T>; ++c) vr[c] = vi[c] = T(0);
+  }
+}
+
 // Lines blk * (threads / G) .. of `lines` whole lines (post == 1) of N
 // points, rows below h = N/2 from a and the rest from b, transformed into
 // oa and ob with the scale; P points a thread.  Each vector of V adjacent
 // points lies in one half (h is a multiple of V G), so each load and
 // store picks its half at compile time.  Every load of a line comes
 // before its first store, and no two groups share a line, so the
-// outputs may be the inputs.  smem: the groups' buffers.
-template <class T, int N, int P>
+// outputs may be the inputs.  smem: the groups' buffers.  Map: the row
+// map (AllRows, or PadRows / TruncRows with `map`'s nt, whose h' and
+// N - nt the caller keeps multiples of V): PadRows reads the nt-row line
+// from `a` alone (pad_load, then pad_split); TruncRows writes nt rows to
+// `oa` alone, vector j of band rows j .. (j < h') or j + top .. (j >=
+// h'), band row h' added to the first lane of vector h' (the fold).
+template <class T, int N, int P, class Map = AllRows>
 __device__ __forceinline__ void line_body(Half<const T> a, Half<const T> b,
                                           Half<T> oa, Half<T> ob,
                                           const T* __restrict__ twr,
                                           const T* __restrict__ twi,
                                           long long lines, T sign, T scale,
-                                          T* smem) {
+                                          T* smem, Map map = Map{}) {
   constexpr int G = N / P, V = kVec16<T>, h = N / 2;
   constexpr int kThreads = LineLaunch<T>::kThreads;
   static_assert(G <= 32 && 32 % G == 0, "a group lies inside one warp");
@@ -320,11 +428,21 @@ __device__ __forceinline__ void line_body(Half<const T> a, Half<const T> b,
 #pragma unroll
   for (int s = 0; s < P; s += V) {
     const int p = row_own<V, G>(g, s);
-    const bool lo = V * G * (s / V) < h;
-    const Half<const T>& x = lo ? a : b;
-    const T* q = x.ptr + i * x.pre + (lo ? p : p - h);
-    Vec16<T>::split(__ldg(reinterpret_cast<const U*>(q)), zr + s);
-    Vec16<T>::split(__ldg(reinterpret_cast<const U*>(q + x.plane)), zi + s);
+    if constexpr (Map::kMode == PadRows::kMode) {
+      pad_load(a.ptr + i * a.pre, a.plane, p, N, map.nt, zr + s, zi + s);
+    } else {
+      const bool lo = V * G * (s / V) < h;
+      const Half<const T>& x = lo ? a : b;
+      const T* q = x.ptr + i * x.pre + (lo ? p : p - h);
+      Vec16<T>::split(__ldg(reinterpret_cast<const U*>(q)), zr + s);
+      Vec16<T>::split(__ldg(reinterpret_cast<const U*>(q + x.plane)),
+                      zi + s);
+    }
+  }
+  if constexpr (Map::kMode == PadRows::kMode) {
+#pragma unroll
+    for (int s = 0; s < P; s += V)
+      pad_split(row_own<V, G>(g, s), N, map.nt, zr + s, zi + s);
   }
   line_stages<T, N, P, 0>(zr, zi, br, bi, g, twr, twi, sign);
   if (!live) return;
@@ -333,19 +451,39 @@ __device__ __forceinline__ void line_body(Half<const T> a, Half<const T> b,
 #pragma unroll
   for (int q = 0; q < N / V / G; ++q) {
     const int p = V * (g + G * q);
-    const bool lo = V * G * q < h;
-    const Half<T>& y = lo ? oa : ob;
-    T* d = y.ptr + i * y.pre + (lo ? p : p - h);
     T vr[V], vi[V];
-    Vec16<T>::split(*reinterpret_cast<const U*>(br + bpad(p)), vr);
-    Vec16<T>::split(*reinterpret_cast<const U*>(bi + bpad(p)), vi);
+    if constexpr (Map::kMode == TruncRows::kMode) {
+      const int hh = map.nt >> 1;
+      if (p >= map.nt) continue;
+      const int src = p < hh ? p : p + (N - map.nt);
+      T* d = oa.ptr + i * oa.pre + p;
+      Vec16<T>::split(*reinterpret_cast<const U*>(br + bpad(src)), vr);
+      Vec16<T>::split(*reinterpret_cast<const U*>(bi + bpad(src)), vi);
 #pragma unroll
-    for (int c = 0; c < V; ++c) {
-      vr[c] *= scale;
-      vi[c] *= scale;
+      for (int c = 0; c < V; ++c) {
+        vr[c] *= scale;
+        vi[c] *= scale;
+      }
+      if (p == hh) {                      // the fold of band row h'
+        vr[0] += br[bpad(hh)] * scale;
+        vi[0] += bi[bpad(hh)] * scale;
+      }
+      *reinterpret_cast<U*>(d) = Vec16<T>::make(vr);
+      *reinterpret_cast<U*>(d + oa.plane) = Vec16<T>::make(vi);
+    } else {
+      const bool lo = V * G * q < h;
+      const Half<T>& y = lo ? oa : ob;
+      T* d = y.ptr + i * y.pre + (lo ? p : p - h);
+      Vec16<T>::split(*reinterpret_cast<const U*>(br + bpad(p)), vr);
+      Vec16<T>::split(*reinterpret_cast<const U*>(bi + bpad(p)), vi);
+#pragma unroll
+      for (int c = 0; c < V; ++c) {
+        vr[c] *= scale;
+        vi[c] *= scale;
+      }
+      *reinterpret_cast<U*>(d) = Vec16<T>::make(vr);
+      *reinterpret_cast<U*>(d + y.plane) = Vec16<T>::make(vi);
     }
-    *reinterpret_cast<U*>(d) = Vec16<T>::make(vr);
-    *reinterpret_cast<U*>(d + y.plane) = Vec16<T>::make(vi);
   }
 }
 
@@ -585,6 +723,22 @@ struct BandBudget<double> {
   static constexpr int kRound = 2;
 };
 
+// The band CTA's budget of A and E (fft_axis.cu, fft_axis_tp.cu):
+// float64 BandBudget's; float32 the same 8192 points on 256 threads,
+// three CTAs an SM (80 registers, no spill), all four chunks of a round
+// at once.  At D's 512 threads, two CTAs an SM, A took 12.1-12.5 ms on
+// the 1024^3 mid and lead passes of an H100, 10.0-10.2 on 256 (PERF.md
+// §6); its loads and stores alone took 6.3-6.8.
+template <class T>
+struct AxisBandBudget : BandBudget<T> {};
+template <>
+struct AxisBandBudget<float> {
+  static constexpr int kElems = BandBudget<float>::kElems;
+  static constexpr int kThreads = 256;
+  static constexpr int kMinBlocks = 3;
+  static constexpr int kRound = 4;
+};
+
 // Dynamic shared memory of a band CTA: `rows` rows of 2^lc points.
 template <class T>
 inline std::size_t band_smem(int rows, int lc) {
@@ -599,61 +753,6 @@ inline int band_log2_cols(int rows) {
   int lc = 0;
   while ((rows << (lc + 1)) <= BandBudget<T>::kElems) ++lc;
   return lc;
-}
-
-// Row maps of the band body: which rows of the axis the band's N rows
-// are read from or written to.  AllRows: row r is row r, the input and
-// the output both in two halves (a, b; oa, ob).  PadRows (the 3/2 rule's
-// zero-pad of an nt-row spectrum, nt < N, in the read; h' = nt/2, top =
-// N - nt): band row k takes input row k for k < h' (and k = h' for odd
-// nt), input row k - top for k > top + h', half of input row h' for k =
-// h' and k = top + h' (even nt), and is zero otherwise, read from no
-// memory; the input is `a` alone, with nt rows.  TruncRows (the
-// truncation to nt rows in the write): output row j takes band row j for
-// j < h' (and j = h' for odd nt), band row j + top for j > h', and for
-// even nt band rows h' + (h' + top) (the Nyquist fold, both rows in one
-// CTA: K divides top); the output is `oa` alone, with nt rows.  The
-// maps are _pad_rows and _trunc_rows of the JAX package
-// (pallas_butterfly.py:455-481).
-struct AllRows {
-  static constexpr int kMode = 0;
-};
-struct PadRows {
-  static constexpr int kMode = 1;
-  int nt;
-};
-struct TruncRows {
-  static constexpr int kMode = 2;
-  int nt;
-};
-
-// PadRows: the input row of band row k of an n-row band (-1 for a zero
-// row) and its factor (1, or 1/2 for the split row).
-template <class T>
-__device__ __forceinline__ int pad_source(int k, int n, int nt, T* f) {
-  const int hh = nt >> 1, top = n - nt;
-  const bool even = (nt & 1) == 0;
-  *f = T(1);
-  if (k < hh || (!even && k == hh)) return k;
-  if (k > top + hh) return k - top;
-  if (even && (k == hh || k == top + hh)) {
-    *f = T(0.5);
-    return hh;
-  }
-  return -1;
-}
-
-// TruncRows: the output row of band row r of an n-row band (-1 if it is
-// not kept, or is folded into row h' by the CTA that holds row h'), and
-// whether band row r + top is added to it.
-__device__ __forceinline__ int trunc_target(int r, int n, int nt,
-                                            bool* fold) {
-  const int hh = nt >> 1, top = n - nt;
-  const bool even = (nt & 1) == 0;
-  *fold = even && r == hh;
-  if (r < hh || r == hh) return r;
-  if (r > top + hh) return r - top;
-  return -1;
 }
 
 // The N-point transforms (N = K R, R = kB 2^lr, kB = 1 or 3; n = N) of

@@ -94,6 +94,34 @@ def test_tp64_band_on_cuda(card):
 
 
 @pytest.mark.cuda
+def test_tp32_lines_band_on_cuda(card):
+    """E (float32) at the m3 plans' shapes on the card: the column band
+    kernel at the 'f' plan's axis-1 pass (single elements, post 257) and
+    axis-0 pass (vectors), the line kernel at the 'F' plan's last axis;
+    each truncating to 512 rows and padding back, with and without a
+    scale, one launch a call, within 5e-6 of the plain version on the
+    first and last slabs of 16 rows off the pass axis."""
+    g = torch.Generator(device=card).manual_seed(8)
+    for shape, ax in (((2, 768, 768, 257), 1), ((2, 768, 512, 257), 0),
+                      ((2, 768, 768, 768), 2)):
+        p = torch.rand(shape, generator=g, device=card) - 0.5
+        sd = 2 if ax == 0 else 1
+        for sc in (None, 1.0 / 768):
+            c0 = tb.LAUNCHES['fft_axis_tp']
+            k = tb.fft_axis_tp(p, ax, trunc=512, scale=sc)
+            y = tb.fft_axis_tp(k, ax, False, pad=768, scale=sc)
+            assert tb.LAUNCHES['fft_axis_tp'] == c0 + 2
+            for i in (0, p.shape[sd] - 16):
+                assert _rel(k.narrow(sd, i, 16), tb.fft_axis_tp_plain(
+                    p.narrow(sd, i, 16), ax, trunc=512, scale=sc)) <= 5e-6
+                assert _rel(y.narrow(sd, i, 16), tb.fft_axis_tp_plain(
+                    k.narrow(sd, i, 16), ax, False, pad=768,
+                    scale=sc)) <= 5e-6
+            del k, y
+        del p
+
+
+@pytest.mark.cuda
 def test_dns_solver_energy_anchor(card):
     """The reference's Taylor-Green energy at 64^3, T = 0.1 (10 steps),
     unpadded, on the port's kernels (the reference DNS solver on PFFT)."""

@@ -668,11 +668,11 @@ TP64_ROUTES = [((768, 4), 0, 512, 'vectors', 'vectors'),
                ((96, 4), 0, 64, 'tile', 'tile')]
 
 
-def _tp_loads(route, rows, lines):
+def _tp_loads(route, rows, lines, V):
     """__ldcg loads of a band pass that reads `rows` rows of `lines`
-    lines, both planes: one a 16-byte vector of two columns, or one an
-    element; none on the tile."""
-    per = {'vectors': rows * lines, 'elements': 2 * rows * lines}
+    lines, both planes: one a 16-byte vector of V columns, or one an
+    element; none on the line kernel or the tile."""
+    per = {'vectors': 2 * rows * lines // V, 'elements': 2 * rows * lines}
     return per.get(route, 0)
 
 
@@ -680,12 +680,14 @@ def _hold_tp_routes(plain_ok, emu_kernels, shape, axis, nt, routes, p, q,
                     tol):
     """fft_axis_tp with trunc (forward) and pad (backward), each with and
     without a scale, on p (N rows) and q (nt rows), against the plain
-    version, each call on the route given for its direction: a cluster
-    launch and the __ldcg loads of the rows its map reads (the padding
-    reads each kept row once, the split row of an even nt twice, and no
-    zero row), or neither on the tile."""
+    version, each call on the route given for its direction: the band
+    kernel (a cluster launch and the __ldcg loads of the rows its map
+    reads: the padding reads each kept row once, the split row of an even
+    nt twice, and no zero row), the line kernel (__syncwarp calls, no
+    cluster launch, no __ldcg load) or the tile (none of these)."""
     N = shape[axis]
     lines = p.numel() // 2 // N
+    V = 16 // p.element_size()
     reads = {'trunc': N, 'pad': nt + (1 - nt % 2)}
     for mode, route in zip(('trunc', 'pad'), routes):
         for sc in (None, 1.0 / N):
@@ -697,11 +699,11 @@ def _hold_tp_routes(plain_ok, emu_kernels, shape, axis, nt, routes, p, q,
             ref = _plain(plain_ok, bf.fft_axis_tp, x, axis, fwd, **kw)
             assert got.shape == ref.shape and got.dtype == x.dtype
             assert _rel(got, ref) <= tol, (mode, sc)
-            band = route != 'tile'
+            band = route in ('vectors', 'elements')
             assert d['cluster_launches'] == int(band), (mode, sc)
-            assert d['ldcg_loads'] == _tp_loads(route, reads[mode],
-                                                lines), (mode, sc)
-            assert d['syncwarps'] == 0
+            assert d['ldcg_loads'] == _tp_loads(route, reads[mode], lines,
+                                                V), (mode, sc)
+            assert (d['syncwarps'] > 0) == (route == 'lines'), (mode, sc)
 
 
 def _tp_inputs(shape, axis, nt, dtype, seed):
@@ -719,15 +721,19 @@ def test_tp64_band_vs_plain(kernel_path, emu_kernels, shape, axis, nt,
     """fft_axis_tp on float64 on the kernel the rule picks by shape: at
     N = 768 on an inner axis the column band kernel (a cluster launch, its
     loads one a vector or one an element, the row map in its read or its
-    write), else the tile; float32 E at the same shapes on the tile."""
+    write), else the tile (whole lines included)."""
     p, q = _tp_inputs(shape, axis, nt, np.float64, 28)
     _hold_tp_routes(kernel_path, emu_kernels, shape, axis, nt,
                     (trunc_route, pad_route), p, q, TOL64)
     assert _launched() == {'fft_axis_tp_f64': 4}
-    p, q = _tp_inputs(shape, axis, nt, np.float32, 28)
-    _hold_tp_routes(kernel_path, emu_kernels, shape, axis, nt,
-                    ('tile', 'tile'), p, q, TOL)
-    assert _launched() == {'fft_axis_tp_f64': 4, 'fft_axis_tp': 4}
+
+
+def _misaligned(t):
+    """A copy of t that starts one element past a 16-byte boundary."""
+    m = torch.empty(1 + t.numel(), dtype=t.dtype)[1:].view(t.shape)
+    m.copy_(t)
+    assert m.data_ptr() % 16 == t.element_size()
+    return m
 
 
 def test_tp64_band_misaligned(kernel_path, emu_kernels):
@@ -736,14 +742,68 @@ def test_tp64_band_misaligned(kernel_path, emu_kernels):
     results."""
     shape, axis, nt = (768, 4), 0, 512
     p, q = _tp_inputs(shape, axis, nt, np.float64, 29)
-    pm = torch.empty(1 + p.numel(), dtype=p.dtype)[1:].view(p.shape)
-    qm = torch.empty(1 + q.numel(), dtype=q.dtype)[1:].view(q.shape)
-    pm.copy_(p)
-    qm.copy_(q)
-    assert pm.data_ptr() % 16 == 8 and qm.data_ptr() % 16 == 8
     _hold_tp_routes(kernel_path, emu_kernels, shape, axis, nt,
-                    ('elements', 'elements'), pm, qm, TOL64)
+                    ('elements', 'elements'), _misaligned(p),
+                    _misaligned(q), TOL64)
     assert _launched() == {'fft_axis_tp_f64': 4}
+
+
+# E (float32) by route (shape of the N-row side, axis, Nt, route of the
+# truncation, route of the padding).  At N = 768 on inner axes the band
+# kernel: a lead axis with vectors of four columns (post 8; post 36, a
+# ragged second band of 32 columns), a mid axis with vectors (post 8), a
+# mid axis of odd post (single elements, bands across pre rows), post 2
+# (single elements) with an odd Nt, and an even Nt whose folded rows fall
+# in different CTAs (N - Nt = 258: the truncation takes the tile, the
+# padding the band).  Whole lines at N = 768 on the line kernel where h'
+# = Nt/2 and N - Nt are multiples of 4: Nt = 512 (the 3/2 rule: the split
+# vectors at rows 256 and 512 and the fold at output row 256), Nt = 200
+# (h' = 100, output vectors past Nt skipped) and Nt = 8; whole lines
+# whose Nt breaks that rule (N - Nt = 258; h' = 258 with N - Nt = 252;
+# odd Nt) and other lengths on the tile.  The first six shapes are
+# test_tp64_band_vs_plain's.
+TP32_ROUTES = [((768, 8), 0, 512, 'vectors', 'vectors'),
+               ((2, 768, 3), 1, 512, 'elements', 'elements'),
+               ((768, 2), 0, 511, 'elements', 'elements'),
+               ((768, 2), 0, 510, 'tile', 'elements'),
+               ((3, 768), 1, 512, 'lines', 'lines'),
+               ((96, 4), 0, 64, 'tile', 'tile'),
+               ((768, 36), 0, 512, 'vectors', 'vectors'),
+               ((2, 768, 8), 1, 512, 'vectors', 'vectors'),
+               ((5, 768), 1, 200, 'lines', 'lines'),
+               ((2, 3, 768), 2, 8, 'lines', 'lines'),
+               ((2, 768), 1, 510, 'tile', 'tile'),
+               ((2, 768), 1, 516, 'tile', 'tile'),
+               ((2, 768), 1, 511, 'tile', 'tile'),
+               ((3, 1024), 1, 683, 'tile', 'tile')]
+
+
+@pytest.mark.parametrize('shape,axis,nt,trunc_route,pad_route', TP32_ROUTES)
+def test_tp32_lines_band_vs_plain(kernel_path, emu_kernels, shape, axis, nt,
+                                  trunc_route, pad_route):
+    """fft_axis_tp on float32 on the kernel the rule picks by shape: at
+    N = 768 the column band kernel on inner axes (a cluster launch, its
+    loads one a 16-byte vector of four columns or one an element, the row
+    map in its read or its write) and the line kernel on whole lines
+    (__syncwarp calls, the map in its vector read or write), else the
+    tile.  (The float32 half of test_tp64_band_vs_plain, which held
+    float32 E on the tile at its shapes, moved here.)"""
+    p, q = _tp_inputs(shape, axis, nt, np.float32, 28)
+    _hold_tp_routes(kernel_path, emu_kernels, shape, axis, nt,
+                    (trunc_route, pad_route), p, q, TOL)
+    assert _launched() == {'fft_axis_tp': 4}
+
+
+def test_tp32_misaligned(kernel_path, emu_kernels):
+    """E at N = 768 on tensors that start 4 bytes off a 16-byte boundary:
+    a lead axis takes the band kernel's single elements, whole lines the
+    tile; the same results."""
+    for shape, axis, route in (((768, 8), 0, 'elements'),
+                               ((3, 768), 1, 'tile')):
+        p, q = _tp_inputs(shape, axis, 512, np.float32, 30)
+        _hold_tp_routes(kernel_path, emu_kernels, shape, axis, 512,
+                        (route, route), _misaligned(p), _misaligned(q), TOL)
+    assert _launched() == {'fft_axis_tp': 8}
 
 
 def test_pair_kernel_refuses_layout(kernel_path):

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """A/B of the f32 end-to-end times between two trees of the port, and of
-the machine code of their f32 kernels.
+the machine code of their kernels.
 
 Times, in one process, the f32 plans that ``chip_smoke.py`` times (the
 1024^3 ``'F'`` transform unquartered and quartered, the (2048, 1024, 512)
@@ -15,11 +15,12 @@ parent), on one card:
 
     python3 tools/f32_order_ab.py TREE
 
-With ``--sass PARENT CHANGE`` it compares instead the SASS of every f32
-kernel instance in the two trees' built libraries (``cuobjdump -sass``,
-names demangled by ``cu++filt``; build both first with a timing run) and
-prints one JSON line: for each instance, whether its instructions are the
-same and how many there are.
+With ``--sass PARENT CHANGE`` it compares instead the SASS of every
+kernel instance, float32 and float64, in the two trees' built libraries
+(``cuobjdump -sass``, names demangled by ``cu++filt``, an instance keyed
+by its kernel and template arguments; build both first) and prints one
+JSON line: for each instance, whether its instructions are the same and
+how many there are.
 """
 import argparse
 import json
@@ -112,7 +113,8 @@ def _tool(name):
 
 
 def _sass(tree):
-    """{instance key: [instructions]} of the f32 kernels of a tree."""
+    """{instance (library: kernel<template arguments>): [instructions]}
+    of the kernels of a tree."""
     out = {}
     for lib in sorted((Path(tree) / 'build' / 'torch_kernels').glob('*.so')):
         text = subprocess.run([_tool('cuobjdump'), '-sass', str(lib)],
@@ -123,18 +125,16 @@ def _sass(tree):
             dem = subprocess.run([_tool('cu++filt'), name.strip()],
                                  capture_output=True, text=True,
                                  check=True).stdout.strip()
-            if 'double' in dem:
-                continue
-            m = re.search(r'(\w+_kernel)(?:<([^>]*)>)?\(', dem)
-            blocks = re.findall(r'\d+', m.group(2) or '') or ['3']
-            out[f'{m.group(1)}<{blocks[-1]}>'] = re.findall(
+            m = re.search(r'(\w+(?:<[^()]*>)?)\(', dem)
+            key = f"{lib.name.split('-')[0]}: {m.group(1) if m else dem}"
+            out[key] = re.findall(
                 r'/\*[0-9a-f]{4,}\*/\s+([^;]*;)', body)
     return out
 
 
 def sass(parent, change):
     a, b = _sass(parent), _sass(change)
-    print(json.dumps({'sass_f32': {
+    print(json.dumps({'sass': {
         k: {'same': a[k] == b.get(k), 'instructions': len(a[k]),
             'instructions_change': len(b.get(k, []))} for k in sorted(a)},
         'only_in_change': sorted(set(b) - set(a))}), flush=True)

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""A/B of design variants of C's c2r line kernel and E64's dealiasing
-band kernel, on one card.
+"""A/B of design variants of C's c2r line kernel and the dealiasing band
+kernel of E and E64, on one card.
 
 Each variant is a copy of this checkout's ``mpi4py_fft_torch`` under
 ``build/ab/<variant>`` with one constant of its CUDA sources changed by a
@@ -10,12 +10,15 @@ run times C (``irfft_axis_p``) on a (2, 768, 768, 385) float32 spectrum
 back to the 768^3 real volume, and E64 (``fft_axis_tp`` on float64) at
 the four passes of the dealiased 512^3 ``'d'`` plan on its 768^3 grid
 (forward axes 1 and 0 truncating to 512 rows, backward axes 0 and 1
-padding back), each held first against its plain version on one slab,
-and prints one JSON line with the times (CUDA events, median of 9 after
-2 warm-ups) and the ``ptxas`` lines of the C 384-point and E64 band
-instances:
+padding back), and E (``fft_axis_tp`` on float32) at the same four
+passes of the ``'f'`` plan and at the six of the ``'F'`` plan (forward
+axes 2, 1, 0, backward 0, 1, 2), each pass held first against its plain
+version on one slab, and prints one JSON line with the times (CUDA
+events, median of 9 after 2 warm-ups) and the ``ptxas`` lines of the C
+384-point instance and of E's and E64's band and line instances:
 
     python3 tools/line_band_ab.py            # every variant, in turns
+    python3 tools/line_band_ab.py e_round8   # the named variants only
     python3 tools/line_band_ab.py --one TREE # one tree (the child run)
 
 The variants (against this tree's constants):
@@ -25,7 +28,14 @@ The variants (against this tree's constants):
 * ``round2``, ``round4``: E64's band loading two or four chunks a round
   (``TpBandBudget``, ``fft_axis_tp.cu``) in place of eight;
 * ``k8``: E64's band on clusters of eight CTAs of 96 rows and 32
-  columns (``kTpBandK``) in place of four of 192 rows and 16.
+  columns (``kTpBandK``) in place of four of 192 rows and 16 (E's on
+  eight of 96 rows and 64 columns);
+* ``e_round4``, ``e_round8``: E's band (float32) loading four chunks a
+  round (A's) or eight (all of a thread's vectors at once) on every
+  pass, in place of eight but four on padding reads of single elements;
+* ``e_threads512``: E's band on lines.cuh's ``BandBudget<float>`` (D's:
+  512 threads, two CTAs an SM) in place of A's ``AxisBandBudget`` (256
+  threads, three CTAs an SM).
 """
 import argparse
 import json
@@ -39,6 +49,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 CSRC = Path('mpi4py_fft_torch') / 'ops' / 'csrc'
+# E's chunks a round (TpBandBudget, fft_axis_tp.cu)
+_E_ROUND = ('sizeof(T) == 4 && !kVec && Map::kMode == mff::PadRows::kMode '
+            '? 4 : 8;')
 VARIANTS = {
     'c_bound3': ('rfft_axis.cu',
                  'constexpr int kLineMinBlocks = sizeof(T) == 4 ? 4 : 1;',
@@ -49,6 +62,11 @@ VARIANTS = {
                'static constexpr int kRound = 4;'),
     'k8': ('fft_axis_tp.cu', 'constexpr int kTpBandK = 4;',
            'constexpr int kTpBandK = 8;'),
+    'e_round4': ('fft_axis_tp.cu', _E_ROUND, 'sizeof(T) == 4 ? 4 : 8;'),
+    'e_round8': ('fft_axis_tp.cu', _E_ROUND, '8;'),
+    'e_threads512': ('fft_axis_tp.cu',
+                     'struct TpBandBudget : mff::AxisBandBudget<T> {',
+                     'struct TpBandBudget : mff::BandBudget<T> {'),
 }
 
 
@@ -68,7 +86,8 @@ def _variant(name):
 
 
 def _ptxas(log):
-    """The ptxas lines of the C 384-point and E64 band instances."""
+    """The ptxas lines of the C 384-point instance and of E's and E64's
+    band and line instances."""
     out, cur = {}, None
     for text in log.values():
         for ln in text.splitlines():
@@ -76,10 +95,10 @@ def _ptxas(log):
             if m:
                 cur = m.group(1)
             elif cur and ('irfft_lines_kernelIfLi384' in cur or
-                          'tp_band' in cur) and ('registers' in ln or
-                                                 'spill' in ln):
-                key = re.sub(r'^.*?(irfft_lines_kernel|tp_band_kernel)',
-                             r'\1', cur)
+                          'tp_band' in cur or 'tp_lines' in cur) and (
+                              'registers' in ln or 'spill' in ln):
+                key = re.sub(r'^.*?(irfft_lines_kernel|tp_band_kernel|'
+                             r'tp_lines_kernel)', r'\1', cur)
                 out.setdefault(key, []).append(
                     ln.split('ptxas info')[-1].strip(' :'))
     return out
@@ -121,33 +140,49 @@ def run_one(tree):
     out['c_rel'] = rel(y[:32], bf.irfft_axis_plain(h[:, :32], 2, 768))
     out['c_ms'] = med(lambda: bf.irfft_axis_p(h, 2, 768))
     del h, y
-    x = torch.rand((2, 768, 768, 257), generator=g, device=dev,
-                   dtype=torch.float64) - 0.5
-    passes = (('fwd1', 1, True, dict(trunc=512, scale=1 / 768)),
-              ('fwd0', 0, True, dict(trunc=512, scale=1 / 768)),
-              ('bwd0', 0, False, dict(pad=768)),
-              ('bwd1', 1, False, dict(pad=768)))
-    inp, total = x, 0.0
-    for name, ax, fwd, kw in passes:
-        k = bf.fft_axis_tp(inp, ax, fwd, **kw)
-        sd = 2 if ax == 0 else 1
-        out[name + '_rel'] = rel(k.narrow(sd, 0, 32), bf.fft_axis_tp_plain(
-            inp.narrow(sd, 0, 32), ax, fwd, **kw))
-        out[name + '_ms'] = med(lambda: bf.fft_axis_tp(inp, ax, fwd, **kw))
-        total += out[name + '_ms']
-        inp = k
-    out['e64_ms'] = total
-    if out['c_rel'] > 5e-6 or any(out[p[0] + '_rel'] > 2e-13
-                                  for p in passes):
-        raise RuntimeError(f"a kernel disagrees with its plain version: "
-                           f"{out}")
+    sc = 1 / 768
+    f_passes = (('fwd1', 1, True, dict(trunc=512, scale=sc)),
+                ('fwd0', 0, True, dict(trunc=512, scale=sc)),
+                ('bwd0', 0, False, dict(pad=768)),
+                ('bwd1', 1, False, dict(pad=768)))
+    c2c_passes = ((('fwd2', 2, True, dict(trunc=512, scale=sc)),) +
+                  f_passes + (('bwd2', 2, False, dict(pad=768)),))
+    for tag, shape, dtype, passes, tol in (
+            ('e64', (2, 768, 768, 257), torch.float64, f_passes, 2e-13),
+            ('e_f', (2, 768, 768, 257), torch.float32, f_passes, 5e-6),
+            ('e_F', (2, 768, 768, 768), torch.float32, c2c_passes, 5e-6)):
+        inp = torch.rand(shape, generator=g, device=dev, dtype=dtype) - 0.5
+        total = 0.0
+        for name, ax, fwd, kw in passes:
+            k = bf.fft_axis_tp(inp, ax, fwd, **kw)
+            sd = 2 if ax == 0 else 1
+            r = rel(k.narrow(sd, 0, 32), bf.fft_axis_tp_plain(
+                inp.narrow(sd, 0, 32), ax, fwd, **kw))
+            if r > tol:
+                raise RuntimeError(f"{tag} {name}: rel L2 {r} against its "
+                                   f"plain version")
+            out[f'{tag}_{name}_ms'] = med(
+                lambda: bf.fft_axis_tp(inp, ax, fwd, **kw))
+            total += out[f'{tag}_{name}_ms']
+            inp = k
+        out[f'{tag}_ms'] = total
+        del inp, k
+        torch.cuda.empty_cache()
+    if out['c_rel'] > 5e-6:
+        raise RuntimeError(f"C disagrees with its plain version: {out}")
     print(json.dumps(out), flush=True)
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--one', metavar='TREE', help="time one tree")
+    ap.add_argument('variants', nargs='*', metavar='VARIANT',
+                    help="the variants to time beside this tree (default: "
+                         f"all: {', '.join(VARIANTS)})")
     args = ap.parse_args()
+    unknown = set(args.variants) - set(VARIANTS)
+    if unknown:
+        ap.error(f"unknown variants {sorted(unknown)}")
     if args.one:
         run_one(Path(args.one).resolve())
         return 0
@@ -155,7 +190,7 @@ def main():
                           '--format=csv,noheader'], capture_output=True,
                          text=True, timeout=60)
     print(smi.stdout.strip(), flush=True)
-    trees = [ROOT] + [_variant(v) for v in VARIANTS]
+    trees = [ROOT] + [_variant(v) for v in args.variants or VARIANTS]
     rows = {}
     for t in trees + trees[::-1]:
         r = subprocess.run([sys.executable, __file__, '--one', str(t)],
