@@ -5,8 +5,8 @@ Run from the root of a checkout, on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-Phases, run in the order 1-15, 19-22, 16-18, 23, 24; any failure raises
-and the script exits non-zero:
+Phases, run in the order 1-15, 19-22, 25, 16-18, 23, 24; any failure
+raises and the script exits non-zero:
 
 1. build     the kernels from ``mpi4py_fft_torch/ops/csrc`` with nvcc,
              their ``ptxas`` lines, how many two-CTA clusters of the
@@ -216,6 +216,26 @@ and the script exits non-zero:
              kernel's time beside its plain version, its bound and its
              PyTorch yardstick for the ``kernels`` line.
 
+25. dist     the distributed layer (``mpi4py_fft_torch/parallel``), ranks
+             on this card: the dry run (``mpi4py_fft_torch/dryrun.py``) at
+             n = 512 on one NCCL rank, bit for bit against the same calls
+             on no group (the DNS step, the uneven PFFT and the c2c round
+             trips), and ``dryrun_multichip`` itself; then 4 gloo ranks on
+             the card (``dryrun.launch(..., backend='gloo')``, one process
+             a rank): the dry run's float64 DNS step at 512^3 on a (2, 2)
+             grid, each rank's block held against the one-rank step's
+             (2e-10), the uneven ``PFFT((256, 257, 256), 'd',
+             a2a_chunks=2)`` round trip (1e-8) and the float64 c2c round
+             trip (2e-10); then 2 gloo ranks: the m3 plan ``PFFT((512,)*3,
+             padding=[1.5]*3, dtype='f')`` on a slab grid (2, 1), each
+             block held against the one-rank plan's (5e-5), exactly 1 B +
+             2 E launches a forward and 2 E + 1 C a backward on every
+             rank; every rank reports its launches, ms per step and per
+             round trip with and without each exchange timed whole (CUDA
+             events around it), the exchanges' ms and its peak memory.
+             Gloo moves CUDA tensors through host memory: these are not
+             the times of NVLink transposes.
+
 ``python3 chip_smoke.py --times-any TREE`` runs only phases 1, 22 and 23,
 B's two rows and C's row of phase 16, A's, C64's, D's and A64's rows of
 phases 16 and 17, and phases 11, 12, 13 and 18, on the port of the
@@ -224,9 +244,10 @@ last line: run it for two trees in turns on one card (parent, change,
 change, parent) to compare H, I, J, A, B, C, C64, D, A64, E and E64 and
 the m3 plan at 'f', 'F' and 'd' between them.
 
-Phases 3 to 15 and 19 to 22 are the main path: the launch counters are
-set to 0 just before phase 3 and read after phase 22 (phases 16 to 18
-run after it, as do times_any).  The probe kernels' path is phase 24's
+Phases 3 to 15, 19 to 22 and 25 are the main path: the launch counters
+are set to 0 just before phase 3 and read after phase 25 (phases 16 to
+18 run after it, as do times_any); the ranks of phase 25 count their
+own launches.  The probe kernels' path is phase 24's
 modules, with their own counters.  Each phase prints one JSON line;
 then come the ``{"kernels": [...]}`` line, the card's name and power limit
 from nvidia-smi, and last ``{"ok": true, "device": {...}}``.  Without a
@@ -238,6 +259,7 @@ import contextlib
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -286,6 +308,13 @@ PLANE_H = (1024, 256, 256)
 PLANE_I = (1024, 1024, 1024)
 # H on planes one CTA holds whole (two planes a CTA), the same volume
 PLANE_H_ONE_CTA = (16384, 64, 64)
+# phase dist: ranks on this card over gloo (CUDA tensors through host
+# memory); the DNS step at phase 10's size, the uneven PFFT round trip at
+# (256, 257, 256), the m3 plan at phase 11's
+DIST_N = 512
+DIST_PFFT_N = 256
+DIST_M3_N = 512
+DIST_TIMEOUT = 420         # seconds for each launch of ranks
 PROBE_N = 1024             # the probes' floors: the north star's 1024^3
 FMA_HOLD_ITERS = 256       # fma_chain against its plain loop
 # the hold's constants: every step moves each value by far more than the
@@ -2210,6 +2239,243 @@ def phase_plane(dev, bf, holds):
     _emit({'phase': 'plane', 'launches': dict(launches), 'plans': out})
 
 
+# -- phase dist: the distributed layer, ranks on this card ----------------
+
+def _event_ms(fn):
+    """ms of one call of fn between two CUDA events."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b)
+
+
+@contextlib.contextmanager
+def _timed_exchanges(acc):
+    """Run each pencil exchange whole (started and waited on at once)
+    between two CUDA events, its packing and unpacking copies included,
+    and append its ms to ``acc``."""
+    from mpi4py_fft_torch.parallel import pencil, planar
+    real = pencil.exchange
+
+    def timed(x, *args):
+        out = []
+        acc.append(_event_ms(lambda: out.append(real(x, *args).wait())))
+        return pencil._Done(out[0])
+    pencil.exchange = planar.exchange = timed
+    try:
+        yield
+    finally:
+        pencil.exchange = planar.exchange = real
+
+
+def _timed_with_exchanges(fn):
+    """(ms of fn, ms of fn with every exchange timed whole, the exchanges'
+    ms in that run)."""
+    ms = _event_ms(fn)
+    acc = []
+    with _timed_exchanges(acc):
+        ms_t = _event_ms(fn)
+    return ms, ms_t, acc
+
+
+def _block_ref(path, sl, dev):
+    """The block ``sl`` of the reference array saved at ``path``."""
+    a = np.load(path, mmap_mode='r')
+    return torch.from_numpy(np.ascontiguousarray(a[sl])).to(dev)
+
+
+def dist_dns_rank(comm, n, n_pfft, ref):
+    """One rank of phase dist's 4 gloo ranks (started by
+    ``mpi4py_fft_torch.dryrun.launch``): the dry run's DNS step at n^3
+    float64 through the per-shard ``PlanarPFFT``, its block held against
+    the one-rank step's (``ref``), a step timed with and without timed
+    exchanges; the uneven ``PFFT((n_pfft, n_pfft + 1, n_pfft), 'd',
+    a2a_chunks=2)`` round trip and the float64 c2c round trip, timed the
+    same way; the launches of the DNS step and the peak memory."""
+    from mpi4py_fft_torch import dryrun
+    from mpi4py_fft_torch.ops import butterfly as bf
+    dev = comm.device
+    rng, u0, _ = dryrun._inputs(n, SEED)
+    torch.cuda.reset_peak_memory_stats(dev)
+    bf.reset_launches()
+    pfft, U_hat, out, step = dryrun.dns_step(comm, n, u0)
+    torch.cuda.synchronize()
+    launches = dict(bf.LAUNCHES)
+    del u0
+    refb = _block_ref(ref, (slice(None),) + pfft.local_slice(True), dev)
+    err, mx = _rel(out, refb)
+    finite = bool(torch.isfinite(out).all())
+    del refb, out
+    ms_step, ms_step_t, ex_step = _timed_with_exchanges(lambda: step(U_hat))
+    del U_hat, step
+    x = dryrun._inputs(n_pfft, SEED)[2]
+    fft, xl, y = dryrun.pfft_round_trip(comm, n_pfft, x)
+    err_rt = float((y - xl).abs().max()) if xl.numel() else 0.0
+    del y
+    ms_rt, ms_rt_t, ex_rt = _timed_with_exchanges(
+        lambda: fft.backward.fn_p(fft.forward.fn_p(xl, True), False))
+    pds, xz, yz = dryrun.c2c_round_trip(comm, rng)
+    err_c2c = float((yz - xz).abs().max()) if xz.numel() else 0.0
+    torch.cuda.synchronize()
+    return {'rank': comm.Get_rank(), 'backend': comm.backend,
+            'device': str(dev), 'grid': list(pfft.subcomm.sizes),
+            'block': list(pfft.local_shape(True)), 'rel_l2_vs_one_rank': err,
+            'max_abs_vs_one_rank': mx, 'finite': finite,
+            'launches': launches, 'ms_per_step': ms_step,
+            'ms_per_step_exchanges_timed': ms_step_t,
+            'exchange_ms_per_step': sum(ex_step),
+            'exchanges_per_step': len(ex_step),
+            'pfft_shape': [n_pfft, n_pfft + 1, n_pfft],
+            'pfft_executor': fft.executor,
+            'pfft_round_trip_max_abs': err_rt,
+            'ms_per_round_trip': ms_rt,
+            'ms_per_round_trip_exchanges_timed': ms_rt_t,
+            'exchange_ms_per_round_trip': sum(ex_rt),
+            'c2c_round_trip_max_abs': err_c2c,
+            'peak_gb': torch.cuda.max_memory_allocated(dev) / 1e9}
+
+
+def dist_m3_rank(comm, d, ref_y, ref_z):
+    """One rank of phase dist's 2 gloo ranks: the m3 plan
+    ``PFFT(comm, (d,)*3, padding=[1.5]*3, dtype='f')`` on a slab grid
+    (2, 1) through ``forward.fn_p``/``backward.fn_p`` on this rank's block
+    of phase 11's input, held against the one-rank plan's results (the
+    files ``ref_y``, ``ref_z``), timed with and without timed exchanges."""
+    from mpi4py_fft_torch import PFFT
+    from mpi4py_fft_torch.ops import butterfly as bf
+    dev = comm.device
+    m = 3 * d // 2
+    fft = PFFT(comm, (d,) * 3, padding=[1.5] * 3, dtype='f', grid=(2, 1))
+    g = torch.Generator(device=dev).manual_seed(SEED + 30 + ord('f'))
+    x = torch.rand((m,) * 3, generator=g, device=dev,
+                   dtype=torch.float32) - 0.5
+    xl = x[fft.local_slice(False)].contiguous()
+    del x
+    torch.cuda.reset_peak_memory_stats(dev)
+    bf.reset_launches()
+    y = fft.forward.fn_p(xl)
+    torch.cuda.synchronize()
+    c1 = dict(bf.LAUNCHES)
+    z = fft.backward.fn_p(y)
+    torch.cuda.synchronize()
+    c2 = dict(bf.LAUNCHES)
+    err_y, _ = _rel(y, _block_ref(ref_y, (slice(None),) +
+                                  fft.local_slice(True), dev))
+    err_z, _ = _rel(z, _block_ref(ref_z, fft.local_slice(False), dev))
+    finite = bool(torch.isfinite(y).all()) and bool(torch.isfinite(z).all())
+    del z
+    ms_f, ms_f_t, ex_f = _timed_with_exchanges(lambda: fft.forward.fn_p(xl))
+    ms_b, ms_b_t, ex_b = _timed_with_exchanges(lambda: fft.backward.fn_p(y))
+    return {'rank': comm.Get_rank(), 'backend': comm.backend,
+            'device': str(dev), 'block_in': list(fft.local_shape(False)),
+            'block_out': list(fft.local_shape(True)),
+            'executor': fft.executor, 'rel_l2_fwd_vs_one_rank': err_y,
+            'rel_l2_bwd_vs_one_rank': err_z, 'finite': finite,
+            'launches_fwd': _delta({k: 0 for k in c1}, c1),
+            'launches_bwd': _delta(c1, c2), 'fwd_ms': ms_f, 'bwd_ms': ms_b,
+            'fwd_ms_exchanges_timed': ms_f_t, 'exchange_ms_fwd': sum(ex_f),
+            'bwd_ms_exchanges_timed': ms_b_t, 'exchange_ms_bwd': sum(ex_b),
+            'peak_gb': torch.cuda.max_memory_allocated(dev) / 1e9}
+
+
+def phase_dist(dev, bf):
+    """The distributed layer: the dry run on one NCCL rank bit for bit
+    against the same calls on no group, then 4 gloo ranks on this card
+    (the DNS step at DIST_N^3 float64 held block by block against the
+    one-rank step, the uneven PFFT and c2c round trips) and 2 gloo ranks
+    (the m3 'f' plan held against the one-rank plan)."""
+    from mpi4py_fft_torch import PFFT, dryrun
+    from mpi4py_fft_torch.parallel import multihost
+    from mpi4py_fft_torch.parallel.comm import COMM_WORLD
+    t0 = time.perf_counter()
+    n = DIST_N
+    refdir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          'build', 'dist_ref')
+    os.makedirs(refdir, exist_ok=True)
+    try:
+        # one rank, no group, then one NCCL rank: bit for bit
+        rng, u0, x = dryrun._inputs(n, SEED)
+        _, _, out0, _ = dryrun.dns_step(None, n, u0)
+        _, _, y0 = dryrun.pfft_round_trip(None, n, x)
+        _, _, yz0 = dryrun.c2c_round_trip(None, rng)
+        multihost.initialize(f'tcp://localhost:{dryrun._free_port()}',
+                             world_size=1, rank=0, device=dev)
+        try:
+            _check(COMM_WORLD.distributed and COMM_WORLD.backend == 'nccl',
+                   f"one-rank group on {COMM_WORLD.backend}")
+            rng, u0, x = dryrun._inputs(n, SEED)
+            _, _, out1, _ = dryrun.dns_step(COMM_WORLD, n, u0)
+            _, _, y1 = dryrun.pfft_round_trip(COMM_WORLD, n, x)
+            _, _, yz1 = dryrun.c2c_round_trip(COMM_WORLD, rng)
+            del u0, x
+            same = [bool(torch.equal(a, b)) for a, b in
+                    ((out0, out1), (y0, y1), (yz0, yz1))]
+            _check(all(same), f"one NCCL rank against no group: {same}")
+            del out1, y1, yz1
+            one = dryrun.dryrun_multichip(COMM_WORLD, n=n, seed=SEED)
+        finally:
+            multihost.finalize()
+        ref = os.path.join(refdir, 'dns_out.npy')
+        np.save(ref, out0.cpu().numpy())
+        del out0, y0, yz0
+        torch.cuda.empty_cache()
+        four = dryrun.launch(4, 'chip_smoke:dist_dns_rank',
+                             {'n': n, 'n_pfft': DIST_PFFT_N, 'ref': ref},
+                             device='cuda', backend='gloo',
+                             timeout=DIST_TIMEOUT)
+        os.remove(ref)
+        want = {'fft_axis_p_f64', 'rfft_axis_p_f64', 'irfft_axis_p_f64'}
+        for r in four:
+            _check(r['finite'] and r['rel_l2_vs_one_rank'] <= PIPE_TOL64,
+                   f"4 ranks, rank {r['rank']}: DNS step block "
+                   f"{r['rel_l2_vs_one_rank']:.3e} against one rank")
+            _check(r['pfft_executor'] == 'shard_map'
+                   and r['pfft_round_trip_max_abs'] <= 1e-8
+                   and r['c2c_round_trip_max_abs'] <= 2e-10,
+                   f"4 ranks, rank {r['rank']}: round trips {r}")
+            _check(all(r['launches'].get(k, 0) > 0 for k in want),
+                   f"4 ranks, rank {r['rank']}: launches {r['launches']}")
+        # the m3 'f' plan: one rank, then 2 gloo ranks on a slab grid
+        d = DIST_M3_N
+        m = 3 * d // 2
+        fft = PFFT(None, (d,) * 3, padding=[1.5] * 3, dtype='f')
+        g = torch.Generator(device=dev).manual_seed(SEED + 30 + ord('f'))
+        xm = torch.rand((m,) * 3, generator=g, device=dev,
+                        dtype=torch.float32) - 0.5
+        ym = fft.forward.fn_p(xm)
+        del xm
+        ref_y = os.path.join(refdir, 'm3_y.npy')
+        ref_z = os.path.join(refdir, 'm3_z.npy')
+        np.save(ref_z, fft.backward.fn_p(ym).cpu().numpy())
+        np.save(ref_y, ym.cpu().numpy())
+        del ym, fft
+        torch.cuda.empty_cache()
+        two = dryrun.launch(2, 'chip_smoke:dist_m3_rank',
+                            {'d': d, 'ref_y': ref_y, 'ref_z': ref_z},
+                            device='cuda', backend='gloo',
+                            timeout=DIST_TIMEOUT)
+        for r in two:
+            _check(r['finite'] and r['executor'] == 'shard_map'
+                   and max(r['rel_l2_fwd_vs_one_rank'],
+                           r['rel_l2_bwd_vs_one_rank']) <= PIPE_TOL,
+                   f"2 ranks, rank {r['rank']}: m3 blocks {r}")
+            _check(r['launches_fwd'] == {'rfft_axis_p': 1, 'fft_axis_tp': 2}
+                   and r['launches_bwd'] == {'fft_axis_tp': 2,
+                                             'irfft_axis_p': 1},
+                   f"2 ranks, rank {r['rank']}: launches {r}")
+    finally:
+        shutil.rmtree(refdir, ignore_errors=True)
+    _emit({'phase': 'dist', 'seconds': time.perf_counter() - t0,
+           'card': _smi(), 'one_nccl_rank': {
+               'n': n, 'bit_for_bit_vs_no_group': True, 'dryrun': one},
+           'gloo_4_ranks_dns': four, 'gloo_2_ranks_m3': two,
+           'exchanges': 'gloo on CUDA tensors, through host memory, all '
+                        'ranks on one card: not an NVLink transpose'})
+
+
 def _j_flops(lines, N):
     """J's operations on ``lines`` lines of N = S*128 points: the direct
     S-point DFT (S^2 complex multiply-adds, 8 flops each, a column), the
@@ -2746,6 +3012,8 @@ def main(argv=None):
     phase_bluestein(dev, bf)
     phase_plane(dev, bf, holds)
     marks['any_extent_path_s'] = time.perf_counter() - t_start
+    phase_dist(dev, bf)
+    marks['dist_s'] = time.perf_counter() - t_start
     launches = dict(bf.LAUNCHES)
     _check(set(launches) == set(KERNELS), f"counters {sorted(launches)}")
     for name, c in launches.items():

@@ -6,7 +6,10 @@ The transform work runs in hand-written CUDA kernels (``ops/csrc``) built
 with ``nvcc`` at first use; on CPU tensors every kernel wrapper runs its
 plain PyTorch version instead.
 
-The port covers so far, on one device:
+The port covers so far, on one device and over the ranks of a
+``torch.distributed`` group (one process a rank, each holding its block:
+``parallel/multihost.py``, ``parallel/pencil.py``; ``dryrun.py`` runs the
+dry run on N ranks):
 
 * the reference API: :class:`PFFT` with its :class:`Transform`\\ s, the
   pencil metadata (:class:`Subcomm`, :class:`Pencil`, :class:`Transfer`),
@@ -14,7 +17,10 @@ The port covers so far, on one device:
   the FFTW-style planners (``fftw``, ``fftlib``): c2c and r2c, float32
   and float64, with 3/2-rule padding, whose padded c2c stages run the
   fused dealiasing kernel ``fft_axis_tp``;
-* the single-device :class:`PlanarPFFT`: c2c and r2c, float32 and float64,
+* the per-shard executors of :class:`PFFT` and :class:`PlanarPFFT` on
+  several ranks, each exchange one ``all_to_all_single`` over the group
+  of the swapped axes, and ``DistArray.redistribute`` between pencils;
+* :class:`PlanarPFFT`: c2c and r2c, float32 and float64,
   with 3/2-rule padding; the quartered out-of-place schedule of 3-D
   float32 c2c volumes (``ops/oop3d.py``, ``PlanarPFFT.forward_fn_q``/
   ``backward_fn_q``);

@@ -1,28 +1,30 @@
-"""Global-view array with pencil metadata, on one device.
+"""Distributed array with pencil metadata.
 
 Port of ``mpi4py_fft_tpu/distarray.py`` (``DistArray`` :43,
-``newDistArray`` :524; reference: mpi4py_fft/distarray.py).  A
-:class:`DistArray` holds one tensor of the global shape on its device,
-with the pencil that describes its decomposition; on one device that
-pencil owns the whole array.  As in the JAX package, ``.shape`` is the
-global shape and ``get`` returns on every caller.
+``get_pencil_and_transfer`` :426, ``redistribute`` :431-470 with
+``_reshard_data`` :472, ``newDistArray`` :524; reference:
+mpi4py_fft/distarray.py).  As in the reference, a :class:`DistArray`
+holds this rank's block of the global array, a tensor on the rank's
+device, with the pencil that describes the decomposition: ``.shape``,
+``.v`` and ``__array__`` are the block's, ``global_shape`` the whole
+array's.  On one rank the block is the whole array.
 
 Tensors of rank > 0 keep their first ``rank`` axes undistributed,
-matching the reference (distarray.py:40-56).  On one device
-``redistribute`` relabels the pencil's alignment, as the JAX package
-does when both axes are undivided.  Not ported yet: ``redistribute``
-between pencils of several devices (ROADMAP Queue 1 item 4) and
-``write``/``read`` (item 11).
+matching the reference (distarray.py:40-56).  ``redistribute`` between
+pencils moves the blocks with the pencils' ``Transfer`` (one
+``all_to_all_single``); between two undivided axes it relabels the
+pencil, as the JAX package does.  Not ported yet: ``write``/``read``
+(ROADMAP Queue 1 item 11).
 """
 from numbers import Integral, Number
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from .parallel.pencil import Pencil, Subcomm, AxisComm, COMM_SELF, \
-    _multi_device
-from .parallel.comm import COMM_WORLD
-from .utils import resolve_device, torch_dtype
+from .parallel.pencil import Pencil, Subcomm, AxisComm, COMM_SELF
+from .parallel.comm import COMM_WORLD, plan_device
+from .utils import torch_dtype
 
 __all__ = ['DistArray', 'newDistArray', 'Function']
 
@@ -34,9 +36,11 @@ def _no_io(what):
 
 
 class DistArray(object):
-    """Global array with pencil metadata on one device
-    (reference: distarray.py:10-439).  ``device`` is where the tensor
-    lies: CUDA unless the caller asks for the CPU."""
+    """This rank's block of a distributed array, with pencil metadata
+    (reference: distarray.py:10-439).  ``device`` is where the block
+    lies: the rank's device, else CUDA; ``'cpu'`` where the caller asks.
+    ``buffer`` is the block's values, or the global array's, of which
+    the rank takes its block."""
 
     def __init__(self, global_shape, subcomm=None, val=None, dtype=float,
                  buffer=None, strides=None, alignment=None, rank=0,
@@ -51,20 +55,29 @@ class DistArray(object):
                                          alignment)
         if isinstance(buffer, torch.Tensor) and device is None:
             device = buffer.device
-        device = resolve_device(device, 'DistArray')
+        mesh = self._p0.mesh if self._p0 is not None else None
+        device = plan_device(mesh.comm if mesh is not None else COMM_WORLD,
+                             device, 'DistArray')
         tdt = torch_dtype(dtype)
+        local = self._local_shape()
         if buffer is not None:
             if isinstance(buffer, DistArray):
                 buffer = buffer.v
             if not isinstance(buffer, torch.Tensor):
                 buffer = torch.from_numpy(
                     np.ascontiguousarray(np.asarray(buffer, dtype=dtype)))
+            if tuple(buffer.shape) == global_shape and local != global_shape:
+                buffer = buffer[self.local_slice()]
             self._data = buffer.to(device=device, dtype=tdt)
-            assert tuple(self._data.shape) == global_shape
+            assert tuple(self._data.shape) == local
         else:
             fill = val if isinstance(val, Number) else 0
-            self._data = torch.full(global_shape, fill, dtype=tdt,
-                                    device=device)
+            self._data = torch.full(local, fill, dtype=tdt, device=device)
+
+    def _local_shape(self):
+        if self._p0 is None:
+            return self._global_shape
+        return self._global_shape[:self._rank] + self._p0.subshape
 
     @staticmethod
     def _make_pencil(shape, subcomm, alignment):
@@ -95,16 +108,18 @@ class DistArray(object):
         out = DistArray.__new__(DistArray)
         out._p0 = self._p0
         out._rank = self._rank
-        out._global_shape = tuple(data.shape)
+        out._global_shape = self._global_shape \
+            if tuple(data.shape) == tuple(self._data.shape) \
+            else tuple(data.shape)
         out._data = data
         return out
 
     # -- basic array protocol ---------------------------------------------
     @property
     def shape(self):
-        """Global shape (the reference's ``.shape`` is the local block's;
-        on one device they agree)."""
-        return self._global_shape
+        """The block's shape, as the reference's; on one rank the global
+        shape."""
+        return tuple(self._data.shape)
 
     @property
     def dtype(self):
@@ -138,7 +153,7 @@ class DistArray(object):
 
     @property
     def global_shape(self):
-        return self.shape
+        return self._global_shape
 
     @property
     def substart(self):
@@ -172,7 +187,7 @@ class DistArray(object):
 
     @property
     def v(self):
-        """The tensor holding the array (the reference's ``.v`` is the
+        """The tensor holding the block (the reference's ``.v`` is the
         local ndarray view, distarray.py:177-180)."""
         return self._data
 
@@ -192,6 +207,8 @@ class DistArray(object):
         assert new_rank >= 0
         out = self._wrap(data)
         out._rank = new_rank
+        out._global_shape = (tuple(data.shape[:new_rank])
+                             + self._global_shape[self.rank:])
         return out
 
     def __setitem__(self, i, value):
@@ -233,17 +250,30 @@ class DistArray(object):
 
     # -- global access (reference: distarray.py:182-278) -------------------
     def get(self, gslice):
-        """A global slice, on every caller (the reference gathers on rank
-        0, distarray.py:214-241)."""
-        return self.__array__()[tuple(gslice)]
+        """A global slice, on every rank (the reference gathers on rank 0,
+        distarray.py:214-241)."""
+        return self._gathered()[tuple(gslice)]
+
+    def _gathered(self):
+        """The global array on every rank, as numpy."""
+        if self._p0 is None or self._p0.mesh is None:
+            return self.__array__()
+        blocks = [None] * self._p0.mesh.comm.Get_size()
+        dist.all_gather_object(blocks, (self.local_slice(), self.__array__()),
+                               group=self._p0.mesh.comm.group)
+        out = np.zeros(self._global_shape, dtype=self.dtype)
+        for sl, b in blocks:
+            out[sl] = b
+        return out
 
     def local_slice(self, device_index=None):
-        """The view of the device's block into the global array
-        (reference: distarray.py:243-278)."""
-        d = 0 if device_index is None else device_index
+        """The view of rank ``device_index``'s block (this rank's by
+        default) into the global array (reference: distarray.py:243-278)."""
         v = [slice(start, start + n) for start, n in
-             zip(self._p0.local_start(d), self._p0.local_shape(d))]
-        return tuple([slice(0, s) for s in self.shape[:self.rank]] + v)
+             zip(self._p0.local_start(device_index),
+                 self._p0.local_shape(device_index))]
+        return tuple([slice(0, s) for s in self._global_shape[:self.rank]]
+                     + v)
 
     # -- redistribution (reference: distarray.py:280-363) ------------------
     def get_pencil_and_transfer(self, axis):
@@ -253,27 +283,44 @@ class DistArray(object):
         return p1, self._p0.transfer(p1, self.dtype)
 
     def redistribute(self, axis=None, out=None):
-        """Realign the array with ``axis``, or copy it into ``out``, which
-        keeps its own alignment (reference: distarray.py:298-363).  On one
-        device every axis is undivided, so a new alignment only relabels
-        the pencil and returns this array, as the JAX package does
-        (mpi4py_fft_tpu/distarray.py:439-447)."""
+        """Realign the array with ``axis``, or move it into ``out``, which
+        keeps its own alignment (reference: distarray.py:298-363).  All
+        tensor components move in one exchange.  Between two undivided
+        axes a new alignment relabels the pencil and returns this array,
+        as the JAX package does (mpi4py_fft_tpu/distarray.py:439-447)."""
         if axis == self.alignment:
             return self
         if axis is not None and isinstance(out, DistArray) and \
                 axis != out.alignment:
             raise ValueError(f"redistribute: axis {axis} is not out's "
                              f"alignment {out.alignment}")
-        if any(s != 1 for s in self.commsizes):
-            raise _multi_device('DistArray.redistribute')
-        if axis is not None:
+        if axis is not None and self.commsizes[self.rank + axis] == 1:
             self._p0 = self._p0.pencil(axis)
             return self
-        if not isinstance(out, DistArray) or \
-                self.global_shape != out.global_shape:
+        if out is not None:
+            if not isinstance(out, DistArray) or \
+                    self.global_shape != out.global_shape:
+                raise ValueError("redistribute: give an axis, or out= a "
+                                 "DistArray of the same global shape")
+            axis = out.alignment
+            if self.commsizes == out.commsizes:
+                out.v.copy_(self._data)
+                return out
+            for i in range(len(self._p0.shape)):
+                if i not in (self.alignment, axis) and \
+                        self._p0.subcomm[i] != out.pencil.subcomm[i]:
+                    raise ValueError(f"redistribute: out distributes axis "
+                                     f"{i} otherwise")
+        if axis is None:
             raise ValueError("redistribute: give an axis, or out= a "
                              "DistArray of the same global shape")
-        out.v.copy_(self._data)
+        p1, transfer = self.get_pencil_and_transfer(axis)
+        if out is None:
+            out = DistArray(self.global_shape, subcomm=p1, dtype=self.dtype,
+                            alignment=axis, rank=self.rank,
+                            device=self.device)
+        transfer.forward(self, out)
+        transfer.destroy()
         return out
 
     def write(self, filename, name='darray', step=0, global_slice=None,

@@ -6,7 +6,8 @@ no PyTorch headers, so a build takes seconds.  The libraries go to
 ``build/torch_kernels/`` at the root of the checkout, which the ``build/``
 entry of ``.gitignore`` covers.  A library's file name carries a hash of
 the sources, so an edited kernel is rebuilt; the files are built once per
-process, at first use, all at the same time.
+process, at first use, all at the same time, under a file lock, so that
+the processes of several ranks starting together build them once.
 
 Every pointer and the stream are passed as ``ctypes.c_void_p``, and the
 scale as the entry's own float type (``c_float`` for ``_f32``,
@@ -16,6 +17,7 @@ and the wrappers in ``butterfly.py``, ``fft2stage.py`` and ``probes.py``
 raise when it is not 0.
 """
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -162,9 +164,19 @@ def build():
     build."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     paths = {n: BUILD_DIR / f'{n}-{_digest(n)}.so' for n in _ENTRIES}
+    if all(p.exists() for p in paths.values()):
+        return paths
+    # one process builds at a time; the lock goes with the process
+    with open(BUILD_DIR / 'build.lock', 'w') as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        _build_missing(paths)
+    return paths
+
+
+def _build_missing(paths):
     todo = {n: p for n, p in paths.items() if not p.exists()}
     if not todo:
-        return paths
+        return
     nvcc = find_nvcc()
     if nvcc is None:
         raise RuntimeError(
@@ -187,7 +199,6 @@ def build():
             os.replace(tmp, paths[n])
     if failed:
         raise RuntimeError("nvcc failed on " + "\n".join(failed))
-    return paths
 
 
 def load():

@@ -1,24 +1,28 @@
-"""Parallel-FFT plan and executor on one device: the port's ``PFFT``.
+"""Parallel-FFT plan and executors: the port's ``PFFT``.
 
 Port of ``mpi4py_fft_tpu/parallel/mpifft.py``: ``_axis_stage_list``
-(:442), ``Transform`` (:97) and ``PFFT`` (:481-705), after the reference
+(:442), ``Transform`` (:97, with the per-shard executor ``_impl_shmap``
+:158 and ``_shmap_local`` :188) and ``PFFT`` (:481-805, the executor
+choice :653-673 and ``_build_shmap_plans`` :708), after the reference
 orchestrator (mpi4py_fft/mpifft.py).  The plan is built as there: walk
 the axes groups last to first, plan a serial transform (``libfft.FFT``)
 per group and a pencil rotation (``Transfer``) between groups, with the
-r2c and dealiasing fixups of the global shape.  The executor is the
-one-device chain of stages and rotations: each stage is a planar stage
-function (``FFT.forward_fn_p``/``backward_fn_p``), which dispatches the
-port's kernels, the fused dealiasing kernel ``fft_axis_tp`` included; a
-rotation moves nothing on one device.  Logically complex data travels
-planar, (2,) + shape real tensors; ``fn`` takes complex tensors and
-converts at its boundary (one copy each way).
+r2c and dealiasing fixups of the global shape.  Each stage is a planar
+stage function (``FFT.forward_fn_p``/``backward_fn_p``), which dispatches
+the port's kernels, the fused dealiasing kernel ``fft_axis_tp`` included.
+Logically complex data travels planar, (2,) + shape real tensors; ``fn``
+takes complex tensors and converts at its boundary (one copy each way).
 
-Not ported yet: more than one device (``comm``/``grid`` of several
-devices: ROADMAP Queue 1 item 4) and r2r ``transforms=`` (item 6).  On
-one device every executor (``'auto'``, ``'gspmd'``, ``'shard_map'``)
-runs the one-device chain and the plan reports ``executor == 'gspmd'``,
-as the JAX package falls back to it on a one-device mesh; ``a2a_chunks``
-changes nothing.
+On one rank the executor is the chain of stages (a rotation moves
+nothing), and the plan reports ``executor == 'gspmd'``, as the JAX
+package falls back to it on a one-device mesh.  On several ranks
+(``comm`` a process group) every rank runs the per-shard executor
+(``'shard_map'``) on its blocks: the input block is held at its pencil's
+``padded_local_shape``, each rotation is one ``all_to_all_single``
+(``Transfer.forward_start``), chunked to overlap the stage after it
+(``parallel/overlap.py``), each stage cuts its axes back to their true
+extents first, and the output is this rank's block.  Not ported yet: r2r
+``transforms=`` (ROADMAP Queue 1 item 6).
 """
 import numpy as np
 import torch
@@ -27,9 +31,10 @@ from ..distarray import DistArray
 from ..libfft import FFT
 from ..ops import matfft
 from ..ops.plan import _host, _no_r2r
-from ..utils import resolve_device, torch_dtype
-from .comm import DeviceComm
-from .pencil import Pencil, Subcomm, _multi_device
+from ..utils import torch_dtype
+from . import overlap
+from .comm import COMM_WORLD, DeviceComm, plan_device
+from .pencil import Pencil, Subcomm, fit_axis, fit_block
 
 __all__ = ['PFFT', 'Transform']
 
@@ -43,18 +48,23 @@ def _real_dtype(dtype):
 class Transform(object):
     """One direction of a parallel transform (reference: mpifft.py:8-79).
 
-    ``stages`` are the per-group stage functions, ``reshards`` the pencil
-    rotations applied before stages[1:].  Calling the object has the
-    reference's buffer semantics; :meth:`fn` and :meth:`fn_p` are the
-    functions to compose (e.g. into a DNS time step)."""
+    ``stages`` are the per-group stage functions; ``steps`` the pencil
+    rotations before stages[1:], each ``(start, size, cands)``: the
+    function that starts it on a block, its group's size and the axes it
+    may be chunked along; ``slices`` the (axis, true extent) pairs each
+    stage cuts its block to.  Calling the object has the reference's
+    buffer semantics; :meth:`fn` and :meth:`fn_p` are the functions to
+    compose (e.g. into a DNS time step)."""
 
-    def __init__(self, pfft, stages, reshards, pencils, in_shape, in_dtype,
-                 out_shape, out_dtype, default_normalize, host_mode,
-                 planars=None):
-        assert len(stages) == len(reshards) + 1 and len(pencils) == 2
+    def __init__(self, pfft, stages, steps, slices, pencils, in_shape,
+                 in_dtype, out_shape, out_dtype, default_normalize,
+                 host_mode, planars=None):
+        assert len(stages) == len(steps) + 1 == len(slices)
+        assert len(pencils) == 2
         self._pfft = pfft
         self._stages = tuple(stages)
-        self._reshards = tuple(reshards)
+        self._steps = tuple(steps)
+        self._slices = tuple(slices)
         self._pencil = tuple(pencils)
         self._in_shape = tuple(in_shape)
         self._in_dtype = np.dtype(in_dtype)
@@ -76,17 +86,48 @@ class Transform(object):
     def device(self):
         return self._pfft.device
 
+    @property
+    def _in_local(self):
+        return self._pencil[0].subshape
+
+    @property
+    def _out_local(self):
+        return self._pencil[1].subshape
+
     # -- the chain of stages (pipeline form: complex data is planar) -------
     def _impl(self, x, normalize):
+        """The executor on this rank's block (JAX ``_impl_shmap`` :158 and
+        ``_shmap_local`` :188): the block held at its pencil's padded
+        local shape, each rotation an exchange over its group, chunked
+        along an axis it and the next stage leave alone so that chunk
+        k + 1's exchange is in flight during chunk k's stage, each stage
+        on its axes cut to their true extents; on one rank a rotation
+        moves nothing."""
         pl = self._planars
-        with torch.profiler.record_function("pfft_stage0"):
-            x = self._stages[0](x, normalize)
-        for i, (stage, reshard) in enumerate(
-                zip(self._stages[1:], self._reshards)):
-            x = reshard(x, rank=int(pl[i + 1]))
-            with torch.profiler.record_function(f"pfft_stage{i + 1}"):
-                x = stage(x, normalize)
-        return x
+        x = fit_block(x, self._pencil[0].padded_local_shape(), int(pl[0]))
+        for i, stage in enumerate(self._stages):
+            rin = int(pl[i])
+
+            def post(q, i=i, stage=stage, rin=rin):
+                for ax, n in self._slices[i]:
+                    q = fit_axis(q, rin + ax, n)
+                with torch.profiler.record_function(f"pfft_stage{i}"):
+                    return stage(q.contiguous(), normalize)
+            if i == 0:
+                x = post(x)
+                continue
+            start, size, cands = self._steps[i - 1]
+            n, c = 1, 0
+            if size > 1 and cands:
+                c = max(cands, key=lambda a: x.shape[rin + a])
+                n = overlap.resolve(self._pfft._a2a_cfg,
+                                    x.numel() * x.element_size(),
+                                    x.shape[rin + c])
+            x = overlap.overlapped(
+                x, rin + c, n, None,
+                lambda q, start=start, rin=rin: start(q, rank=rin), post,
+                out_axis=int(pl[i + 1]) + c)
+        return fit_block(x, self._pencil[1].subshape, int(pl[-1]))
 
     def _impl_host(self, y, normalize):
         for stage in self._stages:
@@ -163,11 +204,12 @@ class Transform(object):
     def __call__(self, input_array=None, output_array=None, **kw):
         """Execute the transform (reference: mpifft.py:46-79).
 
-        Input and output are global arrays: DistArrays, tensors or numpy
-        arrays.  ``planar=True`` (also taken when a real array of the
-        planar input shape comes in on a complex plan) runs on planar
-        data on both sides.  Without ``output_array`` the result lands in
-        the persistent :attr:`output_array`; with it, only there."""
+        Input and output are this rank's blocks (the global arrays on one
+        rank): DistArrays, tensors or numpy arrays.  ``planar=True`` (also
+        taken when a real array of the planar input shape comes in on a
+        complex plan) runs on planar data on both sides.  Without
+        ``output_array`` the result lands in the persistent
+        :attr:`output_array`; with it, only there."""
         normalize = kw.pop('normalize', self._default_normalize)
         planar = kw.pop('planar', None)
         if planar and self._host_mode:
@@ -180,10 +222,10 @@ class Transform(object):
             dt = getattr(input_array, 'dtype', None)
             real = (dt.is_floating_point if isinstance(dt, torch.dtype)
                     else np.dtype(dt).kind == 'f')
-            planar = real and shape == (2,) + self._in_shape
+            planar = real and shape == (2,) + self._in_local
         if planar:
-            want = (2,) + self._in_shape if self._planars[0] \
-                else self._in_shape
+            want = (2,) + self._in_local if self._planars[0] \
+                else self._in_local
             if shape != want:
                 raise ValueError(f"planar path expects shape {want}, got "
                                  f"{shape}")
@@ -193,13 +235,13 @@ class Transform(object):
             if output_array is None:
                 return y
             if self._planars[-1] and \
-                    tuple(output_array.shape) != (2,) + self._out_shape:
+                    tuple(output_array.shape) != (2,) + self._out_local:
                 y = matfft.unplanar(y)
             _assign(output_array, y)
             return output_array
-        if shape != self._in_shape:
+        if shape != self._in_local:
             raise ValueError(f"input shape {shape} != planned "
-                             f"{self._in_shape}")
+                             f"{self._in_local}")
         if self._host_mode:
             x = _host(input_array.v if isinstance(input_array, DistArray)
                       else input_array)
@@ -266,15 +308,18 @@ def _axis_stage_list(axes, ndim, darray=None):
 
 
 class PFFT(object):
-    """Parallel transform (reference: mpifft.py:82-419) on one device.
+    """Parallel transform (reference: mpifft.py:82-419).
 
-    Parameters follow the reference PFFT.  ``comm`` may be ``None``, a
-    :class:`DeviceComm`, a device list or a prebuilt :class:`Subcomm`, of
-    one device.  ``backend='jax'`` (the default, or its aliases ``'fftw'``,
-    ``'pyfftw'``, ``'pallas'``) runs the port's kernels; ``'numpy'``/
-    ``'scipy'`` run the same plan on host arrays as a cross-check.
-    ``device`` is where the plan runs: CUDA unless the caller asks for the
-    CPU (a ``darray``'s device when planning from one).
+    Parameters follow the reference PFFT.  ``comm`` may be ``None`` (the
+    process group once one is up, else one device), a
+    :class:`DeviceComm`, a list of one device or a prebuilt
+    :class:`Subcomm`.  ``backend='jax'`` (the default, or its aliases
+    ``'fftw'``, ``'pyfftw'``, ``'pallas'``) runs the port's kernels;
+    ``'numpy'``/``'scipy'`` run the same plan on host arrays of one rank
+    as a cross-check.  ``device`` is where the plan runs: the rank's
+    device, else CUDA unless the caller asks for the CPU (a ``darray``'s
+    device when planning from one).  ``a2a_chunks`` sets the chunks of
+    each exchange on several ranks (``parallel/overlap.py``).
     """
 
     def __init__(self, comm=None, shape=None, axes=None, dtype=float,
@@ -283,7 +328,7 @@ class PFFT(object):
         executor = kw.pop('executor', None)
         if executor not in (None, 'auto', 'gspmd', 'shard_map'):
             raise ValueError(f"unknown executor {executor!r}")
-        kw.pop('a2a_chunks', None)
+        self._a2a_cfg = overlap.chunk_count(kw.pop('a2a_chunks', None))
         if transforms:
             raise _no_r2r('PFFT transforms=')
         if shape is None:
@@ -291,7 +336,6 @@ class PFFT(object):
             shape = darray.pencil.shape
         if darray is not None and device is None:
             device = darray.v.device
-        self.device = resolve_device(device, 'PFFT')
 
         axes = _axis_stage_list(axes, len(shape), darray)
         self.axes = axes
@@ -358,6 +402,16 @@ class PFFT(object):
             self.subcomm = darray.subcomm_tuple
             self._input_shape = tuple(shape)
             padding = False
+        for a in axes[-1]:
+            if self.subcomm[a].Get_size() != 1:
+                raise ValueError(f"the grid distributes axis {a}, which the "
+                                 f"plan transforms before any rotation")
+        comm = getattr(self.subcomm, 'comm', None)
+        if comm is None:        # a darray's axis groups
+            comm = next((c.mesh.comm for c in self.subcomm
+                         if c.mesh is not None), None)
+        self._nmesh = int(np.prod([c.Get_size() for c in self.subcomm]))
+        self.device = plan_device(comm, device, 'PFFT')
 
         # stage merging (reference: mpifft.py:298-306): a stage whose axes
         # all sit on trivial device groups folds onto the stage after it
@@ -420,8 +474,18 @@ class PFFT(object):
         host_mode = backend in ('numpy', 'scipy', 'mkl_fft')
         in_dtype = self.xfftn[0].forward.input_array.dtype
         out_dtype = self.xfftn[-1].forward.output_array.dtype
-        # one device: the JAX package's fallback (mpifft.py:669-673)
-        self.executor = 'gspmd'
+        # executor (JAX mpifft.py:653-673): the per-shard one on several
+        # ranks; one rank reports the JAX package's one-device fallback
+        if self._nmesh > 1:
+            if host_mode:
+                raise ValueError(f"backend {backend!r} runs on one rank")
+            if executor == 'gspmd':
+                raise ValueError("several ranks run the per-shard executor "
+                                 "('shard_map'); the global-program "
+                                 "'gspmd' is the JAX package's")
+            self.executor = 'shard_map'
+        else:
+            self.executor = 'gspmd'
         if host_mode:
             fwd_stages = [o.forward_fn for o in self.xfftn]
             bck_stages = [o.backward_fn for o in self.xfftn[::-1]]
@@ -433,26 +497,53 @@ class PFFT(object):
                 [o.output_planar for o in self.xfftn]
             bck_planars = [self.xfftn[-1].output_planar] + \
                 [o.input_planar for o in self.xfftn[::-1]]
+        fwd_steps, bck_steps, fwd_slices, bck_slices = self._shard_plans()
         self.forward = Transform(
-            self, fwd_stages, [t.forward_fn for t in self.transfer],
-            self.pencil, self._input_shape, in_dtype, self._output_shape,
-            out_dtype, default_normalize=True, host_mode=host_mode,
+            self, fwd_stages, fwd_steps, fwd_slices, self.pencil,
+            self._input_shape, in_dtype, self._output_shape, out_dtype,
+            default_normalize=True, host_mode=host_mode,
             planars=fwd_planars)
         # backward rotations undo the forward ones, in reverse order
         self.backward = Transform(
-            self, bck_stages, [t.backward_fn for t in self.transfer[::-1]],
-            self.pencil[::-1], self._output_shape, out_dtype,
-            self._input_shape, in_dtype, default_normalize=False,
-            host_mode=host_mode, planars=bck_planars)
+            self, bck_stages, bck_steps, bck_slices, self.pencil[::-1],
+            self._output_shape, out_dtype, self._input_shape, in_dtype,
+            default_normalize=False, host_mode=host_mode,
+            planars=bck_planars)
+
+    def _shard_plans(self):
+        """The rotations and stage cuts of both directions (role of JAX
+        ``_build_shmap_plans`` :708): each rotation's start function,
+        group size and chunk-axis candidates (the axes that take part in
+        neither it nor the stage after it), and each stage's (axis, true
+        extent) pairs."""
+        ndim = len(self._input_shape)
+
+        def steps(starts, objs):
+            out = []
+            for i, (start, t) in enumerate(starts):
+                used = {t.axisA, t.axisB} | set(objs[i + 1].axes)
+                out.append((start, t.size,
+                            tuple(c for c in range(ndim) if c not in used)))
+            return out
+
+        def slices(objs, attr):
+            return [tuple((ax, getattr(o, attr).input_array.shape[ax])
+                          for ax in o.axes) for o in objs]
+
+        fwd = steps([(t.forward_start, t) for t in self.transfer],
+                    self.xfftn)
+        bck = steps([(t.backward_start, t) for t in self.transfer[::-1]],
+                    self.xfftn[::-1])
+        return (fwd, bck, slices(self.xfftn, 'forward'),
+                slices(self.xfftn[::-1], 'backward'))
 
     def _comm(self, comm):
-        """The one-device communicator of the plan."""
+        """The communicator of the plan: the world (the process group
+        once one is up) by default."""
         if comm is None:
-            return DeviceComm([self.device])
+            return COMM_WORLD
         if isinstance(comm, (list, tuple)):
             comm = DeviceComm(comm)
-        if comm.Get_size() != 1:
-            raise _multi_device('PFFT')
         return comm
 
     # ---- reference API (reference: mpifft.py:349-419) -------------------
@@ -463,20 +554,21 @@ class PFFT(object):
             trans.destroy()
 
     def shape(self, forward_output=True):
-        """Global shape of the transform data (one device holds it all;
-        the reference returns the rank's local shape)."""
+        """Global shape of the transform data (as the JAX package; the
+        reference returns the rank's local shape, :meth:`local_shape`)."""
         if forward_output is not True:
             return self._input_shape
         return self._output_shape
 
-    def local_shape(self, forward_output=True, device_index=0):
-        """The device's shard shape (the reference's ``shape``)."""
+    def local_shape(self, forward_output=True, device_index=None):
+        """The block shape of rank ``device_index``, this rank's by
+        default (the reference's ``shape``)."""
         p = self.pencil[1] if forward_output else self.pencil[0]
         return p.local_shape(device_index)
 
-    def local_slice(self, forward_output=True, device_index=0):
-        """The view of the device's shard into the global array
-        (reference: mpifft.py:368-386)."""
+    def local_slice(self, forward_output=True, device_index=None):
+        """The view of rank ``device_index``'s block (this rank's by
+        default) into the global array (reference: mpifft.py:368-386)."""
         ip = self.pencil[1] if forward_output else self.pencil[0]
         return tuple(slice(start, start + n) for start, n in
                      zip(ip.local_start(device_index),

@@ -1,21 +1,36 @@
-"""Planar-complex FFT on one device: the port's ``PlanarPFFT``.
+"""Planar-complex FFT: the port's ``PlanarPFFT``.
 
-Port of the single-device path of ``mpi4py_fft_tpu/parallel/planar.py``
-(constructor :92-247, ``_forward_impl``/``_backward_impl`` :621-705,
-``forward``/``backward`` :723-731, ``forward_fn``/``backward_fn``
-:736-752, ``_check_shape`` :708, ``global_shape`` :787, and the quartered
-schedule ``quartered``/``forward_fn_q``/``backward_fn_q`` :759-785).  A
-complex field of global shape S is a real tensor of shape (2,) + S.  On
-one device the pipeline is one transform per axis (``ops/matfft.py``) and
-the 3/2-rule truncation or padding between them (``libfft.py``); the
-pencil constraints of the JAX package do nothing there and are gone.
-A 3-D c2c f32 plan without padding can also hold its volume as four
+Port of ``mpi4py_fft_tpu/parallel/planar.py``: the constructor
+(:92-247), the one-device pipeline (``_forward_impl``/``_backward_impl``
+:621-705), the per-shard executor (``_forward_local`` :443,
+``_overlapped_step`` :510, ``_backward_local`` :528 and the padded r2c
+extent ``_hpad_ext`` :154-173), ``forward``/``backward`` :723-752,
+``global_shape`` :787, and the quartered schedule (``quartered``/
+``forward_fn_q``/``backward_fn_q`` :759-785).  A complex field of global
+shape S is a real tensor of shape (2,) + S.
+
+On one rank the pipeline is one transform per axis (``ops/matfft.py``)
+and the 3/2-rule truncation or padding between them (``libfft.py``); a
+3-D c2c f32 plan without padding can also hold its volume as four
 quarters (``ops/oop3d.py``) and transform them out of place pass by pass.
+
+On several ranks (``comm`` a process group, see ``multihost``) each rank
+holds its block of the pencil decomposition (``parallel/pencil.py``):
+``forward`` takes this rank's block of the input and returns its block of
+the spectrum.  The per-shard executor runs each stage on the local block
+and moves blocks between stages with one ``all_to_all_single`` over the
+group of the swapped axes, chunked so that the exchanges overlap the
+stages (``parallel/overlap.py``).  Each stage cuts its axis back to its
+true extent first, so the kernels see the lengths the one-rank pipeline
+gives them; the r2c stage writes zero rows up to the extent the first
+exchange splits evenly (``hext``, the kernel's own write), and the
+dealiased stages run the fused kernels (B with ``trunc``, E with
+``trunc``/``pad`` and the scale, C with the Hermitian pad in its read).
 
 API sketch::
 
     pfft = PlanarPFFT(None, (1024, 1024, 1024), dtype='F')   # c2c, on CUDA
-    u = torch.zeros(pfft.global_shape(False), device=pfft.device)
+    u = torch.zeros(pfft.local_shape(False), device=pfft.device)
     u_hat = pfft.forward(u)      # planar (2, 1024, 1024, 1024), normalized
     u2 = pfft.backward(u_hat)
 
@@ -24,53 +39,52 @@ API sketch::
     u3 = oop3d.assemble_q(qs)
 
 float32 ('f'/'F') and float64 ('d'/'D') plans run the same pipeline, with
-and without ``padding``: the kernels have an fp64 build, which takes the
-place of the JAX package's double-single branch (``_forward_ds``/
-``_backward_ds`` and its gates).  Every extent runs (``ops/matfft.py``
-takes the lengths no kernel takes); the quartered schedule is float32
-only, as in the JAX package.
-
-Several devices (``comm``/``grid`` of more than one device, or
-``executor='shard_map'``) raise NotImplementedError until the distributed
-layer arrives (ROADMAP Queue 1 item 4).
+and without ``padding``, on one rank or several: the kernels have an fp64
+build, which takes the place of the JAX package's double-single branch
+(``_forward_ds``/``_backward_ds``, its shard form ``_forward_ds_shmap``/
+``_backward_ds_shmap`` and its gates).  Every extent runs
+(``ops/matfft.py`` takes the lengths no kernel takes); the quartered
+schedule is float32 and one rank only, as in the JAX package.
 """
 import numpy as np
 import torch
 
-from ..ops import matfft, oop3d
+from ..ops import butterfly, matfft, oop3d
 from ..libfft import truncate_planar, pad_planar
-from ..utils import resolve_device
-from .pencil import _multi_device
+from . import overlap
+from .comm import plan_device
+from .pencil import Pencil, Subcomm, exchange, fit_axis, fit_block
 
 __all__ = ['PlanarPFFT']
 
 
-def _one_device(comm, grid, executor):
-    multi = _multi_device('PlanarPFFT')
-    if executor == 'shard_map':
-        raise multi
-    if executor not in ('auto', 'gspmd'):
-        raise ValueError(f"unknown executor {executor!r}")
-    if comm is not None and comm.Get_size() != 1:
-        raise multi
-    if grid is not None and int(np.prod(grid)) != 1:
-        raise multi
+def _whole(p, ax, n):
+    """Axis ``ax`` (held whole) cut back to its true extent ``n``,
+    contiguous: the kernels take the one-rank layout."""
+    return fit_axis(p, ax, n).contiguous()
 
 
 class PlanarPFFT(object):
-    """FFT in planar-complex form on one device.
+    """FFT in planar-complex form, on one rank or over several.
 
     Parameters mirror the JAX package's ``PlanarPFFT``: c2c (complex input
     as planar (2,)+S, dtype 'F'/'D') and r2c/c2r (real input, dtype
-    'f'/'d'), with optional 3/2-rule ``padding``.  ``device`` is where the
-    plan runs: CUDA by default, ``'cpu'`` for the plain versions.  On one
-    device ``pad_spectrum``, ``donate`` and ``a2a_chunks`` change nothing.
+    'f'/'d'), with optional 3/2-rule ``padding``; ``comm``/``grid`` lay
+    the ranks out as there.  ``device`` is where the plan runs: the
+    rank's device, else CUDA; ``'cpu'`` for the plain versions.  On
+    several ranks ``executor`` is the per-shard one (``'shard_map'``, the
+    JAX name; ``'auto'`` takes it), ``a2a_chunks`` sets the chunks of
+    each exchange and ``pad_spectrum`` keeps the r2c axis at ``hext``
+    rows in the spectrum; on one rank they and ``donate`` change
+    nothing.
     """
 
     def __init__(self, comm=None, shape=None, axes=None, dtype='f',
                  grid=None, donate=False, padding=False, pad_spectrum=False,
                  executor='auto', a2a_chunks=None, device=None):
-        _one_device(comm, grid, executor)
+        if executor not in ('auto', 'gspmd', 'shard_map'):
+            raise ValueError(f"unknown executor {executor!r}")
+        self._a2a_cfg = overlap.chunk_count(a2a_chunks)
         shape = list(int(s) for s in shape)
         ndim = len(shape)
         if axes is None:
@@ -82,7 +96,6 @@ class PlanarPFFT(object):
         self.real_transform = dtype.char in 'fd'
         self.rdtype = np.dtype('float32') if dtype.char in 'fF' \
             else np.dtype('float64')
-        self.device = resolve_device(device, 'PlanarPFFT')
         self._tdtype = torch.float32 if self.rdtype == np.float32 \
             else torch.float64
 
@@ -100,6 +113,28 @@ class PlanarPFFT(object):
                     self._pad[ax] = shape[ax] / old
         shape = tuple(shape)
 
+        if grid is not None:
+            dims = list(grid) + [1] * (ndim - len(grid))
+        else:
+            dims = [0] * ndim
+            dims[axes[-1]] = 1
+        self.subcomm = Subcomm(comm, dims)
+        if self.subcomm[axes[-1]].Get_size() != 1:
+            raise ValueError(f"the grid distributes axis {axes[-1]}, which "
+                             f"the plan transforms first")
+        self.device = plan_device(self.subcomm.comm, device, 'PlanarPFFT')
+        self._nmesh = int(np.prod(self.subcomm.sizes))
+        if executor == 'auto':
+            executor = 'shard_map' if self._nmesh > 1 else 'gspmd'
+        elif executor == 'shard_map' and self._nmesh == 1:
+            raise ValueError("the per-shard executor ('shard_map') needs "
+                             "more than one rank")
+        elif executor == 'gspmd' and self._nmesh > 1:
+            raise ValueError("several ranks run the per-shard executor "
+                             "('shard_map'); the global-program 'gspmd' "
+                             "is the JAX package's")
+        self.executor = executor
+
         self.axes = axes
         self._input_shape = shape
         # truncated spectral extents per axis (== padded extent when no
@@ -114,12 +149,42 @@ class PlanarPFFT(object):
         self._output_shape = tuple(out_shape)
         self._norm = 1.0 / float(np.prod([shape[a] for a in axes]))
 
+        # the pencil chain over the spectral shape, first-transformed axis
+        # last (reference mpifft.py:308-338)
+        self.pencils = [Pencil(self.subcomm, out_shape, axes[-1])]
+        for ax in reversed(axes[:-1]):
+            self.pencils.append(self.pencils[-1].pencil(ax))
+        self.pencil = [Pencil(self.subcomm, list(shape), axes[-1]),
+                       self.pencils[-1]]
+
+        # r2c: the halved axis (N//2+1 rows) is split by the exchanges;
+        # the r2c kernel writes zero rows up to the lcm of the group sizes
+        # that shard it, so that they split evenly (JAX planar.py:154-173).
+        # pad_spectrum keeps those rows in the spectrum the caller gets.
+        self._pad_spectrum = bool(pad_spectrum)
+        self._hpad_ext = None
+        if self.real_transform:
+            hax = axes[-1]
+            q = 1
+            for pen in self.pencils:
+                q = int(np.lcm(q, pen.subcomm[hax].Get_size()))
+            nh = self._output_shape[hax]
+            if q > 1 and nh % q:
+                self._hpad_ext = (-(-nh // q)) * q
+        spec = list(self._output_shape)
+        if self._pad_spectrum and self._hpad_ext is not None:
+            spec[axes[-1]] = self._hpad_ext
+        self._spec_shape = tuple(spec)
+        self._out_pencil = Pencil(self.pencils[-1].subcomm, spec,
+                                  self.pencils[-1].axis)
+
     @property
     def quartered(self):
         """True when forward_fn_q/backward_fn_q apply to this plan: plain
         3-D c2c in natural axis order, no dealiasing, float32, and quarter
-        shapes the kernels take (one device is all the port has)."""
-        return (not self.real_transform
+        shapes the kernels take, on one rank."""
+        return (self._nmesh == 1
+                and not self.real_transform
                 and len(self._input_shape) == 3
                 and tuple(self.axes) == (0, 1, 2)
                 and not any(self._padded(a) for a in self.axes)
@@ -213,8 +278,130 @@ class PlanarPFFT(object):
                                hermitian=False)
             return matfft.fft1d_p(p, ax0, False, scale=sc)
 
+    # -- the per-shard executor (several ranks) ---------------------------
+    def _step(self, p, i, ax, pre, post, forward):
+        """One pipeline step between pencils[i] and pencils[i + 1]: the
+        exchange, with the stage ``pre`` before it (backward) or ``post``
+        after it (forward), chunked along an axis that takes part in
+        neither (JAX ``_overlapped_step`` :510)."""
+        pa, pb = self.pencils[i], self.pencils[i + 1]
+        g = pa.subcomm[pb.axis]
+        if forward:
+            split, concat = pa.axis, pb.axis
+            n_split = self._spec_shape[split]
+        else:
+            split, concat = pb.axis, pa.axis
+            n_split = self._input_shape[split]
+
+        def start(q):
+            return exchange(q, 1 + split, 1 + concat, g, n_split)
+
+        cands = [a for a in range(len(self._input_shape))
+                 if a not in (pa.axis, pb.axis, ax)]
+        n, c = 1, 0
+        if g.Get_size() > 1 and cands:
+            c = max(cands, key=lambda a: p.shape[1 + a])
+            n = overlap.resolve(self._a2a_cfg, p.numel() * p.element_size(),
+                                p.shape[1 + c])
+        return overlap.overlapped(p, 1 + c, n, pre, start, post)
+
+    def _forward_local(self, x, normalize):
+        """This rank's forward program (JAX ``_forward_local`` :443) on
+        its input block held at ``padded_local_shape``."""
+        axes = self.axes
+        ax0 = axes[-1]
+        N0 = self._input_shape[ax0]
+        if self.real_transform:
+            hx = self._hpad_ext or self._output_shape[ax0]
+            if self._padded(ax0):
+                nt0 = self._trunc[ax0] // 2 + 1
+                if butterfly.supported_r2c(tuple(x.shape), ax0):
+                    # the Hermitian truncation and the zero rows in the
+                    # r2c kernel's write
+                    p = butterfly.rfft_axis_p(x, ax0, hext=hx, trunc=nt0)
+                else:
+                    p = matfft.rfftn_p(x, (ax0,))
+                    p = truncate_planar(p, 1 + ax0, nt0, hermitian=True)
+                    p = fit_axis(p, 1 + ax0, hx)
+            else:
+                p = matfft.rfftn_p(x, (ax0,),
+                                   hext=hx if hx > N0 // 2 + 1 else None)
+        else:
+            p = matfft.fft1d_p(x, ax0, True)
+            if self._padded(ax0):
+                p = truncate_planar(p, 1 + ax0, self._trunc[ax0],
+                                    hermitian=False)
+        nmid = len(axes) - 1
+        folded = False
+        for i, ax in enumerate(reversed(axes[:-1])):
+            sc = self._norm if (normalize and i == nmid - 1) else None
+            folded = folded or sc is not None
+
+            def stage(pc, ax=ax, sc=sc):
+                pc = _whole(pc, 1 + ax, self._input_shape[ax])
+                if self._padded(ax):
+                    nt = self._trunc[ax]
+                    if butterfly.supported_axis_tp(pc.shape[1:], ax,
+                                                   pc.dtype, trunc=nt):
+                        # the truncation in the kernel's write
+                        return butterfly.fft_axis_tp(pc, ax, True, trunc=nt,
+                                                     scale=sc)
+                    pc = matfft.fft1d_p(pc, ax, True, scale=sc)
+                    return truncate_planar(pc, 1 + ax, nt, hermitian=False)
+                return matfft.fft1d_p(pc, ax, True, scale=sc)
+            p = self._step(p, i, ax, None, stage, True)
+        if normalize and not folded:
+            p = p * self._norm
+        return p
+
+    def _backward_local(self, p, normalize):
+        """This rank's backward program (JAX ``_backward_local`` :528) on
+        its spectrum block held at ``padded_local_shape``."""
+        axes = self.axes
+        for i, ax in enumerate(axes[:-1]):
+
+            def stage(pc, ax=ax):
+                pc = _whole(pc, 1 + ax, self._trunc[ax])
+                if self._padded(ax):
+                    N = self._input_shape[ax]
+                    if butterfly.supported_axis_tp(pc.shape[1:], ax,
+                                                   pc.dtype, pad=N):
+                        # the zero-padding in the kernel's read
+                        return butterfly.fft_axis_tp(pc, ax, False, pad=N)
+                    pc = pad_planar(pc, 1 + ax, N, hermitian=False)
+                return matfft.fft1d_p(pc, ax, False)
+            p = self._step(p, len(axes) - 2 - i, ax, stage, None, False)
+        ax0 = axes[-1]
+        N0 = self._input_shape[ax0]
+        sc = self._norm if normalize else None
+        p = _whole(p, 1 + ax0, self._output_shape[ax0])
+        if self.real_transform:
+            if self._padded(ax0) and butterfly.supported_c2r(
+                    tuple(p.shape[1:]), ax0, N0):
+                # the Hermitian zero-padding in the c2r kernel's read
+                return butterfly.irfft_axis_p(p, ax0, N0, scale=sc)
+            if self._padded(ax0):
+                p = pad_planar(p, 1 + ax0, N0 // 2 + 1, hermitian=True)
+            return matfft.irfftn_p(p, (ax0,), N0, scale=sc)
+        if self._padded(ax0):
+            p = pad_planar(p, 1 + ax0, N0, hermitian=False)
+        return matfft.fft1d_p(p, ax0, False, scale=sc)
+
+    def _forward_shard(self, x, normalize):
+        off = 0 if self.real_transform else 1
+        x = fit_block(x, self.pencil[0].padded_local_shape(), off)
+        return fit_block(self._forward_local(x, normalize),
+                         self._out_pencil.subshape, 1)
+
+    def _backward_shard(self, p, normalize):
+        p = fit_block(p, self._out_pencil.padded_local_shape(), 1)
+        y = self._backward_local(p, normalize)
+        off = 0 if self.real_transform else 1
+        return fit_block(y, self.pencil[0].subshape, off)
+
+    # ------------------------------------------------------------------
     def _check_shape(self, x, forward_output):
-        want = tuple(self.global_shape(forward_output))
+        want = tuple(self.local_shape(forward_output))
         got = tuple(x.shape)
         if got != want:
             raise ValueError(f"array shape {got} does not match the "
@@ -225,13 +412,19 @@ class PlanarPFFT(object):
             raise TypeError(f"tensor of {x.dtype}, plan of {self._tdtype}")
 
     def forward(self, x, normalize=True):
-        """Forward transform; real input (r2c) or planar input (c2c)."""
+        """Forward transform; real input (r2c) or planar input (c2c), this
+        rank's block of it."""
         self._check_shape(x, False)
+        if self.executor == 'shard_map':
+            return self._forward_shard(x, bool(normalize))
         return self._forward_impl(x, bool(normalize))
 
     def backward(self, p, normalize=False):
-        """Backward transform; planar input, real (c2r) or planar output."""
+        """Backward transform; planar input, real (c2r) or planar output,
+        this rank's block of it."""
         self._check_shape(p, True)
+        if self.executor == 'shard_map':
+            return self._backward_shard(p, bool(normalize))
         return self._backward_impl(p, bool(normalize))
 
     # PyTorch runs eagerly: the composable forms are the same calls
@@ -240,7 +433,24 @@ class PlanarPFFT(object):
 
     def global_shape(self, forward_output=False):
         if forward_output:
-            return (2,) + self._output_shape
+            return (2,) + self._spec_shape
         if self.real_transform:
             return self._input_shape
         return (2,) + self._input_shape
+
+    def local_shape(self, forward_output=False):
+        """This rank's block of :meth:`global_shape` (the whole of it on
+        one rank)."""
+        if forward_output:
+            return (2,) + self._out_pencil.subshape
+        if self.real_transform:
+            return self.pencil[0].subshape
+        return (2,) + self.pencil[0].subshape
+
+    def local_slice(self, forward_output=False):
+        """The view of this rank's block into the global array."""
+        pen = self._out_pencil if forward_output else self.pencil[0]
+        sl = tuple(slice(s, s + n) for s, n in
+                   zip(pen.substart, pen.subshape))
+        return sl if not forward_output and self.real_transform \
+            else (slice(0, 2),) + sl

@@ -250,13 +250,16 @@ def test_pfft_pencils_and_transfers():
 
 
 def test_pfft_not_ported_yet_raise():
-    two = DeviceComm(['cpu', 'cpu'])
-    with pytest.raises(NotImplementedError, match='Queue 1 item 4'):
-        PFFT(two, (8, 8, 8), device='cpu')
-    with pytest.raises(NotImplementedError, match='Queue 1 item 4'):
+    # several devices in one process are refused: the port runs one
+    # device per rank (tests/test_torch_dist*.py run several ranks)
+    with pytest.raises(ValueError, match='one device per rank'):
+        DeviceComm(['cpu', 'cpu'])
+    with pytest.raises(ValueError, match='one device per rank'):
+        PFFT(['cpu', 'cpu'], (8, 8, 8), device='cpu')
+    with pytest.raises(ValueError, match='needs 2 devices'):
         PFFT(None, (8, 8, 8), grid=(2,), device='cpu')
-    with pytest.raises(NotImplementedError, match='Queue 1 item 4'):
-        tpkg.Subcomm(two, [0, 0])
+    with pytest.raises(ValueError, match='one device per rank'):
+        tpkg.Subcomm(['cpu', 'cpu'], [0, 0])
     with pytest.raises(NotImplementedError, match='Queue 1 item 6'):
         PFFT(None, (8, 8, 8), transforms={(2,): (None, None)},
              device='cpu')

@@ -20,6 +20,7 @@ from mpi4py_fft_tpu.parallel import DeviceComm
 from mpi4py_fft_tpu.parallel.planar import PlanarPFFT as JPlanarPFFT
 
 from mpi4py_fft_torch import PlanarPFFT, entry
+from mpi4py_fft_torch.parallel.comm import DeviceComm as TDeviceComm
 from mpi4py_fft_torch.ops import butterfly as tb
 from mpi4py_fft_torch.ops import matfft as tmatfft
 
@@ -143,16 +144,20 @@ def test_unsupported_length_raises():
 
 
 def test_several_devices_raise():
-    comm = DeviceComm(jax.devices()[:2])
-    with pytest.raises(NotImplementedError, match='Queue 1 item 4'):
-        PlanarPFFT(comm, (8, 8, 8), device='cpu')
-    with pytest.raises(NotImplementedError, match='Queue 1 item 4'):
+    """Several devices in one process are refused (the port runs one
+    device per rank; tests/test_torch_dist*.py run several ranks), and so
+    is the per-shard executor on one rank, as the JAX package asserts
+    (planar.py:215-216)."""
+    with pytest.raises(ValueError, match='one device per rank'):
+        PlanarPFFT(['cpu', 'cpu'], (8, 8, 8), device='cpu')
+    with pytest.raises(ValueError, match='needs 2 devices'):
         PlanarPFFT(None, (8, 8, 8), grid=(2, 1), device='cpu')
-    with pytest.raises(NotImplementedError, match='Queue 1 item 4'):
+    with pytest.raises(ValueError, match='more than one rank'):
         PlanarPFFT(None, (8, 8, 8), executor='shard_map', device='cpu')
     # one device is fine, whatever form it is given in
-    PlanarPFFT(DeviceComm(jax.devices()[:1]), (8, 8, 8), grid=(1, 1),
+    PlanarPFFT(TDeviceComm(['cpu']), (8, 8, 8), grid=(1, 1),
                executor='gspmd', device='cpu')
+    PlanarPFFT(['cpu'], (8, 8, 8), device='cpu')
 
 
 def test_default_device_is_cuda():
