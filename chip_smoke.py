@@ -5,8 +5,8 @@ Run from the root of a checkout, on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-Phases, run in the order 1-15, 19-22, 25, 16-18, 23, 24; any failure
-raises and the script exits non-zero:
+Phases, run in the order 1-15, 19-22, 25, 26, 16-18, 23, 24; any
+failure raises and the script exits non-zero:
 
 1. build     the kernels from ``mpi4py_fft_torch/ops/csrc`` with nvcc,
              their ``ptxas`` lines, how many two-CTA clusters of the
@@ -235,6 +235,29 @@ raises and the script exits non-zero:
              events around it), the exchanges' ms and its peak memory.
              Gloo moves CUDA tensors through host memory: these are not
              the times of NVLink transposes.
+26. r2r      the r2r transforms (``mpi4py_fft_torch/ops/core.py``) on B
+             and C: DCT I-IV, DST I-IV and DHT along axis 2 (whole lines)
+             and axis 1 (B's and C's tile) of a (32, 512, 512) volume,
+             DCT-I at N = 513 and DST-I at N = 511 (extended to 1024
+             points), R2HC then HC2R, at float32 and float64, each held
+             against scipy's dct/dst (DHT: Re - Im of numpy's fft) in
+             float64 on the host (relative L2 <= 5e-5, 2e-10), every B
+             and C call on the way held slab by slab against its plain
+             version (outputs NaN-filled first), ms per call; then the
+             transforms example's plan ``PFFT(None, (512,)*3, axes=((0,),
+             (1, 2)), transforms={(1, 2): (dctn type 3, idctn type 3)})``
+             at 'd' and 'f' and its twin with ``padding=[1.5, 1, 1]``:
+             the forward held slab by slab against scipy's dctn on axes
+             1 and 2 and the rfft on axis 0 in float64, the round trip,
+             ms and launches each way, peak memory, ``stage_times``
+             (``utils/profiling.py``) of each direction, the bound (each
+             pass's bytes read and written once) and a yardstick, the
+             same plan with ``torch.fft.rfft``/``irfft`` in place of B
+             and C; last 2 gloo ranks on the card: the ported transforms
+             example at N = 18 and 512 'd' and the darray example, each
+             printing its OK line, and each rank's block of the example's
+             512^3 'd' plan against the one-rank forward (2e-10), with
+             its launches and ms.
 
 ``python3 chip_smoke.py --times-any TREE`` runs only phases 1, 22 and 23,
 B's two rows and C's row of phase 16, A's, C64's, D's and A64's rows of
@@ -244,10 +267,10 @@ last line: run it for two trees in turns on one card (parent, change,
 change, parent) to compare H, I, J, A, B, C, C64, D, A64, E and E64 and
 the m3 plan at 'f', 'F' and 'd' between them.
 
-Phases 3 to 15, 19 to 22 and 25 are the main path: the launch counters
-are set to 0 just before phase 3 and read after phase 25 (phases 16 to
-18 run after it, as do times_any); the ranks of phase 25 count their
-own launches.  The probe kernels' path is phase 24's
+Phases 3 to 15, 19 to 22, 25 and 26 are the main path: the launch
+counters are set to 0 just before phase 3 and read after phase 26
+(phases 16 to 18 run after it, as do times_any); the ranks of phases 25
+and 26 count their own launches.  The probe kernels' path is phase 24's
 modules, with their own counters.  Each phase prints one JSON line;
 then come the ``{"kernels": [...]}`` line, the card's name and power limit
 from nvidia-smi, and last ``{"ok": true, "device": {...}}``.  Without a
@@ -315,6 +338,8 @@ DIST_N = 512
 DIST_PFFT_N = 256
 DIST_M3_N = 512
 DIST_TIMEOUT = 420         # seconds for each launch of ranks
+R2R_N = 512                # the r2r kinds' length and the r2r plans' N^3
+R2R_BATCH = 32             # the kinds' (R2R_BATCH, R2R_N, R2R_N) volume
 PROBE_N = 1024             # the probes' floors: the north star's 1024^3
 FMA_HOLD_ITERS = 256       # fma_chain against its plain loop
 # the hold's constants: every step moves each value by far more than the
@@ -2009,10 +2034,24 @@ def _tp_held(bf, tp, holds, inp, ax, fwd, kw, what):
 @contextlib.contextmanager
 def _held_calls(bf, holds, names):
     """Within the block, every call of the wrappers ``names``
-    (``irfft_axis_p``, ``fft_axis_tp``) lands in a NaN-filled block and is
-    held slab by slab against its plain version on the data the pipeline
-    gives it (5e-6, 2e-13 on float64)."""
+    (``rfft_axis_p``, ``irfft_axis_p``, ``fft_axis_tp``) lands in a
+    NaN-filled block and is held slab by slab against its plain version
+    on the data the pipeline gives it (5e-6, 2e-13 on float64)."""
     saved = {n: getattr(bf, n) for n in names}
+
+    def r2c(x, axis, hext=None, scale=None, trunc=None):
+        axis %= x.dim()
+        shape = list(x.shape)
+        shape[axis] = bf._r2c_out_rows(shape[axis], hext, trunc)[1]
+        _nan_block([2] + shape, x.dtype, x.device)
+        kw = dict(hext=hext, scale=scale, trunc=trunc)
+        y = saved['rfft_axis_p'](x, axis, **kw)
+        d = 1 if axis == 0 else 0              # slabs off the pass axis
+        name = 'rfft_axis_p' + ('_f64' if x.dtype == torch.float64 else '')
+        _slab_hold(holds, name, y, lambda i, w: bf.rfft_axis_plain(
+            x.narrow(d, i, w), axis, **kw), d + 1,
+            f"{name} {tuple(x.shape)} axis {axis} in the pipeline")
+        return y
 
     def c2r(p, axis, n, scale=None):
         axis %= p.dim() - 1
@@ -2034,7 +2073,7 @@ def _held_calls(bf, holds, names):
                         f"fft_axis_tp {tuple(p.shape)} axis {axis} in the "
                         f"pipeline")
 
-    wrapped = {'irfft_axis_p': c2r, 'fft_axis_tp': tp}
+    wrapped = {'rfft_axis_p': r2c, 'irfft_axis_p': c2r, 'fft_axis_tp': tp}
     for n in names:
         setattr(bf, n, wrapped[n])
     try:
@@ -2474,6 +2513,370 @@ def phase_dist(dev, bf):
            'gloo_4_ranks_dns': four, 'gloo_2_ranks_m3': two,
            'exchanges': 'gloo on CUDA tensors, through host memory, all '
                         'ranks on one card: not an NVLink transpose'})
+
+
+# -- phase r2r: DCT/DST I-IV, DHT and R2HC/HC2R on B and C ------------------
+
+def _r2r_names():
+    from mpi4py_fft_torch.ops import kinds as K
+    return {K.FFTW_REDFT00: ('dct', 1), K.FFTW_REDFT10: ('dct', 2),
+            K.FFTW_REDFT01: ('dct', 3), K.FFTW_REDFT11: ('dct', 4),
+            K.FFTW_RODFT00: ('dst', 1), K.FFTW_RODFT10: ('dst', 2),
+            K.FFTW_RODFT01: ('dst', 3), K.FFTW_RODFT11: ('dst', 4),
+            K.FFTW_DHT: ('dht', 0)}
+
+
+def _r2r_ref(x, kind, axis):
+    """The float64 host reference of one r2r kind along ``axis`` of the
+    numpy array x: scipy's dct/dst (unnormalized, FFTW's), DHT as Re - Im
+    of numpy's fft."""
+    import scipy.fft
+    name, t = _r2r_names()[kind]
+    if name == 'dht':
+        F = np.fft.fft(x, axis=axis)
+        return F.real - F.imag
+    return getattr(scipy.fft, name)(x, type=t, axis=axis, workers=-1)
+
+
+def _r2hc_ref(x, axis):
+    """FFTW's halfcomplex layout of numpy's rfft: r0..r_{N/2}, then
+    i_{(N+1)//2-1}..i_1."""
+    N = x.shape[axis]
+    F = np.fft.rfft(x, axis=axis)
+    im = np.take(F.imag, np.arange((N + 1) // 2 - 1, 0, -1), axis=axis)
+    return np.concatenate([F.real, im], axis=axis)
+
+
+def _hc2r_ref(h, axis):
+    """FFTW's unnormalized HC2R of the halfcomplex host array h: N times
+    numpy's irfft of the spectrum it holds (Im 0 at DC and Nyquist)."""
+    N = h.shape[axis]
+    nh = N // 2 + 1
+    re = np.take(h, np.arange(nh), axis=axis)
+    im = np.zeros_like(re)
+    k = np.arange(1, (N + 1) // 2)
+    idx = [slice(None)] * h.ndim
+    idx[axis] = k
+    im[tuple(idx)] = np.take(h, N - k, axis=axis)
+    return np.fft.irfft(re + 1j * im, n=N, axis=axis) * N
+
+
+def _held_rel(got, ref, tol, what):
+    """Relative L2 of ``got`` (on the card) against the float64 host
+    array ``ref``; fails above ``tol``."""
+    torch.cuda.synchronize()
+    _check(bool(torch.isfinite(got).all()), f"{what}: non-finite")
+    err, _ = _rel(got.double(), torch.from_numpy(ref).to(got.device))
+    _check(err <= tol, f"{what}: rel L2 {err:.3e} > {tol}")
+    return err
+
+
+def _r2r_kinds(dev, bf, holds):
+    """Every kind along axis 2 (whole lines: B's and C's line kernels)
+    and axis 1 (the tile) of a (R2R_BATCH, R2R_N, R2R_N) volume at float32
+    and float64, DCT-I at R2R_N + 1 and DST-I at R2R_N - 1 (extended to
+    2 R2R_N points) and R2HC then HC2R on the last axis, each held against
+    its float64 host reference; every B and C call on the way held slab
+    by slab against its plain version.  Returns ms per call and
+    launches."""
+    from mpi4py_fft_torch.ops import core, kinds as K
+    n, b = R2R_N, R2R_BATCH
+    g = torch.Generator(device=dev).manual_seed(SEED + 80)
+    rows, c0 = [], dict(bf.LAUNCHES)
+
+    def run(x32, kind, axis, ref, label):
+        for x, tol in ((x32, PIPE_TOL), (x32.double(), PIPE_TOL64)):
+            f = lambda: core.r2r(x, (axis,), (kind,))         # noqa: E731
+            with _held_calls(bf, holds, ('rfft_axis_p', 'irfft_axis_p')):
+                c = dict(bf.LAUNCHES)
+                y = f()
+                torch.cuda.synchronize()
+                launches = _delta(c, dict(bf.LAUNCHES))
+            err = _held_rel(y, ref, tol, f"{label} {x.dtype}")
+            del y
+            rows.append({'kind': label, 'shape': list(x.shape),
+                         'axis': axis, 'dtype': str(x.dtype)[6:],
+                         'rel_l2': err, 'launches': launches,
+                         'ms': _median_ms(f, reps=5, warm=1)})
+    x32 = torch.rand((b, n, n), generator=g, device=dev) - 0.5
+    xh = x32.double().cpu().numpy()
+    for kind, (name, t) in _r2r_names().items():
+        for axis in (2, 1):
+            run(x32, kind, axis, _r2r_ref(xh, kind, axis),
+                f"{name}{t or ''}")
+    run(x32, K.FFTW_R2HC, 2, _r2hc_ref(xh, 2), 'r2hc')
+    hc32 = core.r2r(x32, (2,), (K.FFTW_R2HC,))
+    run(hc32, K.FFTW_HC2R, 2, _hc2r_ref(hc32.double().cpu().numpy(), 2),
+        'hc2r')
+    del x32, hc32, xh
+    for kind, m in ((K.FFTW_REDFT00, n + 1), (K.FFTW_RODFT00, n - 1)):
+        x32 = torch.rand((b, n, m), generator=g, device=dev) - 0.5
+        xh = x32.double().cpu().numpy()
+        name, t = _r2r_names()[kind]
+        run(x32, kind, 2, _r2r_ref(xh, kind, 2), f"{name}{t} N={m}")
+        del x32, xh
+    torch.cuda.empty_cache()
+    launches = _delta(c0, dict(bf.LAUNCHES))
+    for k in ('rfft_axis_p', 'irfft_axis_p', 'rfft_axis_p_f64',
+              'irfft_axis_p_f64'):
+        _check(launches.get(k, 0) > 0, f"r2r kinds: {k} not launched")
+    return rows, launches
+
+
+def _lib_r2c_c2r():
+    """``rfft_axis_p``/``irfft_axis_p`` as torch.fft (cuFFT) calls, with
+    their ``trunc``, ``scale`` and Hermitian pad: the r2r plans'
+    yardstick, the same glue around the library's FFT (here only)."""
+    from mpi4py_fft_torch.libfft import truncate_planar
+
+    def r2c(x, axis, hext=None, scale=None, trunc=None):
+        F = torch.fft.rfft(x, dim=axis)
+        p = torch.stack([F.real, F.imag])
+        del F
+        if trunc is not None:
+            p = truncate_planar(p, 1 + axis, int(trunc), hermitian=True)
+        return p if scale is None else p * scale
+
+    def c2r(p, axis, n, scale=None):
+        y = torch.fft.irfft(torch.complex(p[0], p[1]), n=n, dim=axis,
+                            norm='forward')
+        return y if scale is None else y * scale
+    return r2c, c2r
+
+
+@contextlib.contextmanager
+def _lib_path(bf):
+    """Run the port's pipeline with B and C replaced by torch.fft calls
+    (``_lib_r2c_c2r``)."""
+    saved = bf.rfft_axis_p, bf.irfft_axis_p
+    bf.rfft_axis_p, bf.irfft_axis_p = _lib_r2c_c2r()
+    try:
+        yield
+    finally:
+        bf.rfft_axis_p, bf.irfft_axis_p = saved
+
+
+def _r2r_input(dev, shape):
+    """The r2r plans' input: float32 values from a seed, on the card."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 90 + shape[0])
+    return torch.rand(shape, generator=g, device=dev) - 0.5
+
+
+def _r2r_plan_ref(A, plan, nrows):
+    """Per slab of 64 rows of axis 1: the plan's forward in float64 on the
+    host from ``A``, scipy's dctn(type=3) of the input on axes 1 and 2:
+    the rfft on axis 0 cut to ``nrows`` rows, times the plan's
+    normalization."""
+    import scipy.fft
+    M = float(np.prod([o.M for o in plan.xfftn]))
+    for j in range(0, A.shape[1], 64):
+        F = scipy.fft.rfft(A[:, j:j + 64], axis=0, workers=-1)[:nrows] * M
+        yield j, np.stack([F.real, F.imag])
+
+
+def _r2r_plan(dev, bf, dtype, padded, x32, A, save=None):
+    """The transforms example's plan on one rank, explicit axes:
+    ``PFFT(None, (R2R_N,)*3, axes=((0,), (1, 2)), transforms={(1, 2):
+    (dctn type 3, idctn type 3)})`` (``padding=[1.5, 1, 1]`` for its
+    twin) through ``forward.fn_p``/``backward.fn_p`` on ``x32`` (at
+    float64 for 'd'): the forward held slab by slab against the float64
+    host reference (from ``A``, the input's dctn on the host), the round
+    trip (the twin: forward(backward(y)) against y); ms, launches, peak
+    memory, ``stage_times`` each way, the bound and the torch.fft
+    yardstick.  ``save``: a file for the forward's result."""
+    import functools
+    from mpi4py_fft_torch import PFFT, fftw
+    from mpi4py_fft_torch.utils import profiling
+    n = R2R_N
+    tol = PIPE_TOL64 if dtype == 'd' else PIPE_TOL
+    dct = (functools.partial(fftw.dctn, type=3),
+           functools.partial(fftw.idctn, type=3))
+    kw = dict(padding=[1.5, 1.0, 1.0]) if padded else {}
+    fft = PFFT(None, (n,) * 3, axes=((0,), (1, 2)), dtype=dtype,
+               transforms={(1, 2): dct}, **kw)
+    m = fft.global_shape(False)[0]
+    nh = fft.global_shape(True)[0]
+    x = x32.double() if dtype == 'd' else x32
+    it = x.element_size()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    c0 = dict(bf.LAUNCHES)
+    y = fft.forward.fn_p(x)
+    torch.cuda.synchronize()
+    c1 = dict(bf.LAUNCHES)
+    fwd_peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+    held_b = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    z = fft.backward.fn_p(y)
+    torch.cuda.synchronize()
+    c2 = dict(bf.LAUNCHES)
+    bwd_peak = (torch.cuda.max_memory_allocated() - held_b) / 1e9
+    what = f"r2r plan '{dtype}'{' padded' if padded else ''}"
+    _check(tuple(y.shape) == (2, nh, n, n) and tuple(z.shape) == (m, n, n),
+           f"{what}: shapes {tuple(y.shape)}, {tuple(z.shape)}")
+    num = den = 0.0
+    for j, r in _r2r_plan_ref(A, fft, nh):
+        d = (y.narrow(2, j, r.shape[2]).double()
+             - torch.from_numpy(r).to(dev))
+        num += float((d * d).sum())
+        den += float(np.sum(r * r))
+    err_y = math.sqrt(num / den)
+    if padded:
+        err_z, _ = _rel(fft.forward.fn_p(z), y)
+    else:
+        err_z, _ = _rel(z, x)
+    _check(bool(torch.isfinite(y).all()) and bool(torch.isfinite(z).all())
+           and max(err_y, err_z) <= tol,
+           f"{what}: forward {err_y:.3e}, round trip {err_z:.3e} > {tol}")
+    del z
+    if save:
+        np.save(save, y.cpu().numpy())
+    t_f = _median_ms(lambda: fft.forward.fn_p(x), reps=5, warm=1)
+    t_b = _median_ms(lambda: fft.backward.fn_p(y), reps=5, warm=1)
+    stages = {}
+    for d, tr, inp in (('fwd', fft.forward, x), ('bwd', fft.backward, y)):
+        st = profiling.stage_times(tr, inp, reps=5)
+        stages[d] = {k: v * 1e3 for k, v in st.items()
+                     if not k.startswith('_')}
+        del st
+    c3 = dict(bf.LAUNCHES)
+    with _lib_path(bf):
+        yl = fft.forward.fn_p(x)
+        err_l, _ = _rel(yl, y)
+        del yl
+        lib_f = _median_ms(lambda: fft.forward.fn_p(x), reps=5, warm=1)
+        lib_b = _median_ms(lambda: fft.backward.fn_p(y), reps=5, warm=1)
+    _check(dict(bf.LAUNCHES) == c3 and err_l <= tol,
+           f"{what}: the torch.fft yardstick launched a kernel or differs "
+           f"({err_l:.3e})")
+    # each pass reads and writes its tensor once: the two DCT passes on
+    # the (m, n, n) real volume, the r2c on axis 0 into (2, nh, n, n)
+    nbytes = 2 * 2 * m * n * n * it + m * n * n * it + 2 * nh * n * n * it
+    flops = 2 * m * n * 2.5 * n * math.log2(n) + n * n * 2.5 * m * \
+        math.log2(m)
+    bound, by = _bound_ms(nbytes, flops, dtype == 'd')
+    del y
+    torch.cuda.empty_cache()
+    return {'dtype': dtype, 'padding': kw.get('padding'),
+            'shape': [n] * 3, 'physical': [m, n, n],
+            'rel_l2_fwd_vs_host': err_y, 'rel_l2_round_trip': err_z,
+            'launches_fwd': _delta(c0, c1), 'launches_bwd': _delta(c1, c2),
+            'fwd_ms': t_f, 'bwd_ms': t_b, 'bound_ms_each_way': bound,
+            'bound_by': by, 'fwd_peak_above_input_gb': fwd_peak,
+            'bwd_peak_above_input_gb': bwd_peak, 'stage_times_ms': stages,
+            'torch_fft_yardstick': {'fwd_ms': lib_f, 'bwd_ms': lib_b,
+                                    'rel_l2_vs_kernels': err_l}}
+
+
+def r2r_example_rank(comm, n, ref):
+    """One rank of phase r2r's 2 gloo ranks (started by
+    ``mpi4py_fft_torch.dryrun.launch``): the ported transforms example at
+    its own N = 18 and at ``n`` 'd', and the darray example, each with
+    what it printed; then the example's collapsed slab plan ``fft`` at
+    ``n`` 'd' on this rank's block of the one-rank plan's input, held
+    against the one-rank forward (the file ``ref``), its round trip,
+    launches and ms (with every exchange timed whole, and without)."""
+    import io
+    from mpi4py_fft_torch.examples import darray, transforms
+    from mpi4py_fft_torch.ops import butterfly as bf
+    dev = comm.device
+    out = {'rank': comm.Get_rank(), 'backend': comm.backend,
+           'device': str(dev)}
+    for key, run in (('transforms_18', lambda: transforms.run(comm)),
+                     (f'transforms_{n}',
+                      lambda: transforms.run(comm, N=n, dtype='d')),
+                     ('darray', lambda: darray.run(comm))):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res = run()
+        out[key] = {'message': res['message'], 'printed': buf.getvalue(),
+                    'seconds': time.perf_counter() - t0}
+    fft = transforms.plans(comm, n, 'd')[0]
+    xl = _r2r_input(dev, (n,) * 3).double()[fft.local_slice(False)]
+    xl = xl.contiguous()
+    torch.cuda.empty_cache()
+    bf.reset_launches()
+    y = fft.forward.fn_p(xl)
+    torch.cuda.synchronize()
+    c1 = dict(bf.LAUNCHES)
+    z = fft.backward.fn_p(y)
+    torch.cuda.synchronize()
+    c2 = dict(bf.LAUNCHES)
+    refb = _block_ref(ref, (slice(None),) + fft.local_slice(True), dev)
+    err_y, mx_y = _rel(y, refb)
+    del refb
+    err_z, _ = _rel(z, xl)
+    finite = bool(torch.isfinite(y).all()) and bool(torch.isfinite(z).all())
+    del z
+    ms_f, ms_f_t, ex_f = _timed_with_exchanges(lambda: fft.forward.fn_p(xl))
+    ms_b, ms_b_t, ex_b = _timed_with_exchanges(lambda: fft.backward.fn_p(y))
+    out.update({
+        'axes': [list(a) for a in fft.axes], 'executor': fft.executor,
+        'block_in': [int(v) for v in fft.local_shape(False)],
+        'block_out': [int(v) for v in fft.local_shape(True)],
+        'rel_l2_fwd_vs_one_rank': err_y, 'max_abs_fwd_vs_one_rank': mx_y,
+        'rel_l2_round_trip': err_z, 'finite': finite,
+        'launches_fwd': _delta({k: 0 for k in c1}, c1),
+        'launches_bwd': _delta(c1, c2), 'fwd_ms': ms_f, 'bwd_ms': ms_b,
+        'fwd_ms_exchanges_timed': ms_f_t, 'exchange_ms_fwd': sum(ex_f),
+        'bwd_ms_exchanges_timed': ms_b_t, 'exchange_ms_bwd': sum(ex_b),
+        'peak_gb': torch.cuda.max_memory_allocated(dev) / 1e9})
+    return out
+
+
+def phase_r2r(dev, bf, holds):
+    """r2r on the card: every kind on the kernels (``_r2r_kinds``), the
+    transforms example's plans on one rank at R2R_N^3 'd' and 'f', plain
+    and padded (``_r2r_plan``), then the ported transforms and darray
+    examples on 2 gloo ranks, each rank's block of the example's plan
+    against the one-rank forward."""
+    import scipy.fft
+    from mpi4py_fft_torch import dryrun
+    t0 = time.perf_counter()
+    kinds, kind_launches = _r2r_kinds(dev, bf, holds)
+    n = R2R_N
+    refdir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          'build', 'r2r_ref')
+    os.makedirs(refdir, exist_ok=True)
+    plans = []
+    try:
+        ref = os.path.join(refdir, 'fwd_d.npy')
+        for padded in (False, True):
+            x32 = _r2r_input(dev, (3 * n // 2 if padded else n, n, n))
+            A = scipy.fft.dctn(x32.double().cpu().numpy(), type=3,
+                               axes=(1, 2), workers=-1)
+            for dtype in ('d', 'f'):
+                plans.append(_r2r_plan(
+                    dev, bf, dtype, padded, x32, A,
+                    save=ref if dtype == 'd' and not padded else None))
+            del x32, A
+            torch.cuda.empty_cache()
+        two = dryrun.launch(2, 'chip_smoke:r2r_example_rank',
+                            {'n': n, 'ref': ref}, device='cuda',
+                            backend='gloo', timeout=DIST_TIMEOUT)
+    finally:
+        shutil.rmtree(refdir, ignore_errors=True)
+    for r in two:
+        for key in ('transforms_18', f'transforms_{n}', 'darray'):
+            msg = r[key]['message']
+            _check(msg.endswith('demo OK') and r[key]['printed'] ==
+                   (msg + '\n' if r['rank'] == 0 else ''),
+                   f"2 ranks, rank {r['rank']}: {key} {r[key]}")
+        _check(r['finite'] and r['executor'] == 'shard_map'
+               and r['axes'] == [[0], [1, 2]]
+               and max(r['rel_l2_fwd_vs_one_rank'],
+                       r['rel_l2_round_trip']) <= PIPE_TOL64,
+               f"2 ranks, rank {r['rank']}: the example's plan {r}")
+        _check(r['launches_fwd'].get('rfft_axis_p_f64', 0) > 0
+               and r['launches_bwd'].get('irfft_axis_p_f64', 0) > 0,
+               f"2 ranks, rank {r['rank']}: launches {r}")
+    _emit({'phase': 'r2r', 'seconds': time.perf_counter() - t0,
+           'card': _smi(), 'kinds': kinds, 'kinds_launches': kind_launches,
+           'plans': plans, 'gloo_2_ranks_examples': two,
+           'exchanges': 'gloo on CUDA tensors, through host memory, both '
+                        'ranks on one card'})
 
 
 def _j_flops(lines, N):
@@ -3014,6 +3417,8 @@ def main(argv=None):
     marks['any_extent_path_s'] = time.perf_counter() - t_start
     phase_dist(dev, bf)
     marks['dist_s'] = time.perf_counter() - t_start
+    phase_r2r(dev, bf, holds)
+    marks['r2r_s'] = time.perf_counter() - t_start
     launches = dict(bf.LAUNCHES)
     _check(set(launches) == set(KERNELS), f"counters {sorted(launches)}")
     for name, c in launches.items():
@@ -3049,8 +3454,8 @@ def main(argv=None):
                 kernels[-1][extra] = t[extra]
     _emit({'kernels': kernels + probe_rows})
     # seconds from the start at the end of the planar phases (3-10), the
-    # reference-API phases (11-15), the any-extent phases (19-22), times
-    # and times64, and times_any (the probes take the rest)
+    # reference-API phases (11-15), the any-extent phases (19-22), dist,
+    # r2r, times and times64, and times_any (the probes take the rest)
     _emit({'phase': 'done', 'seconds': time.perf_counter() - t_start,
            'marks': marks})
     print(_smi(), flush=True)

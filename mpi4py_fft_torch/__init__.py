@@ -17,6 +17,12 @@ dry run on N ranks):
   the FFTW-style planners (``fftw``, ``fftlib``): c2c and r2c, float32
   and float64, with 3/2-rule padding, whose padded c2c stages run the
   fused dealiasing kernel ``fft_axis_tp``;
+* the r2r transforms (``ops/core.py``): DCT/DST I-IV, DHT and R2HC/HC2R
+  through the planners ``dctn``/``idctn``/``dstn``/``idstn``, ``FFT``
+  with r2r kinds and ``PFFT(..., transforms=...)`` on one and several
+  ranks, glue around the r2c/c2r kernels B and C;
+* per-stage profiling (``utils/profiling.py``: ``trace``, ``annotate``,
+  ``Timer``, ``stage_times``);
 * the per-shard executors of :class:`PFFT` and :class:`PlanarPFFT` on
   several ranks, each exchange one ``all_to_all_single`` over the group
   of the swapped axes, and ``DistArray.redistribute`` between pencils;
@@ -35,7 +41,9 @@ dry run on N ranks):
 * the JAX package's TPU probes (``scripts/tpu_*.py``) as on-card probes
   (``mpi4py_fft_torch.probes``) on the probe kernels of ``ops/probes.py``;
 * the spectral DNS examples (``examples/spectral_dns_solver.py`` on
-  ``PFFT``, ``examples/spectral_dns_planar.py`` on ``PlanarPFFT``).
+  ``PFFT``, ``examples/spectral_dns_planar.py`` on ``PlanarPFFT``), and
+  the ``transforms`` and ``darray`` examples on N ranks
+  (``examples/transforms.py``, ``examples/darray.py``).
 """
 import sys as _sys
 

@@ -417,7 +417,7 @@ class FFT(FFTBase):
         """Planar forward stage: transform, truncation, normalization
         (pipeline form of :meth:`forward_fn`)."""
         assert not self._host_backend
-        if self._padded:
+        if self._padded and self.output_planar:
             ax = self.axes[-1]
             Nt = self.forward.output_array.shape[ax]
             sc = float(self.M) if normalize else None
@@ -432,9 +432,17 @@ class FFT(FFTBase):
         y = self.fwd.fn_p(p, normalize=False)
         if self._padded:
             axis = self.axes[-1]
-            y = truncate_planar(y, 1 + axis,
-                                self.forward.output_array.shape[axis],
-                                hermitian=self.real_transform)
+            if self.output_planar:
+                y = truncate_planar(y, 1 + axis,
+                                    self.forward.output_array.shape[axis],
+                                    hermitian=self.real_transform)
+            else:
+                # a padded r2r stage: real data, as the JAX package
+                y = truncate_spectral(
+                    y, self._stage_shape(y.shape,
+                                         self.forward.output_array.shape,
+                                         axis),
+                    axis, self.real_transform)
         if normalize:
             y = y * self.M
         return y
@@ -443,7 +451,7 @@ class FFT(FFTBase):
         """Planar backward stage: zero-padding, transform (pipeline form
         of :meth:`backward_fn`)."""
         assert not self._host_backend
-        if self._padded:
+        if self._padded and self.output_planar:
             ax = self.axes[-1]
             Np = self.bck.input_array.shape[ax]
             sc = float(self.M) if normalize else None
@@ -457,6 +465,13 @@ class FFT(FFTBase):
                 # kernel's read (a truncated spectrum is taken)
                 return butterfly.irfft_axis_p(p, ax, N0, scale=sc)
             p = pad_planar(p, 1 + ax, Np, hermitian=self.real_transform)
+        elif self._padded:
+            # a padded r2r stage: real data, as the JAX package
+            axis = self.axes[-1]
+            p = pad_spectral(
+                p, self._stage_shape(p.shape, self.bck.input_array.shape,
+                                     axis),
+                axis, self.real_transform)
         y = self.bck.fn_p(p, normalize=False)
         if normalize:
             y = y * self.M

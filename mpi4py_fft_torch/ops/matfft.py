@@ -146,10 +146,14 @@ def _dtype_str(dtype):
 
 @functools.lru_cache(maxsize=None)
 def _const(table, args, dtype, device):
-    """One numpy table (``_twiddle``, the ``_wblock`` of a DFT matrix, or
-    a Bluestein array) as a tensor, uploaded once per dtype and device."""
+    """One numpy table (``_twiddle``, the ``_wblock`` of a DFT matrix, a
+    Bluestein array, or ``table(*args, dtype_name)`` for a callable
+    ``table``, as ``core``'s r2r tables) as a tensor, uploaded once per
+    dtype and device."""
     name = _dtype_str(dtype)
-    if table == 'twiddle':
+    if callable(table):
+        a = table(*args, name)
+    elif table == 'twiddle':
         a = _twiddle(*args, name)
     elif table == 'wblock':
         a = _wblock(_dft_matrix(*args, name))

@@ -18,8 +18,8 @@ directory of the caller's (and copies what is built already),
 ``forget_wisdom``/``cleanup`` drop the loaded kernels.
 
 Precision tiers: float32 ('F') and float64 ('D'); the reference's 'G'
-(long double) is absent, as in the JAX package.  r2r kinds (DCT/DST/DHT)
-raise NotImplementedError until ROADMAP Queue 1 item 6.
+(long double) is absent, as in the JAX package.  A tuple of r2r kinds
+(DCT/DST I-IV, DHT, R2HC/HC2R), one an axis, runs ``core.r2r``.
 """
 import shutil
 from pathlib import Path
@@ -27,19 +27,13 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from . import _build, butterfly, fft2stage, matfft
+from . import _build, butterfly, core, fft2stage, matfft
 from .kinds import C2C_FORWARD, C2C_BACKWARD, R2C, C2R, R2R_KINDS
 from ..utils import resolve_device
 
 __all__ = ['FFT', 'get_planned_FFT', 'fftlib', 'get_fftw_lib',
            'export_wisdom', 'import_wisdom', 'forget_wisdom',
            'set_timelimit', 'cleanup']
-
-
-def _no_r2r(what):
-    return NotImplementedError(
-        f"{what}: the r2r transforms (DCT/DST I-IV, DHT) arrive with ROADMAP "
-        f"Queue 1 item 6")
 
 
 def _host(a):
@@ -88,12 +82,16 @@ class FFT(object):
                     len(set(kind)) == 1:
                 kind = kind[0]
             else:
-                assert all(k in R2R_KINDS for k in kind), kind
-                raise _no_r2r('FFT')
+                if not all(k in R2R_KINDS for k in kind):
+                    raise ValueError(f"unknown r2r kinds {kind}")
+                if len(kind) != len(axes):
+                    raise ValueError(f"{len(kind)} r2r kinds for "
+                                     f"{len(axes)} axes")
+                kind = tuple(kind)
         else:
             kind = int(kind)
-        if kind not in (C2C_FORWARD, C2C_BACKWARD, R2C, C2R):
-            raise ValueError(f"unknown transform kind {kind}")
+            if kind not in (C2C_FORWARD, C2C_BACKWARD, R2C, C2R):
+                raise ValueError(f"unknown transform kind {kind}")
         self.axes = axes
         self.kind = kind
         self.flags = tuple(flags) if np.ndim(flags) else (int(flags),)
@@ -120,7 +118,9 @@ class FFT(object):
     def fn_p(self, p, normalize=False):
         """This plan applied to the pipeline form ``p`` of its input;
         returns the pipeline form of its output."""
-        if self.kind in (C2C_FORWARD, C2C_BACKWARD):
+        if isinstance(self.kind, tuple):
+            y = core.r2r(p, self.axes, self.kind)
+        elif self.kind in (C2C_FORWARD, C2C_BACKWARD):
             y = matfft.fftn_p(p, self.axes,
                               forward=(self.kind == C2C_FORWARD))
         elif self.kind == R2C:
@@ -160,7 +160,9 @@ class FFT(object):
         """Print the passes this plan runs."""
         names = {C2C_FORWARD: 'c2c forward', C2C_BACKWARD: 'c2c backward',
                  R2C: 'r2c', C2R: 'c2r'}
-        print(f"{names[self.kind]} of {self.input_array.shape} "
+        name = f"r2r {self.kind}" if isinstance(self.kind, tuple) \
+            else names[self.kind]
+        print(f"{name} of {self.input_array.shape} "
               f"{self.input_array.dtype} over axes {self.axes} on "
               f"{self.device}")
 

@@ -6,12 +6,12 @@ bound to host buffers; it does not compute the transform.  The kind and
 normalization conventions are FFTW's.  Every planner takes ``device=``,
 where the plan runs when it is called: CUDA unless the caller asks for
 the CPU.  The r2r planners (``dctn``, ``idctn``, ``dstn``, ``idstn``)
-raise NotImplementedError until ROADMAP Queue 1 item 6.
+plan one FFTW r2r kind on every axis (``core.r2r``).
 """
 import numpy as np
 
 from ..utils import aligned, aligned_like, get_alignment
-from .plan import get_planned_FFT, _no_r2r
+from .plan import get_planned_FFT
 from .kinds import (
     FFTW_FORWARD, FFTW_BACKWARD, R2C, C2R,
     FFTW_REDFT00, FFTW_REDFT01, FFTW_REDFT10, FFTW_REDFT11,
@@ -125,32 +125,52 @@ def irfftn(input_array, s=None, axes=(-1,), threads=1,
                            threads, flags, 1.0 / M, device=device)
 
 
+def _r2r_plan(input_array, axes, kind_map, type, threads, flags,
+              output_array, device):
+    """Plan one r2r kind, ``kind_map[type]``, on every axis of ``axes``
+    (JAX xfftn.py:115-125)."""
+    axes = _norm_axes(axes, input_array.ndim)
+    assert input_array.dtype.char in 'fd'
+    if output_array is None:
+        output_array = aligned_like(input_array)
+    else:
+        assert input_array.shape == output_array.shape
+    kind = [kind_map[type]] * len(axes)
+    M = get_normalization(kind, input_array.shape, axes)
+    return get_planned_FFT(input_array, output_array, axes, kind,
+                           threads, flags, M, device=device)
+
+
 def dctn(input_array, s=None, axes=(-1,), type=2, threads=1,
          flags=(FFTW_MEASURE,), output_array=None, device=None):
-    """Plan a discrete cosine transform (reference: fftw/xfftn.py:328-398):
-    not ported yet."""
-    raise _no_r2r('dctn')
+    """Plan a discrete cosine transform of type 1-4
+    (reference: fftw/xfftn.py:328-398)."""
+    return _r2r_plan(input_array, axes, dct_type, type, threads, flags,
+                     output_array, device)
 
 
 def idctn(input_array, s=None, axes=(-1,), type=2, threads=1,
           flags=(FFTW_MEASURE,), output_array=None, device=None):
-    """Plan an inverse discrete cosine transform
-    (reference: fftw/xfftn.py:400-470): not ported yet."""
-    raise _no_r2r('idctn')
+    """Plan an inverse discrete cosine transform of type 1-4
+    (reference: fftw/xfftn.py:400-470)."""
+    return _r2r_plan(input_array, axes, idct_type, type, threads, flags,
+                     output_array, device)
 
 
 def dstn(input_array, s=None, axes=(-1,), type=2, threads=1,
          flags=(FFTW_MEASURE,), output_array=None, device=None):
-    """Plan a discrete sine transform (reference: fftw/xfftn.py:472-542):
-    not ported yet."""
-    raise _no_r2r('dstn')
+    """Plan a discrete sine transform of type 1-4
+    (reference: fftw/xfftn.py:472-542)."""
+    return _r2r_plan(input_array, axes, dst_type, type, threads, flags,
+                     output_array, device)
 
 
 def idstn(input_array, s=None, axes=(-1,), type=2, threads=1,
           flags=(FFTW_MEASURE,), output_array=None, device=None):
-    """Plan an inverse discrete sine transform
-    (reference: fftw/xfftn.py:544-614): not ported yet."""
-    raise _no_r2r('idstn')
+    """Plan an inverse discrete sine transform of type 1-4
+    (reference: fftw/xfftn.py:544-614)."""
+    return _r2r_plan(input_array, axes, idst_type, type, threads, flags,
+                     output_array, device)
 
 
 def ihfftn(input_array, s=None, axes=(-1,), threads=1,

@@ -21,8 +21,10 @@ package falls back to it on a one-device mesh.  On several ranks
 ``padded_local_shape``, each rotation is one ``all_to_all_single``
 (``Transfer.forward_start``), chunked to overlap the stage after it
 (``parallel/overlap.py``), each stage cuts its axes back to their true
-extents first, and the output is this rank's block.  Not ported yet: r2r
-``transforms=`` (ROADMAP Queue 1 item 6).
+extents first, and the output is this rank's block.  ``transforms=``
+maps an axes group to its own pair of planners (an r2r kind an axis:
+``fftw.dctn``/``idctn`` and friends); such a stage keeps real data, so
+the exchanges around it move real blocks, with no planar axis.
 """
 import numpy as np
 import torch
@@ -30,7 +32,7 @@ import torch
 from ..distarray import DistArray
 from ..libfft import FFT
 from ..ops import matfft
-from ..ops.plan import _host, _no_r2r
+from ..ops.plan import _host
 from ..utils import torch_dtype
 from . import overlap
 from .comm import COMM_WORLD, DeviceComm, plan_device
@@ -329,8 +331,6 @@ class PFFT(object):
         if executor not in (None, 'auto', 'gspmd', 'shard_map'):
             raise ValueError(f"unknown executor {executor!r}")
         self._a2a_cfg = overlap.chunk_count(kw.pop('a2a_chunks', None))
-        if transforms:
-            raise _no_r2r('PFFT transforms=')
         if shape is None:
             assert darray is not None
             shape = darray.pencil.shape
@@ -438,14 +438,14 @@ class PFFT(object):
         # costs one pencil rotation and one serial transform
         def serial_fft(cur_shape, group):
             return FFT(cur_shape, group, dtype, padding, backend=backend,
-                       device=self.device, **kw)
+                       transforms=transforms, device=self.device, **kw)
 
         def spectral_fixup(xfftn, group, subcomm):
             """After a stage that changes the global geometry (r2c
             halving, dealiasing truncation), the chain goes on with the
             transformed extents and dtype; returns the pencil the next
-            rotation starts from, or None (reference:
-            mpifft.py:319-322/332-335)."""
+            rotation starts from, or None where nothing changed, as after
+            an r2r stage (reference: mpifft.py:319-322/332-335)."""
             nonlocal shape, dtype
             out = xfftn.forward.output_array
             if shape[group[-1]] == out.shape[group[-1]]:

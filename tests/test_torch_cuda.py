@@ -267,3 +267,34 @@ def test_probe_kernels_on_cuda(card):
         tp.block_copy(x.half(), (2, 1, 64, 64))
     with pytest.raises(ValueError, match='contiguous'):
         tp.move(x.transpose(2, 3), 1, 'even')
+
+
+@pytest.mark.cuda
+def test_r2r_on_cuda(card):
+    """Every r2r kind on CUDA tensors along a whole-line and an inner axis:
+    B and C launch (counted) and the result is the CPU plain path's
+    (2e-5 f32 and 1e-12 f64 of max abs over max(1, largest value)); a
+    PFFT with ``transforms=`` runs on the card by default."""
+    import functools
+    from mpi4py_fft_torch import PFFT, fftw
+    from mpi4py_fft_torch.ops import core, kinds as K
+    for dtype, tol in ((torch.float32, 2e-5), (torch.float64, 1e-12)):
+        x = torch.randn((4, 64, 64), dtype=dtype)
+        sfx = '_f64' if dtype == torch.float64 else ''
+        c0 = dict(tb.LAUNCHES)
+        for kind in K.R2R_KINDS:
+            for axis in (1, 2):
+                got = core.r2r(x.to(card), (axis,), (kind,)).cpu()
+                ref = core.r2r(x, (axis,), (kind,))
+                err = float((got - ref).abs().max()) / \
+                    max(1.0, float(ref.abs().max()))
+                assert err < tol, (kind, axis, dtype, err)
+        assert tb.LAUNCHES['rfft_axis_p' + sfx] > c0['rfft_axis_p' + sfx]
+        assert tb.LAUNCHES['irfft_axis_p' + sfx] > c0['irfft_axis_p' + sfx]
+    dct = (functools.partial(fftw.dctn, type=3),
+           functools.partial(fftw.idctn, type=3))
+    fft = PFFT(None, (16, 16, 16), axes=((0,), (1, 2)), dtype='d',
+               transforms={(1, 2): dct})
+    assert fft.device.type == 'cuda'
+    u = torch.rand((16, 16, 16), dtype=torch.float64, device=card)
+    assert _rel(fft.backward.fn_p(fft.forward.fn_p(u)), u) <= 2e-10

@@ -15,6 +15,7 @@ largest value: 5e-5 f32, 2e-10 f64; chunked against unchunked (a2a_chunks
 2 against 1) bit for bit.  tests/test_torch_dist_pfft.py runs the PFFT
 feature matrix on 8 ranks.
 """
+import functools
 import os
 import pickle
 
@@ -31,6 +32,7 @@ from mpi4py_fft_tpu.parallel.pencil import Subcomm as JSubcomm
 from mpi4py_fft_tpu.parallel.planar import PlanarPFFT as JPlanarPFFT
 
 from mpi4py_fft_torch import dryrun, PFFT, PlanarPFFT
+from mpi4py_fft_torch import fftw as tfftw
 from mpi4py_fft_torch.parallel import multihost
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -136,7 +138,20 @@ def group_cases(n):
                 'X': rand(s, dt, 50 + len(s) + ord(dt))})
     else:
         cases['refusals'] = ('refusals', {})
+        cases['examples'] = ('examples', {})
+        cases['staged'] = ('staged', {
+            'shape': (18, 18, 18), 'dtype': 'd',
+            'kw': dict(axes=((0,), (1, 2)), grid=(-1,),
+                       transforms=dct3(tfftw)),
+            'X': rand((18, 18, 18), 'd', 80)})
     return cases
+
+
+def dct3(fftw):
+    """The transforms example's dict: DCT-III on axes 1 and 2, with the
+    planners of ``fftw`` (the port's or the JAX package's)."""
+    return {(1, 2): (functools.partial(fftw.dctn, type=3),
+                     functools.partial(fftw.idctn, type=3))}
 
 
 @pytest.fixture(scope='module')
@@ -449,3 +464,40 @@ def test_one_rank_group_in_process():
     finally:
         multihost.finalize()
     assert not COMM_WORLD.distributed
+
+
+def test_examples_on_2_ranks(groups):
+    """The ported transforms and darray examples on 2 ranks: each rank
+    returns the OK line and rank 0 prints it; the transforms example's
+    collapse on a slab grid keeps two stages, as the JAX example's on a
+    mesh of several devices."""
+    for r, got in enumerate(groups[2][1]):
+        for name, line in (('transforms', 'transforms demo OK'),
+                           ('darray', 'darray demo OK')):
+            res, printed = got['examples'][name]
+            assert res['message'] == line and res['rank'] == r
+            assert res['ranks'] == 2
+            assert printed == (line + '\n' if r == 0 else '')
+        assert got['examples']['transforms'][0]['axes'] == [[0], [1, 2]]
+
+
+def test_stage_times_on_2_ranks_vs_jax(groups):
+    """stage_times of the transforms example's r2r plan on 2 ranks (real
+    blocks through the exchange): each rank times its exchange, the staged
+    chain equals the fused transform bit for bit, and the block is the
+    JAX PFFT's on 2 devices."""
+    cases, res = groups[2]
+    X = cases['staged'][1]['X']
+    jf = jpkg.PFFT(jcomm(2), (18, 18, 18), axes=((0,), (1, 2)), grid=(-1,),
+                   transforms=dct3(jpkg.fftw), dtype='d')
+    y = np.asarray(jf.forward(X.copy()))
+    for r, got in enumerate(res):
+        g = got['staged']
+        assert g['keys'] == ['fused_total', 'stage0', 'stage1',
+                             'transpose0']
+        assert g['equal']
+        assert g['y_slice'] == tuple(
+            (s.start, s.stop) for s in jf.local_slice(True, r))
+        # the fused result is planar: (2,) + the complex block
+        assert close(g['y'][0] + 1j * g['y'][1], y[sl(g['y_slice'])],
+                     TOL['d'])

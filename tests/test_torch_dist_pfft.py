@@ -2,7 +2,9 @@
 the JAX package's per-shard executor on the 8-device CPU mesh.
 
 The seven cases of tests/test_shmap_executor.py:47-57 (r2c, c2c, uneven
-extents, a 2-D slab, 4-D on a (2, 4) grid, dealiasing, collapse groups),
+extents, a 2-D slab, 4-D on a (2, 4) grid, dealiasing, collapse groups)
+and two plans with r2r stages (the 5-D plan of tests/test_mpifft.py:
+200-233, the transforms example's collapsed slab plan),
 the pencils of the (2, 4) grid and two PlanarPFFT plans, run as in
 tests/test_torch_dist.py: one gloo group of 8 ranks
 (tests/torch_dist_worker.py, no JAX in it) runs every case on its
@@ -11,10 +13,13 @@ block is held against the ceil-div block of the JAX global result:
 max abs error over the largest value 2e-10 (float64), 5e-5 (float32),
 chunked against unchunked bit for bit.
 """
+import functools
+
 import numpy as np
 import pytest
 
 import mpi4py_fft_tpu as jpkg
+from mpi4py_fft_torch import fftw as tfftw
 from mpi4py_fft_tpu.parallel.pencil import Pencil as JPencil
 from mpi4py_fft_tpu.parallel.pencil import Subcomm as JSubcomm
 
@@ -33,12 +38,33 @@ CASES = [
     dict(shape=(16, 16, 16), dtype='d', kw=dict(padding=[1.5, 1.5, 1.5])),
     dict(shape=(12, 13, 14, 15), dtype='D',
          kw=dict(grid=(2, 4), collapse=True)),
+    # r2r stages, real blocks through the exchanges: the 5-D plan of
+    # tests/test_mpifft.py:200-233 (axis 0, 9 points over 8 ranks) and
+    # the transforms example's collapsed slab plan
+    dict(shape=(9, 10, 11, 12, 13), dtype='d',
+         kw=dict(axes=((0,), (1, 2), (3, 4)), grid=(-1,)),
+         r2r={(1, 2): 'dct', (3, 4): 'dst'}),
+    dict(shape=(18, 18, 18), dtype='d',
+         kw=dict(axes=None, collapse=True, grid=(-1,)),
+         r2r={(1, 2): 'dct'}),
 ]
 PLANAR = [((12, 13, 14), 'f', False), ((16, 16, 16), 'd', 1.5)]
 
 
 def case_name(i):
     return f'pfft8-{i}'
+
+
+def plan_kw(c, fftw):
+    """The case's plan keywords, its r2r dict (type-3 planners of
+    ``fftw``, the port's or the JAX package's) included."""
+    kw = dict(c.get('kw', {}))
+    if 'r2r' in c:
+        kw['transforms'] = {
+            axes: (functools.partial(getattr(fftw, f'{t}n'), type=3),
+                   functools.partial(getattr(fftw, f'i{t}n'), type=3))
+            for axes, t in c['r2r'].items()}
+    return kw
 
 
 def cases8():
@@ -48,7 +74,7 @@ def cases8():
         phys = tuple(int(m * f) for m, f in zip(c['shape'], pad))
         cases[case_name(i)] = ('pfft', {
             'shape': c['shape'], 'dtype': c['dtype'],
-            'kw': c.get('kw', {}), 'X': rand(phys, c['dtype'], 60 + i)})
+            'kw': plan_kw(c, tfftw), 'X': rand(phys, c['dtype'], 60 + i)})
     for i, (s, dt, p) in enumerate(PLANAR):
         phys = tuple(int(np.floor(m * p)) if p else m for m in s)
         real = np.float32 if dt in 'fF' else np.float64
@@ -71,7 +97,7 @@ def jpfft(i, X):
     if i not in _JPFFT:
         c = CASES[i]
         jf = jpkg.PFFT(jcomm(N), c['shape'], dtype=c['dtype'],
-                       **c.get('kw', {}))
+                       **plan_kw(c, jpkg.fftw))
         y = np.asarray(jf.forward(X.copy()))
         _JPFFT[i] = (jf, y, np.asarray(jf.backward(y.copy())))
     return _JPFFT[i]

@@ -227,8 +227,9 @@ def test_get_normalization_vs_jax():
 
 def test_fftw_surface():
     """The port's 'fftw' module: the JAX package's names, enums and
-    precision registry; r2r and the host torch planner raise, naming their
-    ROADMAP items."""
+    precision registry; the r2r planners plan their kind on every axis
+    (held against JAX in tests/test_torch_r2r.py); the host torch planner
+    raises, naming its ROADMAP item."""
     import mpi4py_fft_tpu.fftw as jfftw
     for name in ('fftn', 'ifftn', 'rfftn', 'irfftn', 'hfftn', 'ihfftn',
                  'dctn', 'idctn', 'dstn', 'idstn', 'get_normalization',
@@ -248,11 +249,13 @@ def test_fftw_surface():
     assert a.ctypes.data % 32 == 0 and a.shape == (3, 5)
     assert tfftw.get_alignment(a) == 32
     u = np.zeros((4, 8))
-    for name in ('dctn', 'idctn', 'dstn', 'idstn'):
-        with pytest.raises(NotImplementedError, match='Queue 1 item 6'):
-            getattr(tfftw, name)(u, device='cpu')
-    with pytest.raises(NotImplementedError, match='Queue 1 item 6'):
-        tfftw.FFT(u, u.copy(), (1,), [tfftw.FFTW_REDFT10], device='cpu')
+    for name, kind in (('dctn', tfftw.FFTW_REDFT10),
+                       ('idctn', tfftw.FFTW_REDFT01),
+                       ('dstn', tfftw.FFTW_RODFT10),
+                       ('idstn', tfftw.FFTW_RODFT01)):
+        assert getattr(tfftw, name)(u, device='cpu').kind == (kind,)
+    assert tfftw.FFT(u, u.copy(), (1,), [tfftw.FFTW_REDFT10],
+                     device='cpu').kind == (tfftw.FFTW_REDFT10,)
     with pytest.raises(NotImplementedError, match='Queue 1 item 8'):
         tlibfft.FFT((4, 8), (1,), 'd', backend='torch', device='cpu')
     import mpi4py_fft_torch.fftw.xfftn as tx

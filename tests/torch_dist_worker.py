@@ -8,6 +8,8 @@ it got to ``<out>/<rank>.pkl``: blocks, block slices and errors.  No JAX
 and nothing of the JAX package is imported here; the test holds the
 blocks against the JAX package's results.
 """
+import contextlib
+import io
 import pickle
 import sys
 
@@ -144,8 +146,36 @@ def refusals(comm):
     return got
 
 
+def staged(comm, shape, dtype, kw, X):
+    """``stage_times`` of a PFFT's forward on this rank's block of X:
+    its keys, the staged result against the fused one, and the block."""
+    from mpi4py_fft_torch.utils.profiling import stage_times
+    fft = PFFT(comm, shape, dtype=dtype, device='cpu', **kw)
+    x = torch.from_numpy(np.ascontiguousarray(X[fft.local_slice(False)]))
+    out = stage_times(fft.forward, x, reps=1)
+    return {'keys': sorted(k for k in out if not k.startswith('_')),
+            'equal': bool(torch.equal(out['_staged_result'],
+                                      out['_fused_result'])),
+            'y': out['_fused_result'].numpy(),
+            'y_slice': _slices(fft.local_slice(True))}
+
+
+def examples(comm):
+    """The transforms and darray examples' ``run`` on this group: what
+    each returns and what it printed."""
+    from mpi4py_fft_torch.examples import darray, transforms
+    out = {}
+    for mod in (transforms, darray):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            res = mod.run(comm)
+        out[mod.__name__.rsplit('.', 1)[1]] = (res, buf.getvalue())
+    return out
+
+
 KINDS = {'pencil': pencil, 'planar': planar, 'pfft': pfft,
-         'redistribute': redistribute, 'dns': dns, 'refusals': refusals}
+         'redistribute': redistribute, 'dns': dns, 'refusals': refusals,
+         'staged': staged, 'examples': examples}
 
 
 def run(comm, job, out):
