@@ -5,11 +5,13 @@ Run from the root of a checkout, on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
-Phases, run in the order 1-15, 19-22, 25, 26, 16-18, 23, 24; any
+Phases, run in the order 1-15, 19-22, 25-27, 16-18, 23, 24; any
 failure raises and the script exits non-zero:
 
 1. build     the kernels from ``mpi4py_fft_torch/ops/csrc`` with nvcc,
-             their ``ptxas`` lines, how many two-CTA clusters of the
+             the host-staging extension ``_hoststage`` from
+             ``native/hoststage.cpp`` with g++ (``utils/native.py``, its
+             seconds), the kernels' ``ptxas`` lines, how many two-CTA clusters of the
              pair kernel's cluster instance (N = 1536, 2048) the card
              holds at once (``cudaOccupancyMaxActiveClusters``, > 0),
              and the same for H's plane-holding kernel at 256 x 256 (a
@@ -258,6 +260,22 @@ failure raises and the script exits non-zero:
              printing its OK line, and each rank's block of the example's
              512^3 'd' plan against the one-rank forward (2e-10), with
              its launches and ms.
+27. io       snapshot IO (``mpi4py_fft_torch/io/``) and the host staging
+             of ``utils/native.py``: ``pack_block``/``unpack_block`` GB/s
+             on half of a 512^3 'd' host array beside numpy's slice copy
+             (bits held); ``PFFT(None, (512,)*3, dtype='d')`` forward
+             and backward of a seeded input (B64, A64, C64; round trip
+             2e-10), the input at steps 0 and 1 with the global slice
+             [:, 256, :] and the spectrum written to one HDF5 file (where
+             h5py is installed), ``generate_xdmf``, and the input to
+             NetCDF, each read back under another alignment bit for
+             bit; then 2 gloo ranks write the same input from their
+             blocks (HDF5 ``vds``, ``serial``, ``repack``; NetCDF in
+             turns), their datasets byte for byte the one-rank file's
+             (NetCDF: the whole file), no sidecar after ``repack``, and
+             the files read back on the 2 ranks and on one; ms and GB/s
+             of every write and read (device <-> host copies in, page
+             cache not flushed), file sizes, the disk's free space.
 
 ``python3 chip_smoke.py --times-any TREE`` runs only phases 1, 22 and 23,
 B's two rows and C's row of phase 16, A's, C64's, D's and A64's rows of
@@ -267,8 +285,8 @@ last line: run it for two trees in turns on one card (parent, change,
 change, parent) to compare H, I, J, A, B, C, C64, D, A64, E and E64 and
 the m3 plan at 'f', 'F' and 'd' between them.
 
-Phases 3 to 15, 19 to 22, 25 and 26 are the main path: the launch
-counters are set to 0 just before phase 3 and read after phase 26
+Phases 3 to 15, 19 to 22 and 25 to 27 are the main path: the launch
+counters are set to 0 just before phase 3 and read after phase 27
 (phases 16 to 18 run after it, as do times_any); the ranks of phases 25
 and 26 count their own launches.  The probe kernels' path is phase 24's
 modules, with their own counters.  Each phase prints one JSON line;
@@ -338,6 +356,11 @@ DIST_N = 512
 DIST_PFFT_N = 256
 DIST_M3_N = 512
 DIST_TIMEOUT = 420         # seconds for each launch of ranks
+# phase io: the 'd' PFFT whose input and spectrum it writes, NetCDF at
+# the same size (scipy's writer moves the whole file at each write: about
+# 2 s a 1 GiB record on the card), and the writes' global slice
+IO_N = 512
+IO_SLICE = (slice(None), IO_N // 2, slice(None))
 R2R_N = 512                # the r2r kinds' length and the r2r plans' N^3
 R2R_BATCH = 32             # the kinds' (R2R_BATCH, R2R_N, R2R_N) volume
 PROBE_N = 1024             # the probes' floors: the north star's 1024^3
@@ -486,9 +509,16 @@ class Holds:
 
 def phase_build():
     from mpi4py_fft_torch.ops import _build
+    from mpi4py_fft_torch.utils import native
     t0 = time.perf_counter()
     _build.load()
     secs = time.perf_counter() - t0
+    # the host-staging extension (g++, native/hoststage.cpp)
+    t0 = time.perf_counter()
+    _check(native.HAVE_NATIVE, "utils.native: no C++ compiler on PATH")
+    hoststage = native.build().name
+    native._hoststage()
+    host_secs = time.perf_counter() - t0
     ptxas = [ln.strip() for out in _build.LOG.values()
              for ln in out.splitlines()
              if 'registers' in ln or 'spill' in ln or 'Compiling' in ln]
@@ -504,6 +534,7 @@ def phase_build():
         planes[f'{shape[-2]}x{shape[-1]}'] = {'ctas_a_plane': k,
                                               'max_active': c}
     _emit({'phase': 'build', 'seconds': secs, 'ptxas': ptxas,
+           'hoststage': hoststage, 'hoststage_seconds': host_secs,
            'pair_max_active_clusters': clusters,
            'plane_max_active_clusters': planes})
     print(_smi(), flush=True)
@@ -2879,6 +2910,283 @@ def phase_r2r(dev, bf, holds):
                         'ranks on one card'})
 
 
+# -- phase io: snapshot IO and the host-staging engine ---------------------
+
+def _io_input(dev, n):
+    """Phase io's real n^3 float64 field, made from the seed on the card
+    (every rank makes the same one and takes its block)."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 27)
+    return torch.rand((n,) * 3, generator=g, device=dev,
+                      dtype=torch.float64)
+
+
+def _io_rate(fn, nbytes):
+    """ms of fn on the host clock, the card synchronised before and after
+    (so a write's device -> host copy and a read's host -> device copy
+    count), and GB/s of ``nbytes``, the bytes of the arrays it writes or
+    reads."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    return {'ms': 1e3 * s, 'gb_s': nbytes / s / 1e9, 'bytes': nbytes}
+
+
+def _other(alignment):
+    """An alignment other than ``alignment`` for a read back."""
+    return 0 if alignment != 0 else 1
+
+
+def _io_nbytes(u):
+    return math.prod(u.global_shape) * u.dtype.itemsize
+
+
+def _io_writes(f, u):
+    """Phase io's writes of ``u`` to the snapshot file ``f``: step 0 with
+    the global slice IO_SLICE, then step 1."""
+    nb = _io_nbytes(u)
+    return {'write_step0_with_slice': _io_rate(
+                lambda: f.write(0, {'u': [u, (u, IO_SLICE)]}),
+                nb + nb // u.global_shape[1]),
+            'write_step1': _io_rate(lambda: f.write(1, {'u': [u]}), nb)}
+
+
+def _io_read(path, u, alignment, name='u', step=1, ref=None):
+    """Read ``name`` at ``step`` into a DistArray like ``u`` under
+    ``alignment``; ms and GB/s, and the read block held bit for bit
+    against ``ref`` (u's block by default)."""
+    from mpi4py_fft_torch import DistArray
+    v = DistArray(u.global_shape, dtype=u.dtype, alignment=alignment,
+                  device=u.device)
+    out = _io_rate(lambda: v.read(path, name, step=step), _io_nbytes(u))
+    want = u.v if ref is None else ref[v.local_slice()]
+    _check(torch.equal(v.v, want),
+           f"{os.path.basename(path)}: {name} at step {step} read back "
+           f"under alignment {alignment} differs")
+    return out
+
+
+def _io_files(path):
+    """A snapshot file and its sidecars, with their sizes in bytes."""
+    import glob
+    return {os.path.basename(p): os.path.getsize(p)
+            for p in [path] + sorted(glob.glob(path + '.p*.h5'))}
+
+
+def _io_remove(path):
+    for name in _io_files(path):
+        os.remove(os.path.join(os.path.dirname(path), name))
+
+
+def _same_bytes(a, b, chunk=1 << 26):
+    with open(a, 'rb') as fa, open(b, 'rb') as fb:
+        while True:
+            x, y = fa.read(chunk), fb.read(chunk)
+            if x != y:
+                return False
+            if not x:
+                return True
+
+
+def _io_dsets_equal(a, b):
+    """The datasets of phase io's writes in two HDF5 files, byte for
+    byte."""
+    import h5py
+    names = ('u/3D/0', 'u/3D/1',
+             f'u/2D/slice_{IO_SLICE[1]}_slice/0')
+    with h5py.File(a, 'r') as fa, h5py.File(b, 'r') as fb:
+        return all(fa[k].shape == fb[k].shape and fa[k].dtype == fb[k].dtype
+                   and fa[k][()].tobytes() == fb[k][()].tobytes()
+                   for k in names)
+
+
+def _io_native(n):
+    """``pack_block`` and ``unpack_block`` of half of an n^3 float64 host
+    array (rank 0's block of 2 on axis 1: runs of n doubles), each beside
+    the numpy slice copy, median of 3 on the host clock: GB/s of the
+    block's bytes; the packed and unpacked bits held against numpy's."""
+    from mpi4py_fft_torch.utils import native
+    full = native.aligned_native((n,) * 3, dtype='d')
+    full.reshape(-1)[:] = np.arange(full.size, dtype='d')
+    starts, sizes = (0, n // 4, 0), (n, n // 2, n)
+    sl = tuple(slice(s, s + c) for s, c in zip(starts, sizes))
+    packed = native.aligned_native(sizes, dtype='d')
+    ref = np.empty(sizes)
+    back = np.zeros_like(full)
+
+    def gb_s(fn):
+        ts = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            ts.append(time.perf_counter() - t0)
+        return packed.nbytes / statistics.median(ts) / 1e9
+    out = {'block': list(sizes), 'bytes': packed.nbytes,
+           'pack_gb_s': gb_s(lambda: native.pack_block(full, starts, sizes,
+                                                       out=packed)),
+           'numpy_pack_gb_s': gb_s(lambda: np.copyto(ref, full[sl]))}
+    _check(packed.tobytes() == ref.tobytes(),
+           "pack_block against the numpy slice copy")
+    out['unpack_gb_s'] = gb_s(
+        lambda: native.unpack_block(back, starts, sizes, packed))
+    _check(back[sl].tobytes() == ref.tobytes() and not back[:, :n // 4].any(),
+           "unpack_block against the numpy slice copy")
+    out['numpy_unpack_gb_s'] = gb_s(lambda: back.__setitem__(sl, ref))
+    return out
+
+
+def _io_h5_one(d, u, u_hat, other):
+    """One rank: u at steps 0 and 1 with the slice, and u_hat, to one
+    HDF5 file, ``generate_xdmf``, then both read back under another
+    alignment."""
+    from mpi4py_fft_torch import HDF5File, generate_xdmf
+    path = os.path.join(d, 'one.h5')
+    f = HDF5File(path, mode='w')
+    out = _io_writes(f, u)
+    out['write_u_hat'] = _io_rate(lambda: f.write(0, {'u_hat': [u_hat]}),
+                                  _io_nbytes(u_hat))
+    t0 = time.perf_counter()
+    generate_xdmf(path)
+    out['xdmf_ms'] = 1e3 * (time.perf_counter() - t0)
+    _check(os.path.exists(os.path.join(d, 'one.xdmf')) and os.path.exists(
+        os.path.join(d, f'one_slice_{IO_SLICE[1]}_slice.xdmf')),
+        "generate_xdmf wrote no XDMF file")
+    out['read_step1'] = _io_read(path, u, other)
+    out['read_u_hat'] = _io_read(path, u_hat, _other(u_hat.alignment),
+                                 name='u_hat', step=0)
+    out['files'] = _io_files(path)
+    return out, path
+
+
+def _io_nc_one(d, u, other):
+    """One rank: u at steps 0 and 1 with the slice to NetCDF, then read
+    back under another alignment."""
+    from mpi4py_fft_torch import NCFile
+    path = os.path.join(d, 'one.nc')
+    out = _io_writes(NCFile(path, mode='w'), u)
+    out['read_step1'] = _io_read(path, u, other)
+    out['files'] = _io_files(path)
+    return out, path
+
+
+def io_rank(comm, n, out, alignment, other, h5):
+    """One rank of phase io's 2 gloo ranks (started by
+    ``mpi4py_fft_torch.dryrun.launch``): this rank's block of the
+    one-rank phase's field written as there, to HDF5 in ``vds``,
+    ``serial`` and ``repack`` modes (where ``h5``) and to NetCDF in
+    turns, then each file read back under the other alignment; ms and
+    GB/s of each call on this rank (a collective write's time, turns and
+    barriers included), the blocks held bit for bit."""
+    import scipy.io  # noqa: F401  (imported before the timed writes)
+    from mpi4py_fft_torch import DistArray, HDF5File, NCFile
+    dev = comm.device
+    x = _io_input(dev, n)
+    u = DistArray((n,) * 3, dtype='d', alignment=alignment, device=dev)
+    u.v.copy_(x[u.local_slice()])
+    res = {'rank': comm.Get_rank(), 'backend': comm.backend,
+           'device': str(dev),
+           'block': [[s.start, s.stop] for s in u.local_slice()]}
+    files = {}
+    modes = (('vds', 'vds', False), ('serial', 'serial', False),
+             ('repack', 'vds', True)) if h5 else ()
+    try:
+        for name, mode, repack in modes:
+            os.environ['MPI4PY_FFT_TORCH_H5_MODE'] = mode
+            files[name] = os.path.join(out, f'two_{name}.h5')
+            res[name] = _io_writes(
+                HDF5File(files[name], mode='w', repack=repack), u)
+    finally:
+        os.environ.pop('MPI4PY_FFT_TORCH_H5_MODE', None)
+    files['netcdf'] = os.path.join(out, 'two.nc')
+    res['netcdf'] = _io_writes(NCFile(files['netcdf'], mode='w'), u)
+    for name, path in files.items():
+        res[name]['read_step1'] = _io_read(path, u, other, ref=x)
+    res['files'] = files
+    return res
+
+
+def phase_io(dev, bf):
+    """Snapshot IO on the card (``mpi4py_fft_torch/io/``) and the host
+    staging of ``utils/native.py``: pack/unpack rates; one rank writing a
+    512^3 'd' PFFT's input and spectrum and reading them back; 2 gloo
+    ranks writing the input in every mode, their files held against the
+    one-rank files and read back on 2 ranks and on one."""
+    import tempfile
+    from mpi4py_fft_torch import PFFT, dryrun, newDistArray
+    from mpi4py_fft_torch.utils import native
+    t0 = time.perf_counter()
+    _check(native.HAVE_NATIVE, "utils.native: no host-staging extension")
+    n = IO_N
+    rates = _io_native(n)
+    try:
+        import h5py  # noqa: F401
+        h5 = True
+    except ImportError:
+        h5 = False
+    fft = PFFT(None, (n,) * 3, dtype='d')
+    u = newDistArray(fft, False)
+    u.v.copy_(_io_input(dev, n))
+    c0 = dict(bf.LAUNCHES)
+    u_hat = fft.forward(u)
+    back = fft.backward(u_hat)
+    torch.cuda.synchronize()
+    launches = _delta(c0, dict(bf.LAUNCHES))
+    rt, _ = _rel(back.v, u.v)
+    del back
+    _check(rt <= PIPE_TOL64 and bool(torch.isfinite(u_hat.v).all()),
+           f"PFFT {n}^3 'd' round trip {rt:.3e}")
+    _check(all(launches.get(k, 0) > 0 for k in (
+        'rfft_axis_p_f64', 'fft_axis_p_f64', 'irfft_axis_p_f64')),
+        f"PFFT {n}^3 'd': launches {launches}")
+    other = _other(u.alignment)
+    d = tempfile.mkdtemp()
+    try:
+        free_gb = shutil.disk_usage(d).free / 1e9
+        one = {}
+        if h5:
+            one['hdf5'], one_h5 = _io_h5_one(d, u, u_hat, other)
+        else:
+            one['hdf5'] = 'not run: h5py is not installed here'
+        del u_hat
+        one['netcdf'], one_nc = _io_nc_one(d, u, other)
+        torch.cuda.empty_cache()
+        two = dryrun.launch(2, 'chip_smoke:io_rank',
+                            {'n': n, 'out': d, 'alignment': u.alignment,
+                             'other': other, 'h5': h5},
+                            device='cuda', backend='gloo',
+                            timeout=DIST_TIMEOUT)
+        files = two[0]['files']
+        _check(all(r['files'] == files for r in two), "ranks' files differ")
+        same = {'netcdf': _same_bytes(files['netcdf'], one_nc)}
+        for name in ('vds', 'serial', 'repack') if h5 else ():
+            same[name] = _io_dsets_equal(files[name], one_h5)
+        if h5:
+            _check(list(_io_files(files['repack'])) == ['two_repack.h5'],
+                   "a sidecar survived the repack write")
+        _check(all(same.values()), f"2 ranks against one rank: {same}")
+        reads = {name: _io_read(path, u, other)
+                 for name, path in files.items()}
+        sizes = {name: _io_files(path) for name, path in files.items()}
+        for path in list(files.values()) + ([one_h5] if h5 else []) + \
+                [one_nc]:
+            _io_remove(path)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    del u, fft
+    torch.cuda.empty_cache()
+    _emit({'phase': 'io', 'seconds': time.perf_counter() - t0,
+           'card': _smi(), 'have_native': native.HAVE_NATIVE,
+           'native': rates, 'shape': [n] * 3, 'dtype': 'd',
+           'netcdf_n': n, 'launches': launches, 'round_trip_rel_l2': rt,
+           'disk_free_gb_before': free_gb, 'one_rank': one,
+           'gloo_2_ranks': two, 'same_as_one_rank': same,
+           'read_on_one_rank': reads, 'two_rank_files': sizes,
+           'rates': 'GB/s of the arrays each call writes or reads, the '
+                    'device <-> host copy included; the page cache is not '
+                    'flushed, so a read may come from memory'})
+
+
 def _j_flops(lines, N):
     """J's operations on ``lines`` lines of N = S*128 points: the direct
     S-point DFT (S^2 complex multiply-adds, 8 flops each, a column), the
@@ -3419,6 +3727,8 @@ def main(argv=None):
     marks['dist_s'] = time.perf_counter() - t_start
     phase_r2r(dev, bf, holds)
     marks['r2r_s'] = time.perf_counter() - t_start
+    phase_io(dev, bf)
+    marks['io_s'] = time.perf_counter() - t_start
     launches = dict(bf.LAUNCHES)
     _check(set(launches) == set(KERNELS), f"counters {sorted(launches)}")
     for name, c in launches.items():
@@ -3455,7 +3765,7 @@ def main(argv=None):
     _emit({'kernels': kernels + probe_rows})
     # seconds from the start at the end of the planar phases (3-10), the
     # reference-API phases (11-15), the any-extent phases (19-22), dist,
-    # r2r, times and times64, and times_any (the probes take the rest)
+    # r2r, io, times and times64, and times_any (the probes take the rest)
     _emit({'phase': 'done', 'seconds': time.perf_counter() - t_start,
            'marks': marks})
     print(_smi(), flush=True)

@@ -40,6 +40,11 @@ dry run on N ranks):
   ``fft_plane_large_p``), entry points nothing dispatches;
 * the JAX package's TPU probes (``scripts/tpu_*.py``) as on-card probes
   (``mpi4py_fft_torch.probes``) on the probe kernels of ``ops/probes.py``;
+* snapshot IO (``io/``: :class:`HDF5File`, :class:`NCFile`,
+  :func:`generate_xdmf`, ``DistArray.write``/``read``), each rank writing
+  and reading its own block, staged through the host buffers and block
+  pack/unpack of ``utils/native.py`` (the ``_hoststage`` extension, built
+  with g++ at first use);
 * the spectral DNS examples (``examples/spectral_dns_solver.py`` on
   ``PFFT``, ``examples/spectral_dns_planar.py`` on ``PlanarPFFT``), and
   the ``transforms`` and ``darray`` examples on N ranks
@@ -56,6 +61,7 @@ from .parallel.pencil import Subcomm, Pencil, Transfer
 from .parallel.mpifft import PFFT, Transform
 from .parallel.planar import PlanarPFFT
 from .distarray import DistArray, newDistArray, Function
+from .io import HDF5File, NCFile, generate_xdmf
 
 # reference-compatible module names (mpi4py_fft/fftw/{xfftn,factory,
 # utilities})
@@ -68,7 +74,8 @@ __version__ = '0.1.0'
 
 __all__ = ['PFFT', 'Transform', 'PlanarPFFT', 'DistArray', 'newDistArray',
            'Function', 'fftw', 'ops', 'fftlib', 'Subcomm', 'Pencil',
-           'Transfer', 'entry', '__version__']
+           'Transfer', 'HDF5File', 'NCFile', 'generate_xdmf', 'entry',
+           '__version__']
 
 
 def entry(device=None):

@@ -13,8 +13,9 @@ Tensors of rank > 0 keep their first ``rank`` axes undistributed,
 matching the reference (distarray.py:40-56).  ``redistribute`` between
 pencils moves the blocks with the pencils' ``Transfer`` (one
 ``all_to_all_single``); between two undivided axes it relabels the
-pencil, as the JAX package does.  Not ported yet: ``write``/``read``
-(ROADMAP Queue 1 item 11).
+pencil, as the JAX package does.  ``write``/``read`` go through the
+snapshot IO of ``mpi4py_fft_torch/io/``: each rank writes and reads its
+own block.
 """
 from numbers import Integral, Number
 
@@ -27,12 +28,6 @@ from .parallel.comm import COMM_WORLD, plan_device
 from .utils import torch_dtype
 
 __all__ = ['DistArray', 'newDistArray', 'Function']
-
-
-def _no_io(what):
-    return NotImplementedError(
-        f"DistArray.{what}: the HDF5/NetCDF IO arrives with ROADMAP Queue 1 "
-        f"item 11")
 
 
 class DistArray(object):
@@ -323,14 +318,35 @@ class DistArray(object):
         transfer.destroy()
         return out
 
+    # -- IO (reference: distarray.py:365-439) ------------------------------
     def write(self, filename, name='darray', step=0, global_slice=None,
               domain=None, as_scalar=False):
-        """Reference: distarray.py:365-404."""
-        raise _no_io('write')
+        """Write a snapshot to an HDF5 (``.h5``) or NetCDF file, or to a
+        ``FileBase`` (reference: distarray.py:365-404); every rank of the
+        array's group calls it and writes its own block."""
+        from .io import HDF5File, NCFile, FileBase
+        if isinstance(filename, str):
+            writer = HDF5File if filename.endswith('.h5') else NCFile
+            f = writer(filename, domain=domain, mode='a')
+        else:
+            assert isinstance(filename, FileBase)
+            f = filename
+        field = [self] if global_slice is None else [(self, global_slice)]
+        f.write(step, {name: field}, as_scalar=as_scalar)
 
     def read(self, filename, name='darray', step=0):
-        """Reference: distarray.py:406-439."""
-        raise _no_io('read')
+        """Read a snapshot into this array (reference:
+        distarray.py:406-439): each rank reads its own block's hyperslab,
+        so the writer's ranks and alignment may differ from the
+        reader's."""
+        from .io import HDF5File, NCFile, FileBase
+        if isinstance(filename, str):
+            reader = HDF5File if filename.endswith('.h5') else NCFile
+            f = reader(filename, mode='r')
+        else:
+            assert isinstance(filename, FileBase)
+            f = filename
+        f.read(self, name, step=step)
 
 
 def newDistArray(pfft, forward_output=True, val=0, rank=0, view=False):

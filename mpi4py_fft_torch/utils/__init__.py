@@ -3,10 +3,11 @@
 Port of ``mpi4py_fft_tpu/utils/__init__.py:15-109`` (``get_alignment``,
 ``aligned``, ``aligned_like``, ``compute_dims``): host numpy helpers with
 the reference's byte-alignment semantics (reference:
-mpi4py_fft/fftw/utilities.pyx:39-104).  ``aligned`` keeps the JAX
-package's over-allocate-and-offset storage; its native ``posix_memalign``
-build (``utils/native.py``) is ROADMAP Queue 1 item 12.  The buffers are
-``np.empty``-backed, so their pages stay virtual until something writes
+mpi4py_fft/fftw/utilities.pyx:39-104).  ``aligned`` rides the
+``posix_memalign`` storage of ``utils/native.py`` where its extension is
+built (``native.HAVE_NATIVE``), as the JAX package's does, and the
+over-allocate-and-offset trick otherwise.  Either way the buffers are
+uninitialised, so their pages stay virtual until something writes
 them.
 
 ``resolve_device`` and ``torch_dtype`` are the port's own: the device an
@@ -60,12 +61,18 @@ def get_alignment(array):
 def aligned(shape, n=32, dtype=np.dtype('d'), fill=None):
     """Return a host array with ``n``-byte alignment."""
     dtype = np.dtype(dtype)
-    M = int(np.prod(shape)) * dtype.itemsize
-    a = np.empty(M + n, dtype=np.uint8)
-    offset = a.ctypes.data % n
-    offset = 0 if offset == 0 else (n - offset)
-    b = np.frombuffer(a[offset:(offset + M)].data,
-                      dtype=dtype).reshape(shape)
+    from . import native
+    if native.HAVE_NATIVE:
+        # posix_memalign-backed storage (native/hoststage.cpp): exact
+        # alignment without the over-allocate-and-offset trick
+        b = native.aligned_native(shape, dtype=dtype, alignment=max(n, 8))
+    else:
+        M = int(np.prod(shape)) * dtype.itemsize
+        a = np.empty(M + n, dtype=np.uint8)
+        offset = a.ctypes.data % n
+        offset = 0 if offset == 0 else (n - offset)
+        b = np.frombuffer(a[offset:(offset + M)].data,
+                          dtype=dtype).reshape(shape)
     if fill is not None:
         assert isinstance(fill, int)
         b[...] = fill

@@ -298,3 +298,36 @@ def test_r2r_on_cuda(card):
     assert fft.device.type == 'cuda'
     u = torch.rand((16, 16, 16), dtype=torch.float64, device=card)
     assert _rel(fft.backward.fn_p(fft.forward.fn_p(u)), u) <= 2e-10
+
+
+@pytest.mark.cuda
+def test_io_cuda_distarray(card, tmp_path):
+    """A CUDA DistArray (a PFFT's input, and its spectrum in HDF5) written
+    and read back: NetCDF, and HDF5 where h5py is installed; each block
+    staged through the native host buffers (g++ is on the card's
+    machine), the read-back blocks on the card bit for bit."""
+    from mpi4py_fft_torch import DistArray, PFFT, newDistArray
+    from mpi4py_fft_torch.utils import native
+    assert native.HAVE_NATIVE
+    fft = PFFT(None, (16, 18, 20), dtype='d')
+    u = newDistArray(fft, False)
+    u.v.copy_(torch.rand(u.shape, dtype=torch.float64, device=card))
+    u_hat = fft.forward(u)
+    names = ['u.nc']
+    try:
+        import h5py  # noqa: F401
+        names.append('u.h5')
+    except ImportError:
+        pass
+    for name in names:
+        path = str(tmp_path / name)
+        u.write(path, 'u', 0)
+        u.write(path, 'u', 1, global_slice=[slice(None), 4, slice(None)])
+        v = DistArray(u.global_shape, dtype='d', alignment=0)
+        v.read(path, 'u', 0)
+        assert v.device.type == 'cuda' and torch.equal(v.v, u.v)
+        if name.endswith('.h5'):
+            u_hat.write(path, 'u_hat', 0)
+            vh = DistArray(u_hat.global_shape, dtype='D', alignment=2)
+            vh.read(path, 'u_hat', 0)
+            assert torch.equal(vh.v, u_hat.v)

@@ -173,9 +173,78 @@ def examples(comm):
     return out
 
 
+def io_fields(u):
+    """What the IO cases write of ``u`` at each step: the whole array
+    and two global slices."""
+    return {'u': [u, (u, [slice(None), 4, slice(None)]),
+                  (u, [slice(None), 4, 4])]}
+
+
+def io_write(comm, X, W, out, domain):
+    """Snapshot writes of this rank's blocks of X (steps 0 and 1, with
+    ``io_fields``' slices) and of the rank-1 tensor W (step 0): HDF5 in
+    ``vds``, ``serial`` and ``repack`` modes and NetCDF, into ``out``.
+    The slice writes may not gather the whole array: ``DistArray.get``
+    and ``_gathered`` raise here, and the bytes of each part that
+    ``gather_object`` carries are recorded."""
+    import os
+    import torch.distributed as dist
+    from mpi4py_fft_torch import HDF5File, NCFile
+    u = DistArray(X.shape, dtype=X.dtype, device='cpu')
+    u[...] = X[u.local_slice()]
+    w = DistArray(W.shape, dtype=W.dtype, rank=1, device='cpu')
+    w[...] = W[w.local_slice()]
+    sent = []
+    real = dist.gather_object, DistArray.get, DistArray._gathered
+
+    def spy(obj, *args, **kw):
+        sent.append(0 if obj is None else obj[1].nbytes)
+        return real[0](obj, *args, **kw)
+
+    def refuse(*args, **kw):
+        raise AssertionError("a snapshot write gathered the whole array")
+    dist.gather_object = spy
+    DistArray.get = DistArray._gathered = refuse
+    files = {}
+    try:
+        for name, mode, repack in (('vds', 'vds', False),
+                                   ('serial', 'serial', False),
+                                   ('repack', 'vds', True)):
+            os.environ['MPI4PY_FFT_TORCH_H5_MODE'] = mode
+            files[name] = os.path.join(out, f'{name}.h5')
+            f = HDF5File(files[name], domain=domain, mode='w',
+                         repack=repack)
+            for step in (0, 1):
+                f.write(step, io_fields(u))
+            f.write(0, {'w': [w]}, as_scalar=True)
+        files['nc'] = os.path.join(out, 'turns.nc')
+        f = NCFile(files['nc'], mode='w')
+        for step in (0, 1):
+            f.write(step, io_fields(u))
+        f.write(0, {'w': [w]})
+    finally:
+        os.environ.pop('MPI4PY_FFT_TORCH_H5_MODE', None)
+        dist.gather_object, DistArray.get, DistArray._gathered = real
+    return {'files': files, 'sent': sent,
+            'block': _slices(u.local_slice())}
+
+
+def io_read(comm, files, shape):
+    """Step 1 of ``u`` from each file, read into this rank's blocks under
+    alignments 0 and 2: {(file, alignment): (block slice, block)}."""
+    out = {}
+    for path in files:
+        for align in (0, 2):
+            v = DistArray(shape, dtype='d', alignment=align, device='cpu')
+            v.read(path, 'u', step=1)
+            out[(path, align)] = (_slices(v.local_slice()), np.asarray(v))
+    return out
+
+
 KINDS = {'pencil': pencil, 'planar': planar, 'pfft': pfft,
          'redistribute': redistribute, 'dns': dns, 'refusals': refusals,
-         'staged': staged, 'examples': examples}
+         'staged': staged, 'examples': examples, 'io_write': io_write,
+         'io_read': io_read}
 
 
 def run(comm, job, out):
