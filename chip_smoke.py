@@ -205,18 +205,29 @@ failure raises and the script exits non-zero:
              ``mpi4py_fft_torch/probes``): first every probe kernel
              (``ops/probes.py``) against its plain version on the card,
              ``block_copy`` and ``move`` bit for bit at every blocking and
-             move the scripts name (in place, out of place, two streams),
-             ``bfly`` at 5e-6 in every mode, position and tile (in place
+             move the scripts name (in place, out of place, two streams;
+             ``block_copy`` on its vector route at every blocking, on its
+             scalar route on a misaligned view and 2-float runs),
+             ``bfly`` at 5e-6 in every mode, position and tile (copy and
+             moves bit for bit; A's line and band kernels at N = 512, 768
+             and 1024, A's tile elsewhere and with ``lines=``; in place
              bit for bit against out of place on the full 1024^3 volume),
              ``fma_chain`` at 5e-6 (f64 2e-13) after 256 iterations
              (every output filled with NaN first, so that a kernel that
-             skips work cannot pass on memory that held the answer); then
+             skips work cannot pass on memory that held the answer), each
+             case's route printed; then
              the launch counters of the probe kernels are set to 0, every
              probe module runs (one JSON line each: ms, GB/s read + write
              against the HBM peak, the PyTorch yardstick) and each probe
              kernel must have been launched there; last, each probe
              kernel's time beside its plain version, its bound and its
-             PyTorch yardstick for the ``kernels`` line.
+             PyTorch yardstick for the ``kernels`` line, with its path
+             (``block_copy``'s and ``bfly``'s route); ``bfly``'s modes on
+             the 1024^3 lead and mid passes beside the same modes on A's
+             tile (``lines=tile_lines(1024)``) and A's own passes;
+             ``block_copy`` on every ``_reach_ms`` pattern beside
+             ``copy_``.  The route of every ``block_copy`` that
+             ``_reach_ms`` timed prints before the ``kernels`` line.
 
 25. dist     the distributed layer (``mpi4py_fft_torch/parallel``), ranks
              on this card: the dry run (``mpi4py_fft_torch/dryrun.py``) at
@@ -276,6 +287,14 @@ failure raises and the script exits non-zero:
              the files read back on the 2 ranks and on one; ms and GB/s
              of every write and read (device <-> host copies in, page
              cache not flushed), file sizes, the disk's free space.
+
+``python3 chip_smoke.py --times-probes TREE`` runs only phase 1 and the
+probe kernels' times of phase 24 (``bfly``'s modes on the 1024^3 lead and
+mid passes, on A's band and on A's tile of ``tile_lines(1024)`` lines,
+beside A's own passes and cuFFT; ``block_copy`` on every pattern that
+``_reach_ms`` times, each beside ``copy_``, with its route; each held
+first) on the port of the checkout at TREE, and prints no last line: run
+it for two trees in turns on one card (parent, change, change, parent).
 
 ``python3 chip_smoke.py --times-any TREE`` runs only phases 1, 22 and 23,
 B's two rows and C's row of phase 16, A's, C64's, D's and A64's rows of
@@ -462,17 +481,15 @@ def _bound_ms(nbytes, flops, f64=False):
     return 1e3 * max(tb, tf), 'bytes' if tb >= tf else 'operations'
 
 
-def _reach_ms(xs, ax):
-    """The reachable bound of one pass along complex axis ``ax`` of the
-    contiguous planar (2, A, B, C) tensors ``xs`` (one, or a pair's two
-    halves), measured: the time of ``block_copy`` (the probes' copy
-    kernel) of the same tensors out of place, in boxes of the pass's
-    access pattern: (2, 1, B, C) planes for the last axis; for the mid
-    axis (2, 8, B, 128) where 128 elements divide the row, else (2, 1, B,
-    C), whole rows (the DNS's odd post, which allows no vector); for the
-    lead axis 512-byte runs of every row, (2, A, 128) on the (2, A, B C)
-    view.  float64 is copied as pairs of float32."""
-    from mpi4py_fft_torch.ops import probes as tp
+def _reach_box(xs, ax):
+    """The float32 views of the contiguous planar (2, A, B, C) tensors
+    ``xs`` (one, or a pair's two halves) and the ``block_copy`` box of the
+    access pattern of one pass along complex axis ``ax``: (2, 1, B, C)
+    planes for the last axis; for the mid axis (2, 8, B, 128) where 128
+    elements divide the row, else (2, 1, B, C), whole rows (the DNS's odd
+    post, which allows no vector); for the lead axis 512-byte runs of
+    every row, (2, A, 128) on the (2, A, B C) view.  float64 is copied as
+    pairs of float32."""
     vs = [x.view(torch.float32) for x in xs]
     _, A, B, C = vs[0].shape
     if ax == 0:
@@ -482,8 +499,33 @@ def _reach_ms(xs, ax):
         box = (2, 8, B, 128) if C % 128 == 0 else (2, 1, B, C)
     else:
         box = (2, 1, B, C)
+    return vs, box
+
+
+# block_copy's route for each pattern that _reach_ms timed, by tensor
+# shape and box (the kernels line prints it)
+REACH_ROUTES = {}
+
+
+def _copy_route(tp, x, box, **pair):
+    """block_copy's route on these tensors ('vector', 'scalar'; a tree
+    whose probes do not report one: 'not reported')."""
+    route = getattr(tp, 'block_copy_route', None)
+    return route(x, box, **pair) if route else 'not reported'
+
+
+def _reach_ms(xs, ax):
+    """The reachable bound of one pass along complex axis ``ax`` of the
+    contiguous planar (2, A, B, C) tensors ``xs`` (one, or a pair's two
+    halves), measured: the time of ``block_copy`` (the probes' copy
+    kernel) of the same tensors out of place, in the boxes of the pass's
+    access pattern (``_reach_box``), its route kept in ``REACH_ROUTES``."""
+    from mpi4py_fft_torch.ops import probes as tp
+    vs, box = _reach_box(xs, ax)
     ys = [torch.empty_like(v) for v in vs]
     pair = {} if len(vs) == 1 else {'x2': vs[1], 'out2': ys[1]}
+    key = f"{tuple(vs[0].shape)} in {box}" + (' x2' if pair else '')
+    REACH_ROUTES[key] = _copy_route(tp, vs[0], box, **pair)
     ms = _median_ms(lambda: tp.block_copy(vs[0], box, out=ys[0], **pair))
     del ys
     torch.cuda.empty_cache()
@@ -3377,9 +3419,11 @@ def _copy_cases(n):
              True))
 
 
-def _holds_probes(holds, dev, tp):
-    """Every probe kernel against its plain version; returns the number
-    of cases."""
+def _holds_probes(holds, dev, tp, routes):
+    """Every probe kernel against its plain version, each case's route
+    (``block_copy``'s vectors on every blocking, its scalar route on a
+    misaligned view and 2-float runs; ``bfly``'s by A's rule) checked and
+    kept in ``routes``; returns the number of cases."""
     cases = 0
     for n in (PROBE_N // 4, PROBE_N):           # the scripts' 256 and 1024
         x = _rand((2,) + (n,) * 3, dev, SEED + 80)
@@ -3388,8 +3432,11 @@ def _holds_probes(holds, dev, tp):
             a = x.view(-1)[:math.prod(shape)].view(shape)
             ra = tp.block_copy_plain(a)
             what = f"block_copy {label} n={n}"
+            b = x2.view(-1)[:math.prod(shape)].view(shape) if pair else None
+            route = tp.block_copy_route(a, box, order, x2=b)
+            routes[f"{label} n={n}"] = route
+            _check(route == 'vector', f"{what}: route {route}, not vector")
             if pair:
-                b = x2.view(-1)[:math.prod(shape)].view(shape)
                 ya, yb = tp.block_copy(a, box, order, out=_nan(a), x2=b,
                                        out2=_nan(b))
                 _exact(ya, ra, f"{what} stream 1")
@@ -3405,6 +3452,19 @@ def _holds_probes(holds, dev, tp):
             del ra
         del x, x2
         torch.cuda.empty_cache()
+    # the scalar route: a view 4 bytes off alignment, and 2-float runs
+    x = _rand((2 * 64 * 256 * 256 + 1,), dev, SEED + 80)
+    for label, v, box in (
+            ('misaligned planes', x[1:].view(2, 64, 256, 256),
+             (2, 1, 256, 256)),
+            ('2-float runs', x[:-1].view(2, 64, 256 * 128, 2),
+             (2, 64, 1, 2))):
+        route = tp.block_copy_route(v, box)
+        routes[label] = route
+        _check(route == 'scalar', f"block_copy {label}: route {route}")
+        _exact(tp.block_copy(v, box, out=_nan(v)), v, f"block_copy {label}")
+        cases += 1
+    del x
     # the moves: the script's nine spellings, and B's reads at 768^3
     from mpi4py_fft_torch.probes import moves
     x = torch.arange(64 * 8 * 128, dtype=torch.float32,
@@ -3425,11 +3485,17 @@ def _holds_probes(holds, dev, tp):
             cases += 1
     del x
     # bfly: every mode at lead, mid and last positions, reps, fewer lines a
-    # tile than A's
+    # tile than A's; at 512, 768 and 1024 on A's line and band kernels
+    # (the band with vectors and, at post 9, single elements)
     g = torch.Generator(device=dev).manual_seed(SEED + 83)
     for N in (16, 64, 256, 512, 768, 1024):
-        for shape, ax in (((N, 24, 40), 0), ((6, N, 40), 1), ((50, N), 1)):
+        for shape, ax in (((N, 24, 40), 0), ((6, N, 40), 1), ((50, N), 1),
+                          ((5, N, 9), 1)):
             p = torch.randn((2,) + shape, generator=g, device=dev)
+            route = tp.bfly_route(p, ax)
+            routes[f"bfly {shape} axis {ax}"] = route
+            _check(route == ('tile' if N < 512 else 'lines' if ax == len(
+                shape) - 1 else 'band'), f"bfly {shape}: route {route}")
             modes = tp.MODES if N in (16, 64, 256, 1024) else ('copy',
                                                                 'full')
             for mode in modes:
@@ -3451,11 +3517,13 @@ def _holds_probes(holds, dev, tp):
                        tp.bfly_plain(p, ax, 'full'),
                        f"bfly full {shape} axis {ax} {lines // 4} lines")
             cases += 1
-    # in place against out of place on the full probe volume, lead and mid
+    # in place against out of place on the full probe volume: lead and mid
+    # (the band), last (the line kernel)
     n = PROBE_N
     x = _rand((2,) + (n,) * 3, dev, SEED + 84)
     for ax, mode, reps in ((0, 'full', 1), (0, 'full', 2), (0, 'adds', 1),
-                           (1, 'full', 1)):
+                           (0, 'moves', 1), (0, 'copy', 1), (1, 'full', 1),
+                           (2, 'full', 1), (2, 'adds', 2)):
         y = tp.bfly(x, ax, mode, reps, out=_nan(x))
         tp.bfly(x, ax, mode, reps, out=x)
         _exact(x, y, f"bfly {mode} x{reps} {n}^3 axis {ax} in place")
@@ -3481,10 +3549,86 @@ def _holds_probes(holds, dev, tp):
     return cases
 
 
+def _reach_patterns(dev):
+    """(label, tensors, axis) of every access pattern ``_reach_ms`` times
+    in this script, at the main path's shapes: A's three 1024^3 passes,
+    the 'f' plan's 768-point mid (post 257, whole rows) and lead passes,
+    D's quartered lead pair, A64's 512^3 DNS mid (post 257 doubles) and
+    lead passes."""
+    n = PROBE_N
+    q = _rand((2, n // 2, n, n // 2), dev, SEED + 91)
+    d = _rand((2, DNS_N, DNS_N, DNS_N // 2 + 1), dev, SEED + 92).double()
+    m = 3 * DEALIAS_N // 2
+    big = _rand((2, n, n, n), dev, SEED + 90)
+    return ((f'lead (2, A, 128), {n}^3', (big,), 0),
+            (f'mid (2, 8, B, 128), {n}^3', (big,), 1),
+            (f'last (2, 1, B, C), {n}^3', (big,), 2),
+            (f'mid, odd post (2, 1, B, C), (2, {m}, {m}, 257)',
+             (_rand((2, m, m, 257), dev, SEED + 93),), 1),
+            (f'lead (2, A, 128), (2, {m}, {2 * m // 3}, 257)',
+             (_rand((2, m, 2 * m // 3, 257), dev, SEED + 94),), 0),
+            (f'lead pair (2, A, 128) x2, (2, {n // 2}, {n}, {n // 2}) '
+             f'halves', (q, q.clone()), 0),
+            (f'mid, odd post, f64 (2, {DNS_N}, {DNS_N}, '
+             f'{DNS_N // 2 + 1})', (d,), 1),
+            (f'lead, f64 (2, {DNS_N}, {DNS_N}, {DNS_N // 2 + 1})', (d,), 0))
+
+
+def _reach_times(dev, tp):
+    """``block_copy`` on every pattern of ``_reach_patterns`` beside
+    ``copy_`` of the same tensors, each copy held bit for bit first: its
+    route, ms, copy_ ms and their ratio."""
+    out = []
+    for label, xs, ax in _reach_patterns(dev):
+        vs, box = _reach_box(xs, ax)
+        ys = [_nan(v) for v in vs]
+        pair = {} if len(vs) == 1 else {'x2': vs[1], 'out2': ys[1]}
+        tp.block_copy(vs[0], box, out=ys[0], **pair)
+        for v, y in zip(vs, ys):
+            _exact(y, v, f"block_copy {label}")
+        ms = _median_ms(lambda: tp.block_copy(vs[0], box, out=ys[0],
+                                              **pair))
+        copy_ms = _median_ms(lambda: [y.copy_(v) for v, y in zip(vs, ys)])
+        out.append({'pattern': label, 'shape': list(vs[0].shape),
+                    'box': list(box), 'streams': len(vs),
+                    'path': _copy_route(tp, vs[0], box, **pair), 'ms': ms,
+                    'copy_ms': copy_ms, 'ratio': ms / copy_ms})
+        del xs, vs, ys, pair
+        torch.cuda.empty_cache()
+    return out
+
+
+def _bfly_modes(tp, x, x0, ax, lines=None):
+    """ms of each bfly mode along ``ax`` in place on ``x`` (reset from
+    ``x0`` before each), each held first out of place on a slab against
+    bfly_plain."""
+    ms = {}
+    for mode in tp.MODES:
+        y = tp.bfly(x0, ax, mode, lines=lines, out=_nan(x0))
+        sl = (slice(None),) * (ax + 2) + (slice(0, 4),)
+        ref = tp.bfly_plain(x0[sl].contiguous(), ax, mode)
+        if mode in ('copy', 'moves'):
+            _exact(y[sl], ref, f"bfly {mode} axis {ax} lines={lines}")
+        else:
+            r, _ = _rel(y[sl], ref)
+            _check(r <= KERNEL_TOL, f"bfly {mode} axis {ax} lines={lines}: "
+                                    f"rel L2 {r:.3e}")
+        del y, ref
+        x.copy_(x0)
+        ms[mode] = _median_ms(lambda: tp.bfly(x, ax, mode, lines=lines,
+                                              out=x))
+    return ms
+
+
 def _probe_times(dev, tp):
     """Each probe kernel at one shape of its probes: ms beside its plain
     version, its bound and its PyTorch yardstick (None where no one call
-    computes the function)."""
+    computes the function), and its path (block_copy's and bfly's route);
+    bfly's modes on the 1024^3 lead and mid passes (A's band) beside the
+    same modes on A's tile of ``tile_lines(1024)`` lines and A's own
+    passes, and block_copy on every ``_reach_ms`` pattern beside
+    ``copy_``."""
+    from mpi4py_fft_torch.ops import butterfly as bf
     from mpi4py_fft_torch.probes import vpu_peak
     out = {}
     n = PROBE_N
@@ -3494,30 +3638,47 @@ def _probe_times(dev, tp):
     b, by = _bound_ms(2 * x.numel() * 4, 0)
     out['block_copy'] = {
         'shape': f'(2, {n}, {n}, {n}) f32 out of place in (2, 1, {n}, {n}) '
-                 f'boxes (the plane copy floor)',
+                 f'boxes (the plane copy floor); reach_patterns: every '
+                 f'_reach_ms pattern beside copy_',
+        'path': _copy_route(tp, x, box, out=y),
         'ms': _median_ms(lambda: tp.block_copy(x, box, out=y)),
         'plain_ms': _median_ms(lambda: tp.block_copy_plain(x)),
         'library_ms': _median_ms(lambda: y.copy_(x)),
         'bound_ms': b, 'bound_by': by}
     del y
-    modes = {}
-    xv = x.view(2, n, n * n // 128, 128)
-    for mode in tp.MODES:
-        modes[mode] = _median_ms(lambda: tp.bfly(xv, 0, mode, out=xv))
-    xc = torch.complex(x[0], x[1])
+    torch.cuda.empty_cache()
+    # bfly in place: the lead and mid passes, x reset from x0 before each
+    x0 = x
+    x = x0.clone()
+    route = getattr(tp, 'bfly_route', lambda *a, **k: 'not reported')
+    modes = _bfly_modes(tp, x, x0, 0)
+    mid = _bfly_modes(tp, x, x0, 1)
+    tile = _bfly_modes(tp, x, x0, 0, tp.tile_lines(n))
+    a_ms = {}
+    for ax in (0, 1):
+        x.copy_(x0)
+        a_ms[ax] = _median_ms(lambda: bf.fft_axis_p(x, ax, out=x))
+    xc = torch.complex(x0[0], x0[1])
     lib = _median_ms(lambda: torch.fft.fft(xc, dim=0))
+    lib_mid = _median_ms(lambda: torch.fft.fft(xc, dim=1))
     del xc
     b, by = _bound_ms(2 * x.numel() * 4, n * n * 5 * n * math.log2(n))
     out['bfly'] = {
         'shape': f'(2, {n}, {n}, {n}) f32, lead axis, in place, mode full '
-                 f'(A\'s plan); modes_ms: each mode at the same shape',
+                 f'(A\'s transform); modes_ms: each mode at the same shape, '
+                 f'mid_modes_ms on the mid axis, tile_modes_ms on A\'s tile '
+                 f'of {tp.tile_lines(n)} lines (lines=); a_ms: A '
+                 f'(fft_axis_p) on the same passes',
+        'path': route(x, 0), 'mid_path': route(x, 1),
         'ms': modes['full'],
-        'plain_ms': _median_ms(lambda: tp.bfly_plain(x, 0, 'full'), reps=1,
+        'plain_ms': _median_ms(lambda: tp.bfly_plain(x0, 0, 'full'), reps=1,
                                warm=0),
-        'library_ms': lib, 'bound_ms': b, 'bound_by': by,
-        'modes_ms': modes}
-    del x, xv
+        'library_ms': lib, 'mid_library_ms': lib_mid, 'bound_ms': b,
+        'bound_by': by, 'modes_ms': modes, 'mid_modes_ms': mid,
+        'tile_modes_ms': tile, 'a_ms': {'lead': a_ms[0], 'mid': a_ms[1]}}
+    del x, x0
     torch.cuda.empty_cache()
+    out['block_copy']['reach_patterns'] = _reach_times(dev, tp)
     m = 3 * DEALIAS_N // 2
     r = _rand((m, m, m), dev, SEED + 87)
     e = tp.move(r, 2, 'even')
@@ -3525,6 +3686,7 @@ def _probe_times(dev, tp):
     out['move'] = {
         'shape': f'({m}, {m}, {m}) f32 -> ({m}, {m}, {m // 2}), the even '
                  f'points of the last axis (B\'s deinterleaved reads)',
+        'path': 'scalar (one float a thread: the last axis)',
         'ms': _median_ms(lambda: tp.move(r, 2, 'even', out=e)),
         'plain_ms': _median_ms(lambda: tp.move_plain(r, 2, 'even')),
         'library_ms': _median_ms(lambda: e.copy_(r[..., 0::2])),
@@ -3542,6 +3704,7 @@ def _probe_times(dev, tp):
             'shape': f'{numel} {str(dtype)[6:]} elements, '
                      f'{FMA_TIME_ITERS} iterations, 8 accumulators a '
                      f'thread (the rate at 2^18: probes vpu_peak)',
+            'path': 'one element a thread, 8 chains',
             'ms': _median_ms(lambda: tp.fma_chain(x, FMA_TIME_ITERS, 8,
                                                   out=x)),
             'plain_ms': _median_ms(lambda: tp.fma_chain_plain(
@@ -3549,6 +3712,17 @@ def _probe_times(dev, tp):
             'library_ms': None, 'bound_ms': b, 'bound_by': by}
         del x
     return out
+
+
+def phase_times_probes(dev):
+    """For --times-probes: the probe kernels' rows of ``_probe_times`` on
+    the port of the tree given (bfly's modes and A beside them, block_copy
+    on every _reach_ms pattern, each held first)."""
+    from mpi4py_fft_torch.ops import probes as tp
+    t0 = time.perf_counter()
+    times = _probe_times(dev, tp)
+    _emit({'phase': 'times_probes', 'seconds': time.perf_counter() - t0,
+           'kernels': times})
 
 
 def _fft_yardsticks(res, dev):
@@ -3576,7 +3750,8 @@ def phase_probes(dev):
     from mpi4py_fft_torch.ops import probes as tp
     t0 = time.perf_counter()
     holds = Holds(PROBE_KERNELS)
-    cases = _holds_probes(holds, dev, tp)
+    routes = {}
+    cases = _holds_probes(holds, dev, tp, routes)
     holds_s = time.perf_counter() - t0
     torch.cuda.empty_cache()
     tp.reset_launches()
@@ -3595,7 +3770,8 @@ def phase_probes(dev):
     _emit({'phase': 'probes', 'seconds': secs, 'holds_seconds': holds_s,
            'seconds_with_kernel_times': time.perf_counter() - t0,
            'holds': cases, 'max_rel_l2': holds.rel,
-           'max_abs_err': holds.err, 'launches': launches})
+           'max_abs_err': holds.err, 'launches': launches,
+           'routes': routes})
     return [{'name': name, 'route': 'cuda', 'source': src, 'replaces': rep,
              'launches': launches[name], 'max_abs_err': holds.err[name],
              'max_rel_l2': holds.rel[name], **times[name]}
@@ -3667,12 +3843,18 @@ def main(argv=None):
                          "and 18 on the port in TREE (default: this "
                          "script's checkout), to compare two trees on one "
                          "card")
+    ap.add_argument('--times-probes', metavar='TREE', nargs='?',
+                    const=os.path.dirname(os.path.abspath(__file__)),
+                    help="run only phase 1 and the probe kernels' times "
+                         "(bfly's modes beside A, block_copy on every "
+                         "reach pattern beside copy_) on the port in TREE, "
+                         "to compare two trees on one card")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
-    tree = os.path.abspath(args.times_any or os.path.dirname(
-        os.path.abspath(__file__)))
+    tree = os.path.abspath(args.times_any or args.times_probes or
+                           os.path.dirname(os.path.abspath(__file__)))
     sys.path.insert(0, tree)
     from mpi4py_fft_torch.ops import butterfly as bf
     _check(os.path.abspath(bf.__file__).startswith(tree + os.sep),
@@ -3682,6 +3864,10 @@ def main(argv=None):
     torch.cuda.set_device(dev)
     phase_build()
     holds = Holds(KERNELS)
+    if args.times_probes:
+        phase_times_probes(dev)
+        print(_smi(), flush=True)
+        return 0
     if args.times_any:
         phase_plane(dev, bf, holds)
         phase_times_any(dev, bf, holds)
@@ -3762,6 +3948,7 @@ def main(argv=None):
                       'ctas_a_plane', 'max_active'):
             if extra in t:
                 kernels[-1][extra] = t[extra]
+    _emit({'phase': 'reach_routes', 'routes': REACH_ROUTES})
     _emit({'kernels': kernels + probe_rows})
     # seconds from the start at the end of the planar phases (3-10), the
     # reference-API phases (11-15), the any-extent phases (19-22), dist,

@@ -92,6 +92,8 @@ _ENTRIES = {
     'probe_copy': {
         # x0, y0, x1, y1, dims, box, order, nd, stream
         'mff_block_copy_f32': [_P, _P, _P, _P, _LLA, _LLA, _IA, _I, _P],
+        # x0, y0, x1, y1, dims, box, order, nd (the route, no launch)
+        'mff_block_copy_route_f32': [_P, _P, _P, _P, _LLA, _LLA, _IA, _I],
         # x, y, P, N, Q, kind, shift, stream
         'mff_move_f32': [_P, _P, _LL, _LL, _LL, _I, _LL, _P],
     },
@@ -100,6 +102,8 @@ _ENTRIES = {
         # lc, stream
         'mff_bfly_f32': [_P, _P, _P, _LL, _LL, _I, _LL, _I, _IA, _I, _I, _I,
                          _I, _P],
+        # x, y, pre, n, post, lc (the route, no launch)
+        'mff_bfly_route_f32': [_P, _P, _LL, _I, _LL, _I],
     },
     'probe_fma': {
         # x, y, n, iters, acc, a, b, stream

@@ -709,9 +709,10 @@ def supported_axis_tp(shape, axis, dtype, trunc=None, pad=None):
 
 def _no_f64_pair(what):
     return NotImplementedError(
-        f"{what}: float64 on CUDA takes axes up to {_MAX_N_AXIS}; longer "
-        f"ones arrive with the fp64 build of the pair kernel (ROADMAP "
-        f"Queue 2, D64)")
+        f"{what}: the pair kernel is float32 only; float64 on CUDA takes "
+        f"kernel axes up to {_MAX_N_AXIS}, and longer float64 axes run on "
+        f"the engine, as in the JAX package, whose pair route is float32 "
+        f"only")
 
 
 def _plain_ok(t, what, contiguous=True, f64=True):

@@ -68,7 +68,9 @@
 namespace {
 
 using mff::AxisBandBudget;
+using mff::axis_line_points;
 using mff::Half;
+using mff::band_cluster;
 
 // Offset of element 0 of each tile line; -1 past the last line.
 __device__ __forceinline__ void line_bases(long long* base, long long l0,
@@ -147,14 +149,6 @@ fft_axis_kernel(const T* __restrict__ x, T* __restrict__ y,
 // (post > 1)
 // ---------------------------------------------------------------------------
 
-// Points a thread of the line kernel holds, so that a line lies in one
-// warp: float64 16 at N = 512, 24 at 768 and 32 at 1024; float32 32, 24
-// at 768 (D's lines).
-template <class T>
-__host__ __device__ constexpr int axis_line_points(int n) {
-  return n == 768 ? 24 : n == 1024 || sizeof(T) == 4 ? 32 : 16;
-}
-
 template <class T, int N>
 __global__ void __launch_bounds__(mff::LineLaunch<T>::kThreads,
                                   mff::LineLaunch<T>::kMinBlocks)
@@ -190,14 +184,6 @@ fft_band_kernel(Half<const T> a, Half<const T> b, Half<T> oa, Half<T> ob,
   mff::axis_band<T, K, kVec, kB, AxisBandBudget<T>>(
       a, b, oa, ob, twr, twi, pre, post, lr, lc, sign, scale,
       reinterpret_cast<T*>(smem));
-}
-
-// CTAs a band of the band kernel (a cluster): float64 4 at N = 1024 and
-// 768 (16 columns, 128-byte row segments), 2 at 512 (16 columns);
-// float32 4 (D's band: 32 columns at 1024 and 768, 64 at 512).
-template <class T>
-constexpr int band_cluster(int n) {
-  return sizeof(T) == 4 || n > 512 ? 4 : 2;
 }
 
 template <class T, int K, int kB>

@@ -2,8 +2,9 @@
 // along an axis whose N rows arrive as two halves of h = N/2 rows each
 // (rows 0..h-1 from operand a, rows h..N-1 from operand b), written as two
 // output halves in natural order, for N = 2^a or 3*2^a <= 2048, either
-// sign, with an optional scale folded into the last write.  Float32 only:
-// the fp64 build is still to come (ROADMAP Queue 2, D64).
+// sign, with an optional scale folded into the last write.  Float32 only,
+// as the JAX package gates its pair route: float64 on CUDA takes kernel
+// axes up to 1024, and longer float64 axes run on the engine.
 //
 // Replaces the TPU kernels of mpi4py_fft_tpu/ops/pallas_butterfly.py
 // reached from fft_axis2_p :1358 through _dispatch2 :1280 (_kern_lead2,

@@ -28,6 +28,9 @@
 // * Row maps (AllRows, PadRows, TruncRows) let the read of a line or a
 //   band zero-pad a shorter input, or its write truncate the result: the
 //   3/2-rule boundary of fft_axis_tp.cu.
+// * Work policies say what the line and band bodies do between their
+//   load and their store: the transform (AxisWork, every kernel's), or
+//   the probe kernel bfly's work (probe_bfly.cu ProbeWork).
 // Device bodies take their shared memory as an argument and the kernels
 // that run them declare it, so that the CPU emulation of the tests
 // (tests/cuda_emu) compiles this header as it is.
@@ -199,6 +202,49 @@ __device__ __forceinline__ int trunc_target(int r, int n, int nt,
 }
 
 // ---------------------------------------------------------------------------
+// work policies
+// ---------------------------------------------------------------------------
+
+// What the line and band bodies do between their load and their store.
+// AxisWork, the default: the transform, every kernel's body.  Another
+// policy sets kTransform false and supplies the work (with the row map
+// AllRows):
+//   work.line<T, N, P>(zr, zi, br, bi, g, twr, twi, sign) on the loaded
+//     line (point row_own(g, s) in zr/zi[s]) leaves it in natural order
+//     in the group's buffer, or, with kStoreHeld, leaves the loaded
+//     registers for the store;
+//   work.band<K, kB, kThreads>(k, lc, lr, elems, kk, twr, twi, sign)
+//     runs on the loaded band, from the first cluster barrier after the
+//     load to the last before the store;
+//   W::band_row<K, kB>(m, lr, kk, &src, &r) gives, for this CTA's m-th
+//     row after the work, the row of its shared memory that holds it and
+//     the row of the axis it is stored to.
+struct AxisWork {
+  static constexpr bool kTransform = true;
+  static constexpr bool kStoreHeld = false;
+};
+
+// What one stage computes (kArith): its DFT and twiddles (kStageFull,
+// the transform's), its DFT alone (kStageAdds), or neither (kStageMoves:
+// every point read and written back unchanged).
+enum { kStageMoves = 0, kStageAdds = 1, kStageFull = 2 };
+
+// A value that a kStageMoves stage reads and writes back unchanged: the
+// empty asm hides that it is unchanged, so that neither the read nor the
+// write is dropped as redundant.
+template <class T>
+__device__ __forceinline__ void keep(T& v) {
+#ifdef __CUDA_ARCH__
+  if constexpr (sizeof(T) == 4)
+    asm volatile("" : "+f"(v));
+  else
+    asm volatile("" : "+d"(v));
+#else
+  (void)v;
+#endif
+}
+
+// ---------------------------------------------------------------------------
 // line stages
 // ---------------------------------------------------------------------------
 
@@ -262,8 +308,10 @@ __device__ __forceinline__ int row_own(int g, int k) {
 // (row_own with V = line_vec), which it reads from its registers (point
 // row_own(g, s) in zr/zi[s]) and writes as vectors.  The others read the
 // buffer; every stage ends on __syncwarp.  twr, twi: the powers
-// w_N^e, e < N (cos and sin of sign 2 pi e / N).
-template <class T, int N, int P, int R, int M, bool kFirst>
+// w_N^e, e < N (cos and sin of sign 2 pi e / N).  kArith: the stage's
+// arithmetic (kStageFull; a probe's kStageAdds or kStageMoves).
+template <class T, int N, int P, int R, int M, bool kFirst,
+          int kArith = kStageFull>
 __device__ __forceinline__ void line_stage(const T* zr, const T* zi, T* br,
                                            T* bi, int g,
                                            const T* __restrict__ twr,
@@ -288,8 +336,16 @@ __device__ __forceinline__ void line_stage(const T* zr, const T* zi, T* br,
         vi[k][j] = bi[s];
       }
     }
-    Dft<R, T>::run(vr[k], vi[k], sign);
-    if constexpr (Lq > 1) {
+    if constexpr (kArith == kStageMoves) {
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        keep(vr[k][j]);
+        keep(vi[k][j]);
+      }
+    } else {
+      Dft<R, T>::run(vr[k], vi[k], sign);
+    }
+    if constexpr (Lq > 1 && kArith == kStageFull) {
 #pragma unroll
       for (int j = 1; j < R; ++j) {
         const int e = j * lp * M;
@@ -401,13 +457,15 @@ __device__ __forceinline__ void pad_split(int p, int n, int nt, T* vr,
 // from `a` alone (pad_load, then pad_split); TruncRows writes nt rows to
 // `oa` alone, vector j of band rows j .. (j < h') or j + top .. (j >=
 // h'), band row h' added to the first lane of vector h' (the fold).
-template <class T, int N, int P, class Map = AllRows>
+// W: the work policy (AxisWork, the transform; or see above).
+template <class T, int N, int P, class Map = AllRows, class W = AxisWork>
 __device__ __forceinline__ void line_body(Half<const T> a, Half<const T> b,
                                           Half<T> oa, Half<T> ob,
                                           const T* __restrict__ twr,
                                           const T* __restrict__ twi,
                                           long long lines, T sign, T scale,
-                                          T* smem, Map map = Map{}) {
+                                          T* smem, Map map = Map{},
+                                          W work = W{}) {
   constexpr int G = N / P, V = kVec16<T>, h = N / 2;
   constexpr int kThreads = LineLaunch<T>::kThreads;
   static_assert(G <= 32 && 32 % G == 0, "a group lies inside one warp");
@@ -444,7 +502,12 @@ __device__ __forceinline__ void line_body(Half<const T> a, Half<const T> b,
     for (int s = 0; s < P; s += V)
       pad_split(row_own<V, G>(g, s), N, map.nt, zr + s, zi + s);
   }
-  line_stages<T, N, P, 0>(zr, zi, br, bi, g, twr, twi, sign);
+  if constexpr (W::kTransform) {
+    line_stages<T, N, P, 0>(zr, zi, br, bi, g, twr, twi, sign);
+  } else {
+    static_assert(Map::kMode == AllRows::kMode, "a work policy's rows");
+    work.template line<T, N, P>(zr, zi, br, bi, g, twr, twi, sign);
+  }
   if (!live) return;
 
   // the line in natural order, V adjacent points a vector, scaled
@@ -474,8 +537,17 @@ __device__ __forceinline__ void line_body(Half<const T> a, Half<const T> b,
       const bool lo = V * G * q < h;
       const Half<T>& y = lo ? oa : ob;
       T* d = y.ptr + i * y.pre + (lo ? p : p - h);
-      Vec16<T>::split(*reinterpret_cast<const U*>(br + bpad(p)), vr);
-      Vec16<T>::split(*reinterpret_cast<const U*>(bi + bpad(p)), vi);
+      if constexpr (W::kStoreHeld) {
+        // the loaded vector at p: points row_own(g, V q) ..
+#pragma unroll
+        for (int c = 0; c < V; ++c) {
+          vr[c] = zr[V * q + c];
+          vi[c] = zi[V * q + c];
+        }
+      } else {
+        Vec16<T>::split(*reinterpret_cast<const U*>(br + bpad(p)), vr);
+        Vec16<T>::split(*reinterpret_cast<const U*>(bi + bpad(p)), vi);
+      }
 #pragma unroll
       for (int c = 0; c < V; ++c) {
         vr[c] *= scale;
@@ -544,8 +616,9 @@ __device__ __forceinline__ int at(const Block<T>& k, int c, int p) {
 // w_L^(a i), back to the same points.  No other butterfly touches them,
 // so a thread takes its butterflies one at a time, and the block
 // synchronises once a stage.  twr, twi: (cos, sin)(sign 2 pi e / N),
-// e < N = kB 2^(lw + ls).
-template <int R, int lrr, bool kRows, int kB = 1, class T>
+// e < N = kB 2^(lw + ls).  kArith: as line_stage's.
+template <int R, int lrr, bool kRows, int kB = 1, int kArith = kStageFull,
+          class T>
 __device__ __forceinline__ void dif_stage(const Block<T>& k, int lc, int lw,
                                           int ll, int ls,
                                           const T* __restrict__ twr,
@@ -566,8 +639,16 @@ __device__ __forceinline__ void dif_stage(const Block<T>& k, int lc, int lw,
       vr[j] = k.re[s];
       vi[j] = k.im[s];
     }
-    Dft<R, T>::run(vr, vi, sign);
-    if (lq > 0) {
+    if constexpr (kArith == kStageMoves) {
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        keep(vr[j]);
+        keep(vi[j]);
+      }
+    } else {
+      Dft<R, T>::run(vr, vi, sign);
+    }
+    if (kArith == kStageFull && lq > 0) {
 #pragma unroll
       for (int a = 1; a < R; ++a) {
         const int e = kB * ((a * i) << (lw - ll + ls));
@@ -659,8 +740,8 @@ __device__ __forceinline__ void dif_stage3(const Block<T>& k, int lc, int lw,
 // writes y_k to CTA k's point (n, col), a place no other thread of the
 // cluster touches; CTA k then holds the rows k + K m of the
 // decimation.  twr, twi: the powers of w_n1.  Between two cluster
-// barriers (the caller's).
-template <int K, int kThreads, class T>
+// barriers (the caller's).  kArith: as line_stage's.
+template <int K, int kThreads, int kArith = kStageFull, class T>
 __device__ __forceinline__ void cluster_dif_step(const Block<T>& k, int lc,
                                                  int elems, unsigned kk,
                                                  const T* __restrict__ twr,
@@ -677,9 +758,18 @@ __device__ __forceinline__ void cluster_dif_step(const Block<T>& k, int lc,
       vr[j] = *peer_smem(k.re + s, static_cast<unsigned>(j));
       vi[j] = *peer_smem(k.im + s, static_cast<unsigned>(j));
     }
-    Dft<K, T>::run(vr, vi, sign);
+    if constexpr (kArith == kStageMoves) {
 #pragma unroll
-    for (int j = 1; j < K; ++j) {       // output j times w_n1^(n j)
+      for (int j = 0; j < K; ++j) {
+        keep(vr[j]);
+        keep(vi[j]);
+      }
+    } else {
+      Dft<K, T>::run(vr, vi, sign);
+    }
+#pragma unroll
+    for (int j = 1; j < K && kArith == kStageFull; ++j) {
+      // output j times w_n1^(n j)
       const int e = n * j;
       const T wr = __ldg(twr + e), wi = __ldg(twi + e);
       const T yr = vr[j], yi = vi[j];
@@ -739,6 +829,27 @@ struct AxisBandBudget<float> {
   static constexpr int kRound = 4;
 };
 
+// A's routes at N = 512, 768, 1024 (fft_axis.cu; the probe bfly takes
+// them too).  Points a thread of the line kernel holds, so that a line
+// lies in one warp: float64 16 at N = 512, 24 at 768 and 32 at 1024;
+// float32 32, 24 at 768 (D's lines).
+template <class T>
+__host__ __device__ constexpr int axis_line_points(int n) {
+  return n == 768 ? 24 : n == 1024 || sizeof(T) == 4 ? 32 : 16;
+}
+
+// CTAs a band of A's band kernel (a cluster): float64 4 at N = 1024 and
+// 768 (16 columns, 128-byte row segments), 2 at 512 (16 columns);
+// float32 4 (D's band: 32 columns at 1024 and 768, 64 at 512).
+template <class T>
+__host__ __device__ constexpr int band_cluster(int n) {
+  return sizeof(T) == 4 || n > 512 ? 4 : 2;
+}
+
+// log2 of a cluster of K = 1, 2, 4 or 8 CTAs.
+template <int K>
+constexpr int log2_cluster = K == 8 ? 3 : K == 4 ? 2 : K == 2 ? 1 : 0;
+
 // Dynamic shared memory of a band CTA: `rows` rows of 2^lc points.
 template <class T>
 inline std::size_t band_smem(int rows, int lc) {
@@ -772,20 +883,22 @@ inline int band_log2_cols(int rows) {
 // (after one radix-3 stage when kB = 3).  twr, twi: the powers of w_n.
 // B: the CTA's budget (BandBudget<T>'s points, its own threads and
 // chunks).  smem: band_smem(R, lc).  Map: the row map (AllRows, or
-// PadRows / TruncRows with `map`'s nt, see above).
+// PadRows / TruncRows with `map`'s nt, see above).  W: the work policy
+// (AxisWork, the transform; or see above).
 template <class T, int K, bool kVec, int kB, class B = BandBudget<T>,
-          class Map = AllRows>
+          class Map = AllRows, class W = AxisWork>
 __device__ __forceinline__ void axis_band(Half<const T> a, Half<const T> b,
                                           Half<T> oa, Half<T> ob,
                                           const T* __restrict__ twr,
                                           const T* __restrict__ twi,
                                           long long pre, long long post,
                                           int lr, int lc, T sign, T scale,
-                                          T* smem, Map map = Map{}) {
+                                          T* smem, Map map = Map{},
+                                          W work = W{}) {
   static_assert(B::kElems == BandBudget<T>::kElems,
                 "band_log2_cols and band_smem size the CTA");
   constexpr int V = kVec ? kVec16<T> : 1;
-  constexpr int lk = K == 8 ? 3 : K == 4 ? 2 : K == 2 ? 1 : 0;
+  constexpr int lk = log2_cluster<K>;
   using U = typename Vec16<T>::type;
   const int C = 1 << lc, R = kB << lr;
   const int h = (R * K) >> 1;
@@ -863,6 +976,38 @@ __device__ __forceinline__ void axis_band(Half<const T> a, Half<const T> b,
         k.im[s] = vi[j][cc];
       }
     }
+  }
+
+  if constexpr (!W::kTransform) {
+    static_assert(Map::kMode == AllRows::kMode, "a work policy's rows");
+    work.template band<K, kB, B::kThreads>(k, lc, lr, elems, kk, twr, twi,
+                                           sign);
+    if (!live) return;
+    T* ya = oa.ptr + li * oa.pre + col;
+    T* yb = ob.ptr + li * ob.pre + col;
+    for (int e = V * static_cast<int>(threadIdx.x); e < elems;
+         e += V * B::kThreads) {
+      int src, r;
+      W::template band_row<K, kB>(e >> lc, lr, kk, &src, &r);
+      const int s = src * k.rs + pad(e & (C - 1));
+      const bool lo = r < h;
+      T* q = (lo ? ya : yb) + static_cast<long long>(lo ? r : r - h) * post;
+      const long long pl = lo ? oa.plane : ob.plane;
+      T vr[V], vi[V];
+#pragma unroll
+      for (int cc = 0; cc < V; ++cc) {
+        vr[cc] = k.re[s + cc] * scale;
+        vi[cc] = k.im[s + cc] * scale;
+      }
+      if constexpr (kVec) {
+        *reinterpret_cast<U*>(q) = Vec16<T>::make(vr);
+        *reinterpret_cast<U*>(q + pl) = Vec16<T>::make(vi);
+      } else {
+        q[0] = vr[0];
+        q[pl] = vi[0];
+      }
+    }
+    return;
   }
 
   if constexpr (K > 1) {

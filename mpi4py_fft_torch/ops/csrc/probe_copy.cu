@@ -201,6 +201,21 @@ move_kernel(const V* __restrict__ x, V* __restrict__ y, unsigned total,
   }
 }
 
+// block_copy's route: 16-byte vectors where every base is 16-byte
+// aligned and a box row is a multiple of 4 floats, else single floats;
+// -1 where the arguments describe no box grid of the tensors.  Fills g.
+enum CopyRoute { kRefused = -1, kScalar = 0, kVector = 1 };
+
+int pick_route(const float* x0, const float* y0, const float* x1,
+               const float* y1, const long long* dims, const long long* box,
+               const int* order, int nd, CopyGeom* g) {
+  if ((x1 == nullptr) != (y1 == nullptr)) return kRefused;
+  const bool vec = aligned16(x0) && aligned16(y0) &&
+                   (x1 == nullptr || (aligned16(x1) && aligned16(y1)));
+  if (vec && make_geom(dims, box, order, nd, 4, g)) return kVector;
+  return make_geom(dims, box, order, nd, 1, g) ? kScalar : kRefused;
+}
+
 }  // namespace
 
 // x0 -> y0 (and x1 -> y1 unless x1 is null): contiguous float32 tensors of
@@ -212,14 +227,23 @@ extern "C" int mff_block_copy_f32(const float* x0, float* y0,
                                   const long long* dims,
                                   const long long* box, const int* order,
                                   int nd, void* stream) {
-  if ((x1 == nullptr) != (y1 == nullptr)) return cudaErrorInvalidValue;
   CopyGeom g;
-  const bool vec = aligned16(x0) && aligned16(y0) &&
-                   (x1 == nullptr || (aligned16(x1) && aligned16(y1)));
-  if (vec && make_geom(dims, box, order, nd, 4, &g))
-    return launch_copy<Vec4>(x0, y0, x1, y1, g, stream);
-  if (!make_geom(dims, box, order, nd, 1, &g)) return cudaErrorInvalidValue;
-  return launch_copy<float>(x0, y0, x1, y1, g, stream);
+  switch (pick_route(x0, y0, x1, y1, dims, box, order, nd, &g)) {
+    case kVector: return launch_copy<Vec4>(x0, y0, x1, y1, g, stream);
+    case kScalar: return launch_copy<float>(x0, y0, x1, y1, g, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The route mff_block_copy_f32 takes with the same arguments: 1 vector,
+// 0 scalar; -1 where it refuses them.  Nothing is launched.
+extern "C" int mff_block_copy_route_f32(const float* x0, float* y0,
+                                        const float* x1, float* y1,
+                                        const long long* dims,
+                                        const long long* box,
+                                        const int* order, int nd) {
+  CopyGeom g;
+  return pick_route(x0, y0, x1, y1, dims, box, order, nd, &g);
 }
 
 // y (P, N', Q) from x (P, N, Q), float32, contiguous: N' = N / 2 for

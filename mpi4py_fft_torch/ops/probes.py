@@ -4,12 +4,14 @@ PyTorch version beside it:
 
 * ``block_copy`` (csrc/probe_copy.cu): a copy of a contiguous float32
   tensor box by box, in the caller's box shape and grid order, in place
-  or out of place, one stream or two;
+  or out of place, one stream or two (``block_copy_route``: 16-byte
+  vectors or single floats);
 * ``move`` (csrc/probe_copy.cu): a gather copy along one axis (even, odd,
   reverse, roll), the moves of the packed r2c kernel;
-* ``bfly`` (csrc/probe_bfly.cu): A's kernel body on A's tile with the work
-  between its load and its store chosen by a mode (copy, moves, adds,
-  full) and run ``reps`` times;
+* ``bfly`` (csrc/probe_bfly.cu): A's kernels (its line and band kernels
+  at N = 512, 768 and 1024, its tile elsewhere or with ``lines=``) with
+  the work between their load and their store chosen by a mode (copy,
+  moves, adds, full) and run ``reps`` times;
 * ``fma_chain`` (csrc/probe_fma.cu): ``acc <- acc * a + b`` repeated, the
   card's FMA rate, float32 and float64.
 
@@ -26,8 +28,10 @@ import torch
 from . import _build
 from . import butterfly as bf
 
-__all__ = ['block_copy', 'block_copy_plain', 'move', 'move_plain', 'bfly',
-           'bfly_plain', 'tile_lines', 'fma_chain', 'fma_chain_plain',
+__all__ = ['block_copy', 'block_copy_plain', 'block_copy_route',
+           'COPY_ROUTES', 'move', 'move_plain', 'bfly', 'bfly_plain',
+           'bfly_route', 'BFLY_ROUTES', 'tile_lines', 'fma_chain',
+           'fma_chain_plain',
            'MOVES', 'MODES', 'FMA_A', 'FMA_B', 'LAUNCHES', 'reset_launches']
 
 # kernel launches since the last reset; a wrapper adds one where it
@@ -36,6 +40,10 @@ LAUNCHES = {'block_copy': 0, 'move': 0, 'bfly': 0, 'fma_chain': 0,
             'fma_chain_f64': 0}
 
 MOVES = ('even', 'odd', 'reverse', 'roll')
+# block_copy's routes by the C entry's number (mff_block_copy_route_f32)
+COPY_ROUTES = ('scalar', 'vector')
+# bfly's routes by the C entry's number (mff_bfly_route_f32)
+BFLY_ROUTES = ('tile', 'lines', 'band')
 MODES = ('copy', 'moves', 'adds', 'full')
 # the constants of scripts/tpu_vpu_peak.py:53-54
 FMA_A, FMA_B = 1.0000001, 1e-9
@@ -121,6 +129,34 @@ def _box_args(x, box, order, what):
     return box, order
 
 
+def _copy_args(x, box, order, out, x2, out2):
+    """The C entry's pointers, dims, box and order; a missing output is
+    taken as the new tensor block_copy allocates (16-byte aligned)."""
+    nd = x.dim()
+    ptrs = [bf._ptr(x), bf._ptr(x if out is None else out)]
+    if x2 is not None:
+        ptrs += [bf._ptr(x2), bf._ptr(x2 if out2 is None else out2)]
+    else:
+        ptrs += [None, None]
+    return (*ptrs, (ctypes.c_longlong * nd)(*x.shape),
+            (ctypes.c_longlong * nd)(*box), (ctypes.c_int * nd)(*order), nd)
+
+
+def block_copy_route(x, box, order=None, out=None, x2=None, out2=None):
+    """The route ``block_copy`` takes on these tensors on the card:
+    'vector' (16-byte vectors) or 'scalar' (a base not 16-byte aligned,
+    or a box run not a multiple of 4 floats), by the C entry's own rule
+    (the built kernel library answers; nothing is launched)."""
+    what = 'block_copy'
+    box, order = _box_args(x, box, order, what)
+    rc = _build.load().block_copy_route_f32(
+        *_copy_args(x, box, order, out, x2, out2))
+    if rc < 0:
+        raise ValueError(f"{what}: no route for {tuple(x.shape)} in boxes "
+                         f"{box}")
+    return COPY_ROUTES[rc]
+
+
 def block_copy(x, box, order=None, out=None, x2=None, out2=None):
     """Copy contiguous float32 ``x`` into ``out`` (a new tensor, or ``x``
     itself for in place) in boxes of shape ``box``, one CTA a box at a
@@ -143,13 +179,8 @@ def block_copy(x, box, order=None, out=None, x2=None, out2=None):
         if pair:
             out2.copy_(block_copy_plain(x2))
     elif x.numel():
-        nd = x.dim()
-        _launch(what, _build.load().block_copy_f32, x, bf._ptr(x),
-                bf._ptr(out), bf._ptr(x2) if pair else None,
-                bf._ptr(out2) if pair else None,
-                (ctypes.c_longlong * nd)(*x.shape),
-                (ctypes.c_longlong * nd)(*box),
-                (ctypes.c_int * nd)(*order), nd)
+        _launch(what, _build.load().block_copy_f32, x,
+                *_copy_args(x, box, order, out, x2, out2))
     return (out, out2) if pair else out
 
 
@@ -274,14 +305,30 @@ def bfly_plain(p, axis, mode='full', reps=1, forward=True):
     return y.reshape(p.shape)
 
 
+def bfly_route(p, axis, lines=None, out=None):
+    """The kernel ``bfly`` runs on planar ``p`` along ``axis`` into
+    ``out`` (``p`` when None) with ``lines``: 'lines' or 'band' (A's line
+    and band kernels) or 'tile', by the C entry's own rule (the built
+    kernel library answers; nothing is launched)."""
+    shape = tuple(p.shape[1:])
+    axis = axis % len(shape)
+    pre, post = bf._pre_post(shape, axis)
+    lc = -1 if lines is None else int(lines).bit_length() - 1
+    q = p if out is None else out
+    return BFLY_ROUTES[_build.load().bfly_route_f32(
+        bf._ptr(p), bf._ptr(q), pre, shape[axis], post, lc)]
+
+
 def bfly(p, axis, mode='full', reps=1, lines=None, out=None, forward=True):
-    """A's kernel body along ``axis`` (complex coords) of planar float32
-    ``p``: load each tile of lines, run ``mode`` ``reps`` times, store it
-    into ``out`` (a new tensor, or ``p`` for in place).  ``mode``:
-    'copy', 'moves' (the radix-4 data flow alone), 'adds' (radix-4 with
-    twiddles at 1) or 'full' (A's radix plan); moves and adds take
-    N = 4^k.  ``lines``: lines a tile (a power of two up to A's own), or
-    A's own tile."""
+    """A's kernels along ``axis`` (complex coords) of planar float32
+    ``p``: load each line, band or tile of lines, run ``mode`` ``reps``
+    times, store it into ``out`` (a new tensor, or ``p`` for in place).
+    ``mode``: 'copy', 'moves' (the radix-4 data flow alone), 'adds'
+    (radix-4 with twiddles at 1) or 'full' (A's transform); moves and adds
+    take N = 4^k.  At N = 512, 768 and 1024 the pass takes A's route
+    (``bfly_route``: its line or band kernel); ``lines``: A's tile of that
+    many lines (a power of two up to A's own) at any N, as every other
+    length takes A's own tile."""
     what = 'bfly'
     bf._check_planar(p, what)
     if mode not in MODES or int(reps) < 1:
@@ -307,7 +354,7 @@ def bfly(p, axis, mode='full', reps=1, lines=None, out=None, forward=True):
     if out.numel():
         pre, post = bf._pre_post(shape, axis)
         sign = -1 if forward else 1
-        tw = bf._tw_tensor(N, sign, False, p.dtype, p.device)
+        tw = bf._tw_tensor_axis(N, sign, p.dtype, p.device)
         plan, nst = bf._plan_args(N)
         _launch(what, _build.load().bfly_f32, p, bf._ptr(p), bf._ptr(out),
                 bf._ptr(tw), tw.shape[1], pre, N, post, sign, plan, nst,

@@ -217,10 +217,13 @@ def test_engine_products_full_f32_on_cuda(card, monkeypatch):
 @pytest.mark.cuda
 def test_probe_kernels_on_cuda(card):
     """The probe kernels on the card: launched and counted; block_copy and
-    move bit for bit (in place, two streams, both grid orders), bfly
-    within 5e-6 of its plain version (copy and moves bit for bit, in place
-    equal to out of place), fma_chain within 5e-6 (f64 2e-13); a tensor
-    the kernels do not take raises, with no fallback."""
+    move bit for bit (in place, two streams, both grid orders; block_copy
+    on its vector route and, on a misaligned view and a 2-float run, its
+    scalar route), bfly within 5e-6 of its plain version (copy and moves
+    bit for bit, in place equal to out of place) on A's tile and on A's
+    line and band routes at N = 1024 (every mode) and 512, 768 (copy,
+    full), fma_chain within 5e-6 (f64 2e-13); a tensor the kernels do not
+    take raises, with no fallback."""
     from mpi4py_fft_torch.ops import probes as tp
 
     def nan(t):         # an output no correct launch leaves as it is
@@ -228,7 +231,11 @@ def test_probe_kernels_on_cuda(card):
     g = torch.Generator(device=card).manual_seed(5)
     x = torch.randn((2, 64, 64, 64), generator=g, device=card)
     for box, order in (((2, 1, 64, 64), None), ((2, 64, 8, 32), None),
-                       ((2, 64, 8, 32), (0, 1, 3, 2))):
+                       ((2, 64, 8, 32), (0, 1, 3, 2)),
+                       ((1, 2, 4, 64, 64), (4, 3, 2, 1, 0))):
+        if len(box) == 5:
+            x = x.view(2, 16, 4, 64, 64)
+        assert tp.block_copy_route(x, box, order) == 'vector'
         c0 = tp.LAUNCHES['block_copy']
         assert torch.equal(tp.block_copy(x, box, order, out=nan(x)), x)
         ya, yb = tp.block_copy(x, box, order, out=nan(x), x2=2 * x,
@@ -238,6 +245,12 @@ def test_probe_kernels_on_cuda(card):
         assert tp.block_copy(z, box, order, out=z) is z
         assert torch.equal(z, x)
         assert tp.LAUNCHES['block_copy'] == c0 + 3
+    x = x.view(2, 64, 64, 64)
+    base = torch.randn(2 * 6 * 10 * 4 + 1, generator=g, device=card)
+    for v, box in ((base[1:].view(2, 6, 10, 4), (1, 2, 10, 4)),
+                   (base[:2 * 6 * 10 * 2].view(2, 6, 10, 2), (2, 6, 1, 2))):
+        assert tp.block_copy_route(v, box) == 'scalar'
+        assert torch.equal(tp.block_copy(v, box), v)
     r = torch.randn((24, 10, 96), generator=g, device=card)
     for axis in (0, 1, 2):
         for kind, shift in (('even', 0), ('odd', 0), ('reverse', 0),
@@ -245,9 +258,16 @@ def test_probe_kernels_on_cuda(card):
             ref = tp.move_plain(r, axis, kind, shift)
             assert torch.equal(tp.move(r, axis, kind, shift, out=nan(ref)),
                                ref)
-    for shape, ax in (((64, 8, 40), 0), ((6, 64, 40), 1), ((50, 256), 1)):
+    for shape, ax in (((64, 8, 40), 0), ((6, 64, 40), 1), ((50, 256), 1),
+                      ((1024, 8, 40), 0), ((6, 1024, 36), 1),
+                      ((50, 1024), 1), ((512, 4, 10), 0), ((3, 768, 10), 1),
+                      ((20, 768), 1), ((7, 512), 1)):
         q = torch.randn((2,) + shape, generator=g, device=card)
-        for mode in tp.MODES:
+        N = shape[ax]
+        assert tp.bfly_route(q, ax) == ('tile' if N < 512 else
+                                        'lines' if ax == len(shape) - 1
+                                        else 'band')
+        for mode in tp.MODES if N in (64, 256, 1024) else ('copy', 'full'):
             got = tp.bfly(q, ax, mode, 2, out=nan(q))
             ref = tp.bfly_plain(q, ax, mode, 2)
             if mode in ('copy', 'moves'):

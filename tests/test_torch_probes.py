@@ -444,11 +444,12 @@ def emu_probes(tmp_path_factory):
                '-o', str(d / f'{lib}.so'), str(src)]
         procs[lib] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                       stderr=subprocess.STDOUT, text=True)
-    k = types.SimpleNamespace()
+    k = types.SimpleNamespace(libs={})
     for lib, p in procs.items():
         out, _ = p.communicate(timeout=600)
         assert p.returncode == 0, out
         so = ctypes.CDLL(str(d / f'{lib}.so'))
+        k.libs[lib] = so
         for name, argtypes in _build._ENTRIES[lib].items():
             fn = getattr(so, name)
             fn.argtypes = argtypes
@@ -498,11 +499,94 @@ def test_block_copy_kernel(kernel_path, name):
     assert tp.LAUNCHES['block_copy'] == (2 if alias else 1)
 
 
+def _emu_counter(emu, lib, name):
+    fn = getattr(emu.libs[lib], name)
+    fn.restype = ctypes.c_longlong
+    return fn()
+
+
+@pytest.mark.parametrize('reverse', [False, True])
+@pytest.mark.parametrize('name', list(COPIES))
+def test_block_copy_route_orders(kernel_path, name, reverse):
+    """The vector route on every blocking (each 16-byte aligned, its runs
+    multiples of 4 floats), in the case's grid order and in its reverse,
+    in place and out of place (two streams where the case has them), bit
+    for bit."""
+    shape, block, _, _, order, _, pair = COPIES[name]
+    order = tuple(range(len(shape))) if order is None else order
+    if reverse:
+        order = order[::-1]
+    xs = [torch.from_numpy(_rand(shape, 43 + i))
+          for i in range(2 if pair else 1)]
+    two = {'x2': xs[1]} if pair else {}
+    assert tp.block_copy_route(xs[0], block, order, **two) == 'vector'
+    if pair:
+        got = tp.block_copy(xs[0], block, order, out=_nan(xs[0]), x2=xs[1],
+                            out2=_nan(xs[1]))
+        qs = [x.clone() for x in xs]
+        tp.block_copy(qs[0], block, order, out=qs[0], x2=qs[1], out2=qs[1])
+    else:
+        got = (tp.block_copy(xs[0], block, order, out=_nan(xs[0])),)
+        qs = [xs[0].clone()]
+        assert tp.block_copy(qs[0], block, order, out=qs[0]) is qs[0]
+    for g, q, x in zip(got, qs, xs):
+        assert torch.equal(g, x) and torch.equal(q, x)
+    assert tp.LAUNCHES['block_copy'] == 2
+
+
+# (tensor shape, box, grid order, route): box extents above 256, a 5-D
+# box, _reach_ms's patterns (chip_smoke.py) at n = 16 and the 257-column
+# runs of the dealiased plans, and runs of 2 and 6 floats (the scalar
+# route)
+COPY_PLANS = {
+    'box above 256, run cut': ((512, 520), (512, 260), None, 'vector'),
+    'rows above 256': ((1024, 128), (512, 64), None, 'vector'),
+    'long run into rows': ((2, 4, 2048), (2, 1, 2048), None, 'vector'),
+    '5-D box': ((2, 4, 6, 8, 600), (1, 2, 3, 4, 300), (4, 3, 2, 1, 0),
+                'vector'),
+    'reach last axis (2, 1, B, C)': ((2, 16, 16, 16), (2, 1, 16, 16), None,
+                                     'vector'),
+    'reach mid axis (2, 8, B, 128)': ((2, 16, 16, 256), (2, 8, 16, 128),
+                                      None, 'vector'),
+    'reach mid axis, f64 odd post (2, 1, B, C)': ((2, 2, 512, 514),
+                                                  (2, 1, 512, 514), None,
+                                                  'vector'),
+    'reach mid axis, odd post (2, 1, B, 257)': ((2, 4, 768, 257),
+                                                (2, 1, 768, 257), None,
+                                                'vector'),
+    'reach lead axis (2, A, 128)': ((2, 16, 256), (2, 16, 128), None,
+                                    'vector'),
+    '2-float run': ((2, 6, 10, 2), (2, 6, 1, 2), None, 'scalar'),
+    'run of 6 floats': ((2, 6, 10, 6), (2, 6, 1, 6), None, 'scalar'),
+}
+
+
+@pytest.mark.parametrize('name', list(COPY_PLANS))
+def test_block_copy_route_plan(kernel_path, name):
+    """The route the C entry takes (16-byte vectors where every base is
+    16-byte aligned and a box row is a multiple of 4 floats, else single
+    floats), and the copy bit for bit on that route."""
+    shape, box, order, route = COPY_PLANS[name]
+    x = torch.from_numpy(_rand(shape, 44))
+    assert tp.block_copy_route(x, box, order) == route
+    y = tp.block_copy(x, box, order, out=_nan(x))
+    assert torch.equal(y, x) and tp.LAUNCHES['block_copy'] == 1
+
+
 def test_block_copy_kernel_scalar_and_refusals(kernel_path, emu_probes):
     base = torch.from_numpy(_rand((2 * 6 * 10 * 3 + 1,), 36))
     x = base[1:].view(2, 6, 10, 3)            # 4-byte aligned only, run 6
+    assert tp.block_copy_route(x, (1, 2, 10, 3), (0, 2, 1, 3)) == 'scalar'
     y = tp.block_copy(x, (1, 2, 10, 3), (0, 2, 1, 3))
     assert torch.equal(y, x) and tp.LAUNCHES['block_copy'] == 1
+    # the same boxes 16-byte aligned take vectors, misaligned by 4 floats
+    # too
+    a = torch.from_numpy(_rand((2 * 6 * 10 * 4 + 4,), 36))
+    for v in (a[:-4].view(2, 6, 10, 4), a[4:].view(2, 6, 10, 4)):
+        assert tp.block_copy_route(v, (1, 2, 10, 4)) == 'vector'
+        assert torch.equal(tp.block_copy(v, (1, 2, 10, 4)), v)
+    assert tp.block_copy_route(a[1:-3].view(2, 6, 10, 4),
+                               (1, 2, 10, 4)) == 'scalar'
     with pytest.raises(ValueError, match='tile'):
         tp.block_copy(x, (2, 4, 10, 3))
     with pytest.raises(ValueError, match='permutation'):
@@ -591,6 +675,58 @@ def test_bfly_kernel_lengths_and_tiles(kernel_path, emu_probes):
                              tw.shape[1], 1, 64, 40, -1, plan, nst, 3, 1, 8,
                              ctypes.c_void_p(0))
     assert rc != 0
+
+
+# A's routes at N = 512, 768, 1024: (complex shape, axis, route) at the
+# lead, mid and last positions (post 24 and 12: vectors; post 5: single
+# elements)
+BFLY_ROUTES = {
+    (1024, 'lead'): ((1024, 3, 8), 0, 'band'),
+    (1024, 'mid'): ((2, 1024, 12), 1, 'band'),
+    (1024, 'last'): ((3, 1024), 1, 'lines'),
+    (512, 'lead'): ((512, 2, 4), 0, 'band'),
+    (512, 'mid'): ((3, 512, 5), 1, 'band'),
+    (512, 'last'): ((2, 512), 1, 'lines'),
+    (768, 'lead'): ((768, 6), 0, 'band'),
+    (768, 'mid'): ((2, 768, 8), 1, 'band'),
+    (768, 'last'): ((2, 768), 1, 'lines'),
+}
+
+
+@pytest.mark.parametrize('key', list(BFLY_ROUTES), ids=str)
+def test_bfly_kernel_routes(kernel_path, emu_probes, key):
+    """bfly on A's line and band kernels (lines.cuh line_body and
+    axis_band under the mode): every mode at N = 1024, copy and full at
+    512 and 768, reps 1 (forward) and 2 (backward), against bfly_plain
+    (copy and moves bit for bit, adds and full 5e-6), in place equal to
+    out of place bit for bit; the band runs on clusters, the lines on
+    warps."""
+    shape, axis, route = BFLY_ROUTES[key]
+    N = key[0]
+    p = torch.from_numpy(_rand((2,) + shape, 45))
+    assert tp.bfly_route(p, axis) == route
+    modes = tp.MODES if N == 1024 else ('copy', 'full')
+    lib = 'probe_bfly'
+    c0 = _emu_counter(emu_probes, lib, 'emu_cluster_launches')
+    for mode in modes:
+        for reps, fwd in ((1, True), (2, False)):
+            w0 = _emu_counter(emu_probes, lib, 'emu_syncwarps')
+            got = tp.bfly(p, axis, mode, reps, out=_nan(p), forward=fwd)
+            ref = tp.bfly_plain(p, axis, mode, reps, forward=fwd)
+            what = (mode, reps)
+            if mode in ('copy', 'moves'):
+                assert torch.equal(got, ref), what
+            else:
+                assert _rel(got, ref) <= TOL, what
+            q = p.clone()
+            assert tp.bfly(q, axis, mode, reps, out=q, forward=fwd) is q
+            assert torch.equal(q, got), what
+            # the line kernel's stages meet at __syncwarp; copy has none
+            warps = _emu_counter(emu_probes, lib, 'emu_syncwarps') - w0
+            assert (warps > 0) == (route == 'lines' and mode != 'copy')
+    clusters = _emu_counter(emu_probes, lib, 'emu_cluster_launches') - c0
+    assert clusters == (4 * len(modes) if route == 'band' else 0)
+    assert tp.LAUNCHES['bfly'] == 4 * len(modes)
 
 
 @pytest.mark.parametrize('dtype,tol', [(np.float32, TOL),
