@@ -207,7 +207,10 @@ failure raises and the script exits non-zero:
              ``block_copy`` and ``move`` bit for bit at every blocking and
              move the scripts name (in place, out of place, two streams;
              ``block_copy`` on its vector route at every blocking, on its
-             scalar route on a misaligned view and 2-float runs),
+             scalar route on a misaligned view and 2-float runs;
+             ``move``'s every kind along the last and lead axes of 768^3,
+             a (768, 768, 772) volume and a 768^3 view 4 bytes off
+             alignment, shifts 1, 4 and 763, each route checked),
              ``bfly`` at 5e-6 in every mode, position and tile (copy and
              moves bit for bit; A's line and band kernels at N = 512, 768
              and 1024, A's tile elsewhere and with ``lines=``; in place
@@ -222,7 +225,12 @@ failure raises and the script exits non-zero:
              kernel must have been launched there; last, each probe
              kernel's time beside its plain version, its bound and its
              PyTorch yardstick for the ``kernels`` line, with its path
-             (``block_copy``'s and ``bfly``'s route); ``bfly``'s modes on
+             (``block_copy``'s, ``move``'s and ``bfly``'s route);
+             ``move``'s kinds (even, odd, reverse, roll by 1 and 4) along
+             the last and lead axes of 768^3 beside ``copy_`` of the
+             strided view, ``torch.flip`` and ``torch.roll``, each with
+             its route and its bound from the sectors of x it must read
+             (``move_bytes``); ``bfly``'s modes on
              the 1024^3 lead and mid passes beside the same modes on A's
              tile (``lines=tile_lines(1024)``) and A's own passes;
              ``block_copy`` on every ``_reach_ms`` pattern beside
@@ -292,9 +300,12 @@ failure raises and the script exits non-zero:
 probe kernels' times of phase 24 (``bfly``'s modes on the 1024^3 lead and
 mid passes, on A's band and on A's tile of ``tile_lines(1024)`` lines,
 beside A's own passes and cuFFT; ``block_copy`` on every pattern that
-``_reach_ms`` times, each beside ``copy_``, with its route; each held
-first) on the port of the checkout at TREE, and prints no last line: run
-it for two trees in turns on one card (parent, change, change, parent).
+``_reach_ms`` times, each beside ``copy_``, with its route; ``move``'s
+kinds on the 768^3 last and lead axes beside their PyTorch calls; each
+held first) on the port of the checkout at TREE, and prints no last line:
+run it for two trees in turns on one card (parent, change, change,
+parent).  A tree without ``move_route`` or ``move_bytes`` reports that
+route and bound as null.
 
 ``python3 chip_smoke.py --times-any TREE`` runs only phases 1, 22 and 23,
 B's two rows and C's row of phase 16, A's, C64's, D's and A64's rows of
@@ -3419,10 +3430,67 @@ def _copy_cases(n):
              True))
 
 
+def _move_route_want(x, axis, kind, shift):
+    """The route ``move`` should take on ``x`` into a new tensor at the
+    shapes ``_holds_probes`` gives it (lines short enough to stage)."""
+    axis = axis % x.dim()
+    N, Q = x.shape[axis], math.prod(x.shape[axis + 1:])
+    if x.data_ptr() % 16:
+        return 'scalar'
+    if Q > 1:
+        return 'rows' if Q % 4 == 0 else 'scalar'
+    if kind in ('even', 'odd') or N % 4 == 0 and (
+            kind == 'reverse' or shift % N % 4 == 0):
+        return 'lines'
+    return 'lines_shared'
+
+
+def _holds_moves(dev, tp, routes):
+    """``move`` bit for bit against ``move_plain``: the script's nine
+    spellings, then every kind on each route at B's reads, each route
+    checked against ``_move_route_want`` and kept in ``routes``; returns
+    the number of cases."""
+    cases = 0
+    from mpi4py_fft_torch.probes import moves
+    x = torch.arange(64 * 8 * 128, dtype=torch.float32,
+                     device=dev).reshape(64, 8, 128)
+    for tag, m in moves.MOVES.items():
+        ref = tp.move_plain(x, *m)
+        _exact(tp.move(x, *m, out=_nan(ref)), ref, f"move {tag}")
+        cases += 1
+    # every kind on each route: the last axis of m^3 (lines, in registers
+    # or staged for roll by 1 and m - 5), of a 772-point last axis
+    # (N % 8 == 4) and the lead axis (rows); a view 4 bytes off alignment
+    # (scalar)
+    m = 3 * DEALIAS_N // 2
+    base = _rand((m * m * (m + 4) + 1,), dev, SEED + 82)
+    for label, x in ((f'{m}^3', base[:m ** 3].view(m, m, m)),
+                     (f'({m}, {m}, {m + 4})',
+                      base[:m * m * (m + 4)].view(m, m, m + 4)),
+                     (f'{m}^3 off alignment',
+                      base[1:m ** 3 + 1].view(m, m, m))):
+        for axis in (0, 2):
+            for kind, shift in (('even', 0), ('odd', 0), ('reverse', 0),
+                                ('roll', 1), ('roll', 4), ('roll', m - 5)):
+                ref = tp.move_plain(x, axis, kind, shift)
+                y = _nan(ref)
+                what = f"move {kind} {shift} axis {axis} of {label}"
+                route = tp.move_route(x, axis, kind, shift, out=y)
+                want = _move_route_want(x, axis, kind, shift)
+                routes[what] = route
+                _check(route == want, f"{what}: route {route}, not {want}")
+                _exact(tp.move(x, axis, kind, shift, out=y), ref, what)
+                del ref, y
+                cases += 1
+    del x, base
+    return cases
+
+
 def _holds_probes(holds, dev, tp, routes):
     """Every probe kernel against its plain version, each case's route
     (``block_copy``'s vectors on every blocking, its scalar route on a
-    misaligned view and 2-float runs; ``bfly``'s by A's rule) checked and
+    misaligned view and 2-float runs; ``move``'s by ``_move_route_want``;
+    ``bfly``'s by A's rule) checked and
     kept in ``routes``; returns the number of cases."""
     cases = 0
     for n in (PROBE_N // 4, PROBE_N):           # the scripts' 256 and 1024
@@ -3465,25 +3533,7 @@ def _holds_probes(holds, dev, tp, routes):
         _exact(tp.block_copy(v, box, out=_nan(v)), v, f"block_copy {label}")
         cases += 1
     del x
-    # the moves: the script's nine spellings, and B's reads at 768^3
-    from mpi4py_fft_torch.probes import moves
-    x = torch.arange(64 * 8 * 128, dtype=torch.float32,
-                     device=dev).reshape(64, 8, 128)
-    for tag, m in moves.MOVES.items():
-        ref = tp.move_plain(x, *m)
-        _exact(tp.move(x, *m, out=_nan(ref)), ref, f"move {tag}")
-        cases += 1
-    m = 3 * DEALIAS_N // 2
-    x = _rand((m, m, m), dev, SEED + 82)
-    for axis in (0, 2):
-        for kind, shift in (('even', 0), ('odd', 0), ('reverse', 0),
-                            ('roll', 1), ('roll', m - 5)):
-            ref = tp.move_plain(x, axis, kind, shift)
-            _exact(tp.move(x, axis, kind, shift, out=_nan(ref)), ref,
-                   f"move {kind} {shift} axis {axis} of {m}^3")
-            del ref
-            cases += 1
-    del x
+    cases += _holds_moves(dev, tp, routes)
     # bfly: every mode at lead, mid and last positions, reps, fewer lines a
     # tile than A's; at 512, 768 and 1024 on A's line and band kernels
     # (the band with vectors and, at post 9, single elements)
@@ -3620,10 +3670,69 @@ def _bfly_modes(tp, x, x0, ax, lines=None):
     return ms
 
 
+def _move_times(dev, tp):
+    """``move`` on every kind (roll by 1 and by 4) along the last and
+    the lead axis of a (1.5 DEALIAS_N)^3 float32 volume, out of place, each
+    held first: ms beside its plain version, its PyTorch call (``copy_``
+    of the strided view, ``torch.flip``, ``torch.roll``), its route and
+    its bound from ``move_bytes`` (null where the tree lacks
+    ``move_route`` or ``move_bytes``).  The first row (even on the last
+    axis, B's deinterleaved reads) is the kernels line's."""
+    m = 3 * DEALIAS_N // 2
+    r = _rand((m, m, m), dev, SEED + 87)
+    route = getattr(tp, 'move_route', None)
+    nbytes = getattr(tp, 'move_bytes', None)
+    rows = []
+    for axis in (2, 0):
+        for kind, shift in (('even', 0), ('odd', 0), ('reverse', 0),
+                            ('roll', 1), ('roll', 4)):
+            y = tp.move(r, axis, kind, shift)
+            what = f"move {kind} {shift} axis {axis} of {m}^3"
+            _exact(y, tp.move_plain(r, axis, kind, shift), what)
+            if kind in ('even', 'odd'):
+                sl = [slice(None)] * 3
+                sl[axis] = slice(kind == 'odd', None, 2)
+                view = r[tuple(sl)]
+                lib, lib_name = (lambda: y.copy_(view)), \
+                    'copy_ of the strided view'
+            elif kind == 'reverse':
+                lib, lib_name = (lambda: torch.flip(r, (axis,))), \
+                    'torch.flip'
+            else:
+                lib, lib_name = (lambda: torch.roll(r, shift, axis)), \
+                    'torch.roll'
+            b = nbytes(r, axis, kind) if nbytes else None
+            bound, by = _bound_ms(b, 0) if b else (None, None)
+            rows.append({
+                'axis': axis, 'kind': kind, 'shift': shift,
+                'route': route(r, axis, kind, shift, out=y) if route
+                else None,
+                'ms': _median_ms(lambda: tp.move(r, axis, kind, shift,
+                                                 out=y), reps=11),
+                'plain_ms': _median_ms(
+                    lambda: tp.move_plain(r, axis, kind, shift), reps=11),
+                'library_ms': _median_ms(lib, reps=11), 'library': lib_name,
+                'bytes': b, 'bound_ms': bound, 'bound_by': by})
+            del y, lib
+            torch.cuda.empty_cache()
+    del r
+    first = rows[0]
+    return {'shape': f'({m}, {m}, {m}) f32 -> ({m}, {m}, {m // 2}), the '
+                     f'even points of the last axis (B\'s deinterleaved '
+                     f'reads); rows: every kind along the last (2) and lead '
+                     f'(0) axes',
+            'path': first['route'], 'ms': first['ms'],
+            'plain_ms': first['plain_ms'],
+            'library_ms': first['library_ms'],
+            'bound_ms': first['bound_ms'], 'bound_by': first['bound_by'],
+            'rows': rows}
+
+
 def _probe_times(dev, tp):
     """Each probe kernel at one shape of its probes: ms beside its plain
     version, its bound and its PyTorch yardstick (None where no one call
-    computes the function), and its path (block_copy's and bfly's route);
+    computes the function), and its path (block_copy's, move's and bfly's
+    route); move's kinds on the last and lead axes (``_move_times``);
     bfly's modes on the 1024^3 lead and mid passes (A's band) beside the
     same modes on A's tile of ``tile_lines(1024)`` lines and A's own
     passes, and block_copy on every ``_reach_ms`` pattern beside
@@ -3679,19 +3788,7 @@ def _probe_times(dev, tp):
     del x, x0
     torch.cuda.empty_cache()
     out['block_copy']['reach_patterns'] = _reach_times(dev, tp)
-    m = 3 * DEALIAS_N // 2
-    r = _rand((m, m, m), dev, SEED + 87)
-    e = tp.move(r, 2, 'even')
-    b, by = _bound_ms(2 * e.numel() * 4, 0)
-    out['move'] = {
-        'shape': f'({m}, {m}, {m}) f32 -> ({m}, {m}, {m // 2}), the even '
-                 f'points of the last axis (B\'s deinterleaved reads)',
-        'path': 'scalar (one float a thread: the last axis)',
-        'ms': _median_ms(lambda: tp.move(r, 2, 'even', out=e)),
-        'plain_ms': _median_ms(lambda: tp.move_plain(r, 2, 'even')),
-        'library_ms': _median_ms(lambda: e.copy_(r[..., 0::2])),
-        'bound_ms': b, 'bound_by': by}
-    del r, e
+    out['move'] = _move_times(dev, tp)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for dtype, name in ((torch.float32, 'fma_chain'),
                         (torch.float64, 'fma_chain_f64')):
@@ -3847,8 +3944,9 @@ def main(argv=None):
                     const=os.path.dirname(os.path.abspath(__file__)),
                     help="run only phase 1 and the probe kernels' times "
                          "(bfly's modes beside A, block_copy on every "
-                         "reach pattern beside copy_) on the port in TREE, "
-                         "to compare two trees on one card")
+                         "reach pattern beside copy_, move's kinds beside "
+                         "their PyTorch calls) on the port in TREE, to "
+                         "compare two trees on one card")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)

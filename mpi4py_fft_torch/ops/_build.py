@@ -96,6 +96,8 @@ _ENTRIES = {
         'mff_block_copy_route_f32': [_P, _P, _P, _P, _LLA, _LLA, _IA, _I],
         # x, y, P, N, Q, kind, shift, stream
         'mff_move_f32': [_P, _P, _LL, _LL, _LL, _I, _LL, _P],
+        # x, y, P, N, Q, kind, shift (the route, no launch)
+        'mff_move_route_f32': [_P, _P, _LL, _LL, _LL, _I, _LL],
     },
     'probe_bfly': {
         # x, y, tw, tw_len, pre, n, post, sign, plan, nstages, mode, reps,

@@ -176,29 +176,302 @@ int launch_copy(const float* x0, float* y0, const float* x1, float* y1,
   return cudaGetLastError();
 }
 
-// move: y[p, k, q] = x[p, src(k), q] on the (P, N, Q) view, with src
-// 2k (even), 2k + 1 (odd), N - 1 - k (reverse) or (k - shift) mod N (roll)
+// move: y[p, k, q] = x[p, src(k), q] on the (P, N, Q) view, k < N' (N / 2
+// for even and odd, else N), src from move_src.  Bound on an H100: bytes;
+// nothing is computed.  The least traffic is y written once plus every
+// 32-byte sector of x that holds a gathered element read once
+// (ops/probes.py move_bytes): x + y for even and odd on the last axis
+// (every sector holds both parities), 2 y on another axis with rows of 32
+// bytes or more, 2 x for reverse and roll.  The C entry picks one of four
+// routes by shape (pick_move_route), each moving 16-byte vectors where
+// the shape lets it, with kMoveUnroll loads in flight a thread before its
+// first store:
+//  * lines (Q = 1, both bases 16-byte aligned), the gather in registers:
+//    even and odd deinterleave the flat tensor (an even N starts every
+//    line on an even index), output vector o from source vectors 2o and
+//    2o + 1; reverse (N % 4 == 0) reverses the mirrored vector of its
+//    line; roll by a multiple of 4 (N % 4 == 0) moves whole vectors;
+//  * lines_shared (Q = 1, aligned, every other reverse and roll): a CTA
+//    stages a group of whole lines in shared memory and writes its
+//    outputs as vectors, each element read there by the map;
+//  * rows (Q > 1, Q % 4 == 0, aligned): each output row is one contiguous
+//    source row, copied as vectors; the row comes from the CTA's item;
+//  * scalar: a base not 16-byte aligned, rows of Q % 4 != 0 floats, or a
+//    staged group above the shared-memory budget: one float a thread.
+// y may not overlap x: the entry refuses it (a reverse in place would
+// race).
 enum MoveKind { kEven = 0, kOdd = 1, kReverse = 2, kRoll = 3 };
+enum MoveRoute {
+  kMoveRefused = -1, kMoveScalar = 0, kMoveRows = 1, kMoveLines = 2,
+  kMoveStaged = 3
+};
 
-template <class V>
+constexpr int kMoveUnroll = 4;      // vectors a thread loads, then stores
+constexpr unsigned kMoveItem = kThreads * kMoveUnroll;  // a CTA's step
+constexpr long long kStageBytes = 16384;  // a staged group's target size
+constexpr long long kStageMax = 49152;    // its limit (no opt-in needed)
+
+// The source index along the axis of output index k < N' for a move of
+// `kind` on n points (roll by 0 <= shift < n, torch.roll's sense); on
+// vectors, the source vector of output vector k of a line of n vectors
+// for reverse and roll (shift in vectors).
+__host__ __device__ __forceinline__ unsigned move_src(int kind, unsigned k,
+                                                      unsigned n,
+                                                      unsigned shift) {
+  switch (kind) {
+    case kEven: return 2 * k;
+    case kOdd: return 2 * k + 1;
+    case kReverse: return n - 1 - k;
+    default: return k >= shift ? k - shift : k + n - shift;
+  }
+}
+
+// scalar: output element i (flat) from its source element.
 __global__ void __launch_bounds__(kThreads)
-move_kernel(const V* __restrict__ x, V* __restrict__ y, unsigned total,
-            FastDiv qv, FastDiv nout, unsigned n, int kind, unsigned shift) {
+move_kernel(const float* __restrict__ x, float* __restrict__ y,
+            unsigned total, FastDiv q, FastDiv nout, unsigned n, int kind,
+            unsigned shift) {
   for (unsigned i = blockIdx.x * blockDim.x + threadIdx.x; i < total;
        i += gridDim.x * blockDim.x) {
-    const unsigned t = div_of(qv, i);
-    const unsigned q = i - t * qv.d;
+    const unsigned t = div_of(q, i);
+    const unsigned c = i - t * q.d;
     const unsigned p = div_of(nout, t);
     const unsigned k = t - p * nout.d;
-    unsigned src;
-    switch (kind) {
-      case kEven: src = 2 * k; break;
-      case kOdd: src = 2 * k + 1; break;
-      case kReverse: src = n - 1 - k; break;
-      default: src = k >= shift ? k - shift : k + n - shift; break;
-    }
-    y[i] = x[(static_cast<long long>(p) * n + src) * qv.d + q];
+    y[i] = x[(static_cast<long long>(p) * n + move_src(kind, k, n, shift)) *
+                 q.d + c];
   }
+}
+
+// lines in registers: `total` output vectors of the flat y, kMoveItem a
+// CTA step.  Even and odd: vectors 2o and 2o + 1 of the flat x, and the
+// last `tail` (< 4) floats of y one at a time; reverse and roll: the
+// vector move_src gives in o's line of `line` vectors (one division, for
+// the line), shift in vectors.
+template <int kKind>
+__global__ void __launch_bounds__(kThreads)
+move_lines_kernel(const float4* __restrict__ x, float4* __restrict__ y,
+                  unsigned total, FastDiv line, unsigned shift,
+                  unsigned tail) {
+  if constexpr (kKind <= kOdd) {
+    if (blockIdx.x == 0 && threadIdx.x < tail) {
+      const unsigned i = 4 * total + threadIdx.x;
+      reinterpret_cast<float*>(y)[i] =
+          reinterpret_cast<const float*>(x)[2ull * i + kKind];
+    }
+  }
+  for (unsigned base = blockIdx.x * kMoveItem; base < total;
+       base += gridDim.x * kMoveItem) {
+    float4 a[kMoveUnroll], b[kMoveUnroll];
+#pragma unroll
+    for (int u = 0; u < kMoveUnroll; ++u) {
+      const unsigned o = base + u * kThreads + threadIdx.x;
+      if (o >= total) continue;
+      if constexpr (kKind <= kOdd) {
+        a[u] = __ldg(x + 2ull * o);
+        b[u] = __ldg(x + 2ull * o + 1);
+      } else {
+        const unsigned j = o - div_of(line, o) * line.d;
+        a[u] = __ldg(x + (o - j) + move_src(kKind, j, line.d, shift));
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kMoveUnroll; ++u) {
+      const unsigned o = base + u * kThreads + threadIdx.x;
+      if (o >= total) continue;
+      if constexpr (kKind == kEven)
+        y[o] = make_float4(a[u].x, a[u].z, b[u].x, b[u].z);
+      else if constexpr (kKind == kOdd)
+        y[o] = make_float4(a[u].y, a[u].w, b[u].y, b[u].w);
+      else if constexpr (kKind == kReverse)
+        y[o] = make_float4(a[u].w, a[u].z, a[u].y, a[u].x);
+      else
+        y[o] = a[u];
+    }
+  }
+}
+
+// lines_shared (reverse and roll, N' = N): a CTA moves `g` whole lines of
+// n.d points at a time, g n.d a multiple of 4, so every group starts
+// 16-byte aligned in x and y: the group into shared memory as vectors
+// (kMoveUnroll loads a thread before it stores them), then its outputs as
+// vectors, each element read there at move_src; the last group, of fewer
+// lines, ends on single floats.
+__global__ void __launch_bounds__(kThreads)
+move_staged_kernel(const float* __restrict__ x, float* __restrict__ y,
+                   unsigned lines, unsigned g, FastDiv n, int kind,
+                   unsigned shift) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* s = reinterpret_cast<float*>(smem);
+  float4* s4 = reinterpret_cast<float4*>(smem);
+  for (unsigned l0 = blockIdx.x * g; l0 < lines; l0 += gridDim.x * g) {
+    const unsigned m = (lines - l0 < g ? lines - l0 : g) * n.d;
+    const unsigned mv = m / 4;
+    const long long off = static_cast<long long>(l0) * n.d;
+    const float4* xs = reinterpret_cast<const float4*>(x + off);
+    for (unsigned v0 = 0; v0 < mv; v0 += kMoveItem) {
+      float4 r[kMoveUnroll];
+#pragma unroll
+      for (int u = 0; u < kMoveUnroll; ++u) {
+        const unsigned v = v0 + u * kThreads + threadIdx.x;
+        if (v < mv) r[u] = __ldg(xs + v);
+      }
+#pragma unroll
+      for (int u = 0; u < kMoveUnroll; ++u) {
+        const unsigned v = v0 + u * kThreads + threadIdx.x;
+        if (v < mv) s4[v] = r[u];
+      }
+    }
+    if (threadIdx.x < m % 4)
+      s[4 * mv + threadIdx.x] = x[off + 4 * mv + threadIdx.x];
+    __syncthreads();
+    float* ys = y + off;
+    for (unsigned o = 4 * threadIdx.x; o < m; o += 4 * kThreads) {
+      unsigned l = div_of(n, o);
+      unsigned k = o - l * n.d;
+      float e[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        e[c] = o + c < m ? s[l * n.d + move_src(kind, k, n.d, shift)] : 0.f;
+        if (++k == n.d) {
+          k = 0;
+          ++l;
+        }
+      }
+      if (o + 4 <= m) {
+        reinterpret_cast<float4*>(ys)[o / 4] =
+            make_float4(e[0], e[1], e[2], e[3]);
+      } else {
+        for (unsigned c = 0; o + c < m; ++c) ys[o + c] = e[c];
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// rows (Q > 1): output row r = (p, k) of `rv` vectors from source row
+// (p, move_src(k)).  A CTA moves one item at a time: kMoveItem vectors of
+// one row (`chunks` items a row, per = 1) or `per` whole rows (chunks =
+// 1); the item gives the row, one division, and each thread's place in an
+// item (row offset and column of each of its kMoveUnroll vectors, `span`
+// vectors a row of the item) is fixed for the launch.
+__global__ void __launch_bounds__(kThreads)
+move_rows_kernel(const float4* __restrict__ x, float4* __restrict__ y,
+                 unsigned items, unsigned rows, FastDiv chunks, unsigned per,
+                 unsigned span, unsigned rv, FastDiv nout, unsigned n,
+                 int kind, unsigned shift) {
+  unsigned dr[kMoveUnroll], col[kMoveUnroll];
+#pragma unroll
+  for (int u = 0; u < kMoveUnroll; ++u) {
+    const unsigned f = u * kThreads + threadIdx.x;
+    dr[u] = f / span;
+    col[u] = f - dr[u] * span;
+  }
+  for (unsigned it = blockIdx.x; it < items; it += gridDim.x) {
+    const unsigned q = div_of(chunks, it);
+    const unsigned row0 = q * per;
+    const unsigned col0 = (it - q * chunks.d) * kMoveItem;
+    float4 v[kMoveUnroll];
+    long long dst[kMoveUnroll];
+#pragma unroll
+    for (int u = 0; u < kMoveUnroll; ++u) {
+      const unsigned r = row0 + dr[u], c = col0 + col[u];
+      dst[u] = -1;
+      if (dr[u] >= per || r >= rows || c >= rv) continue;
+      const unsigned p = div_of(nout, r);
+      const unsigned k = r - p * nout.d;
+      v[u] = __ldg(x + (static_cast<long long>(p) * n +
+                        move_src(kind, k, n, shift)) * rv + c);
+      dst[u] = static_cast<long long>(r) * rv + c;
+    }
+#pragma unroll
+    for (int u = 0; u < kMoveUnroll; ++u)
+      if (dst[u] >= 0) y[dst[u]] = v[u];
+  }
+}
+
+// The move's launch: its route and each kernel's arguments.
+struct MovePlan {
+  int route;
+  long long nout;             // N'
+  long long units;            // CTA steps (vectors / kMoveItem, groups,
+                              // items)
+  unsigned total;             // scalar: floats; lines: output vectors
+  unsigned tail;              // lines even and odd: floats after them
+  unsigned g;                 // lines_shared: lines a group
+  unsigned rows, per, span, rv, chunks;   // rows
+};
+
+// The route mff_move_f32 takes for these arguments, its plan in *mp;
+// kMoveRefused where it refuses them.  y null: a new tensor (16-byte
+// aligned, apart from x).
+int pick_move_route(const float* x, const float* y, long long P,
+                    long long N, long long Q, int kind, long long shift,
+                    MovePlan* mp) {
+  if (P < 1 || N < 1 || Q < 1 || kind < kEven || kind > kRoll ||
+      (kind <= kOdd && N % 2 != 0) || shift < 0 || shift >= N)
+    return kMoveRefused;
+  const long long nout = kind <= kOdd ? N / 2 : N;
+  const bool al = aligned16(x) && aligned16(y);
+  const int vec = Q % 4 == 0 && al ? 4 : 1;
+  if (P * nout * (Q / vec) >= (1ll << 31) || N * Q >= (1ll << 31))
+    return kMoveRefused;
+  if (y != nullptr) {
+    const auto x0 = reinterpret_cast<std::uintptr_t>(x);
+    const auto y0 = reinterpret_cast<std::uintptr_t>(y);
+    if (x0 < y0 + 4ull * P * nout * Q && y0 < x0 + 4ull * P * N * Q)
+      return kMoveRefused;
+  }
+  *mp = MovePlan{};
+  mp->nout = nout;
+  if (Q > 1 && vec == 4) {
+    const long long rv = Q / 4, rows = P * nout;
+    mp->rows = static_cast<unsigned>(rows);
+    mp->rv = static_cast<unsigned>(rv);
+    if (2 * rv >= kMoveItem) {              // items of kMoveItem vectors
+      mp->per = 1;
+      mp->span = kMoveItem;
+      mp->chunks = static_cast<unsigned>((rv + kMoveItem - 1) / kMoveItem);
+      mp->units = rows * mp->chunks;
+    } else {                                // items of `per` whole rows
+      mp->per = static_cast<unsigned>(kMoveItem / rv);
+      mp->span = mp->rv;
+      mp->chunks = 1;
+      mp->units = (rows + mp->per - 1) / mp->per;
+    }
+    return mp->route = kMoveRows;
+  }
+  if (Q == 1 && al) {
+    if (kind <= kOdd || (N % 4 == 0 && (kind == kReverse || shift % 4 == 0))) {
+      const long long floats = P * nout;
+      mp->total = static_cast<unsigned>(floats / 4);
+      mp->tail = static_cast<unsigned>(floats % 4);
+      mp->units = (mp->total + kMoveItem - 1) / kMoveItem;
+      return mp->route = kMoveLines;
+    }
+    // whole lines a group, g N a multiple of 4
+    const long long ga = N % 4 == 0 ? 1 : N % 2 == 0 ? 2 : 4;
+    long long g = kStageBytes / (4 * N) / ga * ga;
+    if (g < ga) g = ga;
+    if (4 * g * N <= kStageMax) {
+      mp->g = static_cast<unsigned>(g);
+      mp->units = (P + g - 1) / g;
+      return mp->route = kMoveStaged;
+    }
+  }
+  mp->total = static_cast<unsigned>(P * nout * Q);
+  mp->units = (mp->total + kThreads - 1) / kThreads;
+  return mp->route = kMoveScalar;
+}
+
+template <int kKind>
+void launch_move_lines(const float* x, float* y, const MovePlan& mp,
+                       unsigned blocks, unsigned shift, cudaStream_t st) {
+  auto kern = &move_lines_kernel<kKind>;
+  kern<<<blocks, kThreads, 0, st>>>(
+      reinterpret_cast<const float4*>(x), reinterpret_cast<float4*>(y),
+      mp.total,
+      make_div(kKind > kOdd ? static_cast<unsigned>(mp.nout / 4) : 1u),
+      shift, mp.tail);
 }
 
 // block_copy's route: 16-byte vectors where every base is 16-byte
@@ -246,36 +519,65 @@ extern "C" int mff_block_copy_route_f32(const float* x0, float* y0,
   return pick_route(x0, y0, x1, y1, dims, box, order, nd, &g);
 }
 
-// y (P, N', Q) from x (P, N, Q), float32, contiguous: N' = N / 2 for
-// kind 0 (even) and 1 (odd), else N; kind 3 rolls by `shift` (0 <= shift
-// < N).
+// y (P, N', Q) from x (P, N, Q), float32, contiguous, apart: N' = N / 2
+// for kind 0 (even) and 1 (odd), else N; kind 3 rolls by `shift` (0 <=
+// shift < N).
 extern "C" int mff_move_f32(const float* x, float* y, long long P,
                             long long N, long long Q, int kind,
                             long long shift, void* stream) {
-  if (P < 1 || N < 1 || Q < 1 || kind < kEven || kind > kRoll ||
-      (kind <= kOdd && N % 2 != 0) || shift < 0 || shift >= N)
+  MovePlan mp;
+  if (y == nullptr ||
+      pick_move_route(x, y, P, N, Q, kind, shift, &mp) == kMoveRefused)
     return cudaErrorInvalidValue;
-  const long long nout = kind <= kOdd ? N / 2 : N;
-  const int vec = Q % 4 == 0 && aligned16(x) && aligned16(y) ? 4 : 1;
-  const long long total = P * nout * (Q / vec);
-  if (total >= (1ll << 31) || N * Q >= (1ll << 31))
-    return cudaErrorInvalidValue;
-  const long long want = (total + kThreads - 1) / kThreads;
   const long long cap = 1ll * 4 * kBlocksPerSm * sm_count();
-  const unsigned blocks = static_cast<unsigned>(want < cap ? want : cap);
-  const FastDiv qv = make_div(static_cast<unsigned>(Q / vec));
-  const FastDiv nd = make_div(static_cast<unsigned>(nout));
-  if (vec == 4) {
-    auto kern = &move_kernel<Vec4>;
-    kern<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        reinterpret_cast<const Vec4*>(x), reinterpret_cast<Vec4*>(y),
-        static_cast<unsigned>(total), qv, nd, static_cast<unsigned>(N),
-        kind, static_cast<unsigned>(shift));
-  } else {
-    auto kern = &move_kernel<float>;
-    kern<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        x, y, static_cast<unsigned>(total), qv, nd,
-        static_cast<unsigned>(N), kind, static_cast<unsigned>(shift));
+  const unsigned blocks =
+      static_cast<unsigned>(mp.units < cap ? (mp.units > 0 ? mp.units : 1)
+                                           : cap);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const unsigned n = static_cast<unsigned>(N);
+  const unsigned sh = static_cast<unsigned>(shift);
+  switch (mp.route) {
+    case kMoveLines:
+      switch (kind) {
+        case kEven: launch_move_lines<kEven>(x, y, mp, blocks, 0, st); break;
+        case kOdd: launch_move_lines<kOdd>(x, y, mp, blocks, 0, st); break;
+        case kReverse:
+          launch_move_lines<kReverse>(x, y, mp, blocks, 0, st);
+          break;
+        default: launch_move_lines<kRoll>(x, y, mp, blocks, sh / 4, st);
+      }
+      break;
+    case kMoveStaged: {
+      auto kern = &move_staged_kernel;
+      kern<<<blocks, kThreads, 4ull * mp.g * N, st>>>(
+          x, y, static_cast<unsigned>(P), mp.g, make_div(n), kind, sh);
+      break;
+    }
+    case kMoveRows: {
+      auto kern = &move_rows_kernel;
+      kern<<<blocks, kThreads, 0, st>>>(
+          reinterpret_cast<const float4*>(x), reinterpret_cast<float4*>(y),
+          static_cast<unsigned>(mp.units), mp.rows, make_div(mp.chunks),
+          mp.per, mp.span, mp.rv, make_div(static_cast<unsigned>(mp.nout)),
+          n, kind, sh);
+      break;
+    }
+    default: {
+      auto kern = &move_kernel;
+      kern<<<blocks, kThreads, 0, st>>>(
+          x, y, mp.total, make_div(static_cast<unsigned>(Q)),
+          make_div(static_cast<unsigned>(mp.nout)), n, kind, sh);
+    }
   }
   return cudaGetLastError();
+}
+
+// The route mff_move_f32 takes with the same arguments (y null: a new
+// tensor): 0 scalar, 1 rows, 2 lines, 3 lines_shared; -1 where it refuses
+// them (y overlapping x among them).  Nothing is launched.
+extern "C" int mff_move_route_f32(const float* x, const float* y,
+                                  long long P, long long N, long long Q,
+                                  int kind, long long shift) {
+  MovePlan mp;
+  return pick_move_route(x, y, P, N, Q, kind, shift, &mp);
 }

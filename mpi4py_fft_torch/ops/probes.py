@@ -7,7 +7,9 @@ PyTorch version beside it:
   or out of place, one stream or two (``block_copy_route``: 16-byte
   vectors or single floats);
 * ``move`` (csrc/probe_copy.cu): a gather copy along one axis (even, odd,
-  reverse, roll), the moves of the packed r2c kernel;
+  reverse, roll), the moves of the packed r2c kernel (``move_route``:
+  whole lines in registers or staged in shared memory, rows of 16-byte
+  vectors, or single floats; ``move_bytes``: its least traffic);
 * ``bfly`` (csrc/probe_bfly.cu): A's kernels (its line and band kernels
   at N = 512, 768 and 1024, its tile elsewhere or with ``lines=``) with
   the work between their load and their store chosen by a mode (copy,
@@ -29,7 +31,8 @@ from . import _build
 from . import butterfly as bf
 
 __all__ = ['block_copy', 'block_copy_plain', 'block_copy_route',
-           'COPY_ROUTES', 'move', 'move_plain', 'bfly', 'bfly_plain',
+           'COPY_ROUTES', 'move', 'move_plain', 'move_route', 'move_bytes',
+           'MOVE_ROUTES', 'bfly', 'bfly_plain',
            'bfly_route', 'BFLY_ROUTES', 'tile_lines', 'fma_chain',
            'fma_chain_plain',
            'MOVES', 'MODES', 'FMA_A', 'FMA_B', 'LAUNCHES', 'reset_launches']
@@ -42,6 +45,8 @@ LAUNCHES = {'block_copy': 0, 'move': 0, 'bfly': 0, 'fma_chain': 0,
 MOVES = ('even', 'odd', 'reverse', 'roll')
 # block_copy's routes by the C entry's number (mff_block_copy_route_f32)
 COPY_ROUTES = ('scalar', 'vector')
+# move's routes by the C entry's number (mff_move_route_f32)
+MOVE_ROUTES = ('scalar', 'rows', 'lines', 'lines_shared')
 # bfly's routes by the C entry's number (mff_bfly_route_f32)
 BFLY_ROUTES = ('tile', 'lines', 'band')
 MODES = ('copy', 'moves', 'adds', 'full')
@@ -217,22 +222,100 @@ def move_plain(x, axis, kind, shift=0):
     return torch.roll(x, int(shift), axis)
 
 
+def _span(t):
+    """The first and one past the last byte address of ``t``'s
+    elements."""
+    a = t.data_ptr()
+    last = sum((s - 1) * st for s, st in zip(t.shape, t.stride()))
+    return a, a + (last + 1) * t.element_size()
+
+
+def _check_apart(x, out, what):
+    """Raise where ``out``'s bytes overlap ``x``'s: in place, a
+    kernel's threads would overwrite elements of ``x`` that others have
+    still to read, so no move runs in place, on the card or on the
+    CPU."""
+    if out is None or not x.numel() or not out.numel() or \
+            out.device != x.device:
+        return
+    (a0, a1), (b0, b1) = _span(x), _span(out)
+    if a0 < b1 and b0 < a1:
+        raise ValueError(f"{what}: out overlaps x; a move does not run in "
+                         f"place")
+
+
+def _move_args(x, axis, kind, shift):
+    """P, N, Q of the (P, N, Q) view, the kind's number and the shift in
+    [0, N)."""
+    N = x.shape[axis]
+    return (math.prod(x.shape[:axis]), N, math.prod(x.shape[axis + 1:]),
+            MOVES.index(kind), int(shift) % N)
+
+
+def move_route(x, axis, kind, shift=0, out=None):
+    """The route ``move`` takes on these tensors on the card, by the C
+    entry's own rule (the built kernel library answers; nothing is
+    launched): 'lines' (the last axis, 16-byte vectors gathered in
+    registers: even and odd, reverse with N % 4 == 0, roll by a multiple
+    of 4), 'lines_shared' (the last axis, every other reverse and roll:
+    whole lines staged in shared memory), 'rows' (another axis, rows of a
+    multiple of 4 floats as 16-byte vectors) or 'scalar' (a base not
+    16-byte aligned, rows of other lengths, lines too long to stage).
+    ``out`` None: a new tensor."""
+    what = 'move'
+    axis, shape = _move_shape(x, axis, kind, what)
+    _check_apart(x, out, what)
+    rc = _build.load().move_route_f32(
+        bf._ptr(x), None if out is None else bf._ptr(out),
+        *_move_args(x, axis, kind, shift))
+    if rc < 0:
+        raise ValueError(f"{what}: no route for {kind} along axis {axis} of "
+                         f"{tuple(x.shape)}")
+    return MOVE_ROUTES[rc]
+
+
+def move_bytes(x, axis, kind):
+    """The least bytes the card moves for ``move`` of contiguous ``x``:
+    the output written once, plus every 32-byte sector of ``x`` that holds
+    a gathered element, read once.  Reverse and roll read all of ``x``;
+    even and odd read the sectors of every other row of Q elements along
+    ``axis``: all of ``x`` on the last axis, half of it for rows that fill
+    whole sectors."""
+    axis = axis % x.dim()
+    e = x.element_size()
+    if kind not in ('even', 'odd'):
+        return 2 * x.numel() * e
+    row = math.prod(x.shape[axis + 1:]) * e         # bytes a row
+    rows = x.numel() * e // (2 * row)               # rows gathered
+    o = x.data_ptr() % 32
+    total = 0
+    # the sectors of gathered row m and their overlap with row m + 1's
+    # depend on m mod 4 alone (two rows apart are 2 * row bytes apart)
+    for m in range(min(rows, 4)):
+        a = o + (2 * m + (kind == 'odd')) * row
+        first, last = a // 32, (a + row - 1) // 32
+        shared = max(0, last - (a + 2 * row) // 32 + 1)
+        count = (rows - m + 3) // 4
+        total += count * (last - first + 1) - (count - (
+            m == (rows - 1) % 4)) * shared
+    return x.numel() * e // 2 + 32 * total
+
+
 def move(x, axis, kind, shift=0, out=None):
     """Gather copy of contiguous float32 ``x`` along ``axis``: ``kind``
     'even' (``x[0::2]``), 'odd' (``x[1::2]``), 'reverse' or 'roll' by
-    ``shift`` (``torch.roll``'s sense).  Exact."""
+    ``shift`` (``torch.roll``'s sense), into ``out`` (a new tensor, or one
+    whose bytes do not overlap ``x``'s).  Exact."""
     what = 'move'
     axis, shape = _move_shape(x, axis, kind, what)
-    N = x.shape[axis]
+    _check_apart(x, out, what)
     if _plain_ok(x, what):
         y = move_plain(x, axis, kind, shift)
         return y if out is None else _target(x, out, shape, what).copy_(y)
     out = _target(x, out, shape, what)
     if out.numel():
-        P = math.prod(x.shape[:axis])
-        Q = math.prod(x.shape[axis + 1:])
         _launch(what, _build.load().move_f32, x, bf._ptr(x), bf._ptr(out),
-                P, N, Q, MOVES.index(kind), int(shift) % N)
+                *_move_args(x, axis, kind, shift))
     return out
 
 

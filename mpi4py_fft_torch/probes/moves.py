@@ -3,7 +3,10 @@
 script asks whether Mosaic lowers each move; CUDA has no such question,
 so each is held bit for bit on the script's (64, 8, 128) arange, and the
 deinterleave and reversal are timed at B's reads: the last axis of the
-768^3 real volume of B's timed pass (chip_smoke.py phase times)."""
+768^3 real volume of B's timed pass (chip_smoke.py phase times), each row
+with its route and its rate over the least bytes the card moves
+(``move_bytes``: x + y for the deinterleaves, whose sectors hold both
+parities; 2 x for reverse and roll)."""
 import torch
 
 from ..ops import probes as tp
@@ -39,9 +42,11 @@ def run(device=None, n=None):
             ('reverse', 0, lambda y: torch.flip(x, (-1,))),
             ('roll', 1, lambda y: torch.roll(x, 1, -1))):
         y = tp.move(x, -1, kind, shift)
-        rw = 2 * y.numel() * 4         # the elements moved, read and written
         lib = chain_ms(lambda: lib_fn(y))
         rows.append(row(f'{kind} along the last axis of {n}^3', chain_ms(
-            lambda: tp.move(x, -1, kind, shift, out=y)), rw, library_ms=lib))
+            lambda: tp.move(x, -1, kind, shift, out=y)),
+            tp.move_bytes(x, -1, kind), library_ms=lib,
+            route=tp.move_route(x, -1, kind, shift, out=y)
+            if x.is_cuda else None))
         del y
     return result('moves', SCRIPT, dev, rows, legal=legal)

@@ -290,6 +290,48 @@ def test_probe_kernels_on_cuda(card):
 
 
 @pytest.mark.cuda
+def test_move_routes_on_cuda(card):
+    """move on each of its routes on the card, every kind, bit for bit
+    against move_plain into NaN-filled outputs: lines in registers (even
+    and odd at N % 8 == 0 and 4, reverse, roll by 4), lines staged in
+    shared memory (roll by 1 and -3, reverse and roll on N odd), rows of
+    16-byte vectors (short and long rows), single floats (a view 4 bytes
+    off alignment, rows of 6 floats); an out that overlaps x raises."""
+    from mpi4py_fft_torch.ops import probes as tp
+    g = torch.Generator(device=card).manual_seed(6)
+    cases = (((40, 96), 1, 'lines'), ((30, 772), 1, 'lines'),
+             ((50, 99), 1, 'lines_shared'), ((6, 4, 4100), 1, 'rows'),
+             ((96, 3, 24), 0, 'rows'), ((5, 10, 6), 1, 'scalar'))
+    for shape, axis, want in cases:
+        x = torch.randn(shape, generator=g, device=card)
+        for kind, shift in (('even', 0), ('odd', 0), ('reverse', 0),
+                            ('roll', 1), ('roll', 4), ('roll', -3)):
+            if kind in ('even', 'odd') and shape[axis] % 2:
+                continue
+            ref = tp.move_plain(x, axis, kind, shift)
+            y = torch.full_like(ref, float('nan'))
+            route = tp.move_route(x, axis, kind, shift, out=y)
+            if want == 'lines' and kind == 'roll' and shift % 4:
+                assert route == 'lines_shared'
+            else:
+                assert route == want, (shape, kind, shift)
+            c0 = tp.LAUNCHES['move']
+            assert torch.equal(tp.move(x, axis, kind, shift, out=y), ref)
+            assert tp.LAUNCHES['move'] == c0 + 1
+    base = torch.randn(24 * 64 + 1, generator=g, device=card)
+    v = base[1:].view(24, 64)
+    for axis, kind in ((1, 'even'), (0, 'reverse'), (1, 'roll')):
+        assert tp.move_route(v, axis, kind, 4) == 'scalar'
+        assert torch.equal(tp.move(v, axis, kind, 4),
+                           tp.move_plain(v, axis, kind, 4))
+    x = base[:24 * 64].view(24, 64)
+    with pytest.raises(ValueError, match='overlaps'):
+        tp.move(x, 1, 'reverse', out=x)
+    with pytest.raises(ValueError, match='overlaps'):
+        tp.move(x, 0, 'even', out=base[8 * 64:20 * 64].view(12, 64))
+
+
+@pytest.mark.cuda
 def test_r2r_on_cuda(card):
     """Every r2r kind on CUDA tensors along a whole-line and an inner axis:
     B and C launch (counted) and the result is the CPU plain path's

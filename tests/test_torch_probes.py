@@ -19,6 +19,7 @@ chain 5e-6 (the plain version rounds the multiply and the add apart).
 """
 import ctypes
 import functools
+import math
 import shutil
 import subprocess
 import types
@@ -623,6 +624,158 @@ def test_move_kernel_shapes(kernel_path):
             assert torch.equal(got, ref), (axis, kind, shift)
             assert torch.equal(tp.move_plain(x, axis, kind, shift), ref)
     assert tp.LAUNCHES['move'] == 11
+
+
+# move's routes: (shape, axis, kind, shift, floats off 16-byte alignment
+# of x and of out, route).  The last axis (Q = 1): in registers for even
+# and odd at N % 8 == 0 and 4 and 2 (a tail of single floats), reverse at
+# N % 4 == 0 and roll by multiples of 4; staged in shared memory for every
+# other reverse and roll (N odd, N % 4 == 2, shifts 1, N - 1, negative);
+# rows of a multiple of 4 floats as vectors (whole rows an item, and rows
+# of more than one item); single floats off alignment, at Q % 4 != 0 and
+# on lines too long to stage.  P = 1 and Q = 1 among them.
+MOVE_ROUTE_CASES = {
+    'lines even N%8=0': ((6, 16), 1, 'even', 0, 0, 0, 'lines'),
+    'lines odd N%8=0': ((6, 16), 1, 'odd', 0, 0, 0, 'lines'),
+    'lines even N%8=4, P odd': ((5, 12), 1, 'even', 0, 0, 0, 'lines'),
+    'lines odd N%8=4, P odd': ((5, 12), 1, 'odd', 0, 0, 0, 'lines'),
+    'lines even N%8=4, 772 points': ((3, 772), 1, 'even', 0, 0, 0,
+                                     'lines'),
+    'lines odd N=6, float tail': ((3, 6), 1, 'odd', 0, 0, 0, 'lines'),
+    'lines even P=1': ((1, 1, 40), -1, 'even', 0, 0, 0, 'lines'),
+    'lines reverse N%4=0': ((5, 16), 1, 'reverse', 0, 0, 0, 'lines'),
+    'lines reverse 1-D': ((2048,), 0, 'reverse', 0, 0, 0, 'lines'),
+    'lines roll 0': ((5, 16), 1, 'roll', 0, 0, 0, 'lines'),
+    'lines roll 4': ((5, 16), 1, 'roll', 4, 0, 0, 'lines'),
+    'lines roll -4': ((3, 2, 16), 2, 'roll', -4, 0, 0, 'lines'),
+    'shared roll 1': ((5, 16), 1, 'roll', 1, 0, 0, 'lines_shared'),
+    'shared roll N-1': ((5, 16), 1, 'roll', 15, 0, 0, 'lines_shared'),
+    'shared roll -3': ((5, 16), 1, 'roll', -3, 0, 0, 'lines_shared'),
+    'shared roll 1, 772 points': ((6, 772), 1, 'roll', 1, 0, 0,
+                                  'lines_shared'),
+    'shared reverse N odd': ((5, 9), 1, 'reverse', 0, 0, 0, 'lines_shared'),
+    'shared reverse N%4=2': ((7, 10), 1, 'reverse', 0, 0, 0,
+                             'lines_shared'),
+    'shared roll 0, N odd': ((5, 9), 1, 'roll', 0, 0, 0, 'lines_shared'),
+    'shared roll 1, N odd': ((5, 9), 1, 'roll', 1, 0, 0, 'lines_shared'),
+    'shared roll 4, N odd': ((5, 9), 1, 'roll', 4, 0, 0, 'lines_shared'),
+    'shared roll N-1, N odd': ((5, 9), 1, 'roll', 8, 0, 0, 'lines_shared'),
+    'shared roll -2, N odd': ((5, 9), 1, 'roll', -2, 0, 0, 'lines_shared'),
+    'shared roll 3, P=1, groups': ((1, 2, 3, 4, 2000), 4, 'roll', 3, 0, 0,
+                                   'lines_shared'),
+    'rows even': ((4, 6, 8), 1, 'even', 0, 0, 0, 'rows'),
+    'rows odd': ((4, 6, 8), 1, 'odd', 0, 0, 0, 'rows'),
+    'rows reverse': ((4, 6, 8), 1, 'reverse', 0, 0, 0, 'rows'),
+    'rows roll 1': ((4, 6, 8), 1, 'roll', 1, 0, 0, 'rows'),
+    'rows roll -1, P=1': ((7, 4, 12), 0, 'roll', -1, 0, 0, 'rows'),
+    'rows roll 4, Q=4': ((3, 10, 4), 1, 'roll', 4, 0, 0, 'rows'),
+    'rows even, long rows': ((2, 4, 4100), 1, 'even', 0, 0, 0, 'rows'),
+    'rows reverse, long rows': ((3, 4100), 0, 'reverse', 0, 0, 0, 'rows'),
+    'rows roll 5, long rows': ((2, 6, 2056), 1, 'roll', 5, 0, 0, 'rows'),
+    'scalar x off alignment, lines even': ((6, 16), 1, 'even', 0, 1, 0,
+                                           'scalar'),
+    'scalar out off alignment, lines roll 4': ((5, 16), 1, 'roll', 4, 0, 1,
+                                               'scalar'),
+    'scalar x off alignment, rows odd': ((4, 6, 8), 1, 'odd', 0, 1, 0,
+                                         'scalar'),
+    'scalar x off alignment, shared roll 1': ((5, 9), 1, 'roll', 1, 1, 0,
+                                              'scalar'),
+    'scalar Q=3': ((4, 6, 3), 1, 'reverse', 0, 0, 0, 'scalar'),
+    'scalar Q=6 roll -7': ((2, 10, 6), 1, 'roll', -7, 0, 0, 'scalar'),
+    'scalar lines too long to stage': ((12292,), 0, 'roll', 1, 0, 0,
+                                       'scalar'),
+}
+
+
+def _off(shape, off, seed):
+    """A random tensor of ``shape`` that starts ``off`` floats into its
+    buffer (16-byte aligned at off = 0)."""
+    base = torch.from_numpy(_rand((math.prod(shape) + off,), seed))
+    return base[off:].view(shape)
+
+
+@pytest.mark.parametrize('name', list(MOVE_ROUTE_CASES))
+def test_move_kernel_routes(kernel_path, name):
+    """Each kind on each of move's routes: the route the C entry reports,
+    and the result bit for bit move_plain's, into a NaN-filled out."""
+    shape, axis, kind, shift, xoff, yoff, route = MOVE_ROUTE_CASES[name]
+    x = _off(shape, xoff, 45)
+    ref = tp.move_plain(x, axis, kind, shift)
+    out = _off(tuple(ref.shape), yoff, 46).fill_(float('nan'))
+    assert tp.move_route(x, axis, kind, shift, out=out) == route
+    if not xoff and not yoff:
+        assert tp.move_route(x, axis, kind, shift) == route
+    assert tp.move(x, axis, kind, shift, out=out) is out
+    assert torch.equal(out, ref)
+    assert tp.LAUNCHES['move'] == 1
+
+
+def test_move_refuses_overlap(kernel_path, emu_probes):
+    """An out whose bytes overlap x raises, on the kernel path as on the
+    CPU's plain path, and the C entry refuses it; a view of the same
+    buffer that does not overlap is taken."""
+    buf = torch.from_numpy(_rand((3 * 64,), 47))
+    x = buf[:128].view(8, 16)
+    for out, kind in ((x, 'reverse'), (buf[64:192].view(8, 16), 'roll'),
+                      (buf[120:184].view(8, 8), 'even')):
+        with pytest.raises(ValueError, match='overlaps'):
+            tp.move(x, 1, kind, 1, out=out)
+        with pytest.raises(ValueError, match='overlaps'):
+            tp.move_route(x, 1, kind, 1, out=out)
+        N, kn = 16, tp.MOVES.index(kind)
+        assert emu_probes.move_route_f32(bf._ptr(x), bf._ptr(out), 8, N, 1,
+                                         kn, 1) == -1
+        assert emu_probes.move_f32(bf._ptr(x), bf._ptr(out), 8, N, 1, kn, 1,
+                                   ctypes.c_void_p(0)) != 0
+    apart = buf[128:192].view(8, 8)
+    assert tp.move_route(x, 1, 'odd', out=apart) == 'lines'
+    assert torch.equal(tp.move(x, 1, 'odd', out=apart),
+                       tp.move_plain(x, 1, 'odd'))
+    assert tp.LAUNCHES['move'] == 1
+
+
+def test_move_refuses_overlap_on_cpu():
+    """The plain path refuses the same overlap (move runs in place
+    nowhere), so the CPU and the card agree."""
+    x = torch.arange(48, dtype=torch.float32).view(3, 16)
+    with pytest.raises(ValueError, match='overlaps'):
+        tp.move(x, 1, 'reverse', out=x)
+    with pytest.raises(ValueError, match='overlaps'):
+        tp.move(x[:, :8], 1, 'roll', 3, out=x[:, 8:])
+    y = torch.empty(3, 16)
+    assert torch.equal(tp.move(x, 1, 'reverse', out=y), x.flip(1))
+
+
+def _sectors_brute(x, axis, kind):
+    """move_bytes by enumeration: y's bytes plus 32 for each distinct
+    32-byte sector holding a gathered element of x."""
+    axis = axis % x.dim()
+    Q = math.prod(x.shape[axis + 1:])
+    i = np.arange(x.numel())
+    keep = (i // Q) % 2 == (kind == 'odd') if kind in ('even', 'odd') else \
+        np.ones_like(i, dtype=bool)
+    sectors = np.unique((x.data_ptr() + 4 * i[keep]) // 32)
+    return 4 * int(keep.sum()) + 32 * sectors.size
+
+
+@pytest.mark.parametrize('Q', [1, 2, 3, 4, 5, 6, 7, 8, 12, 20])
+def test_move_bytes(Q):
+    """move_bytes against the sectors counted one by one, every kind, at
+    every offset of x into a 32-byte sector; then the three rules: x + y
+    on the last axis, 2 y for rows of whole sectors, 2 x for reverse."""
+    for off in range(8):
+        for shape, axis in (((3, 10, Q), 1), ((10, Q), 0), ((2, 2, 10), 2)):
+            x = _off(shape, off, 48)
+            for kind in tp.MOVES:
+                want = _sectors_brute(x, axis, kind) if kind in (
+                    'even', 'odd') else 2 * 4 * x.numel()
+                assert tp.move_bytes(x, axis, kind) == want, (shape, off,
+                                                              kind)
+    x = torch.empty((6, 10, 16))
+    if x.data_ptr() % 32 == 0:
+        assert tp.move_bytes(x, 2, 'even') == 4 * x.numel() * 3 // 2
+        assert tp.move_bytes(x, 1, 'odd') == 4 * x.numel()
+        assert tp.move_bytes(x, 0, 'reverse') == 8 * x.numel()
 
 
 # (complex shape, axis, modes): lead, mid and last positions, whole lines
