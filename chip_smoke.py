@@ -3439,10 +3439,7 @@ def _move_route_want(x, axis, kind, shift):
         return 'scalar'
     if Q > 1:
         return 'rows' if Q % 4 == 0 else 'scalar'
-    if kind in ('even', 'odd') or N % 4 == 0 and (
-            kind == 'reverse' or shift % N % 4 == 0):
-        return 'lines'
-    return 'lines_shared'
+    return 'lines' if kind in ('even', 'odd') else 'lines_shared'
 
 
 def _holds_moves(dev, tp, routes):
@@ -3459,7 +3456,7 @@ def _holds_moves(dev, tp, routes):
         _exact(tp.move(x, *m, out=_nan(ref)), ref, f"move {tag}")
         cases += 1
     # every kind on each route: the last axis of m^3 (lines, in registers
-    # or staged for roll by 1 and m - 5), of a 772-point last axis
+    # for even and odd, staged for reverse and roll), of a 772-point last axis
     # (N % 8 == 4) and the lead axis (rows); a view 4 bytes off alignment
     # (scalar)
     m = 3 * DEALIAS_N // 2

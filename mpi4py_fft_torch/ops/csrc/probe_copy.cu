@@ -186,18 +186,18 @@ int launch_copy(const float* x0, float* y0, const float* x1, float* y1,
 // routes by shape (pick_move_route), each moving 16-byte vectors where
 // the shape lets it, with kMoveUnroll loads in flight a thread before its
 // first store:
-//  * lines (Q = 1, both bases 16-byte aligned), the gather in registers:
-//    even and odd deinterleave the flat tensor (an even N starts every
+//  * lines (Q = 1, both bases 16-byte aligned, even and odd), the gather
+//    in registers: deinterleave the flat tensor (an even N starts every
 //    line on an even index), output vector o from source vectors 2o and
-//    2o + 1; reverse (N % 4 == 0) reverses the mirrored vector of its
-//    line; roll by a multiple of 4 (N % 4 == 0) moves whole vectors;
-//  * lines_shared (Q = 1, aligned, every other reverse and roll): a CTA
-//    stages a group of whole lines in shared memory and writes its
-//    outputs as vectors, each element read there by the map;
+//    2o + 1;
+//  * lines_shared (Q = 1, aligned, reverse and roll): a CTA stages a group
+//    of whole lines in shared memory and writes its outputs as vectors,
+//    each element read there by the map;
 //  * rows (Q > 1, Q % 4 == 0, aligned): each output row is one contiguous
 //    source row, copied as vectors; the row comes from the CTA's item;
 //  * scalar: a base not 16-byte aligned, rows of Q % 4 != 0 floats, or a
-//    staged group above the shared-memory budget: one float a thread.
+//    staged group above the shared-memory budget (a line of more than
+//    12288 points): one float a thread.
 // y may not overlap x: the entry refuses it (a reverse in place would
 // race).
 enum MoveKind { kEven = 0, kOdd = 1, kReverse = 2, kRoll = 3 };
@@ -212,9 +212,7 @@ constexpr long long kStageBytes = 16384;  // a staged group's target size
 constexpr long long kStageMax = 49152;    // its limit (no opt-in needed)
 
 // The source index along the axis of output index k < N' for a move of
-// `kind` on n points (roll by 0 <= shift < n, torch.roll's sense); on
-// vectors, the source vector of output vector k of a line of n vectors
-// for reverse and roll (shift in vectors).
+// `kind` on n points (roll by 0 <= shift < n, torch.roll's sense).
 __host__ __device__ __forceinline__ unsigned move_src(int kind, unsigned k,
                                                       unsigned n,
                                                       unsigned shift) {
@@ -242,22 +240,17 @@ move_kernel(const float* __restrict__ x, float* __restrict__ y,
   }
 }
 
-// lines in registers: `total` output vectors of the flat y, kMoveItem a
-// CTA step.  Even and odd: vectors 2o and 2o + 1 of the flat x, and the
-// last `tail` (< 4) floats of y one at a time; reverse and roll: the
-// vector move_src gives in o's line of `line` vectors (one division, for
-// the line), shift in vectors.
+// lines in registers (even and odd): `total` output vectors of the flat
+// y, kMoveItem a CTA step, output vector o from vectors 2o and 2o + 1 of
+// the flat x; the last `tail` (< 4) floats of y one at a time.
 template <int kKind>
 __global__ void __launch_bounds__(kThreads)
 move_lines_kernel(const float4* __restrict__ x, float4* __restrict__ y,
-                  unsigned total, FastDiv line, unsigned shift,
-                  unsigned tail) {
-  if constexpr (kKind <= kOdd) {
-    if (blockIdx.x == 0 && threadIdx.x < tail) {
-      const unsigned i = 4 * total + threadIdx.x;
-      reinterpret_cast<float*>(y)[i] =
-          reinterpret_cast<const float*>(x)[2ull * i + kKind];
-    }
+                  unsigned total, unsigned tail) {
+  if (blockIdx.x == 0 && threadIdx.x < tail) {
+    const unsigned i = 4 * total + threadIdx.x;
+    reinterpret_cast<float*>(y)[i] =
+        reinterpret_cast<const float*>(x)[2ull * i + kKind];
   }
   for (unsigned base = blockIdx.x * kMoveItem; base < total;
        base += gridDim.x * kMoveItem) {
@@ -266,13 +259,8 @@ move_lines_kernel(const float4* __restrict__ x, float4* __restrict__ y,
     for (int u = 0; u < kMoveUnroll; ++u) {
       const unsigned o = base + u * kThreads + threadIdx.x;
       if (o >= total) continue;
-      if constexpr (kKind <= kOdd) {
-        a[u] = __ldg(x + 2ull * o);
-        b[u] = __ldg(x + 2ull * o + 1);
-      } else {
-        const unsigned j = o - div_of(line, o) * line.d;
-        a[u] = __ldg(x + (o - j) + move_src(kKind, j, line.d, shift));
-      }
+      a[u] = __ldg(x + 2ull * o);
+      b[u] = __ldg(x + 2ull * o + 1);
     }
 #pragma unroll
     for (int u = 0; u < kMoveUnroll; ++u) {
@@ -280,12 +268,8 @@ move_lines_kernel(const float4* __restrict__ x, float4* __restrict__ y,
       if (o >= total) continue;
       if constexpr (kKind == kEven)
         y[o] = make_float4(a[u].x, a[u].z, b[u].x, b[u].z);
-      else if constexpr (kKind == kOdd)
-        y[o] = make_float4(a[u].y, a[u].w, b[u].y, b[u].w);
-      else if constexpr (kKind == kReverse)
-        y[o] = make_float4(a[u].w, a[u].z, a[u].y, a[u].x);
       else
-        y[o] = a[u];
+        y[o] = make_float4(a[u].y, a[u].w, b[u].y, b[u].w);
     }
   }
 }
@@ -396,7 +380,7 @@ struct MovePlan {
   long long units;            // CTA steps (vectors / kMoveItem, groups,
                               // items)
   unsigned total;             // scalar: floats; lines: output vectors
-  unsigned tail;              // lines even and odd: floats after them
+  unsigned tail;              // lines: floats after them
   unsigned g;                 // lines_shared: lines a group
   unsigned rows, per, span, rv, chunks;   // rows
 };
@@ -441,7 +425,7 @@ int pick_move_route(const float* x, const float* y, long long P,
     return mp->route = kMoveRows;
   }
   if (Q == 1 && al) {
-    if (kind <= kOdd || (N % 4 == 0 && (kind == kReverse || shift % 4 == 0))) {
+    if (kind <= kOdd) {
       const long long floats = P * nout;
       mp->total = static_cast<unsigned>(floats / 4);
       mp->tail = static_cast<unsigned>(floats % 4);
@@ -461,17 +445,6 @@ int pick_move_route(const float* x, const float* y, long long P,
   mp->total = static_cast<unsigned>(P * nout * Q);
   mp->units = (mp->total + kThreads - 1) / kThreads;
   return mp->route = kMoveScalar;
-}
-
-template <int kKind>
-void launch_move_lines(const float* x, float* y, const MovePlan& mp,
-                       unsigned blocks, unsigned shift, cudaStream_t st) {
-  auto kern = &move_lines_kernel<kKind>;
-  kern<<<blocks, kThreads, 0, st>>>(
-      reinterpret_cast<const float4*>(x), reinterpret_cast<float4*>(y),
-      mp.total,
-      make_div(kKind > kOdd ? static_cast<unsigned>(mp.nout / 4) : 1u),
-      shift, mp.tail);
 }
 
 // block_copy's route: 16-byte vectors where every base is 16-byte
@@ -537,16 +510,14 @@ extern "C" int mff_move_f32(const float* x, float* y, long long P,
   const unsigned n = static_cast<unsigned>(N);
   const unsigned sh = static_cast<unsigned>(shift);
   switch (mp.route) {
-    case kMoveLines:
-      switch (kind) {
-        case kEven: launch_move_lines<kEven>(x, y, mp, blocks, 0, st); break;
-        case kOdd: launch_move_lines<kOdd>(x, y, mp, blocks, 0, st); break;
-        case kReverse:
-          launch_move_lines<kReverse>(x, y, mp, blocks, 0, st);
-          break;
-        default: launch_move_lines<kRoll>(x, y, mp, blocks, sh / 4, st);
-      }
+    case kMoveLines: {
+      auto kern = kind == kEven ? &move_lines_kernel<kEven>
+                                : &move_lines_kernel<kOdd>;
+      kern<<<blocks, kThreads, 0, st>>>(reinterpret_cast<const float4*>(x),
+                                        reinterpret_cast<float4*>(y),
+                                        mp.total, mp.tail);
       break;
+    }
     case kMoveStaged: {
       auto kern = &move_staged_kernel;
       kern<<<blocks, kThreads, 4ull * mp.g * N, st>>>(

@@ -231,17 +231,19 @@ def _span(t):
 
 
 def _check_apart(x, out, what):
-    """Raise where ``out``'s bytes overlap ``x``'s: in place, a
+    """Raise where ``out``'s address span overlaps ``x``'s: in place, a
     kernel's threads would overwrite elements of ``x`` that others have
-    still to read, so no move runs in place, on the card or on the
-    CPU."""
+    still to read, so no move runs in place, on the card or on the CPU.
+    The spans are compared, not the elements: on the CPU two views that
+    interleave without sharing a byte are refused too (on the card both
+    are contiguous, and spans and bytes agree)."""
     if out is None or not x.numel() or not out.numel() or \
             out.device != x.device:
         return
     (a0, a1), (b0, b1) = _span(x), _span(out)
     if a0 < b1 and b0 < a1:
-        raise ValueError(f"{what}: out overlaps x; a move does not run in "
-                         f"place")
+        raise ValueError(f"{what}: out's span overlaps x's; a move does "
+                         f"not run in place")
 
 
 def _move_args(x, axis, kind, shift):
@@ -255,10 +257,9 @@ def _move_args(x, axis, kind, shift):
 def move_route(x, axis, kind, shift=0, out=None):
     """The route ``move`` takes on these tensors on the card, by the C
     entry's own rule (the built kernel library answers; nothing is
-    launched): 'lines' (the last axis, 16-byte vectors gathered in
-    registers: even and odd, reverse with N % 4 == 0, roll by a multiple
-    of 4), 'lines_shared' (the last axis, every other reverse and roll:
-    whole lines staged in shared memory), 'rows' (another axis, rows of a
+    launched): 'lines' (the last axis, even and odd: 16-byte vectors
+    gathered in registers), 'lines_shared' (the last axis, reverse and
+    roll: whole lines staged in shared memory), 'rows' (another axis, rows of a
     multiple of 4 floats as 16-byte vectors) or 'scalar' (a base not
     16-byte aligned, rows of other lengths, lines too long to stage).
     ``out`` None: a new tensor."""
@@ -305,7 +306,7 @@ def move(x, axis, kind, shift=0, out=None):
     """Gather copy of contiguous float32 ``x`` along ``axis``: ``kind``
     'even' (``x[0::2]``), 'odd' (``x[1::2]``), 'reverse' or 'roll' by
     ``shift`` (``torch.roll``'s sense), into ``out`` (a new tensor, or one
-    whose bytes do not overlap ``x``'s).  Exact."""
+    whose address span does not overlap ``x``'s).  Exact."""
     what = 'move'
     axis, shape = _move_shape(x, axis, kind, what)
     _check_apart(x, out, what)

@@ -293,8 +293,8 @@ def test_probe_kernels_on_cuda(card):
 def test_move_routes_on_cuda(card):
     """move on each of its routes on the card, every kind, bit for bit
     against move_plain into NaN-filled outputs: lines in registers (even
-    and odd at N % 8 == 0 and 4, reverse, roll by 4), lines staged in
-    shared memory (roll by 1 and -3, reverse and roll on N odd), rows of
+    and odd at N % 8 == 0 and 4), lines staged in shared memory (reverse
+    and roll by 1, 4 and -3, on N % 4 == 0, 2 and odd), rows of
     16-byte vectors (short and long rows), single floats (a view 4 bytes
     off alignment, rows of 6 floats); an out that overlaps x raises."""
     from mpi4py_fft_torch.ops import probes as tp
@@ -311,7 +311,7 @@ def test_move_routes_on_cuda(card):
             ref = tp.move_plain(x, axis, kind, shift)
             y = torch.full_like(ref, float('nan'))
             route = tp.move_route(x, axis, kind, shift, out=y)
-            if want == 'lines' and kind == 'roll' and shift % 4:
+            if want == 'lines' and kind in ('reverse', 'roll'):
                 assert route == 'lines_shared'
             else:
                 assert route == want, (shape, kind, shift)

@@ -628,9 +628,9 @@ def test_move_kernel_shapes(kernel_path):
 
 # move's routes: (shape, axis, kind, shift, floats off 16-byte alignment
 # of x and of out, route).  The last axis (Q = 1): in registers for even
-# and odd at N % 8 == 0 and 4 and 2 (a tail of single floats), reverse at
-# N % 4 == 0 and roll by multiples of 4; staged in shared memory for every
-# other reverse and roll (N odd, N % 4 == 2, shifts 1, N - 1, negative);
+# and odd at N % 8 == 0 and 4 and 2 (a tail of single floats); staged in
+# shared memory for reverse and roll (N % 4 == 0, N odd, N % 4 == 2, shifts
+# 0, 1, 4, N - 1, negative);
 # rows of a multiple of 4 floats as vectors (whole rows an item, and rows
 # of more than one item); single floats off alignment, at Q % 4 != 0 and
 # on lines too long to stage.  P = 1 and Q = 1 among them.
@@ -643,11 +643,12 @@ MOVE_ROUTE_CASES = {
                                      'lines'),
     'lines odd N=6, float tail': ((3, 6), 1, 'odd', 0, 0, 0, 'lines'),
     'lines even P=1': ((1, 1, 40), -1, 'even', 0, 0, 0, 'lines'),
-    'lines reverse N%4=0': ((5, 16), 1, 'reverse', 0, 0, 0, 'lines'),
-    'lines reverse 1-D': ((2048,), 0, 'reverse', 0, 0, 0, 'lines'),
-    'lines roll 0': ((5, 16), 1, 'roll', 0, 0, 0, 'lines'),
-    'lines roll 4': ((5, 16), 1, 'roll', 4, 0, 0, 'lines'),
-    'lines roll -4': ((3, 2, 16), 2, 'roll', -4, 0, 0, 'lines'),
+    'shared reverse N%4=0': ((5, 16), 1, 'reverse', 0, 0, 0,
+                             'lines_shared'),
+    'shared reverse 1-D': ((2048,), 0, 'reverse', 0, 0, 0, 'lines_shared'),
+    'shared roll 0': ((5, 16), 1, 'roll', 0, 0, 0, 'lines_shared'),
+    'shared roll 4': ((5, 16), 1, 'roll', 4, 0, 0, 'lines_shared'),
+    'shared roll -4': ((3, 2, 16), 2, 'roll', -4, 0, 0, 'lines_shared'),
     'shared roll 1': ((5, 16), 1, 'roll', 1, 0, 0, 'lines_shared'),
     'shared roll N-1': ((5, 16), 1, 'roll', 15, 0, 0, 'lines_shared'),
     'shared roll -3': ((5, 16), 1, 'roll', -3, 0, 0, 'lines_shared'),
@@ -674,8 +675,8 @@ MOVE_ROUTE_CASES = {
     'rows roll 5, long rows': ((2, 6, 2056), 1, 'roll', 5, 0, 0, 'rows'),
     'scalar x off alignment, lines even': ((6, 16), 1, 'even', 0, 1, 0,
                                            'scalar'),
-    'scalar out off alignment, lines roll 4': ((5, 16), 1, 'roll', 4, 0, 1,
-                                               'scalar'),
+    'scalar out off alignment, shared roll 4': ((5, 16), 1, 'roll', 4, 0,
+                                                1, 'scalar'),
     'scalar x off alignment, rows odd': ((4, 6, 8), 1, 'odd', 0, 1, 0,
                                          'scalar'),
     'scalar x off alignment, shared roll 1': ((5, 9), 1, 'roll', 1, 1, 0,
@@ -684,6 +685,8 @@ MOVE_ROUTE_CASES = {
     'scalar Q=6 roll -7': ((2, 10, 6), 1, 'roll', -7, 0, 0, 'scalar'),
     'scalar lines too long to stage': ((12292,), 0, 'roll', 1, 0, 0,
                                        'scalar'),
+    'scalar reverse too long to stage': ((12292,), 0, 'reverse', 0, 0, 0,
+                                         'scalar'),
 }
 
 
@@ -736,10 +739,14 @@ def test_move_refuses_overlap(kernel_path, emu_probes):
 
 def test_move_refuses_overlap_on_cpu():
     """The plain path refuses the same overlap (move runs in place
-    nowhere), so the CPU and the card agree."""
+    nowhere), so the CPU and the card agree: out is x, out shares bytes
+    with x, and, the check comparing address spans, two views that
+    interleave without sharing a byte."""
     x = torch.arange(48, dtype=torch.float32).view(3, 16)
     with pytest.raises(ValueError, match='overlaps'):
         tp.move(x, 1, 'reverse', out=x)
+    with pytest.raises(ValueError, match='overlaps'):
+        tp.move(x[:, :8], 1, 'roll', 3, out=x[:, 4:12])
     with pytest.raises(ValueError, match='overlaps'):
         tp.move(x[:, :8], 1, 'roll', 3, out=x[:, 8:])
     y = torch.empty(3, 16)
