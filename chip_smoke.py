@@ -113,7 +113,10 @@ failure raises and the script exits non-zero:
              m3's truncating pass (trunc 257, scale 1/768), and C (the c2r
              line kernel) on B's 768^3 spectrum back to the real volume,
              each held slab by slab on a NaN-filled output (C with and
-             without the 1/n scale), C with its reachable bound.
+             without the 1/n scale), C with its reachable bound; C also
+             on a random spectrum of that shape, whose DC and Nyquist
+             rows have imaginary parts, held on host slabs against
+             ``numpy.fft.irfft`` (5e-6; ``numpy_hold``).
              D (``fft_axis2_p``) is timed by route: the band kernel at the
              quartered lead pass and at ``fft3_8``'s y pass (axis 1 of two
              eighths) and at N = 768 (the halves of a 768^3 lead axis),
@@ -148,7 +151,10 @@ failure raises and the script exits non-zero:
              line kernel) on the 512^3 last axis and at the dealiased
              solvers' shape, (2, 768, 768, 257) -> 768^3 (hin 257 of 385
              rows, padded in the read), each held slab by slab at 2e-13
-             with and without the 1/n scale and timed beside its plain
+             with and without the 1/n scale, and on a random spectrum of
+             its shape against ``numpy.fft.irfft`` of host slabs at 2e-13
+             (imaginary DC and Nyquist rows read as real), and timed
+             beside its plain
              version, ``torch.fft.irfft(..., norm='forward')``, its bound
              and its reachable bound; ``fft_axis_p_f64``
              at the six
@@ -306,6 +312,13 @@ held first) on the port of the checkout at TREE, and prints no last line:
 run it for two trees in turns on one card (parent, change, change,
 parent).  A tree without ``move_route`` or ``move_bytes`` reports that
 route and bound as null.
+
+``python3 chip_smoke.py --times-c2r TREE`` runs only phase 1, B's and
+C's rows of phase 16 and C64's rows of phase 17 on the port of the
+checkout at TREE, each c2r's hold against numpy on a random spectrum
+reported in its row and not checked (a tree whose c2r keeps the
+imaginary DC and Nyquist parts runs to the end), and prints no last
+line: run it for two trees in turns on one card.
 
 ``python3 chip_smoke.py --times-any TREE`` runs only phases 1, 22 and 23,
 B's two rows and C's row of phase 16, A's, C64's, D's and A64's rows of
@@ -1224,12 +1237,60 @@ def _c2r_reach_ms(h, y):
     return (_reach_ms((h,), 2) + _reach_ms((yv,), 2)) / 2
 
 
-def _c2r_row(bf, holds, h, n, what):
+def _herm_pad_np(c, nh):
+    """The complex half spectrum c cut or zero-padded to nh rows along its
+    last axis, with the Hermitian rule of a short spectrum (an even count
+    of rows has its last row's real part halved, its imaginary part 0)."""
+    hin = c.shape[-1]
+    if hin >= nh:
+        return c[..., :nh]
+    out = np.zeros(c.shape[:-1] + (nh,), dtype=c.dtype)
+    out[..., :hin] = c
+    if hin % 2 == 0:
+        out[..., hin - 1] = 0.5 * out[..., hin - 1].real
+    return out
+
+
+def _c2r_vs_numpy(bf, h, n, what, check=True, s=4):
+    """C (C64 on float64) along the last axis into n points on a random
+    half spectrum of h's shape, whose DC row and (where present) Nyquist
+    row have imaginary parts: slabs of s lines of the output (first,
+    middle, last) against ``numpy.fft.irfft(...) * n`` of the same host
+    slab, Hermitian-padded where short, in float64.  Fails above 5e-6
+    (2e-13) unless ``check`` is false; returns the largest relative L2
+    and abs error."""
+    f64 = h.dtype == torch.float64
+    tol = KERNEL_TOL64 if f64 else KERNEL_TOL
+    g = torch.Generator(device=h.device).manual_seed(SEED + 31)
+    q = torch.rand(h.shape, generator=g, device=h.device,
+                   dtype=h.dtype) - 0.5
+    y = bf.irfft_axis_p(q, 2, n)
+    torch.cuda.synchronize()
+    rel = err = 0.0
+    for i in sorted({0, q.shape[1] // 2, q.shape[1] - s}):
+        c = q[:, i:i + s].double().cpu().numpy()
+        ref = np.fft.irfft(_herm_pad_np(c[0] + 1j * c[1], n // 2 + 1), n,
+                           axis=-1) * n
+        d = y[i:i + s].double().cpu().numpy() - ref
+        r = float(np.linalg.norm(d) / np.linalg.norm(ref))
+        rel, err = max(rel, r), max(err, float(np.abs(d).max()))
+        _check(bool(np.isfinite(d).all()), f"{what}: non-finite")
+        if check:
+            _check(r <= tol, f"{what} on a random spectrum, lines {i}.."
+                             f"{i + s - 1}, against numpy.fft.irfft: rel "
+                             f"L2 {r:.3e} > {tol}")
+    del q, y
+    torch.cuda.empty_cache()
+    return {'rel_l2': rel, 'max_abs_err': err, 'tolerance': tol}
+
+
+def _c2r_row(bf, holds, h, n, what, check_numpy=True):
     """C (irfft_axis_p; C64 on float64) along the last axis of the
     spectrum h into n points, on the c2r line kernel: held at 5e-6 (2e-13)
-    slab by slab on both scales (None, 1/n) into a NaN-filled output, then
-    timed beside its plain version, torch.fft.irfft, its bound and its
-    reachable bound."""
+    slab by slab on both scales (None, 1/n) into a NaN-filled output, and
+    on a random spectrum of h's shape against numpy (``_c2r_vs_numpy``,
+    its errors in ``numpy_hold``), then timed beside its plain version,
+    torch.fft.irfft, its bound and its reachable bound."""
     f64 = h.dtype == torch.float64
     name = 'irfft_axis_p' + ('_f64' if f64 else '')
     size = h.element_size()
@@ -1240,6 +1301,7 @@ def _c2r_row(bf, holds, h, n, what):
                    lambda i, w: bf.irfft_axis_plain(h.narrow(1, i, w), 2, n,
                                                     scale=sc),
                    0, f"{name} {what} scale={sc}")
+    numpy_hold = _c2r_vs_numpy(bf, h, n, f"{name} {what}", check_numpy)
     b, by = _bound_ms(h.numel() * size + pre * n * size,
                       pre * 2.5 * n * math.log2(n), f64=f64)
     hc = torch.complex(h[0], h[1])
@@ -1251,7 +1313,7 @@ def _c2r_row(bf, holds, h, n, what):
                                   reps=3, warm=1),
            'library_ms': _median_ms(
                lambda: torch.fft.irfft(hc, n=n, dim=2, norm='forward')),
-           'bound_ms': b, 'bound_by': by}
+           'bound_ms': b, 'bound_by': by, 'numpy_hold': numpy_hold}
     del hc
     y = bf.irfft_axis_p(h, 2, n)
     row['reach_ms'] = _c2r_reach_ms(h, y)
@@ -1260,19 +1322,20 @@ def _c2r_row(bf, holds, h, n, what):
     return row
 
 
-def _times_c64(dev, bf, holds, h, g):
+def _times_c64(dev, bf, holds, h, g, check_numpy=True):
     """C64 on the 512^3 DNS's last axis (the spectrum h of its real
     volume; the row) and at the dealiased solvers' shape (``pad768``: a
     random (2, 768, 768, 257) spectrum, hin 257 < 385 rows, into 768
     points, Hermitian zero-padded in the read)."""
     n = 2 * (h.shape[-1] - 1)
-    row = _c2r_row(bf, holds, h, n, f"{n}^3 last axis")
+    row = _c2r_row(bf, holds, h, n, f"{n}^3 last axis", check_numpy)
     m = 3 * DEALIAS64_N // 2
     nt = DEALIAS64_N // 2 + 1
     p = torch.rand((2, m, m, nt), generator=g, device=dev,
                    dtype=torch.float64) - 0.5
     row['pad768'] = _c2r_row(bf, holds, p, m,
-                             f"(2, {m}, {m}, {nt}) -> {m}^3 last axis")
+                             f"(2, {m}, {m}, {nt}) -> {m}^3 last axis",
+                             check_numpy)
     del p
     torch.cuda.empty_cache()
     return row
@@ -1336,12 +1399,12 @@ def _times_b(dev, bf, holds):
     return row, k
 
 
-def _times_b_c(dev, bf, holds):
+def _times_b_c(dev, bf, holds, check_numpy=True):
     """B's row (``_times_b``) and C's: the c2r line kernel on B's 768^3
     spectrum back to the real volume (``_c2r_row``)."""
     b, k = _times_b(dev, bf, holds)
     m = 3 * DEALIAS_N // 2
-    c = _c2r_row(bf, holds, k, m, f"{m}^3 last axis")
+    c = _c2r_row(bf, holds, k, m, f"{m}^3 last axis", check_numpy)
     del k
     torch.cuda.empty_cache()
     return b, c
@@ -3319,6 +3382,22 @@ def phase_times_d_a64(dev, bf, holds):
                                              'w1024': w1024}}})
 
 
+def _times_c64_dns(dev, bf, holds, check_numpy=True):
+    """C64's rows (``_times_c64``) on the spectrum of a random 512^3
+    float64 volume (the DNS's last axis) and at the dealiased solvers'
+    spectrum."""
+    n = DNS_N
+    g = torch.Generator(device=dev).manual_seed(SEED + 21)
+    r = torch.rand((n, n, n), generator=g, device=dev,
+                   dtype=torch.float64) - 0.5
+    h = bf.rfft_axis_p(r, 2)
+    del r
+    c64 = _times_c64(dev, bf, holds, h, g, check_numpy)
+    del h
+    torch.cuda.empty_cache()
+    return c64
+
+
 def phase_times_a_c64(dev, bf, holds):
     """A's and C64's rows of phases 16 and 17 alone (for --times-any):
     A at the north-star volume's three passes, a quarter's mid pass and
@@ -3329,17 +3408,22 @@ def phase_times_a_c64(dev, bf, holds):
     a = _times_a(dev, bf, holds, x)
     del x
     torch.cuda.empty_cache()
-    n = DNS_N
-    g = torch.Generator(device=dev).manual_seed(SEED + 21)
-    r = torch.rand((n, n, n), generator=g, device=dev,
-                   dtype=torch.float64) - 0.5
-    h = bf.rfft_axis_p(r, 2)
-    del r
-    c64 = _times_c64(dev, bf, holds, h, g)
-    del h
-    torch.cuda.empty_cache()
+    c64 = _times_c64_dns(dev, bf, holds)
     _emit({'phase': 'times_a_c64', 'kernels': {'fft_axis_p': a,
                                                'irfft_axis_p_f64': c64}})
+
+
+def phase_times_c2r(dev, bf, holds):
+    """C's and C64's rows alone (for --times-c2r): B's 768^3 row and C on
+    its spectrum, then C64's two rows, each held against its plain
+    version first; the holds against numpy on random spectra are reported
+    in each row's ``numpy_hold`` and not checked, so that a tree whose c2r
+    keeps the imaginary DC and Nyquist parts runs to the end."""
+    b, c = _times_b_c(dev, bf, holds, check_numpy=False)
+    c64 = _times_c64_dns(dev, bf, holds, check_numpy=False)
+    _emit({'phase': 'times_c2r', 'kernels': {'rfft_axis_p': b,
+                                             'irfft_axis_p': c,
+                                             'irfft_axis_p_f64': c64}})
 
 
 def phase_times_any(dev, bf, holds):
@@ -3944,11 +4028,18 @@ def main(argv=None):
                          "reach pattern beside copy_, move's kinds beside "
                          "their PyTorch calls) on the port in TREE, to "
                          "compare two trees on one card")
+    ap.add_argument('--times-c2r', metavar='TREE', nargs='?',
+                    const=os.path.dirname(os.path.abspath(__file__)),
+                    help="run only phase 1, B's and C's rows and C64's "
+                         "rows (the holds against numpy reported, not "
+                         "checked) on the port in TREE, to compare two "
+                         "trees on one card")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
     tree = os.path.abspath(args.times_any or args.times_probes or
+                           args.times_c2r or
                            os.path.dirname(os.path.abspath(__file__)))
     sys.path.insert(0, tree)
     from mpi4py_fft_torch.ops import butterfly as bf
@@ -3961,6 +4052,10 @@ def main(argv=None):
     holds = Holds(KERNELS)
     if args.times_probes:
         phase_times_probes(dev)
+        print(_smi(), flush=True)
+        return 0
+    if args.times_c2r:
+        phase_times_c2r(dev, bf, holds)
         print(_smi(), flush=True)
         return 0
     if args.times_any:
@@ -4037,7 +4132,8 @@ def main(argv=None):
             'shape': t['shape']})
         for extra in ('kernel', 'reach_ms', 'per_axis', 'mid_pair', 'n768',
                       'n768_band', 'w768', 'w1024', 'quarter_mid', 'f768',
-                      'pad768', 'cufft_unfused_ms', 'per_pass', 'c2c_F',
+                      'pad768', 'numpy_hold', 'cufft_unfused_ms',
+                      'per_pass', 'c2c_F',
                       'two_a_passes_ms',
                       'n1536', 'trunc768', 's7', 's8', 'one_cta',
                       'ctas_a_plane', 'max_active'):

@@ -367,6 +367,19 @@ def _herm_pad_rows(hr, hi, nh):
     return torch.cat([hr, z], dim=1), torch.cat([hi, z], dim=1)
 
 
+def _real_ends(hi, N):
+    """The imaginary rows ``hi`` (pre, >= N//2+1, post) of a half spectrum
+    with rows 0 and (even N) N/2 zeroed, in a new tensor: a real output
+    has no component for the imaginary parts of the DC and Nyquist rows
+    (sin(pi m) = 0), so a c2r reads them as 0, as FFTW's c2r and
+    numpy.fft.irfft do."""
+    hi = hi.clone()
+    hi[:, 0] = 0
+    if N % 2 == 0:
+        hi[:, N // 2] = 0
+    return hi
+
+
 def _pad_tail(r, i, hext):
     if hext > r.shape[1]:
         z = r.new_zeros((r.shape[0], hext - r.shape[1], r.shape[2]))
@@ -626,6 +639,7 @@ def irfft_axis_plain(p, axis, n, scale=None):
     out = p.new_empty((pre, N, post))
     for a, b in _chunks(pre, max(Hin, N), post):
         hr, hi = _herm_pad_rows(h[0, a, :, b], h[1, a, :, b], nh)
+        hi = _real_ends(hi, N)
         if packed:
             out[a, :, b] = _c2r_rows_packed(hr, hi, tw, N, scale)
         else:
@@ -866,8 +880,12 @@ def rfft_axis_p(x, axis, hext=None, scale=None, trunc=None):
 def irfft_axis_p(p, axis, n, scale=None):
     """Planar Hermitian half spectrum -> real tensor of length ``n`` along
     ``axis``.  Input rows beyond n//2+1 are ignored; fewer rows are
-    Hermitian zero-padded in the read.  Unscaled inverse (FFTW's c2r:
-    N*x) unless ``scale`` is given.  Packed N/2-point method.
+    Hermitian zero-padded in the read.  Row 0 and (even n) row n/2 are
+    read as real: their imaginary parts are taken as 0, as FFTW's c2r,
+    numpy.fft.irfft and the engine's Hermitian extension take them, so
+    any input gives the real output numpy gives.  Unscaled inverse
+    (FFTW's c2r: N*x) unless ``scale`` is given.  Packed N/2-point
+    method.
 
     Which kernel runs is decided before the launch, by layout: a CUDA
     spectrum along its last axis (whole lines) at n >= 4 whose output is

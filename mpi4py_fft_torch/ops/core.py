@@ -272,8 +272,8 @@ def _dct3_fft(y, axis):
     e^{+i pi k/2N} (y[N] := 0), k = 0..N/2, is the even/odd-reordered
     result.  W's imaginary part is exactly 0 at k = 0 (sin 0 = 0, y[N]
     masked), and at k = N/2 it is y[N/2] (sin - cos)(pi/4): 0 in float32,
-    an ulp in float64; the c2r kernel keeps these parts, the JAX CPU path
-    drops them.
+    an ulp in float64; every c2r of the port reads both as 0, as the JAX
+    CPU path does.
     """
     N = y.shape[axis]
     nh = N // 2 + 1

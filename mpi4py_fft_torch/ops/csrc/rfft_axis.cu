@@ -184,8 +184,10 @@ rfft_axis_kernel(const T* __restrict__ x, T* __restrict__ y,
 }
 
 // Planar (2, pre, hin, post) -> real (pre, n, post).  W = n/2 when packed,
-// else n (n = 2); the tile holds W + 1 spectrum rows.  scale carries the
-// packed inverse's factor 2.
+// else n (n = 2); the tile holds W + 1 spectrum rows.  The imaginary parts
+// of the DC and Nyquist rows are taken as 0: a real output has no
+// component for them (sin(pi m) = 0), and FFTW's c2r drops them.  scale
+// carries the packed inverse's factor 2.
 template <class T, int kBlocks>
 __global__ void __launch_bounds__(mff::Budget<T>::kTile / 16, kBlocks)
 irfft_axis_kernel(const T* __restrict__ x, T* __restrict__ y,
@@ -207,7 +209,8 @@ irfft_axis_kernel(const T* __restrict__ x, T* __restrict__ y,
               C, hin, n, post);
   __syncthreads();
 
-  // read rows 0..nh-1 with the Hermitian zero-padding of a short spectrum
+  // read rows 0..nh-1 with the Hermitian zero-padding of a short spectrum;
+  // the DC row and (even n) the Nyquist row are read as real
   const int nh = n / 2 + 1;
   const bool halve = hin < nh && hin % 2 == 0;
   for (int idx = threadIdx.x; idx < (nh << lc); idx += blockDim.x) {
@@ -223,6 +226,7 @@ irfft_axis_kernel(const T* __restrict__ x, T* __restrict__ y,
         vr = T(0.5) * vr;
         vi = 0;
       }
+      if (k == 0 || (n % 2 == 0 && k == n / 2)) vi = 0;
     }
     t.re[k * t.cp + c] = vr;
     t.im[k * t.cp + c] = vi;
@@ -514,8 +518,9 @@ int with_line_length(int W, F f) {
 // rfft_lines_kernel.  The group loads spectrum rows 0..W of its line
 // (rows at or past hin are zero, and row hin-1 is halved with a zero
 // imaginary part when hin is even and short of W+1: the Hermitian
-// zero-pad in the read; rows past W are not read) into its buffer of
-// W+1 points, every load first; each thread forms its points
+// zero-pad in the read; rows 0 and W are read as real, as FFTW's c2r
+// and numpy's irfft read them; rows past W are not read) into its
+// buffer of W+1 points, every load first; each thread forms its points
 // z[g + G s] = E + i O from X[k] and X[W-k] in registers, then the
 // inverse stages run as the r2c's, and out[2m], out[2m+1] = Re z[m],
 // Im z[m] go out scaled, one packed point a vector.  tw: the table of
@@ -560,6 +565,7 @@ irfft_lines_kernel(const T* __restrict__ x, T* __restrict__ y,
       hr[s] = T(0.5) * hr[s];
       hi[s] = T(0);
     }
+    if (k == 0 || k == W) hi[s] = T(0);   // real DC and Nyquist rows
     br[k] = hr[s];
     bi[k] = hi[s];
   }

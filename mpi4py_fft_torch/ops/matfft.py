@@ -460,10 +460,12 @@ def irfftn_p(p, axes, last_size, scale=None):
     Input rows beyond N//2+1 along axes[-1] are ignored; ``scale`` is
     folded into the output.
 
-    Off the kernel's lengths the half spectrum is extended Hermitian-wise
-    (X[N-k] = conj(X[k])) and the real part of a c2c inverse is kept: the
-    imaginary parts of the DC and Nyquist rows drop out, as in the JAX
-    package's fallback."""
+    The imaginary parts of the DC and (even N) Nyquist rows are read as 0
+    at every length, as FFTW's c2r and numpy.fft.irfft read them: the
+    kernel C takes them so in its read, and off its lengths the half
+    spectrum is extended Hermitian-wise (X[N-k] = conj(X[k])) and the
+    real part of a c2c inverse is kept, where they drop out, as in the
+    JAX package's path on the CPU."""
     for a in axes[:-1]:
         p = fft1d_p(p, a, forward=False)
     nd = p.dim() - 1

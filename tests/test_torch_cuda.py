@@ -72,6 +72,35 @@ def test_c2r_lines_f32_on_cuda(card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_c2r_random_spectrum_vs_numpy_on_cuda(card, dtype):
+    """C and C64 on random half spectra, whose DC and Nyquist rows have
+    imaginary parts, at n = 4, 12, 768 and 1024: the line kernel (the
+    last axis) and the tile (an inner axis), exact, long and short
+    spectra, against numpy.fft.irfft(...) * n (5e-6, f32; 2e-13, f64)."""
+    tol = 5e-6 if dtype == torch.float32 else 2e-13
+    g = torch.Generator(device=card).manual_seed(8)
+    for n in (4, 12, 768, 1024):
+        nh = n // 2 + 1
+        for hin in (nh, nh + 2, nh - 1, nh - 2):
+            for post in (1, 3):
+                h = torch.randn((2, 5, hin, post), generator=g,
+                                device=card, dtype=dtype)
+                got = tb.irfft_axis_p(h, 1, n)
+                c = h.double().cpu().numpy()
+                c = c[0] + 1j * c[1]
+                if hin < nh:
+                    z = np.zeros((5, nh, post), dtype=c.dtype)
+                    z[:, :hin] = c
+                    if hin % 2 == 0:
+                        z[:, hin - 1] = 0.5 * z[:, hin - 1].real
+                    c = z
+                ref = np.fft.irfft(c[:, :nh], n, axis=1) * n
+                assert _rel(got, torch.from_numpy(ref)) <= tol, \
+                    (n, hin, post)
+
+
+@pytest.mark.cuda
 def test_tp64_band_on_cuda(card):
     """E64 at N = 768 on a (2, 768, 4, 6) volume's lead axis (the column
     band kernel): truncation to 512 and 511 rows and padding back, with

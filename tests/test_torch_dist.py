@@ -289,12 +289,10 @@ def nyquist_free(U, n):
     (index n//2 of each axis) zeroed.
 
     The step's c2r passes get i K U: where K is a Nyquist wavenumber the
-    DC and Nyquist rows of the c2r axis are not real.  A c2r of such rows
-    has no one answer: the JAX package's kernel C (irfft_axis_p, which
-    the port's C and its plain version match, tests/test_torch_butterfly
-    .py::test_irfft_axis_vs_pallas) and its XLA fallback (the CPU path,
-    which drops the imaginary parts, as numpy does) differ.  From a state
-    without Nyquist modes every c2r input is Hermitian and both agree."""
+    DC and Nyquist rows of the c2r axis are not real.  Every c2r of the
+    port reads their imaginary parts as 0, as the JAX package's CPU path
+    and numpy do, so the step agrees from the full state (``out``) and
+    from this one (``out0``), whose c2r inputs are all Hermitian."""
     U = U.copy()
     for ax in range(3):
         idx = [slice(None)] * U.ndim
@@ -362,10 +360,11 @@ def jax_dryrun(n, nranks, seed=0):
 @pytest.mark.parametrize('n', (2, 4))
 def test_dryrun_vs_jax(groups, n):
     """dryrun_multichip's steps on n ranks: the DNS step (the state it
-    starts from, and the step from that state without its Nyquist
-    modes), the uneven PFFT's round trip on its per-shard executor and
-    the f64 c2c round trip, each rank's block against the JAX dry run's
-    on n devices (2e-10); dryrun_multichip's own checks pass."""
+    starts from, the step from that state with its Nyquist modes, and
+    the step from that state without them), the uneven PFFT's round trip
+    on its per-shard executor and the f64 c2c round trip, each rank's
+    block against the JAX dry run's on n devices (2e-10);
+    dryrun_multichip's own checks pass."""
     cases, res = groups[n]
     ref = jax_dryrun(8, n)
     assert ref['executor'] == 'shard_map'
@@ -377,6 +376,7 @@ def test_dryrun_vs_jax(groups, n):
         assert close(g['out0'], ref['out0'][s], TOL['d'])
         assert g['out'].shape == ref['out'][s].shape
         assert np.isfinite(g['out']).all()
+        assert close(g['out'], ref['out'][s], TOL['d'])
         assert g['pfft_executor'] == 'shard_map'
         assert close(g['pfft_y'], ref['pfft_y'][sl(g['pfft_slice'])],
                      TOL['d'])

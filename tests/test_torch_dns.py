@@ -5,11 +5,11 @@ spectral_dns_planar.py) against the JAX package's
 Both solvers start from the same Taylor-Green field at 32^3 float64 and
 take two RK4 steps (72 r2c/c2r transforms); the states are held at
 relative L2 2e-10, the reference's f64 tolerance (tests/test_ds.py:18).
-Taylor-Green data keeps the imaginary parts of the DC and Nyquist rows at
-round-off, where the JAX CPU c2r (which drops them) and the port's packed
-c2r (which keeps them) agree; a random field would not.  The port's
-solver also reproduces the reference's kinetic-energy anchor at 64^3 on
-its CPU path.
+They also take two steps from a seeded random solenoidal field with its
+Nyquist modes, whose c2r inputs have imaginary DC and Nyquist rows: the
+port's c2r reads them as real, as the JAX CPU c2r and numpy do.  The
+port's solver also reproduces the reference's kinetic-energy anchor at
+64^3 on its CPU path.
 """
 import os
 import sys
@@ -46,6 +46,44 @@ def test_dns_vs_jax():
     # PyTorch runs eagerly: the JAX example's split and per-pipeline
     # steps are this same step
     assert step.split is step and step.perpipe is step
+
+
+def _solenoidal(pfft, L, seed):
+    """A seeded random velocity field's spectrum (3, 2) + spectral shape,
+    projected onto divergence-free fields (K . U = 0), Nyquist modes
+    kept: the spectrum of a real field whose curl i K x U is not one at
+    the Nyquist wavenumbers."""
+    N = pfft.global_shape(False)
+    rng = np.random.default_rng(seed)
+    U = np.stack([pfft.forward(torch.from_numpy(rng.standard_normal(N)))
+                  .numpy() for _ in range(3)])
+    k = [np.fft.fftfreq(n, 1. / n) for n in N[:-1]]
+    k.append(np.fft.rfftfreq(N[-1], 1. / N[-1]))
+    K = np.meshgrid(*[ki * 2 * np.pi / li for ki, li in zip(k, L)],
+                    indexing='ij', sparse=True)
+    K2 = sum(Ki * Ki for Ki in K)
+    KdotU = sum(Ki * U[i] for i, Ki in enumerate(K))
+    return U - np.stack([Ki * KdotU / np.where(K2 == 0, 1, K2) for Ki in K])
+
+
+def test_dns_random_field_vs_jax():
+    """Two RK4 steps of both solvers from the same random solenoidal field
+    at 32^3 float64 (``_solenoidal``), held at 2e-10."""
+    import jax.numpy as jnp
+    import spectral_dns_planar as jdns
+    N = (32, 32, 32)
+    L = (2 * np.pi, 4 * np.pi, 4 * np.pi)
+    _, _, jstep, _ = jdns.make_solver(N=N, L=L, dtype='d')
+    pfft, _, step, _ = tdns.make_solver(N=N, L=L, dtype='d', device='cpu')
+    U = _solenoidal(pfft, L, 7)
+    assert U.shape == (3, 2, 32, 32, 17)
+    assert np.abs(U[:, :, 16]).max() > 0.1 * np.abs(U).max()   # Nyquist
+    J, P = jnp.asarray(U), torch.from_numpy(U)
+    for _ in range(2):
+        J = jstep(J)
+        P = step(P)
+    assert np.isfinite(P.numpy()).all()
+    assert _rel(P, J) < D_TOL
 
 
 def test_dns_energy_anchor_cpu():

@@ -5,10 +5,10 @@ spectral_dns_solver.py, on the port's ``PFFT``) against the JAX package's
 Both solvers start from the same Taylor-Green field and take two RK4
 steps (72 transforms); the states are held at relative L2 2e-10, the
 reference's f64 tolerance.  Dealiased (``padding=True``, the 3/2-rule
-plan on a 24^3 grid) at 16^3; unpadded at 32^3, since at 16^3 the
-Taylor-Green state's DC and Nyquist rows leave round-off, where the JAX
-CPU c2r (which drops their imaginary parts) and the port's packed c2r
-(which keeps them) part (ROADMAP Queue 3).  The 64^3 energy anchor runs
+plan on a 24^3 grid) at 16^3; unpadded at 32^3.  Every c2r of the port
+reads the imaginary parts of the DC and Nyquist rows as 0, as the JAX
+CPU c2r does, so the two agree from any state
+(tests/test_torch_dns.py steps a random one).  The 64^3 energy anchor runs
 on the card (tests/test_torch_cuda.py): the plain CPU path takes too long
 for the test suite.
 """

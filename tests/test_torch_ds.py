@@ -5,14 +5,16 @@
   the card) against F, ``pallas_ds.fft_axis_ds`` and its r2c/c2r glue
   ``rfft_axis_ds``/``irfft_axis_ds``, run in interpret mode on
   double-single data (``to_ds``/``from_ds``); the c2r also on a
-  truncated spectrum, against F's glue after ``libfft.pad_planar``.  Tolerance: relative L2
+  truncated spectrum, against F's glue after ``libfft.pad_planar``.  The
+  c2r holds give the port a random spectrum and F's glue its projection
+  (imaginary DC and Nyquist rows zeroed).  Tolerance: relative L2
   2e-13, the JAX suite's own for F (tests/test_ds.py:58).  The shapes
   pass F's gates: power-of-two N <= 1024, complementary volume a
   multiple of 1024.
 * Where F has no counterpart (3*2^a extents, dealiased plans): the port's
   ``PlanarPFFT(dtype='d'/'D')`` against the JAX ``PlanarPFFT`` on its CPU
   x64 einsum path, at 2e-10 (tests/test_ds.py:18); backward on the
-  spectra of fields (ROADMAP Queue 3 explains why).
+  spectra of fields (tests/test_torch_c2r.py holds random ones).
 * Dispatch: float64 CUDA tensors reach a kernel or raise, and the pair
   kernel, which has no fp64 build yet, raises without running a plain
   version.
@@ -65,11 +67,24 @@ def test_fft_axis_vs_ds(axis, forward):
     assert _rel(_cplx(got), ref) < F_TOL
 
 
+def _real_ends(h, n):
+    """The planar half spectrum h (2, ..., rows) with the imaginary parts
+    of its DC row and (even n) Nyquist row zeroed, where present: its
+    projection onto the spectra of real lines."""
+    h = np.array(h)
+    h[1, ..., 0] = 0
+    if n % 2 == 0 and n // 2 < h.shape[-1]:
+        h[1, ..., n // 2] = 0
+    return h
+
+
 @pytest.mark.parametrize('hext', [None, 70])
 def test_rfft_irfft_vs_ds(hext):
     """Packed r2c (with zero rows up to ``hext``) and c2r on the last axis,
-    the c2r on a random half spectrum: F's glue keeps the imaginary parts
-    of the DC and Nyquist rows, as the port's packed c2r does."""
+    the c2r on a random half spectrum: the port reads the DC and Nyquist
+    rows as real (as numpy and the JAX package's CPU path do), so F's glue,
+    which is exact on a consistent spectrum, gets the projection
+    (``_real_ends``) of the spectrum the port gets."""
     rng = np.random.default_rng(24)
     x = rng.standard_normal(SHAPE)
     X = ds.rfft_axis_ds(ds.split_real_ds(jnp.asarray(x)), 2,
@@ -79,8 +94,8 @@ def test_rfft_irfft_vs_ds(hext):
     assert tuple(got.shape) == ref.shape == (2, 16, 64, hext or 65)
     assert _rel(got, ref) < F_TOL
     h = rng.standard_normal((2, 16, 64, 65))
-    y = ds.irfft_axis_ds(ds.split_planar_ds(jnp.asarray(h)), 2, 128,
-                         scale=1.0 / 128, interpret=True)
+    y = ds.irfft_axis_ds(ds.split_planar_ds(jnp.asarray(_real_ends(h, 128))),
+                         2, 128, scale=1.0 / 128, interpret=True)
     ref = np.asarray(ds.join_real_ds(y))
     got = tb.irfft_axis_p(torch.from_numpy(h), 2, 128, scale=1.0 / 128)
     assert got.dtype == torch.float64 and tuple(got.shape) == SHAPE
@@ -93,12 +108,13 @@ def test_irfft_short_spectrum_vs_ds(hin, scale):
     it: the port's ``irfft_axis_p`` zero-pads the ``hin`` rows in its
     read (an odd hin, the 3/2 rule's n/3 + 1, and an even one, whose last
     row is halved), F's glue runs on the same spectrum padded by
-    ``libfft.pad_planar(..., hermitian=True)``."""
+    ``libfft.pad_planar(..., hermitian=True)`` and projected
+    (``_real_ends``: the port reads the DC row as real)."""
     rng = np.random.default_rng(27 + hin)
     h = rng.standard_normal((2, 16, 64, hin))
-    padded = jlibfft.pad_planar(jnp.asarray(h), 3, 65, True)
-    y = ds.irfft_axis_ds(ds.split_planar_ds(padded), 2, 128, scale=scale,
-                         interpret=True)
+    padded = _real_ends(jlibfft.pad_planar(jnp.asarray(h), 3, 65, True), 128)
+    y = ds.irfft_axis_ds(ds.split_planar_ds(jnp.asarray(padded)), 2, 128,
+                         scale=scale, interpret=True)
     ref = np.asarray(ds.join_real_ds(y))
     got = tb.irfft_axis_p(torch.from_numpy(h), 2, 128, scale=scale)
     assert got.dtype == torch.float64 and tuple(got.shape) == SHAPE

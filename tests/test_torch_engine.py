@@ -122,7 +122,8 @@ def test_rfftn_irfftn_vs_jax(N, axis, dtype):
 def test_c2r_fallback_on_any_input_vs_jax(N):
     """A half spectrum that is no field's (imaginary DC and Nyquist parts,
     rows past N//2+1): the port's fallback agrees with the JAX package's,
-    which keeps the real part of the inverse (ROADMAP Queue 3)."""
+    which keeps the real part of the inverse (tests/test_torch_c2r.py
+    holds the kernel lengths too)."""
     rng = np.random.default_rng(40 + N)
     h = rng.standard_normal((2, 3, 4, N // 2 + 3)).astype(np.float32)
     ref = _jirfftn(jnp.asarray(h), (2,), N, None)

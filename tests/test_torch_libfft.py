@@ -192,9 +192,8 @@ PLANNERS = [('fftn', 'D', (0, 2)), ('ifftn', 'F', (1,)),
 @pytest.mark.parametrize('name,dtype,axes', PLANNERS)
 def test_planners_vs_jax(name, dtype, axes):
     if name in ('irfftn', 'hfftn'):
-        # the half spectrum of a real (6, 8, 16) field: the JAX CPU c2r
-        # drops the imaginary DC and Nyquist parts that the port's packed
-        # c2r keeps (ROADMAP Queue 3), so both take a consistent input
+        # the half spectrum of a real (6, 8, 16) field (random spectra
+        # are held in tests/test_torch_c2r.py)
         r = _rand((6, 8, 16), dtype.lower(), 7)
         u = np.fft.rfftn(r, axes=axes).astype(dtype)
     else:
