@@ -21,8 +21,8 @@ dry run on N ranks):
   through the planners ``dctn``/``idctn``/``dstn``/``idstn``, ``FFT``
   with r2r kinds and ``PFFT(..., transforms=...)`` on one and several
   ranks, glue around the r2c/c2r kernels B and C;
-* per-stage profiling (``utils/profiling.py``: ``trace``, ``annotate``,
-  ``Timer``, ``stage_times``);
+* tracing and per-stage profiling (``utils/profiling.py``: ``trace``,
+  the spans of ``annotate`` and their ``session`` table, ``stage_times``);
 * the per-shard executors of :class:`PFFT` and :class:`PlanarPFFT` on
   several ranks, each exchange one ``all_to_all_single`` over the group
   of the swapped axes, and ``DistArray.redistribute`` between pencils;

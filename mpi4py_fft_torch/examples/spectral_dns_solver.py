@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from mpi4py_fft_torch import PFFT
+from mpi4py_fft_torch.utils.profiling import annotate
 
 ENERGY_64 = 0.124953117517      # the reference's anchor at 64^3, T = 0.1
 
@@ -64,32 +65,36 @@ def make_solver(N=(64, 64, 64), L=(2 * np.pi, 4 * np.pi, 4 * np.pi),
     bck = fft_pad.backward.fn       # unnormalized backward
 
     def compute_rhs(U_hat):
-        """Reference: spectral_dns_solver.py:82-91."""
-        u = [bck(U_hat[j]) for j in range(3)]
-        w = [bck(1j * (K[1] * U_hat[2] - K[2] * U_hat[1])),
-             bck(1j * (K[2] * U_hat[0] - K[0] * U_hat[2])),
-             bck(1j * (K[0] * U_hat[1] - K[1] * U_hat[0]))]
-        rhs = torch.stack([fwd(u[1] * w[2] - u[2] * w[1]),
-                           fwd(u[2] * w[0] - u[0] * w[2]),
-                           fwd(u[0] * w[1] - u[1] * w[0])])
-        del u, w
-        P_hat = torch.sum(rhs * K_over_K2, 0)
-        rhs -= torch.stack([P_hat * Ki for Ki in K])
-        del P_hat
-        rhs -= nu * K2 * U_hat
-        return rhs
+        """Reference: spectral_dns_solver.py:82-91; the span
+        ``dns.rhs``."""
+        with annotate('dns.rhs'):
+            u = [bck(U_hat[j]) for j in range(3)]
+            w = [bck(1j * (K[1] * U_hat[2] - K[2] * U_hat[1])),
+                 bck(1j * (K[2] * U_hat[0] - K[0] * U_hat[2])),
+                 bck(1j * (K[0] * U_hat[1] - K[1] * U_hat[0]))]
+            rhs = torch.stack([fwd(u[1] * w[2] - u[2] * w[1]),
+                               fwd(u[2] * w[0] - u[0] * w[2]),
+                               fwd(u[0] * w[1] - u[1] * w[0])])
+            del u, w
+            P_hat = torch.sum(rhs * K_over_K2, 0)
+            rhs -= torch.stack([P_hat * Ki for Ki in K])
+            del P_hat
+            rhs -= nu * K2 * U_hat
+            return rhs
 
     def step(U_hat):
-        """One RK4 step (reference: spectral_dns_solver.py:104-113)."""
-        U_hat0 = U_hat
-        U_hat1 = U_hat
-        for rk in range(4):
-            dU = compute_rhs(U_hat)
-            if rk < 3:
-                U_hat = U_hat0 + b[rk] * dt * dU
-            U_hat1 = U_hat1 + a[rk] * dt * dU
-            del dU
-        return U_hat1
+        """One RK4 step (reference: spectral_dns_solver.py:104-113); the
+        span ``dns.step``."""
+        with annotate('dns.step'):
+            U_hat0 = U_hat
+            U_hat1 = U_hat
+            for rk in range(4):
+                dU = compute_rhs(U_hat)
+                if rk < 3:
+                    U_hat = U_hat0 + b[rk] * dt * dU
+                U_hat1 = U_hat1 + a[rk] * dt * dU
+                del dU
+            return U_hat1
 
     # Taylor-Green velocity (reference: :44-49, :94-98), built per axis on
     # the device in float64

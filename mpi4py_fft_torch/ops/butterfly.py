@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from . import _build
+from ..utils import profiling
 
 __all__ = ['fft_axis_p', 'rfft_axis_p', 'irfft_axis_p', 'fft_axis2_p',
            'fft_axis_pair_p', 'pair_max_active_clusters', 'fft_axis_tp',
@@ -65,7 +66,10 @@ _MAX_N_PAIR = 2048
 
 # kernel launches since the last reset, one count per wrapper and build
 # (float32 under the wrapper's name, float64 under the name with _f64); a
-# wrapper adds one where it launches its kernel and nowhere else
+# wrapper adds one where it launches its kernel and nowhere else.  Each
+# launch also runs in the span ``kernel.<name>`` (utils/profiling.py),
+# with the bytes its kernel cannot avoid moving: each element of its input
+# read and each of its output written, once
 LAUNCHES = {'fft_axis_p': 0, 'rfft_axis_p': 0, 'irfft_axis_p': 0,
             'fft_axis2_p': 0, 'fft_axis_pair_p': 0, 'fft_axis_p_f64': 0,
             'rfft_axis_p_f64': 0, 'irfft_axis_p_f64': 0, 'fft_axis_tp': 0,
@@ -763,16 +767,34 @@ def _ptr(t):
     return ctypes.c_void_p(t.data_ptr())
 
 
-def _launch(what, fn, t, *args):
-    """Run one kernel's C entry on ``t``'s device and current stream;
-    raise if CUDA refused the launch."""
-    with torch.cuda.device(t.device):
+def _launch(what, fn, t, *args, nbytes):
+    """Run one kernel's C entry on ``t``'s device and current stream, in
+    the span ``kernel.<what>`` of ``nbytes``; raise if CUDA refused the
+    launch."""
+    with torch.cuda.device(t.device), \
+            profiling.annotate('kernel.' + what, nbytes):
         stream = torch.cuda.current_stream(t.device).cuda_stream
         rc = fn(*args, ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(f"{what}: kernel launch failed with CUDA error "
-                           f"{rc} ({_build.error_string(rc)})")
+        if rc != 0:
+            raise RuntimeError(f"{what}: kernel launch failed with CUDA "
+                               f"error {rc} ({_build.error_string(rc)})")
+        profiling.launched()
     LAUNCHES[what] += 1
+
+
+def _plain(what, nbytes, fn, *args):
+    """``fn(*args)``, a plain version run on CPU tensors in the kernel's
+    place: in the kernel's span, which counts it as the kernel's launch
+    (``LAUNCHES`` counts kernels only)."""
+    with profiling.annotate('kernel.' + what, nbytes):
+        profiling.launched()
+        return fn(*args)
+
+
+def _name_of(what, t):
+    """The launch counter of the build for t's dtype: the wrapper's name,
+    or ``<what>_f64``."""
+    return what + '_f64' if t.dtype == torch.float64 else what
 
 
 def _build_of(what, entry, t):
@@ -780,9 +802,8 @@ def _build_of(what, entry, t):
     wrapper's name and ``<entry>_f32``, or ``<what>_f64`` and
     ``<entry>_f64``."""
     k = _build.load()
-    if t.dtype == torch.float64:
-        return what + '_f64', getattr(k, entry + '_f64')
-    return what, getattr(k, entry + '_f32')
+    return _name_of(what, t), getattr(
+        k, entry + ('_f64' if t.dtype == torch.float64 else '_f32'))
 
 
 def _plan_args(W):
@@ -820,8 +841,10 @@ def fft_axis_p(p, axis, forward=True, scale=None, out=None):
         raise ValueError(f"{what}: out {tuple(out.shape)} {out.dtype} on "
                          f"{out.device} is not a contiguous "
                          f"{tuple(p.shape)} {p.dtype} on {p.device}")
+    nbytes = 2 * p.numel() * p.element_size()
     if _plain_ok(p, what):
-        y = fft_axis_plain(p, axis, forward, scale)
+        y = _plain(_name_of(what, p), nbytes, fft_axis_plain, p, axis,
+                   forward, scale)
         return y if out is None else out.copy_(y)
     pre, post = _pre_post(shape, axis)
     sign = -1 if forward else +1
@@ -832,7 +855,8 @@ def fft_axis_p(p, axis, forward=True, scale=None, out=None):
     plan, nst = _plan_args(N)
     _launch(*_build_of(what, 'fft_axis', p), p,
             _ptr(p), _ptr(out), _ptr(tw), tw.shape[1], pre, N, post, sign,
-            plan, nst, 1.0 if scale is None else float(scale))
+            plan, nst, 1.0 if scale is None else float(scale),
+            nbytes=nbytes)
     return out
 
 
@@ -859,8 +883,10 @@ def rfft_axis_p(x, axis, hext=None, scale=None, trunc=None):
     N = shape[axis]
     _require_len(N, what)
     nh, hext = _r2c_out_rows(N, hext, trunc)
+    nbytes = (x.numel() + 2 * x.numel() // N * hext) * x.element_size()
     if _plain_ok(x, what):
-        return rfft_axis_plain(x, axis, hext, scale, trunc)
+        return _plain(_name_of(what, x), nbytes, rfft_axis_plain, x, axis,
+                      hext, scale, trunc)
     pre, post = _pre_post(shape, axis)
     packed = N // 2 >= 2
     out = x.new_empty((2,) + shape[:axis] + (hext,) + shape[axis + 1:])
@@ -873,7 +899,7 @@ def rfft_axis_p(x, axis, hext=None, scale=None, trunc=None):
     _launch(*_build_of(what, 'rfft_axis', x), x,
             _ptr(x), _ptr(out), _ptr(tw), tw.shape[1], pre, N, post, hext,
             nrows, int(fold), int(packed), plan, nst,
-            1.0 if scale is None else float(scale))
+            1.0 if scale is None else float(scale), nbytes=nbytes)
     return out
 
 
@@ -902,8 +928,12 @@ def irfft_axis_p(p, axis, n, scale=None):
     Hin = shape[axis]
     if Hin < 1:
         raise ValueError(f"{what}: empty spectrum axis")
+    # rows past N//2+1 are not read
+    lines = p.numel() // (2 * Hin)
+    nbytes = lines * (2 * min(Hin, N // 2 + 1) + N) * p.element_size()
     if _plain_ok(p, what):
-        return irfft_axis_plain(p, axis, N, scale)
+        return _plain(_name_of(what, p), nbytes, irfft_axis_plain, p, axis,
+                      N, scale)
     pre, post = _pre_post(shape, axis)
     packed = N // 2 >= 2
     out = p.new_empty(shape[:axis] + (N,) + shape[axis + 1:])
@@ -917,7 +947,7 @@ def irfft_axis_p(p, axis, n, scale=None):
         sc = 2.0 * sc
     _launch(*_build_of(what, 'irfft_axis', p), p,
             _ptr(p), _ptr(out), _ptr(tw), tw.shape[1], pre, Hin, N, post,
-            int(packed), plan, nst, sc)
+            int(packed), plan, nst, sc, nbytes=nbytes)
     return out
 
 
@@ -962,7 +992,8 @@ def _launch_pair(what, a, b, oa, ob, axis, forward, scale):
     _launch(what, _build.load().fft_axis2_f32, a,
             _ptr(a), _ptr(b), _ptr(oa), _ptr(ob),
             (ctypes.c_longlong * 8)(*strides), _ptr(tw), tw.shape[1], pre,
-            N, post, sign, plan, nst, 1.0 if scale is None else float(scale))
+            N, post, sign, plan, nst, 1.0 if scale is None else float(scale),
+            nbytes=4 * a.numel() * a.element_size())
 
 
 def fft_axis2_p(pa, pb, axis, forward=True, scale=None, alias=False,
@@ -1011,7 +1042,8 @@ def fft_axis2_p(pa, pb, axis, forward=True, scale=None, alias=False,
     plain = _plain_ok(pa, what, contiguous=False, f64=False)
     _plain_ok(pb, what, contiguous=False, f64=False)
     if plain:
-        oa, ob = fft_axis2_plain(pa, pb, axis, forward, scale)
+        oa, ob = _plain(what, 4 * pa.numel() * pa.element_size(),
+                        fft_axis2_plain, pa, pb, axis, forward, scale)
         if alias:
             out = (pa, pb)
         if out is not None:
@@ -1045,7 +1077,8 @@ def fft_axis_pair_p(p, axis, forward=True, scale=None):
     N = shape[axis]
     _require_pair_len(N, what)
     if _plain_ok(p, what, f64=False):
-        return fft_axis_pair_plain(p, axis, forward, scale)
+        return _plain(what, 2 * p.numel() * p.element_size(),
+                      fft_axis_pair_plain, p, axis, forward, scale)
     out = torch.empty_like(p)
     if out.numel() == 0:
         return out
@@ -1106,8 +1139,10 @@ def fft_axis_tp(p, axis, forward=True, trunc=None, pad=None, scale=None):
     if not 0 < Nt < N:
         raise ValueError(f"{what}: the truncated extent {Nt} must lie in "
                          f"(0, {N})")
+    nbytes = p.numel() // Nin * (Nin + Nout) * p.element_size()
     if _plain_ok(p, what):
-        return fft_axis_tp_plain(p, axis, forward, trunc, pad, scale)
+        return _plain(_name_of(what, p), nbytes, fft_axis_tp_plain, p, axis,
+                      forward, trunc, pad, scale)
     pre, post = _pre_post(shape, axis)
     sign = -1 if forward else +1
     out = p.new_empty((2,) + shape[:axis] + (Nout,) + shape[axis + 1:])
@@ -1118,7 +1153,7 @@ def fft_axis_tp(p, axis, forward=True, trunc=None, pad=None, scale=None):
     _launch(*_build_of(what, 'fft_axis_tp', p), p,
             _ptr(p), _ptr(out), _ptr(tw), tw.shape[1], pre, N, Nt,
             int(pad is not None), post, sign, plan, nst,
-            1.0 if scale is None else float(scale))
+            1.0 if scale is None else float(scale), nbytes=nbytes)
     return out
 
 
@@ -1181,8 +1216,9 @@ def _plane(what, p, forward, scale, gate, plain):
         raise ValueError(f"{what}: the last two axes of {shape} {p.dtype} "
                          f"are not a plane this kernel takes (see "
                          f"{gate.__name__})")
+    nbytes = 2 * p.numel() * p.element_size()
     if _plain_ok(p, what):
-        return plain(p, forward, scale)
+        return _plain(what, nbytes, plain, p, forward, scale)
     N1, N2 = shape[-2], shape[-1]
     if p.data_ptr() % 16:
         p = p.clone()
@@ -1198,7 +1234,7 @@ def _plane(what, p, forward, scale, gate, plain):
     entry = _build.load().fft_plane_f32 if hold else \
         _build.load().fft_plane_large_f32
     _launch(what, entry, p, _ptr(p), _ptr(out), _ptr(tw2), _ptr(tw1), P,
-            N1, N2, sign, sc)
+            N1, N2, sign, sc, nbytes=nbytes)
     return out
 
 

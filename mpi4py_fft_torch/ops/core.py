@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from . import matfft
+from ..utils.profiling import annotate
 from .kinds import (
     FFTW_R2HC, FFTW_HC2R, FFTW_DHT,
     FFTW_REDFT00, FFTW_REDFT01, FFTW_REDFT10, FFTW_REDFT11,
@@ -365,20 +366,22 @@ _FFT_R2R_FN = {FFTW_REDFT10: _dct2_fft, FFTW_REDFT01: _dct3_fft,
 
 def r2r(x, axes, kinds):
     """Separable real-to-real transform: ``kinds[i]`` applied along
-    ``axes[i]``, one FFTW kind per transformed axis."""
+    ``axes[i]``, one FFTW kind per transformed axis, each axis in the
+    span ``r2r``."""
     if len(axes) != len(kinds):
         raise ValueError(f"r2r: {len(axes)} axes and {len(kinds)} kinds")
     for axis, kind in zip(axes, kinds):
-        x = x.contiguous()
-        axis %= x.dim()
-        N = x.shape[axis]
-        if kind == FFTW_R2HC:
-            x = _r2hc_1d(x, axis)
-        elif kind == FFTW_HC2R:
-            x = _hc2r_1d(x, axis)
-        elif _use_fft_r2r(N, kind):
-            x = _FFT_R2R_FN[kind](x, axis)
-        else:
-            B = matfft._const(_r2r_basis, (N, kind), x.dtype, x.device)
-            x = _apply_basis(x, B, axis)
+        with annotate('r2r'):
+            x = x.contiguous()
+            axis %= x.dim()
+            N = x.shape[axis]
+            if kind == FFTW_R2HC:
+                x = _r2hc_1d(x, axis)
+            elif kind == FFTW_HC2R:
+                x = _hc2r_1d(x, axis)
+            elif _use_fft_r2r(N, kind):
+                x = _FFT_R2R_FN[kind](x, axis)
+            else:
+                B = matfft._const(_r2r_basis, (N, kind), x.dtype, x.device)
+                x = _apply_basis(x, B, axis)
     return x

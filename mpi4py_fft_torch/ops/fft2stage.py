@@ -123,8 +123,9 @@ def fft2stage_p(p, sign):
     if not supported_length(N):
         raise ValueError(f"{what}: last-axis length {N} is not S*128 with "
                          f"S <= {_MAX_S}")
+    nbytes = 2 * p.numel() * p.element_size()
     if butterfly._plain_ok(p, what):
-        return fft2stage_plain(p, sign)
+        return butterfly._plain(what, nbytes, fft2stage_plain, p, sign)
     if p.dtype != torch.float32:
         raise TypeError(f"{what}: the kernel takes float32, got {p.dtype}")
     if p.data_ptr() % 16:
@@ -137,5 +138,6 @@ def fft2stage_p(p, sign):
     tab = _table_tensor(S, int(sign), p.device)
     butterfly._launch(what, _build.load().fft2stage_f32, p,
                       butterfly._ptr(p), butterfly._ptr(out),
-                      butterfly._ptr(tab), tab.shape[1], B, S, int(sign))
+                      butterfly._ptr(tab), tab.shape[1], B, S, int(sign),
+                      nbytes=nbytes)
     return out

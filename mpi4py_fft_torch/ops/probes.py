@@ -20,7 +20,10 @@ PyTorch version beside it:
 The modules of ``mpi4py_fft_torch.probes`` time them (and A itself,
 ``butterfly.fft_axis_p`` with ``out=``).  On a CPU tensor a wrapper runs
 the plain version; on a CUDA tensor it launches its kernel or raises.
-Each launch adds one to its count in ``LAUNCHES``.
+Each launch adds one to its count in ``LAUNCHES`` and runs in the span
+``kernel.<name>`` with the bytes it cannot avoid moving (each element it
+reads and each it writes, once); a plain version runs in that span in the
+kernel's place.
 """
 import ctypes
 import math
@@ -29,6 +32,7 @@ import torch
 
 from . import _build
 from . import butterfly as bf
+from ..utils import profiling
 
 __all__ = ['block_copy', 'block_copy_plain', 'block_copy_route',
            'COPY_ROUTES', 'move', 'move_plain', 'move_route', 'move_bytes',
@@ -77,15 +81,18 @@ def _plain_ok(t, what, dtypes=(torch.float32,)):
     return False
 
 
-def _launch(what, fn, t, *args):
+def _launch(what, fn, t, *args, nbytes):
     """Run one probe kernel's C entry on ``t``'s device and current
-    stream; raise if CUDA refused the launch."""
-    with torch.cuda.device(t.device):
+    stream, in the span ``kernel.<what>`` of ``nbytes``; raise if CUDA
+    refused the launch."""
+    with torch.cuda.device(t.device), \
+            profiling.annotate('kernel.' + what, nbytes):
         stream = torch.cuda.current_stream(t.device).cuda_stream
         rc = fn(*args, ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(f"{what}: kernel launch failed with CUDA error "
-                           f"{rc} ({_build.error_string(rc)})")
+        if rc != 0:
+            raise RuntimeError(f"{what}: kernel launch failed with CUDA "
+                               f"error {rc} ({_build.error_string(rc)})")
+        profiling.launched()
     LAUNCHES[what] += 1
 
 
@@ -179,13 +186,16 @@ def block_copy(x, box, order=None, out=None, x2=None, out2=None):
         _plain_ok(x2, what)
     out = _target(x, out, x.shape, what)
     out2 = _target(x2, out2, x.shape, what) if pair else None
+    nbytes = 2 * (1 + pair) * x.numel() * x.element_size()
     if plain:
-        out.copy_(block_copy_plain(x))
-        if pair:
-            out2.copy_(block_copy_plain(x2))
+        def copies():
+            out.copy_(block_copy_plain(x))
+            if pair:
+                out2.copy_(block_copy_plain(x2))
+        bf._plain(what, nbytes, copies)
     elif x.numel():
         _launch(what, _build.load().block_copy_f32, x,
-                *_copy_args(x, box, order, out, x2, out2))
+                *_copy_args(x, box, order, out, x2, out2), nbytes=nbytes)
     return (out, out2) if pair else out
 
 
@@ -310,13 +320,15 @@ def move(x, axis, kind, shift=0, out=None):
     what = 'move'
     axis, shape = _move_shape(x, axis, kind, what)
     _check_apart(x, out, what)
+    # each element written is one read
+    nbytes = 2 * math.prod(shape) * x.element_size()
     if _plain_ok(x, what):
-        y = move_plain(x, axis, kind, shift)
+        y = bf._plain(what, nbytes, move_plain, x, axis, kind, shift)
         return y if out is None else _target(x, out, shape, what).copy_(y)
     out = _target(x, out, shape, what)
     if out.numel():
         _launch(what, _build.load().move_f32, x, bf._ptr(x), bf._ptr(out),
-                *_move_args(x, axis, kind, shift))
+                *_move_args(x, axis, kind, shift), nbytes=nbytes)
     return out
 
 
@@ -431,8 +443,9 @@ def bfly(p, axis, mode='full', reps=1, lines=None, out=None, forward=True):
                 lines > tile_lines(N):
             raise ValueError(f"{what}: {lines} lines of {N} points is no "
                              f"tile of A's")
+    nbytes = 2 * p.numel() * p.element_size()
     if _plain_ok(p, what):
-        y = bfly_plain(p, axis, mode, reps, forward)
+        y = bf._plain(what, nbytes, bfly_plain, p, axis, mode, reps, forward)
         return y if out is None else _target(p, out, p.shape, what).copy_(y)
     out = _target(p, out, p.shape, what)
     if out.numel():
@@ -442,7 +455,7 @@ def bfly(p, axis, mode='full', reps=1, lines=None, out=None, forward=True):
         plan, nst = bf._plan_args(N)
         _launch(what, _build.load().bfly_f32, p, bf._ptr(p), bf._ptr(out),
                 bf._ptr(tw), tw.shape[1], pre, N, post, sign, plan, nst,
-                MODES.index(mode), int(reps), lc)
+                MODES.index(mode), int(reps), lc, nbytes=nbytes)
     return out
 
 
@@ -468,8 +481,10 @@ def fma_chain(x, iters, acc=8, a=FMA_A, b=FMA_B, out=None):
     if int(acc) not in _FMA_ACC or int(iters) < 0:
         raise ValueError(f"{what}: acc {acc} (one of {_FMA_ACC}), iters "
                          f"{iters} >= 0")
+    nbytes = 2 * x.numel() * x.element_size()
     if _plain_ok(x, what, (torch.float32, torch.float64)):
-        y = fma_chain_plain(x, iters, a, b)
+        y = bf._plain(bf._name_of(what, x), nbytes, fma_chain_plain, x,
+                      iters, a, b)
         return y if out is None else _target(x, out, x.shape, what).copy_(y)
     out = _target(x, out, x.shape, what)
     if x.dtype == torch.float64:
@@ -478,5 +493,5 @@ def fma_chain(x, iters, acc=8, a=FMA_A, b=FMA_B, out=None):
         name, fn = what, _build.load().fma_chain_f32
     if x.numel():
         _launch(name, fn, x, bf._ptr(x), bf._ptr(out), x.numel(),
-                int(iters), int(acc), float(a), float(b))
+                int(iters), int(acc), float(a), float(b), nbytes=nbytes)
     return out

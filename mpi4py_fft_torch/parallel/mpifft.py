@@ -34,6 +34,7 @@ from ..libfft import FFT
 from ..ops import matfft
 from ..ops.plan import _host
 from ..utils import torch_dtype
+from ..utils.profiling import annotate
 from . import overlap
 from .comm import COMM_WORLD, DeviceComm, plan_device
 from .pencil import Pencil, Subcomm, fit_axis, fit_block
@@ -54,13 +55,15 @@ class Transform(object):
     rotations before stages[1:], each ``(start, size, cands)``: the
     function that starts it on a block, its group's size and the axes it
     may be chunked along; ``slices`` the (axis, true extent) pairs each
-    stage cuts its block to.  Calling the object has the reference's
-    buffer semantics; :meth:`fn` and :meth:`fn_p` are the functions to
-    compose (e.g. into a DNS time step)."""
+    stage cuts its block to; ``direction`` 'forward' or 'backward', which
+    names the span of each call, ``pfft.<direction>``.  Calling the
+    object has the reference's buffer semantics; :meth:`fn` and
+    :meth:`fn_p` are the functions to compose (e.g. into a DNS time
+    step)."""
 
     def __init__(self, pfft, stages, steps, slices, pencils, in_shape,
                  in_dtype, out_shape, out_dtype, default_normalize,
-                 host_mode, planars=None):
+                 host_mode, direction, planars=None):
         assert len(stages) == len(steps) + 1 == len(slices)
         assert len(pencils) == 2
         self._pfft = pfft
@@ -74,6 +77,7 @@ class Transform(object):
         self._out_dtype = np.dtype(out_dtype)
         self._default_normalize = default_normalize
         self._host_mode = host_mode
+        self._span = 'pfft.' + direction
         # planars[i]: whether the data entering stage i is planar (a
         # logical complex array as (2,) + shape real); planars[-1]
         # describes the output
@@ -113,7 +117,7 @@ class Transform(object):
             def post(q, i=i, stage=stage, rin=rin):
                 for ax, n in self._slices[i]:
                     q = fit_axis(q, rin + ax, n)
-                with torch.profiler.record_function(f"pfft_stage{i}"):
+                with annotate(f"pfft_stage{i}"):
                     return stage(q.contiguous(), normalize)
             if i == 0:
                 x = post(x)
@@ -141,24 +145,29 @@ class Transform(object):
         output travels as a planar (2,) + shape real tensor."""
         normalize = self._default_normalize if normalize is None \
             else normalize
-        return self._impl(x, normalize)
+        with annotate(self._span):
+            return self._impl(x, normalize)
 
     def fn(self, x, normalize=None):
         """The transform of a tensor.  Complex tensors go planar at the
         boundary and the output comes back complex (a planar input on a
-        complex plan gives a planar output, as ``fn_p``)."""
+        complex plan gives a planar output, as ``fn_p``); each boundary
+        copy runs in its span, ``pfft.planar`` or ``pfft.unplanar``."""
         normalize = self._default_normalize if normalize is None \
             else normalize
         if self._host_mode:
             return self._impl_host(_host(x), normalize)
         if not isinstance(x, torch.Tensor):
             x = torch.as_tensor(np.asarray(x), device=self.device)
-        was_complex = x.is_complex()
-        if self._planars[0] and was_complex:
-            x = matfft.planar(x)
-        y = self._impl(x, normalize)
-        if self._planars[-1] and (was_complex or not self._planars[0]):
-            y = matfft.unplanar(y)
+        with annotate(self._span):
+            was_complex = x.is_complex()
+            if self._planars[0] and was_complex:
+                with annotate('pfft.planar', _copy_bytes(x)):
+                    x = matfft.planar(x)
+            y = self._impl(x, normalize)
+            if self._planars[-1] and (was_complex or not self._planars[0]):
+                with annotate('pfft.unplanar', _copy_bytes(y)):
+                    y = matfft.unplanar(y)
         return y
 
     # -- reference-style properties ---------------------------------------
@@ -231,9 +240,9 @@ class Transform(object):
             if shape != want:
                 raise ValueError(f"planar path expects shape {want}, got "
                                  f"{shape}")
-            y = self._impl(self._tensor(input_array,
-                                        _real_dtype(self._in_dtype)),
-                           bool(normalize))
+            y = self.fn_p(self._tensor(input_array,
+                                       _real_dtype(self._in_dtype)),
+                          bool(normalize))
             if output_array is None:
                 return y
             if self._planars[-1] and \
@@ -258,6 +267,12 @@ class Transform(object):
         out = self.output_array
         out._data = y
         return out
+
+
+def _copy_bytes(x):
+    """Bytes a boundary copy of ``x`` moves: ``x`` read, as many written
+    (a complex tensor and its planar form hold the same bytes)."""
+    return 2 * x.numel() * x.element_size()
 
 
 def _assign(dst, y):
@@ -502,13 +517,13 @@ class PFFT(object):
             self, fwd_stages, fwd_steps, fwd_slices, self.pencil,
             self._input_shape, in_dtype, self._output_shape, out_dtype,
             default_normalize=True, host_mode=host_mode,
-            planars=fwd_planars)
+            direction='forward', planars=fwd_planars)
         # backward rotations undo the forward ones, in reverse order
         self.backward = Transform(
             self, bck_stages, bck_steps, bck_slices, self.pencil[::-1],
             self._output_shape, out_dtype, self._input_shape, in_dtype,
             default_normalize=False, host_mode=host_mode,
-            planars=bck_planars)
+            direction='backward', planars=bck_planars)
 
     def _shard_plans(self):
         """The rotations and stage cuts of both directions (role of JAX

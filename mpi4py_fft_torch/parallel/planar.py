@@ -54,6 +54,7 @@ from ..libfft import truncate_planar, pad_planar
 from . import overlap
 from .comm import plan_device
 from .pencil import Pencil, Subcomm, exchange, fit_axis, fit_block
+from ..utils.profiling import annotate
 
 __all__ = ['PlanarPFFT']
 
@@ -228,14 +229,14 @@ class PlanarPFFT(object):
         axes = self.axes
         ax0 = axes[-1]
         if self.real_transform:
-            with torch.profiler.record_function("planar_stage0_r2c"):
+            with annotate("planar_stage0_r2c"):
                 p = matfft.rfftn_p(x, (ax0,))
                 if self._padded(ax0):
                     p = truncate_planar(p, 1 + ax0,
                                         self._trunc[ax0] // 2 + 1,
                                         hermitian=True)
         else:
-            with torch.profiler.record_function("planar_stage0"):
+            with annotate("planar_stage0"):
                 p = matfft.fft1d_p(x, ax0, True)
                 if self._padded(ax0):
                     p = truncate_planar(p, 1 + ax0, self._trunc[ax0],
@@ -246,7 +247,7 @@ class PlanarPFFT(object):
             last = (i == nmid - 1)
             sc = self._norm if (normalize and last) else None
             folded = folded or sc is not None
-            with torch.profiler.record_function(f"planar_stage{i + 1}"):
+            with annotate(f"planar_stage{i + 1}"):
                 p = matfft.fft1d_p(p, ax, True, scale=sc)
                 if self._padded(ax):
                     p = truncate_planar(p, 1 + ax, self._trunc[ax],
@@ -258,14 +259,14 @@ class PlanarPFFT(object):
     def _backward_impl(self, p, normalize):
         axes = self.axes
         for i, ax in enumerate(axes[:-1]):
-            with torch.profiler.record_function(f"planar_bstage{i}"):
+            with annotate(f"planar_bstage{i}"):
                 if self._padded(ax):
                     p = pad_planar(p, 1 + ax, self._input_shape[ax],
                                    hermitian=False)
                 p = matfft.fft1d_p(p, ax, False)
         ax0 = axes[-1]
         sc = self._norm if normalize else None
-        with torch.profiler.record_function("planar_bstage_last"):
+        with annotate("planar_bstage_last"):
             if self.real_transform:
                 if self._padded(ax0):
                     p = pad_planar(p, 1 + ax0,

@@ -1,19 +1,30 @@
 """Tracing and per-stage profiling.
 
-Port of ``mpi4py_fft_tpu/utils/profiling.py``:
+Port of ``mpi4py_fft_tpu/utils/profiling.py``, with the port's spans:
 
 * :func:`trace` (:28): ``torch.profiler.profile`` around the enclosed
   block (the card's kernels too, where there is one), written as a Chrome
-  trace into ``logdir``;
-* :func:`annotate` (:34): a named range in that trace
-  (``torch.profiler.record_function``); each stage of a ``PFFT`` transform
-  runs inside one, ``pfft_stage<i>``;
-* :class:`Timer` (:39): wall-clock laps, each after the device of the
-  tensor it is given has finished;
+  trace into ``logdir``; it starts a new session of spans;
+* :func:`annotate` (:34): the port's one span.  While no profiler
+  records (PyTorch's own flag), a call reads that flag and returns a
+  shared no-op context: no range, no event, no allocation.  While one
+  records, a span is a ``torch.profiler.record_function`` range, so it
+  lies on the profiler's timeline beside the kernels, and it is timed
+  between two CUDA events on the current stream (on the host clock where
+  CUDA is not in use, as on the CPU every call runs to its end);
+* :func:`launched`: one launch of the port's kernels, counted in the
+  innermost span open;
+* :func:`session`: the newest session's table, a row a span name;
 * :func:`stage_times` (:72): each stage and each exchange of a ``PFFT``
   :class:`~mpi4py_fft_torch.parallel.mpifft.Transform` timed on its own,
   beside the whole transform, so that the kernels' share and the
   exchanges' share are visible.
+
+A session holds the spans recorded while one profiler ran: it begins at
+the first span that finds a profiler recording after a span found none,
+or where :func:`trace` starts.  Spans nest on one host thread.  The
+events are resolved when :func:`session` is read, never while the
+profiler runs.
 """
 import contextlib
 import os
@@ -22,10 +33,82 @@ import time
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _torch_profiler
 
-from ..parallel.pencil import fit_axis, fit_block
+__all__ = ['trace', 'annotate', 'launched', 'session', 'stage_times']
 
-__all__ = ['trace', 'Timer', 'stage_times', 'annotate']
+_OFF = contextlib.nullcontext()
+
+
+class _Session(object):
+    """The spans of one session, a record each in the order they opened:
+    ``[name, nbytes, start, end, launches, parent]``, ``start`` and
+    ``end`` CUDA events or host-clock seconds, ``parent`` the index of
+    the enclosing span's record (None at the top); ``open`` the indices
+    of the spans open now, innermost last."""
+
+    def __init__(self):
+        self.records = []
+        self.open = []
+
+
+_session = _Session()
+# no span has found a profiler recording since one last found none
+_fresh = True
+
+
+def _start_session():
+    global _session, _fresh
+    _session = _Session()
+    _fresh = False
+
+
+def _mark(cuda):
+    """A point on a span's clock: a CUDA event recorded on the current
+    stream, or the host clock."""
+    if cuda:
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+    return time.perf_counter()
+
+
+def _seconds(start, end):
+    if isinstance(start, float):
+        return end - start
+    end.synchronize()
+    return start.elapsed_time(end) * 1e-3
+
+
+class _Span(object):
+    """One span while a profiler records: its range, then its start mark
+    and record; at the end its end mark, then the range closed."""
+
+    __slots__ = ('_name', '_nbytes', '_range', '_session', '_index')
+
+    def __init__(self, name, nbytes):
+        self._name = name
+        self._nbytes = int(nbytes)
+
+    def __enter__(self):
+        self._range = torch.profiler.record_function(self._name)
+        self._range.__enter__()
+        s = self._session = _session
+        self._index = len(s.records)
+        # the card's clock where CUDA is in use, else the host's
+        start = _mark(torch.cuda.is_initialized())
+        s.records.append([self._name, self._nbytes, start, None, 0,
+                          s.open[-1] if s.open else None])
+        s.open.append(self._index)
+        return self
+
+    def __exit__(self, *exc):
+        s = self._session
+        rec = s.records[self._index]
+        rec[3] = _mark(not isinstance(rec[2], float))
+        s.open.pop()
+        self._range.__exit__(*exc)
+        return False
 
 
 @contextlib.contextmanager
@@ -33,7 +116,8 @@ def trace(logdir=None):
     """Profile the enclosed block (host ranges, and the card's kernels
     where there is a card) and write it as a Chrome trace,
     ``trace_<pid>_<n>.json``, into ``logdir`` (by default a directory
-    under the temporary directory); yields ``logdir``."""
+    under the temporary directory); yields ``logdir``.  The spans of the
+    block make a new session (:func:`session`)."""
     if logdir is None:
         logdir = os.path.join(tempfile.gettempdir(), 'mpi4py_fft_torch_trace')
     os.makedirs(logdir, exist_ok=True)
@@ -41,42 +125,61 @@ def trace(logdir=None):
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     with torch.profiler.profile(activities=acts) as prof:
+        _start_session()
         yield logdir
     prof.export_chrome_trace(os.path.join(
         logdir, f'trace_{os.getpid()}_{time.monotonic_ns()}.json'))
 
 
-def annotate(name):
-    """A named range in the profiler's trace."""
-    return torch.profiler.record_function(name)
+def annotate(name, nbytes=0):
+    """The span ``name``, a context manager.  ``nbytes``: the bytes its
+    work cannot avoid moving (each element of its input read and of its
+    output written once), added to its row of the session.  Off while no
+    profiler records (the shared no-op context); see the module's
+    docstring."""
+    global _fresh
+    if not _torch_profiler._is_profiler_enabled:
+        _fresh = True
+        return _OFF
+    if _fresh:
+        _start_session()
+    return _Span(name, nbytes)
 
 
-class Timer(object):
-    """Wall-clock timer with named laps; a lap given a CUDA tensor waits
-    for that tensor's device first."""
+def launched():
+    """Count one launch of the port's kernels (or of a plain version in a
+    kernel's place) in the innermost span open; nothing where none is."""
+    s = _session
+    if s.open:
+        s.records[s.open[-1]][4] += 1
 
-    def __init__(self):
-        self.laps = {}
-        self._t0 = time.perf_counter()
 
-    def lap(self, name, value=None):
-        """Record the time since the last lap under ``name``; returns
-        ``value``."""
-        if isinstance(value, torch.Tensor) and value.is_cuda:
-            torch.cuda.synchronize(value.device)
-        t = time.perf_counter()
-        self.laps.setdefault(name, []).append(t - self._t0)
-        self._t0 = t
-        return value
-
-    def report(self):
-        lines = []
-        for name, ts in self.laps.items():
-            ts = np.asarray(ts)
-            lines.append(f"{name:30s} n={len(ts):4d} "
-                         f"mean={ts.mean()*1e3:9.3f} ms  "
-                         f"min={ts.min()*1e3:9.3f} ms")
-        return "\n".join(lines)
+def session():
+    """The newest session's table: ``{name: {'calls', 'device_s',
+    'self_s', 'bytes', 'launches'}}``, summed over the span's calls.
+    ``device_s``: seconds between each call's two marks; ``self_s``: less
+    those of its direct child spans; ``launches``: the port's kernel
+    launches made while it was the innermost span.  Waits for the device
+    to reach the session's events; spans still open are left out."""
+    recs = _session.records
+    secs = [0.0 if r[3] is None else _seconds(r[2], r[3]) for r in recs]
+    inner = [0.0] * len(recs)
+    for r, t in zip(recs, secs):
+        if r[5] is not None:
+            inner[r[5]] += t
+    table = {}
+    for r, t, t_in in zip(recs, secs, inner):
+        if r[3] is None:
+            continue
+        row = table.setdefault(r[0], {'calls': 0, 'device_s': 0.0,
+                                      'self_s': 0.0, 'bytes': 0,
+                                      'launches': 0})
+        row['calls'] += 1
+        row['device_s'] += t
+        row['self_s'] += t - t_in
+        row['bytes'] += r[1]
+        row['launches'] += r[4]
+    return table
 
 
 def _timed(fn, v, reps, dev):
@@ -117,6 +220,7 @@ def stage_times(transform, x=None, reps=3):
     transform, ``fn_p``)."""
     from ..distarray import DistArray
     from ..ops import matfft
+    from ..parallel.pencil import fit_axis, fit_block
     if x is None:
         x = transform.input_array
     if isinstance(x, DistArray):

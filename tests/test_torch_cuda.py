@@ -422,3 +422,31 @@ def test_io_cuda_distarray(card, tmp_path):
             vh = DistArray(u_hat.global_shape, dtype='D', alignment=2)
             vh.read(path, 'u_hat', 0)
             assert torch.equal(vh.v, u_hat.v)
+
+
+@pytest.mark.cuda
+def test_kernel_spans_on_cuda(card):
+    """On the card a kernel's span is timed between two CUDA events around
+    its launch, which it counts with the bytes the kernel cannot avoid
+    moving; the span around it counts no launch of its own."""
+    from mpi4py_fft_torch.utils import profiling
+    x = torch.randn((2, 64, 768), device=card, dtype=torch.float64)
+    tb.fft_axis_p(x, 1)
+    with profiling.annotate('off'):
+        pass
+    c0 = tb.LAUNCHES['fft_axis_p_f64']
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts):
+        with profiling.annotate('outer'):
+            y = tb.fft_axis_p(x, 1)
+            y.mul_(2.0)
+    t = profiling.session()
+    k = t['kernel.fft_axis_p_f64']
+    assert k['calls'] == k['launches'] == 1
+    assert tb.LAUNCHES['fft_axis_p_f64'] == c0 + 1
+    assert k['bytes'] == 2 * x.numel() * 8
+    assert 0 < k['device_s'] < t['outer']['device_s']
+    assert t['outer']['launches'] == 0
+    assert t['outer']['self_s'] == pytest.approx(
+        t['outer']['device_s'] - k['device_s'])

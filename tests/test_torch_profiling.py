@@ -17,8 +17,7 @@ import pytest
 import torch
 
 from mpi4py_fft_torch import PFFT, fftw
-from mpi4py_fft_torch.utils.profiling import (Timer, annotate, stage_times,
-                                              trace)
+from mpi4py_fft_torch.utils.profiling import annotate, stage_times, trace
 
 
 def _staged_keys(out, nstages):
@@ -84,16 +83,6 @@ def test_stage_times_sum_approximates_total():
     assert parts > 0 and out['fused_total'] > 0
     assert parts < 100 * out['fused_total']
     assert out['fused_total'] < 100 * parts
-
-
-def test_timer_laps():
-    t = Timer()
-    t.lap('a')
-    x = torch.ones(3)
-    assert t.lap('a', x) is x
-    t.lap('b')
-    assert len(t.laps['a']) == 2 and len(t.laps['b']) == 1
-    assert 'a' in t.report() and 'b' in t.report()
 
 
 def test_trace_writes_the_stages(tmp_path):
