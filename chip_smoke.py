@@ -263,14 +263,20 @@ failure raises and the script exits non-zero:
              Gloo moves CUDA tensors through host memory: these are not
              the times of NVLink transposes.
 26. r2r      the r2r transforms (``mpi4py_fft_torch/ops/core.py``) on B
-             and C: DCT I-IV, DST I-IV and DHT along axis 2 (whole lines)
-             and axis 1 (B's and C's tile) of a (32, 512, 512) volume,
-             DCT-I at N = 513 and DST-I at N = 511 (extended to 1024
-             points), R2HC then HC2R, at float32 and float64, each held
-             against scipy's dct/dst (DHT: Re - Im of numpy's fft) in
-             float64 on the host (relative L2 <= 5e-5, 2e-10), every B
-             and C call on the way held slab by slab against its plain
-             version (outputs NaN-filled first), ms per call; then the
+             and C and on the one-pass DCT-II/III kernels: DCT I-IV, DST
+             I-IV and DHT along axis 2 (whole lines) and axis 1 (the
+             tile) of a (32, 512, 512) volume, DCT-I at N = 513 and
+             DST-I at N = 511 (extended to 1024 points), R2HC then HC2R,
+             at float32 and float64, each held against scipy's dct/dst
+             (DHT: Re - Im of numpy's fft) in float64 on the host
+             (relative L2 <= 5e-5, 2e-10), every B, C, DCT-II and DCT-III
+             call on the way held slab by slab against its plain version
+             (outputs NaN-filled first), ms per call; the DCT-II and
+             DCT-III kernels at 512^3, float32 and float64, on axes 2 and
+             1, each held first, beside their bound (512^3 values read
+             and written a pass), their plain versions and the glue
+             around torch.fft they replace (their rows of the kernels
+             line); then the
              transforms example's plan ``PFFT(None, (512,)*3, axes=((0,),
              (1, 2)), transforms={(1, 2): (dctn type 3, idctn type 3)})``
              at 'd' and 'f' and its twin with ``padding=[1.5, 1, 1]``:
@@ -319,6 +325,12 @@ checkout at TREE, each c2r's hold against numpy on a random spectrum
 reported in its row and not checked (a tree whose c2r keeps the
 imaginary DC and Nyquist parts runs to the end), and prints no last
 line: run it for two trees in turns on one card.
+
+``python3 chip_smoke.py --times-r2r TREE`` runs only phase 1, the DCT-II
+and DCT-III kernels' rows of phase 26 (null in a tree without them) and
+the transforms example's 512^3 'd' plan of phase 26 on the port of the
+checkout at TREE, and prints no last line: run it for two trees in turns
+on one card.
 
 ``python3 chip_smoke.py --times-any TREE`` runs only phases 1, 22 and 23,
 B's two rows and C's row of phase 16, A's, C64's, D's and A64's rows of
@@ -2181,7 +2193,8 @@ def _tp_held(bf, tp, holds, inp, ax, fwd, kw, what):
 @contextlib.contextmanager
 def _held_calls(bf, holds, names):
     """Within the block, every call of the wrappers ``names``
-    (``rfft_axis_p``, ``irfft_axis_p``, ``fft_axis_tp``) lands in a
+    (``rfft_axis_p``, ``irfft_axis_p``, ``fft_axis_tp``, ``dct2_axis_p``,
+    ``dct3_axis_p``) lands in a
     NaN-filled block and is held slab by slab against its plain version
     on the data the pipeline gives it (5e-6, 2e-13 on float64)."""
     saved = {n: getattr(bf, n) for n in names}
@@ -2220,7 +2233,23 @@ def _held_calls(bf, holds, names):
                         f"fft_axis_tp {tuple(p.shape)} axis {axis} in the "
                         f"pipeline")
 
-    wrapped = {'rfft_axis_p': r2c, 'irfft_axis_p': c2r, 'fft_axis_tp': tp}
+    def dct(what):
+        def held(x, axis):
+            plain = getattr(bf, what[:4] + '_axis_plain')
+            axis %= x.dim()
+            _nan_block(tuple(x.shape), x.dtype, x.device)
+            y = saved[what](x, axis)
+            d = 1 if axis == 0 else 0          # slabs off the pass axis
+            name = what + ('_f64' if x.dtype == torch.float64 else '')
+            _slab_hold(holds, name, y, lambda i, w: plain(
+                x.narrow(d, i, w), axis), d,
+                f"{name} {tuple(x.shape)} axis {axis} in the pipeline")
+            return y
+        return held
+
+    wrapped = {'rfft_axis_p': r2c, 'irfft_axis_p': c2r, 'fft_axis_tp': tp,
+               'dct2_axis_p': dct('dct2_axis_p'),
+               'dct3_axis_p': dct('dct3_axis_p')}
     for n in names:
         setattr(bf, n, wrapped[n])
     try:
@@ -2719,13 +2748,13 @@ def _held_rel(got, ref, tol, what):
 
 
 def _r2r_kinds(dev, bf, holds):
-    """Every kind along axis 2 (whole lines: B's and C's line kernels)
-    and axis 1 (the tile) of a (R2R_BATCH, R2R_N, R2R_N) volume at float32
-    and float64, DCT-I at R2R_N + 1 and DST-I at R2R_N - 1 (extended to
+    """Every kind along axis 2 (whole lines: the line kernels) and axis
+    1 (the tile) of a (R2R_BATCH, R2R_N, R2R_N) volume at float32 and
+    float64, DCT-I at R2R_N + 1 and DST-I at R2R_N - 1 (extended to
     2 R2R_N points) and R2HC then HC2R on the last axis, each held against
-    its float64 host reference; every B and C call on the way held slab
-    by slab against its plain version.  Returns ms per call and
-    launches."""
+    its float64 host reference; every B, C, DCT-II and DCT-III call on the
+    way held slab by slab against its plain version.  Returns ms per call
+    and launches."""
     from mpi4py_fft_torch.ops import core, kinds as K
     n, b = R2R_N, R2R_BATCH
     g = torch.Generator(device=dev).manual_seed(SEED + 80)
@@ -2734,7 +2763,8 @@ def _r2r_kinds(dev, bf, holds):
     def run(x32, kind, axis, ref, label):
         for x, tol in ((x32, PIPE_TOL), (x32.double(), PIPE_TOL64)):
             f = lambda: core.r2r(x, (axis,), (kind,))         # noqa: E731
-            with _held_calls(bf, holds, ('rfft_axis_p', 'irfft_axis_p')):
+            with _held_calls(bf, holds, ('rfft_axis_p', 'irfft_axis_p',
+                                         'dct2_axis_p', 'dct3_axis_p')):
                 c = dict(bf.LAUNCHES)
                 y = f()
                 torch.cuda.synchronize()
@@ -2765,9 +2795,73 @@ def _r2r_kinds(dev, bf, holds):
     torch.cuda.empty_cache()
     launches = _delta(c0, dict(bf.LAUNCHES))
     for k in ('rfft_axis_p', 'irfft_axis_p', 'rfft_axis_p_f64',
-              'irfft_axis_p_f64'):
+              'irfft_axis_p_f64', 'dct2_axis_p', 'dct3_axis_p',
+              'dct2_axis_p_f64', 'dct3_axis_p_f64'):
         _check(launches.get(k, 0) > 0, f"r2r kinds: {k} not launched")
     return rows, launches
+
+
+def _times_dct(dev, bf, holds):
+    """The rows of dct2_axis_p and dct3_axis_p, float32 and float64: a
+    (R2R_N,)*3 volume along axis 2 (the line kernels) and axis 1 (the
+    tile), each pass held slab by slab against its plain version first,
+    beside its bound (every value read and written once), its plain
+    version and the glue around torch.fft that it replaces (the r2r
+    plans' yardstick, ``_lib_r2c_c2r``), and the r2c (DCT-II) or c2r
+    (DCT-III) it folds into at the same shape (``packed_ms``: B's or C's
+    pass, which moves the same bytes); a row's ms is the two passes', as
+    the transforms example's DCT stage runs them.  None for a tree
+    without the kernels."""
+    if not hasattr(bf, 'dct2_axis_p'):
+        return None
+    from mpi4py_fft_torch.ops import core
+    r2c, c2r = _lib_r2c_c2r()
+    lib = {'dct2': lambda x, a: core._dct2_glue(x, a, r2c),
+           'dct3': lambda x, a: core._dct3_glue(x, a, c2r)}
+    n = R2R_N
+    g = torch.Generator(device=dev).manual_seed(SEED + 85)
+    out = {}
+    for dtype, sfx in ((torch.float32, ''), (torch.float64, '_f64')):
+        x = torch.rand((n,) * 3, generator=g, device=dev, dtype=dtype) - 0.5
+        nbytes = 2 * x.numel() * x.element_size()
+        flops = n * n * 2.5 * n * math.log2(n)
+        bound, by = _bound_ms(nbytes, flops, dtype == torch.float64)
+        for kind in ('dct2', 'dct3'):
+            name = kind + '_axis_p' + sfx
+            fn = getattr(bf, kind + '_axis_p')
+            plain = getattr(bf, kind + '_axis_plain')
+            per = {}
+            for axis in (2, 1):
+                _nan_block(tuple(x.shape), dtype, dev)
+                got = fn(x, axis)
+                _slab_hold(holds, name, got, lambda i, w: plain(
+                    x.narrow(0, i, w), axis), 0,
+                    f"{name} {tuple(x.shape)} axis {axis}")
+                del got
+                if kind == 'dct2':
+                    packed = lambda: bf.rfft_axis_p(x, axis)  # noqa: E731
+                else:
+                    h = bf.rfft_axis_p(x, axis)
+                    packed = lambda: bf.irfft_axis_p(h, axis, n)  # noqa
+                per[str(axis)] = {
+                    'ms': _median_ms(lambda: fn(x, axis)),
+                    'packed_ms': _median_ms(packed),
+                    'plain_ms': _median_ms(lambda: plain(x, axis), reps=1,
+                                           warm=0),
+                    'library_ms': _median_ms(lambda: lib[kind](x, axis),
+                                             reps=3, warm=1),
+                    'bound_ms': bound}
+                h = packed = None
+                torch.cuda.empty_cache()
+            out[name] = {
+                'shape': list(x.shape), 'axes': [2, 1],
+                'ms': sum(r['ms'] for r in per.values()),
+                'plain_ms': sum(r['plain_ms'] for r in per.values()),
+                'library_ms': sum(r['library_ms'] for r in per.values()),
+                'bound_ms': 2 * bound, 'bound_by': by, 'per_axis': per}
+        del x
+        torch.cuda.empty_cache()
+    return out
 
 
 def _lib_r2c_c2r():
@@ -2794,13 +2888,23 @@ def _lib_r2c_c2r():
 @contextlib.contextmanager
 def _lib_path(bf):
     """Run the port's pipeline with B and C replaced by torch.fft calls
-    (``_lib_r2c_c2r``)."""
-    saved = bf.rfft_axis_p, bf.irfft_axis_p
-    bf.rfft_axis_p, bf.irfft_axis_p = _lib_r2c_c2r()
+    (``_lib_r2c_c2r``), and the DCT-II and DCT-III kernels by the glue
+    around them."""
+    from mpi4py_fft_torch.ops import core
+    names = [n for n in ('rfft_axis_p', 'irfft_axis_p', 'dct2_axis_p',
+                         'dct3_axis_p') if hasattr(bf, n)]
+    saved = {n: getattr(bf, n) for n in names}
+    r2c, c2r = _lib_r2c_c2r()
+    lib = {'rfft_axis_p': r2c, 'irfft_axis_p': c2r,
+           'dct2_axis_p': lambda x, a: core._dct2_glue(x, a, r2c),
+           'dct3_axis_p': lambda x, a: core._dct3_glue(x, a, c2r)}
+    for n in names:
+        setattr(bf, n, lib[n])
     try:
         yield
     finally:
-        bf.rfft_axis_p, bf.irfft_axis_p = saved
+        for n, f in saved.items():
+            setattr(bf, n, f)
 
 
 def _r2r_input(dev, shape):
@@ -2975,14 +3079,16 @@ def r2r_example_rank(comm, n, ref):
 
 def phase_r2r(dev, bf, holds):
     """r2r on the card: every kind on the kernels (``_r2r_kinds``), the
-    transforms example's plans on one rank at R2R_N^3 'd' and 'f', plain
-    and padded (``_r2r_plan``), then the ported transforms and darray
-    examples on 2 gloo ranks, each rank's block of the example's plan
-    against the one-rank forward."""
+    DCT-II and DCT-III kernels' rows (``_times_dct``), the transforms
+    example's plans on one rank at R2R_N^3 'd' and 'f', plain and padded
+    (``_r2r_plan``), then the ported transforms and darray examples on 2
+    gloo ranks, each rank's block of the example's plan against the
+    one-rank forward.  Returns the DCT kernels' rows."""
     import scipy.fft
     from mpi4py_fft_torch import dryrun
     t0 = time.perf_counter()
     kinds, kind_launches = _r2r_kinds(dev, bf, holds)
+    dct = _times_dct(dev, bf, holds)
     n = R2R_N
     refdir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           'build', 'r2r_ref')
@@ -3021,9 +3127,24 @@ def phase_r2r(dev, bf, holds):
                f"2 ranks, rank {r['rank']}: launches {r}")
     _emit({'phase': 'r2r', 'seconds': time.perf_counter() - t0,
            'card': _smi(), 'kinds': kinds, 'kinds_launches': kind_launches,
-           'plans': plans, 'gloo_2_ranks_examples': two,
+           'dct_kernels': dct, 'plans': plans,
+           'gloo_2_ranks_examples': two,
            'exchanges': 'gloo on CUDA tensors, through host memory, both '
                         'ranks on one card'})
+    return dct
+
+
+def phase_times_r2r(dev, bf, holds):
+    """The DCT kernels' rows and the transforms example's R2R_N^3 'd'
+    plan alone (for --times-r2r)."""
+    import scipy.fft
+    dct = _times_dct(dev, bf, holds)
+    x32 = _r2r_input(dev, (R2R_N,) * 3)
+    A = scipy.fft.dctn(x32.double().cpu().numpy(), type=3, axes=(1, 2),
+                       workers=-1)
+    plan = _r2r_plan(dev, bf, 'd', False, x32, A)
+    _emit({'phase': 'times_r2r', 'card': _smi(), 'dct_kernels': dct,
+           'plan': plan})
 
 
 # -- phase io: snapshot IO and the host-staging engine ---------------------
@@ -3982,6 +4103,9 @@ PROBE_KERNELS = {
 # long_n) is A and A64 as they are
 _LONG_N = '; scripts/tpu_longN_probe.py:76'
 
+# the DCT-II/III kernels replace no TPU kernel: the JAX package's glue
+_DCT_GLUE = ('none: jnp glue of mpi4py_fft_tpu/ops/core.py:248-290 around '
+             'the r2c and c2r, which XLA fuses')
 KERNELS = {
     'fft_axis_p': ('mpi4py_fft_torch/ops/csrc/fft_axis.cu',
                    'mpi4py_fft_tpu/ops/pallas_butterfly.py:795' + _LONG_N),
@@ -4009,6 +4133,12 @@ KERNELS = {
                     'mpi4py_fft_tpu/ops/pallas_butterfly.py:1056'),
     'fft_plane_large_p': ('mpi4py_fft_torch/ops/csrc/fft_plane.cu',
                           'mpi4py_fft_tpu/ops/pallas_butterfly.py:1167'),
+    'dct2_axis_p': ('mpi4py_fft_torch/ops/csrc/rfft_axis.cu', _DCT_GLUE),
+    'dct3_axis_p': ('mpi4py_fft_torch/ops/csrc/rfft_axis.cu', _DCT_GLUE),
+    'dct2_axis_p_f64': ('mpi4py_fft_torch/ops/csrc/rfft_axis.cu',
+                        _DCT_GLUE),
+    'dct3_axis_p_f64': ('mpi4py_fft_torch/ops/csrc/rfft_axis.cu',
+                        _DCT_GLUE),
 }
 
 
@@ -4028,6 +4158,11 @@ def main(argv=None):
                          "reach pattern beside copy_, move's kinds beside "
                          "their PyTorch calls) on the port in TREE, to "
                          "compare two trees on one card")
+    ap.add_argument('--times-r2r', metavar='TREE', nargs='?',
+                    const=os.path.dirname(os.path.abspath(__file__)),
+                    help="run only phase 1, the DCT kernels' rows and the "
+                         "transforms example's 'd' plan on the port in "
+                         "TREE, to compare two trees on one card")
     ap.add_argument('--times-c2r', metavar='TREE', nargs='?',
                     const=os.path.dirname(os.path.abspath(__file__)),
                     help="run only phase 1, B's and C's rows and C64's "
@@ -4039,7 +4174,7 @@ def main(argv=None):
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
     tree = os.path.abspath(args.times_any or args.times_probes or
-                           args.times_c2r or
+                           args.times_c2r or args.times_r2r or
                            os.path.dirname(os.path.abspath(__file__)))
     sys.path.insert(0, tree)
     from mpi4py_fft_torch.ops import butterfly as bf
@@ -4056,6 +4191,10 @@ def main(argv=None):
         return 0
     if args.times_c2r:
         phase_times_c2r(dev, bf, holds)
+        print(_smi(), flush=True)
+        return 0
+    if args.times_r2r:
+        phase_times_r2r(dev, bf, holds)
         print(_smi(), flush=True)
         return 0
     if args.times_any:
@@ -4101,7 +4240,7 @@ def main(argv=None):
     marks['any_extent_path_s'] = time.perf_counter() - t_start
     phase_dist(dev, bf)
     marks['dist_s'] = time.perf_counter() - t_start
-    phase_r2r(dev, bf, holds)
+    dct_rows = phase_r2r(dev, bf, holds)
     marks['r2r_s'] = time.perf_counter() - t_start
     phase_io(dev, bf)
     marks['io_s'] = time.perf_counter() - t_start
@@ -4115,6 +4254,7 @@ def main(argv=None):
     del x, pfft
     torch.cuda.empty_cache()
     times.update(phase_times64(dev, bf, holds))
+    times.update(dct_rows)
     marks['times_s'] = time.perf_counter() - t_start
     times.update(phase_times_tp(dev, bf, holds))
     times.update(phase_times_any(dev, bf, holds))

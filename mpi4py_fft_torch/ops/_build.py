@@ -58,6 +58,11 @@ _ENTRIES = {
                                _I, _F, _P],
         'mff_irfft_axis_f64': [_P, _P, _P, _LL, _LL, _I, _I, _LL, _I, _IA,
                                _I, _D, _P],
+        # x, y, tw, tw_len, pre, n, post, plan, nstages, stream
+        'mff_dct2_axis_f32': [_P, _P, _P, _LL, _LL, _I, _LL, _IA, _I, _P],
+        'mff_dct2_axis_f64': [_P, _P, _P, _LL, _LL, _I, _LL, _IA, _I, _P],
+        'mff_dct3_axis_f32': [_P, _P, _P, _LL, _LL, _I, _LL, _IA, _I, _P],
+        'mff_dct3_axis_f64': [_P, _P, _P, _LL, _LL, _I, _LL, _IA, _I, _P],
     },
     'fft_axis_tp': {
         # x, y, tw, tw_len, pre, n, nt, pad, post, sign, plan, nstages,

@@ -7,6 +7,10 @@ of the CUDA kernels on the single-device path:
 * ``fft_axis_p``      (csrc/fft_axis.cu)  planar c2c along one axis;
 * ``rfft_axis_p``     (csrc/rfft_axis.cu) real -> Hermitian half spectrum;
 * ``irfft_axis_p``    (csrc/rfft_axis.cu) half spectrum -> real;
+* ``dct2_axis_p``, ``dct3_axis_p`` (csrc/rfft_axis.cu) DCT-II and DCT-III
+  (FFTW's REDFT10 and REDFT01) along one axis in one pass: B's and C's
+  bodies with Makhoul's permutation and the twiddle combine in their read
+  and write (the glue of ``core._dct2_fft``/``_dct3_fft`` fused);
 * ``fft_axis2_p``     (csrc/fft_axis2.cu) planar c2c along an axis split
   across two tensors (the quartered schedule, ``oop3d.py``);
 * ``fft_axis_pair_p`` (csrc/fft_axis2.cu) the same entry on the two
@@ -50,7 +54,9 @@ import torch
 from . import _build
 from ..utils import profiling
 
-__all__ = ['fft_axis_p', 'rfft_axis_p', 'irfft_axis_p', 'fft_axis2_p',
+__all__ = ['fft_axis_p', 'rfft_axis_p', 'irfft_axis_p', 'dct2_axis_p',
+           'dct3_axis_p', 'supported_dct', 'dct2_axis_plain',
+           'dct3_axis_plain', 'fft_axis2_p',
            'fft_axis_pair_p', 'pair_max_active_clusters', 'fft_axis_tp',
            'supported_axis',
            'supported_r2c', 'supported_c2r', 'supported_axis_split',
@@ -74,7 +80,8 @@ LAUNCHES = {'fft_axis_p': 0, 'rfft_axis_p': 0, 'irfft_axis_p': 0,
             'fft_axis2_p': 0, 'fft_axis_pair_p': 0, 'fft_axis_p_f64': 0,
             'rfft_axis_p_f64': 0, 'irfft_axis_p_f64': 0, 'fft_axis_tp': 0,
             'fft_axis_tp_f64': 0, 'fft2stage_p': 0, 'fft_plane_p': 0,
-            'fft_plane_large_p': 0}
+            'fft_plane_large_p': 0, 'dct2_axis_p': 0, 'dct3_axis_p': 0,
+            'dct2_axis_p_f64': 0, 'dct3_axis_p_f64': 0}
 
 
 def reset_launches():
@@ -153,6 +160,19 @@ def _tw_pack_packed(N, sign, dtype_str):
 
 
 @functools.lru_cache(maxsize=None)
+def _tw_pack_dct(N, sign, dtype_str):
+    """Twiddles for dct2_axis_p (sign -1) and dct3_axis_p (+1): the table
+    of _tw_pack_packed(N, sign) with the rows (cos, sin)(pi k / 2N),
+    k = 0..N/2, of Makhoul's combine put before its N/2 + 1 unpack
+    rows."""
+    pk = _tw_pack_packed(N, sign, dtype_str)
+    h = N // 2 + 1
+    ang = np.pi * np.arange(h) / (2.0 * N)
+    q = np.stack([np.cos(ang), np.sin(ang)]).astype(dtype_str)
+    return np.concatenate([pk[:, :-h], q, pk[:, -h:]], axis=1)
+
+
+@functools.lru_cache(maxsize=None)
 def _tw_pack(N, sign, dtype_str):
     """All stage twiddles as a (2, T) array: per stage of radix r at
     length L, rows hold w_L^(j*l) for j = 1..r-1 concatenated (l < L/r),
@@ -211,6 +231,15 @@ def _tw_tensor(N, sign, packed, dtype, device):
     tab = _tw_pack_packed(N, sign, name) if packed else \
         _tw_pack(N, sign, name)
     return torch.tensor(tab, dtype=dtype, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _tw_tensor_dct(N, sign, dtype, device):
+    """_tw_pack_dct(N, sign) as a contiguous tensor, uploaded once per
+    dtype and device."""
+    name = str(dtype).replace('torch.', '')
+    return torch.tensor(_tw_pack_dct(N, sign, name), dtype=dtype,
+                        device=device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -651,6 +680,20 @@ def irfft_axis_plain(p, axis, n, scale=None):
     return out.reshape(shape[:axis] + (N,) + shape[axis + 1:])
 
 
+def dct2_axis_plain(x, axis):
+    """Plain PyTorch version of ``dct2_axis_p``: the DCT-II glue of
+    ``core`` around ``rfft_axis_plain``."""
+    from . import core
+    return core._dct2_glue(x, axis % x.dim(), rfft_axis_plain)
+
+
+def dct3_axis_plain(y, axis):
+    """Plain PyTorch version of ``dct3_axis_p``: the DCT-III glue of
+    ``core`` around ``irfft_axis_plain``."""
+    from . import core
+    return core._dct3_glue(y, axis % y.dim(), irfft_axis_plain)
+
+
 # ---------------------------------------------------------------------------
 # gates and wrappers
 # ---------------------------------------------------------------------------
@@ -698,6 +741,13 @@ def supported_c2r(shape, axis, n):
     spectrum extent >= 1 is taken (short ones are Hermitian zero-padded
     in the read, rows past n//2+1 are ignored)."""
     return _length_ok(int(n)) and shape[axis % len(shape)] >= 1
+
+
+def supported_dct(shape, axis):
+    """Gate for ``dct2_axis_p`` and ``dct3_axis_p``: a kernel length
+    that 4 divides (Makhoul's packed points come four reals at a time)."""
+    N = shape[axis % len(shape)]
+    return N % 4 == 0 and _length_ok(N)
 
 
 def supported_axis_split(shape, axis):
@@ -949,6 +999,59 @@ def irfft_axis_p(p, axis, n, scale=None):
             _ptr(p), _ptr(out), _ptr(tw), tw.shape[1], pre, Hin, N, post,
             int(packed), plan, nst, sc, nbytes=nbytes)
     return out
+
+
+def _dct_axis(what, x, axis, sign, plain):
+    """dct2_axis_p (sign -1) or dct3_axis_p (+1): one launch of its C
+    entry (``what`` without ``_p``), or ``plain`` on a CPU tensor."""
+    shape = tuple(x.shape)
+    if not shape:
+        raise ValueError(f"{what}: needs at least one dim")
+    axis = axis % len(shape)
+    N = shape[axis]
+    if not supported_dct(shape, axis):
+        raise _unsupported_length(
+            what, N, f"a multiple of 4 of 2^a or 3*2^a up to {_MAX_N_AXIS}")
+    nbytes = 2 * x.numel() * x.element_size()
+    if _plain_ok(x, what):
+        return _plain(_name_of(what, x), nbytes, plain, x, axis)
+    pre, post = _pre_post(shape, axis)
+    out = torch.empty_like(x)
+    if out.numel() == 0:
+        return out
+    tw = _tw_tensor_dct(N, sign, x.dtype, x.device)
+    plan, nst = _plan_args(N // 2)
+    _launch(*_build_of(what, what[:-2], x), x,
+            _ptr(x), _ptr(out), _ptr(tw), tw.shape[1], pre, N, post, plan,
+            nst, nbytes=nbytes)
+    return out
+
+
+def dct2_axis_p(x, axis):
+    """DCT-II (FFTW's REDFT10, unnormalized) of a real tensor along
+    ``axis``: X[k] = 2 sum x[n] cos(pi (n + 1/2) k / N).  N a multiple of
+    4 of the kernel lengths (``supported_dct``).
+
+    B's r2c bodies with the row map DctRows (csrc/rfft_axis.cu): the
+    Makhoul permutation in the read and X[k] = 2 Re(w_k V[k]),
+    X[N-k] = -2 Im(w_k V[k]), w_k = e^{-i pi k/2N}, in the write; one
+    pass a call.  Which body runs is decided as for ``rfft_axis_p``: the
+    line kernel on whole lines whose data is aligned to a packed point,
+    else the tile.  Counts as ``dct2_axis_p`` / ``dct2_axis_p_f64``."""
+    return _dct_axis('dct2_axis_p', x, axis, -1, dct2_axis_plain)
+
+
+def dct3_axis_p(y, axis):
+    """DCT-III (FFTW's REDFT01, unnormalized, the transpose of REDFT10)
+    of a real tensor along ``axis``: X[n] = y[0] + 2 sum_{k>=1} y[k]
+    cos(pi k (n + 1/2) / N).  N as for ``dct2_axis_p``.
+
+    C's c2r bodies with the row map DctRows: W[k] = (y[k] - i y[N-k])
+    e^{+i pi k/2N} (y[N] := 0) in the read, the inverse Makhoul
+    permutation in the write; one pass a call.  Which body runs is decided
+    as for ``irfft_axis_p`` (the output is new, so whole lines take the
+    line kernel).  Counts as ``dct3_axis_p`` / ``dct3_axis_p_f64``."""
+    return _dct_axis('dct3_axis_p', y, axis, +1, dct3_axis_plain)
 
 
 def _half_strides(t, pre, h, post, what):

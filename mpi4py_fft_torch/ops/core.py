@@ -8,7 +8,11 @@ the planar engine's r2c and c2r (``matfft.rfftn_p``/``irfftn_p``), which
 run the kernels B and C (float64: their fp64 builds) on a CUDA tensor and
 their plain versions on a CPU one:
 
-* DCT/DST II and III by Makhoul's N-point real-FFT method (:248-316);
+* DCT/DST II and III by Makhoul's N-point real-FFT method (:248-316); at
+  the kernel lengths that 4 divides, DCT-II and DCT-III are one launch of
+  ``butterfly.dct2_axis_p``/``dct3_axis_p`` each, B's and C's bodies with
+  the glue in their read and write (the plain version, on a CPU tensor,
+  is the glue around B's and C's plain versions);
 * type I by the even (DCT) or odd (DST) extension to 2(N -+ 1) points
   (:325, :339);
 * type IV by a pre-twiddle, a DCT-II and an alternating cumulative sum
@@ -30,7 +34,7 @@ import os
 import numpy as np
 import torch
 
-from . import matfft
+from . import butterfly, matfft
 from ..utils.profiling import annotate
 from .kinds import (
     FFTW_R2HC, FFTW_HC2R, FFTW_DHT,
@@ -250,14 +254,15 @@ def _use_fft_r2r(N, kind):
     return N >= 16
 
 
-def _dct2_fft(x, axis):
+def _dct2_glue(x, axis, rfft):
     """REDFT10: X[k] = 2 sum x[n] cos(pi (n+1/2) k / N)  (Makhoul 1980).
 
     v = [x[0], x[2], ..., x[N-1], ..., x[3], x[1]];  V = rfft(v);
     X[k] = 2 Re(e^{-i pi k/2N} V[k]), Hermitian-extended past N/2.
+    ``rfft(v, axis)``: the planar half spectrum of v along ``axis``.
     """
     N = x.shape[axis]
-    P = matfft.rfftn_p(_take(x, 'makhoul', N, axis), (axis,))
+    P = rfft(_take(x, 'makhoul', N, axis), axis)
     # full-length spectrum by Hermitian reflection V[k>N/2] = conj(V[N-k])
     Vr = _take(P[0], 'refl', N, axis)
     Vi = _take(P[1], 'refl', N, axis) * _row('sgn', N, x, axis)
@@ -265,7 +270,7 @@ def _dct2_fft(x, axis):
                   + Vi * _row('sin', N, x, axis))
 
 
-def _dct3_fft(y, axis):
+def _dct3_glue(y, axis, irfft):
     """REDFT01 (unnormalized DCT-III, the transpose of REDFT10):
     X[n] = y[0] + 2 sum_{k>=1} y[k] cos(pi k (n+1/2) / N).
 
@@ -274,7 +279,8 @@ def _dct3_fft(y, axis):
     result.  W's imaginary part is exactly 0 at k = 0 (sin 0 = 0, y[N]
     masked), and at k = N/2 it is y[N/2] (sin - cos)(pi/4): 0 in float32,
     an ulp in float64; every c2r of the port reads both as 0, as the JAX
-    CPU path does.
+    CPU path does.  ``irfft(W, axis, N)``: the unnormalized c2r of the
+    planar half spectrum W along ``axis``.
     """
     N = y.shape[axis]
     nh = N // 2 + 1
@@ -285,8 +291,27 @@ def _dct3_fft(y, axis):
     # V = (yk - i*ynk) * (c + i s) = (yk*c + ynk*s) + i(yk*s - ynk*c)
     Wr = yk * c + ynk * s
     Wi = yk * s - ynk * c
-    v = matfft.irfftn_p(torch.stack([Wr, Wi]), (axis,), N)
+    v = irfft(torch.stack([Wr, Wi]), axis, N)
     return _take(v, 'unmakhoul', N, axis)
+
+
+def _dct2_fft(x, axis):
+    """REDFT10 in one pass of ``butterfly.dct2_axis_p`` (the glue fused
+    into B's bodies) where it takes the length, else the glue around the
+    engine's r2c."""
+    if butterfly.supported_dct(tuple(x.shape), axis):
+        return butterfly.dct2_axis_p(x, axis)
+    return _dct2_glue(x, axis, lambda v, a: matfft.rfftn_p(v, (a,)))
+
+
+def _dct3_fft(y, axis):
+    """REDFT01 in one pass of ``butterfly.dct3_axis_p`` (the glue fused
+    into C's bodies) where it takes the length, else the glue around the
+    engine's c2r."""
+    if butterfly.supported_dct(tuple(y.shape), axis):
+        return butterfly.dct3_axis_p(y, axis)
+    return _dct3_glue(y, axis,
+                      lambda w, a, n: matfft.irfftn_p(w, (a,), n))
 
 
 def _dst2_fft(x, axis):

@@ -65,6 +65,30 @@
 // 768^3 last axis on an H100 (PERF.md §6).  The float32 line kernel
 // keeps the r2c's budget, four blocks an SM at 128 registers.  Inner
 // axes, N = 2 and a misaligned output take the tile kernel.
+//
+// dct2_axis and dct3_axis: DCT-II (FFTW's REDFT10) and DCT-III (REDFT01)
+// along one axis, unnormalized, for N a multiple of 4 of the lengths
+// above.  They replace no TPU kernel: the JAX package computes both in jnp
+// glue around its r2c and c2r (mpi4py_fft_tpu/ops/core.py:248-290), which
+// XLA fuses into its own passes; on the card the same glue ran as about
+// ten eager passes over the tensor an axis.  Here each is one pass: the
+// r2c body (DCT-II) and the c2r body (DCT-III) with the row map DctRows,
+// Makhoul's method (1980) in their read and write.  DCT-II reads
+// v = [x[0], x[2], ..., x[N-2], x[N-1], ..., x[3], x[1]], whose packed
+// points are z[m] = x[4m] + i x[4m+2] and z[N/2-1-m] = x[4m+3] + i x[4m+1]
+// (the line kernel loads the r2c's vectors and places each packed point
+// through its group's buffer; the tile places each row), and writes,
+// from V[k] = rfft(v)[k], k = 0..N/2, and w_k = e^{-i pi k/2N},
+// X[k] = 2 Re(w_k V[k]) and X[N-k] = -2 Im(w_k V[k]) (0 < k < N/2).
+// DCT-III reads W[k] = (y[k] - i y[N-k]) e^{+i pi k/2N} (y[N] := 0; the
+// imaginary parts of the DC and Nyquist rows are taken as 0, as every
+// c2r here takes them) and writes the un-Makhoul x[2m] = v[m],
+// x[2m+1] = v[N-1-m] of v = c2r(W).  The rows (cos, sin)(pi k/2N),
+// k = 0..N/2, sit in the table between the stage twiddles and the unpack
+// rows.  Bound: bytes, N real values read and N written a line.  The row
+// map is a template parameter of the bodies, HalfRows (the r2c and c2r
+// themselves) by default, and each kind has kernels of its own names, so
+// the r2c and c2r instances compile as before.
 #include <cstdint>
 #include <type_traits>
 
@@ -104,16 +128,47 @@ __device__ __forceinline__ void tile_index(int idx, int rows, int lc,
   }
 }
 
+// Row maps of the r2c and c2r bodies.  HalfRows: the r2c and c2r (the
+// real line in order, the half spectrum planar).  DctRows: DCT-II on the
+// r2c body, DCT-III on the c2r body (see the note at the top): the real
+// line in Makhoul's order in the r2c's read and the c2r's write, the
+// twiddle combine in the r2c's write and the c2r's read.
+struct HalfRows {
+  static constexpr bool kDct = false;
+};
+struct DctRows {
+  static constexpr bool kDct = true;
+};
+
+// Makhoul's permutation of an n-point DCT line: row k is point makhoul(k)
+// of v = [x[0], x[2], ..., x[n-2], x[n-1], ..., x[3], x[1]].
+__host__ __device__ __forceinline__ int makhoul(int k, int n) {
+  return (k & 1) ? n - 1 - (k >> 1) : k >> 1;
+}
+
+// Row j of the packed r2c's spectrum, unscaled, from Z[j] and Z[W - j]:
+// V = E + w_N^j O, w_N^j = c - i s.
+template <class T>
+__device__ __forceinline__ void untangle(T zre, T zie, T zrr, T zir, T c,
+                                         T s, T* r, T* i) {
+  const T er = T(0.5) * (zre + zrr);
+  const T ei = T(0.5) * (zie - zir);
+  const T orr = T(0.5) * (zie + zir);
+  const T oi = T(0.5) * (zrr - zre);
+  *r = er + c * orr + s * oi;
+  *i = ei + c * oi - s * orr;
+}
+
 // Real (pre, n, post) -> planar (2, pre, hext, post).  W = n/2 when
 // packed, else n (n = 2).  Rows >= nrows are zero; fold doubles the real
 // part and zeroes the imaginary part of row nrows-1 (even truncation).
-template <class T, int kBlocks>
-__global__ void __launch_bounds__(mff::Budget<T>::kTile / 16, kBlocks)
-rfft_axis_kernel(const T* __restrict__ x, T* __restrict__ y,
-                 const T* __restrict__ tw, long long tw_len,
-                 long long pre, int n, long long post, int hext, int nrows,
-                 int fold, int packed, int W, int t2, mff::Plan plan,
-                 T scale, int lc) {
+// DctRows (packed): real (pre, n, post) -> its DCT-II, times scale / 2.
+template <class T, class Map>
+__device__ __forceinline__ void rfft_tile(
+    const T* __restrict__ x, T* __restrict__ y, const T* __restrict__ tw,
+    long long tw_len, long long pre, int n, long long post, int hext,
+    int nrows, int fold, int packed, int W, int t2, mff::Plan plan, T scale,
+    int lc) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int C = 1 << lc;
   long long* bin = reinterpret_cast<long long*>(smem);
@@ -125,7 +180,7 @@ rfft_axis_kernel(const T* __restrict__ x, T* __restrict__ y,
   t.im = t.re + W * t.cp;
   const long long nlines = pre * post;
   line_bases2(bin, bout, static_cast<long long>(blockIdx.x) << lc, nlines,
-              C, n, hext, post);
+              C, n, Map::kDct ? n : hext, post);
   __syncthreads();
 
   for (int idx = threadIdx.x; idx < (n << lc); idx += blockDim.x) {
@@ -133,7 +188,10 @@ rfft_axis_kernel(const T* __restrict__ x, T* __restrict__ y,
     tile_index(idx, n, lc, post, &c, &k);
     const long long b = bin[c];
     const T v = b >= 0 ? x[b + k * post] : T(0);
-    if (packed) {            // z[m] = x[2m] + i x[2m+1]
+    if constexpr (Map::kDct) {   // z[m] = v[2m] + i v[2m+1]
+      const int p = makhoul(k, n);
+      ((p & 1) ? t.im : t.re)[(p >> 1) * t.cp + c] = v;
+    } else if (packed) {     // z[m] = x[2m] + i x[2m+1]
       ((k & 1) ? t.im : t.re)[(k >> 1) * t.cp + c] = v;
     } else {
       t.re[k * t.cp + c] = v;
@@ -146,6 +204,27 @@ rfft_axis_kernel(const T* __restrict__ x, T* __restrict__ y,
   const T* twi = tw + tw_len;
   mff::run_plan(t, W, plan, twr, twi, T(-1));
 
+  if constexpr (Map::kDct) {
+    // V[j], j = 0..W, gives X[j] = 2 Re(w_j V[j]) and, for 0 < j < W,
+    // X[n - j] = -2 Im(w_j V[j]), w_j = cq - i sq = e^{-i pi j/2n}
+    const T* cq = twr + t2 - (W + 1);
+    const T* sq = twi + t2 - (W + 1);
+    for (int idx = threadIdx.x; idx < ((W + 1) << lc); idx += blockDim.x) {
+      int c, j;
+      tile_index(idx, W + 1, lc, post, &c, &j);
+      const long long b = bout[c];
+      if (b < 0) continue;
+      const int je = (j == W ? 0 : j) * t.cp + c;
+      const int jr = (j == 0 ? 0 : W - j) * t.cp + c;
+      T r, i;
+      untangle(t.re[je], t.im[je], t.re[jr], t.im[jr],
+               __ldg(twr + t2 + j), __ldg(twi + t2 + j), &r, &i);
+      const T cd = __ldg(cq + j), sd = __ldg(sq + j);
+      y[b + j * post] = (cd * r + sd * i) * scale;
+      if (j > 0 && j < W) y[b + (n - j) * post] = (sd * r - cd * i) * scale;
+    }
+    return;
+  }
   const long long plane = nlines * hext;
   for (int idx = threadIdx.x; idx < (hext << lc); idx += blockDim.x) {
     int c, j;
@@ -183,17 +262,39 @@ rfft_axis_kernel(const T* __restrict__ x, T* __restrict__ y,
   }
 }
 
+template <class T, int kBlocks>
+__global__ void __launch_bounds__(mff::Budget<T>::kTile / 16, kBlocks)
+rfft_axis_kernel(const T* __restrict__ x, T* __restrict__ y,
+                 const T* __restrict__ tw, long long tw_len,
+                 long long pre, int n, long long post, int hext, int nrows,
+                 int fold, int packed, int W, int t2, mff::Plan plan,
+                 T scale, int lc) {
+  rfft_tile<T, HalfRows>(x, y, tw, tw_len, pre, n, post, hext, nrows,
+                         fold, packed, W, t2, plan, scale, lc);
+}
+
+template <class T, int kBlocks>
+__global__ void __launch_bounds__(mff::Budget<T>::kTile / 16, kBlocks)
+dct2_axis_kernel(const T* __restrict__ x, T* __restrict__ y,
+                 const T* __restrict__ tw, long long tw_len,
+                 long long pre, int n, long long post, int hext, int nrows,
+                 int fold, int packed, int W, int t2, mff::Plan plan,
+                 T scale, int lc) {
+  rfft_tile<T, DctRows>(x, y, tw, tw_len, pre, n, post, hext, nrows,
+                        fold, packed, W, t2, plan, scale, lc);
+}
+
 // Planar (2, pre, hin, post) -> real (pre, n, post).  W = n/2 when packed,
 // else n (n = 2); the tile holds W + 1 spectrum rows.  The imaginary parts
 // of the DC and Nyquist rows are taken as 0: a real output has no
 // component for them (sin(pi m) = 0), and FFTW's c2r drops them.  scale
-// carries the packed inverse's factor 2.
-template <class T, int kBlocks>
-__global__ void __launch_bounds__(mff::Budget<T>::kTile / 16, kBlocks)
-irfft_axis_kernel(const T* __restrict__ x, T* __restrict__ y,
-                  const T* __restrict__ tw, long long tw_len,
-                  long long pre, int hin, int n, long long post, int packed,
-                  int W, int t2, mff::Plan plan, T scale, int lc) {
+// carries the packed inverse's factor 2.  DctRows (packed, hin = n): real
+// (pre, n, post) -> its DCT-III, times scale / 2.
+template <class T, class Map>
+__device__ __forceinline__ void irfft_tile(
+    const T* __restrict__ x, T* __restrict__ y, const T* __restrict__ tw,
+    long long tw_len, long long pre, int hin, int n, long long post,
+    int packed, int W, int t2, mff::Plan plan, T scale, int lc) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int C = 1 << lc;
   long long* bin = reinterpret_cast<long long*>(smem);
@@ -210,7 +311,8 @@ irfft_axis_kernel(const T* __restrict__ x, T* __restrict__ y,
   __syncthreads();
 
   // read rows 0..nh-1 with the Hermitian zero-padding of a short spectrum;
-  // the DC row and (even n) the Nyquist row are read as real
+  // the DC row and (even n) the Nyquist row are read as real.  DctRows:
+  // row k is W[k] = (y[k] - i y[n-k]) (cq + i sq), y[n] := 0
   const int nh = n / 2 + 1;
   const bool halve = hin < nh && hin % 2 == 0;
   for (int idx = threadIdx.x; idx < (nh << lc); idx += blockDim.x) {
@@ -218,7 +320,16 @@ irfft_axis_kernel(const T* __restrict__ x, T* __restrict__ y,
     tile_index(idx, nh, lc, post, &c, &k);
     const long long b = bin[c];
     T vr = 0, vi = 0;
-    if (b >= 0 && k < hin) {
+    if constexpr (Map::kDct) {
+      if (b >= 0) {
+        const T yk = x[b + k * post];
+        const T ynk = k > 0 ? x[b + (n - k) * post] : T(0);
+        const T cd = __ldg(tw + t2 - (W + 1) + k);
+        const T sd = __ldg(tw + tw_len + t2 - (W + 1) + k);
+        vr = yk * cd + ynk * sd;
+        if (k != 0 && k != n / 2) vi = yk * sd - ynk * cd;
+      }
+    } else if (b >= 0 && k < hin) {
       const long long a = b + k * post;
       vr = x[a];
       vi = x[plane + a];
@@ -277,11 +388,36 @@ irfft_axis_kernel(const T* __restrict__ x, T* __restrict__ y,
     tile_index(idx, n, lc, post, &c, &m);
     const long long b = bout[c];
     if (b < 0) continue;
+    if constexpr (Map::kDct) {   // out[m] = v[makhoul(m)]
+      const int p = makhoul(m, n);
+      y[b + m * post] = ((p & 1) ? t.im : t.re)[(p >> 1) * t.cp + c] * scale;
+      continue;
+    }
     // packed: out[2m] = Re z[m], out[2m+1] = Im z[m]; else Re x[m]
     const T v = packed ? ((m & 1) ? t.im : t.re)[(m >> 1) * t.cp + c]
                        : t.re[m * t.cp + c];
     y[b + m * post] = v * scale;
   }
+}
+
+template <class T, int kBlocks>
+__global__ void __launch_bounds__(mff::Budget<T>::kTile / 16, kBlocks)
+irfft_axis_kernel(const T* __restrict__ x, T* __restrict__ y,
+                  const T* __restrict__ tw, long long tw_len,
+                  long long pre, int hin, int n, long long post, int packed,
+                  int W, int t2, mff::Plan plan, T scale, int lc) {
+  irfft_tile<T, HalfRows>(x, y, tw, tw_len, pre, hin, n, post, packed,
+                          W, t2, plan, scale, lc);
+}
+
+template <class T, int kBlocks>
+__global__ void __launch_bounds__(mff::Budget<T>::kTile / 16, kBlocks)
+dct3_axis_kernel(const T* __restrict__ x, T* __restrict__ y,
+                 const T* __restrict__ tw, long long tw_len,
+                 long long pre, int hin, int n, long long post, int packed,
+                 int W, int t2, mff::Plan plan, T scale, int lc) {
+  irfft_tile<T, DctRows>(x, y, tw, tw_len, pre, hin, n, post, packed,
+                         W, t2, plan, scale, lc);
 }
 
 // ---------------------------------------------------------------------------
@@ -296,6 +432,15 @@ constexpr int kLineThreads = 128;
 // N = 768, at 199 registers).
 template <class T>
 constexpr int kLineMinBlocks = sizeof(T) == 4 ? 4 : 1;
+
+// Blocks an SM the DCT-II and DCT-III line kernels are bound to, in both
+// builds: four (128 registers a thread).  At the float64 r2c's bound of
+// one block they took 232 (DCT-II) and 164 (DCT-III) registers at W = 256
+// and ran 20% and 50% slower than at four, where they match the r2c and
+// c2r on an H100 (a 512^3 last axis; three blocks helped DCT-II alone;
+// PERF.md section 6).  They spill 16-64 B in float64 DCT-III at W = 24,
+// 96 and 192, and 8 B in float32 DCT-III at W = 384, as C does.
+constexpr int kDctLineMinBlocks = 4;
 
 // Points a thread of a W-point line holds: 16 (W = 2^a) or 24 (3*2^a),
 // or the whole line when it is shorter.
@@ -415,12 +560,14 @@ template <> struct Point<double> { using type = double2; };
 // Real (nlines, 2W) -> planar (2, nlines, hext) with the packed W-point
 // transform, a group of W/P threads a line (see the note at the top).
 // tw: the table of _tw_pack_packed(2W, -1), its unpack rows at t2.
-template <class T, int W>
-__global__ void __launch_bounds__(kLineThreads, kLineMinBlocks<T>)
-rfft_lines_kernel(const T* __restrict__ x, T* __restrict__ y,
-                  const T* __restrict__ tw, long long tw_len, int t2,
-                  long long nlines, int hext, int nrows, int fold,
-                  T scale) {
+// DctRows: real (nlines, 2W) -> its DCT-II, times scale / 2; the loaded
+// vectors go to their packed points through the group's buffer, and the
+// table holds the rows (cos, sin)(pi k/4W) at t2 - (W + 1).
+template <class T, int W, class Map>
+__device__ __forceinline__ void rfft_lines(
+    const T* __restrict__ x, T* __restrict__ y, const T* __restrict__ tw,
+    long long tw_len, int t2, long long nlines, int hext, int nrows,
+    int fold, T scale) {
   constexpr int P = line_points(W), G = W / P;
   extern __shared__ __align__(16) unsigned char smem[];
   const int grp = threadIdx.x / G, g = threadIdx.x % G;
@@ -439,12 +586,45 @@ rfft_lines_kernel(const T* __restrict__ x, T* __restrict__ y,
 #pragma unroll
   for (int s = 0; s < P; ++s) {
     const V v = __ldg(xz + g + G * s);
-    zr[s] = v.x;
-    zi[s] = v.y;
+    if constexpr (Map::kDct) {     // x[2m], x[2m+1]: v[m], v[2W-1-m]
+      const int m = g + G * s;
+      const int p0 = makhoul(2 * m, 2 * W), p1 = makhoul(2 * m + 1, 2 * W);
+      ((p0 & 1) ? bi : br)[p0 >> 1] = v.x;
+      ((p1 & 1) ? bi : br)[p1 >> 1] = v.y;
+    } else {
+      zr[s] = v.x;
+      zi[s] = v.y;
+    }
+  }
+  if constexpr (Map::kDct) {
+    __syncwarp();
+#pragma unroll
+    for (int s = 0; s < P; ++s) {
+      zr[s] = br[g + G * s];
+      zi[s] = bi[g + G * s];
+    }
+    __syncwarp();   // the group has read the buffer
   }
   line_stages<T, W, 0, -1>(zr, zi, br, bi, g, cw, sw);
   if (!live) return;
 
+  if constexpr (Map::kDct) {
+    // V[j], j = 0..W: X[j] = 2 Re(w_j V[j]), X[2W - j] = -2 Im(w_j V[j])
+    T* yl = y + line * (2 * W);
+    const T* cq = cw - (W + 1);
+    const T* sq = sw - (W + 1);
+    for (int j = g; j <= W; j += G) {
+      const int je = j == W ? 0 : j;
+      const int jr = j == 0 ? 0 : W - j;
+      T r, i;
+      untangle(br[je], bi[je], br[jr], bi[jr], __ldg(cw + j), __ldg(sw + j),
+               &r, &i);
+      const T cd = __ldg(cq + j), sd = __ldg(sq + j);
+      yl[j] = (cd * r + sd * i) * scale;
+      if (j > 0 && j < W) yl[2 * W - j] = (sd * r - cd * i) * scale;
+    }
+    return;
+  }
   // untangle Z[j] with Z[W - j] into row j, both planes
   T* yr = y + line * hext;
   T* yi = yr + nlines * hext;
@@ -471,6 +651,26 @@ rfft_lines_kernel(const T* __restrict__ x, T* __restrict__ y,
     yr[j] = r;
     yi[j] = i;
   }
+}
+
+template <class T, int W>
+__global__ void __launch_bounds__(kLineThreads, kLineMinBlocks<T>)
+rfft_lines_kernel(const T* __restrict__ x, T* __restrict__ y,
+                  const T* __restrict__ tw, long long tw_len, int t2,
+                  long long nlines, int hext, int nrows, int fold,
+                  T scale) {
+  rfft_lines<T, W, HalfRows>(x, y, tw, tw_len, t2, nlines, hext, nrows, fold,
+                             scale);
+}
+
+template <class T, int W>
+__global__ void __launch_bounds__(kLineThreads, kDctLineMinBlocks)
+dct2_lines_kernel(const T* __restrict__ x, T* __restrict__ y,
+                  const T* __restrict__ tw, long long tw_len, int t2,
+                  long long nlines, int hext, int nrows, int fold,
+                  T scale) {
+  rfft_lines<T, W, DctRows>(x, y, tw, tw_len, t2, nlines, hext, nrows, fold,
+                            scale);
 }
 
 // Launches a line kernel of packed length W on nlines lines, buf points
@@ -525,12 +725,13 @@ int with_line_length(int W, F f) {
 // inverse stages run as the r2c's, and out[2m], out[2m+1] = Re z[m],
 // Im z[m] go out scaled, one packed point a vector.  tw: the table of
 // _tw_pack_packed(2W, +1), its unpack rows at t2; scale carries the
-// packed inverse's factor 2.
-template <class T, int W>
-__global__ void __launch_bounds__(kLineThreads, kLineMinBlocks<T>)
-irfft_lines_kernel(const T* __restrict__ x, T* __restrict__ y,
-                   const T* __restrict__ tw, long long tw_len, int t2,
-                   long long nlines, int hin, T scale) {
+// packed inverse's factor 2.  DctRows (hin = 2W): real (nlines, 2W) -> its
+// DCT-III, times scale / 2; row k is read from y[k] and y[2W - k], and
+// the stores take the points of the un-Makhoul from the buffer.
+template <class T, int W, class Map>
+__device__ __forceinline__ void irfft_lines(
+    const T* __restrict__ x, T* __restrict__ y, const T* __restrict__ tw,
+    long long tw_len, int t2, long long nlines, int hin, T scale) {
   constexpr int P = line_points(W), G = W / P;
   extern __shared__ __align__(16) unsigned char smem[];
   const int grp = threadIdx.x / G, g = threadIdx.x % G;
@@ -551,7 +752,12 @@ irfft_lines_kernel(const T* __restrict__ x, T* __restrict__ y,
   for (int s = 0; s <= P; ++s) {
     const int k = g + G * s;
     hr[s] = hi[s] = T(0);
-    if (k <= W && k < hin) {
+    if constexpr (Map::kDct) {     // y[k] and y[2W - k] (y[2W] := 0)
+      if (k <= W) {
+        hr[s] = __ldg(xr + k);
+        if (k > 0) hi[s] = __ldg(xr + 2 * W - k);
+      }
+    } else if (k <= W && k < hin) {
       hr[s] = __ldg(xr + k);
       hi[s] = __ldg(xi + k);
     }
@@ -561,6 +767,12 @@ irfft_lines_kernel(const T* __restrict__ x, T* __restrict__ y,
   for (int s = 0; s <= P; ++s) {
     const int k = g + G * s;
     if (k > W) continue;
+    if constexpr (Map::kDct) {     // W[k] = (y[k] - i y[2W-k]) (cq + i sq)
+      const T yk = hr[s], ynk = hi[s];
+      const T cd = __ldg(cw - (W + 1) + k), sd = __ldg(sw - (W + 1) + k);
+      hr[s] = yk * cd + ynk * sd;
+      hi[s] = yk * sd - ynk * cd;
+    }
     if (halve && k == hin - 1) {
       hr[s] = T(0.5) * hr[s];
       hi[s] = T(0);
@@ -595,7 +807,31 @@ irfft_lines_kernel(const T* __restrict__ x, T* __restrict__ y,
 
   using V = typename Point<T>::type;
   V* yz = reinterpret_cast<V*>(y) + line * W;
+  if constexpr (Map::kDct) {       // out[2m], out[2m+1] = v[m], v[2W-1-m]
+    for (int m = g; m < W; m += G) {
+      const int p0 = makhoul(2 * m, 2 * W), p1 = makhoul(2 * m + 1, 2 * W);
+      yz[m] = V{((p0 & 1) ? bi : br)[p0 >> 1] * scale,
+                ((p1 & 1) ? bi : br)[p1 >> 1] * scale};
+    }
+    return;
+  }
   for (int m = g; m < W; m += G) yz[m] = V{br[m] * scale, bi[m] * scale};
+}
+
+template <class T, int W>
+__global__ void __launch_bounds__(kLineThreads, kLineMinBlocks<T>)
+irfft_lines_kernel(const T* __restrict__ x, T* __restrict__ y,
+                   const T* __restrict__ tw, long long tw_len, int t2,
+                   long long nlines, int hin, T scale) {
+  irfft_lines<T, W, HalfRows>(x, y, tw, tw_len, t2, nlines, hin, scale);
+}
+
+template <class T, int W>
+__global__ void __launch_bounds__(kLineThreads, kDctLineMinBlocks)
+dct3_lines_kernel(const T* __restrict__ x, T* __restrict__ y,
+                  const T* __restrict__ tw, long long tw_len, int t2,
+                  long long nlines, int hin, T scale) {
+  irfft_lines<T, W, DctRows>(x, y, tw, tw_len, t2, nlines, hin, scale);
 }
 
 // Tile of a launch.
@@ -611,7 +847,8 @@ bool launch_shape(int W, long long nlines, int* lc, long long* blocks,
   return true;
 }
 
-template <class T>
+// The r2c (HalfRows) or DCT-II (DctRows, packed, with the DCT rows in tw).
+template <class T, class Map = HalfRows>
 int launch_rfft_axis(const T* x, T* y, const T* tw, long long tw_len,
                      long long pre, int n, long long post, int hext,
                      int nrows, int fold, int packed, const int* plan,
@@ -629,8 +866,9 @@ int launch_rfft_axis(const T* x, T* y, const T* tw, long long tw_len,
     return with_line_length(W, [&](auto w) {
       constexpr int kW = decltype(w)::value;
       return launch_line_kernel<T, kW>(
-          &rfft_lines_kernel<T, kW>, kW, x, y, tw, tw_len, pre,
-          static_cast<cudaStream_t>(stream), hext, nrows, fold, scale);
+          Map::kDct ? &dct2_lines_kernel<T, kW> : &rfft_lines_kernel<T, kW>,
+          kW, x, y, tw, tw_len, pre, static_cast<cudaStream_t>(stream), hext,
+          nrows, fold, scale);
     });
   }
   int lc, threads;
@@ -643,8 +881,12 @@ int launch_rfft_axis(const T* x, T* y, const T* tw, long long tw_len,
   const size_t smem = 2 * sizeof(long long) * C +
                       2 * sizeof(T) * static_cast<size_t>(W) * (C + 1);
   using B = mff::Budget<T>;
-  auto kern = mff::pick_bound<T>(smem, &rfft_axis_kernel<T, B::kMinBlocks>,
-                                 &rfft_axis_kernel<T, B::kWideMinBlocks>);
+  auto kern =
+      Map::kDct
+          ? mff::pick_bound<T>(smem, &dct2_axis_kernel<T, B::kMinBlocks>,
+                               &dct2_axis_kernel<T, B::kWideMinBlocks>)
+          : mff::pick_bound<T>(smem, &rfft_axis_kernel<T, B::kMinBlocks>,
+                               &rfft_axis_kernel<T, B::kWideMinBlocks>);
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -656,7 +898,9 @@ int launch_rfft_axis(const T* x, T* y, const T* tw, long long tw_len,
   return cudaGetLastError();
 }
 
-template <class T>
+// The c2r (HalfRows) or DCT-III (DctRows, packed, hin = n, with the DCT
+// rows in tw).
+template <class T, class Map = HalfRows>
 int launch_irfft_axis(const T* x, T* y, const T* tw, long long tw_len,
                       long long pre, int hin, int n, long long post,
                       int packed, const int* plan, int nstages, T scale,
@@ -675,8 +919,9 @@ int launch_irfft_axis(const T* x, T* y, const T* tw, long long tw_len,
     return with_line_length(W, [&](auto w) {
       constexpr int kW = decltype(w)::value;
       return launch_line_kernel<T, kW>(
-          &irfft_lines_kernel<T, kW>, kW + 1, x, y, tw, tw_len, pre,
-          static_cast<cudaStream_t>(stream), hin, scale);
+          Map::kDct ? &dct3_lines_kernel<T, kW> : &irfft_lines_kernel<T, kW>,
+          kW + 1, x, y, tw, tw_len, pre, static_cast<cudaStream_t>(stream),
+          hin, scale);
     });
   }
   int lc, threads;
@@ -688,8 +933,12 @@ int launch_irfft_axis(const T* x, T* y, const T* tw, long long tw_len,
   const size_t smem = 2 * sizeof(long long) * C +
                       2 * sizeof(T) * static_cast<size_t>(W + 1) * (C + 1);
   using B = mff::Budget<T>;
-  auto kern = mff::pick_bound<T>(smem, &irfft_axis_kernel<T, B::kMinBlocks>,
-                                 &irfft_axis_kernel<T, B::kWideMinBlocks>);
+  auto kern =
+      Map::kDct
+          ? mff::pick_bound<T>(smem, &dct3_axis_kernel<T, B::kMinBlocks>,
+                               &dct3_axis_kernel<T, B::kWideMinBlocks>)
+          : mff::pick_bound<T>(smem, &irfft_axis_kernel<T, B::kMinBlocks>,
+                               &irfft_axis_kernel<T, B::kWideMinBlocks>);
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -698,6 +947,23 @@ int launch_irfft_axis(const T* x, T* y, const T* tw, long long tw_len,
          static_cast<cudaStream_t>(stream)>>>(
       x, y, tw, tw_len, pre, hin, n, post, packed, W, t2, p, scale, lc);
   return cudaGetLastError();
+}
+
+// DCT-II (kInverse false) or DCT-III of (pre, n, post) along n, scaled by
+// 2 (FFTW's REDFT10 and REDFT01): n a packed length and a multiple of 4,
+// tw the table of _tw_pack_dct(n, -1 or +1), whose DCT rows lie before
+// the n/2 + 1 unpack rows.
+template <class T, bool kInverse>
+int launch_dct(const T* x, T* y, const T* tw, long long tw_len,
+               long long pre, int n, long long post, const int* plan,
+               int nstages, void* stream) {
+  const int h = n / 2 + 1;
+  if (n < 4 || n % 4 != 0 || tw_len < 2 * h) return cudaErrorInvalidValue;
+  if (kInverse)
+    return launch_irfft_axis<T, DctRows>(x, y, tw, tw_len, pre, n, n, post,
+                                         1, plan, nstages, T(2), stream);
+  return launch_rfft_axis<T, DctRows>(x, y, tw, tw_len, pre, n, post, h, h,
+                                      0, 1, plan, nstages, T(2), stream);
 }
 
 }  // namespace
@@ -746,4 +1012,48 @@ extern "C" int mff_irfft_axis_f64(const double* x, double* y,
                                   void* stream) {
   return launch_irfft_axis(x, y, tw, tw_len, pre, hin, n, post, packed, plan,
                            nstages, scale, stream);
+}
+
+// x, y: (pre, n, post) float32, contiguous on the current device; y = the
+// DCT-II of x along n (FFTW's REDFT10).  tw: (2, tw_len),
+// _tw_pack_dct(n, -1).  n a multiple of 4 of the packed lengths.  Returns
+// cudaGetLastError().
+extern "C" int mff_dct2_axis_f32(const float* x, float* y, const float* tw,
+                                 long long tw_len, long long pre, int n,
+                                 long long post, const int* plan,
+                                 int nstages, void* stream) {
+  return launch_dct<float, false>(x, y, tw, tw_len, pre, n, post, plan,
+                                  nstages, stream);
+}
+
+// The same for float64 x, y and tw.
+extern "C" int mff_dct2_axis_f64(const double* x, double* y,
+                                 const double* tw, long long tw_len,
+                                 long long pre, int n, long long post,
+                                 const int* plan, int nstages,
+                                 void* stream) {
+  return launch_dct<double, false>(x, y, tw, tw_len, pre, n, post, plan,
+                                   nstages, stream);
+}
+
+// x, y: (pre, n, post) float32, contiguous on the current device; y = the
+// DCT-III of x along n (FFTW's REDFT01).  tw: (2, tw_len),
+// _tw_pack_dct(n, +1).  n a multiple of 4 of the packed lengths.  Returns
+// cudaGetLastError().
+extern "C" int mff_dct3_axis_f32(const float* x, float* y, const float* tw,
+                                 long long tw_len, long long pre, int n,
+                                 long long post, const int* plan,
+                                 int nstages, void* stream) {
+  return launch_dct<float, true>(x, y, tw, tw_len, pre, n, post, plan,
+                                 nstages, stream);
+}
+
+// The same for float64 x, y and tw.
+extern "C" int mff_dct3_axis_f64(const double* x, double* y,
+                                 const double* tw, long long tw_len,
+                                 long long pre, int n, long long post,
+                                 const int* plan, int nstages,
+                                 void* stream) {
+  return launch_dct<double, true>(x, y, tw, tw_len, pre, n, post, plan,
+                                  nstages, stream);
 }

@@ -250,13 +250,17 @@ def test_launch_counters_untouched_on_cpu():
     fft2stage.fft2stage_p(torch.zeros((2, 3, 640)), -1)
     tb.fft_plane_p(torch.zeros((2, 3, 8, 16)))
     tb.fft_plane_large_p(torch.zeros((2, 3, 8, 16)))
+    tb.dct2_axis_p(torch.zeros((4, 8)), 1)
+    tb.dct3_axis_p(torch.zeros((8, 4), dtype=f64), 0)
     assert tb.LAUNCHES == {'fft_axis_p': 0, 'rfft_axis_p': 0,
                            'irfft_axis_p': 0, 'fft_axis2_p': 0,
                            'fft_axis_pair_p': 0, 'fft_axis_p_f64': 0,
                            'rfft_axis_p_f64': 0, 'irfft_axis_p_f64': 0,
                            'fft_axis_tp': 0, 'fft_axis_tp_f64': 0,
                            'fft2stage_p': 0, 'fft_plane_p': 0,
-                           'fft_plane_large_p': 0}
+                           'fft_plane_large_p': 0, 'dct2_axis_p': 0,
+                           'dct3_axis_p': 0, 'dct2_axis_p_f64': 0,
+                           'dct3_axis_p_f64': 0}
 
 
 def test_import_isolation():

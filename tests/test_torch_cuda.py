@@ -363,9 +363,10 @@ def test_move_routes_on_cuda(card):
 @pytest.mark.cuda
 def test_r2r_on_cuda(card):
     """Every r2r kind on CUDA tensors along a whole-line and an inner axis:
-    B and C launch (counted) and the result is the CPU plain path's
-    (2e-5 f32 and 1e-12 f64 of max abs over max(1, largest value)); a
-    PFFT with ``transforms=`` runs on the card by default."""
+    B and the one-pass DCT-II/III kernels launch (counted) and the result
+    is the CPU plain path's (2e-5 f32 and 1e-12 f64 of max abs over
+    max(1, largest value)); a PFFT with ``transforms=`` runs on the card
+    by default, C in its backward."""
     import functools
     from mpi4py_fft_torch import PFFT, fftw
     from mpi4py_fft_torch.ops import core, kinds as K
@@ -380,15 +381,44 @@ def test_r2r_on_cuda(card):
                 err = float((got - ref).abs().max()) / \
                     max(1.0, float(ref.abs().max()))
                 assert err < tol, (kind, axis, dtype, err)
-        assert tb.LAUNCHES['rfft_axis_p' + sfx] > c0['rfft_axis_p' + sfx]
-        assert tb.LAUNCHES['irfft_axis_p' + sfx] > c0['irfft_axis_p' + sfx]
+        for name in ('rfft_axis_p', 'dct2_axis_p', 'dct3_axis_p'):
+            assert tb.LAUNCHES[name + sfx] > c0[name + sfx], name + sfx
     dct = (functools.partial(fftw.dctn, type=3),
            functools.partial(fftw.idctn, type=3))
     fft = PFFT(None, (16, 16, 16), axes=((0,), (1, 2)), dtype='d',
                transforms={(1, 2): dct})
     assert fft.device.type == 'cuda'
     u = torch.rand((16, 16, 16), dtype=torch.float64, device=card)
+    c0 = dict(tb.LAUNCHES)
     assert _rel(fft.backward.fn_p(fft.forward.fn_p(u)), u) <= 2e-10
+    assert {k: v - c0[k] for k, v in tb.LAUNCHES.items() if v != c0[k]} == \
+        {'rfft_axis_p_f64': 1, 'irfft_axis_p_f64': 1, 'dct2_axis_p_f64': 2,
+         'dct3_axis_p_f64': 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape,dtype,tol', [
+    ((512, 512, 512), torch.float64, 2e-13),
+    ((32, 768, 768), torch.float32, 5e-6)])
+def test_dct_kernels_on_cuda(card, shape, dtype, tol):
+    """dct2_axis_p and dct3_axis_p at the r2r cell's 512^3 float64 and at
+    768 float32, on axis 1 (the tile) and axis 2 (the line kernels), into
+    NaN-filled memory: one launch a call, within the kernel tolerance of
+    the plain version (the glue around B's and C's plain versions)."""
+    g = torch.Generator(device=card).manual_seed(23)
+    x = torch.rand(shape, generator=g, device=card, dtype=dtype) - 0.5
+    sfx = '_f64' if dtype == torch.float64 else ''
+    for fn, plain, name in ((tb.dct2_axis_p, tb.dct2_axis_plain, 'dct2'),
+                            (tb.dct3_axis_p, tb.dct3_axis_plain, 'dct3')):
+        for axis in (1, 2):
+            torch.full(shape, float('nan'), device=card, dtype=dtype)
+            c0 = tb.LAUNCHES[name + '_axis_p' + sfx]
+            got = fn(x, axis)
+            assert tb.LAUNCHES[name + '_axis_p' + sfx] == c0 + 1
+            assert bool(torch.isfinite(got).all())
+            assert _rel(got, plain(x, axis)) <= tol, (name, axis)
+            del got
+            torch.cuda.empty_cache()
 
 
 @pytest.mark.cuda

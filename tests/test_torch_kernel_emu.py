@@ -612,6 +612,110 @@ def test_irfft_lines_f32_vs_plain(kernel_path, emu_kernels, N):
     assert _launched() == {'irfft_axis_p': n + 1}
 
 
+# DCT-II and DCT-III in one pass (B's and C's bodies with the row map
+# DctRows): packed lengths that 4 divides, W = N/2 of a group of 1, 2,
+# 32 and 16 threads, with radix 3 (24, 48, 96, 768) and without
+DCT_NS = [16, 24, 48, 96, 512, 768, 1024]
+
+
+def _dct_into(emu_kernels, x, y, inverse):
+    """The C entry of DCT-II (or DCT-III) on x (pre, N) along its last
+    axis, into the given output y: any alignment."""
+    N = x.shape[-1]
+    tw = bf._tw_tensor_dct(N, 1 if inverse else -1, x.dtype, x.device)
+    plan, nst = bf._plan_args(N // 2)
+    fn = getattr(emu_kernels, ('dct3' if inverse else 'dct2') + '_axis_'
+                 + ('f64' if x.dtype == torch.float64 else 'f32'))
+    rc = fn(ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(y.data_ptr()),
+            ctypes.c_void_p(tw.data_ptr()), tw.shape[1], x.shape[0], N, 1,
+            plan, nst, ctypes.c_void_p(0))
+    assert rc == 0
+    return y
+
+
+def _hold_dct(plain_ok, emu_kernels, N, dtype, tol, seed):
+    """dct2_axis_p and dct3_axis_p against their plain versions and
+    scipy.fft.dct (types 2 and 3, unnormalized: FFTW's REDFT10 and
+    REDFT01) on whole lines aligned to a packed point (the line kernels:
+    __syncwarp calls), on an inner axis and on the middle one of three
+    (the tile: none), on whole lines an element off a packed point
+    (DCT-II's read takes the tile; DCT-III reads an element at a time and
+    takes the line kernel), and through the C entries into an output an
+    element off a packed point (DCT-III's tile).  Returns the launches
+    of each wrapper."""
+    import scipy.fft
+    rng = np.random.default_rng(seed)
+    flat = torch.from_numpy(rng.standard_normal(1 + 3 * N).astype(dtype))
+    cases = ((flat[:3 * N].view(3, N), 1, True, True),
+             (flat[1:].view(3, N), 1, False, True),
+             (torch.from_numpy(rng.standard_normal((N, 6)).astype(dtype)),
+              0, False, False),
+             (torch.from_numpy(rng.standard_normal((2, N, 5))
+                               .astype(dtype)), 1, False, False))
+    assert cases[0][0].data_ptr() % (2 * flat.element_size()) == 0
+    assert cases[1][0].data_ptr() % (2 * flat.element_size()) != 0
+    for x, axis, lines2, lines3 in cases:
+        for fn, t, lines in ((bf.dct2_axis_p, 2, lines2),
+                             (bf.dct3_axis_p, 3, lines3)):
+            w0 = _emu_count(emu_kernels, 'rfft_axis', 'emu_syncwarps')
+            got = fn(x, axis)
+            ran = _emu_count(emu_kernels, 'rfft_axis', 'emu_syncwarps') > w0
+            ref = _plain(plain_ok, fn, x, axis)
+            sp = torch.from_numpy(scipy.fft.dct(x.double().numpy(), type=t,
+                                                axis=axis))
+            assert got.shape == x.shape and got.dtype == x.dtype
+            assert _rel(got, ref) <= tol, (t, axis)
+            assert _rel(got, sp) <= tol, (t, axis)
+            assert ran == lines, (t, axis)
+    x = cases[0][0]
+    ym = torch.full((1 + 3 * N,), float('nan'), dtype=x.dtype)[1:]
+    for t in (2, 3):
+        w0 = _emu_count(emu_kernels, 'rfft_axis', 'emu_syncwarps')
+        got = _dct_into(emu_kernels, x, ym, t == 3).view(3, N)
+        ran = _emu_count(emu_kernels, 'rfft_axis', 'emu_syncwarps') > w0
+        sp = torch.from_numpy(scipy.fft.dct(x.double().numpy(), type=t))
+        assert _rel(got, sp) <= tol, t
+        assert ran == (t == 2), t
+    return len(cases)
+
+
+@pytest.mark.parametrize('N', DCT_NS)
+def test_dct_lines_tile_f64_vs_plain(kernel_path, emu_kernels, N):
+    """dct2_axis_p and dct3_axis_p on float64: one launch a call, the
+    line kernel or the tile as the layout decides."""
+    n = _hold_dct(kernel_path, emu_kernels, N, np.float64, TOL64, 28)
+    assert _launched() == {'dct2_axis_p_f64': n, 'dct3_axis_p_f64': n}
+
+
+@pytest.mark.parametrize('N', DCT_NS)
+def test_dct_lines_tile_f32_vs_plain(kernel_path, emu_kernels, N):
+    """dct2_axis_p and dct3_axis_p on float32 (one float2 a packed
+    point), the cases of the float64 test."""
+    n = _hold_dct(kernel_path, emu_kernels, N, np.float32, TOL, 29)
+    assert _launched() == {'dct2_axis_p': n, 'dct3_axis_p': n}
+
+
+def test_dct_refuses(kernel_path, emu_kernels):
+    """A length that 4 does not divide or that no kernel takes raises,
+    pointing at the engine; the C entries refuse such a length and a
+    table too short to hold the DCT rows."""
+    for N in (18, 20, 2048):
+        with pytest.raises(ValueError, match='engine'):
+            bf.dct2_axis_p(torch.zeros((2, N)), 1)
+        with pytest.raises(ValueError, match='engine'):
+            bf.dct3_axis_p(torch.zeros((N, 2)), 0)
+    x = torch.zeros((2, 12))
+    tw = bf._tw_tensor(12, -1, True, x.dtype, x.device)
+    plan, nst = bf._plan_args(6)
+    for n, tl in ((12, tw.shape[1]), (6, tw.shape[1] + 4)):
+        rc = emu_kernels.dct2_axis_f32(
+            ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(x.data_ptr()),
+            ctypes.c_void_p(tw.data_ptr()), tl, 2, n, 1, plan, nst,
+            ctypes.c_void_p(0))
+        assert rc != 0, n
+    assert _launched() == {}
+
+
 # the fused dealiasing kernel E (shape of the N-row side, axis, Nt): lead,
 # mid and last positions, whole lines, even and odd Nt (fold and split,
 # or neither), Nt = 1 and N - 1, radix 3, the 768- and 1024-point tiles

@@ -11,8 +11,11 @@ numpy inputs, made from a seed.  Tolerances are the JAX suite's:
 max abs over max(1, largest value) < 2e-5 (float32), < 1e-12 (float64)
 for the serial transforms (tests/test_fftw.py:243); relative L2 5e-5 /
 2e-10 for the parallel plans (tests/test_torch_dist.py's ``TOL``).  The
-N of the cases take both routes: the dense basis below 16 (8, 13), the
-FFT-backed glue from 16 on (20, 31; DHT also 64).
+N of the cases take every route: the dense basis below 16 (8, 13), the
+FFT-backed glue from 16 on (20, 31; DHT also 64), and at kernel lengths
+that 4 divides (16, 24, 96) the one-pass DCT-II/III wrappers
+(``dct2_axis_p``, ``dct3_axis_p``), under DCT-II/III, DST-II/III and
+DCT-IV, also held against scipy.
 """
 import functools
 
@@ -135,6 +138,95 @@ def test_r2r_several_axes_and_engine_surface():
     with pytest.raises(NotImplementedError, match='oracle'):
         tcore.set_fft_impl('xla')
     assert tcore.r2r_output_length(13, K.FFTW_DHT) == 13
+
+
+# the kinds that ride on the one-pass DCT-II/III (dct2_axis_p,
+# dct3_axis_p) at kernel lengths that 4 divides, with and without radix 3
+FUSED_KINDS = (K.FFTW_REDFT10, K.FFTW_REDFT01, K.FFTW_RODFT10,
+               K.FFTW_RODFT01, K.FFTW_REDFT11)
+FUSED_NS = (16, 24, 96)
+_JFUSED = {}
+
+
+def _jfused(N, dtype):
+    """JAX ``core.r2r`` of the fused kinds along every axis at this N
+    and dtype, from one jitted program."""
+    if (N, dtype) not in _JFUSED:
+        xs = tuple(_input(N, dtype, ax) for ax in AXES)
+
+        def f(xs):
+            return {(k, ax): jcore.r2r(xs[ax], (ax,), (k,))
+                    for k in FUSED_KINDS for ax in AXES}
+        out = jax.jit(f)(tuple(jnp.asarray(x) for x in xs))
+        _JFUSED[N, dtype] = {key: np.asarray(v) for key, v in out.items()}
+    return _JFUSED[N, dtype]
+
+
+def _scipy_r2r(x, kind, axis):
+    """scipy.fft's unnormalized dct/dst of the kind (FFTW's), in
+    float64."""
+    import scipy.fft
+    name, t = {K.FFTW_REDFT10: ('dct', 2), K.FFTW_REDFT01: ('dct', 3),
+               K.FFTW_RODFT10: ('dst', 2), K.FFTW_RODFT01: ('dst', 3),
+               K.FFTW_REDFT11: ('dct', 4)}[kind]
+    return getattr(scipy.fft, name)(x.astype(np.float64), type=t, axis=axis)
+
+
+FUSED_CASES = [(k, N, dt, ax) for k in FUSED_KINDS for N in FUSED_NS
+               for dt in DTYPES for ax in AXES]
+
+
+@pytest.mark.parametrize(
+    'kind,N,dtype,axis', FUSED_CASES,
+    ids=[f'{NAMES[k]}-{N}-{dt}-ax{ax}' for k, N, dt, ax in FUSED_CASES])
+def test_r2r_kernel_lengths_vs_scipy_and_jax(kind, N, dtype, axis,
+                                             monkeypatch):
+    """At kernel lengths the DCT-II/III kinds and those that ride on them
+    (DST-II/III by sign and flip, DCT-IV by its pre-twiddle and
+    alternating sum) take one dct2_axis_p or dct3_axis_p call an axis
+    (their plain versions here), and agree with scipy and with JAX."""
+    from mpi4py_fft_torch.ops import butterfly as bf
+    calls = []
+    for name in ('dct2_axis_p', 'dct3_axis_p'):
+        monkeypatch.setattr(bf, name, lambda x, a, _f=getattr(bf, name),
+                            _n=name: calls.append(_n) or _f(x, a))
+    x = _input(N, dtype, axis)
+    got = tcore.r2r(torch.from_numpy(x), (axis,), (kind,))
+    assert got.dtype == torch.from_numpy(x).dtype
+    assert tuple(got.shape) == x.shape
+    tol = SERIAL_TOL[dtype]
+    assert _err(got.numpy(), _scipy_r2r(x, kind, axis)) < tol
+    assert _err(got.numpy(), _jfused(N, dtype)[kind, axis]) < tol
+    two = kind in (K.FFTW_REDFT10, K.FFTW_RODFT10, K.FFTW_REDFT11)
+    assert calls == ['dct2_axis_p' if two else 'dct3_axis_p']
+
+
+def test_roundtrip_plan_runs_one_dct_pass_an_axis():
+    """The transforms example's plan at 16^3 'd' (the benchmark's r2r
+    configuration, cut down): a forward and a backward count, in the
+    kernels' spans, 2 DCT-III and 2 DCT-II passes (one an r2r axis) and
+    one r2c and one c2r (axis 0), 3 launches a transform; the engine's
+    glue runs at a length no kernel takes (18)."""
+    from mpi4py_fft_torch.utils import profiling
+    rows = {}
+    for n in (16, 18):
+        fft = PFFT(None, (n,) * 3, axes=((0,), (1, 2)), dtype='d',
+                   device='cpu', transforms={(1, 2): _dct_pair(tfftw)})
+        u = torch.rand((n,) * 3, dtype=torch.float64)
+        with profiling.annotate('off'):
+            pass
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            back = fft.backward.fn(fft.forward.fn(u))
+        assert _rel(back.numpy(), u.numpy()) <= PIPE_TOL['d']
+        rows[n] = {k: v['launches'] for k, v in profiling.session().items()
+                   if k.startswith('kernel.')}
+    assert rows[16] == {'kernel.dct3_axis_p_f64': 2,
+                        'kernel.dct2_axis_p_f64': 2,
+                        'kernel.rfft_axis_p_f64': 1,
+                        'kernel.irfft_axis_p_f64': 1}
+    assert 'kernel.dct2_axis_p_f64' not in rows[18]
+    assert 'kernel.dct3_axis_p_f64' not in rows[18]
 
 
 # ---------------------------------------------------------------------------

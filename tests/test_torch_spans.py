@@ -147,6 +147,10 @@ WRAPPERS = {
     'irfft_axis_p_long': ('irfft_axis_p', lambda: (
         (_r(2, 6, 12, 3),), bf.irfft_axis_p(_r(2, 6, 12, 3), 1, 16)),
         False),
+    'dct2_axis_p': ('dct2_axis_p', lambda: (
+        (P[0],), bf.dct2_axis_p(P[0], 1)), True),
+    'dct3_axis_p': ('dct3_axis_p_f64', lambda: (
+        (P64[0],), bf.dct3_axis_p(P64[0], 1)), True),
     'fft_axis2_p': ('fft_axis2_p', lambda: (
         (P[:, :3], P[:, 3:]), bf.fft_axis2_p(P[:, :3], P[:, 3:], 1)), True),
     'fft_axis_pair_p': ('fft_axis_pair_p', lambda: (
@@ -230,6 +234,8 @@ def test_a_traced_cell_reports_the_span_metrics(name, tmp_path):
         assert '"dns.step"' in text and '"kernel.fft_axis_tp_f64"' in text
     else:
         assert '"r2r"' in text and '"pfft.planar"' in text
+        for span in ('kernel.dct2_axis_p_f64', 'kernel.dct3_axis_p_f64'):
+            assert f'"{span}"' in text, span
 
 
 def test_the_solver_layers_add_up_to_its_step():
