@@ -54,8 +54,8 @@ import torch
 from . import _build
 from ..utils import profiling
 
-__all__ = ['fft_axis_p', 'rfft_axis_p', 'irfft_axis_p', 'dct2_axis_p',
-           'dct3_axis_p', 'supported_dct', 'dct2_axis_plain',
+__all__ = ['fft_axis_p', 'axis_route', 'rfft_axis_p', 'irfft_axis_p',
+           'dct2_axis_p', 'dct3_axis_p', 'supported_dct', 'dct2_axis_plain',
            'dct3_axis_plain', 'fft_axis2_p',
            'fft_axis_pair_p', 'pair_max_active_clusters', 'fft_axis_tp',
            'supported_axis',
@@ -817,12 +817,12 @@ def _ptr(t):
     return ctypes.c_void_p(t.data_ptr())
 
 
-def _launch(what, fn, t, *args, nbytes):
+def _launch(what, fn, t, *args, nbytes, route=None):
     """Run one kernel's C entry on ``t``'s device and current stream, in
-    the span ``kernel.<what>`` of ``nbytes``; raise if CUDA refused the
-    launch."""
+    the span ``kernel.<what>`` of ``nbytes`` (naming ``route`` where the
+    wrapper gives one); raise if CUDA refused the launch."""
     with torch.cuda.device(t.device), \
-            profiling.annotate('kernel.' + what, nbytes):
+            profiling.annotate('kernel.' + what, nbytes, route):
         stream = torch.cuda.current_stream(t.device).cuda_stream
         rc = fn(*args, ctypes.c_void_p(stream))
         if rc != 0:
@@ -832,11 +832,11 @@ def _launch(what, fn, t, *args, nbytes):
     LAUNCHES[what] += 1
 
 
-def _plain(what, nbytes, fn, *args):
+def _plain(what, nbytes, fn, *args, route=None):
     """``fn(*args)``, a plain version run on CPU tensors in the kernel's
     place: in the kernel's span, which counts it as the kernel's launch
-    (``LAUNCHES`` counts kernels only)."""
-    with profiling.annotate('kernel.' + what, nbytes):
+    (``LAUNCHES`` counts kernels only), naming the route it stands for."""
+    with profiling.annotate('kernel.' + what, nbytes, route):
         profiling.launched()
         return fn(*args)
 
@@ -878,13 +878,15 @@ def fft_axis_p(p, axis, forward=True, scale=None, out=None):
     after the axis is a multiple of a vector, 4 floats or 2 doubles, and
     both tensors are 16-byte aligned, else single elements); every other
     call takes the tile kernel.  All count as ``fft_axis_p`` /
-    ``fft_axis_p_f64``."""
+    ``fft_axis_p_f64``; the span of each launch names its route
+    (:func:`axis_route`)."""
     what = 'fft_axis_p'
     _check_planar(p, what)
     shape = tuple(p.shape[1:])
     axis = axis % len(shape)
     N = shape[axis]
     _require_len(N, what)
+    route = axis_route(shape, axis)
     if out is not None and (out.shape != p.shape or out.dtype != p.dtype or
                             out.device != p.device or
                             not out.is_contiguous()):
@@ -894,7 +896,7 @@ def fft_axis_p(p, axis, forward=True, scale=None, out=None):
     nbytes = 2 * p.numel() * p.element_size()
     if _plain_ok(p, what):
         y = _plain(_name_of(what, p), nbytes, fft_axis_plain, p, axis,
-                   forward, scale)
+                   forward, scale, route=route)
         return y if out is None else out.copy_(y)
     pre, post = _pre_post(shape, axis)
     sign = -1 if forward else +1
@@ -906,8 +908,20 @@ def fft_axis_p(p, axis, forward=True, scale=None, out=None):
     _launch(*_build_of(what, 'fft_axis', p), p,
             _ptr(p), _ptr(out), _ptr(tw), tw.shape[1], pre, N, post, sign,
             plan, nst, 1.0 if scale is None else float(scale),
-            nbytes=nbytes)
+            nbytes=nbytes, route=route)
     return out
+
+
+def axis_route(shape, axis):
+    """The route of an ``fft_axis_p`` pass along ``axis`` of a planar
+    tensor of shape (2,) + ``shape``, as its span names it: ``'lines'``
+    on the last axis (whole contiguous lines: the line kernel at N = 512,
+    768 and 1024 with both tensors 16-byte aligned, else the tile kernel
+    over whole lines), ``'band'`` on an inner axis at those lengths (the
+    column band kernel), ``'tile'`` on any other inner axis."""
+    if _pre_post(shape, axis)[1] == 1:
+        return 'lines'
+    return 'band' if shape[axis] in (512, 768, 1024) else 'tile'
 
 
 def rfft_axis_p(x, axis, hext=None, scale=None, trunc=None):

@@ -38,6 +38,11 @@ API sketch::
     qs = pfft.backward_fn_q(list(pfft.forward_fn_q(qs)))
     u3 = oop3d.assemble_q(qs)
 
+Each ``forward``/``backward`` call is one span, ``pfft.forward`` or
+``pfft.backward`` (the names of ``PFFT``'s transforms, which never call
+this class), around the one-rank stages' spans ``planar_stage*`` and
+``planar_bstage*`` (``utils/profiling.py``).
+
 float32 ('f'/'F') and float64 ('d'/'D') plans run the same pipeline, with
 and without ``padding``, on one rank or several: the kernels have an fp64
 build, which takes the place of the JAX package's double-single branch
@@ -414,19 +419,21 @@ class PlanarPFFT(object):
 
     def forward(self, x, normalize=True):
         """Forward transform; real input (r2c) or planar input (c2c), this
-        rank's block of it."""
+        rank's block of it.  One span ``pfft.forward`` a call."""
         self._check_shape(x, False)
-        if self.executor == 'shard_map':
-            return self._forward_shard(x, bool(normalize))
-        return self._forward_impl(x, bool(normalize))
+        with annotate('pfft.forward'):
+            if self.executor == 'shard_map':
+                return self._forward_shard(x, bool(normalize))
+            return self._forward_impl(x, bool(normalize))
 
     def backward(self, p, normalize=False):
         """Backward transform; planar input, real (c2r) or planar output,
-        this rank's block of it."""
+        this rank's block of it.  One span ``pfft.backward`` a call."""
         self._check_shape(p, True)
-        if self.executor == 'shard_map':
-            return self._backward_shard(p, bool(normalize))
-        return self._backward_impl(p, bool(normalize))
+        with annotate('pfft.backward'):
+            if self.executor == 'shard_map':
+                return self._backward_shard(p, bool(normalize))
+            return self._backward_impl(p, bool(normalize))
 
     # PyTorch runs eagerly: the composable forms are the same calls
     forward_fn = forward

@@ -15,6 +15,9 @@ Port of ``mpi4py_fft_tpu/utils/profiling.py``, with the port's spans:
 * :func:`launched`: one launch of the port's kernels, counted in the
   innermost span open;
 * :func:`session`: the newest session's table, a row a span name;
+* :func:`routes`: the same sums for the spans that name a route (a
+  kernel wrapper's path, ``annotate(..., route=)``), a row a span name
+  and route;
 * :func:`stage_times` (:72): each stage and each exchange of a ``PFFT``
   :class:`~mpi4py_fft_torch.parallel.mpifft.Transform` timed on its own,
   beside the whole transform, so that the kernels' share and the
@@ -35,17 +38,19 @@ import numpy as np
 import torch
 from torch.autograd import profiler as _torch_profiler
 
-__all__ = ['trace', 'annotate', 'launched', 'session', 'stage_times']
+__all__ = ['trace', 'annotate', 'launched', 'session', 'routes',
+           'stage_times']
 
 _OFF = contextlib.nullcontext()
 
 
 class _Session(object):
     """The spans of one session, a record each in the order they opened:
-    ``[name, nbytes, start, end, launches, parent]``, ``start`` and
+    ``[name, nbytes, start, end, launches, parent, route]``, ``start`` and
     ``end`` CUDA events or host-clock seconds, ``parent`` the index of
-    the enclosing span's record (None at the top); ``open`` the indices
-    of the spans open now, innermost last."""
+    the enclosing span's record (None at the top), ``route`` the path
+    the span names or None; ``open`` the indices of the spans open now,
+    innermost last."""
 
     def __init__(self):
         self.records = []
@@ -84,11 +89,13 @@ class _Span(object):
     """One span while a profiler records: its range, then its start mark
     and record; at the end its end mark, then the range closed."""
 
-    __slots__ = ('_name', '_nbytes', '_range', '_session', '_index')
+    __slots__ = ('_name', '_nbytes', '_route', '_range', '_session',
+                 '_index')
 
-    def __init__(self, name, nbytes):
+    def __init__(self, name, nbytes, route):
         self._name = name
         self._nbytes = int(nbytes)
+        self._route = route
 
     def __enter__(self):
         self._range = torch.profiler.record_function(self._name)
@@ -98,7 +105,7 @@ class _Span(object):
         # the card's clock where CUDA is in use, else the host's
         start = _mark(torch.cuda.is_initialized())
         s.records.append([self._name, self._nbytes, start, None, 0,
-                          s.open[-1] if s.open else None])
+                          s.open[-1] if s.open else None, self._route])
         s.open.append(self._index)
         return self
 
@@ -131,19 +138,21 @@ def trace(logdir=None):
         logdir, f'trace_{os.getpid()}_{time.monotonic_ns()}.json'))
 
 
-def annotate(name, nbytes=0):
+def annotate(name, nbytes=0, route=None):
     """The span ``name``, a context manager.  ``nbytes``: the bytes its
     work cannot avoid moving (each element of its input read and of its
-    output written once), added to its row of the session.  Off while no
-    profiler records (the shared no-op context); see the module's
-    docstring."""
+    output written once), added to its row of the session.  ``route``:
+    the path this call took (a kernel wrapper's choice of kernel), which
+    :func:`routes` sums apart; the span's row in :func:`session` is the
+    same with or without it.  Off while no profiler records (the shared
+    no-op context); see the module's docstring."""
     global _fresh
     if not _torch_profiler._is_profiler_enabled:
         _fresh = True
         return _OFF
     if _fresh:
         _start_session()
-    return _Span(name, nbytes)
+    return _Span(name, nbytes, route)
 
 
 def launched():
@@ -154,13 +163,9 @@ def launched():
         s.records[s.open[-1]][4] += 1
 
 
-def session():
-    """The newest session's table: ``{name: {'calls', 'device_s',
-    'self_s', 'bytes', 'launches'}}``, summed over the span's calls.
-    ``device_s``: seconds between each call's two marks; ``self_s``: less
-    those of its direct child spans; ``launches``: the port's kernel
-    launches made while it was the innermost span.  Waits for the device
-    to reach the session's events; spans still open are left out."""
+def _sums(key):
+    """The newest session's closed spans summed by ``key(record)`` (a
+    key of None leaves the span out)."""
     recs = _session.records
     secs = [0.0 if r[3] is None else _seconds(r[2], r[3]) for r in recs]
     inner = [0.0] * len(recs)
@@ -169,17 +174,41 @@ def session():
             inner[r[5]] += t
     table = {}
     for r, t, t_in in zip(recs, secs, inner):
-        if r[3] is None:
+        k = key(r)
+        if r[3] is None or k is None:
             continue
-        row = table.setdefault(r[0], {'calls': 0, 'device_s': 0.0,
-                                      'self_s': 0.0, 'bytes': 0,
-                                      'launches': 0})
+        row = table.setdefault(k, {'calls': 0, 'device_s': 0.0,
+                                   'self_s': 0.0, 'bytes': 0,
+                                   'launches': 0})
         row['calls'] += 1
         row['device_s'] += t
         row['self_s'] += t - t_in
         row['bytes'] += r[1]
         row['launches'] += r[4]
     return table
+
+
+def session():
+    """The newest session's table: ``{name: {'calls', 'device_s',
+    'self_s', 'bytes', 'launches'}}``, summed over the span's calls.
+    ``device_s``: seconds between each call's two marks; ``self_s``: less
+    those of its direct child spans; ``launches``: the port's kernel
+    launches made while it was the innermost span.  Waits for the device
+    to reach the session's events; spans still open are left out."""
+    return _sums(lambda r: r[0])
+
+
+def routes():
+    """The newest session's spans that name a route, summed as in
+    :func:`session` by name and route: ``{name: {route: {'calls',
+    'device_s', 'self_s', 'bytes', 'launches'}}}``.  The routes of a name
+    split its row of :func:`session` (where every call names one, they
+    add up to it)."""
+    out = {}
+    for (name, route), row in _sums(
+            lambda r: None if r[6] is None else (r[0], r[6])).items():
+        out.setdefault(name, {})[route] = row
+    return out
 
 
 def _timed(fn, v, reps, dev):

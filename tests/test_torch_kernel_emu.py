@@ -69,7 +69,7 @@ def emu_kernels(tmp_path_factory):
 @pytest.fixture
 def kernel_path(emu_kernels, monkeypatch):
     """The wrappers launch the emulated kernels on CPU tensors."""
-    def launch(what, fn, t, *args, nbytes):
+    def launch(what, fn, t, *args, nbytes, route=None):
         rc = fn(*args, ctypes.c_void_p(0))
         if rc != 0:
             raise RuntimeError(f"{what}: emulated launch failed: {rc}")

@@ -463,7 +463,7 @@ def emu_probes(tmp_path_factory):
 def kernel_path(emu_probes, monkeypatch):
     """The wrappers launch the emulated kernels on CPU tensors."""
     def launcher(counts):
-        def launch(what, fn, t, *args, nbytes):
+        def launch(what, fn, t, *args, nbytes, route=None):
             rc = fn(*args, ctypes.c_void_p(0))
             if rc != 0:
                 raise RuntimeError(f"{what}: emulated launch failed: {rc}")
