@@ -95,9 +95,17 @@ failure raises and the script exits non-zero:
              energy anchor unpadded, then ``padding=True`` at 512^3 ``'d'``,
              2 RK4 steps timed after a warm-up step, with 72
              ``fft_axis_tp_f64``, 12 ``rfft_axis_p_f64`` and 24
-             ``irfft_axis_p_f64`` launches a step, the state held at 2e-10
-             against the same solver on complex128 ``torch.fft``
-             (oracle only), and the peak device memory;
+             ``irfft_axis_p_f64`` launches a step and 4 of each algebra
+             kernel (``ops/dns_algebra.py``), the state held at 2e-10
+             against the same solver on complex128 ``torch.fft`` (the
+             transforms' oracle; the algebra kernels run in both), and the
+             peak device memory; then ``times_dns``: the three algebra
+             kernels alone at the step's shapes ((3, 512, 512, 257)
+             spectra, six 768^3 grids; the projection as the first
+             stage, a middle stage and the last), each held against its
+             plain version on the card (1e-15), timed (CUDA events,
+             median of 7 after 2 warm-ups) beside it and beside its bound
+             (its bytes at 3.35 TB/s);
 16. times    each kernel at the main path's shapes (CUDA events, median of
              7 after 2 warm-ups) beside its plain version, the one PyTorch
              call that computes the same function, and its bound; and the
@@ -325,6 +333,9 @@ checkout at TREE, each c2r's hold against numpy on a random spectrum
 reported in its row and not checked (a tree whose c2r keeps the
 imaginary DC and Nyquist parts runs to the end), and prints no last
 line: run it for two trees in turns on one card.
+
+``python3 chip_smoke.py --times-dns`` runs only phase 1, ``times_dns``
+and phase 15, and prints no last line.
 
 ``python3 chip_smoke.py --times-r2r TREE`` runs only phase 1, the DCT-II
 and DCT-III kernels' rows of phase 26 (null in a tree without them) and
@@ -1973,9 +1984,9 @@ def phase_dns_solver(dev, bf):
     k = dns.run(N=(a,) * 3, T=0.1, dt=0.01, verbose=False)
     c1 = dict(bf.LAUNCHES)
     # 2 forwards to start, 10 steps of 12 forwards and 24 backwards, 3
-    # backwards for the energy
+    # backwards for the energy; each algebra kernel 4 times a step
     want = {'fft_axis_p_f64': 2 * (2 + 360 + 3), 'rfft_axis_p_f64': 122,
-            'irfft_axis_p_f64': 243}
+            'irfft_axis_p_f64': 243, **{k: 40 for k in DNS_KERNELS}}
     _check(_delta(c0, c1) == want, f"anchor launches {_delta(c0, c1)}")
     _check(round(k - dns.ENERGY_64, 7) == 0,
            f"{a}^3 energy {k!r}, the reference's {dns.ENERGY_64}")
@@ -2000,7 +2011,7 @@ def phase_dns_solver(dev, bf):
     c3 = dict(bf.LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 1e9
     per_step = {'fft_axis_tp_f64': 72, 'rfft_axis_p_f64': 12,
-                'irfft_axis_p_f64': 24}
+                'irfft_axis_p_f64': 24, **{k: 4 for k in DNS_KERNELS}}
     _check(_delta(c2, c3) == {k: 2 * c for k, c in per_step.items()},
            f"DNS launches in 2 steps {_delta(c2, c3)}")
     _check(bool(torch.isfinite(torch.view_as_real(U)).all()),
@@ -2027,7 +2038,8 @@ def phase_dns_solver(dev, bf):
     for _ in range(3):
         V = ostep(V)
     torch.cuda.synchronize()
-    _check(bf.LAUNCHES == c4, "the oracle launched a kernel")
+    _check(_delta(c4, bf.LAUNCHES) == {k: 12 for k in DNS_KERNELS},
+           "the oracle launched a transform kernel")
     err, mx = _rel(torch.view_as_real(U), torch.view_as_real(V))
     e_ref = oenergy(V)
     del U, V, ostep, oenergy
@@ -2050,6 +2062,116 @@ def phase_dns_solver(dev, bf):
            'oracle_energy_t0.03': e_ref, 'peak_gb': peak,
            'planar_copy_in_ms': copy_in, 'planar_copy_out_ms': copy_out,
            'planar_copies_per_step': {'in': 24, 'out': 12}})
+
+
+DNS_ALGEBRA_TOL = 1e-15    # an algebra kernel against its plain version
+# the DNS solver's algebra kernels (ops/dns_algebra.py), 4 launches each a
+# step of the reference solver
+DNS_KERNELS = ('dns_curl_f64', 'dns_cross_f64', 'dns_project_rk_f64')
+
+
+def _dns_row(bf, holds, name, run, plain, got, want, nbytes, shape,
+             reps_plain=3):
+    """One algebra kernel's row: ``got`` (its output) held against
+    ``want`` (the plain version's), then ``run`` and ``plain`` timed.
+    The plain version is the solver's former eager torch ops, so the row
+    has no ``library_ms`` of its own."""
+    torch.cuda.synchronize()
+    got = [g for g in got if g is not None]
+    want = [w for w in want if w is not None]
+    real = [(torch.view_as_real(g) if g.is_complex() else g,
+             torch.view_as_real(w) if w.is_complex() else w)
+            for g, w in zip(got, want)]
+    for g, w in real:
+        holds.hold(name, g, w, f"{name} {tuple(g.shape)}")
+    rel = max(_rel(g, w)[0] for g, w in real)
+    exact = all(torch.equal(g, w) for g, w in zip(got, want))
+    _check(rel <= DNS_ALGEBRA_TOL, f"{name}: rel L2 {rel:.3e} against its "
+                                   f"plain version")
+    del got, want, real
+    c0 = bf.LAUNCHES[name]
+    ms = _median_ms(run)
+    _check(bf.LAUNCHES[name] - c0 == 9, f"{name}: launches while timed")
+    plain_ms = _median_ms(plain, reps=reps_plain, warm=1)
+    bound, by = _bound_ms(nbytes, 0, f64=True)
+    return {'shape': list(shape), 'ms': ms, 'plain_ms': plain_ms,
+            'library_ms': None, 'bound_ms': bound, 'bound_by': by,
+            'gb': nbytes / 1e9, 'hbm_pct': 100.0 * bound / ms,
+            'max_rel_l2': rel, 'exact': exact}
+
+
+def phase_times_dns(dev, bf, holds):
+    """The solver's three algebra kernels alone at the rk4 cell's shapes
+    (``DNS_SOLVER_N``^3 dealiased: (3, n, n, n/2+1) spectra, six (3n/2)^3
+    grids), each held against its plain version on the card, then timed
+    beside it and beside its bound (its bytes at 3.35 TB/s).  Returns the
+    three kernels' rows."""
+    from mpi4py_fft_torch.ops import dns_algebra as da
+    n = DNS_SOLVER_N
+    S = (n, n, n // 2 + 1)
+    g = torch.Generator(device=dev).manual_seed(SEED + 25)
+
+    def spec(shape):
+        return torch.complex(
+            torch.randn(shape, generator=g, device=dev, dtype=torch.float64),
+            torch.randn(shape, generator=g, device=dev, dtype=torch.float64))
+    k = [np.fft.fftfreq(n, 1. / n), np.fft.fftfreq(n, 1. / n),
+         np.fft.rfftfreq(n, 1. / n)]
+    Lp = 2 * np.pi / np.array([2 * np.pi, 4 * np.pi, 4 * np.pi])
+    K = [torch.tensor(k[i] * Lp[i], device=dev).reshape(
+        [S[i] if d == i else 1 for d in range(3)]) for i in range(3)]
+    kbytes = sum(Ki.numel() * 8 for Ki in K)
+    one = 3 * math.prod(S) * 16                 # a (3,) + S state
+    nu, adt, bdt = 0.000625, 0.01 / 3, 0.005
+    rows = {}
+    U = spec((3,) + S)
+    rows['dns_curl_f64'] = _dns_row(
+        bf, holds, 'dns_curl_f64', lambda: da.curl(U, K),
+        lambda: da.curl_plain(U, K), [da.curl(U, K)],
+        [da.curl_plain(U, K)], 2 * one + kbytes, U.shape)
+    N = [spec(S) for _ in range(3)]
+    U0, U1 = spec((3,) + S), spec((3,) + S)
+    name = 'dns_project_rk_f64'
+    # the first stage: U, U0 and U1 the caller's state, new buffers
+    rows[name] = _dns_row(
+        bf, holds, name, lambda: da.project_rk(N, U, U, U, K, nu, adt, bdt),
+        lambda: da.project_rk_plain(N, U, U, U, K, nu, adt, bdt),
+        da.project_rk(N, U, U, U, K, nu, adt, bdt),
+        da.project_rk_plain(N, U, U, U, K, nu, adt, bdt),
+        4 * one + kbytes, U.shape)              # N and U read, two written
+    # a middle stage and the last, in place on the stage's own buffers
+    for key, b in (('middle', bdt), ('last', None)):
+        Uc, U1c = U.clone(), U1.clone()
+        got = da.project_rk(N, Uc, U0, U1c, K, nu, adt, b, inplace=True)
+        want = da.project_rk_plain(N, U.clone(), U0, U1.clone(), K, nu,
+                                   adt, b, inplace=True)
+        reads = 4 if b is not None else 3
+        rows[name][key] = _dns_row(
+            bf, holds, name,
+            lambda: da.project_rk(N, Uc, U0, U1c, K, nu, adt, b,
+                                  inplace=True),
+            lambda: da.project_rk_plain(N, U, U0, U1, K, nu, adt, b),
+            got, want, (reads + (2 if b is not None else 1)) * one + kbytes,
+            U.shape)
+        del got, want, Uc, U1c
+    del U, U0, U1, N
+    torch.cuda.empty_cache()
+    m = 3 * n // 2
+    u = [torch.randn((m,) * 3, generator=g, device=dev, dtype=torch.float64)
+         for _ in range(3)]
+    w = [torch.randn((m,) * 3, generator=g, device=dev, dtype=torch.float64)
+         for _ in range(3)]
+    want = da.cross_plain(u, [t.clone() for t in w])
+    got = da.cross(u, w)
+    rows['dns_cross_f64'] = _dns_row(
+        bf, holds, 'dns_cross_f64', lambda: da.cross(u, w),
+        lambda: da.cross_plain(u, w), got, want, 9 * m ** 3 * 8,
+        (3,) + u[0].shape)
+    del u, w, got, want
+    torch.cuda.empty_cache()
+    _emit({'phase': 'times_dns', 'spectrum': list(S), 'grid': [m] * 3,
+           'kernels': rows})
+    return rows
 
 
 def _tp_route(inp, ax, kw):
@@ -4106,6 +4228,10 @@ _LONG_N = '; scripts/tpu_longN_probe.py:76'
 # the DCT-II/III kernels replace no TPU kernel: the JAX package's glue
 _DCT_GLUE = ('none: jnp glue of mpi4py_fft_tpu/ops/core.py:248-290 around '
              'the r2c and c2r, which XLA fuses')
+# nor do the DNS solver's algebra kernels: the JAX solver's jnp algebra,
+# which XLA fuses inside the jitted step
+_DNS_ALGEBRA = ('none: jnp algebra of '
+                'examples/spectral_dns_solver.py')
 KERNELS = {
     'fft_axis_p': ('mpi4py_fft_torch/ops/csrc/fft_axis.cu',
                    'mpi4py_fft_tpu/ops/pallas_butterfly.py:795' + _LONG_N),
@@ -4139,6 +4265,12 @@ KERNELS = {
                         _DCT_GLUE),
     'dct3_axis_p_f64': ('mpi4py_fft_torch/ops/csrc/rfft_axis.cu',
                         _DCT_GLUE),
+    'dns_curl_f64': ('mpi4py_fft_torch/ops/csrc/dns_algebra.cu',
+                     _DNS_ALGEBRA + ':76-78'),
+    'dns_cross_f64': ('mpi4py_fft_torch/ops/csrc/dns_algebra.cu',
+                      _DNS_ALGEBRA + ':79-81'),
+    'dns_project_rk_f64': ('mpi4py_fft_torch/ops/csrc/dns_algebra.cu',
+                           _DNS_ALGEBRA + ':82-84, :93-96'),
 }
 
 
@@ -4158,6 +4290,9 @@ def main(argv=None):
                          "reach pattern beside copy_, move's kinds beside "
                          "their PyTorch calls) on the port in TREE, to "
                          "compare two trees on one card")
+    ap.add_argument('--times-dns', action='store_true',
+                    help="run only phase 1, the algebra kernels' times "
+                         "and the reference DNS solver (phase 15)")
     ap.add_argument('--times-r2r', metavar='TREE', nargs='?',
                     const=os.path.dirname(os.path.abspath(__file__)),
                     help="run only phase 1, the DCT kernels' rows and the "
@@ -4191,6 +4326,11 @@ def main(argv=None):
         return 0
     if args.times_c2r:
         phase_times_c2r(dev, bf, holds)
+        print(_smi(), flush=True)
+        return 0
+    if args.times_dns:
+        phase_times_dns(dev, bf, holds)
+        phase_dns_solver(dev, bf)
         print(_smi(), flush=True)
         return 0
     if args.times_r2r:
@@ -4232,6 +4372,7 @@ def main(argv=None):
     phase_pfft(dev, bf, holds, 'd')
     phase_buffer(dev, bf)
     phase_dns_solver(dev, bf)
+    dns_rows = phase_times_dns(dev, bf, holds)
     marks['reference_api_path_s'] = time.perf_counter() - t_start
     phase_any_c2c(dev, bf)
     phase_any_r2c(dev, bf)
@@ -4255,6 +4396,7 @@ def main(argv=None):
     torch.cuda.empty_cache()
     times.update(phase_times64(dev, bf, holds))
     times.update(dct_rows)
+    times.update(dns_rows)
     marks['times_s'] = time.perf_counter() - t_start
     times.update(phase_times_tp(dev, bf, holds))
     times.update(phase_times_any(dev, bf, holds))
@@ -4276,7 +4418,7 @@ def main(argv=None):
                       'per_pass', 'c2c_F',
                       'two_a_passes_ms',
                       'n1536', 'trunc768', 's7', 's8', 'one_cta',
-                      'ctas_a_plane', 'max_active'):
+                      'ctas_a_plane', 'max_active', 'middle', 'last'):
             if extra in t:
                 kernels[-1][extra] = t[extra]
     _emit({'phase': 'reach_routes', 'routes': REACH_ROUTES})

@@ -46,7 +46,9 @@ dry run on N ranks):
   pack/unpack of ``utils/native.py`` (the ``_hoststage`` extension, built
   with g++ at first use);
 * the spectral DNS examples (``examples/spectral_dns_solver.py`` on
-  ``PFFT``, ``examples/spectral_dns_planar.py`` on ``PlanarPFFT``), and
+  ``PFFT``, its algebra in three float64 kernels a Runge-Kutta stage,
+  ``ops/dns_algebra.py``; ``examples/spectral_dns_planar.py`` on
+  ``PlanarPFFT``), and
   the ``transforms`` and ``darray`` examples on N ranks
   (``examples/transforms.py``, ``examples/darray.py``).
 """

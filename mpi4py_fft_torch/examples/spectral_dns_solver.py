@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from mpi4py_fft_torch import PFFT
+from mpi4py_fft_torch.ops import dns_algebra as algebra
 from mpi4py_fft_torch.utils.profiling import annotate
 
 ENERGY_64 = 0.124953117517      # the reference's anchor at 64^3, T = 0.1
@@ -43,7 +44,8 @@ def make_solver(N=(64, 64, 64), L=(2 * np.pi, 4 * np.pi, 4 * np.pi),
     dev = fft.device
 
     # wavenumbers (reference: spectral_dns_solver.py:51-61): each
-    # component a broadcastable rank-1 tensor; K^2 and K/K^2 in full
+    # component a broadcastable rank-1 tensor; the algebra's kernels form
+    # K^2 and K/K^2 from them per element
     k = [np.fft.fftfreq(n, 1. / n).astype(int) for n in N[:-1]]
     k.append(np.fft.rfftfreq(N[-1], 1. / N[-1]).astype(int))
     Lp = 2 * np.pi / np.asarray(L)
@@ -53,10 +55,6 @@ def make_solver(N=(64, 64, 64), L=(2 * np.pi, 4 * np.pi, 4 * np.pi),
         sh[i] = len(k[i])
         K.append(torch.from_numpy((k[i] * Lp[i]).astype(float).reshape(sh))
                  .to(dev))
-    K2 = K[0] * K[0] + K[1] * K[1] + K[2] * K[2]
-    K2s = torch.where(K2 == 0, 1, K2)
-    K_over_K2 = torch.stack([Ki / K2s for Ki in K])
-    del K2s
 
     a = [1. / 6., 1. / 3., 1. / 3., 1. / 6.]
     b = [0.5, 0.5, 1.]
@@ -65,35 +63,35 @@ def make_solver(N=(64, 64, 64), L=(2 * np.pi, 4 * np.pi, 4 * np.pi),
     bck = fft_pad.backward.fn       # unnormalized backward
 
     def compute_rhs(U_hat):
-        """Reference: spectral_dns_solver.py:82-91; the span
-        ``dns.rhs``."""
+        """The nonlinear term of the right-hand side (reference:
+        spectral_dns_solver.py:82-91): the three forwards N_j of
+        (u x curl u)_j, which ``algebra.project_rk`` projects; the span
+        ``dns.rhs``.  The curl is taken first, so that its spectra are
+        freed before the velocity's backwards."""
         with annotate('dns.rhs'):
+            W_hat = algebra.curl(U_hat, K)
+            w = [bck(W_hat[j]) for j in range(3)]
+            del W_hat
             u = [bck(U_hat[j]) for j in range(3)]
-            w = [bck(1j * (K[1] * U_hat[2] - K[2] * U_hat[1])),
-                 bck(1j * (K[2] * U_hat[0] - K[0] * U_hat[2])),
-                 bck(1j * (K[0] * U_hat[1] - K[1] * U_hat[0]))]
-            rhs = torch.stack([fwd(u[1] * w[2] - u[2] * w[1]),
-                               fwd(u[2] * w[0] - u[0] * w[2]),
-                               fwd(u[0] * w[1] - u[1] * w[0])])
-            del u, w
-            P_hat = torch.sum(rhs * K_over_K2, 0)
-            rhs -= torch.stack([P_hat * Ki for Ki in K])
-            del P_hat
-            rhs -= nu * K2 * U_hat
-            return rhs
+            algebra.cross(u, w)
+            del u
+            # each grid freed once its forward has read it
+            return [fwd(w.pop(0)) for _ in range(3)]
 
     def step(U_hat):
         """One RK4 step (reference: spectral_dns_solver.py:104-113); the
-        span ``dns.step``."""
+        span ``dns.step``.  Each stage ends in one ``project_rk`` launch:
+        the pressure projection, the viscous term and both updates.  The
+        first writes new buffers; later stages update them in place, so
+        ``U_hat`` is never written."""
         with annotate('dns.step'):
-            U_hat0 = U_hat
-            U_hat1 = U_hat
+            U_hat0 = U_hat1 = U = U_hat
             for rk in range(4):
-                dU = compute_rhs(U_hat)
-                if rk < 3:
-                    U_hat = U_hat0 + b[rk] * dt * dU
-                U_hat1 = U_hat1 + a[rk] * dt * dU
-                del dU
+                N = compute_rhs(U)
+                U, U_hat1 = algebra.project_rk(
+                    N, U, U_hat0, U_hat1, K, nu, a[rk] * dt,
+                    b[rk] * dt if rk < 3 else None, inplace=rk > 0)
+                del N
             return U_hat1
 
     # Taylor-Green velocity (reference: :44-49, :94-98), built per axis on

@@ -13,8 +13,8 @@ Every pointer and the stream are passed as ``ctypes.c_void_p``, and the
 scale as the entry's own float type (``c_float`` for ``_f32``,
 ``c_double`` for ``_f64``: a double passed as a float would be rounded
 silently); each C entry returns ``cudaGetLastError()`` after its launch,
-and the wrappers in ``butterfly.py``, ``fft2stage.py`` and ``probes.py``
-raise when it is not 0.
+and the wrappers in ``butterfly.py``, ``fft2stage.py``, ``dns_algebra.py``
+and ``probes.py`` raise when it is not 0.
 """
 import ctypes
 import fcntl
@@ -92,6 +92,17 @@ _ENTRIES = {
         # x, y, tw2, tw1, P, n1, n2, sign, scale, stream
         'mff_fft_plane_large_f32': [_P, _P, _P, _P, _LL, _I, _I, _I, _F,
                                     _P],
+    },
+    # the DNS solver's algebra (ops/dns_algebra.py)
+    'dns_algebra': {
+        # U, W, K0, K1, K2, n0, n1, n2h, stream
+        'mff_dns_curl_f64': [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+        # u0, u1, u2, w0, w1, w2, n, stream
+        'mff_dns_cross_f64': [_P, _P, _P, _P, _P, _P, _LL, _P],
+        # N0, N1, N2, U, U0, U1, Un, U1o, K0, K1, K2, n0, n1, n2h, nu, adt,
+        # bdt, stream
+        'mff_dns_project_rk_f64': [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                   _P, _I, _I, _I, _D, _D, _D, _P],
     },
     # the probes of ops/probes.py
     'probe_copy': {

@@ -75,13 +75,15 @@ _MAX_N_PAIR = 2048
 # wrapper adds one where it launches its kernel and nowhere else.  Each
 # launch also runs in the span ``kernel.<name>`` (utils/profiling.py),
 # with the bytes its kernel cannot avoid moving: each element of its input
-# read and each of its output written, once
+# read and each of its output written, once.  The DNS solver's algebra
+# kernels (ops/dns_algebra.py) count here too
 LAUNCHES = {'fft_axis_p': 0, 'rfft_axis_p': 0, 'irfft_axis_p': 0,
             'fft_axis2_p': 0, 'fft_axis_pair_p': 0, 'fft_axis_p_f64': 0,
             'rfft_axis_p_f64': 0, 'irfft_axis_p_f64': 0, 'fft_axis_tp': 0,
             'fft_axis_tp_f64': 0, 'fft2stage_p': 0, 'fft_plane_p': 0,
             'fft_plane_large_p': 0, 'dct2_axis_p': 0, 'dct3_axis_p': 0,
-            'dct2_axis_p_f64': 0, 'dct3_axis_p_f64': 0}
+            'dct2_axis_p_f64': 0, 'dct3_axis_p_f64': 0, 'dns_curl_f64': 0,
+            'dns_cross_f64': 0, 'dns_project_rk_f64': 0}
 
 
 def reset_launches():

@@ -252,6 +252,13 @@ def test_launch_counters_untouched_on_cpu():
     tb.fft_plane_large_p(torch.zeros((2, 3, 8, 16)))
     tb.dct2_axis_p(torch.zeros((4, 8)), 1)
     tb.dct3_axis_p(torch.zeros((8, 4), dtype=f64), 0)
+    from mpi4py_fft_torch.ops import dns_algebra as da
+    U = torch.zeros((3, 4, 2, 3), dtype=torch.complex128)
+    K = [torch.zeros(s, dtype=f64) for s in ((4, 1, 1), (1, 2, 1), (1, 1, 3))]
+    da.curl(U, K)
+    da.cross([torch.zeros((2, 3), dtype=f64) for _ in range(3)],
+             [torch.zeros((2, 3), dtype=f64) for _ in range(3)])
+    da.project_rk(list(U), U, U, U, K, 0.1, 0.2, 0.3)
     assert tb.LAUNCHES == {'fft_axis_p': 0, 'rfft_axis_p': 0,
                            'irfft_axis_p': 0, 'fft_axis2_p': 0,
                            'fft_axis_pair_p': 0, 'fft_axis_p_f64': 0,
@@ -260,7 +267,8 @@ def test_launch_counters_untouched_on_cpu():
                            'fft2stage_p': 0, 'fft_plane_p': 0,
                            'fft_plane_large_p': 0, 'dct2_axis_p': 0,
                            'dct3_axis_p': 0, 'dct2_axis_p_f64': 0,
-                           'dct3_axis_p_f64': 0}
+                           'dct3_axis_p_f64': 0, 'dns_curl_f64': 0,
+                           'dns_cross_f64': 0, 'dns_project_rk_f64': 0}
 
 
 def test_import_isolation():

@@ -12,6 +12,7 @@ import torch
 
 from mpi4py_fft_torch.examples import spectral_dns_solver as dns
 from mpi4py_fft_torch.ops import butterfly as tb
+from mpi4py_fft_torch.ops import dns_algebra as da
 
 
 @pytest.fixture
@@ -150,6 +151,9 @@ def test_tp32_lines_band_on_cuda(card):
         del p
 
 
+DNS_KERNELS = ('dns_curl_f64', 'dns_cross_f64', 'dns_project_rk_f64')
+
+
 @pytest.mark.cuda
 def test_dns_solver_energy_anchor(card):
     """The reference's Taylor-Green energy at 64^3, T = 0.1 (10 steps),
@@ -158,6 +162,66 @@ def test_dns_solver_energy_anchor(card):
     k = dns.run(N=(64, 64, 64), T=0.1, dt=0.01, verbose=False)
     assert round(k - dns.ENERGY_64, 7) == 0, k
     assert tb.LAUNCHES['fft_axis_p_f64'] > c0['fft_axis_p_f64']
+    # 10 steps of 4 stages, each one launch of each algebra kernel
+    assert all(tb.LAUNCHES[n] - c0[n] == 40 for n in DNS_KERNELS)
+
+
+def _rel_t(got, ref):
+    """Relative L2 of two tensors on the card, complex as (re, im)."""
+    if got.is_complex():
+        got, ref = torch.view_as_real(got), torch.view_as_real(ref)
+    return float(torch.linalg.vector_norm(got - ref)
+                 / torch.linalg.vector_norm(ref))
+
+
+@pytest.mark.cuda
+def test_dns_algebra_kernels_on_cuda(card):
+    """The solver's three algebra kernels against their plain versions on
+    the card, at relative 1e-15: the curl and the projection's three
+    stage kinds (the first on the caller's state into new buffers, a
+    middle one and the last in place) on a (3, 128, 128, 65) spectrum,
+    the cross product on 192^3 grids (16-byte vectors) and on grids off
+    a 16-byte boundary with an odd point count (single points)."""
+    g = torch.Generator(device=card).manual_seed(25)
+
+    def c(shape):
+        return torch.complex(
+            torch.randn(shape, generator=g, device=card, dtype=torch.float64),
+            torch.randn(shape, generator=g, device=card, dtype=torch.float64))
+    S = (128, 128, 65)
+    k = [np.fft.fftfreq(128, 1. / 128)] * 2 + [np.fft.rfftfreq(128, 1. / 128)]
+    K = [torch.tensor(k[i] * (1.0 if i == 0 else 0.5), device=card).reshape(
+        [S[i] if d == i else 1 for d in range(3)]) for i in range(3)]
+    c0 = dict(tb.LAUNCHES)
+    U, U0, U1 = c((3,) + S), c((3,) + S), c((3,) + S)
+    N = [c(S) for _ in range(3)]
+    assert _rel_t(da.curl(U, K), da.curl_plain(U, K)) <= 1e-15
+    kept = U.clone()
+    got = da.project_rk(N, U, U, U, K, 6.25e-4, 0.01 / 6, 0.005)
+    want = da.project_rk_plain(N, U, U, U, K, 6.25e-4, 0.01 / 6, 0.005)
+    assert torch.equal(U, kept)
+    assert all(_rel_t(a, b) <= 1e-15 for a, b in zip(got, want))
+    for b in (0.005, None):
+        Uc, U1c = U.clone(), U1.clone()
+        got = da.project_rk(N, Uc, U0, U1c, K, 6.25e-4, 0.01 / 3, b,
+                            inplace=True)
+        want = da.project_rk_plain(N, U, U0, U1, K, 6.25e-4, 0.01 / 3, b)
+        assert got[1] is U1c and (b is None or got[0] is Uc)
+        assert (got[0] is None) == (want[0] is None) == (b is None)
+        assert all(_rel_t(x, y) <= 1e-15 for x, y in zip(got, want)
+                   if x is not None)
+    for shape, off in (((192,) * 3, 0), ((63, 65, 67), 1)):
+        n = int(np.prod(shape))
+        grids = [torch.randn(n + off, generator=g, device=card,
+                             dtype=torch.float64)[off:].view(shape)
+                 for _ in range(6)]
+        u, w = grids[:3], grids[3:]
+        want = da.cross_plain(u, [t.clone() for t in w])
+        got = da.cross(u, w)
+        assert all(_rel_t(x, y) <= 1e-15 for x, y in zip(got, want))
+    torch.cuda.synchronize()
+    assert {n: tb.LAUNCHES[n] - c0[n] for n in DNS_KERNELS} == {
+        'dns_curl_f64': 1, 'dns_cross_f64': 2, 'dns_project_rk_f64': 3}
 
 
 @pytest.mark.cuda

@@ -13,6 +13,7 @@ import torch
 from fftbench import catalog, run
 from mpi4py_fft_torch import PFFT
 from mpi4py_fft_torch.ops import butterfly as bf
+from mpi4py_fft_torch.ops import dns_algebra as da
 from mpi4py_fft_torch.ops import fft2stage
 from mpi4py_fft_torch.ops import probes as tp
 from mpi4py_fft_torch.utils import profiling
@@ -129,6 +130,15 @@ def _bytes(*ts):
 # inputs is read)
 P = _r(2, 6, 16, 3)
 P64 = _r(2, 6, 16, 3, dtype=torch.float64)
+# the DNS algebra's tensors: a (3, 6, 4, 3) spectral state, its
+# wavenumbers, three spectra and six (6, 4, 5) grids
+SPEC = (6, 4, 3)
+KS = [_r(*[n if d == i else 1 for d, n in enumerate(SPEC)],
+         dtype=torch.float64) for i in range(3)]
+U3 = torch.randn((3,) + SPEC, dtype=torch.complex128)
+U0 = torch.randn((3,) + SPEC, dtype=torch.complex128)
+N3 = [torch.randn(SPEC, dtype=torch.complex128) for _ in range(3)]
+G6 = [_r(6, 4, 5, dtype=torch.float64) for _ in range(6)]
 WRAPPERS = {
     'fft_axis_p': ('fft_axis_p', lambda: ((P,), bf.fft_axis_p(P, 1)), True),
     'fft_axis_p_f64': ('fft_axis_p_f64',
@@ -181,6 +191,18 @@ WRAPPERS = {
     'fma_chain_f64': ('fma_chain_f64', lambda: (
         (_r(64, dtype=torch.float64),),
         tp.fma_chain(_r(64, dtype=torch.float64), 4)), True),
+    'dns_curl': ('dns_curl_f64', lambda: (
+        (U3, *KS), da.curl(U3, KS)), True),
+    'dns_cross': ('dns_cross_f64', lambda: (
+        tuple(G6), tuple(da.cross(G6[:3], G6[3:]))), True),
+    # the first stage: the state is U, U0 and U1, read once
+    'dns_project_rk': ('dns_project_rk_f64', lambda: (
+        (*N3, U3, *KS),
+        da.project_rk(N3, U3, U3, U3, KS, 0.1, 0.2, 0.3)), True),
+    # the last stage reads no U0
+    'dns_project_rk_last': ('dns_project_rk_f64', lambda: (
+        (*N3, U3, U0, *KS),
+        da.project_rk(N3, U3, U0, U3, KS, 0.1, 0.2)[1]), False),
 }
 
 
@@ -205,7 +227,7 @@ def test_a_kernel_wrapper_counts_its_bytes(case):
     assert (row['bytes'] == whole) == reads_all
 
 
-CELLS = {'tg_dns_512_d_pad.rk4': ('step', 108),
+CELLS = {'tg_dns_512_d_pad.rk4': ('step', 120),
          'r2r_dct3_512_d.roundtrip': ('xfer', 3)}
 NEW = ('algebra_ms', 'boundary_ms', 'r2r_glue_ms', 'kernel_hbm_pct',
        'port_launches')
@@ -232,6 +254,10 @@ def test_a_traced_cell_reports_the_span_metrics(name, tmp_path):
         assert f'"{span}"' in text, span
     if split == 'step':
         assert '"dns.step"' in text and '"kernel.fft_axis_tp_f64"' in text
+        for span in ('kernel.dns_curl_f64', 'kernel.dns_cross_f64',
+                     'kernel.dns_project_rk_f64'):
+            assert f'"{span}"' in text, span
+        assert 'algebra_hbm_pct.step' in line['metrics']
     else:
         assert '"r2r"' in text and '"pfft.planar"' in text
         for span in ('kernel.dct2_axis_p_f64', 'kernel.dct3_axis_p_f64'):
@@ -239,19 +265,26 @@ def test_a_traced_cell_reports_the_span_metrics(name, tmp_path):
 
 
 def test_the_solver_layers_add_up_to_its_step():
-    """The step's algebra (the solver's self time) and its transforms
-    make the whole step, and its launches are 3 a transform."""
+    """The step's eager algebra (the solver's self time), its algebra
+    kernels and its transforms make the whole step; its launches are 3 a
+    transform and 3 algebra kernels a stage."""
     from mpi4py_fft_torch.examples import spectral_dns_solver as dns
     _, U, step, _ = dns.make_solver(N=(8, 8, 8), padding=True, device='cpu')
     t = _profiled(lambda: step(U))
+    algebra = [n for n in t if n.startswith('kernel.dns_')]
+    assert sorted(algebra) == ['kernel.dns_cross_f64', 'kernel.dns_curl_f64',
+                               'kernel.dns_project_rk_f64']
     parts = t['dns.step']['self_s'] + t['dns.rhs']['self_s'] \
-        + t['pfft.forward']['device_s'] + t['pfft.backward']['device_s']
+        + t['pfft.forward']['device_s'] + t['pfft.backward']['device_s'] \
+        + sum(t[n]['device_s'] for n in algebra)
     assert parts == pytest.approx(t['dns.step']['device_s'], rel=1e-9)
     assert t['pfft.forward']['calls'] + t['pfft.backward']['calls'] == 36
-    assert sum(r['launches'] for r in t.values()) == 108
+    assert all(t[n]['calls'] == t[n]['launches'] == 4 for n in algebra)
+    assert sum(r['launches'] for r in t.values()) == 120
 
 
-@pytest.mark.parametrize('metric', ['algebra_ms.step', 'boundary_ms.xfer',
+@pytest.mark.parametrize('metric', ['algebra_ms.step', 'algebra_hbm_pct.step',
+                                    'boundary_ms.xfer',
                                     'r2r_glue_ms.xfer', 'kernel_hbm_pct.xfer',
                                     'port_launches.xfer'])
 def test_a_reader_returns_none_when_the_units_disagree(metric):
