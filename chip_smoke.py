@@ -45,7 +45,10 @@ failure raises and the script exits non-zero:
              ``fft_axis_p`` on axis 0): forward against ``torch.fft.fftn``
              and the round trip;
 7. dealias   ``PlanarPFFT(None, (512,)*3, dtype='f', padding=1.5)`` (a
-             768^3 grid): the kernel path against the port's plain path on
+             768^3 grid): 2 ``fft_axis_tp`` and 1 ``rfft_axis_p`` launches
+             forward, 2 ``fft_axis_tp`` and 1 ``irfft_axis_p`` backward
+             (the 3/2-rule boundary in the kernels' reads and writes); the
+             kernel path against the port's plain path on
              the card and the forward against a ``torch.fft.rfftn`` oracle;
              the backward's c2r (C on the line kernel) held slab by slab
              against its plain version on the plan's spectrum, into a
@@ -953,9 +956,11 @@ def phase_dealias(dev, bf, holds, dtype='f'):
     c2 = dict(bf.LAUNCHES)
     fwd = _delta(c0, c1)
     bwd = _delta(c1, c2)
-    _check(fwd == {'fft_axis_p' + sfx: 2, 'rfft_axis_p' + sfx: 1},
+    # the 3/2-rule boundary in the kernels: E's write and B's (trunc)
+    # forward, E's read and C's (a truncated spectrum) backward
+    _check(fwd == {'fft_axis_tp' + sfx: 2, 'rfft_axis_p' + sfx: 1},
            f"forward launches {fwd}")
-    _check(bwd == {'fft_axis_p' + sfx: 2, 'irfft_axis_p' + sfx: 1},
+    _check(bwd == {'fft_axis_tp' + sfx: 2, 'irfft_axis_p' + sfx: 1},
            f"backward launches {bwd}")
     _check(tuple(y.shape) == (2, d, d, d // 2 + 1), f"spectrum {y.shape}")
     with _plain_path(bf):

@@ -4,9 +4,10 @@ Port of ``mpi4py_fft_tpu/libfft.py`` (reference: mpi4py_fft/libfft.py):
 
 * ``truncate_spectral``/``pad_spectral`` (:35-107) on complex tensors (and
   numpy arrays, for the host backends), and ``truncate_planar``/
-  ``pad_planar`` (:116-166) on planar (2,) + S tensors: the reference's
-  3/2 rule, with the Nyquist mode folded on truncation and split on
-  padding for even extents;
+  ``pad_planar`` (:116-166) on planar (2,) + S tensors, the engine's
+  (``ops/matfft.py``) under their names here: the reference's 3/2 rule,
+  with the Nyquist mode folded on truncation and split on padding for
+  even extents;
 * the backend planners: the device planner (``_plan_jax`` :173, here
   ``_plan_device``) under the JAX package's names ``'jax'``, ``'fftw'``,
   ``'pyfftw'`` and ``'pallas'``, which plans the port's kernels; the host
@@ -17,13 +18,12 @@ Port of ``mpi4py_fft_tpu/libfft.py`` (reference: mpi4py_fft/libfft.py):
 * ``FFTBase``/``FFT`` (:321-565): the buffer-style ``forward``/
   ``backward``, the stage functions ``forward_fn``/``backward_fn`` on
   complex tensors and ``forward_fn_p``/``backward_fn_p`` on planar ones.
-  A single-axis padded stage dispatches the fused kernels where the JAX
-  package does (:462-538): c2c to ``fft_axis_tp`` with the truncation or
-  padding and the stage's normalization folded in, r2c to ``rfft_axis_p``
-  with ``trunc``, c2r to ``irfft_axis_p`` on the truncated spectrum.  The
-  JAX package's TPU-only gate ``fused_tp_enabled`` is not ported: on CUDA
-  the kernels run, on the CPU the same dispatch reaches their plain
-  versions.
+  A single-axis padded stage is one engine call (``ops/matfft.py``
+  ``fft1d_p``/``rfftn_p``/``irfftn_p`` with ``trunc``/``pad``), which
+  runs the fused kernels where the JAX package does (:462-538), with the
+  stage's normalization folded in.  The JAX package's TPU-only gate
+  ``fused_tp_enabled`` is not ported: on CUDA the kernels run, on the CPU
+  the same dispatch reaches their plain versions.
 
 A device-backend ``FFT`` runs on ``device``: CUDA unless the caller asks
 for the CPU.  Its buffers are host arrays of ``utils.aligned`` (virtual
@@ -33,7 +33,8 @@ device memory.
 import numpy as np
 
 from . import ops as fftw
-from .ops import butterfly, matfft
+from .ops import matfft
+from .ops.matfft import truncate_planar, pad_planar
 from .ops.plan import _host, pipeline_form
 
 __all__ = ['FFT', 'FFTBase', 'truncate_spectral', 'pad_spectral',
@@ -107,57 +108,6 @@ def pad_spectral(trunc, padded_shape, axis, real_transform):
         padded[_take_slice(ndim, axis,
                            slice(Np - N // 2, Np - N // 2 + 1))] *= 0.5
     return padded
-
-
-# ---------------------------------------------------------------------------
-# the same on planar (2,) + S tensors
-# ---------------------------------------------------------------------------
-
-def truncate_planar(p, ax, Nt, hermitian):
-    """Planar spectral truncation along planar-coords axis ``ax`` to
-    length ``Nt``."""
-    if hermitian:
-        t = p[_take_slice(p.dim(), ax, slice(0, Nt))].clone()
-        if Nt % 2 == 0:
-            nyq = _take_slice(t.dim(), ax, slice(Nt - 1, Nt))[1:]
-            t[(0,) + nyq] *= 2.0
-            t[(1,) + nyq] = 0.0
-        return t
-    Np = p.shape[ax]
-    sh = list(p.shape)
-    sh[ax] = Nt
-    t = p.new_zeros(sh)
-    t[_take_slice(t.dim(), ax, slice(0, Nt // 2 + 1))] = \
-        p[_take_slice(p.dim(), ax, slice(0, Nt // 2 + 1))]
-    t[_take_slice(t.dim(), ax, slice(Nt - Nt // 2, Nt))] += \
-        p[_take_slice(p.dim(), ax, slice(Np - Nt // 2, Np))]
-    return t
-
-
-def pad_planar(p, ax, Np, hermitian):
-    """Planar spectral zero-padding along planar-coords axis ``ax`` to
-    length ``Np``, with the symmetric Fourier interpolator for even
-    extents."""
-    Nt = p.shape[ax]
-    sh = list(p.shape)
-    sh[ax] = Np
-    out = p.new_zeros(sh)
-    if hermitian:
-        out[_take_slice(out.dim(), ax, slice(0, Nt))] = p
-        if Nt % 2 == 0:
-            nyq = _take_slice(out.dim(), ax, slice(Nt - 1, Nt))[1:]
-            out[(0,) + nyq] *= 0.5
-            out[(1,) + nyq] = 0.0
-        return out
-    out[_take_slice(out.dim(), ax, slice(0, Nt // 2 + 1))] = \
-        p[_take_slice(p.dim(), ax, slice(0, Nt // 2 + 1))]
-    out[_take_slice(out.dim(), ax, slice(Np - Nt // 2, Np))] = \
-        p[_take_slice(p.dim(), ax, slice(Nt - Nt // 2, Nt))]
-    if Nt % 2 == 0:
-        out[_take_slice(out.dim(), ax, slice(Nt // 2, Nt // 2 + 1))] *= 0.5
-        out[_take_slice(out.dim(), ax,
-                        slice(Np - Nt // 2, Np - Nt // 2 + 1))] *= 0.5
-    return out
 
 
 # ---------------------------------------------------------------------------
@@ -417,32 +367,20 @@ class FFT(FFTBase):
         """Planar forward stage: transform, truncation, normalization
         (pipeline form of :meth:`forward_fn`)."""
         assert not self._host_backend
+        axis = self.axes[-1]
         if self._padded and self.output_planar:
-            ax = self.axes[-1]
-            Nt = self.forward.output_array.shape[ax]
+            Nt = self.forward.output_array.shape[axis]
             sc = float(self.M) if normalize else None
-            if (not self.real_transform and butterfly.supported_axis_tp(
-                    p.shape[1:], ax, p.dtype, trunc=Nt)):
-                # a padded c2c stage: the truncation and the stage's
-                # normalization fold into the kernel's write
-                return butterfly.fft_axis_tp(p, ax, True, trunc=Nt, scale=sc)
-            if self.real_transform and butterfly.supported_r2c(p.shape, ax):
-                # the r2c stage: the Hermitian truncation in the kernel
-                return butterfly.rfft_axis_p(p, ax, trunc=Nt, scale=sc)
+            if self.real_transform:
+                return matfft.rfftn_p(p, (axis,), trunc=Nt, scale=sc)
+            return matfft.fft1d_p(p, axis, True, scale=sc, trunc=Nt)
         y = self.fwd.fn_p(p, normalize=False)
         if self._padded:
-            axis = self.axes[-1]
-            if self.output_planar:
-                y = truncate_planar(y, 1 + axis,
-                                    self.forward.output_array.shape[axis],
-                                    hermitian=self.real_transform)
-            else:
-                # a padded r2r stage: real data, as the JAX package
-                y = truncate_spectral(
-                    y, self._stage_shape(y.shape,
-                                         self.forward.output_array.shape,
-                                         axis),
-                    axis, self.real_transform)
+            # a padded r2r stage: real data, as the JAX package
+            y = truncate_spectral(
+                y, self._stage_shape(y.shape, self.forward.output_array.shape,
+                                     axis),
+                axis, self.real_transform)
         if normalize:
             y = y * self.M
         return y
@@ -451,23 +389,17 @@ class FFT(FFTBase):
         """Planar backward stage: zero-padding, transform (pipeline form
         of :meth:`backward_fn`)."""
         assert not self._host_backend
+        axis = self.axes[-1]
         if self._padded and self.output_planar:
-            ax = self.axes[-1]
-            Np = self.bck.input_array.shape[ax]
             sc = float(self.M) if normalize else None
-            if (not self.real_transform and butterfly.supported_axis_tp(
-                    p.shape[1:], ax, p.dtype, pad=Np)):
-                return butterfly.fft_axis_tp(p, ax, False, pad=Np, scale=sc)
-            N0 = self.bck.output_array.shape[ax]
-            if self.real_transform and butterfly.supported_c2r(
-                    p.shape[1:], ax, N0):
-                # the c2r stage: the Hermitian zero-padding in the
-                # kernel's read (a truncated spectrum is taken)
-                return butterfly.irfft_axis_p(p, ax, N0, scale=sc)
-            p = pad_planar(p, 1 + ax, Np, hermitian=self.real_transform)
-        elif self._padded:
+            if self.real_transform:
+                return matfft.irfftn_p(p, (axis,),
+                                       self.bck.output_array.shape[axis],
+                                       scale=sc)
+            return matfft.fft1d_p(p, axis, False, scale=sc,
+                                  pad=self.bck.input_array.shape[axis])
+        if self._padded:
             # a padded r2r stage: real data, as the JAX package
-            axis = self.axes[-1]
             p = pad_spectral(
                 p, self._stage_shape(p.shape, self.bck.input_array.shape,
                                      axis),

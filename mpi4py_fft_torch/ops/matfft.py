@@ -32,6 +32,14 @@ length M >= 2N - 1 on the last axis.  r2c and c2r take ``rfft_axis_p``/
 run the c2c route on the stacked real input (r2c) or on the Hermitian
 extension of the half spectrum (c2r).
 
+A dealiased stage is chosen here too, for ``PFFT``'s stages
+(``libfft.py``) and ``PlanarPFFT`` alike: the 3/2 rule's truncation
+after a forward transform or zero-padding before a backward one
+(``truncate_planar``/``pad_planar``, the JAX package's ``libfft.py``
+:116-166) runs in E's write or read (``fft_axis_tp``), B's write
+(``trunc``) or C's read (a truncated spectrum) where the kernel takes
+the shape, else as its own pass beside the transform.
+
 float32 and float64 share this dispatch: the kernels' fp64 builds take
 the place of the JAX package's double-single engine (``pallas_ds``).  The
 pair pass, the four-step and J are float32 routes, as in the JAX package;
@@ -52,7 +60,8 @@ import torch
 from . import butterfly, fft2stage
 
 __all__ = ['planar', 'unplanar', 'fft1d_p', 'fftn_p', 'rfftn_p',
-           'irfftn_p', 'fft1d', 'fftn', 'rfftn', 'irfftn']
+           'irfftn_p', 'truncate_planar', 'pad_planar', 'fft1d', 'fftn',
+           'rfftn', 'irfftn']
 
 _BASE_RADIX = 32
 
@@ -398,15 +407,79 @@ def _fft_axis_einsum(p, axis, sign):
 
 
 # ---------------------------------------------------------------------------
+# the 3/2-rule boundary of a dealiased stage, as its own pass
+# ---------------------------------------------------------------------------
+
+def truncate_planar(p, ax, Nt, hermitian):
+    """Planar spectral truncation along planar-coords axis ``ax`` to
+    length ``Nt``; the Nyquist mode is folded for even ``Nt``."""
+    if hermitian:
+        t = p.narrow(ax, 0, Nt).clone()
+        if Nt % 2 == 0:
+            nyq = t.narrow(ax, Nt - 1, 1)
+            nyq[0] *= 2.0
+            nyq[1] = 0.0
+        return t
+    Np, h = p.shape[ax], Nt // 2
+    sh = list(p.shape)
+    sh[ax] = Nt
+    t = p.new_zeros(sh)
+    t.narrow(ax, 0, h + 1).copy_(p.narrow(ax, 0, h + 1))
+    t.narrow(ax, Nt - h, h).add_(p.narrow(ax, Np - h, h))
+    return t
+
+
+def pad_planar(p, ax, Np, hermitian):
+    """Planar spectral zero-padding along planar-coords axis ``ax`` to
+    length ``Np``, with the symmetric Fourier interpolator for even
+    extents."""
+    Nt, h = p.shape[ax], p.shape[ax] // 2
+    sh = list(p.shape)
+    sh[ax] = Np
+    out = p.new_zeros(sh)
+    if hermitian:
+        out.narrow(ax, 0, Nt).copy_(p)
+        if Nt % 2 == 0:
+            nyq = out.narrow(ax, Nt - 1, 1)
+            nyq[0] *= 0.5
+            nyq[1] = 0.0
+        return out
+    out.narrow(ax, 0, h + 1).copy_(p.narrow(ax, 0, h + 1))
+    out.narrow(ax, Np - h, h).copy_(p.narrow(ax, Nt - h, h))
+    if Nt % 2 == 0:
+        out.narrow(ax, h, 1).mul_(0.5)
+        out.narrow(ax, Np - h, 1).mul_(0.5)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # dispatch
 # ---------------------------------------------------------------------------
 
-def fft1d_p(p, axis, forward=True, scale=None):
+def fft1d_p(p, axis, forward=True, scale=None, trunc=None, pad=None):
     """Planar c2c transform along ``axis`` of any length.  Unnormalized
     unless ``scale`` is given (folded into the kernel's last stage on the
-    kernel routes)."""
+    kernel routes).
+
+    A dealiased stage gives one of ``trunc`` (keep ``trunc`` modes of the
+    forward spectrum, ``truncate_planar``) or ``pad`` (zero-pad the input
+    spectrum to ``pad`` rows before the backward transform,
+    ``pad_planar``): E takes either in its write or its read where it
+    takes the shape; otherwise the boundary is its own pass beside the
+    transform, and the scale comes last."""
     shape = tuple(p.shape[1:])
     axis = axis % len(shape)
+    if trunc is not None or pad is not None:
+        if butterfly.supported_axis_tp(shape, axis, p.dtype, trunc=trunc,
+                                       pad=pad):
+            return butterfly.fft_axis_tp(p, axis, forward, trunc=trunc,
+                                         pad=pad, scale=scale)
+        if pad is not None:
+            p = pad_planar(p, 1 + axis, pad, hermitian=False)
+        y = fft1d_p(p, axis, forward)
+        if trunc is not None:
+            y = truncate_planar(y, 1 + axis, trunc, hermitian=False)
+        return y if scale is None else y * scale
     N = shape[axis]
     sign = -1 if forward else +1
     if butterfly.supported_axis(shape, axis):
@@ -434,17 +507,25 @@ def fftn_p(p, axes, forward=True):
     return p
 
 
-def rfftn_p(x, axes, hext=None):
-    """Real input -> planar half spectrum; axes[-1] halved to N//2+1
-    (or zero rows up to ``hext`` when given)."""
+def rfftn_p(x, axes, hext=None, trunc=None, scale=None):
+    """Real input -> planar half spectrum; axes[-1] halved to N//2+1, or
+    cut to ``trunc`` rows by the Hermitian truncation (``truncate_planar``)
+    of a dealiased stage, with zero rows up to ``hext`` when given and
+    ``scale`` applied.  B takes the truncation, the zero rows and the
+    scale in its write where it takes the axis."""
     a_last = axes[-1] % x.dim()
     N = x.shape[a_last]
     if butterfly.supported_r2c(tuple(x.shape), a_last):
-        y = butterfly.rfft_axis_p(x, a_last, hext=hext)
+        y = butterfly.rfft_axis_p(x, a_last, hext=hext, trunc=trunc,
+                                  scale=scale)
     else:
         y = fft1d_p(torch.stack([x, torch.zeros_like(x)]), a_last, True)
-        nh = N // 2 + 1
-        y = y.narrow(1 + a_last, 0, nh)
+        y = y.narrow(1 + a_last, 0, N // 2 + 1)
+        if trunc is not None:
+            y = truncate_planar(y, 1 + a_last, trunc, hermitian=True)
+        if scale is not None:
+            y = y * scale
+        nh = y.shape[1 + a_last]
         if hext is not None and hext > nh:
             pad = [0, 0] * (x.dim() - 1 - a_last) + [0, hext - nh]
             y = torch.nn.functional.pad(y, pad)
@@ -457,8 +538,10 @@ def rfftn_p(x, axes, hext=None):
 
 def irfftn_p(p, axes, last_size, scale=None):
     """Planar half spectrum -> real output of length ``last_size``.
-    Input rows beyond N//2+1 along axes[-1] are ignored; ``scale`` is
-    folded into the output.
+    Input rows beyond N//2+1 along axes[-1] are ignored, and fewer rows
+    (the truncated spectrum of a dealiased stage) are zero-padded
+    Hermitian-wise (``pad_planar``), by C in its read where it takes the
+    length; ``scale`` is folded into the output.
 
     The imaginary parts of the DC and (even N) Nyquist rows are read as 0
     at every length, as FFTW's c2r and numpy.fft.irfft read them: the
@@ -474,6 +557,8 @@ def irfftn_p(p, axes, last_size, scale=None):
     if butterfly.supported_c2r(tuple(p.shape[1:]), a_last, N):
         return butterfly.irfft_axis_p(p, a_last, N, scale=scale)
     nh = N // 2 + 1
+    if p.shape[1 + a_last] < nh:
+        p = pad_planar(p, 1 + a_last, nh, hermitian=True)
     H = p.narrow(1 + a_last, 0, nh).movedim(1 + a_last, -1)
     tail = H[..., 1:(N + 1) // 2].flip(-1)
     full = torch.cat([H, torch.stack([tail[0], -tail[1]])], dim=-1)

@@ -1,31 +1,33 @@
 """Planar-complex FFT: the port's ``PlanarPFFT``.
 
 Port of ``mpi4py_fft_tpu/parallel/planar.py``: the constructor
-(:92-247), the one-device pipeline (``_forward_impl``/``_backward_impl``
-:621-705), the per-shard executor (``_forward_local`` :443,
+(:92-247), the per-shard executor (``_forward_local`` :443,
 ``_overlapped_step`` :510, ``_backward_local`` :528 and the padded r2c
 extent ``_hpad_ext`` :154-173), ``forward``/``backward`` :723-752,
 ``global_shape`` :787, and the quartered schedule (``quartered``/
 ``forward_fn_q``/``backward_fn_q`` :759-785).  A complex field of global
 shape S is a real tensor of shape (2,) + S.
 
-On one rank the pipeline is one transform per axis (``ops/matfft.py``)
-and the 3/2-rule truncation or padding between them (``libfft.py``); a
-3-D c2c f32 plan without padding can also hold its volume as four
-quarters (``ops/oop3d.py``) and transform them out of place pass by pass.
-
-On several ranks (``comm`` a process group, see ``multihost``) each rank
-holds its block of the pencil decomposition (``parallel/pencil.py``):
-``forward`` takes this rank's block of the input and returns its block of
-the spectrum.  The per-shard executor runs each stage on the local block
-and moves blocks between stages with one ``all_to_all_single`` over the
-group of the swapped axes, chunked so that the exchanges overlap the
-stages (``parallel/overlap.py``).  Each stage cuts its axis back to its
-true extent first, so the kernels see the lengths the one-rank pipeline
-gives them; the r2c stage writes zero rows up to the extent the first
-exchange splits evenly (``hext``, the kernel's own write), and the
-dealiased stages run the fused kernels (B with ``trunc``, E with
-``trunc``/``pad`` and the scale, C with the Hermitian pad in its read).
+One executor serves one rank and several, as ``PFFT``'s does
+(``parallel/mpifft.py``); the JAX package's global-program pipeline
+(``_forward_impl``/``_backward_impl`` :621-705) has no counterpart.
+Each rank holds its block of the pencil decomposition
+(``parallel/pencil.py``; ``comm`` a process group, see ``multihost``):
+``forward`` takes this rank's block of the input and returns its block
+of the spectrum.  Each stage is one engine call (``ops/matfft.py``) on
+the local block, and one ``all_to_all_single`` over the group of the
+swapped axes moves blocks between stages, chunked so that the exchanges
+overlap the stages (``parallel/overlap.py``).  On one rank the block is
+the whole field and nothing moves: an exchange over a group of one
+returns its input, and no step adds a copy.  Each stage cuts its axis
+back to its true extent first, so the kernels see the lengths of the
+one-rank layout; the r2c stage writes zero rows up to the extent the
+first exchange splits evenly (``hext``), and the engine runs a dealiased
+stage's truncation or padding in the kernels where they take it (B with
+``trunc``, E with ``trunc``/``pad`` and the scale, C with the Hermitian
+pad in its read).  A 3-D c2c f32 plan without padding on one rank can
+also hold its volume as four quarters (``ops/oop3d.py``) and transform
+them out of place pass by pass.
 
 API sketch::
 
@@ -40,8 +42,9 @@ API sketch::
 
 Each ``forward``/``backward`` call is one span, ``pfft.forward`` or
 ``pfft.backward`` (the names of ``PFFT``'s transforms, which never call
-this class), around the one-rank stages' spans ``planar_stage*`` and
-``planar_bstage*`` (``utils/profiling.py``).
+this class), around the stages' spans ``planar_stage*`` and
+``planar_bstage*`` (``utils/profiling.py``; a stage chunked beside an
+exchange is a span a chunk).
 
 float32 ('f'/'F') and float64 ('d'/'D') plans run the same pipeline, with
 and without ``padding``, on one rank or several: the kernels have an fp64
@@ -54,8 +57,7 @@ schedule is float32 and one rank only, as in the JAX package.
 import numpy as np
 import torch
 
-from ..ops import butterfly, matfft, oop3d
-from ..libfft import truncate_planar, pad_planar
+from ..ops import matfft, oop3d
 from . import overlap
 from .comm import plan_device
 from .pencil import Pencil, Subcomm, exchange, fit_axis, fit_block
@@ -77,12 +79,13 @@ class PlanarPFFT(object):
     as planar (2,)+S, dtype 'F'/'D') and r2c/c2r (real input, dtype
     'f'/'d'), with optional 3/2-rule ``padding``; ``comm``/``grid`` lay
     the ranks out as there.  ``device`` is where the plan runs: the
-    rank's device, else CUDA; ``'cpu'`` for the plain versions.  On
-    several ranks ``executor`` is the per-shard one (``'shard_map'``, the
-    JAX name; ``'auto'`` takes it), ``a2a_chunks`` sets the chunks of
-    each exchange and ``pad_spectrum`` keeps the r2c axis at ``hext``
-    rows in the spectrum; on one rank they and ``donate`` change
-    nothing.
+    rank's device, else CUDA; ``'cpu'`` for the plain versions.
+    ``executor`` selects no code: it is checked and reported under the
+    JAX package's names, ``'gspmd'`` on one rank and ``'shard_map'`` on
+    several (``'auto'`` takes the one that fits).  On several ranks
+    ``a2a_chunks`` sets the chunks of each exchange and ``pad_spectrum``
+    keeps the r2c axis at ``hext`` rows in the spectrum; on one rank they
+    and ``donate`` change nothing.
     """
 
     def __init__(self, comm=None, shape=None, axes=None, dtype='f',
@@ -230,66 +233,22 @@ class PlanarPFFT(object):
     def _padded(self, ax):
         return self._pad[ax] > 1.0 + 1e-8
 
-    def _forward_impl(self, x, normalize):
-        axes = self.axes
-        ax0 = axes[-1]
-        if self.real_transform:
-            with annotate("planar_stage0_r2c"):
-                p = matfft.rfftn_p(x, (ax0,))
-                if self._padded(ax0):
-                    p = truncate_planar(p, 1 + ax0,
-                                        self._trunc[ax0] // 2 + 1,
-                                        hermitian=True)
-        else:
-            with annotate("planar_stage0"):
-                p = matfft.fft1d_p(x, ax0, True)
-                if self._padded(ax0):
-                    p = truncate_planar(p, 1 + ax0, self._trunc[ax0],
-                                        hermitian=False)
-        nmid = len(axes) - 1
-        folded = False
-        for i, ax in enumerate(reversed(axes[:-1])):
-            last = (i == nmid - 1)
-            sc = self._norm if (normalize and last) else None
-            folded = folded or sc is not None
-            with annotate(f"planar_stage{i + 1}"):
-                p = matfft.fft1d_p(p, ax, True, scale=sc)
-                if self._padded(ax):
-                    p = truncate_planar(p, 1 + ax, self._trunc[ax],
-                                        hermitian=False)
-        if normalize and not folded:
-            p = p * self._norm
-        return p
+    def _cut(self, ax):
+        """The forward stage's ``trunc`` along ``ax``: its truncated
+        extent where it is dealiased, else None."""
+        return self._trunc[ax] if self._padded(ax) else None
 
-    def _backward_impl(self, p, normalize):
-        axes = self.axes
-        for i, ax in enumerate(axes[:-1]):
-            with annotate(f"planar_bstage{i}"):
-                if self._padded(ax):
-                    p = pad_planar(p, 1 + ax, self._input_shape[ax],
-                                   hermitian=False)
-                p = matfft.fft1d_p(p, ax, False)
-        ax0 = axes[-1]
-        sc = self._norm if normalize else None
-        with annotate("planar_bstage_last"):
-            if self.real_transform:
-                if self._padded(ax0):
-                    p = pad_planar(p, 1 + ax0,
-                                   self._input_shape[ax0] // 2 + 1,
-                                   hermitian=True)
-                return matfft.irfftn_p(p, (ax0,), self._input_shape[ax0],
-                                       scale=sc)
-            if self._padded(ax0):
-                p = pad_planar(p, 1 + ax0, self._input_shape[ax0],
-                               hermitian=False)
-            return matfft.fft1d_p(p, ax0, False, scale=sc)
+    def _grow(self, ax):
+        """The backward stage's ``pad`` along ``ax``: its padded extent
+        where it is dealiased, else None."""
+        return self._input_shape[ax] if self._padded(ax) else None
 
-    # -- the per-shard executor (several ranks) ---------------------------
     def _step(self, p, i, ax, pre, post, forward):
         """One pipeline step between pencils[i] and pencils[i + 1]: the
         exchange, with the stage ``pre`` before it (backward) or ``post``
         after it (forward), chunked along an axis that takes part in
-        neither (JAX ``_overlapped_step`` :510)."""
+        neither (JAX ``_overlapped_step`` :510).  Over a group of one it
+        is the stage alone."""
         pa, pb = self.pencils[i], self.pencils[i + 1]
         g = pa.subcomm[pb.axis]
         if forward:
@@ -316,45 +275,26 @@ class PlanarPFFT(object):
         its input block held at ``padded_local_shape``."""
         axes = self.axes
         ax0 = axes[-1]
-        N0 = self._input_shape[ax0]
         if self.real_transform:
-            hx = self._hpad_ext or self._output_shape[ax0]
-            if self._padded(ax0):
-                nt0 = self._trunc[ax0] // 2 + 1
-                if butterfly.supported_r2c(tuple(x.shape), ax0):
-                    # the Hermitian truncation and the zero rows in the
-                    # r2c kernel's write
-                    p = butterfly.rfft_axis_p(x, ax0, hext=hx, trunc=nt0)
-                else:
-                    p = matfft.rfftn_p(x, (ax0,))
-                    p = truncate_planar(p, 1 + ax0, nt0, hermitian=True)
-                    p = fit_axis(p, 1 + ax0, hx)
-            else:
-                p = matfft.rfftn_p(x, (ax0,),
-                                   hext=hx if hx > N0 // 2 + 1 else None)
+            with annotate("planar_stage0_r2c"):
+                nt0 = self._trunc[ax0] // 2 + 1 if self._padded(ax0) \
+                    else None
+                p = matfft.rfftn_p(x, (ax0,), trunc=nt0, hext=(
+                    self._hpad_ext or self._output_shape[ax0]))
         else:
-            p = matfft.fft1d_p(x, ax0, True)
-            if self._padded(ax0):
-                p = truncate_planar(p, 1 + ax0, self._trunc[ax0],
-                                    hermitian=False)
+            with annotate("planar_stage0"):
+                p = matfft.fft1d_p(x, ax0, True, trunc=self._cut(ax0))
         nmid = len(axes) - 1
         folded = False
         for i, ax in enumerate(reversed(axes[:-1])):
             sc = self._norm if (normalize and i == nmid - 1) else None
             folded = folded or sc is not None
 
-            def stage(pc, ax=ax, sc=sc):
-                pc = _whole(pc, 1 + ax, self._input_shape[ax])
-                if self._padded(ax):
-                    nt = self._trunc[ax]
-                    if butterfly.supported_axis_tp(pc.shape[1:], ax,
-                                                   pc.dtype, trunc=nt):
-                        # the truncation in the kernel's write
-                        return butterfly.fft_axis_tp(pc, ax, True, trunc=nt,
-                                                     scale=sc)
-                    pc = matfft.fft1d_p(pc, ax, True, scale=sc)
-                    return truncate_planar(pc, 1 + ax, nt, hermitian=False)
-                return matfft.fft1d_p(pc, ax, True, scale=sc)
+            def stage(pc, i=i, ax=ax, sc=sc):
+                with annotate(f"planar_stage{i + 1}"):
+                    pc = _whole(pc, 1 + ax, self._input_shape[ax])
+                    return matfft.fft1d_p(pc, ax, True, scale=sc,
+                                          trunc=self._cut(ax))
             p = self._step(p, i, ax, None, stage, True)
         if normalize and not folded:
             p = p * self._norm
@@ -366,44 +306,20 @@ class PlanarPFFT(object):
         axes = self.axes
         for i, ax in enumerate(axes[:-1]):
 
-            def stage(pc, ax=ax):
-                pc = _whole(pc, 1 + ax, self._trunc[ax])
-                if self._padded(ax):
-                    N = self._input_shape[ax]
-                    if butterfly.supported_axis_tp(pc.shape[1:], ax,
-                                                   pc.dtype, pad=N):
-                        # the zero-padding in the kernel's read
-                        return butterfly.fft_axis_tp(pc, ax, False, pad=N)
-                    pc = pad_planar(pc, 1 + ax, N, hermitian=False)
-                return matfft.fft1d_p(pc, ax, False)
+            def stage(pc, i=i, ax=ax):
+                with annotate(f"planar_bstage{i}"):
+                    pc = _whole(pc, 1 + ax, self._trunc[ax])
+                    return matfft.fft1d_p(pc, ax, False, pad=self._grow(ax))
             p = self._step(p, len(axes) - 2 - i, ax, stage, None, False)
         ax0 = axes[-1]
         N0 = self._input_shape[ax0]
         sc = self._norm if normalize else None
-        p = _whole(p, 1 + ax0, self._output_shape[ax0])
-        if self.real_transform:
-            if self._padded(ax0) and butterfly.supported_c2r(
-                    tuple(p.shape[1:]), ax0, N0):
-                # the Hermitian zero-padding in the c2r kernel's read
-                return butterfly.irfft_axis_p(p, ax0, N0, scale=sc)
-            if self._padded(ax0):
-                p = pad_planar(p, 1 + ax0, N0 // 2 + 1, hermitian=True)
-            return matfft.irfftn_p(p, (ax0,), N0, scale=sc)
-        if self._padded(ax0):
-            p = pad_planar(p, 1 + ax0, N0, hermitian=False)
-        return matfft.fft1d_p(p, ax0, False, scale=sc)
-
-    def _forward_shard(self, x, normalize):
-        off = 0 if self.real_transform else 1
-        x = fit_block(x, self.pencil[0].padded_local_shape(), off)
-        return fit_block(self._forward_local(x, normalize),
-                         self._out_pencil.subshape, 1)
-
-    def _backward_shard(self, p, normalize):
-        p = fit_block(p, self._out_pencil.padded_local_shape(), 1)
-        y = self._backward_local(p, normalize)
-        off = 0 if self.real_transform else 1
-        return fit_block(y, self.pencil[0].subshape, off)
+        with annotate("planar_bstage_last"):
+            p = _whole(p, 1 + ax0, self._output_shape[ax0])
+            if self.real_transform:
+                return matfft.irfftn_p(p, (ax0,), N0, scale=sc)
+            return matfft.fft1d_p(p, ax0, False, scale=sc,
+                                  pad=self._grow(ax0))
 
     # ------------------------------------------------------------------
     def _check_shape(self, x, forward_output):
@@ -422,18 +338,20 @@ class PlanarPFFT(object):
         rank's block of it.  One span ``pfft.forward`` a call."""
         self._check_shape(x, False)
         with annotate('pfft.forward'):
-            if self.executor == 'shard_map':
-                return self._forward_shard(x, bool(normalize))
-            return self._forward_impl(x, bool(normalize))
+            off = 0 if self.real_transform else 1
+            x = fit_block(x, self.pencil[0].padded_local_shape(), off)
+            return fit_block(self._forward_local(x, bool(normalize)),
+                             self._out_pencil.subshape, 1)
 
     def backward(self, p, normalize=False):
         """Backward transform; planar input, real (c2r) or planar output,
         this rank's block of it.  One span ``pfft.backward`` a call."""
         self._check_shape(p, True)
         with annotate('pfft.backward'):
-            if self.executor == 'shard_map':
-                return self._backward_shard(p, bool(normalize))
-            return self._backward_impl(p, bool(normalize))
+            p = fit_block(p, self._out_pencil.padded_local_shape(), 1)
+            y = self._backward_local(p, bool(normalize))
+            off = 0 if self.real_transform else 1
+            return fit_block(y, self.pencil[0].subshape, off)
 
     # PyTorch runs eagerly: the composable forms are the same calls
     forward_fn = forward
