@@ -276,7 +276,7 @@ failure raises and the script exits non-zero:
 26. r2r      the r2r transforms (``mpi4py_fft_torch/ops/core.py``) on B
              and C and on the one-pass DCT-II/III kernels: DCT I-IV, DST
              I-IV and DHT along axis 2 (whole lines) and axis 1 (the
-             tile) of a (32, 512, 512) volume, DCT-I at N = 513 and
+             column band) of a (32, 512, 512) volume, DCT-I at N = 513 and
              DST-I at N = 511 (extended to 1024 points), R2HC then HC2R,
              at float32 and float64, each held against scipy's dct/dst
              (DHT: Re - Im of numpy's fft) in float64 on the host
@@ -287,7 +287,12 @@ failure raises and the script exits non-zero:
              1, each held first, beside their bound (512^3 values read
              and written a pass), their plain versions and the glue
              around torch.fft they replace (their rows of the kernels
-             line); then the
+             line); the r2c, c2r, DCT-II and DCT-III on the r2r cell's
+             inner-axis passes (512^3 axis 0, axis 1 for the DCTs),
+             float64 and float32, each held first, with its route, ms,
+             bound, reach (``block_copy`` of the same boxes), plain
+             version and the band instance's registers and spills (the
+             ``inner`` rows of the kernels line); then the
              transforms example's plan ``PFFT(None, (512,)*3, axes=((0,),
              (1, 2)), transforms={(1, 2): (dctn type 3, idctn type 3)})``
              at 'd' and 'f' and its twin with ``padding=[1.5, 1, 1]``:
@@ -341,7 +346,8 @@ line: run it for two trees in turns on one card.
 and phase 15, and prints no last line.
 
 ``python3 chip_smoke.py --times-r2r TREE`` runs only phase 1, the DCT-II
-and DCT-III kernels' rows of phase 26 (null in a tree without them) and
+and DCT-III kernels' rows and the real kernels' inner-axis rows of phase
+26 (null in a tree without them) and
 the transforms example's 512^3 'd' plan of phase 26 on the port of the
 checkout at TREE, and prints no last line: run it for two trees in turns
 on one card.
@@ -2876,7 +2882,7 @@ def _held_rel(got, ref, tol, what):
 
 def _r2r_kinds(dev, bf, holds):
     """Every kind along axis 2 (whole lines: the line kernels) and axis
-    1 (the tile) of a (R2R_BATCH, R2R_N, R2R_N) volume at float32 and
+    1 (the column band) of a (R2R_BATCH, R2R_N, R2R_N) volume at float32 and
     float64, DCT-I at R2R_N + 1 and DST-I at R2R_N - 1 (extended to
     2 R2R_N points) and R2HC then HC2R on the last axis, each held against
     its float64 host reference; every B, C, DCT-II and DCT-III call on the
@@ -2931,7 +2937,8 @@ def _r2r_kinds(dev, bf, holds):
 def _times_dct(dev, bf, holds):
     """The rows of dct2_axis_p and dct3_axis_p, float32 and float64: a
     (R2R_N,)*3 volume along axis 2 (the line kernels) and axis 1 (the
-    tile), each pass held slab by slab against its plain version first,
+    column band), each pass held slab by slab against its plain version
+    first,
     beside its bound (every value read and written once), its plain
     version and the glue around torch.fft that it replaces (the r2r
     plans' yardstick, ``_lib_r2c_c2r``), and the r2c (DCT-II) or c2r
@@ -2987,6 +2994,87 @@ def _times_dct(dev, bf, holds):
                 'library_ms': sum(r['library_ms'] for r in per.values()),
                 'bound_ms': 2 * bound, 'bound_by': by, 'per_axis': per}
         del x
+        torch.cuda.empty_cache()
+    return out
+
+
+def _ptxas_of(kernel, dtype):
+    """Registers and spill bytes of rfft_axis.cu's instance ``kernel``<T,
+    1> (T as ``dtype``) as ptxas printed them at the build, or None."""
+    import re
+    from mpi4py_fft_torch.ops import _build
+    tag = f"{len(kernel)}{kernel}I{'d' if dtype == torch.float64 else 'f'}"
+    out, cur = {}, ''
+    for ln in _build.LOG.get('rfft_axis', '').splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = m.group(1)
+        elif tag + 'Li1E' in cur:
+            m = re.search(r'Used (\d+) registers', ln)
+            if m:
+                out['registers'] = int(m.group(1))
+            m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill '
+                          r'loads', ln)
+            if m:
+                out['spill_stores'] = int(m.group(1))
+                out['spill_loads'] = int(m.group(2))
+    return out or None
+
+
+def _times_real_inner(dev, bf, holds):
+    """The rows of the r2c, c2r, DCT-II and DCT-III on the inner-axis
+    passes of the r2r cell's plan, float64 and float32: (R2R_N,)*3 along
+    axis 0 (the r2c, and the c2r on its spectrum) and axis 1 (the DCTs),
+    each pass held slab by slab against its plain version first, with its
+    route (``real_route``), ms, bound (every value read and written
+    once), reach (``block_copy`` of the same boxes: the real volume seen
+    as a planar (2, n/2, n, n) one along the pass's axis), the plain
+    version's ms, and the registers and spills of the band instance.
+    None for a tree without the band (no ``real_route``)."""
+    if not hasattr(bf, 'real_route'):
+        return None
+    n = R2R_N
+    g = torch.Generator(device=dev).manual_seed(SEED + 86)
+    flops = n * n * 2.5 * n * math.log2(n)
+    out = {}
+    for dtype, sfx in ((torch.float64, '_f64'), (torch.float32, '')):
+        x = torch.rand((n,) * 3, generator=g, device=dev, dtype=dtype) - 0.5
+        h = bf.rfft_axis_p(x, 0)
+        reach = {ax: _reach_ms([x.view(2, n // 2, n, n)], ax)
+                 for ax in (0, 1)}
+        passes = (
+            ('rfft_axis_p', 0, lambda: bf.rfft_axis_p(x, 0),
+             lambda i, w: bf.rfft_axis_plain(x.narrow(2, i, w), 0), 3,
+             h.shape, x.numel() + h.numel()),
+            ('irfft_axis_p', 0, lambda: bf.irfft_axis_p(h, 0, n),
+             lambda i, w: bf.irfft_axis_plain(h.narrow(3, i, w), 0, n), 2,
+             x.shape, x.numel() + h.numel()),
+            ('dct2_axis_p', 1, lambda: bf.dct2_axis_p(x, 1),
+             lambda i, w: bf.dct2_axis_plain(x.narrow(0, i, w), 1), 0,
+             x.shape, 2 * x.numel()),
+            ('dct3_axis_p', 1, lambda: bf.dct3_axis_p(x, 1),
+             lambda i, w: bf.dct3_axis_plain(x.narrow(0, i, w), 1), 0,
+             x.shape, 2 * x.numel()))
+        for kind, ax, run, plain, dim, oshape, numel in passes:
+            name = kind + sfx
+            _nan_block(tuple(oshape), dtype, dev)
+            got = run()
+            _slab_hold(holds, name, got, plain, dim,
+                       f"{name} {tuple(x.shape)} axis {ax}")
+            del got
+            bound, by = _bound_ms(numel * x.element_size(), flops,
+                                  dtype == torch.float64)
+            out[name] = {
+                'shape': [n] * 3, 'axis': ax,
+                'route': bf.real_route((n,) * 3, ax, n, dtype),
+                'ms': _median_ms(run), 'bound_ms': bound, 'bound_by': by,
+                'reach_ms': reach[ax],
+                'plain_ms': _median_ms(lambda: plain(0, n), reps=1,
+                                       warm=0),
+                'ptxas': _ptxas_of(kind.replace('_axis_p', '_band_kernel'),
+                                   dtype)}
+            torch.cuda.empty_cache()
+        del x, h
         torch.cuda.empty_cache()
     return out
 
@@ -3206,16 +3294,19 @@ def r2r_example_rank(comm, n, ref):
 
 def phase_r2r(dev, bf, holds):
     """r2r on the card: every kind on the kernels (``_r2r_kinds``), the
-    DCT-II and DCT-III kernels' rows (``_times_dct``), the transforms
-    example's plans on one rank at R2R_N^3 'd' and 'f', plain and padded
+    DCT-II and DCT-III kernels' rows (``_times_dct``), the real kernels'
+    inner-axis rows (``_times_real_inner``), the transforms example's
+    plans on one rank at R2R_N^3 'd' and 'f', plain and padded
     (``_r2r_plan``), then the ported transforms and darray examples on 2
     gloo ranks, each rank's block of the example's plan against the
-    one-rank forward.  Returns the DCT kernels' rows."""
+    one-rank forward.  Returns the DCT kernels' rows and the inner-axis
+    rows."""
     import scipy.fft
     from mpi4py_fft_torch import dryrun
     t0 = time.perf_counter()
     kinds, kind_launches = _r2r_kinds(dev, bf, holds)
     dct = _times_dct(dev, bf, holds)
+    inner = _times_real_inner(dev, bf, holds)
     n = R2R_N
     refdir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           'build', 'r2r_ref')
@@ -3254,11 +3345,11 @@ def phase_r2r(dev, bf, holds):
                f"2 ranks, rank {r['rank']}: launches {r}")
     _emit({'phase': 'r2r', 'seconds': time.perf_counter() - t0,
            'card': _smi(), 'kinds': kinds, 'kinds_launches': kind_launches,
-           'dct_kernels': dct, 'plans': plans,
+           'dct_kernels': dct, 'real_inner': inner, 'plans': plans,
            'gloo_2_ranks_examples': two,
            'exchanges': 'gloo on CUDA tensors, through host memory, both '
                         'ranks on one card'})
-    return dct
+    return dct, inner
 
 
 def phase_times_r2r(dev, bf, holds):
@@ -3266,12 +3357,13 @@ def phase_times_r2r(dev, bf, holds):
     plan alone (for --times-r2r)."""
     import scipy.fft
     dct = _times_dct(dev, bf, holds)
+    inner = _times_real_inner(dev, bf, holds)
     x32 = _r2r_input(dev, (R2R_N,) * 3)
     A = scipy.fft.dctn(x32.double().cpu().numpy(), type=3, axes=(1, 2),
                        workers=-1)
     plan = _r2r_plan(dev, bf, 'd', False, x32, A)
     _emit({'phase': 'times_r2r', 'card': _smi(), 'dct_kernels': dct,
-           'plan': plan})
+           'real_inner': inner, 'plan': plan})
 
 
 # -- phase io: snapshot IO and the host-staging engine ---------------------
@@ -4386,7 +4478,7 @@ def main(argv=None):
     marks['any_extent_path_s'] = time.perf_counter() - t_start
     phase_dist(dev, bf)
     marks['dist_s'] = time.perf_counter() - t_start
-    dct_rows = phase_r2r(dev, bf, holds)
+    dct_rows, inner_rows = phase_r2r(dev, bf, holds)
     marks['r2r_s'] = time.perf_counter() - t_start
     phase_io(dev, bf)
     marks['io_s'] = time.perf_counter() - t_start
@@ -4401,6 +4493,8 @@ def main(argv=None):
     torch.cuda.empty_cache()
     times.update(phase_times64(dev, bf, holds))
     times.update(dct_rows)
+    for name, row in inner_rows.items():
+        times[name]['inner'] = row
     times.update(dns_rows)
     marks['times_s'] = time.perf_counter() - t_start
     times.update(phase_times_tp(dev, bf, holds))
@@ -4423,7 +4517,8 @@ def main(argv=None):
                       'per_pass', 'c2c_F',
                       'two_a_passes_ms',
                       'n1536', 'trunc768', 's7', 's8', 'one_cta',
-                      'ctas_a_plane', 'max_active', 'middle', 'last'):
+                      'ctas_a_plane', 'max_active', 'middle', 'last',
+                      'inner'):
             if extra in t:
                 kernels[-1][extra] = t[extra]
     _emit({'phase': 'reach_routes', 'routes': REACH_ROUTES})

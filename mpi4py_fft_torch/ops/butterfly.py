@@ -54,7 +54,8 @@ import torch
 from . import _build
 from ..utils import profiling
 
-__all__ = ['fft_axis_p', 'axis_route', 'rfft_axis_p', 'irfft_axis_p',
+__all__ = ['fft_axis_p', 'axis_route', 'real_route', 'rfft_axis_p',
+           'irfft_axis_p',
            'dct2_axis_p', 'dct3_axis_p', 'supported_dct', 'dct2_axis_plain',
            'dct3_axis_plain', 'fft_axis2_p',
            'fft_axis_pair_p', 'pair_max_active_clusters', 'fft_axis_tp',
@@ -926,6 +927,29 @@ def axis_route(shape, axis):
     return 'band' if shape[axis] in (512, 768, 1024) else 'tile'
 
 
+def real_route(shape, axis, n, dtype, aligned=True):
+    """The route of an ``rfft_axis_p``, ``irfft_axis_p``, ``dct2_axis_p``
+    or ``dct3_axis_p`` pass of real length ``n`` along ``axis`` of a
+    tensor of ``dtype`` whose dims other than ``axis`` are those of
+    ``shape`` (either side of the pass), as its span names it:
+    ``'lines'`` on the last axis (the line kernels where the real side is
+    aligned to a packed point, else the tile kernel over whole lines),
+    ``'band'`` on an inner axis at n = 512, 768 and 1024 where the dims
+    after the axis hold a multiple of a 16-byte vector (2 doubles, 4
+    floats) and both tensors are 16-byte aligned (``aligned``; the
+    column band kernel), ``'tile'`` on any other inner axis."""
+    post = _pre_post(shape, axis)[1]
+    if post == 1:
+        return 'lines'
+    vec = 16 // dtype.itemsize
+    return 'band' if (n in (512, 768, 1024) and post % vec == 0
+                      and aligned) else 'tile'
+
+
+def _aligned16(*ts):
+    return all(t.data_ptr() % 16 == 0 for t in ts)
+
+
 def rfft_axis_p(x, axis, hext=None, scale=None, trunc=None):
     """Real tensor -> planar Hermitian half spectrum along ``axis``.
 
@@ -934,13 +958,17 @@ def rfft_axis_p(x, axis, hext=None, scale=None, trunc=None):
     applies the 3/2-rule Hermitian truncation in the kernel's write
     (Nyquist fold for even ``trunc``).  Packed N/2-point method.
 
-    Which kernel runs is decided before the launch, by layout: a CUDA
-    tensor along its last axis (whole lines) at N >= 4 whose data is
-    aligned to a packed point (16 bytes in float64, 8 in float32) takes
-    the line kernel (a warp-resident group of threads a line); every
-    other case, N = 2 (not packed), an inner axis, or misaligned data,
-    takes the tile kernel.  Both count as ``rfft_axis_p`` /
-    ``rfft_axis_p_f64``."""
+    Which kernel runs is decided before the launch, by layout, the same
+    rule in both builds: a CUDA tensor along its last axis (whole lines)
+    at N >= 4 whose data is aligned to a packed point (16 bytes in
+    float64, 8 in float32) takes the line kernel (a warp-resident group
+    of threads a line); an inner axis at N = 512, 768 and 1024 whose
+    dims after it hold a multiple of a 16-byte vector, with the data
+    16-byte aligned, takes the column band kernel (one CTA a band of
+    adjacent lines); every other case, N = 2 (not packed), another
+    length on an inner axis, or misaligned data, takes the tile kernel.
+    All count as ``rfft_axis_p`` / ``rfft_axis_p_f64``; the span of each
+    launch names its route (:func:`real_route`)."""
     what = 'rfft_axis_p'
     shape = tuple(x.shape)
     if not shape:
@@ -952,12 +980,14 @@ def rfft_axis_p(x, axis, hext=None, scale=None, trunc=None):
     nbytes = (x.numel() + 2 * x.numel() // N * hext) * x.element_size()
     if _plain_ok(x, what):
         return _plain(_name_of(what, x), nbytes, rfft_axis_plain, x, axis,
-                      hext, scale, trunc)
+                      hext, scale, trunc,
+                      route=real_route(shape, axis, N, x.dtype))
     pre, post = _pre_post(shape, axis)
     packed = N // 2 >= 2
     out = x.new_empty((2,) + shape[:axis] + (hext,) + shape[axis + 1:])
     if out.numel() == 0:
         return out
+    route = real_route(shape, axis, N, x.dtype, _aligned16(x, out))
     tw = _tw_tensor(N, -1, packed, x.dtype, x.device)
     plan, nst = _plan_args(N // 2 if packed else N)
     nrows = nh if trunc is None else min(nh, int(trunc))
@@ -965,7 +995,8 @@ def rfft_axis_p(x, axis, hext=None, scale=None, trunc=None):
     _launch(*_build_of(what, 'rfft_axis', x), x,
             _ptr(x), _ptr(out), _ptr(tw), tw.shape[1], pre, N, post, hext,
             nrows, int(fold), int(packed), plan, nst,
-            1.0 if scale is None else float(scale), nbytes=nbytes)
+            1.0 if scale is None else float(scale), nbytes=nbytes,
+            route=route)
     return out
 
 
@@ -979,12 +1010,17 @@ def irfft_axis_p(p, axis, n, scale=None):
     (FFTW's c2r: N*x) unless ``scale`` is given.  Packed N/2-point
     method.
 
-    Which kernel runs is decided before the launch, by layout: a CUDA
-    spectrum along its last axis (whole lines) at n >= 4 whose output is
-    aligned to a packed point (16 bytes in float64, 8 in float32) takes
-    the c2r line kernel (a warp-resident group of threads a line); every
-    other case, n = 2, an inner axis or a misaligned output, takes the
-    tile kernel.  Both count as ``irfft_axis_p`` / ``irfft_axis_p_f64``."""
+    Which kernel runs is decided before the launch, by layout, the same
+    rule in both builds: a CUDA spectrum along its last axis (whole
+    lines) at n >= 4 whose output is aligned to a packed point (16 bytes
+    in float64, 8 in float32) takes the c2r line kernel (a warp-resident
+    group of threads a line); an inner axis at n = 512, 768 and 1024
+    whose dims after it hold a multiple of a 16-byte vector, with the
+    spectrum 16-byte aligned, takes the column band kernel (one CTA a
+    band of adjacent lines); every other case, n = 2, another length on
+    an inner axis or misaligned data, takes the tile kernel.  All count
+    as ``irfft_axis_p`` / ``irfft_axis_p_f64``; the span of each launch
+    names its route (:func:`real_route`)."""
     what = 'irfft_axis_p'
     _check_planar(p, what)
     shape = tuple(p.shape[1:])
@@ -999,12 +1035,13 @@ def irfft_axis_p(p, axis, n, scale=None):
     nbytes = lines * (2 * min(Hin, N // 2 + 1) + N) * p.element_size()
     if _plain_ok(p, what):
         return _plain(_name_of(what, p), nbytes, irfft_axis_plain, p, axis,
-                      N, scale)
+                      N, scale, route=real_route(shape, axis, N, p.dtype))
     pre, post = _pre_post(shape, axis)
     packed = N // 2 >= 2
     out = p.new_empty(shape[:axis] + (N,) + shape[axis + 1:])
     if out.numel() == 0:
         return out
+    route = real_route(shape, axis, N, p.dtype, _aligned16(p, out))
     tw = _tw_tensor(N, +1, packed, p.dtype, p.device)
     plan, nst = _plan_args(N // 2 if packed else N)
     # the packed inverse returns N/2 * x: its scale carries the x2
@@ -1013,7 +1050,7 @@ def irfft_axis_p(p, axis, n, scale=None):
         sc = 2.0 * sc
     _launch(*_build_of(what, 'irfft_axis', p), p,
             _ptr(p), _ptr(out), _ptr(tw), tw.shape[1], pre, Hin, N, post,
-            int(packed), plan, nst, sc, nbytes=nbytes)
+            int(packed), plan, nst, sc, nbytes=nbytes, route=route)
     return out
 
 
@@ -1030,7 +1067,8 @@ def _dct_axis(what, x, axis, sign, plain):
             what, N, f"a multiple of 4 of 2^a or 3*2^a up to {_MAX_N_AXIS}")
     nbytes = 2 * x.numel() * x.element_size()
     if _plain_ok(x, what):
-        return _plain(_name_of(what, x), nbytes, plain, x, axis)
+        return _plain(_name_of(what, x), nbytes, plain, x, axis,
+                      route=real_route(shape, axis, N, x.dtype))
     pre, post = _pre_post(shape, axis)
     out = torch.empty_like(x)
     if out.numel() == 0:
@@ -1039,7 +1077,8 @@ def _dct_axis(what, x, axis, sign, plain):
     plan, nst = _plan_args(N // 2)
     _launch(*_build_of(what, what[:-2], x), x,
             _ptr(x), _ptr(out), _ptr(tw), tw.shape[1], pre, N, post, plan,
-            nst, nbytes=nbytes)
+            nst, nbytes=nbytes,
+            route=real_route(shape, axis, N, x.dtype, _aligned16(x, out)))
     return out
 
 
@@ -1053,7 +1092,9 @@ def dct2_axis_p(x, axis):
     X[N-k] = -2 Im(w_k V[k]), w_k = e^{-i pi k/2N}, in the write; one
     pass a call.  Which body runs is decided as for ``rfft_axis_p``: the
     line kernel on whole lines whose data is aligned to a packed point,
-    else the tile.  Counts as ``dct2_axis_p`` / ``dct2_axis_p_f64``."""
+    the column band on inner axes that the r2c's band takes, else the
+    tile.  Counts as ``dct2_axis_p`` / ``dct2_axis_p_f64``; the span
+    names the route (:func:`real_route`)."""
     return _dct_axis('dct2_axis_p', x, axis, -1, dct2_axis_plain)
 
 
@@ -1066,7 +1107,9 @@ def dct3_axis_p(y, axis):
     e^{+i pi k/2N} (y[N] := 0) in the read, the inverse Makhoul
     permutation in the write; one pass a call.  Which body runs is decided
     as for ``irfft_axis_p`` (the output is new, so whole lines take the
-    line kernel).  Counts as ``dct3_axis_p`` / ``dct3_axis_p_f64``."""
+    line kernel; inner axes the column band where the c2r's band takes
+    them, else the tile).  Counts as ``dct3_axis_p`` /
+    ``dct3_axis_p_f64``; the span names the route (:func:`real_route`)."""
     return _dct_axis('dct3_axis_p', y, axis, +1, dct3_axis_plain)
 
 

@@ -104,6 +104,7 @@ using mff::cluster_rank;
 using mff::cluster_sync;
 using mff::cluster_dif_step;
 using mff::dif_pass;
+using mff::Powers;
 using mff::dif_pos;
 using mff::log2_of;
 using mff::pad;
@@ -188,7 +189,8 @@ fft_plane_hold_kernel(const float* __restrict__ x, float* __restrict__ y,
   __syncthreads();
 
   // the last axis: each row a line
-  dif_pass<true>(blk, lr + lt, l2, 0, tw2, tw2 + (1 << l2), sign);
+  dif_pass<true>(blk, lr + lt, l2, 0, Powers<float>{tw2, tw2 + (1 << l2)},
+                 sign);
 
   if constexpr (K > 1) {
     // the radix-K step across the cluster, in place: point (n, col) of
@@ -201,7 +203,8 @@ fft_plane_hold_kernel(const float* __restrict__ x, float* __restrict__ y,
 
   // the second-to-last axis: each column of each plane a line of R points
   constexpr int lk = K == 8 ? 3 : K == 4 ? 2 : K == 2 ? 1 : 0;
-  dif_pass<false>(blk, l2 + lt, lr, lk, tw1, tw1 + (1 << (lr + lk)), sign);
+  dif_pass<false>(blk, l2 + lt, lr, lk,
+                  Powers<float>{tw1, tw1 + (1 << (lr + lk))}, sign);
 
   // output row m of plane t (row kk + K m of the plane in a cluster) from
   // where the stages left it: whole rows, scaled
@@ -471,7 +474,8 @@ __device__ __forceinline__ void band_block(float* y,
 
   // each column of each plane (of the CTA's rows) a line of R points
   constexpr int lk = K == 8 ? 3 : K == 4 ? 2 : K == 2 ? 1 : 0;
-  dif_pass<false>(k, lc + lt, lr, lk, tw1, tw1 + (1 << (lr + lk)), sign);
+  dif_pass<false>(k, lc + lt, lr, lk,
+                  Powers<float>{tw1, tw1 + (1 << (lr + lk))}, sign);
 
   // output row kk + K m of plane t from where the stages left it, scaled
   const auto held = [&](int e) {

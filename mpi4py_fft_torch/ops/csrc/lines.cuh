@@ -1,6 +1,7 @@
 // Shared bodies of the port's line and band kernels: I and H
-// (fft_plane.cu), D at N <= 1024 (fft_axis2.cu), A and A64 (fft_axis.cu)
-// and E and E64 at N = 768 (fft_axis_tp.cu).  Templated on the element
+// (fft_plane.cu), D at N <= 1024 (fft_axis2.cu), A and A64 (fft_axis.cu),
+// E and E64 at N = 768 (fft_axis_tp.cu), and the in-place stages of the
+// real kernels' column bands (rfft_axis.cu).  Templated on the element
 // type T (float or double).
 //
 // * Line stages (line_stage, line_stages): the Stockham stages of one
@@ -18,7 +19,10 @@
 // * In-place decimation-in-frequency stages over a block of rows or
 //   columns held in shared memory (dif_stage, dif_pass), one butterfly a
 //   thread at a time, and the radix-K step across a cluster of K CTAs
-//   (cluster_dif_step): H's and I's stages, and the band body below.
+//   (cluster_dif_step): H's and I's stages, the band body below, and
+//   rfft_axis.cu's bands; a stage reads its twiddles from a source: a
+//   table of powers (Powers), or, in the real bands, their unpack rows
+//   (rfft_axis.cu HalfPowers).
 // * The band body (axis_band): C adjacent lines of an axis with post > 1
 //   held as an N x C band of shared memory by one CTA or a cluster of K
 //   CTAs (R = N / K rows each, CTA r rows r R ..; R = 2^a or 3*2^a, whose
@@ -609,20 +613,31 @@ __device__ __forceinline__ int at(const Block<T>& k, int c, int p) {
   return (((c >> k.l2) << k.lr) + p) * k.rs + pad(c & ((1 << k.l2) - 1));
 }
 
+// The twiddles of the in-place stages read from a table of the powers of
+// w_N: w_N^e = (r[e], i[e]), (cos, sin)(sign 2 pi e / N).
+template <class T>
+struct Powers {
+  const T* __restrict__ r;
+  const T* __restrict__ i;
+  __device__ __forceinline__ void operator()(int e, T* wr, T* wi) const {
+    *wr = __ldg(r + e);
+    *wi = __ldg(i + e);
+  }
+};
+
 // One in-place decimation-in-frequency stage of radix R = 2^lrr over
 // sub-blocks of L = 2^ll points of every line of kB 2^lw points (kB = 1,
 // or 3 after dif_stage3): butterfly (line c, block, i < L/R) takes the
 // points block L + j L/R + i, and writes their DFT over j, output a times
 // w_L^(a i), back to the same points.  No other butterfly touches them,
 // so a thread takes its butterflies one at a time, and the block
-// synchronises once a stage.  twr, twi: (cos, sin)(sign 2 pi e / N),
-// e < N = kB 2^(lw + ls).  kArith: as line_stage's.
+// synchronises once a stage.  tw: the twiddle w_N^e, e < N = kB 2^(lw +
+// ls), of sign `sign` (Powers: the table (cos, sin)(sign 2 pi e / N)).
+// kArith: as line_stage's.
 template <int R, int lrr, bool kRows, int kB = 1, int kArith = kStageFull,
-          class T>
+          class T, class Tw>
 __device__ __forceinline__ void dif_stage(const Block<T>& k, int lc, int lw,
-                                          int ll, int ls,
-                                          const T* __restrict__ twr,
-                                          const T* __restrict__ twi,
+                                          int ll, int ls, const Tw& tw,
                                           T sign) {
   const int lq = ll - lrr;
   const int nb = kB << (lc + lw - lrr);
@@ -651,8 +666,8 @@ __device__ __forceinline__ void dif_stage(const Block<T>& k, int lc, int lw,
     if (kArith == kStageFull && lq > 0) {
 #pragma unroll
       for (int a = 1; a < R; ++a) {
-        const int e = kB * ((a * i) << (lw - ll + ls));
-        const T wr = __ldg(twr + e), wi = __ldg(twi + e);
+        T wr, wi;
+        tw(kB * ((a * i) << (lw - ll + ls)), &wr, &wi);
         const T yr = vr[a], yi = vi[a];
         vr[a] = yr * wr - yi * wi;
         vi[a] = yr * wi + yi * wr;
@@ -669,22 +684,20 @@ __device__ __forceinline__ void dif_stage(const Block<T>& k, int lc, int lw,
 }
 
 // Every stage of the 2^lw-point transforms of the block's 2^lc lines
-// (of each of their kB blocks of 2^lw points); twr, twi: the powers of
-// w_N, N = kB 2^(lw + ls), whose every kB 2^ls-th entry is a power of
-// w_(2^lw).
-template <bool kRows, int kB = 1, class T>
+// (of each of their kB blocks of 2^lw points); tw: the powers of w_N,
+// N = kB 2^(lw + ls), whose every kB 2^ls-th power is one of w_(2^lw)
+// (Powers: a table of them).
+template <bool kRows, int kB = 1, class T, class Tw>
 __device__ __forceinline__ void dif_pass(const Block<T>& k, int lc, int lw,
-                                         int ls, const T* __restrict__ twr,
-                                         const T* __restrict__ twi,
-                                         T sign) {
+                                         int ls, const Tw& tw, T sign) {
   for (int ll = lw; ll > 0;) {
     const int a = ll < 3 ? ll : 3;
     if (a == 1)
-      dif_stage<2, 1, kRows, kB>(k, lc, lw, ll, ls, twr, twi, sign);
+      dif_stage<2, 1, kRows, kB>(k, lc, lw, ll, ls, tw, sign);
     else if (a == 2)
-      dif_stage<4, 2, kRows, kB>(k, lc, lw, ll, ls, twr, twi, sign);
+      dif_stage<4, 2, kRows, kB>(k, lc, lw, ll, ls, tw, sign);
     else
-      dif_stage<8, 3, kRows, kB>(k, lc, lw, ll, ls, twr, twi, sign);
+      dif_stage<8, 3, kRows, kB>(k, lc, lw, ll, ls, tw, sign);
     ll -= a;
   }
 }
@@ -693,14 +706,11 @@ __device__ __forceinline__ void dif_pass(const Block<T>& k, int lc, int lw,
 // the block's 2^lc columns of 3 L points (L = 2^lw), in place: butterfly
 // (column c, i < L) takes points i + j L, j < 3, and writes their DFT over
 // j, output a times w_(3L)^(a i), back to the same points; block a then
-// holds the L-point sequence of the frequencies 3 m + a.  twr, twi: the
-// powers of w_N, N = 3 L 2^ls.
-template <class T>
+// holds the L-point sequence of the frequencies 3 m + a.  tw: the powers
+// of w_N, N = 3 L 2^ls (Powers: a table of them).
+template <class T, class Tw>
 __device__ __forceinline__ void dif_stage3(const Block<T>& k, int lc, int lw,
-                                           int ls,
-                                           const T* __restrict__ twr,
-                                           const T* __restrict__ twi,
-                                           T sign) {
+                                           int ls, const Tw& tw, T sign) {
   const int L = 1 << lw;
 #pragma unroll 1
   for (int b = threadIdx.x; b < (L << lc); b += blockDim.x) {
@@ -716,8 +726,8 @@ __device__ __forceinline__ void dif_stage3(const Block<T>& k, int lc, int lw,
     Dft<3, T>::run(vr, vi, sign);
 #pragma unroll
     for (int a = 1; a < 3; ++a) {
-      const int e = (a * i) << ls;
-      const T wr = __ldg(twr + e), wi = __ldg(twi + e);
+      T wr, wi;
+      tw((a * i) << ls, &wr, &wi);
       const T yr = vr[a], yi = vi[a];
       vr[a] = yr * wr - yi * wi;
       vi[a] = yr * wi + yi * wr;
@@ -1019,8 +1029,9 @@ __device__ __forceinline__ void axis_band(Half<const T> a, Half<const T> b,
   }
 
   // each column a line of R points
-  if constexpr (kB == 3) dif_stage3(k, lc, lr, lk, twr, twi, sign);
-  dif_pass<false, kB>(k, lc, lr, lk, twr, twi, sign);
+  const Powers<T> w{twr, twi};
+  if constexpr (kB == 3) dif_stage3(k, lc, lr, lk, w, sign);
+  dif_pass<false, kB>(k, lc, lr, lk, w, sign);
 
   // output row kk + K m from where the stages left it, scaled
   if (!live) return;

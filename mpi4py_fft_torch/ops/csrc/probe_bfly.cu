@@ -320,14 +320,14 @@ __device__ __forceinline__ void band_pass(const Block<T>& k, int lc, int lr,
   } else {
     __syncthreads();
   }
+  const mff::Powers<T> w{twr, twi};
   if constexpr (kW == kFull) {
-    if constexpr (kB == 3) mff::dif_stage3(k, lc, lr, lk, twr, twi, sign);
-    mff::dif_pass<false, kB>(k, lc, lr, lk, twr, twi, sign);
+    if constexpr (kB == 3) mff::dif_stage3(k, lc, lr, lk, w, sign);
+    mff::dif_pass<false, kB>(k, lc, lr, lk, w, sign);
   } else if constexpr (kW != kCopy) {
     static_assert(kB == 1, "the radix-4 network takes N = 4^k");
     for (int ll = lr; ll > 0; ll -= 2)
-      mff::dif_stage<4, 2, false, 1, kArith>(k, lc, lr, ll, lk, twr, twi,
-                                             sign);
+      mff::dif_stage<4, 2, false, 1, kArith>(k, lc, lr, ll, lk, w, sign);
   }
 }
 

@@ -53,7 +53,7 @@
 // launch bound (128 threads; one block an SM in float64, four in float32,
 // kLineMinBlocks) leaves a thread 255 or 128 registers, and no stage
 // spills.  An input that is not aligned to a
-// packed point, N = 2 and inner axes take the tile kernel.
+// packed point and N = 2 take the tile kernel.
 //
 // The c2r on whole lines (C and C64, as the dealiased plans' and the DNS
 // solvers' backwards call it) takes the same line kernel run backwards
@@ -63,8 +63,40 @@
 // kernel spills 1900 B a thread at 80 registers in float64, 1036 B at
 // 40 in float32, and ran 1.6x slower than cuFFT's irfft at the float32
 // 768^3 last axis on an H100 (PERF.md §6).  The float32 line kernel
-// keeps the r2c's budget, four blocks an SM at 128 registers.  Inner
-// axes, N = 2 and a misaligned output take the tile kernel.
+// keeps the r2c's budget, four blocks an SM at 128 registers.  N = 2 and
+// a misaligned output take the tile kernel.
+//
+// Inner axes (post > 1) at N = 512, 768 and 1024, with post a multiple
+// of a 16-byte vector (2 doubles, 4 floats) and both tensors 16-byte
+// aligned, take a column band in every kind (rfft_band_kernel,
+// irfft_band_kernel, dct2_band_kernel, dct3_band_kernel), both builds;
+// other lengths, a ragged post and misaligned tensors keep the tile.  On
+// the r2r cell's 512^3 float64 passes the tile ran at 22-25% of HBM3
+// (2.5-2.7 ms a pass on an H100: its spill, eight block-wide barriers a
+// pass and one-element loads, 64-byte row segments of one column each).
+// The band is A's (lines.cuh axis_band) re-read for the packed method:
+// one CTA of AxisBandBudget's 256 threads, three an SM, holds the W = N/2
+// packed points of C = 2^lc adjacent lines in shared memory
+// (band_log2_cols(W): float64 16 columns at W = 256, 8 at 384 and 512;
+// float32 32 and 16), so that the untangle's partner row W - j is in the
+// same CTA and no cluster step is needed.  Every load comes first, in
+// rounds, as 16-byte vectors of adjacent columns (row segments of 128
+// bytes at W = 256); the row work of the tile happens in the read and
+// the write: the r2c packs z[m] = x[2m] + i x[2m+1] as it stores the
+// loaded rows (DCT-II: Makhoul's point), then runs lines.cuh's in-place
+// decimation-in-frequency stages (radix 8, a radix-3 stage first at
+// W = 384) with the twiddles w_W^e = w_N^(2e) read from the unpack rows
+// (HalfPowers: no new table), and untangles Z[j] with Z[W - j] in its
+// write (the truncation, Nyquist fold, zero rows and scale; DCT-II: rows
+// j and N - j); the c2r reads the spectrum with the Hermitian pad and
+// real DC and Nyquist rows (DCT-III: y[k] and y[N - k]), forms Z[k] and
+// Z[W - k] of each pair in place, one thread a pair, runs the inverse
+// stages and interleaves the real rows in its write (DCT-III: the
+// inverse Makhoul order).  Bound: bytes.  On an H100 every band instance
+// takes 77-80 registers with no spill, and the 512^3 float64 passes run
+// in 1.01-1.09 ms, 59-64% of HBM3 (a block_copy of the same boxes: 0.79
+// ms on axis 0, 0.94 on axis 1; PERF.md §6); float32 in 0.60-0.73 ms
+// against the tile's 1.29-1.41.
 //
 // dct2_axis and dct3_axis: DCT-II (FFTW's REDFT10) and DCT-III (REDFT01)
 // along one axis, unnormalized, for N a multiple of 4 of the lengths
@@ -72,7 +104,8 @@
 // glue around its r2c and c2r (mpi4py_fft_tpu/ops/core.py:248-290), which
 // XLA fuses into its own passes; on the card the same glue ran as about
 // ten eager passes over the tensor an axis.  Here each is one pass: the
-// r2c body (DCT-II) and the c2r body (DCT-III) with the row map DctRows,
+// r2c bodies (DCT-II) and the c2r bodies (DCT-III: lines, band, tile)
+// with the row map DctRows,
 // Makhoul's method (1980) in their read and write.  DCT-II reads
 // v = [x[0], x[2], ..., x[N-2], x[N-1], ..., x[3], x[1]], whose packed
 // points are z[m] = x[4m] + i x[4m+2] and z[N/2-1-m] = x[4m+3] + i x[4m+1]
@@ -92,7 +125,7 @@
 #include <cstdint>
 #include <type_traits>
 
-#include "butterfly.cuh"
+#include "lines.cuh"
 
 namespace {
 
@@ -834,6 +867,429 @@ dct3_lines_kernel(const T* __restrict__ x, T* __restrict__ y,
   irfft_lines<T, W, DctRows>(x, y, tw, tw_len, t2, nlines, hin, scale);
 }
 
+// ---------------------------------------------------------------------------
+// inner axes (post > 1): the column band
+// ---------------------------------------------------------------------------
+
+using mff::AxisBandBudget;
+
+// w_W^e of sign `sign` (-1 forward, +1 inverse), e < W, for the band's
+// stages, from the unpack rows (c, s) = (cos, sin)(2 pi u / 2W), u <= W:
+// w_W^e = w_2W^(2e), and w_2W^(u + W) = -w_2W^u.
+template <class T>
+struct HalfPowers {
+  const T* __restrict__ c;
+  const T* __restrict__ s;
+  int W;
+  T sign;
+  __device__ __forceinline__ void operator()(int e, T* wr, T* wi) const {
+    const int u = 2 * e;
+    const bool hi = u > W;
+    const int v = hi ? u - W : u;
+    const T f = hi ? -sign : sign;
+    *wr = (hi ? T(-1) : T(1)) * __ldg(c + v);
+    *wi = f * __ldg(s + v);
+  }
+};
+
+// The packed lengths that take the band: W = 256, 384 and 512 (N = 512,
+// 768 and 1024, A's band lengths).
+constexpr bool band_length(int W) {
+  return W == 256 || W == 384 || W == 512;
+}
+
+// A thread's column of the band: band blockIdx.x of C = 2^lc adjacent
+// lines of the (pre, post) lines, thread t on columns V t .. mod C (V
+// t + j V kThreads keeps the column, as kThreads V is a multiple of C).
+struct BandLine {
+  int c;            // the column in the band
+  bool live;        // a line of the axis (the last band may be ragged)
+  long long li;     // its pre index
+  long long col;    // its post index
+};
+
+template <class T>
+__device__ __forceinline__ BandLine band_line(long long pre, long long post,
+                                              int lc) {
+  constexpr int V = mff::kVec16<T>;
+  BandLine b;
+  b.c = (V * static_cast<int>(threadIdx.x)) & ((1 << lc) - 1);
+  const long long l = (static_cast<long long>(blockIdx.x) << lc) + b.c;
+  b.live = l < pre * post;
+  b.li = b.live ? l / post : 0;
+  b.col = b.live ? l - b.li * post : 0;
+  return b;
+}
+
+// Real (pre, n, post) -> planar (2, pre, hext, post), n = 2W, W = kB 2^lr,
+// post > 1 a multiple of V = 16 / sizeof(T), x and y 16-byte aligned: the
+// C = 2^lc adjacent lines of band blockIdx.x as W x C packed points in
+// shared memory (smem: band_smem(W, lc)), one CTA a band (see the note at
+// the top).  Every load first: real row r of the band, V columns a
+// vector, to packed point r/2, component r % 2 (DctRows: Makhoul's point
+// makhoul(r, n)); then the W-point columns as lines.cuh's in-place
+// stages (a radix-3 stage first when kB = 3), the twiddles from the
+// unpack rows; then row j < hext of both planes from Z[j] and Z[W - j]
+// (untangle), with the truncation to nrows, the Nyquist fold, the zero
+// rows and the scale, as the tile.  DctRows (hext = nrows = W + 1): rows
+// j and n - j of the real output, X[j] = 2 Re(w_j V[j]) and
+// X[n - j] = -2 Im(w_j V[j]), times scale / 2.  tw: the table of
+// _tw_pack_packed(n, -1) (DctRows: _tw_pack_dct), its unpack rows at t2.
+template <class T, int kB, class Map>
+__device__ __forceinline__ void rfft_band(
+    const T* __restrict__ x, T* __restrict__ y, const T* __restrict__ tw,
+    long long tw_len, int t2, long long pre, long long post, int hext,
+    int nrows, int fold, T scale, int lr, int lc, T* smem) {
+  using B = AxisBandBudget<T>;
+  using U = typename mff::Vec16<T>::type;
+  constexpr int V = mff::kVec16<T>;
+  const int C = 1 << lc, W = kB << lr, n = 2 * W;
+  mff::Block<T> k{smem, nullptr, 0, lr, lc, mff::row_stride(C)};
+  k.im = k.re + W * k.rs;
+  const BandLine bl = band_line<T>(pre, post, lc);
+  const T* xl = x + bl.li * n * post + bl.col;
+  const T* cw = tw + t2;
+  const T* sw = tw + tw_len + t2;
+
+  // every load first: a thread's vectors of rows r, in rounds
+  constexpr int kVecs = 2 * B::kElems / V / B::kThreads;
+  constexpr int kRound = 2 * B::kRound;
+  const int elems = n << lc;
+#pragma unroll
+  for (int j0 = 0; j0 < kVecs; j0 += kRound) {
+    T v[kRound][V];
+#pragma unroll
+    for (int j = 0; j < kRound; ++j) {
+      const int e = V * (static_cast<int>(threadIdx.x) +
+                         (j0 + j) * B::kThreads);
+#pragma unroll
+      for (int cc = 0; cc < V; ++cc) v[j][cc] = T(0);
+      if (bl.live && e < elems)
+        mff::Vec16<T>::split(
+            __ldcg(reinterpret_cast<const U*>(
+                xl + static_cast<long long>(e >> lc) * post)),
+            v[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < kRound; ++j) {
+      const int e = V * (static_cast<int>(threadIdx.x) +
+                         (j0 + j) * B::kThreads);
+      if (e >= elems) continue;
+      const int r = e >> lc;
+      const int p = Map::kDct ? makhoul(r, n) : r;
+      T* d = (p & 1) ? k.im : k.re;
+#pragma unroll
+      for (int cc = 0; cc < V; ++cc)
+        d[mff::at<true>(k, p >> 1, bl.c + cc)] = v[j][cc];
+    }
+  }
+  __syncthreads();
+
+  const HalfPowers<T> w{cw, sw, W, T(-1)};
+  if constexpr (kB == 3) mff::dif_stage3(k, lc, lr, 0, w, T(-1));
+  mff::dif_pass<false, kB>(k, lc, lr, 0, w, T(-1));
+  if (!bl.live) return;
+
+  // V[j] = E + w_n^j O from Z[j] (Z[W] = Z[0]) and Z[(W - j) % W], which
+  // the stages left at rows dif_pos_b of their frequencies
+  const auto spec = [&](int j, int cc, T* r, T* i) {
+    const int se = mff::at<true>(
+        k, mff::dif_pos_b<kB>(j == W ? 0 : j, lr), bl.c + cc);
+    const int sr = mff::at<true>(
+        k, mff::dif_pos_b<kB>(j == 0 ? 0 : W - j, lr), bl.c + cc);
+    untangle(k.re[se], k.im[se], k.re[sr], k.im[sr], __ldg(cw + j),
+             __ldg(sw + j), r, i);
+  };
+  if constexpr (Map::kDct) {
+    T* yl = y + bl.li * n * post + bl.col;
+    const T* cq = cw - (W + 1);
+    const T* sq = sw - (W + 1);
+    for (int e = V * static_cast<int>(threadIdx.x); e < ((W + 1) << lc);
+         e += V * B::kThreads) {
+      const int j = e >> lc;
+      const T cd = __ldg(cq + j), sd = __ldg(sq + j);
+      T lo[V], hi[V];
+#pragma unroll
+      for (int cc = 0; cc < V; ++cc) {
+        T r, i;
+        spec(j, cc, &r, &i);
+        lo[cc] = (cd * r + sd * i) * scale;
+        hi[cc] = (sd * r - cd * i) * scale;
+      }
+      *reinterpret_cast<U*>(yl + static_cast<long long>(j) * post) =
+          mff::Vec16<T>::make(lo);
+      if (j > 0 && j < W)
+        *reinterpret_cast<U*>(yl + static_cast<long long>(n - j) * post) =
+            mff::Vec16<T>::make(hi);
+    }
+    return;
+  }
+  T* yl = y + bl.li * hext * post + bl.col;
+  const long long plane = pre * hext * post;
+  for (int e = V * static_cast<int>(threadIdx.x); e < (hext << lc);
+       e += V * B::kThreads) {
+    const int j = e >> lc;
+    T vr[V], vi[V];
+#pragma unroll
+    for (int cc = 0; cc < V; ++cc) {
+      T r = 0, i = 0;
+      if (j < nrows) {
+        spec(j, cc, &r, &i);
+        r *= scale;
+        i *= scale;
+        if (fold && j == nrows - 1) {
+          r = T(2) * r;
+          i = 0;
+        }
+      }
+      vr[cc] = r;
+      vi[cc] = i;
+    }
+    T* q = yl + static_cast<long long>(j) * post;
+    *reinterpret_cast<U*>(q) = mff::Vec16<T>::make(vr);
+    *reinterpret_cast<U*>(q + plane) = mff::Vec16<T>::make(vi);
+  }
+}
+
+template <class T, int kB>
+__global__ void __launch_bounds__(AxisBandBudget<T>::kThreads,
+                                  AxisBandBudget<T>::kMinBlocks)
+rfft_band_kernel(const T* __restrict__ x, T* __restrict__ y,
+                 const T* __restrict__ tw, long long tw_len, int t2,
+                 long long pre, long long post, int hext, int nrows,
+                 int fold, T scale, int lr, int lc) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  rfft_band<T, kB, HalfRows>(x, y, tw, tw_len, t2, pre, post, hext, nrows,
+                             fold, scale, lr, lc,
+                             reinterpret_cast<T*>(smem));
+}
+
+template <class T, int kB>
+__global__ void __launch_bounds__(AxisBandBudget<T>::kThreads,
+                                  AxisBandBudget<T>::kMinBlocks)
+dct2_band_kernel(const T* __restrict__ x, T* __restrict__ y,
+                 const T* __restrict__ tw, long long tw_len, int t2,
+                 long long pre, long long post, int hext, int nrows,
+                 int fold, T scale, int lr, int lc) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  rfft_band<T, kB, DctRows>(x, y, tw, tw_len, t2, pre, post, hext, nrows,
+                            fold, scale, lr, lc, reinterpret_cast<T*>(smem));
+}
+
+// Planar (2, pre, hin, post) -> real (pre, n, post), n = 2W, W = kB 2^lr,
+// on the band of rfft_band (smem: band_smem(W + 1, lc)), the inverse of
+// it.  Every load first: spectrum rows k <= W of both planes, V columns a
+// vector, with the tile's Hermitian zero-pad (rows at or past hin are
+// zero, read from no memory; row hin - 1 is halved with a zero imaginary
+// part when hin is even and short of W + 1) and the DC and Nyquist rows
+// read as real; then each thread forms Z[k] = E + i O and Z[W - k] of a
+// pair of rows k <= W/2 in place; the inverse stages; and real row r of
+// the output, V columns a vector, from packed point r/2, component r % 2
+// (DctRows: Makhoul's point makhoul(r, n)), scaled.  DctRows (hin = n,
+// real x): row k is read from y[k] (rows r <= W) and y[n - k] (rows
+// r > W), and the pair step first forms X[k] = (y[k] - i y[n - k])
+// (cq + i sq), y[n] := 0, with a zero imaginary part at k = 0 and W, as
+// the tile; times scale / 2.  tw: the table of _tw_pack_packed(n, +1)
+// (DctRows: _tw_pack_dct), its unpack rows at t2; scale carries the
+// packed inverse's factor 2.
+template <class T, int kB, class Map>
+__device__ __forceinline__ void irfft_band(
+    const T* __restrict__ x, T* __restrict__ y, const T* __restrict__ tw,
+    long long tw_len, int t2, long long pre, int hin, long long post,
+    T scale, int lr, int lc, T* smem) {
+  using B = AxisBandBudget<T>;
+  using U = typename mff::Vec16<T>::type;
+  constexpr int V = mff::kVec16<T>;
+  const int C = 1 << lc, W = kB << lr, n = 2 * W;
+  mff::Block<T> k{smem, nullptr, 0, lr, lc, mff::row_stride(C)};
+  k.im = k.re + (W + 1) * k.rs;
+  const BandLine bl = band_line<T>(pre, post, lc);
+  const T* cw = tw + t2;
+  const T* sw = tw + tw_len + t2;
+
+  // every load first, in rounds of B::kRound chunks.  HalfRows: chunk e
+  // is row e >> lc <= W of both planes; DctRows: chunk e is real rows
+  // e >> lc and (e >> lc) + n/2 of y, to re and im of packed rows k and
+  // n - k (row W to re)
+  constexpr int kChunks = (B::kElems / V + B::kThreads - 1) / B::kThreads + 1;
+  const int rows = Map::kDct ? W : W + 1;
+  const int elems = rows << lc;
+  const long long xrow = Map::kDct ? n : hin;
+  const T* xa = x + bl.li * xrow * post + bl.col;
+  const T* xb = Map::kDct ? xa + static_cast<long long>(W) * post
+                          : xa + pre * hin * post;
+  const bool halve = hin <= W && hin % 2 == 0;
+#pragma unroll
+  for (int j0 = 0; j0 < kChunks; j0 += B::kRound) {
+    T vr[B::kRound][V], vi[B::kRound][V];
+#pragma unroll
+    for (int j = 0; j < B::kRound; ++j) {
+      const int e = V * (static_cast<int>(threadIdx.x) +
+                         (j0 + j) * B::kThreads);
+      const int r = e >> lc;
+#pragma unroll
+      for (int cc = 0; cc < V; ++cc) vr[j][cc] = vi[j][cc] = T(0);
+      if (bl.live && e < elems && (Map::kDct || r < hin)) {
+        const long long o = static_cast<long long>(r) * post;
+        mff::Vec16<T>::split(__ldcg(reinterpret_cast<const U*>(xa + o)),
+                             vr[j]);
+        mff::Vec16<T>::split(__ldcg(reinterpret_cast<const U*>(xb + o)),
+                             vi[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < B::kRound; ++j) {
+      const int e = V * (static_cast<int>(threadIdx.x) +
+                         (j0 + j) * B::kThreads);
+      if (e >= elems) continue;
+      const int r = e >> lc;
+#pragma unroll
+      for (int cc = 0; cc < V; ++cc) {
+        if constexpr (Map::kDct) {
+          // y[r] is re of row r; y[r + W] is re of row W (r = 0) or im
+          // of row n - r - W = W - r
+          k.re[mff::at<true>(k, r, bl.c + cc)] = vr[j][cc];
+          if (r == 0)
+            k.re[mff::at<true>(k, W, bl.c + cc)] = vi[j][cc];
+          else
+            k.im[mff::at<true>(k, W - r, bl.c + cc)] = vi[j][cc];
+        } else {
+          T a = vr[j][cc], b = vi[j][cc];
+          if (halve && r == hin - 1) {
+            a = T(0.5) * a;
+            b = T(0);
+          }
+          if (r == 0 || r == W) b = T(0);   // real DC and Nyquist rows
+          const int s = mff::at<true>(k, r, bl.c + cc);
+          k.re[s] = a;
+          k.im[s] = b;
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  // Z[q] = E + i O for the pair q = kk, W - kk: E = (X[q] + conj
+  // X[W-q]) / 2, O = w_n^q (X[q] - conj X[W-q]) / 2; no other thread
+  // reads or writes these rows of these columns
+  const T* cq = cw - (W + 1);
+  const T* sq = sw - (W + 1);
+  for (int e = V * static_cast<int>(threadIdx.x); e < ((W / 2 + 1) << lc);
+       e += V * B::kThreads) {
+    const int kk = e >> lc;
+#pragma unroll
+    for (int cc = 0; cc < V; ++cc) {
+      const int s0 = mff::at<true>(k, kk, bl.c + cc);
+      const int s1 = mff::at<true>(k, W - kk, bl.c + cc);
+      T ar = k.re[s0], ai = k.im[s0], br = k.re[s1], bi = k.im[s1];
+      if constexpr (Map::kDct) {   // X[q] = (y[q] - i y[n-q]) (cq + i sq)
+        const auto comb = [&](int q, T yq, T ynq, T* xr, T* xi) {
+          const T cd = __ldg(cq + q), sd = __ldg(sq + q);
+          *xr = yq * cd + ynq * sd;
+          *xi = q == 0 || q == W ? T(0) : yq * sd - ynq * cd;
+        };
+        // y[n] := 0 at q = 0; y[n - W] = y[W] at q = W
+        comb(kk, ar, kk == 0 ? T(0) : ai, &ar, &ai);
+        comb(W - kk, br, kk == 0 ? br : bi, &br, &bi);
+      }
+      const auto half = [&](int q, T xr, T xi, T rr, T ri, T* zr, T* zi) {
+        const T er = T(0.5) * (xr + rr);
+        const T ei = T(0.5) * (xi - ri);
+        const T dr = xr - rr;
+        const T di = xi + ri;
+        const T c = __ldg(cw + q), sn = __ldg(sw + q);
+        *zr = er - T(0.5) * (c * di + sn * dr);
+        *zi = ei + T(0.5) * (c * dr - sn * di);
+      };
+      T zr, zi;
+      half(kk, ar, ai, br, bi, &zr, &zi);
+      if (kk > 0 && kk < W / 2) {
+        T wr, wi;
+        half(W - kk, br, bi, ar, ai, &wr, &wi);
+        k.re[s1] = wr;
+        k.im[s1] = wi;
+      }
+      k.re[s0] = zr;
+      k.im[s0] = zi;
+    }
+  }
+  __syncthreads();
+
+  const HalfPowers<T> w{cw, sw, W, T(1)};
+  if constexpr (kB == 3) mff::dif_stage3(k, lc, lr, 0, w, T(1));
+  mff::dif_pass<false, kB>(k, lc, lr, 0, w, T(1));
+  if (!bl.live) return;
+
+  // out[r] = component r % 2 of z[r / 2] (DctRows: v[makhoul(r, n)])
+  T* yl = y + bl.li * n * post + bl.col;
+  for (int e = V * static_cast<int>(threadIdx.x); e < (n << lc);
+       e += V * B::kThreads) {
+    const int r = e >> lc;
+    const int p = Map::kDct ? makhoul(r, n) : r;
+    const T* src = (p & 1) ? k.im : k.re;
+    const int m = mff::dif_pos_b<kB>(p >> 1, lr);
+    T v[V];
+#pragma unroll
+    for (int cc = 0; cc < V; ++cc)
+      v[cc] = src[mff::at<true>(k, m, bl.c + cc)] * scale;
+    *reinterpret_cast<U*>(yl + static_cast<long long>(r) * post) =
+        mff::Vec16<T>::make(v);
+  }
+}
+
+template <class T, int kB>
+__global__ void __launch_bounds__(AxisBandBudget<T>::kThreads,
+                                  AxisBandBudget<T>::kMinBlocks)
+irfft_band_kernel(const T* __restrict__ x, T* __restrict__ y,
+                  const T* __restrict__ tw, long long tw_len, int t2,
+                  long long pre, int hin, long long post, T scale, int lr,
+                  int lc) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  irfft_band<T, kB, HalfRows>(x, y, tw, tw_len, t2, pre, hin, post, scale,
+                              lr, lc, reinterpret_cast<T*>(smem));
+}
+
+template <class T, int kB>
+__global__ void __launch_bounds__(AxisBandBudget<T>::kThreads,
+                                  AxisBandBudget<T>::kMinBlocks)
+dct3_band_kernel(const T* __restrict__ x, T* __restrict__ y,
+                 const T* __restrict__ tw, long long tw_len, int t2,
+                 long long pre, int hin, long long post, T scale, int lr,
+                 int lc) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  irfft_band<T, kB, DctRows>(x, y, tw, tw_len, t2, pre, hin, post, scale,
+                             lr, lc, reinterpret_cast<T*>(smem));
+}
+
+// Whether a pass of packed length W with post columns of x into y takes
+// the band: W a band length, post a multiple of a 16-byte vector and
+// both tensors 16-byte aligned (so no vector straddles two pre rows).
+template <class T>
+bool takes_band(int W, long long post, const void* x, const void* y) {
+  return band_length(W) && post % mff::kVec16<T> == 0 &&
+         reinterpret_cast<std::uintptr_t>(x) % 16 == 0 &&
+         reinterpret_cast<std::uintptr_t>(y) % 16 == 0;
+}
+
+// A band launch of packed length W: kern<T, 1> or, at W = 3 2^a,
+// kern<T, 3>, one CTA a band of C = 2^lc lines (band_log2_cols(W): 16
+// columns in float64 and 32 in float32 at W = 256, half that at 384 and
+// 512), `rows` rows of shared memory; the kernel takes x, y, tw, tw_len,
+// the unpack rows' offset t2 = tw_len - (W + 1), then args, then lr, lc.
+template <class T, class K, class... A>
+int launch_band(K k1, K k3, int W, int rows, long long lines, const T* x,
+                T* y, const T* tw, long long tw_len, cudaStream_t stream,
+                A... args) {
+  const bool three = W % 3 == 0;
+  const int lr = mff::log2_of(three ? W / 3 : W);
+  const int lc = mff::band_log2_cols<T>(W);
+  return mff::launch_ex(three ? k3 : k1, (lines + (1 << lc) - 1) >> lc,
+                        AxisBandBudget<T>::kThreads,
+                        mff::band_smem<T>(rows, lc), 1, stream, x, y, tw,
+                        tw_len, static_cast<int>(tw_len) - (W + 1), args...,
+                        lr, lc);
+}
+
 // Tile of a launch.
 template <class T>
 bool launch_shape(int W, long long nlines, int* lc, long long* blocks,
@@ -870,6 +1326,15 @@ int launch_rfft_axis(const T* x, T* y, const T* tw, long long tw_len,
           kW, x, y, tw, tw_len, pre, static_cast<cudaStream_t>(stream), hext,
           nrows, fold, scale);
     });
+  }
+  // inner axes of a band length, aligned to a vector: the column band
+  if (post > 1 && packed && takes_band<T>(W, post, x, y)) {
+    if (pre <= 0 || tw_len < W + 1) return cudaErrorInvalidValue;
+    return launch_band<T>(
+        Map::kDct ? &dct2_band_kernel<T, 1> : &rfft_band_kernel<T, 1>,
+        Map::kDct ? &dct2_band_kernel<T, 3> : &rfft_band_kernel<T, 3>, W, W,
+        pre * post, x, y, tw, tw_len, static_cast<cudaStream_t>(stream),
+        pre, post, hext, nrows, fold, scale);
   }
   int lc, threads;
   long long blocks;
@@ -923,6 +1388,15 @@ int launch_irfft_axis(const T* x, T* y, const T* tw, long long tw_len,
           kW + 1, x, y, tw, tw_len, pre, static_cast<cudaStream_t>(stream),
           hin, scale);
     });
+  }
+  // inner axes of a band length, aligned to a vector: the column band
+  if (post > 1 && packed && takes_band<T>(W, post, x, y)) {
+    if (pre <= 0 || tw_len < W + 1) return cudaErrorInvalidValue;
+    return launch_band<T>(
+        Map::kDct ? &dct3_band_kernel<T, 1> : &irfft_band_kernel<T, 1>,
+        Map::kDct ? &dct3_band_kernel<T, 3> : &irfft_band_kernel<T, 3>, W,
+        W + 1, pre * post, x, y, tw, tw_len,
+        static_cast<cudaStream_t>(stream), pre, hin, post, scale);
   }
   int lc, threads;
   long long blocks;

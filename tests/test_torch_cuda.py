@@ -466,7 +466,8 @@ def test_r2r_on_cuda(card):
     ((32, 768, 768), torch.float32, 5e-6)])
 def test_dct_kernels_on_cuda(card, shape, dtype, tol):
     """dct2_axis_p and dct3_axis_p at the r2r cell's 512^3 float64 and at
-    768 float32, on axis 1 (the tile) and axis 2 (the line kernels), into
+    768 float32, on axis 1 (the column band) and axis 2 (the line
+    kernels), into
     NaN-filled memory: one launch a call, within the kernel tolerance of
     the plain version (the glue around B's and C's plain versions)."""
     g = torch.Generator(device=card).manual_seed(23)
@@ -483,6 +484,50 @@ def test_dct_kernels_on_cuda(card, shape, dtype, tol):
             assert _rel(got, plain(x, axis)) <= tol, (name, axis)
             del got
             torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+def test_real_band_on_cuda(card):
+    """The column band of B64, C64 and the float64 DCT-II/III at the r2r
+    cell's passes: (512, 512, 512) axis 0 r2c and c2r (the c2r on the
+    r2c's spectrum), axis 1 DCT-II and DCT-III, into NaN-filled memory:
+    one launch a call, whose span names the route 'band' (real_route),
+    within 2e-13 of the plain version, computed slab by slab."""
+    from mpi4py_fft_torch.utils import profiling
+    g = torch.Generator(device=card).manual_seed(31)
+    x = torch.rand((512, 512, 512), generator=g, device=card,
+                   dtype=torch.float64) - 0.5
+    h = tb.rfft_axis_p(x, 0)
+    passes = (('rfft_axis_p_f64', lambda: tb.rfft_axis_p(x, 0),
+               lambda s: tb.rfft_axis_plain(x[..., s], 0), 3),
+              ('irfft_axis_p_f64', lambda: tb.irfft_axis_p(h, 0, 512),
+               lambda s: tb.irfft_axis_plain(h[..., s], 0, 512), 2),
+              ('dct2_axis_p_f64', lambda: tb.dct2_axis_p(x, 1),
+               lambda s: tb.dct2_axis_plain(x[s], 1), 0),
+              ('dct3_axis_p_f64', lambda: tb.dct3_axis_p(x, 1),
+               lambda s: tb.dct3_axis_plain(x[s], 1), 0))
+    with profiling.annotate('off'):
+        pass
+    for name, run, plain, dim in passes:
+        assert tb.real_route(tuple(x.shape), 1 if dim == 0 else 0, 512,
+                             x.dtype) == 'band'
+        torch.full((2, 257, 512, 512), float('nan'), device=card,
+                   dtype=torch.float64)
+        c0 = tb.LAUNCHES[name]
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU,
+                            torch.profiler.ProfilerActivity.CUDA]):
+            got = run()
+        assert tb.LAUNCHES[name] == c0 + 1
+        assert set(profiling.routes()['kernel.' + name]) == {'band'}
+        assert bool(torch.isfinite(got).all())
+        for i in range(0, 512, 128):
+            s = slice(i, i + 128)
+            ref = plain(s)
+            assert _rel(got[(slice(None),) * dim + (s,)], ref) <= 2e-13, \
+                (name, i)
+        del got, ref
+        torch.cuda.empty_cache()
 
 
 @pytest.mark.cuda

@@ -716,6 +716,172 @@ def test_dct_refuses(kernel_path, emu_kernels):
     assert _launched() == {}
 
 
+# real_route (shape, axis, n, dtype, aligned, route): the last axis is
+# 'lines' whatever its length and alignment; inner axes of 512, 768 and
+# 1024 (the c2r's spectrum side too) take the band where the dims after
+# the axis hold whole 16-byte vectors (2 doubles, 4 floats) and both
+# tensors are 16-byte aligned; other lengths, a ragged post and a
+# misaligned tensor take the tile
+REAL_ROUTES = [((512, 512, 512), 0, 512, torch.float64, True, 'band'),
+               ((512, 512, 512), 1, 512, torch.float64, True, 'band'),
+               ((512, 512, 512), 2, 512, torch.float64, True, 'lines'),
+               ((257, 512, 512), 0, 512, torch.float64, True, 'band'),
+               ((3, 1024), 1, 1024, torch.float64, False, 'lines'),
+               ((768, 2), 0, 768, torch.float64, True, 'band'),
+               ((2, 1024, 6), 1, 1024, torch.float64, True, 'band'),
+               ((2, 1024, 6), 1, 1024, torch.float32, True, 'tile'),
+               ((2, 1024, 8), 1, 1024, torch.float32, True, 'band'),
+               ((512, 3), 0, 512, torch.float64, True, 'tile'),
+               ((512, 4), 0, 512, torch.float64, False, 'tile'),
+               ((256, 4), 0, 256, torch.float64, True, 'tile'),
+               ((384, 8), 0, 384, torch.float32, True, 'tile'),
+               ((2, 4), 0, 2, torch.float64, True, 'tile')]
+
+
+@pytest.mark.parametrize('shape,axis,n,dtype,aligned,route', REAL_ROUTES)
+def test_real_route(shape, axis, n, dtype, aligned, route):
+    assert bf.real_route(shape, axis, n, dtype, aligned) == route
+
+
+# the column band of the r2c, c2r, DCT-II and DCT-III on inner axes
+# (dtype, N, layout): float64 and float32 at N = 512, 768 (a radix-3
+# column stage first) and 1024, on a mid axis whose lines (36) leave a
+# ragged last band that straddles pre rows (float64 16 columns at 512, 8
+# at 768 and 1024; float32 32 and 16); then the tile, on a float64
+# operand 8 bytes off a 16-byte boundary and at a length the band does
+# not take (N = 256)
+REAL_BAND = [(np.float64, 512, 'band'), (np.float64, 768, 'band'),
+             (np.float64, 1024, 'band'), (np.float32, 512, 'band'),
+             (np.float32, 768, 'band'), (np.float32, 1024, 'band'),
+             (np.float64, 512, 'misaligned'), (np.float64, 256, 'length')]
+
+
+def _band_operand(rng, dtype, N, layout, rows=None):
+    """A (pre, rows, post) operand (rows = N by default; a planar one with
+    a leading 2 when rows is given) of the REAL_BAND case, and its route:
+    pre 2, post 18 in float64, pre 3, post 12 in float32; misaligned: 8
+    bytes off a 16-byte boundary."""
+    pre, post = (2, 18) if dtype == np.float64 else (3, 12)
+    shape = ((pre, N, post) if rows is None else (2, pre, rows, post))
+    m = int(np.prod(shape))
+    flat = torch.from_numpy(rng.standard_normal(1 + m).astype(dtype))
+    t = flat[1:] if layout == 'misaligned' else flat[:m]
+    t = t.view(shape)
+    assert (t.data_ptr() % 16 == 0) == (layout != 'misaligned')
+    return t, ('band' if layout == 'band' else 'tile')
+
+
+def _ran_band(emu_kernels, c0, route):
+    """The kernels since the counters c0 of rfft_axis: __ldcg loads (the
+    band) exactly when the route is 'band', and no __syncwarp (no line
+    kernel)."""
+    d = _route_delta(c0, _routes(emu_kernels, 'rfft_axis'))
+    assert (d['ldcg_loads'] > 0) == (route == 'band'), (route, d)
+    assert d['syncwarps'] == 0 and d['cluster_launches'] == 0, d
+
+
+def _tols(dtype):
+    return (TOL64, '_f64') if dtype == np.float64 else (TOL, '')
+
+
+@pytest.mark.parametrize('dtype,N,layout', REAL_BAND)
+def test_rfft_band_vs_plain(kernel_path, emu_kernels, dtype, N, layout):
+    """rfft_axis_p on a mid axis: hext, an even (Nyquist fold) and an odd
+    trunc, the 3/2 rule's trunc = N//3 + 1, scales, each a launch of the
+    route real_route names (the band: __ldcg loads), against the plain
+    version."""
+    tol, sfx = _tols(dtype)
+    rng = np.random.default_rng(40)
+    x, route = _band_operand(rng, dtype, N, layout)
+    assert bf.real_route(tuple(x.shape), 1, N, x.dtype,
+                         layout != 'misaligned') == route
+    nh = N // 2 + 1
+    ev = nh - 1 if (nh - 1) % 2 == 0 else nh - 2
+    od = nh - 1 if (nh - 1) % 2 == 1 else nh - 2
+    cases = ((None, None, None), (nh + 3, None, 0.5), (None, ev, None),
+             (nh + 2, od, 2.0), (None, N // 3 + 1, 1.0 / N))
+    for hext, trunc, sc in cases:
+        c0 = _routes(emu_kernels, 'rfft_axis')
+        got = bf.rfft_axis_p(x, 1, hext=hext, trunc=trunc, scale=sc)
+        _ran_band(emu_kernels, c0, route)
+        ref = _plain(kernel_path, bf.rfft_axis_p, x, 1, hext=hext,
+                     trunc=trunc, scale=sc)
+        assert got.shape == ref.shape and got.dtype == x.dtype
+        assert _rel(got, ref) <= tol, (hext, trunc, sc)
+    assert _launched() == {'rfft_axis_p' + sfx: len(cases)}
+
+
+@pytest.mark.parametrize('dtype,N,layout', REAL_BAND)
+def test_irfft_band_vs_plain(kernel_path, emu_kernels, dtype, N, layout):
+    """irfft_axis_p on a mid axis: random spectra (non-zero imaginary
+    parts in the DC and Nyquist rows, read as real) of N//2 + 1 rows with
+    and without a scale, shorter ones of even (the last row halved) and
+    odd rows, the 3/2 rule's N//3 + 1 and a longer one (rows past
+    N//2 + 1 ignored), each a launch of the route real_route names,
+    against the plain version."""
+    tol, sfx = _tols(dtype)
+    rng = np.random.default_rng(41)
+    nh = N // 2 + 1
+    ev = nh - 1 if (nh - 1) % 2 == 0 else nh - 2
+    od = nh - 1 if (nh - 1) % 2 == 1 else nh - 2
+    cases = ((nh, None), (nh, 1.0 / N), (ev, None), (od, 0.25),
+             (N // 3 + 1, 1.0 / N), (nh + 3, None))
+    for hin, sc in cases:
+        h, route = _band_operand(rng, dtype, N, layout, rows=hin)
+        assert bf.real_route(tuple(h.shape[1:]), 1, N, h.dtype,
+                             layout != 'misaligned') == route
+        c0 = _routes(emu_kernels, 'rfft_axis')
+        got = bf.irfft_axis_p(h, 1, N, scale=sc)
+        _ran_band(emu_kernels, c0, route)
+        ref = _plain(kernel_path, bf.irfft_axis_p, h, 1, N, scale=sc)
+        assert got.shape == ref.shape and got.dtype == h.dtype
+        assert _rel(got, ref) <= tol, (hin, sc)
+    assert _launched() == {'irfft_axis_p' + sfx: len(cases)}
+
+
+def _hold_dct_band(plain_ok, emu_kernels, fn, t, dtype, N, layout):
+    """dct2_axis_p (t = 2) or dct3_axis_p (t = 3) on a mid axis, a launch
+    of the route real_route names, against its plain version and
+    scipy.fft.dct; the same on a lead axis (pre 1) when the layout takes
+    the band."""
+    import scipy.fft
+    tol, sfx = _tols(dtype)
+    rng = np.random.default_rng(42 + t)
+    x, route = _band_operand(rng, dtype, N, layout)
+    xs = [(x, 1)]
+    if layout == 'band':
+        xs.append((x.reshape(-1, N, x.shape[2])[0].contiguous(), 0))
+    for v, axis in xs:
+        assert bf.real_route(tuple(v.shape), axis, N, v.dtype,
+                             layout != 'misaligned') == route
+        c0 = _routes(emu_kernels, 'rfft_axis')
+        got = fn(v, axis)
+        _ran_band(emu_kernels, c0, route)
+        ref = _plain(plain_ok, fn, v, axis)
+        sp = torch.from_numpy(scipy.fft.dct(v.double().numpy(), type=t,
+                                            axis=axis))
+        assert got.shape == v.shape and got.dtype == v.dtype
+        assert _rel(got, ref) <= tol, axis
+        assert _rel(got, sp) <= tol, axis
+    assert _launched() == {f'dct{t}_axis_p' + sfx: len(xs)}
+
+
+@pytest.mark.parametrize('dtype,N,layout', REAL_BAND)
+def test_dct2_band_vs_plain(kernel_path, emu_kernels, dtype, N, layout):
+    """dct2_axis_p on inner axes: the r2c's band with Makhoul's order in
+    its read and the twiddle combine in its write."""
+    _hold_dct_band(kernel_path, emu_kernels, bf.dct2_axis_p, 2, dtype, N,
+                   layout)
+
+
+@pytest.mark.parametrize('dtype,N,layout', REAL_BAND)
+def test_dct3_band_vs_plain(kernel_path, emu_kernels, dtype, N, layout):
+    """dct3_axis_p on inner axes: the c2r's band with the combine of y[k]
+    and y[N-k] in its read and the inverse Makhoul order in its write."""
+    _hold_dct_band(kernel_path, emu_kernels, bf.dct3_axis_p, 3, dtype, N,
+                   layout)
+
+
 # the fused dealiasing kernel E (shape of the N-row side, axis, Nt): lead,
 # mid and last positions, whole lines, even and odd Nt (fold and split,
 # or neither), Nt = 1 and N - 1, radix 3, the 768- and 1024-point tiles

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""A/B of design variants of C's c2r line kernel and the dealiasing band
-kernel of E and E64, on one card.
+"""A/B of design variants of C's c2r line kernel, the dealiasing band
+kernel of E and E64, and the route of the real kernels' inner axes, on
+one card.
 
 Each variant is a copy of this checkout's ``mpi4py_fft_torch`` under
 ``build/ab/<variant>`` with one constant of its CUDA sources changed by a
@@ -20,6 +21,12 @@ events, median of 9 after 2 warm-ups) and the ``ptxas`` lines of the C
     python3 tools/line_band_ab.py            # every variant, in turns
     python3 tools/line_band_ab.py e_round8   # the named variants only
     python3 tools/line_band_ab.py --one TREE # one tree (the child run)
+    python3 tools/line_band_ab.py --real real_tile
+
+``--real`` times, in place of C, E and E64, the inner-axis passes of the
+r2r cell's plan at 512^3, float64 and float32: the r2c (``rfft_axis_p``)
+and the c2r on its spectrum along axis 0, DCT-II and DCT-III along axis
+1, each held first against its plain version on a slab of 32 columns.
 
 The variants (against this tree's constants):
 
@@ -35,7 +42,10 @@ The variants (against this tree's constants):
   pass, in place of eight but four on padding reads of single elements;
 * ``e_threads512``: E's band on lines.cuh's ``BandBudget<float>`` (D's:
   512 threads, two CTAs an SM) in place of A's ``AxisBandBudget`` (256
-  threads, three CTAs an SM).
+  threads, three CTAs an SM);
+* ``real_tile``: the real kernels' inner axes on the tile kernel, as
+  before the column band (``band_length`` false, ``rfft_axis.cu``; time
+  it with ``--real``).
 """
 import argparse
 import json
@@ -67,6 +77,9 @@ VARIANTS = {
     'e_threads512': ('fft_axis_tp.cu',
                      'struct TpBandBudget : mff::AxisBandBudget<T> {',
                      'struct TpBandBudget : mff::BandBudget<T> {'),
+    'real_tile': ('rfft_axis.cu',
+                  'return W == 256 || W == 384 || W == 512;',
+                  'return false;'),
 }
 
 
@@ -104,7 +117,7 @@ def _ptxas(log):
     return out
 
 
-def run_one(tree):
+def run_one(tree, real=False):
     sys.path.insert(0, str(tree))
     import torch
     from mpi4py_fft_torch.ops import _build
@@ -134,6 +147,10 @@ def run_one(tree):
         return float((a.double() - b.double()).norm() / b.double().norm())
 
     g = torch.Generator(device=dev).manual_seed(1)
+    if real:
+        print(json.dumps(_real_inner(bf, dev, g, med, rel, tree)),
+              flush=True)
+        return
     out = {'tree': str(tree), 'ptxas': _ptxas(_build.LOG)}
     h = torch.rand((2, 768, 768, 385), generator=g, device=dev) - 0.5
     y = bf.irfft_axis_p(h, 2, 768)
@@ -173,9 +190,47 @@ def run_one(tree):
     print(json.dumps(out), flush=True)
 
 
+def _real_inner(bf, dev, g, med, rel, tree):
+    """The r2r cell's inner-axis passes at 512^3 (``--real``), float64
+    and float32, each held on a slab of 32 columns, then timed; with the
+    route each would name (a tree without ``real_route``: the tile)."""
+    import torch
+    out = {'tree': str(tree)}
+    n = 512
+    for dtype, tag, tol in ((torch.float64, 'd', 2e-13),
+                            (torch.float32, 'f', 5e-6)):
+        x = torch.rand((n,) * 3, generator=g, device=dev, dtype=dtype) - 0.5
+        h = bf.rfft_axis_p(x, 0)
+        passes = (
+            ('r2c_ax0', lambda: bf.rfft_axis_p(x, 0), 0,
+             lambda y: (y[..., :32], bf.rfft_axis_plain(x[..., :32], 0))),
+            ('c2r_ax0', lambda: bf.irfft_axis_p(h, 0, n), 0,
+             lambda y: (y[..., :32],
+                        bf.irfft_axis_plain(h[..., :32], 0, n))),
+            ('dct2_ax1', lambda: bf.dct2_axis_p(x, 1), 1,
+             lambda y: (y[:32], bf.dct2_axis_plain(x[:32], 1))),
+            ('dct3_ax1', lambda: bf.dct3_axis_p(x, 1), 1,
+             lambda y: (y[:32], bf.dct3_axis_plain(x[:32], 1))))
+        for name, fn, ax, pair in passes:
+            r = rel(*pair(fn()))
+            if r > tol:
+                raise RuntimeError(f"{tag} {name}: rel L2 {r} against its "
+                                   f"plain version")
+            route = getattr(bf, 'real_route', None)
+            out[f'{tag}_{name}_route'] = (
+                route((n,) * 3, ax, n, dtype) if route else 'tile')
+            out[f'{tag}_{name}_ms'] = med(fn)
+        del x, h
+        torch.cuda.empty_cache()
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--one', metavar='TREE', help="time one tree")
+    ap.add_argument('--real', action='store_true',
+                    help="time the r2r cell's inner-axis passes in place "
+                         "of C, E and E64")
     ap.add_argument('variants', nargs='*', metavar='VARIANT',
                     help="the variants to time beside this tree (default: "
                          f"all: {', '.join(VARIANTS)})")
@@ -184,7 +239,7 @@ def main():
     if unknown:
         ap.error(f"unknown variants {sorted(unknown)}")
     if args.one:
-        run_one(Path(args.one).resolve())
+        run_one(Path(args.one).resolve(), args.real)
         return 0
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
@@ -193,7 +248,8 @@ def main():
     trees = [ROOT] + [_variant(v) for v in args.variants or VARIANTS]
     rows = {}
     for t in trees + trees[::-1]:
-        r = subprocess.run([sys.executable, __file__, '--one', str(t)],
+        r = subprocess.run([sys.executable, __file__, '--one', str(t)] +
+                           (['--real'] if args.real else []),
                            capture_output=True, text=True)
         if r.returncode != 0:
             print(r.stdout, r.stderr, file=sys.stderr)
